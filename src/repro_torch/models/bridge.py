@@ -1,0 +1,48 @@
+"""Carry a parameter tree of numpy arrays (e.g. the reference's weights,
+fetched to the host) into torch tensors with the same nesting and layout."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_numpy", "tree_leaves", "tree_map"]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree):
+    """Every leaf of nested dicts, lists and tuples, in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def _tensor(a, device, dtype):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # numpy extension dtype: reinterpret
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(a).copy())
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
+    """Dicts, lists and tuples are walked; every leaf becomes a tensor on
+    ``device`` (floating leaves cast to ``dtype`` when given).  No
+    transposes: the port keeps the reference's layouts."""
+    return tree_map(lambda a: _tensor(a, device, dtype), tree)

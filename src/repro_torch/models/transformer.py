@@ -1,0 +1,261 @@
+"""The model: decoder-only LM over the reference's parameter layout.
+
+Layer stacking follows the reference: the repeating ``block_pattern``
+becomes ``params["groups"]``, a list with one block dict per pattern
+position whose leaves carry a leading layer axis (``[n_groups, ...]``);
+``first_k_dense`` prefix layers and the pattern remainder are plain lists.
+The reference scans over the stacked axis; here a Python loop indexes it,
+so every layer's weights and block store are views into the stacked
+tensors, and the stores are updated in place.
+
+Public entry points:
+    init(cfg, generator, device)        -> params
+    init_paged_cache(cfg, num_blocks, block_tokens, device) -> caches
+    step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
+                block_tables)           -> last_logits [B, V]  [in place;
+                                        one ragged stream of prefill
+                                        chunks + length-1 decode segments]
+    decode_step(cfg, params, caches, token, pos, active, block_tables)
+                                        -> logits [B, V]       [in place]
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import blocks as B
+from .layers import apply_norm, dense_init, norm_init, torch_dtype
+
+
+# ---------------------------------------------------------------------------
+# structure helpers
+# ---------------------------------------------------------------------------
+
+
+def _plan(cfg):
+    """(prefix_kinds, pattern, n_groups, remainder_kinds) for the decoder."""
+    pattern = tuple(cfg.block_pattern)
+    n_prefix = cfg.first_k_dense
+    n_rest = cfg.num_layers - n_prefix
+    n_groups, rem = divmod(n_rest, len(pattern))
+    prefix = tuple(B.split_kind(pattern[i % len(pattern)])[0]
+                   for i in range(n_prefix))
+    return prefix, pattern, n_groups, pattern[:rem]
+
+
+def _all_kinds(cfg) -> set:
+    return set(cfg.block_pattern) | set(_plan(cfg)[0])
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of a group-stacked tree: views, not copies."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _layers(cfg, params, caches):
+    """Yield (kind, layer params, layer block store) in layer order."""
+    prefix, pattern, n_groups, rem = _plan(cfg)
+    for j, kind in enumerate(prefix):
+        yield kind, params["prefix"][j], caches["prefix"][j]
+    for i in range(n_groups):
+        for j, kind in enumerate(pattern):
+            yield (kind, _index(params["groups"][j], i),
+                   _index(caches["groups"][j], i))
+    for j, kind in enumerate(rem):
+        yield kind, params["rem"][j], caches["rem"][j]
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    something else; asking for CUDA without a card raises."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run the plain versions on "
+                               "the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _check_supported(cfg) -> None:
+    if cfg.encoder_decoder or cfg.frontend == "vision":
+        raise NotImplementedError(
+            f"{cfg.name}: modality frontends are ROADMAP Queue 1 item 12 "
+            "(not ported yet)")
+    for kind in _all_kinds(cfg):
+        B._check_ported(kind)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init(cfg, generator: torch.Generator, device=None) -> dict:
+    """Random weights in ``cfg.dtype`` on ``device`` (default CUDA), drawn
+    from ``generator`` (which must live on that device): uniform
+    +-1/sqrt(fan_in), the reference's distribution, not its bits."""
+    device = resolve_device(device)
+    _check_supported(cfg)
+    dtype = torch_dtype(cfg.dtype)
+    prefix, pattern, n_groups, rem = _plan(cfg)
+    params: dict = {
+        "embed": dense_init((cfg.vocab_size, cfg.d_model), dtype, device,
+                            generator)}
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init((cfg.d_model, cfg.vocab_size), dtype,
+                                    device, generator)
+    params["ln_f"] = norm_init(cfg.norm, cfg.d_model, dtype, device)
+    if prefix:
+        params["prefix"] = [B.block_init(cfg, k, dtype, device, generator)
+                            for k in prefix]
+    if n_groups:
+        params["groups"] = [B.block_init(cfg, k, dtype, device, generator,
+                                         lead=(n_groups,))
+                            for k in pattern]
+    if rem:
+        params["rem"] = [B.block_init(cfg, k, dtype, device, generator)
+                         for k in rem]
+    return params
+
+
+# ---------------------------------------------------------------------------
+# capability checks and the paged cache
+# ---------------------------------------------------------------------------
+
+
+def supports_chunked_prefill(cfg) -> bool:
+    """The reference's predicate: every block position-maskable or
+    scan-state threaded, and no modality frontend."""
+    if cfg.encoder_decoder or cfg.frontend == "vision":
+        return False
+    return all(B.split_kind(k)[0] in B.CHUNKABLE_KINDS
+               for k in _all_kinds(cfg))
+
+
+def supports_paged_kv(cfg) -> bool:
+    """Paged KV needs every block to be an attention kind and prefill to
+    go through the chunked path."""
+    if not supports_chunked_prefill(cfg):
+        return False
+    return all(B.split_kind(k)[0] in B.ATTN_KINDS for k in _all_kinds(cfg))
+
+
+def init_paged_cache(cfg, num_blocks: int, block_tokens: int, device) -> dict:
+    """Per-layer physical block stores ``[num_blocks, Kv, T, D]`` (group
+    layers stacked ``[n_groups, num_blocks, Kv, T, D]``)."""
+    if not supports_paged_kv(cfg):
+        raise ValueError(f"{cfg.name}: block pattern {cfg.block_pattern} "
+                         "does not support paged KV")
+    prefix, pattern, n_groups, rem = _plan(cfg)
+    caches = {}
+    if prefix:
+        caches["prefix"] = [B.paged_cache_init(cfg, k, num_blocks,
+                                               block_tokens, device)
+                            for k in prefix]
+    if n_groups:
+        caches["groups"] = [B.paged_cache_init(cfg, k, num_blocks,
+                                               block_tokens, device,
+                                               lead=(n_groups,))
+                            for k in pattern]
+    if rem:
+        caches["rem"] = [B.paged_cache_init(cfg, k, num_blocks, block_tokens,
+                                            device) for k in rem]
+    return caches
+
+
+def map_paged_caches(caches: dict, fn) -> dict:
+    """Apply ``fn(tensor, block_axis)`` to every store plane (block axis 0
+    for prefix/rem layers, 1 for the group-stacked ones) and return the new
+    tree.  The engine uses it to resize the block store physically when
+    ``serve.kv_block_budget`` moves; the old tensors are released once the
+    caller drops the old tree."""
+    out = dict(caches)
+    for key, axis in (("prefix", 0), ("groups", 1), ("rem", 0)):
+        if key in caches:
+            out[key] = [{n: fn(a, axis) for n, a in c.items()}
+                        for c in caches[key]]
+    return out
+
+
+def copy_paged_blocks(caches: dict, src, dst) -> None:
+    """Block-level copy-on-write across every layer, in place: physical
+    blocks ``src[i] -> dst[i]`` in each store plane."""
+    for key, axis in (("prefix", 0), ("groups", 1), ("rem", 0)):
+        for c in caches.get(key, ()):
+            B.paged_copy_blocks(c, src, dst, block_axis=axis)
+
+
+def _block_tokens(caches: dict) -> int:
+    for key in ("prefix", "groups", "rem"):
+        if key in caches:
+            return caches[key][0]["k"].shape[-2]
+    raise ValueError("empty cache tree")
+
+
+def _logits(cfg, params, x):
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return (x @ head).float()
+
+
+# ---------------------------------------------------------------------------
+# steps
+# ---------------------------------------------------------------------------
+
+
+def step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
+                block_tables, plan=None):
+    """Advance the engine by ONE token-packed ragged stream, in place —
+    prefill chunks AND decode tokens ride the same call.
+
+    tokens: [1,P] — contiguous segments from up to B requests back to back
+    (a prefilling request's next prompt chunk, a running request's decode
+    token as a length-1 segment); slot_id: [P] int32 owning slot (-1 =
+    dead pad); pos: [P] int32 position within its own request; start /
+    seg_len: [B] per-slot segment start and length (the paged attention
+    kinds derive everything from slot_id and pos; they are kept for the
+    reference's signature).  block_tables: [B,M] int32.  ``plan`` is the
+    stream's :func:`~repro_torch.models.blocks.paged_write_plan`, computed
+    here when not given (which synchronises on a CUDA stream).  Returns the
+    next-token logits [B,V] at each slot's last packed token (garbage for
+    slots with no tokens this call); the block stores are updated in
+    place."""
+    del start, seg_len
+    _check_supported(cfg)
+    if plan is None:
+        plan = B.paged_write_plan(slot_id, pos, block_tables,
+                                  _block_tokens(caches))
+    x = params["embed"][tokens]
+    for kind, p, c in _layers(cfg, params, caches):
+        x = B.block_apply_packed(cfg, kind, p, x, pos, slot_id, c,
+                                 block_tables, plan)
+    x = apply_norm(cfg.norm, params["ln_f"], x)
+    nslots = block_tables.shape[0]
+    t_idx = torch.arange(tokens.shape[1], device=x.device)
+    own = slot_id[None, :] == torch.arange(nslots, device=x.device)[:, None]
+    last_idx = torch.where(own, t_idx[None, :], -1).amax(dim=1)      # [B]
+    xl = x[0, last_idx.clamp(min=0)]                                 # [B,d]
+    return _logits(cfg, params, xl)
+
+
+def decode_step(cfg, params, caches, token, pos, block_tables, active=None,
+                plan=None):
+    """token: [B] int32; pos: [B] int32.  ``active`` ([B] bool) leaves
+    non-decoding rows' cache untouched; ``plan`` is the rows'
+    :func:`~repro_torch.models.blocks.paged_write_plan`, computed here when
+    not given.  Returns logits [B,V]; the block stores are updated in
+    place."""
+    _check_supported(cfg)
+    if plan is None:
+        rows = torch.arange(token.shape[0], device=token.device)
+        plan = B.paged_write_plan(rows, pos, block_tables,
+                                  _block_tokens(caches), valid=active)
+    x = params["embed"][token][:, None, :]                           # [B,1,d]
+    for kind, p, c in _layers(cfg, params, caches):
+        x = B.block_apply_step(cfg, kind, p, x, pos, c, block_tables, plan)
+    x = apply_norm(cfg.norm, params["ln_f"], x)
+    return _logits(cfg, params, x)[:, 0]

@@ -1,0 +1,20 @@
+"""Model zoo: the entry points the serve engine calls, by the reference's
+names."""
+
+from __future__ import annotations
+
+from . import transformer
+from .bridge import params_from_numpy
+
+__all__ = ["init", "step_packed", "decode_step", "supports_chunked_prefill",
+           "supports_paged_kv", "init_paged_cache", "map_paged_caches",
+           "copy_paged_blocks", "params_from_numpy"]
+
+init = transformer.init
+step_packed = transformer.step_packed
+decode_step = transformer.decode_step
+supports_chunked_prefill = transformer.supports_chunked_prefill
+supports_paged_kv = transformer.supports_paged_kv
+init_paged_cache = transformer.init_paged_cache
+map_paged_caches = transformer.map_paged_caches
+copy_paged_blocks = transformer.copy_paged_blocks

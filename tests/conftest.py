@@ -19,3 +19,9 @@ def _clear_registry():
     from repro.core.smartconf import GLOBAL_REGISTRY
     yield
     GLOBAL_REGISTRY.clear()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (and nvcc to build the "
+        "kernels); skipped where torch.cuda.is_available() is false")
