@@ -57,6 +57,9 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# card vs CPU on the 2-layer model, relative to the largest value: about
+# ten times the noise floor phase 5 prints beside each reading
+LOGIT_LIMIT, STORE_LIMIT = 7e-4, 2e-4
 # yi-6b attention at the main path's settings
 H, KV, D, T = 32, 4, 128, 16
 SLOTS, CACHE_LEN, WIDTH = 8, 2048, 2048
@@ -117,15 +120,18 @@ def segment_case(gen, *, segs, p, h, kv, d, t, b, m, holes=0):
                 q_pos=q_pos, q_seg=q_seg)
 
 
-def decode_case(gen, *, q_pos, h, kv, d, t, m, holes=0):
+def decode_case(gen, *, q_pos, h, kv, d, t, m, holes=0, idle=0):
     """One query token per row; each row's own block stays allocated, so
-    every row admits at least its own key (holes elsewhere)."""
-    b = len(q_pos)
+    it admits at least its own key (holes elsewhere).  Then ``idle`` rows
+    as the engine passes its idle slots (position 0, table row all -1),
+    which admit no key and must give exact zeros."""
+    b = len(q_pos) + idle
     n_blocks = b * m + 8
     tables = make_tables(gen, b, m, n_blocks, holes)
     own = torch.randperm(n_blocks, generator=gen)[:b].to(torch.int32)
-    qp = torch.tensor(q_pos, dtype=torch.int32)
+    qp = torch.tensor(list(q_pos) + [0] * idle, dtype=torch.int32)
     tables[torch.arange(b), (qp // t).long()] = own
+    tables[len(q_pos):] = -1
     return dict(q=torch.randn(b, h, d, generator=gen),
                 k_store=torch.randn(n_blocks, kv, t, d, generator=gen),
                 v_store=torch.randn(n_blocks, kv, t, d, generator=gen),
@@ -214,9 +220,9 @@ def phase_kernels(dev) -> dict:
         "main": dict(q_pos=[int(n) + 16 for n in lens], h=H, kv=KV, d=D,
                      t=T, m=M, holes=6),
         "mqa": dict(q_pos=[5, 100, 37], h=8, kv=1, d=128, t=16, m=8,
-                    holes=2),
+                    holes=2, idle=1),
         "window": dict(q_pos=[150, 20, 90], h=8, kv=2, d=128, t=16, m=12,
-                       holes=2, window=40),
+                       holes=2, window=40, idle=2),
         "d16": dict(q_pos=[3, 40], h=4, kv=2, d=16, t=8, m=8),
         "d64": dict(q_pos=[30, 70], h=8, kv=4, d=64, t=16, m=6),
         "d256": dict(q_pos=[11, 80], h=8, kv=4, d=256, t=16, m=6, holes=1),
@@ -248,7 +254,8 @@ def phase_kernels(dev) -> dict:
             want = paged_decode_attention_ref(
                 **on(dev, on(dev, case, dtype), torch.float32),
                 window=window)
-            err = compare(f"paged_decode_attention/{name}", got, want, dtype)
+            err = compare(f"paged_decode_attention/{name}", got, want, dtype,
+                          dead=(x["block_tables"] < 0).all(dim=1))
             if name == "main" and dtype == torch.bfloat16:
                 errs["paged_decode_attention"] = err
     return errs
@@ -278,13 +285,15 @@ def _live_blocks(tables, slot, hi_pos, lo_pos, window):
 def segment_bound(x, window=0):
     """Least time for this call's work: bytes (q, out, the live K/V blocks
     of every slot in the stream up to its horizon, tables, tags) against
-    flops (4*D per admitted (query head, key) pair), bf16 peaks."""
+    flops (4*D per admitted (query head, key) pair), bf16 peaks.  Only the
+    q of lanes that admit a key counts: a dead lane, or a lane no key
+    admits, gives zeros whatever its q holds."""
     tabs = x["block_tables"].cpu()
     qp, qs = x["q_pos"].cpu(), x["q_seg"].cpu()
     p, h, d = x["q"].shape
     kv, t = x["k_store"].shape[1], x["k_store"].shape[2]
     esz = x["q"].element_size()
-    nbytes = 2 * x["q"].numel() * esz + tabs.numel() * 4 + 2 * p * 4
+    nbytes = p * h * d * esz + tabs.numel() * 4 + 2 * p * 4
     flops = 0
     for s in torch.unique(qs[qs >= 0]).tolist():
         pos = qp[qs == s]
@@ -296,6 +305,7 @@ def segment_bound(x, window=0):
         if window:
             adm &= (pos[:, None] - kpos[None, :]) < window
         flops += int(adm.sum()) * h * 4 * d
+        nbytes += int(adm.any(dim=1).sum()) * h * d * esz
     peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
         else PEAK_F32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
@@ -304,11 +314,13 @@ def segment_bound(x, window=0):
 
 
 def decode_bound(x, window=0):
+    """As segment_bound, one query token per row; only the q of rows that
+    admit a key counts."""
     tabs, qp = x["block_tables"].cpu(), x["q_pos"].cpu()
     b, h, d = x["q"].shape
     kv, t = x["k_store"].shape[1], x["k_store"].shape[2]
     esz = x["q"].element_size()
-    nbytes = 2 * x["q"].numel() * esz + tabs.numel() * 4 + b * 4
+    nbytes = b * h * d * esz + tabs.numel() * 4 + b * 4
     flops = 0
     for r in range(b):
         q = int(qp[r])
@@ -320,6 +332,7 @@ def decode_bound(x, window=0):
         if window:
             adm &= (q - kpos) < window
         flops += int(adm.sum()) * h * 4 * d
+        nbytes += h * d * esz if bool(adm.any()) else 0
     peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
         else PEAK_F32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
@@ -358,15 +371,6 @@ def phase_timing(dev, card) -> dict:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kf, vf, attn_mask=mask[None, None])),
         bound_ms=bound, bound_by=by)
-    # where the segment kernel's time goes: the same stream with only its
-    # decode riders live (lanes 0-3), then with only its prefill chunks
-    riders = torch.arange(WIDTH, device=dev) < 4
-    for part, keep in (("decode riders only", riders),
-                       ("prefill chunks only", ~riders)):
-        xp = dict(x, q_seg=torch.where(keep, qs, -1))
-        say(f"[timing] paged_segment_attention, main stream with "
-            f"{part} on {card}: kernel "
-            f"{time_ms(lambda: paged_segment_attention(**xp)):.4f} ms")
     x = on(dev, decode_case(gen, q_pos=[int(n) + 16 for n in prompt_lens()],
                             h=H, kv=KV, d=D, t=T, m=M), torch.bfloat16)
     k, v, k_pos = paged_gather(x["k_store"], x["v_store"],   # [B,Kv,MT,D]
@@ -457,16 +461,17 @@ def phase_parity(dev, card):
         worst = max(worst, err)
         say(f"[parity] yi-6b 2 layers f32, step {i + 1} "
             f"({'step_packed' if i < 2 else 'decode_step'}): max|dlogit| / "
-            f"max|logit| = {err:.3e} (limit 1e-3; CPU noise floor "
+            f"max|logit| = {err:.3e} (limit {LOGIT_LIMIT:g}; CPU noise floor "
             f"{rel(lc, ln):.3e}) on {card}")
     # relative, as for the logits: the stores of this random-weight model
-    # reach |K| ~ 1e2, where f32 rounding alone is ~1e-3 absolute
+    # reach |K| ~ 1e2, where f32 rounding alone is ~1e-5 of that
     kerr = max(rel(a, b) for a, b in zip(cpu[1], got[1]))
     kfloor = max(rel(a, b) for a, b in zip(cpu[1], floor[1]))
     say(f"[parity] block stores after the three steps: max|err| / max|x| "
-        f"= {kerr:.3e} (limit 1e-3; CPU noise floor {kfloor:.3e}); max|K| "
+        f"= {kerr:.3e} (limit {STORE_LIMIT:g}; CPU noise floor "
+        f"{kfloor:.3e}); max|K| "
         f"{float(cpu[1][0].abs().max()):.1f}")
-    if not worst <= 1e-3 or not kerr <= 1e-3:
+    if not worst <= LOGIT_LIMIT or not kerr <= STORE_LIMIT:
         fail("card and CPU disagree on yi-6b logits or KV stores")
 
 

@@ -3,6 +3,7 @@
 // a float tile in shared memory.
 #pragma once
 
+#include <assert.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -18,9 +18,12 @@
 // so device-memory traffic is exactly the live blocks of this row.  The
 // online-softmax state (m, l, acc) stays in shared memory for the whole
 // walk.  Scores are scaled by D^-0.5 after the dot, accumulation is f32,
-// and the output is written in q's dtype.  A row no key admits writes exact
-// zeros.  Plain loads and CUDA-core FMAs only (no wgmma/TMA/split-K yet):
-// with B x Kv CTAs a small decode batch underfills the 132 SMs.
+// and the output is written in q's dtype.  A row no key admits (an idle
+// engine slot: position 0, table row all -1) writes exact zeros, as the
+// plain version and the Pallas kernel do.  A table entry >= N is a
+// device-side assert, where the plain version raises IndexError.  Plain
+// loads and CUDA-core FMAs only (no wgmma/TMA/split-K yet): with B x Kv
+// CTAs a small decode batch underfills the 132 SMs.
 #include "attn_common.cuh"
 
 namespace {
@@ -63,9 +66,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_store,
   __syncthreads();
 
   for (int j = j_lo; j <= j_hi; ++j) {
-    int entry = block_tables[(size_t)b * M + j];
+    const int entry = block_tables[(size_t)b * M + j];
     if (entry < 0) continue;  // unallocated: nothing to load or admit
-    entry = min(entry, N - 1);
+    assert(entry < N);        // a stale table fails, as the plain version does
     const size_t off = ((size_t)entry * Kv + kv) * Tk * D;
     attn::load_tile<T, D>(k_store + off, k_s, Tk, LD);
     attn::load_tile<T, D>(v_store + off, v_s, Tk, LD);

@@ -29,7 +29,9 @@
 // whole walk (m, l in shared memory, acc in registers).  Scores are scaled
 // by D^-0.5 after the dot, accumulation is f32, the output is written in
 // q's dtype, and dead lanes (q_seg < 0) or lanes no key admits write exact
-// zeros.  Plain loads and CUDA-core FMAs only (no wgmma/TMA yet).
+// zeros.  A segment >= B or a table entry >= N is a device-side assert,
+// where the plain version raises IndexError.  Plain loads and CUDA-core
+// FMAs only (no wgmma/TMA yet).
 #include "attn_common.cuh"
 
 namespace {
@@ -72,8 +74,8 @@ paged_segment_kernel(const T* __restrict__ q, const T* __restrict__ k_store,
 
   for (int tp = threadIdx.x; tp < BQ; tp += blockDim.x) {
     const int p = p0 + tp;
-    int s = p < P ? q_seg[p] : -1;
-    if (s >= B) s = -1;
+    const int s = p < P ? q_seg[p] : -1;
+    assert(s < B);  // a segment names a table row, as in the plain version
     tok_seg[tp] = s;
     tok_pos[tp] = p < P ? q_pos[p] : 0;
   }
@@ -114,9 +116,9 @@ paged_segment_kernel(const T* __restrict__ q, const T* __restrict__ k_store,
     const int j_hi = seg_hi[si] < 0 ? -1 : min(seg_hi[si] / Tk, M - 1);
     const int j_lo = window > 0 ? max(0, seg_lo[si] - window + 1) / Tk : 0;
     for (int j = j_lo; j <= j_hi; ++j) {
-      int entry = block_tables[(size_t)s * M + j];
+      const int entry = block_tables[(size_t)s * M + j];
       if (entry < 0) continue;  // unallocated: nothing to load or admit
-      entry = min(entry, N - 1);
+      assert(entry < N);        // a stale table fails, as the plain one does
       const size_t off = ((size_t)entry * Kv + kv) * Tk * D;
       attn::load_tile<T, D>(k_store + off, k_s, Tk, LD);
       attn::load_tile<T, D>(v_store + off, v_s, Tk, LD);

@@ -53,10 +53,13 @@ def paged_segment_attention_ref(q, k_store, v_store, block_tables, q_pos,
     """q: [P,H,D]; k_store/v_store: [N,Kv,T,D]; block_tables: [B,M] int32
     (-1 = unallocated); q_pos/q_seg: [P] (segment id == block-table row)
     -> [P,H,D].  Key positions are implied by table order and key segments
-    by table row."""
+    by table row.  A segment >= B raises IndexError, as the kernel fails."""
     from repro_torch.kernels.paged_attention import paged_gather
     k, v, k_pos = paged_gather(k_store, v_store, block_tables)
     b, kvh, mt, d = k.shape
+    if q_seg.numel() and int(q_seg.max()) >= b:
+        raise IndexError(f"segment {int(q_seg.max())} names no row of "
+                         f"{b} block-table rows")
     k_flat = k.transpose(1, 2).reshape(b * mt, kvh, d)
     v_flat = v.transpose(1, 2).reshape(b * mt, kvh, d)
     kpos_flat = k_pos.reshape(b * mt)

@@ -21,6 +21,7 @@ fixture, and runs there without the repository's conftest:
 """
 
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from repro_torch.kernels.segment_attention import (
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 HEADS = [(4, 4), (4, 2), (4, 1)]                     # MHA / GQA / MQA
+IDLE_ROW = 3                                         # of decode_case
 
 
 @pytest.fixture(autouse=True)
@@ -109,11 +111,13 @@ def segment_case(rng, *, h, kv, d=16, t=8, b=3, m=4, p=32):
 
 def decode_case(rng, *, h, kv, d=16, t=8, m=4):
     """Three rows at ragged positions that scale with ``t``, so the holes
-    sit away from each row's own block and every row admits at least its
-    own key (the decode contract), with or without a window."""
-    q_pos = np.array([5, 27, 30], np.int32) * t // 8
-    tab, n = _tables(rng, 3, m, holes=[(1, 1), (2, 0)])
-    return dict(q=rng.standard_normal((3, h, d)).astype(np.float32),
+    sit away from each row's own block and each admits at least its own
+    key, with or without a window; then an idle row as the engine passes
+    it (position 0, table row all -1), which admits no key."""
+    q_pos = np.array([5, 27, 30, 0], np.int32) * t // 8
+    tab, n = _tables(rng, 4, m, holes=[(1, 1), (2, 0)] + [(3, c)
+                                                          for c in range(m)])
+    return dict(q=rng.standard_normal((4, h, d)).astype(np.float32),
                 k_store=rng.standard_normal((n, kv, t, d)).astype(np.float32),
                 v_store=rng.standard_normal((n, kv, t, d)).astype(np.float32),
                 block_tables=tab, q_pos=q_pos)
@@ -190,8 +194,12 @@ def test_paged_decode_plain_matches_jax(jx, h, kv, window, dtype):
     x = jx.arrays(case, dtype)
     oracle = f32(jx.paged_decode_ref(**x, window=window))
     pallas = f32(jx.paged_decode(**x, window=window, interpret=True))
-    assert_close(got, oracle, dtype, "vs JAX oracle")
+    # the idle row admits no key: zeros here and in the Pallas kernel, the
+    # mean of V in the JAX oracle
+    live = IDLE_ROW != np.arange(len(got))
+    assert_close(got[live], oracle[live], dtype, "vs JAX oracle")
     assert_close(got, pallas, dtype, "vs Pallas (interpret)")
+    assert (got[IDLE_ROW] == 0).all() and (pallas[IDLE_ROW] == 0).all()
 
 
 def test_paged_gather_matches_jax(jx):
@@ -228,6 +236,22 @@ def test_cpu_tensors_run_the_plain_version_without_a_launch():
                                paged_decode_attention_ref(**dec),
                                atol=0, rtol=0)
     assert paged_decode_attention.launches == before
+
+
+@pytest.mark.parametrize("op,make,field", [
+    (paged_segment_attention_op, segment_case, "block_tables"),
+    (paged_segment_attention_op, segment_case, "q_seg"),
+    (paged_decode_attention_op, decode_case, "block_tables")])
+def test_plain_versions_refuse_stale_indices(op, make, field):
+    """A table entry past the store, or a segment past the table, raises
+    (the kernels fail there too) instead of reading a clamped block."""
+    case = make(np.random.default_rng(0), h=4, kv=2)
+    if field == "block_tables":
+        case[field][0, 0] = len(case["k_store"])
+    else:
+        case[field][0] = len(case["block_tables"])
+    with pytest.raises(IndexError):
+        op(**to_torch(case, "float32"))
 
 
 @pytest.mark.parametrize("wrapper,make", [
@@ -299,6 +323,44 @@ def test_decode_kernel_matches_plain_on_card(cuda, h, kv, window, dtype, d):
     want = f32(want.to(TORCH_DT[dtype]))
     tol = 1e-4 if dtype == "float32" else 2e-2
     assert np.allclose(got, want, atol=tol, rtol=tol)
+    assert (got[IDLE_ROW] == 0).all() and (want[IDLE_ROW] == 0).all()
+
+
+STALE = """
+import sys, numpy as np, torch
+sys.path[:0] = ["src", "tests"]
+from test_torch_kernels import {make}, to_torch
+from repro_torch.kernels.{family} import {wrapper}
+case = {make}(np.random.default_rng(0), h=4, kv=2)
+case["{field}"]{at} = {value}
+{wrapper}(**to_torch(case, "float32", "cuda"))
+torch.cuda.synchronize()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper,field", [
+    ("paged_segment_attention", "block_tables"),
+    ("paged_segment_attention", "q_seg"),
+    ("paged_decode_attention", "block_tables")])
+def test_kernels_fail_on_stale_indices(cuda, wrapper, field):
+    """Where the plain version raises IndexError, the kernel stops on a
+    device-side assert (in a child process: the assert ends its context)."""
+    import subprocess
+    import sys
+    seg = wrapper == "paged_segment_attention"
+    make = "segment_case" if seg else "decode_case"
+    value = ('len(case["block_tables"])' if field == "q_seg"
+             else 'len(case["k_store"])')
+    src = STALE.format(
+        make=make, wrapper=wrapper, field=field, value=value,
+        family="segment_attention" if seg else "paged_attention",
+        at="[0]" if field == "q_seg" else "[0, 0]")
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", src], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode != 0
+    assert "device-side assert" in run.stdout + run.stderr, run.stderr[-2000:]
 
 
 @pytest.mark.cuda
