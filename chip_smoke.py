@@ -6,20 +6,29 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
 
   1. device   — the card's name, count and power limit (no card: exit 1);
-  2. build    — nvcc builds both kernels; ptxas register/smem/spill lines;
+  2. build    — nvcc builds all four kernel libraries at once; ptxas
+                register/smem/spill lines (the flat segment kernel must not
+                spill at D = 256);
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
-                same CUDA tensors: yi-6b shapes plus ragged segments, MQA,
-                a window, out-of-order tables with -1 holes, every head dim,
-                f32 and bf16; dead lanes must be exact zeros;
-  4. timing   — kernel, plain version, one PyTorch library call, and the
-                card's bound, at the main path's yi-6b shapes;
-  5. parity   — yi-6b at full width, 2 layers, f32, TF32 off: one
-                step_packed (prefill chunks + decode riders) and one
-                decode_step on the card against the CPU (plain versions);
+                same CUDA tensors: the paged ones at yi-6b shapes, the flat
+                segment one at recurrentgemma's (MQA, D 256, window 2048,
+                wrapped and stale rings), plus ragged segments, MQA/GQA/MHA,
+                small windows, holes, every head dim, f32 and bf16 (dead
+                lanes exact zeros); the RG-LRU scan from a nonzero state at
+                odd lengths and at [8, 4096, 4096];
+  4. timing   — kernel, plain version, one PyTorch library call where one
+                exists, and the card's bound, at each main path's shapes;
+  5. parity   — yi-6b (2 layers) and recurrentgemma-9b (5 layers) at full
+                width, f32, TF32 off: packed steps (prefill chunks + decode
+                riders) and a decode step on the card against the CPU;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
                 SmartConf knobs live; then a KV budget cut must release
-                device memory.
+                device memory;
+  7. slice    — full recurrentgemma-9b (38 layers, bf16) serves 8 requests,
+                two of them longer than its 2048-token window, through the
+                launcher's functions under default options (packed ticks,
+                dense rings, RG-LRU state), knobs live.
 
 Before the last line it prints a JSON object with every kernel's numbers,
 then the card's name and power limit; the last line is
@@ -42,16 +51,19 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import HEAD_DIMS, _build  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_ref, paged_gather)
+from repro_torch.kernels.rglru import (rglru_ref_state,  # noqa: E402
+                                       rglru_scan_state)
 from repro_torch.kernels.segment_attention import (  # noqa: E402
-    paged_segment_attention, paged_segment_attention_ref)
+    paged_segment_attention, paged_segment_attention_ref, segment_attention,
+    segment_attention_ref)
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
-from repro_torch.models import zoo  # noqa: E402
+from repro_torch.models import blocks, zoo  # noqa: E402
 from repro_torch.models.bridge import (params_from_numpy,  # noqa: E402
-                                       tree_map)
+                                       tree_leaves, tree_map)
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
@@ -64,8 +76,22 @@ LOGIT_LIMIT, STORE_LIMIT = 7e-4, 2e-4
 H, KV, D, T = 32, 4, 128, 16
 SLOTS, CACHE_LEN, WIDTH = 8, 2048, 2048
 M = CACHE_LEN // T
+# recurrentgemma-9b at its main path's settings: MQA attention over
+# 2048-entry rings, a 4096-lane stream (cache_len 4096), recurrent width
+RG_H, RG_KV, RG_D, RG_WINDOW = 16, 1, 256, 2048
+RG_SLOTS, RG_CACHE_LEN, RG_WIDTH, RG_F = 8, 4096, 4096, 4096
+# card vs CPU on the 5-layer model, relative to the largest value: about
+# ten times the largest CPU noise floor phase 5 prints beside them
+RG_LOGIT_LIMIT, RG_STATE_LIMIT = 1e-3, 1e-3
+# SmartConf steers a hard goal to its virtual goal, (1 - 0.05) of it: with
+# 20.9 GB of weights a goal of weights + 1 GB puts the virtual goal below
+# the weights alone and nothing is admitted; weights + 2.2 GB puts it
+# ~1.05 GB above them
+RG_HEADROOM = 2.2e9
 SEG_SRC = "src/repro_torch/kernels/segment_attention/csrc/paged_segment_attention.cu"
 DEC_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+FLAT_SRC = "src/repro_torch/kernels/segment_attention/csrc/segment_attention.cu"
+RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu"
 
 
 def say(*a) -> None:
@@ -89,6 +115,15 @@ def prompt_lens() -> np.ndarray:
     """The slice's prompt lengths, 64 to 1024 tokens (phases 3 and 4 build
     their main-path shapes from the same ones)."""
     return np.random.default_rng(0).integers(64, 1025, SLOTS)
+
+
+def rg_prompt_lens() -> np.ndarray:
+    """recurrentgemma's slice: 64 to 3000 tokens, the first two longer
+    than its 2048-token window (their rings wrap)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 3001, RG_SLOTS)
+    lens[:2] = rng.integers(RG_WINDOW + 1, 3001, 2)
+    return lens
 
 
 def make_tables(gen, b, m, n_blocks, holes: int) -> torch.Tensor:
@@ -154,6 +189,60 @@ def main_segment_segs():
     return segs
 
 
+def flat_case(gen, *, segs, p, h, kv, d, b, ring, prev=()):
+    """The dense packed path's keys, tagged as the model tags them: every
+    slot's ring flattened to one axis, then the stream's own keys.
+    ``segs`` = [(slot, start, length)]; a slot's ring holds its own last
+    ``ring`` positions before its start (wrapped), a slot in ``prev``
+    holds an earlier occupant's positions instead, which are at or after
+    its start and so stale (masked)."""
+    ring_pos = torch.full((b, ring), -1, dtype=torch.int32)
+    start = torch.zeros(b, dtype=torch.int32)
+    q_pos = torch.zeros(p, dtype=torch.int32)
+    q_seg = torch.full((p,), -1, dtype=torch.int32)
+    c = 0
+    for slot, st, n in segs:
+        start[slot] = st
+        hist = torch.arange(max(0, st - ring), st, dtype=torch.int32)
+        ring_pos[slot, hist.long() % ring] = hist
+        q_pos[c:c + n] = torch.arange(st, st + n, dtype=torch.int32)
+        q_seg[c:c + n] = slot
+        c += n
+    assert c <= p
+    for slot in prev:
+        occ = torch.arange(ring + 37, dtype=torch.int32)[-ring:]
+        ring_pos[slot, occ.long() % ring] = occ
+    kpos = torch.where(ring_pos < start[:, None], ring_pos, -1)
+    k_pos = torch.cat([kpos.reshape(-1), torch.where(q_seg >= 0, q_pos, -1)])
+    k_seg = torch.cat([torch.arange(b, dtype=torch.int32)
+                       .repeat_interleave(ring), q_seg])
+    n = len(k_pos)
+    return dict(q=torch.randn(p, h, d, generator=gen),
+                k=torch.randn(n, kv, d, generator=gen),
+                v=torch.randn(n, kv, d, generator=gen),
+                q_pos=q_pos, k_pos=k_pos, q_seg=q_seg, k_seg=k_seg)
+
+
+def main_flat_segs():
+    """A mixed tick at recurrentgemma's shapes: slots 0-3 ride as decode
+    segments a few tokens past their prompts (0 and 1 past the window),
+    slots 4-7 prefill chunks — fresh over an earlier occupant's ring (4),
+    mid-prompt (5, 7; 7's ring wrapped) and fresh (6) — filling the
+    stream up to a dead tail."""
+    lens = rg_prompt_lens()
+    segs = [(s, int(lens[s]) + 5, 1) for s in range(4)]
+    n = (RG_WIDTH - 4 - 37) // 4
+    segs += [(4, 0, n), (5, 1500, n), (6, 0, n), (7, 2500, n)]
+    return segs
+
+
+def rglru_case(gen, b, s, f):
+    """log_a < 0 as the model makes it, inputs, and a nonzero h0."""
+    return dict(log_a=-torch.rand(b, s, f, generator=gen) * 0.5,
+                b=torch.randn(b, s, f, generator=gen),
+                h0=torch.randn(b, f, generator=gen))
+
+
 def on(dev, case, dtype):
     return {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev))
             for k, v in case.items()}
@@ -173,11 +262,24 @@ def phase_device():
 def phase_build():
     t0 = time.perf_counter()
     _build.build_all()
-    say(f"[build] nvcc, both libraries: {time.perf_counter() - t0:.1f} s")
+    say(f"[build] nvcc, {len(_build.SOURCES)} libraries in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
+    spills_256 = []
     for name in _build.SOURCES:
+        entry = ""
         for line in _build.build_log(name).splitlines():
+            if "Compiling entry" in line:
+                entry = line
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 say(f"[build] {name}: {line.strip()}")
+            # ptxas names the flat kernel's D = 256 instances segment_kernel<T, 256>
+            if (name == "segment_attention" and "segment_kernel" in entry
+                    and "Li256E" in entry and "spill" in line):
+                spills_256.append(line.strip())
+    if not spills_256 or any("0 bytes spill stores, 0 bytes spill loads"
+                             not in line for line in spills_256):
+        fail(f"the flat segment kernel spills at D = 256: {spills_256}")
+    say(f"[build] segment_attention at D = 256: {spills_256}")
 
 
 def compare(name, got, want, dtype, dead=None) -> float:
@@ -258,7 +360,66 @@ def phase_kernels(dev) -> dict:
                           dead=(x["block_tables"] < 0).all(dim=1))
             if name == "main" and dtype == torch.bfloat16:
                 errs["paged_decode_attention"] = err
+    errs["segment_attention"] = phase_kernels_flat(dev, gen)
+    errs["rglru_scan_state"] = phase_kernels_rglru(dev, gen)
     return errs
+
+
+def phase_kernels_flat(dev, gen) -> float:
+    """Flat segment attention: recurrentgemma's main shapes, a small
+    window, and every head dim with MHA, GQA and MQA; ragged segments,
+    wrapped and stale rings, dead lanes."""
+    small = dict(segs=[(0, 10, 17), (1, 40, 1), (2, 0, 6)], p=32, b=3,
+                 ring=24, prev=(2,))
+    cases = {"main": dict(segs=main_flat_segs(), p=RG_WIDTH, h=RG_H,
+                          kv=RG_KV, d=RG_D, b=RG_SLOTS, ring=RG_WINDOW,
+                          prev=(4,), window=RG_WINDOW),
+             "window9": dict(segs=[(0, 30, 20), (1, 50, 1), (2, 0, 9)],
+                             p=40, h=8, kv=2, d=128, b=3, ring=16, prev=(2,),
+                             window=9)}
+    for d in HEAD_DIMS:
+        for h, kv, what in ((4, 4, "mha"), (8, 2, "gqa"), (8, 1, "mqa")):
+            cases[f"d{d}-{what}"] = dict(small, h=h, kv=kv, d=d,
+                                         window=9 if what == "gqa" else 0)
+    main_err = 0.0
+    for name, spec in cases.items():
+        spec = dict(spec)
+        window = spec.pop("window")
+        case = flat_case(gen, **spec)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = on(dev, case, dtype)
+            got = segment_attention(**x, window=window)
+            torch.cuda.synchronize()
+            want = segment_attention_ref(
+                **on(dev, on(dev, case, dtype), torch.float32),
+                window=window)
+            err = compare(f"segment_attention/{name}", got, want, dtype,
+                          dead=x["q_seg"] < 0)
+            if name == "main" and dtype == torch.bfloat16:
+                main_err = err
+            del got, want
+        torch.cuda.empty_cache()
+    return main_err
+
+
+def phase_kernels_rglru(dev, gen) -> float:
+    """The RG-LRU scan from a nonzero state: odd lengths at the model's
+    recurrent width, then the main [8, 4096, 4096]; h and h_out."""
+    main_err = 0.0
+    for s in (1, 7, 129, RG_WIDTH):
+        x = on(dev, rglru_case(gen, RG_SLOTS, s, RG_F), torch.float32)
+        h, h_out = rglru_scan_state(**x)
+        torch.cuda.synchronize()
+        want_h, want_out = rglru_ref_state(**x)
+        err = max(compare(f"rglru_scan_state/S{s} h", h, want_h,
+                          torch.float32),
+                  compare(f"rglru_scan_state/S{s} h_out", h_out, want_out,
+                          torch.float32))
+        if s == RG_WIDTH:
+            main_err = err
+        del x, h, h_out, want_h, want_out
+    torch.cuda.empty_cache()
+    return main_err
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -364,13 +525,15 @@ def phase_timing(dev, card) -> dict:
             & (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None]))
     qt = x["q"].transpose(0, 1)[None]                 # [1, H, P, D]
     bound, by = segment_bound(x)
+    shapes = "bf16 at yi-6b main-path shapes"
     out["paged_segment_attention"] = dict(
         ms=time_ms(lambda: paged_segment_attention(**x)),
         plain_ms=time_ms(lambda: paged_segment_attention_ref(**x), iters=3,
                          warmup=1),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kf, vf, attn_mask=mask[None, None])),
-        bound_ms=bound, bound_by=by)
+        library_note="sdpa, boolean mask", bound_ms=bound, bound_by=by,
+        shapes=shapes)
     x = on(dev, decode_case(gen, q_pos=[int(n) + 16 for n in prompt_lens()],
                             h=H, kv=KV, d=D, t=T, m=M), torch.bfloat16)
     k, v, k_pos = paged_gather(x["k_store"], x["v_store"],   # [B,Kv,MT,D]
@@ -385,13 +548,91 @@ def phase_timing(dev, card) -> dict:
         plain_ms=time_ms(lambda: paged_decode_attention_ref(**x)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qd, k, v, attn_mask=mask[:, None, None, :])),
-        bound_ms=bound, bound_by=by)
+        library_note="sdpa, boolean mask", bound_ms=bound, bound_by=by,
+        shapes=shapes)
+    del k, v, kf, vf, mask, x
+    out["segment_attention"] = timing_flat(dev, gen)
+    out["rglru_scan_state"] = timing_rglru(dev, gen)
+    torch.cuda.empty_cache()
     for name, r in out.items():
-        say(f"[timing] {name} bf16 at yi-6b main-path shapes on {card}: "
-            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-            f"library (sdpa) {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        lib = ("null (" + r["library_note"] + ")" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms ({r['library_note']})")
+        say(f"[timing] {name} {r['shapes']} on {card}: kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+            f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return out
+
+
+def flat_bound(x, window=0):
+    """Least time for this call's work: bytes (the q of lanes that admit a
+    key, the whole output, each admitted key's K and V once, the tags)
+    against flops (4*D per admitted (query head, key) pair), at the bf16
+    peak for bf16 inputs."""
+    qp, qs, kp, ks = x["q_pos"], x["q_seg"], x["k_pos"], x["k_seg"]
+    p, h, d = x["q"].shape
+    n, kv, _ = x["k"].shape
+    esz = x["q"].element_size()
+    adm = ((ks[None, :] == qs[:, None]) & (qs[:, None] >= 0)
+           & (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None]))
+    if window:
+        adm &= (qp[:, None] - kp[None, :]) < window
+    nbytes = (int(adm.any(dim=1).sum()) * h * d * esz + p * h * d * esz
+              + int(adm.any(dim=0).sum()) * 2 * kv * d * esz
+              + (2 * p + 2 * n) * 4)
+    flops = int(adm.sum()) * h * 4 * d
+    del adm
+    peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
+        else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def timing_flat(dev, gen) -> dict:
+    """Flat segment attention at recurrentgemma's mixed-tick shapes, bf16:
+    8 slots x 2048-entry rings plus a 4096-lane stream."""
+    import torch.nn.functional as F
+    x = on(dev, flat_case(gen, segs=main_flat_segs(), p=RG_WIDTH, h=RG_H,
+                          kv=RG_KV, d=RG_D, b=RG_SLOTS, ring=RG_WINDOW,
+                          prev=(4,)), torch.bfloat16)
+    w = RG_WINDOW
+    qp, qs, kp, ks = x["q_pos"], x["q_seg"], x["k_pos"], x["k_seg"]
+    mask = ((ks[None, :] == qs[:, None]) & (qs[:, None] >= 0)
+            & (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None])
+            & ((qp[:, None] - kp[None, :]) < w))
+    # the library call gets every query head's K/V laid out for it
+    kf = x["k"].transpose(0, 1)[None].repeat_interleave(RG_H // RG_KV, dim=1)
+    vf = x["v"].transpose(0, 1)[None].repeat_interleave(RG_H // RG_KV, dim=1)
+    qt = x["q"].transpose(0, 1)[None]                 # [1, H, P, D]
+    bound, by = flat_bound(x, w)
+    r = dict(ms=time_ms(lambda: segment_attention(**x, window=w)),
+             plain_ms=time_ms(lambda: segment_attention_ref(**x, window=w),
+                              iters=2, warmup=1),
+             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kf, vf, attn_mask=mask[None, None]), iters=5, warmup=1),
+             library_note="sdpa, boolean mask", bound_ms=bound, bound_by=by,
+             shapes=f"bf16 H{RG_H}/Kv{RG_KV}/D{RG_D}, {RG_SLOTS} x "
+                    f"{RG_WINDOW} ring keys + {RG_WIDTH} lanes")
+    return r
+
+
+def timing_rglru(dev, gen) -> dict:
+    """The RG-LRU scan at [8, 4096, 4096] f32 (a full-width mixed tick's
+    recurrent rows).  No PyTorch call computes this recurrence, so there
+    is no library time."""
+    x = on(dev, rglru_case(gen, RG_SLOTS, RG_WIDTH, RG_F), torch.float32)
+    b, s, f = x["b"].shape
+    nbytes = (3 * b * s * f + 2 * b * f) * 4     # log_a, b in; h out; h0, h_out
+    ops = 3 * b * s * f                          # exp, multiply, add
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    return dict(ms=time_ms(lambda: rglru_scan_state(**x)),
+                plain_ms=time_ms(lambda: rglru_ref_state(**x), iters=1,
+                                 warmup=1),
+                library_ms=None,
+                library_note="no PyTorch call computes the recurrence",
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shapes=f"f32 [{b}, {s}, {f}]")
 
 
 def phase_parity(dev, card):
@@ -473,6 +714,91 @@ def phase_parity(dev, card):
         f"{float(cpu[1][0].abs().max()):.1f}")
     if not worst <= LOGIT_LIMIT or not kerr <= STORE_LIMIT:
         fail("card and CPU disagree on yi-6b logits or KV stores")
+
+
+def packed_arrays(rng, vocab, segs, width, b):
+    """One packed stream's host arrays: [(slot, start, length)] segments
+    back to back, dead lanes after."""
+    tokens = np.zeros((1, width), np.int32)
+    slot = np.full(width, -1, np.int32)
+    pos = np.zeros(width, np.int32)
+    start = np.zeros(b, np.int32)
+    seg_len = np.zeros(b, np.int32)
+    c = 0
+    for s, st, n in segs:
+        tokens[0, c:c + n] = rng.integers(0, vocab, n)
+        slot[c:c + n] = s
+        pos[c:c + n] = np.arange(st, st + n)
+        start[s], seg_len[s] = st, n
+        c += n
+    return tokens, slot, pos, start, seg_len
+
+
+def phase_parity_rg(dev, card):
+    """Full-width recurrentgemma-9b, 5 layers (one rglru, rglru, swa group
+    and the 2-layer rglru remainder), f32, TF32 off, dense rings: two
+    packed steps (prefill chunks, then chunks beside decode riders) and a
+    decode step with one idle row, card against CPU; beside it the CPU
+    against itself with every weight multiplied by 1 + 1e-7 N(0, 1).  The
+    card runs first, then the CPU, then the weights are nudged in place:
+    one copy of the 13 GB of f32 weights at a time."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5,
+                              dtype="float32")
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, cache = 4, 256
+    ticks = [[(0, 0, 24), (1, 0, 9), (2, 0, 28), (3, 0, 3)],
+             [(0, 24, 20), (1, 9, 1), (2, 28, 30), (3, 3, 1)]]
+
+    def run(p, d):
+        caches = zoo.init_cache(cfg, b, cache, d)
+        rng = np.random.default_rng(1)
+        logits = []
+        for segs in ticks:
+            arrays = packed_arrays(rng, cfg.vocab_size, segs, 64, b)
+            logits.append(zoo.step_packed(
+                cfg, p, caches, *(torch.from_numpy(a).to(d) for a in arrays)))
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)
+                               .astype(np.int32)).to(d)
+        dpos = torch.tensor([44, 10, 58, 4], dtype=torch.int32, device=d)
+        active = torch.tensor([True, True, False, True], device=d)
+        logits.append(zoo.decode_step(cfg, p, caches, tok, dpos,
+                                      active=active)[active])
+        g = caches["groups"]
+        return ([lg.cpu() for lg in logits],
+                {"ring k": g[2]["k"].cpu(), "ring v": g[2]["v"].cpu(),
+                 "rglru h": g[0]["h"].cpu(), "conv": g[1]["conv"].cpu(),
+                 "rem h": caches["rem"][1]["h"].cpu()})
+
+    def rel(a, b):
+        return float((a - b).abs().max() / a.abs().max())
+
+    got = run(tree_map(lambda t: t.to(dev), params), dev)
+    torch.cuda.empty_cache()
+    cpu = run(params, torch.device("cpu"))
+    noise = torch.Generator().manual_seed(2)
+    for t in tree_leaves(params):
+        t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=noise))
+    floor = run(params, torch.device("cpu"))
+    del params
+    worst = 0.0
+    for i, (lc, lg, ln) in enumerate(zip(cpu[0], got[0], floor[0])):
+        err = rel(lc, lg)
+        worst = max(worst, err)
+        say(f"[parity] recurrentgemma-9b 5 layers f32, step {i + 1} "
+            f"({'step_packed' if i < 2 else 'decode_step'}): max|dlogit| / "
+            f"max|logit| = {err:.3e} (limit {RG_LOGIT_LIMIT:g}; CPU noise "
+            f"floor {rel(lc, ln):.3e}) on {card}")
+    serr = 0.0
+    for name in cpu[1]:
+        a, g, f = cpu[1][name], got[1][name], floor[1][name]
+        serr = max(serr, rel(a, g))
+        say(f"[parity] {name} after the three steps: max|err| / max|x| = "
+            f"{rel(a, g):.3e} (limit {RG_STATE_LIMIT:g}; CPU noise floor "
+            f"{rel(a, f):.3e}); max|x| {float(a.abs().max()):.1f}")
+    if not worst <= RG_LOGIT_LIMIT or not serr <= RG_STATE_LIMIT:
+        fail("card and CPU disagree on recurrentgemma logits or caches")
 
 
 def phase_slice(dev, card) -> dict:
@@ -564,6 +890,140 @@ def phase_slice(dev, card) -> dict:
     return launches
 
 
+def phase_rg_slice(dev, card) -> dict:
+    """Full recurrentgemma-9b bf16 through the launcher's own functions,
+    default options (packed ticks, dense rings, RG-LRU state); then the
+    cost of the B x P recurrent rows on a full-width tick."""
+    cfg = get_config("recurrentgemma-9b")
+    lens = rg_prompt_lens()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    new_tokens = 32
+    eng = build_engine(cfg, max_batch=RG_SLOTS, cache_len=RG_CACHE_LEN,
+                       budget_headroom_bytes=RG_HEADROOM, latency_goal_s=0.02,
+                       device=dev, seed=0)
+    kv = "paged" if eng.paged else "dense"
+    say(f"[rg-slice] {cfg.name} bf16, {cfg.num_layers} layers, weights "
+        f"{eng.accountant.breakdown()['weights'] / 1e9:.3f} GB, HBM goal "
+        f"{eng.accountant.budget_bytes / 1e9:.3f} GB; kv[{kv}], prefill "
+        f"[{eng.prefill_impl}]; prompts {lens.tolist()}, {new_tokens} new "
+        "tokens each")
+    if eng.paged or eng.prefill_impl != "packed":
+        fail("default options did not resolve to packed ticks on dense KV")
+    knobs = {"serve.max_queue_tokens": [eng.max_queue_tokens],
+             "serve.kv_block_budget": [eng.pool.max_blocks],
+             "serve.prefill_chunk_tokens": [eng.prefill_chunk]}
+    tick_s = {"mixed": [], "decode-only": []}
+    last = [0.0]
+
+    def on_tick(e, st):
+        knobs["serve.max_queue_tokens"].append(e.max_queue_tokens)
+        knobs["serve.kv_block_budget"].append(e.pool.max_blocks)
+        knobs["serve.prefill_chunk_tokens"].append(e.prefill_chunk)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        kind = "mixed" if st["prefill_issued_tokens"] else "decode-only"
+        tick_s[kind].append(now - last[0])
+        last[0] = now
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    segment_attention.launches = 0
+    rglru_scan_state.launches = 0
+    t0 = last[0] = time.perf_counter()
+    stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"segment_attention": segment_attention.launches,
+                "rglru_scan_state": rglru_scan_state.launches}
+    say("[rg-slice] " + summary(eng, len(prompts), len(stats)))
+    n_done = len(eng.finished)
+    max_disp = max(st["dispatches"] for st in stats)
+    gen_tokens = sum(len(r.generated) for r in eng.finished)
+    n_mixed = len(tick_s["mixed"])
+    say(f"[rg-slice] finished {n_done}/{len(prompts)} in {len(stats)} ticks "
+        f"({n_mixed} mixed); max dispatches/tick {max_disp}; HBM "
+        f"violations {eng.accountant.violations}; preemptions "
+        f"{eng.preemptions}; kernel launches {launches} = "
+        f"{launches['segment_attention'] / max(1, n_mixed):g} flat segment "
+        f"and {launches['rglru_scan_state'] / max(1, n_mixed):g} RG-LRU per "
+        "mixed tick")
+    for k, vals in knobs.items():
+        say(f"[rg-slice] knob {k}: {vals[0]} -> {vals[-1]}, distinct values "
+            f"{len(set(vals))}, trajectory {runs(vals)}")
+    say(f"[rg-slice] device memory: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
+        f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+    say(f"[rg-slice] on {card}: {gen_tokens} tokens in {wall:.3f} s = "
+        f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
+        f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
+        f"{eng.ttft.p99() * 1e3:.1f} ms")
+    for kind, ts in tick_s.items():
+        if ts:
+            say(f"[rg-slice] {kind} ticks on {card}: {len(ts)}, mean "
+                f"{np.mean(ts) * 1e3:.1f} ms, first {ts[0] * 1e3:.1f} ms, "
+                f"max {max(ts) * 1e3:.1f} ms")
+    if n_done != len(prompts):
+        fail("not every request finished")
+    for r in eng.finished:
+        g = np.asarray(r.generated)
+        if len(g) != new_tokens or g.min() < 0 or g.max() >= cfg.vocab_size:
+            fail(f"request {r.req_id} generated {g!r}")
+    if max_disp > 1:
+        fail("more than one model dispatch in a tick")
+    if eng.accountant.violations:
+        fail("the HBM goal was violated")
+    if not all(launches.values()):
+        fail(f"a kernel of the path never launched: {launches}")
+    if not all(len(set(v)) > 1 for v in knobs.values()):
+        fail("a SmartConf knob never moved")
+    rows_cost(eng, card)
+    eng.close()
+    return launches
+
+
+def runs(vals) -> str:
+    """A knob's trajectory as value (xN) runs, first tick first."""
+    out = []
+    for v in vals:
+        if out and out[-1][0] == v:
+            out[-1][1] += 1
+        else:
+            out.append([v, 1])
+    return ", ".join(f"{v} (x{n})" if n > 1 else f"{v}" for v, n in out)
+
+
+def rows_cost(eng, card) -> None:
+    """What the reference's B x P recurrent rows cost on a full-width tick:
+    one rglru layer over a 4096-lane stream of 8 segments (8 x 4096 rows
+    through the layer) against the same 4096 tokens as one row, on a
+    scratch copy of the layer's state."""
+    cfg = eng.cfg
+    p = tree_map(lambda t: t[0], eng.params["groups"][0])
+    state = tree_map(lambda t: t[0].clone(), eng.caches["groups"][0])
+    n = RG_WIDTH // RG_SLOTS
+    dev = eng.device
+    slot = torch.arange(RG_SLOTS, dtype=torch.int32,
+                        device=dev).repeat_interleave(n)
+    pos = torch.arange(n, dtype=torch.int32, device=dev).repeat(RG_SLOTS)
+    start = torch.zeros(RG_SLOTS, dtype=torch.int32, device=dev)
+    seg_len = torch.full((RG_SLOTS,), n, dtype=torch.int32, device=dev)
+    x = torch.randn(1, RG_WIDTH, cfg.d_model, device=dev,
+                    dtype=torch.bfloat16)
+    one = tree_map(lambda t: t[:1].clone(), state)
+    t_pos = torch.arange(RG_WIDTH, dtype=torch.int32, device=dev)[None]
+    packed = time_ms(lambda: blocks.block_apply_packed(
+        cfg, "rglru", p, x, pos, slot, start, seg_len, state), iters=5,
+        warmup=1)
+    row = time_ms(lambda: blocks.block_apply_chunk(
+        cfg, "rglru", p, x, t_pos, torch.ones_like(t_pos, dtype=torch.bool),
+        one), iters=5, warmup=1)
+    say(f"[rg-slice] B x P recurrent rows on {card}: one rglru layer over a "
+        f"{RG_WIDTH}-lane stream of {RG_SLOTS} segments takes {packed:.3f} ms "
+        f"({RG_SLOTS} x {RG_WIDTH} rows) against {row:.3f} ms for the same "
+        f"tokens as one row; x 26 layers: {26 * packed:.1f} ms against "
+        f"{26 * row:.1f} ms per full-width mixed tick")
+
+
 def main() -> None:
     dev = phase_device()
     card = card_line()
@@ -571,13 +1031,21 @@ def main() -> None:
     errs = phase_kernels(dev)
     timing = phase_timing(dev, card)
     phase_parity(dev, card)
+    phase_parity_rg(dev, card)
     launches = phase_slice(dev, card)
+    torch.cuda.empty_cache()
+    launches.update(phase_rg_slice(dev, card))
     meta = {
         "paged_segment_attention": (
             SEG_SRC,
             "src/repro/kernels/segment_attention/segment_attention.py:204"),
         "paged_decode_attention": (
             DEC_SRC, "src/repro/kernels/paged_attention/paged_attention.py:88"),
+        "segment_attention": (
+            FLAT_SRC,
+            "src/repro/kernels/segment_attention/segment_attention.py:104"),
+        "rglru_scan_state": (
+            RGLRU_SRC, "src/repro/kernels/rglru/rglru.py:56"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():
@@ -589,6 +1057,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            if key == "library_ms" and r[key] is None:
+                continue     # no PyTorch call computes this function
             if not math.isfinite(r[key]):
                 fail(f"{name} {key} is not finite")
     say(json.dumps({"kernels": kernels}))

@@ -27,8 +27,11 @@ COMMON_DIR = _KERNELS / "csrc"
 SOURCES = {
     "paged_attention": _KERNELS / "paged_attention" / "csrc"
     / "paged_attention.cu",
-    "segment_attention": _KERNELS / "segment_attention" / "csrc"
+    "paged_segment_attention": _KERNELS / "segment_attention" / "csrc"
     / "paged_segment_attention.cu",
+    "segment_attention": _KERNELS / "segment_attention" / "csrc"
+    / "segment_attention.cu",
+    "rglru_scan": _KERNELS / "rglru" / "csrc" / "rglru_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

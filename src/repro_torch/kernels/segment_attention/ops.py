@@ -1,12 +1,23 @@
-"""Device dispatch for paged segment attention: CPU tensors run the plain
-version, CUDA tensors launch the kernel (or raise)."""
+"""Device dispatch for segment attention, flat and paged: CPU tensors run
+the plain version, CUDA tensors launch the kernel (or raise)."""
 
 from __future__ import annotations
 
 from repro_torch.kernels import use_plain
 
-from .ref import paged_segment_attention_ref
-from .segment_attention import paged_segment_attention
+from .ref import paged_segment_attention_ref, segment_attention_ref
+from .segment_attention import paged_segment_attention, segment_attention
+
+
+def segment_attention_op(q, k, v, q_pos, k_pos, q_seg, k_seg, *,
+                         window: int = 0):
+    """Flat-key segment attention: q [P,H,D]; k,v [N,Kv,D]; q_pos/q_seg
+    [P]; k_pos/k_seg [N] -> [P,H,D]."""
+    if use_plain(q, k, v, q_pos, k_pos, q_seg, k_seg):
+        return segment_attention_ref(q, k, v, q_pos, k_pos, q_seg, k_seg,
+                                     window=window)
+    return segment_attention(q, k, v, q_pos, k_pos, q_seg, k_seg,
+                             window=window)
 
 
 def paged_segment_attention_op(q, k_store, v_store, block_tables, q_pos,

@@ -57,6 +57,7 @@ def serve_requests(eng: ServeEngine, prompts: list[np.ndarray],
 def summary(eng: ServeEngine, n_requests: int, ticks: int) -> str:
     """The reference launcher's summary line."""
     budget = eng.accountant.budget_bytes or 0
+    kv = "paged" if eng.paged else "dense"
     return (f"{eng.cfg.name}: {len(eng.finished)}/{n_requests} done in "
             f"{ticks} ticks; HBM violations {eng.accountant.violations}; "
             f"peak {eng.accountant.peak_bytes/1e6:.1f}/{budget/1e6:.1f} MB; "
@@ -64,7 +65,7 @@ def summary(eng: ServeEngine, n_requests: int, ticks: int) -> str:
             f"{eng.prefill_calls} calls / {eng.model_programs} programs, "
             f"{eng.model_dispatches/max(1, ticks):.2f} dispatches/tick, "
             f"pad_fraction {eng.pad_fraction:.2f}; "
-            f"kv[paged] {eng.pool.used_blocks} blocks used, "
+            f"kv[{kv}] {eng.pool.used_blocks} blocks used, "
             f"{eng.preemptions} preemptions")
 
 

@@ -1,17 +1,22 @@
-"""Per-layer blocks: init / apply / paged cache, dispatched on block *kind*.
+"""Per-layer blocks: init / apply / cache, dispatched on block *kind*.
 
 Kinds served so far (``ArchConfig.block_pattern`` entries):
   ``full``    causal full attention + FFN
   ``swa``     sliding-window attention (window = cfg.window)
   ``local``   same as swa (gemma3 local layers)
   ``global``  full attention with the long-context rope theta (gemma3)
-Recurrent kinds (``rwkv6``, ``rglru``) and the ``+moe`` FFN are not ported
-yet and raise ``NotImplementedError``.
+  ``rglru``   RG-LRU recurrent block + FFN (recurrentgemma)
+``rwkv6`` and the ``+moe`` FFN are not ported yet and raise
+``NotImplementedError``.
 
-Only the paged-KV branches exist: the K/V cache is a physical block store
-``[N, Kv, T, D]`` shared by all sequences through block tables.  Apply
-functions update the store **in place** (the reference donates and
-returns it) and return the new activations.
+Attention K/V lives either in the paged block store ``[N, Kv, T, D]``
+shared by all sequences through block tables, or in dense per-slot rings
+``{k, v: [B, n, Kv, D], pos: [B, n]}`` (windowed kinds keep ``n =
+window``).  Recurrent kinds keep per-slot scan state ``{h, conv}``.  Apply
+functions update caches and state **in place** (the reference donates and
+returns them) and return the new activations.  Writes that the reference
+drops (``mode="drop"``) are left out of a write plan the caller computes
+once per step, so the device never selects lanes itself.
 """
 
 from __future__ import annotations
@@ -19,11 +24,12 @@ from __future__ import annotations
 import torch
 
 from . import layers
+from . import rglru as rglru_lib
 from .layers import apply_norm, norm_init, project, rope
 
 ATTN_KINDS = ("full", "swa", "local", "global", "bidir")
 # kinds the reference's chunked/packed prefill serves (recurrent ones via
-# scan state); the port serves the attention kinds among them
+# scan state); the port serves all but rwkv6
 CHUNKABLE_KINDS = ATTN_KINDS + ("rwkv6", "rglru")
 
 
@@ -35,15 +41,15 @@ def split_kind(kind: str) -> tuple[str, bool]:
 
 def _check_ported(kind: str) -> str:
     base, is_moe = split_kind(kind)
-    if base in ("rwkv6", "rglru"):
+    if base == "rwkv6":
         raise NotImplementedError(
-            f"block kind {kind!r}: recurrent families are ROADMAP Queue 1 "
-            "item 8 (not ported yet)")
+            f"block kind {kind!r}: rwkv6 is ROADMAP Queue 1 item 8 (not "
+            "ported yet)")
     if is_moe:
         raise NotImplementedError(
             f"block kind {kind!r}: MoE is ROADMAP Queue 1 item 7 (not "
             "ported yet)")
-    if base not in ATTN_KINDS:
+    if base not in ATTN_KINDS + ("rglru",):
         raise ValueError(f"unknown block kind {kind!r}")
     return base
 
@@ -52,7 +58,7 @@ def block_init(cfg, kind: str, dtype, device, generator,
                lead: tuple[int, ...] = ()) -> dict:
     """Parameters of one block; ``lead`` prepends stacking dims (the
     group-stacked layers carry a leading layer axis)."""
-    _check_ported(kind)
+    base = _check_ported(kind)
 
     def dense(shape):
         return layers.dense_init(lead + shape, dtype, device, generator)
@@ -65,8 +71,12 @@ def block_init(cfg, kind: str, dtype, device, generator,
                 for k, v in norm_init(cfg.norm, d, dtype, device).items()}
 
     params = {"ln1": norm()}
-    params["attn"] = {"wq": dense((d, h, hd)), "wk": dense((d, kv, hd)),
-                      "wv": dense((d, kv, hd)), "wo": dense((h, hd, d))}
+    if base == "rglru":
+        params["rglru"] = rglru_lib.rglru_init(cfg, dtype, device, generator,
+                                               lead)
+    else:
+        params["attn"] = {"wq": dense((d, h, hd)), "wk": dense((d, kv, hd)),
+                          "wv": dense((d, kv, hd)), "wo": dense((h, hd, d))}
     params["ln2"] = norm()
     if cfg.mlp in ("swiglu", "geglu"):
         params["mlp"] = {"w_gate": dense((d, cfg.d_ff)),
@@ -76,6 +86,71 @@ def block_init(cfg, kind: str, dtype, device, generator,
         params["mlp"] = {"w_up": dense((d, cfg.d_ff)),
                          "w_down": dense((cfg.d_ff, d))}
     return params
+
+
+# ---------------------------------------------------------------------------
+# dense caches: per-slot rings and recurrent state
+# ---------------------------------------------------------------------------
+
+
+def cache_len_for(cfg, kind: str, seq_len: int) -> int:
+    """Ring length of one layer's dense cache: windowed kinds keep only
+    ``cfg.window`` entries.  (The reference's ``margin`` for speculative
+    drafts is not ported: speculation is not.)"""
+    base, _ = split_kind(kind)
+    if base in ("swa", "local"):
+        return min(cfg.window, seq_len)
+    return seq_len
+
+
+def block_cache_init(cfg, kind: str, batch: int, seq_len: int, device,
+                     lead: tuple[int, ...] = ()) -> dict:
+    """One layer's dense cache with ``lead`` stacking dims: ``{k, v:
+    [B, n, Kv, D], pos: [B, n] int32 (-1 = unwritten)}`` for attention
+    kinds, ``{h: [B, dr], conv: [B, W-1, dr]}`` (f32) for rglru."""
+    base = _check_ported(kind)
+    if base == "rglru":
+        return {k: v.expand(lead + v.shape).contiguous() for k, v in
+                rglru_lib.init_state(cfg, batch, device).items()}
+    n = cache_len_for(cfg, kind, seq_len)
+    shape = lead + (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = layers.torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.full(lead + (batch, n), -1, dtype=torch.int32,
+                              device=device)}
+
+
+def dense_packed_plan(slot_id, pos, start, seg_len, ring: int):
+    """Where a packed stream's K/V lands in rings of ``ring`` entries:
+    ``(lanes, rows, cols)``.  Each segment keeps only its last
+    ``min(seg_len, ring)`` positions, so a ring entry is written at most
+    once per call; dead lanes are left out (the reference's drop-mode
+    write-back)."""
+    b = start.shape[0]
+    seg = slot_id.long()
+    last = (start + seg_len - 1).long()
+    keep = (seg >= 0) & (pos.long() > last[seg.clamp(0, b - 1)] - ring)
+    lanes = torch.nonzero(keep).squeeze(1)
+    return lanes, seg[lanes], pos[lanes].long() % ring
+
+
+def dense_step_plan(pos, active, ring: int):
+    """Where each decoding row's K/V lands in rings of ``ring`` entries:
+    ``(lanes, rows, cols)``; rows outside ``active`` are left out."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    if active is not None:
+        rows = rows[active]
+    return rows, rows, pos[rows].long() % ring
+
+
+def _dense_write(cache: dict, k, v, pos, plan) -> None:
+    """Write per-lane K/V ([L, Kv, D]) and positions into the rings in
+    place, at the plan's (row, col) pairs (distinct by construction)."""
+    lanes, rows, cols = plan
+    cache["k"][rows, cols] = k[lanes].to(cache["k"].dtype)
+    cache["v"][rows, cols] = v[lanes].to(cache["v"].dtype)
+    cache["pos"][rows, cols] = pos[lanes].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -150,40 +225,127 @@ def _window(cfg, base: str) -> int:
     return cfg.window if base in ("swa", "local") else 0
 
 
+def _attn_qkv(cfg, base, params, x, pos):
+    """ln1, then the rope'd q, k and plain v: [B, S, heads, D] each."""
+    theta = _theta(cfg, base)
+    h = apply_norm(cfg.norm, params["ln1"], x)
+    q = rope(project(h, params["attn"]["wq"]), pos, theta)
+    k = rope(project(h, params["attn"]["wk"]), pos, theta)
+    v = project(h, params["attn"]["wv"])
+    return q, k, v
+
+
+def _ffn(cfg, params, x):
+    h2 = apply_norm(cfg.norm, params["ln2"], x)
+    return x + layers.mlp(params["mlp"], h2, cfg.mlp)
+
+
+# ---------------------------------------------------------------------------
+# apply: padded per-slot chunk (recurrent kinds)
+# ---------------------------------------------------------------------------
+
+
+def block_apply_chunk(cfg, kind: str, params: dict, x, pos, valid, cache):
+    """x: [B,C,d] chunk, rows left-aligned; pos: [B,C] positions; valid:
+    [B,C] bool marks real tokens; cache: this layer's per-slot scan state,
+    updated in place.  A row whose chunk starts at position 0 begins a
+    prompt in a (possibly reused) slot: its state restarts from zero
+    (attention masks an earlier occupant by position; recurrent state has
+    no positions).  Only the recurrent kinds the port serves come here."""
+    base = _check_ported(kind)
+    if base != "rglru":
+        raise ValueError(f"block_apply_chunk serves recurrent kinds, got "
+                         f"{kind!r}")
+    fresh = (pos[:, 0] == 0) & valid[:, 0]                       # [B]
+    state = {n: torch.where(fresh.view((-1,) + (1,) * (a.dim() - 1)),
+                            torch.zeros_like(a), a)
+             for n, a in cache.items()}
+    h = apply_norm(cfg.norm, params["ln1"], x)
+    y, new = rglru_lib.rglru_chunk(params["rglru"], h, state, valid)
+    for n, a in new.items():
+        cache[n].copy_(a)
+    return _ffn(cfg, params, x + y)
+
+
 # ---------------------------------------------------------------------------
 # apply: token-packed ragged stream (prefill chunks + decode segments)
 # ---------------------------------------------------------------------------
 
 
-def block_apply_packed(cfg, kind: str, params: dict, x, pos, slot_id, cache,
-                       block_tables, plan):
-    """One block over a token-packed ragged stream, paged KV.
+def block_apply_packed(cfg, kind: str, params: dict, x, pos, slot_id, start,
+                       seg_len, cache, block_tables=None, plan=None):
+    """One block over a token-packed ragged stream.
 
     x: [1,P,d] — one flat stream of contiguous segments from up to B
     requests; pos: [P] int32 position of each token in its own request;
-    slot_id: [P] int32 owning slot (-1 = dead pad); cache: this layer's
-    block store; block_tables: [B,M] int32; plan: the stream's
-    :func:`paged_write_plan`.  Write-then-attend: the stream's K/V are
-    scattered into the store first (exact, since segments advance front to
-    back, every same-segment position <= q_pos is then live), and queries
-    attend through the paged segment-attention kernel, which masks by
-    segment so no token sees another request."""
-    from repro_torch.kernels.segment_attention import \
-        paged_segment_attention_op
+    slot_id: [P] int32 owning slot (-1 = dead pad); start / seg_len: [B]
+    each slot's segment start and length this call.
+
+    * Paged attention (``block_tables`` [B,M] given; ``plan`` is the
+      stream's :func:`paged_write_plan`): write-then-attend — the stream's
+      K/V go into the store first (every same-segment position <= q_pos is
+      then live), and queries attend through the paged segment kernel.
+    * Dense attention (``plan`` maps each ring length to the stream's
+      :func:`dense_packed_plan`): queries attend through the flat segment
+      kernel to every slot's ring, flattened to one key axis, followed by
+      the stream's own keys; ring entries at or after a slot's segment
+      start are stale (an earlier occupant) and masked.  Then each
+      segment's last ``min(seg_len, ring)`` K/V are written to its ring.
+    * Recurrent kinds: each segment is scattered to its slot's
+      left-aligned row, the rows advance through :func:`block_apply_chunk`
+      (B x P rows, as in the reference), and the outputs are gathered
+      back to their stream positions.
+
+    Segment masking means no token sees another request."""
     base = _check_ported(kind)
-    theta = _theta(cfg, base)
-    h = apply_norm(cfg.norm, params["ln1"], x)
-    pos2 = pos[None, :]
-    q = rope(project(h, params["attn"]["wq"]), pos2, theta)
-    k = rope(project(h, params["attn"]["wk"]), pos2, theta)
-    v = project(h, params["attn"]["wv"])
-    _paged_scatter(cache, k[0], v[0], plan)
-    o = paged_segment_attention_op(q[0], cache["k"], cache["v"],
-                                   block_tables, pos, slot_id,
-                                   window=_window(cfg, base))
-    x = x + layers.attn_output(params["attn"], o[None])
-    h2 = apply_norm(cfg.norm, params["ln2"], x)
-    return x + layers.mlp(params["mlp"], h2, cfg.mlp)
+    if base == "rglru":
+        return _packed_recurrent(cfg, kind, params, x, pos, slot_id, start,
+                                 seg_len, cache)
+    q, k, v = _attn_qkv(cfg, base, params, x, pos[None, :])
+    window = _window(cfg, base)
+    if block_tables is not None:
+        from repro_torch.kernels.segment_attention import \
+            paged_segment_attention_op
+        _paged_scatter(cache, k[0], v[0], plan)
+        o = paged_segment_attention_op(q[0], cache["k"], cache["v"],
+                                       block_tables, pos, slot_id,
+                                       window=window)[None]
+    else:
+        b, n, kvh, hd = cache["k"].shape
+        kpos_cache = torch.where(cache["pos"] < start[:, None], cache["pos"],
+                                 -1)
+        k_eff = torch.cat([cache["k"].reshape(b * n, kvh, hd),
+                           k[0].to(cache["k"].dtype)])
+        v_eff = torch.cat([cache["v"].reshape(b * n, kvh, hd),
+                           v[0].to(cache["v"].dtype)])
+        kpos_eff = torch.cat([kpos_cache.reshape(b * n),
+                              torch.where(slot_id >= 0, pos, -1)])
+        kseg_eff = torch.cat([
+            torch.arange(b, dtype=torch.int32,
+                         device=x.device).repeat_interleave(n), slot_id])
+        o = layers.segment_attention(q, k_eff[None], v_eff[None],
+                                     q_pos=pos[None], k_pos=kpos_eff[None],
+                                     q_seg=slot_id[None],
+                                     k_seg=kseg_eff[None], window=window)
+        _dense_write(cache, k[0], v[0], pos, plan[n])
+    x = x + layers.attn_output(params["attn"], o)
+    return _ffn(cfg, params, x)
+
+
+def _packed_recurrent(cfg, kind, params, x, pos, slot_id, start, seg_len,
+                      cache):
+    """The recurrent branch of :func:`block_apply_packed`.  Dead lanes are
+    scattered into a spare row past the slots that nothing reads."""
+    nslots, p_len = start.shape[0], x.shape[1]
+    live = slot_id >= 0
+    safe = slot_id.clamp(0, nslots - 1).long()
+    off = (pos - start[safe]).clamp(0, p_len - 1).long()
+    xs = x.new_zeros((nslots + 1, p_len, x.shape[2]))
+    xs[torch.where(live, slot_id, nslots).long(), off] = x[0]
+    t = torch.arange(p_len, dtype=torch.int32, device=x.device)[None, :]
+    y = block_apply_chunk(cfg, kind, params, xs[:nslots], start[:, None] + t,
+                          t < seg_len[:, None], cache)
+    return torch.where(live[None, :, None], y[safe, off][None], x)
 
 
 # ---------------------------------------------------------------------------
@@ -192,24 +354,38 @@ def block_apply_packed(cfg, kind: str, params: dict, x, pos, slot_id, cache,
 
 
 def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
-                     block_tables, plan):
+                     block_tables=None, plan=None, active=None):
     """x: [B,1,d]; pos: [B] int32 position of this token; cache: this
-    layer's block store; plan: the rows' :func:`paged_write_plan` (it
-    leaves out rows that are not decoding this tick).  The token's K/V is
-    scattered into its block and attention runs through the paged decode
-    kernel."""
-    from repro_torch.kernels.paged_attention import paged_decode_attention_op
+    layer's paged store, dense ring or recurrent state.  Paged (with
+    ``block_tables``): ``plan`` is the rows' :func:`paged_write_plan` and
+    attention runs through the paged decode kernel.  Dense: ``plan`` maps
+    each ring length to the rows' :func:`dense_step_plan`, and attention is
+    plain torch over the ring (the reference computes it outside any
+    kernel).  Either plan leaves out rows that are not decoding this tick;
+    for rglru, ``active`` ([B] bool) keeps those rows' state untouched."""
     base = _check_ported(kind)
-    theta = _theta(cfg, base)
-    h = apply_norm(cfg.norm, params["ln1"], x)
-    pos2d = pos[:, None]
-    q = rope(project(h, params["attn"]["wq"]), pos2d, theta)
-    k_t = rope(project(h, params["attn"]["wk"]), pos2d, theta)
-    v_t = project(h, params["attn"]["wv"])
-    _paged_scatter(cache, k_t[:, 0], v_t[:, 0], plan)
-    o = paged_decode_attention_op(q[:, 0], cache["k"], cache["v"],
-                                  block_tables, pos,
-                                  window=_window(cfg, base))
-    x = x + layers.attn_output(params["attn"], o[:, None])
-    h2 = apply_norm(cfg.norm, params["ln2"], x)
-    return x + layers.mlp(params["mlp"], h2, cfg.mlp)
+    if base == "rglru":
+        h = apply_norm(cfg.norm, params["ln1"], x)[:, 0]
+        y, new = rglru_lib.rglru_step(params["rglru"], h, cache)
+        for n, a in new.items():
+            if active is not None:
+                a = torch.where(active.view((-1,) + (1,) * (a.dim() - 1)),
+                                a.to(cache[n].dtype), cache[n])
+            cache[n].copy_(a)
+        return _ffn(cfg, params, x + y[:, None, :])
+    q, k, v = _attn_qkv(cfg, base, params, x, pos[:, None])
+    window = _window(cfg, base)
+    if block_tables is not None:
+        from repro_torch.kernels.paged_attention import \
+            paged_decode_attention_op
+        _paged_scatter(cache, k[:, 0], v[:, 0], plan)
+        o = paged_decode_attention_op(q[:, 0], cache["k"], cache["v"],
+                                      block_tables, pos,
+                                      window=window)[:, None]
+    else:
+        _dense_write(cache, k[:, 0], v[:, 0], pos, plan[cache["k"].shape[1]])
+        o = layers.decode_attention(q, cache["k"], cache["v"],
+                                    k_pos=cache["pos"], q_pos=pos,
+                                    window=window)
+    x = x + layers.attn_output(params["attn"], o)
+    return _ffn(cfg, params, x)

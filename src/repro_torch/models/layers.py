@@ -4,7 +4,9 @@ Plain functions over parameter dicts of tensors.  Layouts are the
 reference's: ``wq``/``wk``/``wv`` are ``[d, heads, head_dim]`` used as
 ``bsd,dhk->bshk`` and ``wo`` is ``[heads, head_dim, d]``, so weights carry
 over without transposes.  Projections are plain matrix products
-(``torch.matmul``); only attention runs through the hand-written kernels.
+(``torch.matmul``).  Packed attention runs through the hand-written
+kernels; the dense decode step's one-token attention is plain torch, as
+the reference computes it in XLA outside any kernel.
 """
 
 from __future__ import annotations
@@ -107,6 +109,67 @@ def attn_output(params: dict, o: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` as one matrix product."""
     h, k, d = params["wo"].shape
     return o.flatten(-2) @ params["wo"].reshape(h * k, d)
+
+
+# ---------------------------------------------------------------------------
+# attention over positioned keys
+# ---------------------------------------------------------------------------
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: [B,Sq,H,D], k: [B,Sk,Kv,D] -> scores [B,H,Sq,Sk], GQA without
+    repeating K."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k)
+    return s.reshape(b, h, sq, k.shape[1])
+
+
+def _grouped_out(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: [B,H,Sq,Sk], v: [B,Sk,Kv,D] -> [B,Sq,H,D]."""
+    b, h, sq, sk = p.shape
+    kvh = v.shape[2]
+    pg = p.reshape(b, kvh, h // kvh, sq, sk)
+    o = torch.einsum("bkgqs,bskd->bqkgd", pg, v)
+    return o.reshape(b, sq, h, o.shape[-1])
+
+
+def chunk_attention(q, k, v, *, k_pos, q_pos, window: int = 0):
+    """Queries against per-row positioned keys.  q [B,C,H,D]; k,v
+    [B,N,Kv,D]; k_pos [B,N] (-1 = unwritten); q_pos [B,C].  A key is
+    admitted when written, causal and (with a window) inside it.  As in
+    the reference, a row that admits no key gives the mean of V, and the
+    probabilities are rounded to q's dtype before the product with V."""
+    s = _grouped_scores(q * q.shape[-1] ** -0.5, k).float()     # [B,H,C,N]
+    valid = (k_pos[:, None, :] >= 0) & (k_pos[:, None, :] <= q_pos[:, :, None])
+    if window > 0:
+        valid &= (q_pos[:, :, None] - k_pos[:, None, :]) < window
+    s = torch.where(valid[:, None], s, -1e30)
+    return _grouped_out(torch.softmax(s, dim=-1).to(q.dtype), v)
+
+
+def decode_attention(q, k_cache, v_cache, *, k_pos, q_pos, window: int = 0):
+    """One token against a dense cache: q [B,1,H,D]; caches [B,S,Kv,D];
+    k_pos [B,S]; q_pos [B].  The one-query case of
+    :func:`chunk_attention`."""
+    return chunk_attention(q, k_cache, v_cache, k_pos=k_pos,
+                           q_pos=q_pos[:, None], window=window)
+
+
+def segment_attention(q, k, v, *, q_pos, k_pos, q_seg, k_seg,
+                      window: int = 0):
+    """Token-packed ragged attention: q [B,P,H,D]; k,v [B,N,Kv,D];
+    q_pos/q_seg [B,P]; k_pos/k_seg [B,N].  A key is admitted when it
+    shares the query's segment (>= 0), is written, causal and inside the
+    window; a query no key admits gives exact zeros.  Each row of the
+    (B == 1) packed stream goes through ``segment_attention_op``: the flat
+    segment kernel on a card, its plain version on the CPU."""
+    from repro_torch.kernels.segment_attention import segment_attention_op
+    out = [segment_attention_op(q[i], k[i], v[i], q_pos[i], k_pos[i],
+                                q_seg[i], k_seg[i], window=window)
+           for i in range(q.shape[0])]
+    return torch.stack(out).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -5,18 +5,23 @@ becomes ``params["groups"]``, a list with one block dict per pattern
 position whose leaves carry a leading layer axis (``[n_groups, ...]``);
 ``first_k_dense`` prefix layers and the pattern remainder are plain lists.
 The reference scans over the stacked axis; here a Python loop indexes it,
-so every layer's weights and block store are views into the stacked
-tensors, and the stores are updated in place.
+so every layer's weights and cache are views into the stacked tensors,
+and the caches are updated in place.  recurrentgemma's plan, for one, is
+12 groups of (rglru, rglru, swa) and a 2-layer (rglru, rglru) remainder.
 
 Public entry points:
     init(cfg, generator, device)        -> params
+    init_cache(cfg, batch, cache_len, device) -> caches   [dense rings and
+                                        recurrent state, per slot]
     init_paged_cache(cfg, num_blocks, block_tokens, device) -> caches
     step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
-                block_tables)           -> last_logits [B, V]  [in place;
+                block_tables=None)      -> last_logits [B, V]  [in place;
                                         one ragged stream of prefill
                                         chunks + length-1 decode segments]
-    decode_step(cfg, params, caches, token, pos, active, block_tables)
-                                        -> logits [B, V]       [in place]
+    decode_step(cfg, params, caches, token, pos, block_tables=None,
+                active=None)            -> logits [B, V]       [in place]
+With ``block_tables`` the attention caches are the paged block store;
+without, the dense per-slot rings of :func:`init_cache`.
 """
 
 from __future__ import annotations
@@ -124,7 +129,7 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# capability checks and the paged cache
+# capability checks and the caches
 # ---------------------------------------------------------------------------
 
 
@@ -145,27 +150,57 @@ def supports_paged_kv(cfg) -> bool:
     return all(B.split_kind(k)[0] in B.ATTN_KINDS for k in _all_kinds(cfg))
 
 
+def _cache_tree(cfg, make) -> dict:
+    """``make(kind, lead)`` for every layer, in the params' layout: group
+    layers stacked with ``lead = (n_groups,)``."""
+    prefix, pattern, n_groups, rem = _plan(cfg)
+    caches = {}
+    if prefix:
+        caches["prefix"] = [make(k, ()) for k in prefix]
+    if n_groups:
+        caches["groups"] = [make(k, (n_groups,)) for k in pattern]
+    if rem:
+        caches["rem"] = [make(k, ()) for k in rem]
+    return caches
+
+
+def init_cache(cfg, batch: int, cache_len: int, device) -> dict:
+    """Dense per-slot caches: a ``[batch, n, Kv, D]`` ring (``n`` the
+    window for windowed kinds, ``cache_len`` otherwise) with its position
+    plane for attention layers, ``{h, conv}`` scan state for rglru layers;
+    group layers stacked ``[n_groups, batch, ...]``."""
+    _check_supported(cfg)
+    return _cache_tree(cfg, lambda k, lead: B.block_cache_init(
+        cfg, k, batch, cache_len, device, lead))
+
+
+def ring_lens(caches: dict) -> set[int]:
+    """The ring lengths of a dense cache tree's attention layers."""
+    return {c["k"].shape[-3] for key in ("prefix", "groups", "rem")
+            for c in caches.get(key, ()) if "pos" in c}
+
+
+def dense_packed_plans(caches, slot_id, pos, start, seg_len) -> dict:
+    """One :func:`~repro_torch.models.blocks.dense_packed_plan` per ring
+    length, for :func:`step_packed` on dense caches."""
+    return {n: B.dense_packed_plan(slot_id, pos, start, seg_len, n)
+            for n in ring_lens(caches)}
+
+
+def dense_step_plans(caches, pos, active=None) -> dict:
+    """One :func:`~repro_torch.models.blocks.dense_step_plan` per ring
+    length, for :func:`decode_step` on dense caches."""
+    return {n: B.dense_step_plan(pos, active, n) for n in ring_lens(caches)}
+
+
 def init_paged_cache(cfg, num_blocks: int, block_tokens: int, device) -> dict:
     """Per-layer physical block stores ``[num_blocks, Kv, T, D]`` (group
     layers stacked ``[n_groups, num_blocks, Kv, T, D]``)."""
     if not supports_paged_kv(cfg):
         raise ValueError(f"{cfg.name}: block pattern {cfg.block_pattern} "
                          "does not support paged KV")
-    prefix, pattern, n_groups, rem = _plan(cfg)
-    caches = {}
-    if prefix:
-        caches["prefix"] = [B.paged_cache_init(cfg, k, num_blocks,
-                                               block_tokens, device)
-                            for k in prefix]
-    if n_groups:
-        caches["groups"] = [B.paged_cache_init(cfg, k, num_blocks,
-                                               block_tokens, device,
-                                               lead=(n_groups,))
-                            for k in pattern]
-    if rem:
-        caches["rem"] = [B.paged_cache_init(cfg, k, num_blocks, block_tokens,
-                                            device) for k in rem]
-    return caches
+    return _cache_tree(cfg, lambda k, lead: B.paged_cache_init(
+        cfg, k, num_blocks, block_tokens, device, lead))
 
 
 def map_paged_caches(caches: dict, fn) -> dict:
@@ -208,7 +243,7 @@ def _logits(cfg, params, x):
 
 
 def step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
-                block_tables, plan=None):
+                block_tables=None, plan=None):
     """Advance the engine by ONE token-packed ragged stream, in place —
     prefill chunks AND decode tokens ride the same call.
 
@@ -216,25 +251,26 @@ def step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
     (a prefilling request's next prompt chunk, a running request's decode
     token as a length-1 segment); slot_id: [P] int32 owning slot (-1 =
     dead pad); pos: [P] int32 position within its own request; start /
-    seg_len: [B] per-slot segment start and length (the paged attention
-    kinds derive everything from slot_id and pos; they are kept for the
-    reference's signature).  block_tables: [B,M] int32.  ``plan`` is the
-    stream's :func:`~repro_torch.models.blocks.paged_write_plan`, computed
-    here when not given (which synchronises on a CUDA stream).  Returns the
-    next-token logits [B,V] at each slot's last packed token (garbage for
-    slots with no tokens this call); the block stores are updated in
+    seg_len: [B] int32 per-slot segment start and length.  block_tables:
+    [B,M] int32 for paged caches, None for dense ones.  ``plan`` is the
+    stream's write plan — :func:`~repro_torch.models.blocks
+    .paged_write_plan` (paged) or :func:`dense_packed_plans` (dense) —
+    computed here when not given (which synchronises on a CUDA stream).
+    Returns the next-token logits [B,V] at each slot's last packed token
+    (garbage for slots with no tokens this call); caches are updated in
     place."""
-    del start, seg_len
     _check_supported(cfg)
     if plan is None:
-        plan = B.paged_write_plan(slot_id, pos, block_tables,
-                                  _block_tokens(caches))
+        plan = (dense_packed_plans(caches, slot_id, pos, start, seg_len)
+                if block_tables is None else
+                B.paged_write_plan(slot_id, pos, block_tables,
+                                   _block_tokens(caches)))
     x = params["embed"][tokens]
     for kind, p, c in _layers(cfg, params, caches):
-        x = B.block_apply_packed(cfg, kind, p, x, pos, slot_id, c,
-                                 block_tables, plan)
+        x = B.block_apply_packed(cfg, kind, p, x, pos, slot_id, start,
+                                 seg_len, c, block_tables, plan)
     x = apply_norm(cfg.norm, params["ln_f"], x)
-    nslots = block_tables.shape[0]
+    nslots = start.shape[0]
     t_idx = torch.arange(tokens.shape[1], device=x.device)
     own = slot_id[None, :] == torch.arange(nslots, device=x.device)[:, None]
     last_idx = torch.where(own, t_idx[None, :], -1).amax(dim=1)      # [B]
@@ -242,20 +278,25 @@ def step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
     return _logits(cfg, params, xl)
 
 
-def decode_step(cfg, params, caches, token, pos, block_tables, active=None,
-                plan=None):
+def decode_step(cfg, params, caches, token, pos, block_tables=None,
+                active=None, plan=None):
     """token: [B] int32; pos: [B] int32.  ``active`` ([B] bool) leaves
-    non-decoding rows' cache untouched; ``plan`` is the rows'
-    :func:`~repro_torch.models.blocks.paged_write_plan`, computed here when
-    not given.  Returns logits [B,V]; the block stores are updated in
-    place."""
+    non-decoding rows' caches and state untouched; ``plan`` is the rows'
+    write plan — :func:`~repro_torch.models.blocks.paged_write_plan`
+    (paged, ``block_tables`` given) or :func:`dense_step_plans` (dense) —
+    computed here when not given.  Returns logits [B,V]; caches are
+    updated in place."""
     _check_supported(cfg)
     if plan is None:
-        rows = torch.arange(token.shape[0], device=token.device)
-        plan = B.paged_write_plan(rows, pos, block_tables,
-                                  _block_tokens(caches), valid=active)
+        if block_tables is None:
+            plan = dense_step_plans(caches, pos, active)
+        else:
+            rows = torch.arange(token.shape[0], device=token.device)
+            plan = B.paged_write_plan(rows, pos, block_tables,
+                                      _block_tokens(caches), valid=active)
     x = params["embed"][token][:, None, :]                           # [B,1,d]
     for kind, p, c in _layers(cfg, params, caches):
-        x = B.block_apply_step(cfg, kind, p, x, pos, c, block_tables, plan)
+        x = B.block_apply_step(cfg, kind, p, x, pos, c, block_tables, plan,
+                               active)
     x = apply_norm(cfg.norm, params["ln_f"], x)
     return _logits(cfg, params, x)[:, 0]

@@ -7,7 +7,8 @@ from . import transformer
 from .bridge import params_from_numpy
 
 __all__ = ["init", "step_packed", "decode_step", "supports_chunked_prefill",
-           "supports_paged_kv", "init_paged_cache", "map_paged_caches",
+           "supports_paged_kv", "init_cache", "dense_packed_plans",
+           "dense_step_plans", "init_paged_cache", "map_paged_caches",
            "copy_paged_blocks", "params_from_numpy"]
 
 init = transformer.init
@@ -15,6 +16,9 @@ step_packed = transformer.step_packed
 decode_step = transformer.decode_step
 supports_chunked_prefill = transformer.supports_chunked_prefill
 supports_paged_kv = transformer.supports_paged_kv
+init_cache = transformer.init_cache
+dense_packed_plans = transformer.dense_packed_plans
+dense_step_plans = transformer.dense_step_plans
 init_paged_cache = transformer.init_paged_cache
 map_paged_caches = transformer.map_paged_caches
 copy_paged_blocks = transformer.copy_paged_blocks

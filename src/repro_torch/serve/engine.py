@@ -20,26 +20,32 @@ Hot path (one ``tick``): controller updates -> admission -> scheduling
     PLUS one length-1 decode segment per running slot into a single
     ``[1, width]`` stream (``step_packed``); a tick with no prefill work
     runs the decode step instead.  Either way one dispatch per tick.
-  * **Paged KV** — per-layer physical block stores ``[capacity, Kv, T, D]``
-    addressed through per-sequence block tables (``serve/paging.py``).
+  * **Paged KV** (``kv_mode="auto"`` on attention-only archs) — per-layer
+    physical block stores ``[capacity, Kv, T, D]`` addressed through
+    per-sequence block tables (``serve/paging.py``).
     ``serve.kv_block_budget`` bounds the physical store: a cut below
     occupancy preempts the lowest-priority sequence back to the queue and
     shrinks the store tensors, releasing device memory.
+  * **Dense KV** (``kv_mode="auto"`` on archs with recurrent blocks, or
+    ``kv_mode="dense"``) — per-slot rings ``[max_batch, n, Kv, D]``
+    (``n`` = the window for windowed layers) and per-slot recurrent scan
+    state, allocated once.  ``serve.kv_block_budget`` actuates the logical
+    ledger (``serve/kv_cache.py``); there is no physical resize.
   * **Deferred host sync** — sampled tokens stay on the device
     (``_gen_buf``); the host reads a sequence back once, when it finishes.
 
 Where the reference jit-compiles each step with cache donation, the port
 runs eagerly and updates the block stores and token buffers **in place**.
 The host knows which stream lanes are live, so it builds each step's K/V
-write plan (``blocks.paged_write_plan``) and uploads it: no step
-synchronises on a device-side selection.  A step's only wait is the
-stream synchronise after a dispatch that samples a token, so the latency
-sensors measure device time, not enqueue time.
+write plan (``blocks.paged_write_plan``, or the dense rings' plans) and
+uploads it: no step synchronises on a device-side selection.  A step's
+only wait is the stream synchronise after a dispatch that samples a
+token, so the latency sensors measure device time, not enqueue time.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item, see ``serve/options.py``): dense KV and the split-path prefill
-modes, the prefix cache, speculation, mesh serving, SLO brownout,
-telemetry, replicas, worker-preemption drain.
+item, see ``serve/options.py``): the split-path prefill modes, the prefix
+cache, speculation, mesh serving, SLO brownout, telemetry, replicas,
+worker-preemption drain.
 """
 
 from __future__ import annotations
@@ -63,7 +69,7 @@ from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import blocks, zoo
 from repro_torch.models.bridge import tree_leaves
 from repro_torch.models.transformer import resolve_device
-from .kv_cache import QUEUE_TOKEN_BYTES
+from .kv_cache import QUEUE_TOKEN_BYTES, KVBlockPool
 from .options import ServeOptions
 from .paging import PagedKVAllocator
 
@@ -165,13 +171,21 @@ class ServeEngine:
         if on != {device}:
             raise ValueError(f"params live on {sorted(map(str, on))}, the "
                              f"engine on {device}")
-        if not zoo.supports_paged_kv(cfg):
+        if not zoo.supports_chunked_prefill(cfg):
             raise NotImplementedError(
                 f"{cfg.name}: block pattern {cfg.block_pattern} needs the "
-                "dense KV / one-shot paths, ROADMAP Queue 1 items 5, 8 and "
-                "12 (not ported yet)")
+                "one-shot prefill path, ROADMAP Queue 1 items 5 and 12 (not "
+                "ported yet)")
         for kind in set(cfg.block_pattern):
             blocks._check_ported(kind)
+        if opts.kv_mode == "paged" and not zoo.supports_paged_kv(cfg):
+            raise ValueError(
+                f"{cfg.name}: paged KV requires an attention-only block "
+                "pattern")
+        # auto: paged where every block is attention, dense rings and
+        # recurrent state otherwise (the reference's resolution)
+        self.paged = opts.kv_mode == "paged" or (
+            opts.kv_mode == "auto" and zoo.supports_paged_kv(cfg))
         max_batch = opts.max_batch
         hbm_budget_bytes = opts.hbm_budget_bytes
         block_tokens = opts.block_tokens
@@ -184,7 +198,6 @@ class ServeEngine:
         self.cache_len = cache_len = padded_cache_len(opts.cache_len)
         self.clock = clock
         self.prefill_impl = "packed"
-        self.paged = True
         # the packed stream's width cap: the live serve.prefill_chunk_tokens
         # value caps how many real tokens ride in it each tick
         self.packed_width = cache_len
@@ -194,21 +207,27 @@ class ServeEngine:
                                            for t in tree_leaves(params)))
 
         self.blocks_per_seq = -(-cache_len // block_tokens)
-        # under an HBM goal the store starts at one sequence's worth and
-        # grows on demand inside the accountant's headroom, so the ledger
-        # (= physical store bytes) never front-runs the budget
-        full = max_batch * self.blocks_per_seq
-        tight = enable_smartconf and hbm_budget_bytes
-        self.pool = PagedKVAllocator(
-            cfg, block_tokens=block_tokens,
-            max_blocks_per_seq=self.blocks_per_seq,
-            capacity_blocks=self.blocks_per_seq if tight else full,
-            budget_blocks=full, accountant=self.accountant)
+        if self.paged:
+            # under an HBM goal the store starts at one sequence's worth and
+            # grows on demand inside the accountant's headroom, so the
+            # ledger (= physical store bytes) never front-runs the budget
+            full = max_batch * self.blocks_per_seq
+            tight = enable_smartconf and hbm_budget_bytes
+            self.pool = PagedKVAllocator(
+                cfg, block_tokens=block_tokens,
+                max_blocks_per_seq=self.blocks_per_seq,
+                capacity_blocks=self.blocks_per_seq if tight else full,
+                budget_blocks=full, accountant=self.accountant)
+        else:
+            self.pool = KVBlockPool(cfg, block_tokens=block_tokens,
+                                    max_blocks=2**30,
+                                    accountant=self.accountant)
         self.registry = registry or ConfRegistry()
         # block-level sliding-window eviction: only when EVERY attention
         # layer is windowed (a single global layer needs the whole history)
         kinds = {k.split("+")[0] for k in cfg.block_pattern}
-        self._window_evict = (opts.window_evict and kinds <= {"swa", "local"}
+        self._window_evict = (self.paged and opts.window_evict
+                              and kinds <= {"swa", "local"}
                               and bool(cfg.window))
 
         # engine state
@@ -243,11 +262,16 @@ class ServeEngine:
         self._tick_decode_slots = 0
 
         # device-resident hot state; the host keeps positions and counters
-        self.caches = zoo.init_paged_cache(cfg, self.pool.capacity,
-                                           block_tokens, device)
-        self._bt_np = np.full((max_batch, self.blocks_per_seq), -1, np.int32)
-        self._bt_dev = self._dev(self._bt_np)
-        self._bt_dirty = False
+        if self.paged:
+            self.caches = zoo.init_paged_cache(cfg, self.pool.capacity,
+                                               block_tokens, device)
+            self._bt_np = np.full((max_batch, self.blocks_per_seq), -1,
+                                  np.int32)
+            self._bt_dev = self._dev(self._bt_np)
+            self._bt_dirty = False
+        else:
+            # no ring margin: speculation, which needs one, is not ported
+            self.caches = zoo.init_cache(cfg, max_batch, cache_len, device)
         self.slot_pos = np.full((max_batch,), -1, np.int64)
         self._slot_tok = torch.zeros(max_batch, dtype=torch.int32,
                                      device=device)
@@ -419,7 +443,8 @@ class ServeEngine:
             "decode_tokens": self._tick_decode,
             "kv_used_blocks": self.pool.used_blocks,
             "kv_budget_blocks": self.pool.max_blocks,
-            "kv_capacity_blocks": self.pool.capacity,
+            "kv_capacity_blocks": getattr(self.pool, "capacity",
+                                          self.pool.max_blocks),
             "kv_over_budget": self.pool.over_budget,
             "kv_frag_tokens": self.pool.frag_tokens,
             "preemptions": self.preemptions,
@@ -457,7 +482,7 @@ class ServeEngine:
         self.sc_kv.set_perf(
             hbm, self._sense("kv_used_blocks", float(self.pool.used_blocks)))
         self.pool.set_budget(max(1, int(self.sc_kv.get_conf())))
-        if self.pool.over_budget:
+        if self.paged and self.pool.over_budget:
             # the budget bit below occupancy: make the cut physical
             self._enforce_kv_budget()
         if self.sc_chunk is not None:
@@ -547,14 +572,17 @@ class ServeEngine:
             self._admit_counter += 1
             req.lease = lease
             req.prefilled = 0
-            self._bt_np[req.slot] = lease.table_row()
-            self._bt_dirty = True
+            if self.paged:
+                self._bt_np[req.slot] = lease.table_row()
+                self._bt_dirty = True
             self.prefilling[req.slot] = req
 
     def _lease_for(self, need: int):
         """Acquire the request's KV lease (no prefix cache yet: nothing is
         shared, so no copy-on-write pairs arise).  Returns the lease, or
         None when the budget cannot hold the request."""
+        if not self.paged:
+            return self.pool.lease(need)
         T = self.pool.block_tokens
         fresh = -(-need // T)
         if self.pool.free_blocks < fresh:
@@ -590,10 +618,12 @@ class ServeEngine:
         return self._bt_dev
 
     def set_kv_budget(self, blocks: int) -> None:
-        """Manual ``serve.kv_block_budget`` actuation (benchmarks / ops):
-        preempts past occupancy and physically resizes the block store."""
+        """Manual ``serve.kv_block_budget`` actuation (benchmarks / ops).
+        Paged: preempts past occupancy and physically resizes the block
+        store.  Dense: moves the ledger's budget only."""
         self.pool.set_budget(blocks)
-        self._enforce_kv_budget()
+        if self.paged:
+            self._enforce_kv_budget()
 
     def _enforce_kv_budget(self) -> None:
         while self.pool.over_budget and (self.running or self.prefilling):
@@ -657,8 +687,9 @@ class ServeEngine:
             req.lease = None
         self._free_slots.append(slot)
         self.slot_pos[slot] = -1
-        self._bt_np[slot] = -1
-        self._bt_dirty = True
+        if self.paged:
+            self._bt_np[slot] = -1
+            self._bt_dirty = True
         req.slot = None
         self.recompute_tokens += req.prefilled + req.gen_count
         req.prefilled = 0
@@ -684,15 +715,35 @@ class ServeEngine:
             return 0.0
         return 1.0 - self.prefill_live_tokens / self.prefill_issued_tokens
 
-    def _write_plan(self, seg: np.ndarray, pos: np.ndarray,
-                    valid: np.ndarray | None = None):
-        """The step's K/V write plan, selected on the host (no device
-        synchronise) and uploaded."""
-        plan = blocks.paged_write_plan(
-            torch.from_numpy(seg), torch.from_numpy(pos),
-            torch.from_numpy(self._bt_np), self.pool.block_tokens,
-            valid=None if valid is None else torch.from_numpy(valid))
+    def _upload(self, plan):
+        """A write plan (a tuple of index tensors, or one per ring length)
+        made on the host, copied to the engine's device."""
+        if isinstance(plan, dict):
+            return {n: self._upload(p) for n, p in plan.items()}
         return tuple(t.to(self.device) for t in plan)
+
+    def _packed_plan(self, slot_id, pos, start, seg_len):
+        """The packed step's K/V write plan, selected on the host (no
+        device synchronise) and uploaded."""
+        slot_id, pos = torch.from_numpy(slot_id), torch.from_numpy(pos)
+        if self.paged:
+            return self._upload(blocks.paged_write_plan(
+                slot_id, pos, torch.from_numpy(self._bt_np),
+                self.pool.block_tokens))
+        return self._upload(zoo.dense_packed_plans(
+            self.caches, slot_id, pos, torch.from_numpy(start),
+            torch.from_numpy(seg_len)))
+
+    def _step_plan(self, pos: np.ndarray, active: np.ndarray):
+        """The decode step's K/V write plan for the ``active`` rows, made
+        on the host and uploaded."""
+        pos_t, act = torch.from_numpy(pos), torch.from_numpy(active)
+        if self.paged:
+            return self._upload(blocks.paged_write_plan(
+                torch.arange(self.max_batch, dtype=torch.int32), pos_t,
+                torch.from_numpy(self._bt_np), self.pool.block_tokens,
+                valid=act))
+        return self._upload(zoo.dense_step_plans(self.caches, pos_t, act))
 
     def _tick_unified(self) -> int:
         """ONE ``step_packed`` dispatch advances the whole engine: prefill
@@ -755,7 +806,7 @@ class ServeEngine:
             gidx[slot] = min(req.gen_count, self.cache_len)  # ==len => trash
             decoders.append((slot, req))
             cursor += 1
-        plan = self._write_plan(slot_id, posw)
+        plan = self._packed_plan(slot_id, posw, start, seg_len)
         t_disp = self.clock()
         self._step_unified(self._dev(tokens), self._dev(slot_id),
                            self._dev(posw), self._dev(start),
@@ -802,7 +853,8 @@ class ServeEngine:
         tokens = torch.where(is_dec[None, :], self._slot_tok[safe][None, :],
                              tokens)
         logits = zoo.step_packed(self.cfg, self.params, self.caches, tokens,
-                                 slot_id, pos, start, seg_len, self._bt(),
+                                 slot_id, pos, start, seg_len,
+                                 self._bt() if self.paged else None,
                                  plan=plan)
         nxt = logits.argmax(dim=-1).to(torch.int32)
         # sample every segment that completed a row this tick
@@ -818,15 +870,15 @@ class ServeEngine:
             active[slot] = True
             gidx[slot] = min(req.gen_count, self.cache_len)  # ==len => trash
         pos = np.maximum(self.slot_pos, 0).astype(np.int32)
-        plan = self._write_plan(np.arange(self.max_batch, dtype=np.int32),
-                                pos, active)
+        plan = self._step_plan(pos, active)
         active_d, pos_d, gidx_d = (self._dev(active), self._dev(pos),
                                    self._dev(gidx))
         # the decode-only latency sensor wraps just the dispatch + device
         # wait: the sc_chunk controller sees decode compute, not host work
         with self.decode_latency.measure():
             logits = zoo.decode_step(self.cfg, self.params, self.caches,
-                                     self._slot_tok, pos_d, self._bt(),
+                                     self._slot_tok, pos_d,
+                                     self._bt() if self.paged else None,
                                      active=active_d, plan=plan)
             nxt = logits.argmax(dim=-1).to(torch.int32)
             self._slot_tok = torch.where(active_d, nxt, self._slot_tok)
@@ -866,8 +918,9 @@ class ServeEngine:
                 req.lease.release()
                 req.lease = None
             self.slot_pos[slot] = -1
-            self._bt_np[slot] = -1
-            self._bt_dirty = True
+            if self.paged:
+                self._bt_np[slot] = -1
+                self._bt_dirty = True
 
     def _trim_windows(self) -> None:
         """Block-level sliding-window eviction (all-window archs only):

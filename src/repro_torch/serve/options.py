@@ -27,7 +27,8 @@ class ServeOptions:
     enable_smartconf: bool = True
     latency_goal_s: float | None = None
     prefill_mode: str = "auto"          # auto resolves to packed
-    kv_mode: str = "auto"               # auto resolves to paged
+    # auto resolves to paged on attention-only archs, dense otherwise
+    kv_mode: str = "auto"
     slo: object | None = None
     num_tiers: int = 3
     admit_tier_max: int | None = None
@@ -48,12 +49,8 @@ class ServeOptions:
             raise NotImplementedError(
                 f"prefill_mode={self.prefill_mode!r}: the split-path oracle "
                 "modes are ROADMAP Queue 1 item 5 (not ported yet)")
-        if self.kv_mode not in ("auto", "paged"):
-            if self.kv_mode != "dense":
-                raise ValueError(f"unknown kv_mode {self.kv_mode!r}")
-            raise NotImplementedError(
-                "kv_mode='dense': dense KV is ROADMAP Queue 1 item 5 (not "
-                "ported yet)")
+        if self.kv_mode not in ("auto", "paged", "dense"):
+            raise ValueError(f"unknown kv_mode {self.kv_mode!r}")
         unported = (
             (self.prefix_cache, "prefix_cache", "Queue 1 item 6"),
             (self.spec_depth > 0, "spec_depth > 0", "Queue 1 item 6"),

@@ -1,6 +1,6 @@
 """Physical block-table allocator behind the paged KV cache.
 
-Where :class:`~repro.serve.kv_cache.KVBlockPool` is a purely logical byte
+Where :class:`~repro_torch.serve.kv_cache.KVBlockPool` is a purely logical byte
 ledger over a dense ``[max_batch, cache_len]`` cache, this allocator manages
 a *real* resource: the identifier space of a physical block store
 (``[capacity, kv_heads, block_tokens, head_dim]`` device arrays per

@@ -2,7 +2,9 @@
 
 Greedy decoding is deterministic, so the two engines must emit identical
 tokens for the same weights and prompts, with at most one model dispatch
-per tick.  With SmartConf on, an injected clock and a sensor tap that
+per tick: on paged KV for attention-only archs, and on dense rings with
+RG-LRU scan state for the hybrid recurrentgemma (its default) and for
+yi-6b with ``kv_mode="dense"``.  With SmartConf on, an injected clock and a sensor tap that
 spikes the ``hbm_bytes`` reading for three ticks, the three knobs must
 follow the same trajectories and cause the same preemptions.  Features
 the port does not serve yet must raise, never be ignored.
@@ -198,7 +200,7 @@ def test_typed_rejections(prompt_len, reason):
 
 @pytest.mark.parametrize("field,value", [
     ("prefill_mode", "bucketed"), ("prefill_mode", "legacy"),
-    ("kv_mode", "dense"), ("prefix_cache", True), ("spec_depth", 2),
+    ("prefill_mode", "one_shot"), ("prefix_cache", True), ("spec_depth", 2),
     ("mesh", "2x4"), ("slo", object()), ("telemetry", object()),
     ("replicas", 2)])
 def test_unported_options_raise(field, value):
@@ -236,3 +238,149 @@ def test_launcher_prints_the_summary_line(monkeypatch):
     line = out.getvalue().strip().splitlines()[-1]
     assert line.startswith("yi-6b-smoke: 3/3 done in ")
     assert "1.00 dispatches/tick" in line and "HBM violations 0" in line
+
+
+# ---------------------------------------------- dense KV, recurrentgemma
+DENSE_PROMPTS = (5, 9, 23, 31, 45)
+
+
+def _greedy(eng, req_cls, prompts, max_new=6):
+    eng.prefill_chunk = 16
+    stats = _drive(eng, req_cls, prompts, max_new)
+    assert len(eng.finished) == len(prompts)
+    assert max(st["dispatches"] for st in stats) <= 1
+    out = ({r.req_id: list(r.generated) for r in eng.finished}, len(stats),
+           eng.model_dispatches, eng.paged)
+    eng.close()
+    return out
+
+
+@pytest.mark.parametrize("arch,kv_mode", [("recurrentgemma-9b", "auto"),
+                                          ("yi-6b", "dense")])
+def test_dense_greedy_tokens_match_jax_engine(arch, kv_mode):
+    """More requests than slots, so slots are reused: recurrentgemma under
+    default options (packed ticks, dense rings, RG-LRU state), yi-6b with
+    dense KV asked for."""
+    jcfg, jp, cfg, tp = _weights(arch)
+    prompts = _prompts(cfg, DENSE_PROMPTS)
+    want = _greedy(JServeEngine(jcfg, jp, max_batch=2, cache_len=96,
+                                enable_smartconf=False, kv_mode=kv_mode),
+                   JRequest, prompts)
+    got = _greedy(ServeEngine(cfg, tp, max_batch=2, cache_len=96,
+                              enable_smartconf=False, kv_mode=kv_mode,
+                              device="cpu"), Request, prompts)
+    assert got == want
+    assert got[3] is False          # resolved to dense
+
+
+def test_dense_and_paged_kv_give_the_same_tokens():
+    _, _, cfg, tp = _weights("yi-6b")
+    prompts = _prompts(cfg, DENSE_PROMPTS)
+    outs = [_greedy(ServeEngine(cfg, tp, max_batch=2, cache_len=96,
+                                enable_smartconf=False, kv_mode=mode,
+                                device="cpu"), Request, prompts)
+            for mode in ("dense", "paged")]
+    assert outs[0][:3] == outs[1][:3]
+    assert [o[3] for o in outs] == [False, True]
+
+
+def test_paged_kv_refused_for_recurrent_archs():
+    _, _, cfg, tp = _weights("recurrentgemma-9b")
+    with pytest.raises(ValueError, match="paged KV"):
+        ServeEngine(cfg, tp, kv_mode="paged", device="cpu")
+
+
+def test_dense_smartconf_trajectories_match_jax_engine():
+    """recurrentgemma under a tight HBM goal and a latency goal: the three
+    knobs follow the JAX engine's trajectories, a spiked ``hbm_bytes``
+    reading cuts the dense ledger's budget (no physical resize), and the
+    tokens agree."""
+    jcfg, jp, cfg, tp = _weights("recurrentgemma-9b")
+    weights = sum(int(np.prod(x.shape)) * x.dtype.itemsize
+                  for x in jax.tree.leaves(jp))
+    prompts = _prompts(cfg, (60, 12, 70, 20, 8, 33))
+    runs = []
+    for eng_cls, req_cls, cfg_, params in ((JServeEngine, JRequest, jcfg, jp),
+                                           (ServeEngine, Request, cfg, tp)):
+        clock = Clock()
+        tick = [0]
+
+        def tap(name, value):
+            if not 3 <= tick[0] < 6:
+                return value
+            return value + {"hbm_bytes": 300_000,
+                            "decode_p99_s": 0.05}.get(name, 0)
+
+        kw = {} if eng_cls is JServeEngine else {"device": "cpu"}
+        eng = eng_cls(cfg_, params, max_batch=3, cache_len=96,
+                      hbm_budget_bytes=weights + 500_000,
+                      latency_goal_s=0.01, clock=clock, sensor_tap=tap, **kw)
+        knobs = []
+
+        def on_tick(e):
+            tick[0] += 1
+            knobs.append((e.max_queue_tokens, e.pool.max_blocks,
+                          e.prefill_chunk))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # goal-unreachable notices
+            stats = _drive(eng, req_cls, prompts, 8, clock=clock,
+                           on_tick=on_tick)
+        runs.append(dict(
+            knobs=knobs, preemptions=eng.preemptions,
+            capacity=[st["kv_capacity_blocks"] for st in stats],
+            tokens={r.req_id: list(r.generated) for r in eng.finished},
+            violations=eng.accountant.violations))
+        eng.close()
+    jax_run, port_run = runs
+    assert port_run == jax_run
+    assert len(port_run["tokens"]) == len(prompts)
+    for i in range(3):       # every knob moved
+        assert len({k[i] for k in port_run["knobs"]}) > 1
+
+
+def test_launcher_serves_recurrentgemma_on_cpu(monkeypatch):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "recurrentgemma-9b", "--device", "cpu",
+        "--requests", "3", "--max-new-tokens", "3"])
+    out = io.StringIO()
+    with redirect_stdout(out), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        launch_serve.main()
+    line = out.getvalue().strip().splitlines()[-1]
+    assert line.startswith("recurrentgemma-9b-smoke: 3/3 done in ")
+    assert "1.00 dispatches/tick" in line and "kv[dense]" in line
+
+
+@pytest.mark.parametrize("headroom_gb", [1.0, 2.2])
+def test_hbm_goal_near_the_weights_admits_like_jax(headroom_gb):
+    """recurrentgemma-9b's 20.9 GB of weights with an HBM goal of weights
+    plus 1 GB or 2.2 GB, scaled to the reduced model: SmartConf steers to
+    0.95 of a hard goal, so at 1 GB both engines pin the queue and KV
+    knobs to their floors and admit nothing; at 2.2 GB both serve."""
+    jcfg, jp, cfg, tp = _weights("recurrentgemma-9b")
+    weights = sum(int(np.prod(x.shape)) * x.dtype.itemsize
+                  for x in jax.tree.leaves(jp))
+    budget = int(weights * (1 + headroom_gb / 20.89))
+    prompts = _prompts(cfg, (20, 20, 20, 20))
+    runs = []
+    for eng_cls, req_cls, cfg_, params, kw in (
+            (JServeEngine, JRequest, jcfg, jp, {}),
+            (ServeEngine, Request, cfg, tp, {"device": "cpu"})):
+        eng = eng_cls(cfg_, params, max_batch=8, cache_len=96,
+                      hbm_budget_bytes=budget, latency_goal_s=0.02,
+                      clock=Clock(), **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(req_cls(i, p, 4))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # goal-unreachable notices
+            for _ in range(30):
+                eng.tick()
+        runs.append((len(eng.finished), eng.max_queue_tokens,
+                     eng.pool.max_blocks))
+        eng.close()
+    assert runs[0] == runs[1]
+    if headroom_gb == 1.0:
+        assert runs[1] == (0, 0, 1)
+    else:
+        assert runs[1][0] == len(prompts)

@@ -1,9 +1,11 @@
-"""The port's paged attention families against the JAX package.
+"""The port's attention families against the JAX package: flat-key and
+paged segment attention, paged decode attention.
 
 Plain versions (what a CPU tensor runs) are held against both JAX oracles
 and the JAX Pallas kernels in interpret mode, on the same inputs made from
 a numpy seed: ragged segments with decode riders, MHA/GQA/MQA, a sliding
 window, f32 and bf16, out-of-order block tables with interior -1 holes,
+dense slot rings that wrapped or hold a previous occupant's stale entries,
 dead lanes (exact zeros), and live lanes no key admits (exact zeros).
 
 Tolerances: f32 ``atol=rtol=1e-5`` (the oracles scale q before the dot,
@@ -34,7 +36,8 @@ from repro_torch.kernels.paged_attention import (
     paged_decode_attention_ref, paged_gather)
 from repro_torch.kernels.segment_attention import (
     paged_segment_attention, paged_segment_attention_op,
-    paged_segment_attention_ref, segment_attention_ref)
+    paged_segment_attention_ref, segment_attention, segment_attention_op,
+    segment_attention_ref)
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -76,6 +79,7 @@ def jx():
         paged_decode_ref=paged_attention.paged_decode_attention_ref,
         paged_segment=segment_attention.paged_segment_attention,
         paged_segment_ref=segment_attention.paged_segment_attention_ref,
+        segment=segment_attention.segment_attention,
         segment_ref=segment_attention.segment_attention_ref)
 
 
@@ -121,6 +125,42 @@ def decode_case(rng, *, h, kv, d=16, t=8, m=4):
                 k_store=rng.standard_normal((n, kv, t, d)).astype(np.float32),
                 v_store=rng.standard_normal((n, kv, t, d)).astype(np.float32),
                 block_tables=tab, q_pos=q_pos)
+
+
+def flat_case(rng, *, h, kv, d=16, ring=12, p=32):
+    """The dense packed path's keys: three slots' rings flattened to one
+    axis, then the stream's own keys (k_seg = q_seg, so dead lanes admit
+    nothing).  Slot 0 prefills a chunk at 20 over a ring that wrapped
+    (it holds positions 8..19), slot 1 rides as a decode segment at 27,
+    slot 2 starts a new prompt over a previous occupant's entries (30..41),
+    which are stale (at or after its start) and masked as the model masks
+    them; dead lanes after."""
+    segs = [(0, 20, 10), (1, 27, 1), (2, 0, 5)]
+    hist = {0: np.arange(8, 20), 1: np.arange(15, 27), 2: np.arange(30, 42)}
+    ring_pos = np.full((3, ring), -1, np.int32)
+    for s, pos in hist.items():
+        pos = pos[-ring:]
+        ring_pos[s, pos % ring] = pos
+    q_pos = np.zeros(p, np.int32)
+    q_seg = np.full(p, -1, np.int32)
+    start = np.zeros(3, np.int32)
+    c = 0
+    for s, st, n in segs:
+        q_pos[c:c + n] = np.arange(st, st + n)
+        q_seg[c:c + n] = s
+        start[s] = st
+        c += n
+    assert c < p
+    stale = ring_pos >= start[:, None]
+    k_pos = np.concatenate([np.where(stale, -1, ring_pos).reshape(-1),
+                            np.where(q_seg >= 0, q_pos, -1)]).astype(np.int32)
+    k_seg = np.concatenate([np.repeat(np.arange(3), ring),
+                            q_seg]).astype(np.int32)
+    n = len(k_pos)
+    return dict(q=rng.standard_normal((p, h, d)).astype(np.float32),
+                k=rng.standard_normal((n, kv, d)).astype(np.float32),
+                v=rng.standard_normal((n, kv, d)).astype(np.float32),
+                q_pos=q_pos, k_pos=k_pos, q_seg=q_seg, k_seg=k_seg)
 
 
 def to_torch(case, dtype, device="cpu"):
@@ -183,6 +223,25 @@ def test_flat_segment_oracle_matches_jax(jx, h, kv, dtype):
     assert (got[q_seg < 0] == 0).all()
 
 
+@pytest.mark.parametrize("h,kv", HEADS)
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_segment_plain_matches_jax(jx, h, kv, window, dtype):
+    """The dense packed layout (wrapped ring, decode rider, stale entries
+    of an earlier occupant, dead lanes) against the JAX oracle and the
+    Pallas kernel in interpret mode, key tiles smaller than the key axis."""
+    case = flat_case(np.random.default_rng(h * 10 + kv + 2), h=h, kv=kv)
+    got = f32(segment_attention_op(**to_torch(case, dtype), window=window))
+    x = jx.arrays(case, dtype)
+    oracle = f32(jx.segment_ref(**x, window=window))
+    pallas = f32(jx.segment(**x, window=window, block_q=8, block_k=16,
+                            interpret=True))
+    assert_close(got, oracle, dtype, "vs JAX oracle")
+    assert_close(got, pallas, dtype, "vs Pallas (interpret)")
+    dead = case["q_seg"] < 0
+    assert dead.any() and (got[dead] == 0).all() and (pallas[dead] == 0).all()
+
+
 # -------------------------------------------------------- decode attention
 @pytest.mark.parametrize("h,kv", HEADS)
 @pytest.mark.parametrize("window", [0, 9])
@@ -229,6 +288,12 @@ def test_cpu_tensors_run_the_plain_version_without_a_launch():
     assert paged_segment_attention.launches == before
     torch.testing.assert_close(got, paged_segment_attention_ref(**case),
                                atol=0, rtol=0)
+    flat = to_torch(flat_case(np.random.default_rng(0), h=4, kv=2),
+                    "float32")
+    before = segment_attention.launches
+    torch.testing.assert_close(segment_attention_op(**flat),
+                               segment_attention_ref(**flat), atol=0, rtol=0)
+    assert segment_attention.launches == before
     dec = to_torch(decode_case(np.random.default_rng(0), h=4, kv=2),
                    "float32")
     before = paged_decode_attention.launches
@@ -256,7 +321,8 @@ def test_plain_versions_refuse_stale_indices(op, make, field):
 
 @pytest.mark.parametrize("wrapper,make", [
     (paged_segment_attention, segment_case),
-    (paged_decode_attention, decode_case)])
+    (paged_decode_attention, decode_case),
+    (segment_attention, flat_case)])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper, make):
     """A wrapper never runs the plain version: a CPU tensor is an error."""
     case = to_torch(make(np.random.default_rng(0), h=4, kv=2), "float32")
@@ -304,6 +370,31 @@ def test_segment_kernel_matches_plain_on_card(cuda, h, kv, window, dtype, d):
     assert np.allclose(got, want, atol=tol, rtol=tol)
     assert (got[case["q_seg"] < 0] == 0).all()
     assert (got[case["q_seg"] == 2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv", HEADS + [(16, 1)])
+@pytest.mark.parametrize("window", [0, 9])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("p", [32, 77])
+def test_flat_segment_kernel_matches_plain_on_card(cuda, h, kv, window, dtype,
+                                                   d, p):
+    """Against the plain version on the same CUDA tensors; 77 queries and
+    125 keys leave ragged q and key tiles."""
+    case = flat_case(np.random.default_rng(d + h + p), h=h, kv=kv, d=d,
+                     ring=31, p=p)
+    x = to_torch(case, dtype, cuda)
+    before = segment_attention.launches
+    got = f32(segment_attention(**x, window=window))
+    assert segment_attention.launches == before + 1
+    want = segment_attention_ref(
+        **{k: (v.float() if v.is_floating_point() else v)
+           for k, v in x.items()}, window=window)
+    want = f32(want.to(TORCH_DT[dtype]))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert np.allclose(got, want, atol=tol, rtol=tol)
+    assert (got[case["q_seg"] < 0] == 0).all()
 
 
 @pytest.mark.cuda
@@ -371,9 +462,14 @@ def test_ops_launch_the_kernel_on_card(cuda):
                    "float32", cuda)
     dec = to_torch(decode_case(np.random.default_rng(0), h=4, kv=2),
                    "float32", cuda)
+    flat = to_torch(flat_case(np.random.default_rng(0), h=4, kv=2),
+                    "float32", cuda)
     s0, d0 = paged_segment_attention.launches, paged_decode_attention.launches
+    f0 = segment_attention.launches
     paged_segment_attention_op(**seg)
     paged_decode_attention_op(**dec)
+    segment_attention_op(**flat)
     torch.cuda.synchronize()
     assert paged_segment_attention.launches == s0 + 1
     assert paged_decode_attention.launches == d0 + 1
+    assert segment_attention.launches == f0 + 1

@@ -1,12 +1,14 @@
 """The port's model against the JAX package, on the CPU (plain kernels).
 
-Layers (norms, RoPE, MLPs) and the two serve-path steps — ``step_packed``
-over one packed stream of prefill chunks plus length-1 decode segments,
-then ``decode_step`` — for the four attention-only, non-MoE archs at their
-``reduced()`` sizes, in f32.  Weights and block stores are the JAX
-package's, carried across with ``params_from_numpy``; block tables are out
-of order.  Logits and the block stores after each step must agree to
-``atol=1e-4``.
+Layers (norms, RoPE, MLPs, attention over positioned keys) and the two
+serve-path steps — ``step_packed`` over one packed stream of prefill
+chunks plus length-1 decode segments, then ``decode_step`` — at
+``reduced()`` sizes in f32: paged KV for the four attention-only, non-MoE
+archs (block tables out of order), dense per-slot rings for the same four
+and for the hybrid recurrentgemma (rings that wrap, RG-LRU scan state).
+Weights and caches are the JAX package's, carried across with
+``params_from_numpy``.  Logits and caches after each step must agree to
+``atol=1e-4`` (recurrentgemma's logits to ``atol=1e-4, rtol=1e-5``).
 """
 
 import jax
@@ -127,7 +129,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         zoo.init(cfg, torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b",
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny",
                                   "deepseek-moe-16b"])
 def test_unported_block_kinds_raise(arch):
     cfg = reduced(get_config(arch))
@@ -218,3 +220,135 @@ def test_store_resize_and_block_copy_match_jax(rng):
     tc = zoo.map_paged_caches(
         tc, lambda a, ax: a.index_select(ax, torch.from_numpy(keep).long()))
     _assert_stores(jc, tc)
+
+
+# ------------------------------------------------- dense rings, recurrent
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.mark.parametrize("h,kv,window", [(4, 1, 0), (4, 2, 6)])
+def test_chunk_and_decode_attention_match_jax(rng, h, kv, window):
+    """Positioned keys with unwritten (-1) and future entries; decode is
+    the one-query case."""
+    q = rng.standard_normal((2, 5, h, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 9, kv, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 9, kv, 16)).astype(np.float32)
+    k_pos = rng.integers(-1, 12, (2, 9)).astype(np.int32)
+    q_pos = np.array([[3, 4, 5, 6, 7], [7, 8, 9, 10, 11]], np.int32)
+    want = jl.chunk_attention(*map(jnp.asarray, (q, k, v)),
+                              k_pos=jnp.asarray(k_pos),
+                              q_pos=jnp.asarray(q_pos), window=window)
+    got = tl.chunk_attention(*map(torch.from_numpy, (q, k, v)),
+                             k_pos=torch.from_numpy(k_pos),
+                             q_pos=torch.from_numpy(q_pos), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    want = jl.decode_attention(*map(jnp.asarray, (q[:, :1], k, v)),
+                               k_pos=jnp.asarray(k_pos),
+                               q_pos=jnp.asarray(q_pos[:, 0]), window=window)
+    got = tl.decode_attention(*map(torch.from_numpy, (q[:, :1], k, v)),
+                              k_pos=torch.from_numpy(k_pos),
+                              q_pos=torch.from_numpy(q_pos[:, 0]),
+                              window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_recurrent_init_has_the_jax_layout():
+    """recurrentgemma's hybrid plan (groups of rglru, rglru, swa and a
+    2-layer rglru remainder) with the reference's dtypes: ba, bx and lam
+    stay f32 in a bf16 model, and the bridge keeps them so."""
+    jcfg = jax_reduced(jax_get_config("recurrentgemma-9b"), num_layers=5,
+                       dtype="bfloat16")
+    params, _ = jzoo.init(jcfg, jax.random.key(0))
+    cfg = reduced(get_config("recurrentgemma-9b"), num_layers=5,
+                  dtype="bfloat16")
+    mine = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    bridged = params_from_numpy(_np_tree(params), "cpu")
+
+    def layout(tree):
+        if isinstance(tree, dict):
+            return {k: layout(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [layout(v) for v in tree]
+        return tuple(tree.shape), str(tree.dtype).split(".")[-1]
+
+    want = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), params)
+    assert layout(mine) == layout(bridged) == want
+    assert len(mine["groups"]) == 3 and len(mine["rem"]) == 2
+    for name in ("ba", "bx", "lam"):
+        assert mine["rem"][0]["rglru"][name].dtype == torch.float32
+    assert mine["rem"][0]["rglru"]["wa"].dtype == torch.bfloat16
+    assert float(mine["groups"][0]["rglru"]["lam"].min()) == 3.0
+
+
+def _dense_ticks(cfg, jcfg, params, tp, ticks, b=3, cache_len=96):
+    """Packed ticks then a decode step with one inactive row, JAX and port
+    side by side on dense caches; asserts logits and caches after each."""
+    jc = jzoo.init_cache(jcfg, b, cache_len)
+    tc = zoo.init_cache(cfg, b, cache_len, "cpu")
+    rng = np.random.default_rng(0)
+    for segs in ticks:
+        arrays = _stream(rng, cfg, segs, 64, b)
+        jl_, jc = jzoo.step_packed(jcfg, params, jc,
+                                   *map(jnp.asarray, arrays))
+        tl_ = zoo.step_packed(cfg, tp, tc, *map(torch.from_numpy, arrays))
+        used = sorted({s for s, _, _ in segs})
+        np.testing.assert_allclose(_np(tl_)[used], np.asarray(jl_)[used],
+                                   atol=ATOL, rtol=1e-5)
+        _assert_stores(jc, tc)
+    last = {s: st + n for segs in ticks for s, st, n in segs}
+    tok = rng.integers(0, cfg.vocab_size, b).astype(np.int32)
+    pos = np.array([last[s] for s in range(b)], np.int32)
+    active = np.array([True, False, True])
+    jl_, jc = jzoo.decode_step(jcfg, params, jc, jnp.asarray(tok),
+                               jnp.asarray(pos), active=jnp.asarray(active))
+    tl_ = zoo.decode_step(cfg, tp, tc, torch.from_numpy(tok),
+                          torch.from_numpy(pos),
+                          active=torch.from_numpy(active))
+    np.testing.assert_allclose(_np(tl_)[active], np.asarray(jl_)[active],
+                               atol=ATOL, rtol=1e-5)
+    _assert_stores(jc, tc)
+    return tc
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-9b"])
+def test_dense_steps_match_jax(arch):
+    """Dense rings: a 40-token prompt wraps the windowed rings (window 32
+    reduced), chunks ride beside decode segments, a third tick restarts
+    slot 2 at position 0 over its own earlier entries (stale), then a
+    decode step with one inactive row.  recurrentgemma runs 5 layers: one
+    (rglru, rglru, swa) group and the 2-layer remainder."""
+    extra = {"num_layers": 5} if arch == "recurrentgemma-9b" else {}
+    jcfg = jax_reduced(jax_get_config(arch), **extra)
+    cfg = reduced(get_config(arch), **extra)
+    params, _ = jzoo.init(jcfg, jax.random.key(1))
+    tp = params_from_numpy(_np_tree(params), "cpu")
+    _dense_ticks(cfg, jcfg, params, tp,
+                 [[(0, 0, 13), (1, 0, 40), (2, 0, 4)],
+                  [(1, 40, 1), (0, 13, 30), (2, 4, 1)],
+                  [(0, 43, 1), (1, 41, 1), (2, 0, 7)]])
+
+
+def test_packed_segment_restart_resets_recurrent_state():
+    """A segment starting at position 0 in a reused slot begins from zero
+    scan state and ignores the earlier occupant's ring: its logits equal
+    a fresh cache's, and the JAX package's on a fresh cache."""
+    arch = "recurrentgemma-9b"
+    jcfg, cfg = jax_reduced(jax_get_config(arch)), reduced(get_config(arch))
+    params, _ = jzoo.init(jcfg, jax.random.key(1))
+    tp = params_from_numpy(_np_tree(params), "cpu")
+    rng = np.random.default_rng(4)
+    first = _stream(rng, cfg, [(0, 0, 21)], 32, 1)
+    second = _stream(rng, cfg, [(0, 0, 17)], 32, 1)
+    reused = zoo.init_cache(cfg, 1, 64, "cpu")
+    zoo.step_packed(cfg, tp, reused, *map(torch.from_numpy, first))
+    got = zoo.step_packed(cfg, tp, reused, *map(torch.from_numpy, second))
+    fresh = zoo.step_packed(cfg, tp, zoo.init_cache(cfg, 1, 64, "cpu"),
+                            *map(torch.from_numpy, second))
+    want, _ = jzoo.step_packed(jcfg, params, jzoo.init_cache(jcfg, 1, 64),
+                               *map(jnp.asarray, second))
+    np.testing.assert_allclose(_np(got), _np(fresh), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL,
+                               rtol=1e-5)
