@@ -6,21 +6,25 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
 
   1. device   — the card's name, count and power limit (no card: exit 1);
-  2. build    — nvcc builds all four kernel libraries at once; ptxas
+  2. build    — nvcc builds all five kernel libraries at once; ptxas
                 register/smem/spill lines (the flat segment kernel must not
-                spill at D = 256);
+                spill at D = 256, the RWKV-6 scan not at all);
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors: the paged ones at yi-6b shapes, the flat
                 segment one at recurrentgemma's (MQA, D 256, window 2048,
                 wrapped and stale rings), plus ragged segments, MQA/GQA/MHA,
                 small windows, holes, every head dim, f32 and bf16 (dead
                 lanes exact zeros); the RG-LRU scan from a nonzero state at
-                odd lengths and at [8, 4096, 4096];
+                odd lengths and at [8, 4096, 4096]; the RWKV-6 scan (y and
+                the final state) from a random non-symmetric state at odd
+                lengths, with strong decays and neutral pad steps, at
+                [512, 4096, 64], and threaded across a cut of 147 steps;
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes;
-  5. parity   — yi-6b (2 layers) and recurrentgemma-9b (5 layers) at full
-                width, f32, TF32 off: packed steps (prefill chunks + decode
-                riders) and a decode step on the card against the CPU;
+  5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
+                rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
+                steps (prefill chunks + decode riders) and a decode step on
+                the card against the CPU;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
                 SmartConf knobs live; then a KV budget cut must release
@@ -28,7 +32,11 @@ caught:
   7. slice    — full recurrentgemma-9b (38 layers, bf16) serves 8 requests,
                 two of them longer than its 2048-token window, through the
                 launcher's functions under default options (packed ticks,
-                dense rings, RG-LRU state), knobs live.
+                dense rings, RG-LRU state), knobs live;
+  8. slice    — full rwkv6-7b (32 layers, bf16) serves 8 requests through
+                the launcher's functions under default options (packed
+                ticks, per-slot WKV state, no rings), knobs live; then the
+                cost of the reference's B x P recurrent rows.
 
 Before the last line it prints a JSON object with every kernel's numbers,
 then the card's name and power limit; the last line is
@@ -56,12 +64,14 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_ref, paged_gather)
 from repro_torch.kernels.rglru import (rglru_ref_state,  # noqa: E402
                                        rglru_scan_state)
+from repro_torch.kernels.rwkv6 import (rwkv6_ref_state,  # noqa: E402
+                                       rwkv6_scan_state)
 from repro_torch.kernels.segment_attention import (  # noqa: E402
     paged_segment_attention, paged_segment_attention_ref, segment_attention,
     segment_attention_ref)
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
-from repro_torch.models import blocks, zoo  # noqa: E402
+from repro_torch.models import blocks, transformer, zoo  # noqa: E402
 from repro_torch.models.bridge import (params_from_numpy,  # noqa: E402
                                        tree_leaves, tree_map)
 
@@ -88,10 +98,23 @@ RG_LOGIT_LIMIT, RG_STATE_LIMIT = 1e-3, 1e-3
 # the weights alone and nothing is admitted; weights + 2.2 GB puts it
 # ~1.05 GB above them
 RG_HEADROOM = 2.2e9
+# rwkv6-7b at its main path's settings: 64 heads of 64, a 4096-lane stream
+# over 8 slots (cache_len 4096), so the scan sees 8 x 64 rows of 4096 steps
+RWKV_H, RWKV_N, RWKV_SLOTS, RWKV_CACHE_LEN = 64, 64, 8, 4096
+RWKV_WIDTH = RWKV_CACHE_LEN
+RWKV_BH = RWKV_SLOTS * RWKV_H
+# card vs CPU on the 2-layer model, relative to the largest value: about
+# ten times the largest CPU noise floor phase 5 prints beside them (3.4e-6
+# on the logits, 1.9e-6 on the state leaves)
+RWKV_LOGIT_LIMIT, RWKV_STATE_LIMIT = 4e-5, 2e-5
+# phase 7's headroom: SmartConf's virtual goal, 0.95 of the hard one, then
+# lies ~1.4 GB above rwkv6-7b's 14.0 GB of weights
+RWKV_HEADROOM = 2.2e9
 SEG_SRC = "src/repro_torch/kernels/segment_attention/csrc/paged_segment_attention.cu"
 DEC_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLAT_SRC = "src/repro_torch/kernels/segment_attention/csrc/segment_attention.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu"
+RWKV6_SRC = "src/repro_torch/kernels/rwkv6/csrc/rwkv6_scan.cu"
 
 
 def say(*a) -> None:
@@ -243,6 +266,32 @@ def rglru_case(gen, b, s, f):
                 h0=torch.randn(b, f, generator=gen))
 
 
+def rwkv6_prompt_lens() -> np.ndarray:
+    """rwkv6-7b's slice: 64 to 3000 tokens."""
+    return np.random.default_rng(0).integers(64, 3001, RWKV_SLOTS)
+
+
+def rwkv6_case(gen, bh, s, decay="model"):
+    """RWKV-6 scan inputs on ``gen``'s device: r, k, v at 0.5 N(0, 1),
+    logw = -exp(N(0, 1) - 1) as the reference's kernel tests draw it
+    (``strong``: down to -e^2; ``pads``: a third of the steps neutral,
+    logw = r = k = 0, as ``time_mix_chunk`` makes pad lanes), u at
+    0.3 N(0, 1) and a random non-symmetric s0."""
+    dev, n = gen.device, RWKV_N
+    r, k, v = (torch.randn(bh, s, n, generator=gen, device=dev) * 0.5
+               for _ in range(3))
+    z = torch.randn(bh, s, n, generator=gen, device=dev)
+    if decay == "strong":
+        z = (z + 2.0).clamp(max=3.0)
+    logw = -torch.exp(z - 1.0)
+    if decay == "pads":
+        pad = torch.rand(bh, s, 1, generator=gen, device=dev) < 1 / 3
+        logw, r, k = (torch.where(pad, 0.0, a) for a in (logw, r, k))
+    return dict(r=r, k=k, v=v, logw=logw,
+                u=torch.randn(bh, n, generator=gen, device=dev) * 0.3,
+                s0=torch.randn(bh, n, n, generator=gen, device=dev))
+
+
 def on(dev, case, dtype):
     return {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev))
             for k, v in case.items()}
@@ -280,6 +329,12 @@ def phase_build():
                              not in line for line in spills_256):
         fail(f"the flat segment kernel spills at D = 256: {spills_256}")
     say(f"[build] segment_attention at D = 256: {spills_256}")
+    rwkv = [line.strip() for line in _build.build_log("rwkv6_scan")
+            .splitlines() if "spill" in line]
+    if not rwkv or any("0 bytes spill stores, 0 bytes spill loads"
+                       not in line for line in rwkv):
+        fail(f"the RWKV-6 scan spills: {rwkv}")
+    say(f"[build] rwkv6_scan: {rwkv}")
 
 
 def compare(name, got, want, dtype, dead=None) -> float:
@@ -362,6 +417,7 @@ def phase_kernels(dev) -> dict:
                 errs["paged_decode_attention"] = err
     errs["segment_attention"] = phase_kernels_flat(dev, gen)
     errs["rglru_scan_state"] = phase_kernels_rglru(dev, gen)
+    errs["rwkv6_scan_state"] = phase_kernels_rwkv6(dev)
     return errs
 
 
@@ -418,6 +474,50 @@ def phase_kernels_rglru(dev, gen) -> float:
         if s == RG_WIDTH:
             main_err = err
         del x, h, h_out, want_h, want_out
+    torch.cuda.empty_cache()
+    return main_err
+
+
+def phase_kernels_rwkv6(dev) -> float:
+    """The RWKV-6 scan against its plain version, y and s_out, from a
+    random non-symmetric s0 with a random u: odd lengths, strong decays,
+    neutral pad steps, the main [512, 4096, 64]; then two launches split
+    at step 147 (not a multiple of 32), threading s_out, against one."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    main_err = 0.0
+    for name, s, decay in (("S1", 1, "model"), ("S7", 7, "model"),
+                           ("S33", 33, "model"), ("S129", 129, "model"),
+                           ("strong", 129, "strong"), ("pads", 129, "pads"),
+                           ("main", RWKV_WIDTH, "model")):
+        x = rwkv6_case(gen, RWKV_BH, s, decay)
+        y, s_out = rwkv6_scan_state(**x)
+        torch.cuda.synchronize()
+        want_y, want_s = rwkv6_ref_state(**x)
+        err = max(compare(f"rwkv6_scan_state/{name} [{RWKV_BH}, {s}, "
+                          f"{RWKV_N}] y", y, want_y, torch.float32),
+                  compare(f"rwkv6_scan_state/{name} s_out", s_out, want_s,
+                          torch.float32))
+        if name == "main":
+            main_err = err
+        del x, y, s_out, want_y, want_s
+    x = rwkv6_case(gen, RWKV_BH, 300)
+    cut = 147
+    y, s_out = rwkv6_scan_state(**x)
+    head = {n: (a[:, :cut].contiguous() if a.dim() == 3 and n != "s0"
+                else a) for n, a in x.items()}
+    tail = {n: (a[:, cut:].contiguous() if a.dim() == 3 and n != "s0"
+                else a) for n, a in x.items()}
+    y1, s1 = rwkv6_scan_state(**head)
+    y2, s2 = rwkv6_scan_state(**dict(tail, s0=s1))
+    torch.cuda.synchronize()
+    compare(f"rwkv6_scan_state/split at {cut} y", torch.cat([y1, y2], 1), y,
+            torch.float32)
+    compare(f"rwkv6_scan_state/split at {cut} s_out", s2, s_out,
+            torch.float32)
+    want_y, want_s = rwkv6_ref_state(**x)
+    name = f"rwkv6_scan_state/[{RWKV_BH}, 300, {RWKV_N}]"
+    compare(f"{name} y", y, want_y, torch.float32)
+    compare(f"{name} s_out", s_out, want_s, torch.float32)
     torch.cuda.empty_cache()
     return main_err
 
@@ -553,6 +653,7 @@ def phase_timing(dev, card) -> dict:
     del k, v, kf, vf, mask, x
     out["segment_attention"] = timing_flat(dev, gen)
     out["rglru_scan_state"] = timing_rglru(dev, gen)
+    out["rwkv6_scan_state"] = timing_rwkv6(dev)
     torch.cuda.empty_cache()
     for name, r in out.items():
         lib = ("null (" + r["library_note"] + ")" if r["library_ms"] is None
@@ -633,6 +734,32 @@ def timing_rglru(dev, gen) -> dict:
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 shapes=f"f32 [{b}, {s}, {f}]")
+
+
+def timing_rwkv6(dev) -> dict:
+    """The RWKV-6 scan at [512, 4096, 64] f32 (a full-width mixed tick's
+    rows: 8 slots x 64 heads, 4096 steps).  No PyTorch call computes this
+    recurrence, so there is no library time."""
+    x = rwkv6_case(torch.Generator(device=dev).manual_seed(4), RWKV_BH,
+                   RWKV_WIDTH)
+    bh, s, n = x["r"].shape
+    # r, k, v, logw in and y out; u; s0 in and s_out out
+    nbytes = (5 * bh * s * n + bh * n + 2 * bh * n * n) * 4
+    # per (row, step): 2 N^2 for r . S, 3 N^2 for S <- w S + k v^T, 3 N for
+    # sum r u k, 2 N to add it times v to y, N exps
+    ops = bh * s * (5 * n * n + 6 * n)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    r = dict(ms=time_ms(lambda: rwkv6_scan_state(**x)),
+             plain_ms=time_ms(lambda: rwkv6_ref_state(**x), iters=2,
+                              warmup=1),
+             library_ms=None,
+             library_note="no PyTorch call computes the recurrence",
+             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             shapes=f"f32 [{bh}, {s}, {n}] ({nbytes / 1e9:.3f} GB, "
+                    f"{ops / 1e9:.1f} GFLOP)")
+    del x
+    return r
 
 
 def phase_parity(dev, card):
@@ -799,6 +926,75 @@ def phase_parity_rg(dev, card):
             f"{rel(a, f):.3e}); max|x| {float(a.abs().max()):.1f}")
     if not worst <= RG_LOGIT_LIMIT or not serr <= RG_STATE_LIMIT:
         fail("card and CPU disagree on recurrentgemma logits or caches")
+
+
+def phase_parity_rwkv6(dev, card):
+    """Full-width rwkv6-7b, 2 layers, f32, TF32 off: two packed steps
+    (prefill chunks, then chunks beside decode riders) and a decode step
+    with one idle row, card against CPU, on logits and every state leaf;
+    beside it the CPU against itself with every weight multiplied by
+    1 + 1e-7 N(0, 1).  The bonus u and the decay base w0 are drawn at
+    random in place of their constant initial values (0 and -6, a decay
+    of ~0.9975), so the bonus and a spread of decays are exercised."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=2,
+                              dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    params = zoo.init(cfg, gen, "cpu")
+    tm = params["groups"][0]["tm_cm"]
+    tm["u"].normal_(0.0, 0.5, generator=gen)
+    tm["w0"].uniform_(-3.0, 1.0, generator=gen)
+    b, cache = 4, 256
+    ticks = [[(0, 0, 24), (1, 0, 9), (2, 0, 28), (3, 0, 3)],
+             [(0, 24, 20), (1, 9, 1), (2, 28, 30), (3, 3, 1)]]
+
+    def run(p, d):
+        caches = zoo.init_cache(cfg, b, cache, d)
+        rng = np.random.default_rng(1)
+        logits = []
+        for segs in ticks:
+            arrays = packed_arrays(rng, cfg.vocab_size, segs, 64, b)
+            logits.append(zoo.step_packed(
+                cfg, p, caches, *(torch.from_numpy(a).to(d) for a in arrays)))
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)
+                               .astype(np.int32)).to(d)
+        dpos = torch.tensor([44, 10, 58, 4], dtype=torch.int32, device=d)
+        active = torch.tensor([True, True, False, True], device=d)
+        logits.append(zoo.decode_step(cfg, p, caches, tok, dpos,
+                                      active=active)[active])
+        return ([lg.cpu() for lg in logits],
+                {n: a.cpu() for n, a in caches["groups"][0].items()})
+
+    def rel(a, b):
+        return float((a - b).abs().max() / a.abs().max())
+
+    got = run(tree_map(lambda t: t.to(dev), params), dev)
+    torch.cuda.empty_cache()
+    cpu = run(params, torch.device("cpu"))
+    noise = torch.Generator().manual_seed(2)
+    for t in tree_leaves(params):
+        t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=noise))
+    floor = run(params, torch.device("cpu"))
+    del params
+    worst = 0.0
+    for i, (lc, lg, ln) in enumerate(zip(cpu[0], got[0], floor[0])):
+        err = rel(lc, lg)
+        worst = max(worst, err)
+        say(f"[parity] rwkv6-7b 2 layers f32, step {i + 1} "
+            f"({'step_packed' if i < 2 else 'decode_step'}): max|dlogit| / "
+            f"max|logit| = {err:.3e} (limit {RWKV_LOGIT_LIMIT:g}; CPU noise "
+            f"floor {rel(lc, ln):.3e}) on {card}")
+    serr = 0.0
+    for name in cpu[1]:
+        a, g, f = cpu[1][name], got[1][name], floor[1][name]
+        serr = max(serr, rel(a, g))
+        say(f"[parity] rwkv6 {name} (both layers) after the three steps: "
+            f"max|err| / max|x| = {rel(a, g):.3e} (limit "
+            f"{RWKV_STATE_LIMIT:g}; CPU noise floor {rel(a, f):.3e}); "
+            f"max|x| {float(a.abs().max()):.1f}")
+    if not worst <= RWKV_LOGIT_LIMIT or not serr <= RWKV_STATE_LIMIT:
+        fail("card and CPU disagree on rwkv6-7b logits or state")
 
 
 def phase_slice(dev, card) -> dict:
@@ -976,7 +1172,99 @@ def phase_rg_slice(dev, card) -> dict:
         fail(f"a kernel of the path never launched: {launches}")
     if not all(len(set(v)) > 1 for v in knobs.values()):
         fail("a SmartConf knob never moved")
-    rows_cost(eng, card)
+    rows_cost(eng, card, "rglru", "rg-slice")
+    eng.close()
+    return launches
+
+
+def phase_rwkv6_slice(dev, card) -> dict:
+    """Full rwkv6-7b bf16 through the launcher's own functions, default
+    options (packed ticks, per-slot WKV state, no rings); then the cost of
+    the B x P recurrent rows on a full-width tick."""
+    cfg = get_config("rwkv6-7b")
+    lens = rwkv6_prompt_lens()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    new_tokens = 32
+    eng = build_engine(cfg, max_batch=RWKV_SLOTS, cache_len=RWKV_CACHE_LEN,
+                       budget_headroom_bytes=RWKV_HEADROOM,
+                       latency_goal_s=0.02, device=dev, seed=0)
+    kv = "paged" if eng.paged else "dense"
+    rings = transformer.ring_lens(eng.caches)
+    say(f"[rwkv6-slice] {cfg.name} bf16, {cfg.num_layers} layers, weights "
+        f"{eng.accountant.breakdown()['weights'] / 1e9:.3f} GB, HBM goal "
+        f"{eng.accountant.budget_bytes / 1e9:.3f} GB; kv[{kv}], rings "
+        f"{sorted(rings)}, KV block bytes {eng.pool.block_bytes}, prefill "
+        f"[{eng.prefill_impl}]; prompts {lens.tolist()}, {new_tokens} new "
+        "tokens each")
+    if eng.paged or rings or eng.prefill_impl != "packed":
+        fail("default options did not resolve to packed ticks on recurrent "
+             "state alone")
+    knobs = {"serve.max_queue_tokens": [eng.max_queue_tokens],
+             "serve.kv_block_budget": [eng.pool.max_blocks],
+             "serve.prefill_chunk_tokens": [eng.prefill_chunk]}
+    tick_s = {"mixed": [], "decode-only": []}
+    last = [0.0]
+
+    def on_tick(e, st):
+        knobs["serve.max_queue_tokens"].append(e.max_queue_tokens)
+        knobs["serve.kv_block_budget"].append(e.pool.max_blocks)
+        knobs["serve.prefill_chunk_tokens"].append(e.prefill_chunk)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        kind = "mixed" if st["prefill_issued_tokens"] else "decode-only"
+        tick_s[kind].append(now - last[0])
+        last[0] = now
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    rwkv6_scan_state.launches = 0
+    t0 = last[0] = time.perf_counter()
+    stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rwkv6_scan_state": rwkv6_scan_state.launches}
+    say("[rwkv6-slice] " + summary(eng, len(prompts), len(stats)))
+    n_done = len(eng.finished)
+    max_disp = max(st["dispatches"] for st in stats)
+    gen_tokens = sum(len(r.generated) for r in eng.finished)
+    n_mixed = len(tick_s["mixed"])
+    say(f"[rwkv6-slice] finished {n_done}/{len(prompts)} in {len(stats)} "
+        f"ticks ({n_mixed} mixed); max dispatches/tick {max_disp}; HBM "
+        f"violations {eng.accountant.violations}; preemptions "
+        f"{eng.preemptions}; kernel launches {launches} = "
+        f"{launches['rwkv6_scan_state'] / max(1, n_mixed):g} RWKV-6 per "
+        "mixed tick")
+    for k, vals in knobs.items():
+        say(f"[rwkv6-slice] knob {k}: {vals[0]} -> {vals[-1]}, distinct "
+            f"values {len(set(vals))}, trajectory {runs(vals)}")
+    say(f"[rwkv6-slice] device memory: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
+        f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+    say(f"[rwkv6-slice] on {card}: {gen_tokens} tokens in {wall:.3f} s = "
+        f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
+        f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
+        f"{eng.ttft.p99() * 1e3:.1f} ms")
+    for kind, ts in tick_s.items():
+        if ts:
+            say(f"[rwkv6-slice] {kind} ticks on {card}: {len(ts)}, mean "
+                f"{np.mean(ts) * 1e3:.1f} ms, first {ts[0] * 1e3:.1f} ms, "
+                f"max {max(ts) * 1e3:.1f} ms")
+    if n_done != len(prompts):
+        fail("not every request finished")
+    for r in eng.finished:
+        g = np.asarray(r.generated)
+        if len(g) != new_tokens or g.min() < 0 or g.max() >= cfg.vocab_size:
+            fail(f"request {r.req_id} generated {g!r}")
+    if max_disp > 1:
+        fail("more than one model dispatch in a tick")
+    if eng.accountant.violations:
+        fail("the HBM goal was violated")
+    if not n_mixed or launches["rwkv6_scan_state"] != cfg.num_layers * n_mixed:
+        fail(f"expected {cfg.num_layers} RWKV-6 launches per mixed tick, got "
+             f"{launches} in {n_mixed} mixed ticks")
+    if not all(len(set(v)) > 1 for v in knobs.values()):
+        fail("a SmartConf knob never moved")
+    rows_cost(eng, card, "rwkv6", "rwkv6-slice")
     eng.close()
     return launches
 
@@ -992,36 +1280,40 @@ def runs(vals) -> str:
     return ", ".join(f"{v} (x{n})" if n > 1 else f"{v}" for v, n in out)
 
 
-def rows_cost(eng, card) -> None:
+def rows_cost(eng, card, kind: str, tag: str) -> None:
     """What the reference's B x P recurrent rows cost on a full-width tick:
-    one rglru layer over a 4096-lane stream of 8 segments (8 x 4096 rows
-    through the layer) against the same 4096 tokens as one row, on a
-    scratch copy of the layer's state."""
+    one ``kind`` layer over a stream as wide as the engine's packed width,
+    cut into one segment per slot (slots x width rows through the layer),
+    against the same tokens as one row, on a scratch copy of the layer's
+    state; then times the arch's number of such layers."""
     cfg = eng.cfg
-    p = tree_map(lambda t: t[0], eng.params["groups"][0])
-    state = tree_map(lambda t: t[0].clone(), eng.caches["groups"][0])
-    n = RG_WIDTH // RG_SLOTS
+    j = list(cfg.block_pattern).index(kind)
+    p = tree_map(lambda t: t[0], eng.params["groups"][j])
+    state = tree_map(lambda t: t[0].clone(), eng.caches["groups"][j])
+    slots, width = eng.max_batch, eng.packed_width
+    n = width // slots
+    layers = sum(k == kind for k in (cfg.block_pattern * cfg.num_layers)
+                 [:cfg.num_layers])
     dev = eng.device
-    slot = torch.arange(RG_SLOTS, dtype=torch.int32,
+    slot = torch.arange(slots, dtype=torch.int32,
                         device=dev).repeat_interleave(n)
-    pos = torch.arange(n, dtype=torch.int32, device=dev).repeat(RG_SLOTS)
-    start = torch.zeros(RG_SLOTS, dtype=torch.int32, device=dev)
-    seg_len = torch.full((RG_SLOTS,), n, dtype=torch.int32, device=dev)
-    x = torch.randn(1, RG_WIDTH, cfg.d_model, device=dev,
-                    dtype=torch.bfloat16)
+    pos = torch.arange(n, dtype=torch.int32, device=dev).repeat(slots)
+    start = torch.zeros(slots, dtype=torch.int32, device=dev)
+    seg_len = torch.full((slots,), n, dtype=torch.int32, device=dev)
+    x = torch.randn(1, width, cfg.d_model, device=dev, dtype=torch.bfloat16)
     one = tree_map(lambda t: t[:1].clone(), state)
-    t_pos = torch.arange(RG_WIDTH, dtype=torch.int32, device=dev)[None]
+    t_pos = torch.arange(width, dtype=torch.int32, device=dev)[None]
     packed = time_ms(lambda: blocks.block_apply_packed(
-        cfg, "rglru", p, x, pos, slot, start, seg_len, state), iters=5,
+        cfg, kind, p, x, pos, slot, start, seg_len, state), iters=5,
         warmup=1)
     row = time_ms(lambda: blocks.block_apply_chunk(
-        cfg, "rglru", p, x, t_pos, torch.ones_like(t_pos, dtype=torch.bool),
+        cfg, kind, p, x, t_pos, torch.ones_like(t_pos, dtype=torch.bool),
         one), iters=5, warmup=1)
-    say(f"[rg-slice] B x P recurrent rows on {card}: one rglru layer over a "
-        f"{RG_WIDTH}-lane stream of {RG_SLOTS} segments takes {packed:.3f} ms "
-        f"({RG_SLOTS} x {RG_WIDTH} rows) against {row:.3f} ms for the same "
-        f"tokens as one row; x 26 layers: {26 * packed:.1f} ms against "
-        f"{26 * row:.1f} ms per full-width mixed tick")
+    say(f"[{tag}] B x P recurrent rows on {card}: one {kind} layer over a "
+        f"{width}-lane stream of {slots} segments takes {packed:.3f} ms "
+        f"({slots} x {width} rows) against {row:.3f} ms for the same "
+        f"tokens as one row; x {layers} layers: {layers * packed:.1f} ms "
+        f"against {layers * row:.1f} ms per full-width mixed tick")
 
 
 def main() -> None:
@@ -1032,9 +1324,12 @@ def main() -> None:
     timing = phase_timing(dev, card)
     phase_parity(dev, card)
     phase_parity_rg(dev, card)
+    phase_parity_rwkv6(dev, card)
     launches = phase_slice(dev, card)
     torch.cuda.empty_cache()
     launches.update(phase_rg_slice(dev, card))
+    torch.cuda.empty_cache()
+    launches.update(phase_rwkv6_slice(dev, card))
     meta = {
         "paged_segment_attention": (
             SEG_SRC,
@@ -1046,6 +1341,8 @@ def main() -> None:
             "src/repro/kernels/segment_attention/segment_attention.py:104"),
         "rglru_scan_state": (
             RGLRU_SRC, "src/repro/kernels/rglru/rglru.py:56"),
+        "rwkv6_scan_state": (
+            RWKV6_SRC, "src/repro/kernels/rwkv6/rwkv6.py:85"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

@@ -32,6 +32,7 @@ SOURCES = {
     "segment_attention": _KERNELS / "segment_attention" / "csrc"
     / "segment_attention.cu",
     "rglru_scan": _KERNELS / "rglru" / "csrc" / "rglru_scan.cu",
+    "rwkv6_scan": _KERNELS / "rwkv6" / "csrc" / "rwkv6_scan.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

@@ -6,13 +6,14 @@ Kinds served so far (``ArchConfig.block_pattern`` entries):
   ``local``   same as swa (gemma3 local layers)
   ``global``  full attention with the long-context rope theta (gemma3)
   ``rglru``   RG-LRU recurrent block + FFN (recurrentgemma)
-``rwkv6`` and the ``+moe`` FFN are not ported yet and raise
-``NotImplementedError``.
+  ``rwkv6``   RWKV-6 time mix + channel mix (attention-free, rwkv6-7b)
+The ``+moe`` FFN is not ported yet and raises ``NotImplementedError``.
 
 Attention K/V lives either in the paged block store ``[N, Kv, T, D]``
 shared by all sequences through block tables, or in dense per-slot rings
 ``{k, v: [B, n, Kv, D], pos: [B, n]}`` (windowed kinds keep ``n =
-window``).  Recurrent kinds keep per-slot scan state ``{h, conv}``.  Apply
+window``).  Recurrent kinds keep per-slot scan state: ``{h, conv}`` for
+rglru, ``{S, tm_last, cm_last}`` for rwkv6.  Apply
 functions update caches and state **in place** (the reference donates and
 returns them) and return the new activations.  Writes that the reference
 drops (``mode="drop"``) are left out of a write plan the caller computes
@@ -25,12 +26,13 @@ import torch
 
 from . import layers
 from . import rglru as rglru_lib
+from . import rwkv6 as rwkv6_lib
 from .layers import apply_norm, norm_init, project, rope
 
 ATTN_KINDS = ("full", "swa", "local", "global", "bidir")
-# kinds the reference's chunked/packed prefill serves (recurrent ones via
-# scan state); the port serves all but rwkv6
-CHUNKABLE_KINDS = ATTN_KINDS + ("rwkv6", "rglru")
+RECURRENT_KINDS = ("rwkv6", "rglru")
+# kinds the chunked/packed prefill serves (recurrent ones via scan state)
+CHUNKABLE_KINDS = ATTN_KINDS + RECURRENT_KINDS
 
 
 def split_kind(kind: str) -> tuple[str, bool]:
@@ -41,15 +43,11 @@ def split_kind(kind: str) -> tuple[str, bool]:
 
 def _check_ported(kind: str) -> str:
     base, is_moe = split_kind(kind)
-    if base == "rwkv6":
-        raise NotImplementedError(
-            f"block kind {kind!r}: rwkv6 is ROADMAP Queue 1 item 8 (not "
-            "ported yet)")
     if is_moe:
         raise NotImplementedError(
             f"block kind {kind!r}: MoE is ROADMAP Queue 1 item 7 (not "
             "ported yet)")
-    if base not in ATTN_KINDS + ("rglru",):
+    if base not in CHUNKABLE_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     return base
 
@@ -70,6 +68,11 @@ def block_init(cfg, kind: str, dtype, device, generator,
         return {k: v.expand(lead + v.shape).clone()
                 for k, v in norm_init(cfg.norm, d, dtype, device).items()}
 
+    if base == "rwkv6":       # its own channel mix takes the FFN's place
+        return {"ln1": norm(),
+                "tm_cm": rwkv6_lib.rwkv6_init(cfg, dtype, device, generator,
+                                              lead),
+                "ln2": norm()}
     params = {"ln1": norm()}
     if base == "rglru":
         params["rglru"] = rglru_lib.rglru_init(cfg, dtype, device, generator,
@@ -107,11 +110,13 @@ def block_cache_init(cfg, kind: str, batch: int, seq_len: int, device,
                      lead: tuple[int, ...] = ()) -> dict:
     """One layer's dense cache with ``lead`` stacking dims: ``{k, v:
     [B, n, Kv, D], pos: [B, n] int32 (-1 = unwritten)}`` for attention
-    kinds, ``{h: [B, dr], conv: [B, W-1, dr]}`` (f32) for rglru."""
+    kinds, ``{h: [B, dr], conv: [B, W-1, dr]}`` (f32) for rglru, ``{S:
+    [B, H, 64, 64] f32, tm_last, cm_last: [B, d]}`` for rwkv6."""
     base = _check_ported(kind)
-    if base == "rglru":
+    if base in RECURRENT_KINDS:
+        lib = rglru_lib if base == "rglru" else rwkv6_lib
         return {k: v.expand(lead + v.shape).contiguous() for k, v in
-                rglru_lib.init_state(cfg, batch, device).items()}
+                lib.init_state(cfg, batch, device).items()}
     n = cache_len_for(cfg, kind, seq_len)
     shape = lead + (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim)
     dt = layers.torch_dtype(cfg.dtype)
@@ -251,9 +256,9 @@ def block_apply_chunk(cfg, kind: str, params: dict, x, pos, valid, cache):
     updated in place.  A row whose chunk starts at position 0 begins a
     prompt in a (possibly reused) slot: its state restarts from zero
     (attention masks an earlier occupant by position; recurrent state has
-    no positions).  Only the recurrent kinds the port serves come here."""
+    no positions).  Only the recurrent kinds come here."""
     base = _check_ported(kind)
-    if base != "rglru":
+    if base not in RECURRENT_KINDS:
         raise ValueError(f"block_apply_chunk serves recurrent kinds, got "
                          f"{kind!r}")
     fresh = (pos[:, 0] == 0) & valid[:, 0]                       # [B]
@@ -261,10 +266,30 @@ def block_apply_chunk(cfg, kind: str, params: dict, x, pos, valid, cache):
                             torch.zeros_like(a), a)
              for n, a in cache.items()}
     h = apply_norm(cfg.norm, params["ln1"], x)
-    y, new = rglru_lib.rglru_chunk(params["rglru"], h, state, valid)
+    if base == "rglru":
+        y, new = rglru_lib.rglru_chunk(params["rglru"], h, state, valid)
+        _store_state(cache, new)
+        return _ffn(cfg, params, x + y)
+    p = params["tm_cm"]
+    y, s_new, tm_last = rwkv6_lib.time_mix_chunk(p, h, state["S"],
+                                                 state["tm_last"], valid)
+    x = x + y
+    h2 = apply_norm(cfg.norm, params["ln2"], x)
+    cm_out, cm_last = rwkv6_lib.channel_mix_chunk(p, h2, state["cm_last"],
+                                                  valid)
+    _store_state(cache, {"S": s_new, "tm_last": tm_last, "cm_last": cm_last})
+    return x + cm_out
+
+
+def _store_state(cache: dict, new: dict, active=None) -> None:
+    """Write a recurrent layer's new state into its cache in place, cast to
+    each leaf's dtype; with ``active`` ([B] bool) the other rows keep
+    theirs."""
     for n, a in new.items():
+        if active is not None:
+            a = torch.where(active.view((-1,) + (1,) * (a.dim() - 1)),
+                            a.to(cache[n].dtype), cache[n])
         cache[n].copy_(a)
-    return _ffn(cfg, params, x + y)
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +323,7 @@ def block_apply_packed(cfg, kind: str, params: dict, x, pos, slot_id, start,
 
     Segment masking means no token sees another request."""
     base = _check_ported(kind)
-    if base == "rglru":
+    if base in RECURRENT_KINDS:
         return _packed_recurrent(cfg, kind, params, x, pos, slot_id, start,
                                  seg_len, cache)
     q, k, v = _attn_qkv(cfg, base, params, x, pos[None, :])
@@ -362,17 +387,25 @@ def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
     each ring length to the rows' :func:`dense_step_plan`, and attention is
     plain torch over the ring (the reference computes it outside any
     kernel).  Either plan leaves out rows that are not decoding this tick;
-    for rglru, ``active`` ([B] bool) keeps those rows' state untouched."""
+    for the recurrent kinds, ``active`` ([B] bool) keeps those rows' state
+    untouched."""
     base = _check_ported(kind)
     if base == "rglru":
         h = apply_norm(cfg.norm, params["ln1"], x)[:, 0]
         y, new = rglru_lib.rglru_step(params["rglru"], h, cache)
-        for n, a in new.items():
-            if active is not None:
-                a = torch.where(active.view((-1,) + (1,) * (a.dim() - 1)),
-                                a.to(cache[n].dtype), cache[n])
-            cache[n].copy_(a)
+        _store_state(cache, new, active)
         return _ffn(cfg, params, x + y[:, None, :])
+    if base == "rwkv6":
+        p = params["tm_cm"]
+        h = apply_norm(cfg.norm, params["ln1"], x)[:, 0]
+        y, s_new, tm_last = rwkv6_lib.time_mix_step(p, h, cache["S"],
+                                                    cache["tm_last"])
+        x = x + y[:, None, :]
+        h2 = apply_norm(cfg.norm, params["ln2"], x)[:, 0]
+        cm_out, cm_last = rwkv6_lib.channel_mix(p, h2, cache["cm_last"])
+        _store_state(cache, {"S": s_new, "tm_last": tm_last,
+                             "cm_last": cm_last}, active)
+        return x + cm_out[:, None, :]
     q, k, v = _attn_qkv(cfg, base, params, x, pos[:, None])
     window = _window(cfg, base)
     if block_tables is not None:

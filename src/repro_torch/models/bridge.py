@@ -30,19 +30,19 @@ def tree_leaves(tree):
         yield tree
 
 
-def _tensor(a, device, dtype):
+def _tensor(a, device):
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":     # numpy extension dtype: reinterpret
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.ascontiguousarray(a).copy())
-    if dtype is not None and t.is_floating_point():
-        t = t.to(dtype)
     return t.to(device)
 
 
-def params_from_numpy(tree, device, dtype: torch.dtype | None = None):
+def params_from_numpy(tree, device):
     """Dicts, lists and tuples are walked; every leaf becomes a tensor on
-    ``device`` (floating leaves cast to ``dtype`` when given).  No
-    transposes: the port keeps the reference's layouts."""
-    return tree_map(lambda a: _tensor(a, device, dtype), tree)
+    ``device`` with the leaf's own dtype, so the leaves a model keeps in
+    f32 whatever its dtype (rglru's ``ba``, ``bx``, ``lam``; rwkv6's
+    ``w0``, ``u``) stay f32 in a bf16 tree.  No transposes: the port keeps
+    the reference's layouts."""
+    return tree_map(lambda a: _tensor(a, device), tree)

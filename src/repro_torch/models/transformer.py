@@ -7,7 +7,8 @@ position whose leaves carry a leading layer axis (``[n_groups, ...]``);
 The reference scans over the stacked axis; here a Python loop indexes it,
 so every layer's weights and cache are views into the stacked tensors,
 and the caches are updated in place.  recurrentgemma's plan, for one, is
-12 groups of (rglru, rglru, swa) and a 2-layer (rglru, rglru) remainder.
+12 groups of (rglru, rglru, swa) and a 2-layer (rglru, rglru) remainder;
+rwkv6-7b's is 32 groups of (rwkv6,).
 
 Public entry points:
     init(cfg, generator, device)        -> params
@@ -167,8 +168,9 @@ def _cache_tree(cfg, make) -> dict:
 def init_cache(cfg, batch: int, cache_len: int, device) -> dict:
     """Dense per-slot caches: a ``[batch, n, Kv, D]`` ring (``n`` the
     window for windowed kinds, ``cache_len`` otherwise) with its position
-    plane for attention layers, ``{h, conv}`` scan state for rglru layers;
-    group layers stacked ``[n_groups, batch, ...]``."""
+    plane for attention layers, ``{h, conv}`` scan state for rglru layers,
+    ``{S, tm_last, cm_last}`` for rwkv6 layers; group layers stacked
+    ``[n_groups, batch, ...]``."""
     _check_supported(cfg)
     return _cache_tree(cfg, lambda k, lead: B.block_cache_init(
         cfg, k, batch, cache_len, device, lead))

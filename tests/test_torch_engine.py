@@ -2,12 +2,14 @@
 
 Greedy decoding is deterministic, so the two engines must emit identical
 tokens for the same weights and prompts, with at most one model dispatch
-per tick: on paged KV for attention-only archs, and on dense rings with
+per tick: on paged KV for attention-only archs; on dense rings with
 RG-LRU scan state for the hybrid recurrentgemma (its default) and for
-yi-6b with ``kv_mode="dense"``.  With SmartConf on, an injected clock and a sensor tap that
-spikes the ``hbm_bytes`` reading for three ticks, the three knobs must
-follow the same trajectories and cause the same preemptions.  Features
-the port does not serve yet must raise, never be ignored.
+yi-6b with ``kv_mode="dense"``; on per-slot WKV state alone for the
+all-recurrent rwkv6-7b (its default).  With SmartConf on, an injected
+clock and a sensor tap that spikes the ``hbm_bytes`` reading for three
+ticks, the three knobs must follow the same trajectories and cause the
+same preemptions.  Features the port does not serve yet must raise,
+never be ignored.
 """
 
 import io
@@ -51,11 +53,11 @@ class Clock:
         return self.now
 
 
-def _weights(arch, seed=0):
-    jcfg = jax_reduced(jax_get_config(arch))
+def _weights(arch, seed=0, **overrides):
+    jcfg = jax_reduced(jax_get_config(arch), **overrides)
     params, _ = jzoo.init(jcfg, jax.random.key(seed))
     tp = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
-    return jcfg, params, reduced(get_config(arch)), tp
+    return jcfg, params, reduced(get_config(arch), **overrides), tp
 
 
 def _prompts(cfg, lens, seed=0):
@@ -240,8 +242,10 @@ def test_launcher_prints_the_summary_line(monkeypatch):
     assert "1.00 dispatches/tick" in line and "HBM violations 0" in line
 
 
-# ---------------------------------------------- dense KV, recurrentgemma
+# ---------------------------------------------- dense KV, recurrent archs
 DENSE_PROMPTS = (5, 9, 23, 31, 45)
+# rwkv6 has d // 64 heads: two at d 128, where plain reduced() gives one
+OVERRIDES = {"rwkv6-7b": {"d_model": 128}}
 
 
 def _greedy(eng, req_cls, prompts, max_new=6):
@@ -256,12 +260,14 @@ def _greedy(eng, req_cls, prompts, max_new=6):
 
 
 @pytest.mark.parametrize("arch,kv_mode", [("recurrentgemma-9b", "auto"),
-                                          ("yi-6b", "dense")])
+                                          ("yi-6b", "dense"),
+                                          ("rwkv6-7b", "auto")])
 def test_dense_greedy_tokens_match_jax_engine(arch, kv_mode):
-    """More requests than slots, so slots are reused: recurrentgemma under
-    default options (packed ticks, dense rings, RG-LRU state), yi-6b with
+    """More requests than slots, so slots are reused (and recurrent state
+    restarts): recurrentgemma and rwkv6-7b under default options (packed
+    ticks; dense rings and RG-LRU state, WKV state alone), yi-6b with
     dense KV asked for."""
-    jcfg, jp, cfg, tp = _weights(arch)
+    jcfg, jp, cfg, tp = _weights(arch, **OVERRIDES.get(arch, {}))
     prompts = _prompts(cfg, DENSE_PROMPTS)
     want = _greedy(JServeEngine(jcfg, jp, max_batch=2, cache_len=96,
                                 enable_smartconf=False, kv_mode=kv_mode),
@@ -290,12 +296,11 @@ def test_paged_kv_refused_for_recurrent_archs():
         ServeEngine(cfg, tp, kv_mode="paged", device="cpu")
 
 
-def test_dense_smartconf_trajectories_match_jax_engine():
-    """recurrentgemma under a tight HBM goal and a latency goal: the three
-    knobs follow the JAX engine's trajectories, a spiked ``hbm_bytes``
-    reading cuts the dense ledger's budget (no physical resize), and the
-    tokens agree."""
-    jcfg, jp, cfg, tp = _weights("recurrentgemma-9b")
+def _dense_trajectories(arch):
+    """Both engines under a tight HBM goal and a latency goal, with
+    ``hbm_bytes`` and decode latency spiked for three ticks: per-tick
+    knobs, preemptions, ledger capacity, tokens and violations."""
+    jcfg, jp, cfg, tp = _weights(arch, **OVERRIDES.get(arch, {}))
     weights = sum(int(np.prod(x.shape)) * x.dtype.itemsize
                   for x in jax.tree.leaves(jp))
     prompts = _prompts(cfg, (60, 12, 70, 20, 8, 33))
@@ -328,6 +333,7 @@ def test_dense_smartconf_trajectories_match_jax_engine():
                            on_tick=on_tick)
         runs.append(dict(
             knobs=knobs, preemptions=eng.preemptions,
+            block_bytes=eng.pool.block_bytes,
             capacity=[st["kv_capacity_blocks"] for st in stats],
             tokens={r.req_id: list(r.generated) for r in eng.finished},
             violations=eng.accountant.violations))
@@ -337,6 +343,15 @@ def test_dense_smartconf_trajectories_match_jax_engine():
     assert len(port_run["tokens"]) == len(prompts)
     for i in range(3):       # every knob moved
         assert len({k[i] for k in port_run["knobs"]}) > 1
+    return port_run
+
+
+def test_dense_smartconf_trajectories_match_jax_engine():
+    """recurrentgemma under a tight HBM goal and a latency goal: the three
+    knobs follow the JAX engine's trajectories, a spiked ``hbm_bytes``
+    reading cuts the dense ledger's budget (no physical resize), and the
+    tokens agree."""
+    _dense_trajectories("recurrentgemma-9b")
 
 
 def test_launcher_serves_recurrentgemma_on_cpu(monkeypatch):
@@ -384,3 +399,24 @@ def test_hbm_goal_near_the_weights_admits_like_jax(headroom_gb):
         assert runs[1] == (0, 0, 1)
     else:
         assert runs[1][0] == len(prompts)
+
+
+def test_rwkv6_smartconf_trajectories_match_jax_engine():
+    """rwkv6-7b under the same goals: no layer holds per-token KV, so the
+    dense ledger's blocks weigh 0 bytes and the ``serve.kv_block_budget``
+    controller runs with alpha = max(1, 0) = 1, as in the reference; the
+    knobs still follow the JAX engine's trajectories."""
+    assert _dense_trajectories("rwkv6-7b")["block_bytes"] == 0
+
+
+def test_launcher_serves_rwkv6_on_cpu(monkeypatch):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "rwkv6-7b", "--device", "cpu", "--requests", "3",
+        "--max-new-tokens", "3"])
+    out = io.StringIO()
+    with redirect_stdout(out), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        launch_serve.main()
+    line = out.getvalue().strip().splitlines()[-1]
+    assert line.startswith("rwkv6-7b-smoke: 3/3 done in ")
+    assert "1.00 dispatches/tick" in line and "kv[dense]" in line

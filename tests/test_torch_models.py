@@ -5,7 +5,8 @@ serve-path steps — ``step_packed`` over one packed stream of prefill
 chunks plus length-1 decode segments, then ``decode_step`` — at
 ``reduced()`` sizes in f32: paged KV for the four attention-only, non-MoE
 archs (block tables out of order), dense per-slot rings for the same four
-and for the hybrid recurrentgemma (rings that wrap, RG-LRU scan state).
+and for the hybrid recurrentgemma (rings that wrap, RG-LRU scan state),
+and per-slot WKV state for the all-recurrent rwkv6-7b.
 Weights and caches are the JAX package's, carried across with
 ``params_from_numpy``.  Logits and caches after each step must agree to
 ``atol=1e-4`` (recurrentgemma's logits to ``atol=1e-4, rtol=1e-5``).
@@ -129,7 +130,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         zoo.init(cfg, torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-tiny",
                                   "deepseek-moe-16b"])
 def test_unported_block_kinds_raise(arch):
     cfg = reduced(get_config(arch))
@@ -313,14 +314,17 @@ def _dense_ticks(cfg, jcfg, params, tp, ticks, b=3, cache_len=96):
     return tc
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-9b", "rwkv6-7b"])
 def test_dense_steps_match_jax(arch):
     """Dense rings: a 40-token prompt wraps the windowed rings (window 32
     reduced), chunks ride beside decode segments, a third tick restarts
     slot 2 at position 0 over its own earlier entries (stale), then a
     decode step with one inactive row.  recurrentgemma runs 5 layers: one
-    (rglru, rglru, swa) group and the 2-layer remainder."""
-    extra = {"num_layers": 5} if arch == "recurrentgemma-9b" else {}
+    (rglru, rglru, swa) group and the 2-layer remainder.  rwkv6-7b (no
+    rings: WKV state and token shifts only) runs at d 128, two heads;
+    plain ``reduced()`` gives it one."""
+    extra = {"recurrentgemma-9b": {"num_layers": 5},
+             "rwkv6-7b": {"d_model": 128}}.get(arch, {})
     jcfg = jax_reduced(jax_get_config(arch), **extra)
     cfg = reduced(get_config(arch), **extra)
     params, _ = jzoo.init(jcfg, jax.random.key(1))
