@@ -6,7 +6,7 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
 
   1. device   — the card's name, count and power limit (no card: exit 1);
-  2. build    — nvcc builds all five kernel libraries at once; ptxas
+  2. build    — nvcc builds all seven kernel libraries at once; ptxas
                 register/smem/spill lines (the flat segment kernel must not
                 spill at D = 256, the RWKV-6 scan not at all);
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
@@ -19,12 +19,17 @@ caught:
                 the final state) from a random non-symmetric state at odd
                 lengths, with strong decays and neutral pad steps, at
                 [512, 4096, 64], and threaded across a cut of 147 steps;
+                the flash attention forward (o and lse) and its dQ and
+                dK/dV kernels, causal, windowed (1024, 32) and non-causal,
+                MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim, f32
+                and bf16, the gradients from a random dO;
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes;
   5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
                 rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
                 steps (prefill chunks + decode riders) and a decode step on
-                the card against the CPU;
+                the card against the CPU; then yi-6b's training loss and
+                every gradient leaf (2 layers, f32) against the CPU;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
                 SmartConf knobs live; then a KV budget cut must release
@@ -36,7 +41,16 @@ caught:
   8. slice    — full rwkv6-7b (32 layers, bf16) serves 8 requests through
                 the launcher's functions under default options (packed
                 ticks, per-slot WKV state, no rings), knobs live; then the
-                cost of the reference's B x P recurrent rows.
+                cost of the reference's B x P recurrent rows;
+  9. train    — yi-6b at full width and 4 of its 32 layers (bf16, seeded
+                random weights) takes 6 AdamW steps through the Trainer
+                (batch 2 x 4096, 2 microbatches, remat, both SmartConf knobs
+                live; the last step profiled: device time by kind of
+                kernel), a validation loss without gradients, then a
+                preemption checkpoint that a fresh Trainer restores bit for
+                bit.  Each step launches the flash forward 2 x layers x
+                microbatches times (remat runs it again in the backward
+                pass) and each backward kernel layers x microbatches times.
 
 Before the last line it prints a JSON object with every kernel's numbers,
 then the card's name and power limit; the last line is
@@ -48,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -59,7 +74,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import HEAD_DIMS, _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_bwd_ref, attention_lse_ref, attention_ref, flash_attention,
+    flash_attention_dkv, flash_attention_dq, flash_attention_fwd_lse)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_ref, paged_gather)
 from repro_torch.kernels.rglru import (rglru_ref_state,  # noqa: E402
@@ -72,8 +91,11 @@ from repro_torch.kernels.segment_attention import (  # noqa: E402
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
-from repro_torch.models.bridge import (params_from_numpy,  # noqa: E402
-                                       tree_leaves, tree_map)
+from repro_torch.models.bridge import (keyed_leaves,  # noqa: E402
+                                       params_from_numpy, tree_leaves,
+                                       tree_map)
+from repro_torch.optim import accum, adamw  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
@@ -110,6 +132,22 @@ RWKV_LOGIT_LIMIT, RWKV_STATE_LIMIT = 4e-5, 2e-5
 # phase 7's headroom: SmartConf's virtual goal, 0.95 of the hard one, then
 # lies ~1.4 GB above rwkv6-7b's 14.0 GB of weights
 RWKV_HEADROOM = 2.2e9
+# yi-6b training attention at the slice's settings: batch 2 x 4096 tokens
+# (timed whole; each microbatch of the slice is batch 1), causal
+FA_B, FA_S = 2, 4096
+# card vs CPU on the 2-layer model's loss, gradient norm and gradient
+# leaves (each relative to its largest value): about ten times the CPU
+# noise floors phase 5 prints beside them (3.4e-7, 4.5e-5, and up to
+# 1.25e-3 on a leaf: this random-weight model's attention is nearly
+# one-hot, so its gradients move ~1e-3 under an f32-rounding nudge)
+TRAIN_LOSS_LIMIT, TRAIN_GNORM_LIMIT, TRAIN_GRAD_LIMIT = 3e-6, 5e-4, 1e-2
+# the training slice: yi-6b at full width, 4 of its 32 layers
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2, 4096, 2, 6
+TRAIN_MIN_FREE_DISK = 30e9     # two 12.2 GB checkpoints on disk while writing
+ROOT = Path(__file__).resolve().parent
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+FLASH_BWD_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention_bwd.cu")
 SEG_SRC = "src/repro_torch/kernels/segment_attention/csrc/paged_segment_attention.cu"
 DEC_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLAT_SRC = "src/repro_torch/kernels/segment_attention/csrc/segment_attention.cu"
@@ -418,6 +456,7 @@ def phase_kernels(dev) -> dict:
     errs["segment_attention"] = phase_kernels_flat(dev, gen)
     errs["rglru_scan_state"] = phase_kernels_rglru(dev, gen)
     errs["rwkv6_scan_state"] = phase_kernels_rwkv6(dev)
+    errs.update(phase_kernels_flash(dev))
     return errs
 
 
@@ -520,6 +559,73 @@ def phase_kernels_rwkv6(dev) -> float:
     compare(f"{name} s_out", s_out, want_s, torch.float32)
     torch.cuda.empty_cache()
     return main_err
+
+
+def flash_case(gen, b, h, kv, s, d):
+    """q [B,H,S,D], k, v [B,Kv,S,D] and a random dO, N(0, 1), on ``gen``'s
+    device."""
+    dev = gen.device
+    return dict(q=torch.randn(b, h, s, d, generator=gen, device=dev),
+                k=torch.randn(b, kv, s, d, generator=gen, device=dev),
+                v=torch.randn(b, kv, s, d, generator=gen, device=dev),
+                do=torch.randn(b, h, s, d, generator=gen, device=dev))
+
+
+def flash_cases() -> dict:
+    """name -> (B, H, Kv, S, D, causal, window): yi-6b's training shapes,
+    gemma3's local layers (window 1024) and, at every head dim, MHA, GQA
+    (32/4) and MQA at S = 1, 63, 130 under causal, windowed (32) and
+    non-causal masks (with and without a window)."""
+    cases = {"main": (FA_B, H, KV, FA_S, D, True, 0),
+             "gemma3-local": (1, 8, 4, FA_S, 256, True, 1024)}
+    masks = [(True, 0), (True, 32), (False, 0), (False, 32)]
+    for i, d in enumerate(HEAD_DIMS):
+        for j, (h, kv, what) in enumerate(((4, 4, "mha"), (32, 4, "gqa"),
+                                           (8, 1, "mqa"))):
+            s = (1, 63, 130)[(i + j) % 3]
+            causal, window = masks[(i + 2 * j) % 4]
+            cases[f"d{d}-{what}-S{s}-{'c' if causal else 'nc'}-w{window}"] = \
+                (2, h, kv, s, d, causal, window)
+    return cases
+
+
+def phase_kernels_flash(dev) -> dict:
+    """The flash forward (o without and with lse) and the dQ and dK/dV
+    kernels against the plain versions computed in f32 from the same
+    inputs; the backward kernels take the forward kernel's o and lse and a
+    random dO, as the plain backward does."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs = {}
+    for name, (b, h, kv, s, d, causal, window) in flash_cases().items():
+        case = flash_case(gen, b, h, kv, s, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (case[n].to(dtype) for n in ("q", "k", "v", "do"))
+            mask = dict(causal=causal, window=window)
+            o_only = flash_attention(q, k, v, **mask)
+            o, lse = flash_attention_fwd_lse(q, k, v, **mask)
+            dsum = (do.float() * o.float()).sum(-1)
+            dq = flash_attention_dq(q, k, v, do, lse, dsum, **mask)
+            dk, dv = flash_attention_dkv(q, k, v, do, lse, dsum, **mask)
+            torch.cuda.synchronize()
+            f32 = [t.float() for t in (q, k, v, o, do)]
+            want_o, want_lse = attention_lse_ref(*f32[:3], **mask)
+            tag = f"flash/{name} [{b}, {h}/{kv}, {s}, {d}]"
+            e = {"flash_attention": compare(f"{tag} o", o_only, want_o,
+                                            dtype),
+                 "flash_attention_fwd_lse": max(
+                     compare(f"{tag} o (with lse)", o, want_o, dtype),
+                     compare(f"{tag} lse", lse, want_lse, torch.float32))}
+            del want_o, want_lse
+            want = attention_bwd_ref(*f32[:4], lse, f32[4], **mask)
+            e["flash_attention_dq"] = compare(f"{tag} dq", dq, want[0], dtype)
+            e["flash_attention_dkv"] = max(
+                compare(f"{tag} dk", dk, want[1], dtype),
+                compare(f"{tag} dv", dv, want[2], dtype))
+            if name == "main" and dtype == torch.bfloat16:
+                errs = e
+            del want, f32, o_only, o, lse, dq, dk, dv
+            torch.cuda.empty_cache()
+    return errs
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -655,6 +761,8 @@ def phase_timing(dev, card) -> dict:
     out["rglru_scan_state"] = timing_rglru(dev, gen)
     out["rwkv6_scan_state"] = timing_rwkv6(dev)
     torch.cuda.empty_cache()
+    out.update(timing_flash(dev))
+    torch.cuda.empty_cache()
     for name, r in out.items():
         lib = ("null (" + r["library_note"] + ")" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms ({r['library_note']})")
@@ -762,6 +870,104 @@ def timing_rwkv6(dev) -> dict:
     return r
 
 
+def flash_pairs(s: int, causal: bool, window: int) -> int:
+    """Admitted (query, key) pairs of one head: what the kernels' work and
+    so their bound depends on."""
+    q = np.arange(s)
+    hi = q if causal else np.full(s, s - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(s, int)
+    return int((hi - lo + 1).sum())
+
+
+# matrix products per admitted pair and head dim, in units of 2 D flops:
+# the forward QK^T and PV; dQ recomputes QK^T and dO V^T, then dS K; dK/dV
+# recomputes both, then P^T dO and dS^T Q
+FLASH_PRODUCTS = {"flash_attention": 2, "flash_attention_fwd_lse": 2,
+                  "flash_attention_dq": 3, "flash_attention_dkv": 4}
+
+
+def flash_bound(kernel, b, h, kv, s, d, causal, window, dtype):
+    """Least time for one kernel's call: its bytes (each input read once,
+    each output written once) at 3.35 TB/s against its matrix products
+    over the admitted pairs at the peak for the input dtype."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    q_b, kv_b, row_b = b * h * s * d * esz, b * kv * s * d * esz, b * h * s * 4
+    nbytes = {"flash_attention": 2 * q_b + 2 * kv_b,
+              "flash_attention_fwd_lse": 2 * q_b + 2 * kv_b + row_b,
+              "flash_attention_dq": 3 * q_b + 2 * kv_b + 2 * row_b,
+              "flash_attention_dkv": 2 * q_b + 4 * kv_b + 2 * row_b}[kernel]
+    ops = FLASH_PRODUCTS[kernel] * 2 * d * b * h * flash_pairs(s, causal,
+                                                                window)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", ops)
+
+
+def timing_flash(dev) -> dict:
+    """The three flash kernels at yi-6b's training shapes (bf16, causal),
+    beside the plain versions (the plain backward computes dq, dk and dv
+    together, so both backward rows carry its time) and SDPA: its forward
+    for the two forward rows, its autograd backward (dQ, dK and dV
+    together) for the two backward rows."""
+    import torch.nn.functional as F
+    x = {n: t.to(torch.bfloat16) for n, t in flash_case(
+        torch.Generator(device=dev).manual_seed(6), FA_B, H, KV, FA_S,
+        D).items()}
+    q, k, v, do = x["q"], x["k"], x["v"], x["do"]
+    o, lse = flash_attention_fwd_lse(q, k, v)
+    dsum = (do.float() * o.float()).sum(-1)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                           enable_gqa=True)
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+        lib_o, (qg, kg, vg), do, retain_graph=True))
+    plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
+                        iters=2, warmup=1)
+    shapes = (f"bf16 B{FA_B} H{H}/Kv{KV} S{FA_S} D{D} causal (yi-6b "
+              "training)")
+    fwd_note = "sdpa(is_causal=True, enable_gqa=True)"
+    bwd_note = "sdpa's autograd backward: dQ, dK and dV together"
+    runs = {
+        "flash_attention": (lambda: flash_attention(q, k, v),
+                            lambda: attention_ref(q, k, v), sdpa_fwd,
+                            fwd_note),
+        "flash_attention_fwd_lse": (
+            lambda: flash_attention_fwd_lse(q, k, v),
+            lambda: attention_lse_ref(q, k, v), sdpa_fwd, fwd_note),
+        "flash_attention_dq": (
+            lambda: flash_attention_dq(q, k, v, do, lse, dsum), None,
+            sdpa_bwd, bwd_note),
+        "flash_attention_dkv": (
+            lambda: flash_attention_dkv(q, k, v, do, lse, dsum), None,
+            sdpa_bwd, bwd_note)}
+    out = {}
+    for name, (kern, plain, lib_ms, note) in runs.items():
+        bound, by, ops = flash_bound(name, FA_B, H, KV, FA_S, D, True, 0,
+                                     torch.bfloat16)
+        ms = time_ms(kern, iters=10, warmup=2)
+        out[name] = dict(
+            ms=ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
+            library_note=note,
+            plain_ms=(plain_bwd if plain is None
+                      else time_ms(plain, iters=2, warmup=1)),
+            shapes=f"{shapes}, {ops / 1e9:.1f} GFLOP = "
+                   f"{ops / ms / 1e9:.1f} TFLOP/s")
+    fwd_ops = flash_bound("flash_attention", FA_B, H, KV, FA_S, D, True, 0,
+                          torch.bfloat16)[2]
+    bwd_ms = out["flash_attention_dq"]["ms"] + out["flash_attention_dkv"]["ms"]
+    bwd_bound = (out["flash_attention_dq"]["bound_ms"]
+                 + out["flash_attention_dkv"]["bound_ms"])
+    say(f"[timing] flash backward: dQ + dK/dV kernels {bwd_ms:.4f} ms "
+        f"against sdpa's backward {sdpa_bwd:.4f} ms; bound of the two "
+        f"kernels' products (3.5x the forward's) {bwd_bound:.4f} ms, FA2 "
+        f"joint minimum (2.5x) {2.5 * fwd_ops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
+    del qg, kg, vg, lib_o
+    return out
+
+
 def phase_parity(dev, card):
     """Full-width yi-6b, 2 layers, f32, TF32 off: card vs CPU logits and
     block stores, beside the CPU against itself with every weight
@@ -841,6 +1047,63 @@ def phase_parity(dev, card):
         f"{float(cpu[1][0].abs().max()):.1f}")
     if not worst <= LOGIT_LIMIT or not kerr <= STORE_LIMIT:
         fail("card and CPU disagree on yi-6b logits or KV stores")
+
+
+def phase_parity_train(dev, card):
+    """Full-width yi-6b, 2 layers, f32, TF32 off: one ``loss_fn`` with
+    gradients (remat on, the flash kernels on the card, the plain versions
+    on the CPU) at batch 2 x 130 tokens, card against CPU on the loss, the
+    global gradient norm and every gradient leaf relative to its largest
+    magnitude; beside each the CPU against itself with every weight
+    multiplied by 1 + 1e-7 N(0, 1).  The card runs first, then the CPU,
+    then the weights are nudged in place: one copy of the 3.5 GB of f32
+    weights at a time on the host."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
+                              dtype="float32")
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(3)
+    batch = {n: rng.integers(0, cfg.vocab_size, (2, 130)).astype(np.int32)
+             for n in ("tokens", "labels")}
+
+    def run(p, d):
+        loss, _, grads = accum.value_and_grad(
+            lambda p, b: zoo.loss_fn(cfg, p, b), p,
+            {n: torch.from_numpy(a).to(d) for n, a in batch.items()})
+        return (float(loss), float(adamw.global_norm(grads)),
+                {key: g.cpu() for key, g in keyed_leaves(grads)})
+
+    def rel(a, b):
+        return float((a - b).abs().max() / a.abs().max())
+
+    got = run(tree_map(lambda t: t.to(dev), params), dev)
+    torch.cuda.empty_cache()
+    cpu = run(params, torch.device("cpu"))
+    noise = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for t in tree_leaves(params):
+            t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=noise))
+    floor = run(params, torch.device("cpu"))
+    del params
+    loss_err = abs(got[0] - cpu[0]) / abs(cpu[0])
+    gnorm_err = abs(got[1] - cpu[1]) / cpu[1]
+    say(f"[parity] yi-6b 2 layers f32 training on {card}: loss "
+        f"{cpu[0]:.6f}, card - CPU {loss_err:.3e} relative (limit "
+        f"{TRAIN_LOSS_LIMIT:g}; CPU noise floor "
+        f"{abs(floor[0] - cpu[0]) / abs(cpu[0]):.3e}); grad norm {cpu[1]:.6f},"
+        f" {gnorm_err:.3e} (limit {TRAIN_GNORM_LIMIT:g}; floor "
+        f"{abs(floor[1] - cpu[1]) / cpu[1]:.3e})")
+    worst = 0.0
+    for key, g in cpu[2].items():
+        err = rel(g, got[2][key])
+        worst = max(worst, err)
+        say(f"[parity] grad {key}: max|err| / max|g| = {err:.3e} (limit "
+            f"{TRAIN_GRAD_LIMIT:g}; CPU noise floor "
+            f"{rel(g, floor[2][key]):.3e})")
+    if not (loss_err <= TRAIN_LOSS_LIMIT and gnorm_err <= TRAIN_GNORM_LIMIT
+            and worst <= TRAIN_GRAD_LIMIT):
+        fail("card and CPU disagree on yi-6b's training loss or gradients")
 
 
 def packed_arrays(rng, vocab, segs, width, b):
@@ -1269,6 +1532,176 @@ def phase_rwkv6_slice(dev, card) -> dict:
     return launches
 
 
+def phase_train_slice(dev, card, timing) -> dict:
+    """yi-6b at full width and TRAIN_LAYERS layers, bf16, seeded random
+    weights, through the Trainer: TRAIN_STEPS AdamW steps (batch
+    TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICRO microbatches, default remat, both
+    SmartConf knobs live, the first checkpoint after step 3, one kept),
+    then a validation loss without gradients on a held-out batch, then a
+    preemption checkpoint of the final state that a fresh Trainer
+    restores bit for bit, its data stream at the saved position."""
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=TRAIN_LAYERS)
+    workdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    free = shutil.disk_usage(workdir).free
+    if free < TRAIN_MIN_FREE_DISK:
+        fail(f"{free / 1e9:.1f} GB free under {workdir}: the training slice "
+             f"writes two 12.2 GB checkpoints and needs "
+             f"{TRAIN_MIN_FREE_DISK / 1e9:.0f} GB")
+    tc = TrainerConfig(workdir=str(workdir), total_steps=TRAIN_STEPS,
+                       ckpt_interval=3, ckpt_keep=1, batch_size=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, n_micro=TRAIN_MICRO, seed=0)
+    opt = adamw.AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    tr = Trainer(cfg, opt, tc, device=dev)
+    n_par = sum(p.numel() for p in tree_leaves(tr.params))
+    # weights and their gradients in bf16, f32 moments and accumulator
+    state = n_par * (2 + 2 + 4 + 4 + 4)
+    say(f"[train] {cfg.name} bf16, {cfg.num_layers} of 32 layers at full "
+        f"width: {n_par / 1e9:.3f} B parameters, {state / 1e9:.1f} GB of "
+        f"weights, grads, moments and accumulator; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches, remat {tc.remat}; "
+        f"{free / 1e9:.0f} GB free on disk")
+    knobs = {"data.prefetch_depth": [tr.pipeline.depth],
+             "train.ckpt_interval_steps": [tr.ckpt.interval_steps]}
+    counted = (flash_attention, flash_attention_fwd_lse, flash_attention_dq,
+               flash_attention_dkv)
+    step_s = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counted:
+        fn.launches = 0
+    for i in range(TRAIN_STEPS):
+        w0 = tr.ckpt.write_seconds
+        t0 = time.perf_counter()
+        if i == TRAIN_STEPS - 1:     # the last step runs under the profiler
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                tr.run(1)
+        else:
+            tr.run(1)
+        step_s.append(time.perf_counter() - t0 - (tr.ckpt.write_seconds - w0))
+        knobs["data.prefetch_depth"].append(tr.pipeline.depth)
+        knobs["train.ckpt_interval_steps"].append(tr.ckpt.interval_steps)
+    peak = torch.cuda.max_memory_allocated(dev)
+    held_out = SyntheticTokens(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                               seed=1).next_batch()
+    with torch.no_grad():
+        val, _ = zoo.loss_fn(cfg, tr.params,
+                             {n: torch.from_numpy(a).to(dev)
+                              for n, a in held_out.items()})
+    val = float(val)
+    launches = {fn.__name__: fn.launches for fn in counted}
+    write_s = tr.ckpt.write_seconds / max(1, tr.ckpt.writes)
+    losses = [m["loss"] for m in tr.metrics_log]
+    gnorms = [m["grad_norm"] for m in tr.metrics_log]
+    med = float(np.median(step_s[1:]))
+    per_step = {"flash_attention_fwd_lse": 2 * TRAIN_LAYERS * TRAIN_MICRO,
+                "flash_attention_dq": TRAIN_LAYERS * TRAIN_MICRO,
+                "flash_attention_dkv": TRAIN_LAYERS * TRAIN_MICRO}
+    # phase 4 timed the kernels at batch FA_B; a microbatch is
+    # TRAIN_BATCH / TRAIN_MICRO, and the work is linear in the batch
+    scale = TRAIN_BATCH / TRAIN_MICRO / FA_B
+    kern_s = sum(n * timing[k]["ms"] * scale for k, n in per_step.items()) / 1e3
+    say(f"[train] losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in gnorms]}; validation loss (no gradients) "
+        f"{val:.4f}; ln {cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}")
+    say(f"[train] on {card}: step ms {[round(x * 1e3, 1) for x in step_s]},"
+        f" median of steps 2-{TRAIN_STEPS} {med * 1e3:.1f} ms = "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s; flash kernels "
+        f"~{kern_s * 1e3:.1f} ms of a step ({kern_s / med:.1%}) from the "
+        "counts times phase 4's times")
+    kinds, busy, span = device_breakdown(prof)
+    say(f"[train] profiled step {TRAIN_STEPS} on {card}: device busy "
+        f"{busy:.1f} of {span:.1f} ms ({busy / span:.1%}); device ms by "
+        "kind: " + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items()))
+    if not kinds.get("flash dK/dV"):
+        fail("the profiler saw no flash kernel on the device")
+    say(f"[train] kernel launches {launches}: per step "
+        f"{ {k: launches[k] / TRAIN_STEPS for k in per_step} } against "
+        f"{per_step}; flash_attention (no lse) {launches['flash_attention']}"
+        f" in the validation pass ({TRAIN_LAYERS} layers)")
+    say(f"[train] device memory: max_memory_allocated {peak / 1e9:.3f} GB "
+        f"against {state / 1e9:.3f} GB of state; checkpoint writes "
+        f"{tr.ckpt.writes}, {write_s:.1f} s each")
+    for k, vals in knobs.items():
+        say(f"[train] knob {k}: {vals[0]} -> {vals[-1]}, distinct values "
+            f"{len(set(vals))}, trajectory {runs(vals)}")
+    if not all(math.isfinite(x) for x in losses + gnorms + [val]):
+        fail("a loss or gradient norm is not finite")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"the first loss {losses[0]} is not within 1 of "
+             f"ln {cfg.vocab_size}")
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    want["flash_attention"] = TRAIN_LAYERS
+    if launches != want:
+        fail(f"flash kernel launches {launches}, expected {want}")
+    if not tr.ckpt.writes:
+        fail("no checkpoint was written in training")
+    if not all(len(set(v)) > 1 for v in knobs.values()):
+        fail("a SmartConf knob never moved")
+
+    tr.preemption.trigger()
+    w0 = tr.ckpt.write_seconds
+    tr.run(1)                       # writes the final state and stops
+    say(f"[train] preemption checkpoint at step {tr.ckpt.last_saved}: "
+        f"{tr.ckpt.write_seconds - w0:.1f} s")
+    if tr.step != TRAIN_STEPS or tr.ckpt.last_saved != TRAIN_STEPS:
+        fail("preemption did not checkpoint the final step and stop")
+    t0 = time.perf_counter()
+    fresh = Trainer(cfg, opt, tc, device=dev)
+    load_s = time.perf_counter() - t0
+    saved = dict(keyed_leaves({"params": tr.params, "opt": tr.opt_state}))
+    back = dict(keyed_leaves({"params": fresh.params,
+                              "opt": fresh.opt_state}))
+    same = [k for k in saved if saved[k].dtype == back[k].dtype
+            and torch.equal(saved[k], back[k])]
+    stream = SyntheticTokens(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    stream.restore({"step": tr.data_step, "seed": 0})
+    first = fresh.pipeline.get()
+    resumed = fresh.data_step == tr.data_step and all(
+        np.array_equal(first[n], a) for n, a in stream.next_batch().items())
+    say(f"[train] a fresh Trainer restored step {fresh.step} in {load_s:.1f}"
+        f" s (init included): {len(same)}/{len(saved)} leaves of params and "
+        f"moments bit for bit; data stream at {fresh.data_step} (saved "
+        f"{tr.data_step}), next batch the stream's: {resumed}")
+    fresh.close()
+    tr.close()
+    shutil.rmtree(workdir)
+    if fresh.step != tr.step or len(same) != len(saved) or not resumed:
+        fail("the restored trainer differs from the one that was saved")
+    return launches, dict(step_ms=med * 1e3, losses=losses)
+
+
+def device_breakdown(prof) -> tuple[dict, float, float]:
+    """From a ``torch.profiler`` run: device ms by kind of kernel, the
+    device's busy ms (the union of its kernels' intervals) and the span
+    from the first kernel's start to the last one's end."""
+    evs = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    kinds: dict[str, float] = {}
+    for e in evs:
+        n = e.name
+        kind = ("flash forward" if "flash_fwd_kernel" in n
+                else "flash dQ" if "flash_dq_kernel" in n
+                else "flash dK/dV" if "flash_dkv_kernel" in n
+                else "matrix products" if any(
+                    w in n for w in ("gemm", "nvjet", "cutlass", "xmma"))
+                else "torch elementwise, reductions, copies"
+                if "at::native" in n else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy, end = 0.0, None
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in evs):
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    span = (max(e.time_range.end for e in evs)
+            - min(e.time_range.start for e in evs)) if evs else 0.0
+    return (dict(sorted(kinds.items(), key=lambda kv: -kv[1])), busy / 1e3,
+            span / 1e3)
+
+
 def runs(vals) -> str:
     """A knob's trajectory as value (xN) runs, first tick first."""
     out = []
@@ -1325,11 +1758,14 @@ def main() -> None:
     phase_parity(dev, card)
     phase_parity_rg(dev, card)
     phase_parity_rwkv6(dev, card)
+    phase_parity_train(dev, card)
     launches = phase_slice(dev, card)
     torch.cuda.empty_cache()
     launches.update(phase_rg_slice(dev, card))
     torch.cuda.empty_cache()
     launches.update(phase_rwkv6_slice(dev, card))
+    torch.cuda.empty_cache()
+    launches.update(phase_train_slice(dev, card, timing)[0])
     meta = {
         "paged_segment_attention": (
             SEG_SRC,
@@ -1343,6 +1779,17 @@ def main() -> None:
             RGLRU_SRC, "src/repro/kernels/rglru/rglru.py:56"),
         "rwkv6_scan_state": (
             RWKV6_SRC, "src/repro/kernels/rwkv6/rwkv6.py:85"),
+        "flash_attention": (
+            FLASH_SRC, "src/repro/kernels/flash_attention/flash_attention.py:83"),
+        "flash_attention_fwd_lse": (
+            FLASH_SRC,
+            "src/repro/kernels/flash_attention/flash_attention.py:135"),
+        "flash_attention_dq": (
+            FLASH_BWD_SRC,
+            "src/repro/kernels/flash_attention/flash_attention_bwd.py:43"),
+        "flash_attention_dkv": (
+            FLASH_BWD_SRC,
+            "src/repro/kernels/flash_attention/flash_attention_bwd.py:76"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

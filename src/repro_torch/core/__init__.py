@@ -31,6 +31,8 @@ from .profiler import ProfileBuffer, read_sysfile, synthesize, write_sysfile
 from .sensors import (
     HBMAccountant,
     LatencySensor,
+    QueueGauge,
+    StepTimer,
     ThroughputSensor,
     device_live_bytes,
 )
@@ -41,6 +43,6 @@ __all__ = [
     "ConfRegistry", "GLOBAL_REGISTRY", "Guardrails", "SmartConf",
     "SmartConfIndirect", "Transducer", "parse_goals_file", "parse_sys_file",
     "ProfileBuffer", "read_sysfile", "synthesize", "write_sysfile",
-    "HBMAccountant", "LatencySensor", "ThroughputSensor",
-    "device_live_bytes",
+    "HBMAccountant", "LatencySensor", "QueueGauge", "StepTimer",
+    "ThroughputSensor", "device_live_bytes",
 ]

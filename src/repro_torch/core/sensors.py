@@ -19,6 +19,8 @@ import torch
 __all__ = [
     "HBMAccountant",
     "LatencySensor",
+    "QueueGauge",
+    "StepTimer",
     "ThroughputSensor",
     "device_live_bytes",
 ]
@@ -184,3 +186,46 @@ class ThroughputSensor:
         if span <= 0.0:
             span = self.window_seconds
         return n / span
+
+
+class QueueGauge:
+    """Instantaneous occupancy gauge for a queue (items and bytes) — the
+    deputy-variable sensor for indirect PerfConfs (paper §5.3)."""
+
+    def __init__(self) -> None:
+        self.items = 0
+        self.nbytes = 0
+        self._lock = threading.Lock()
+
+    def add(self, nbytes: int = 0) -> None:
+        with self._lock:
+            self.items += 1
+            self.nbytes += int(nbytes)
+
+    def remove(self, nbytes: int = 0) -> None:
+        with self._lock:
+            self.items -= 1
+            self.nbytes -= int(nbytes)
+
+
+class StepTimer:
+    """Per-step wall-clock timer for the trainer (drives the checkpoint
+    overhead controller).  It times what runs inside the ``with`` block;
+    the trainer ends that block only once the step is complete on the
+    device."""
+
+    def __init__(self, window: int = 128) -> None:
+        self.latency = LatencySensor(window)
+        self._start: float | None = None
+
+    def __enter__(self) -> "StepTimer":
+        self._start = time.monotonic()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._start is not None:
+            self.latency.record(time.monotonic() - self._start)
+            self._start = None
+
+    def mean(self) -> float:
+        return self.latency.mean()

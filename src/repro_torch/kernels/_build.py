@@ -33,6 +33,10 @@ SOURCES = {
     / "segment_attention.cu",
     "rglru_scan": _KERNELS / "rglru" / "csrc" / "rglru_scan.cu",
     "rwkv6_scan": _KERNELS / "rwkv6" / "csrc" / "rwkv6_scan.cu",
+    "flash_attention": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention.cu",
+    "flash_attention_bwd": _KERNELS / "flash_attention" / "csrc"
+    / "flash_attention_bwd.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

@@ -1,0 +1,12 @@
+from .flash_attention import flash_attention, flash_attention_fwd_lse
+from .flash_attention_bwd import (flash_attention_bwd, flash_attention_dkv,
+                                  flash_attention_dq)
+from .ops import attention_op
+from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
+from .vjp import FlashAttention, flash_attention_grad
+
+__all__ = ["flash_attention", "flash_attention_fwd_lse",
+           "flash_attention_bwd", "flash_attention_dq",
+           "flash_attention_dkv", "flash_attention_grad", "FlashAttention",
+           "attention_op", "attention_ref", "attention_lse_ref",
+           "attention_bwd_ref"]

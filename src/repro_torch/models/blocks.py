@@ -18,6 +18,9 @@ functions update caches and state **in place** (the reference donates and
 returns them) and return the new activations.  Writes that the reference
 drops (``mode="drop"``) are left out of a write plan the caller computes
 once per step, so the device never selects lanes itself.
+
+Training runs whole sequences without caches (:func:`block_apply_seq`)
+on the attention kinds only.
 """
 
 from __future__ import annotations
@@ -243,6 +246,32 @@ def _attn_qkv(cfg, base, params, x, pos):
 def _ffn(cfg, params, x):
     h2 = apply_norm(cfg.norm, params["ln2"], x)
     return x + layers.mlp(params["mlp"], h2, cfg.mlp)
+
+
+# ---------------------------------------------------------------------------
+# apply: full sequence (training)
+# ---------------------------------------------------------------------------
+
+
+def block_apply_seq(cfg, kind: str, params: dict, x, positions):
+    """x: [B,S,d]; positions: [S] absolute (``arange(S)`` in training).
+    Returns ``(x, aux)`` with ``aux`` the f32 load-balancing loss (0 for a
+    dense FFN).  The attention kinds only, without a cache: the
+    reference's prefill form, which writes one, is ROADMAP Queue 1 item
+    5b; the recurrent kinds' one-shot forms are items 5b and 10, MoE item
+    7."""
+    base = _check_ported(kind)
+    if base in RECURRENT_KINDS:
+        raise NotImplementedError(
+            f"block kind {kind!r} over a whole sequence (training): "
+            "time_mix_chunked / rglru_block are ROADMAP Queue 1 items 5b "
+            "and 10 (not ported yet)")
+    q, k, v = _attn_qkv(cfg, base, params, x, positions)
+    o = layers.attention(q, k, v, q_pos=positions, k_pos=positions,
+                         causal=base != "bidir", window=_window(cfg, base))
+    x = x + layers.attn_output(params["attn"], o)
+    return _ffn(cfg, params, x), torch.zeros((), dtype=torch.float32,
+                                             device=x.device)
 
 
 # ---------------------------------------------------------------------------

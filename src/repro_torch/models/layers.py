@@ -6,7 +6,8 @@ reference's: ``wq``/``wk``/``wv`` are ``[d, heads, head_dim]`` used as
 over without transposes.  Projections are plain matrix products
 (``torch.matmul``).  Packed attention runs through the hand-written
 kernels; the dense decode step's one-token attention is plain torch, as
-the reference computes it in XLA outside any kernel.
+the reference computes it in XLA outside any kernel.  Full-sequence
+self-attention (training) runs through the flash attention kernels.
 """
 
 from __future__ import annotations
@@ -155,6 +156,33 @@ def decode_attention(q, k_cache, v_cache, *, k_pos, q_pos, window: int = 0):
     :func:`chunk_attention`."""
     return chunk_attention(q, k_cache, v_cache, k_pos=k_pos,
                            q_pos=q_pos[:, None], window=window)
+
+
+def attention(q, k, v, *, q_pos, k_pos, causal: bool = True,
+              window: int = 0):
+    """Full-sequence self-attention: q [B,S,H,D]; k,v [B,S,Kv,D] ->
+    [B,S,H,D].  ``window`` = 0 is unbounded; W keeps ``q - k < W``.
+
+    Always the flash route (the reference's ``REPRO_ATTN_IMPL=pallas``;
+    its default XLA route computes the same function): when a gradient is
+    wanted, the differentiable Function over the forward-with-logsumexp
+    and backward kernels, else the forward kernel alone.  CPU tensors run
+    the plain versions.  Positions are taken to be ``arange(S)``, as
+    training passes them; ``q_pos``/``k_pos`` are not read.  Queries
+    against keys of another length (cross-attention, enc-dec only) are
+    ROADMAP Queue 1 item 12."""
+    del q_pos, k_pos
+    if q.shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            "cross-attention (enc-dec) is ROADMAP Queue 1 item 12 (not "
+            "ported yet)")
+    from repro_torch.kernels.flash_attention import (attention_op,
+                                                     flash_attention_grad)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return attention_op(q, k, v, causal=causal, window=window)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return flash_attention_grad(qt, kt, vt, causal, window).transpose(1, 2)
 
 
 def segment_attention(q, k, v, *, q_pos, k_pos, q_seg, k_seg,

@@ -21,6 +21,9 @@ Public entry points:
                                         chunks + length-1 decode segments]
     decode_step(cfg, params, caches, token, pos, block_tables=None,
                 active=None)            -> logits [B, V]       [in place]
+    forward(cfg, params, batch, remat="none") -> (hidden [B, S, d], aux)
+    loss_fn(cfg, params, batch, remat="dots") -> (loss, {"ce", "aux"})
+                                        [chunked cross-entropy; training]
 With ``block_tables`` the attention caches are the paged block store;
 without, the dense per-slot rings of :func:`init_cache`.
 """
@@ -28,10 +31,12 @@ without, the dense per-slot rings of :func:`init_cache`.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks as B
 from .layers import apply_norm, dense_init, norm_init, torch_dtype
 
+LOSS_CHUNK = 512
 
 # ---------------------------------------------------------------------------
 # structure helpers
@@ -302,3 +307,103 @@ def decode_step(cfg, params, caches, token, pos, block_tables=None,
                                active)
     x = apply_norm(cfg.norm, params["ln_f"], x)
     return _logits(cfg, params, x)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# training: full-sequence forward and loss
+# ---------------------------------------------------------------------------
+
+
+def _check_trainable(cfg) -> None:
+    """Training covers the attention kinds; the recurrent kinds' one-shot
+    forms (ROADMAP Queue 1 items 5b and 10), MoE (item 7) and the modality
+    frontends (item 12) raise."""
+    _check_supported(cfg)
+    for kind in _all_kinds(cfg):
+        if B.split_kind(kind)[0] in B.RECURRENT_KINDS:
+            raise NotImplementedError(
+                f"{cfg.name}: training the {kind!r} kind is ROADMAP Queue 1 "
+                "items 5b and 10 (not ported yet)")
+
+
+def _grad_checkpoint(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass when a
+    gradient is being taken (``torch.utils.checkpoint``, non-reentrant)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _inputs_embeds(cfg, params, batch):
+    """Token embeddings (text only) -> (x [B,S,d], positions [S] int32)."""
+    x = params["embed"][batch["tokens"]]
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return x, positions
+
+
+def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none"):
+    """prefix -> groups -> remainder over the whole sequence, no caches.
+    With ``remat`` other than ``"none"`` every group layer recomputes its
+    activations in the backward pass; the reference rematerialises the
+    scanned group body under its ``remat`` policy, and the flash kernels'
+    outputs are not among what ``"dots"`` saves, so there too the
+    attention forward runs again in the backward pass.  Returns
+    ``(x, aux_total)``."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    prefix, pattern, n_groups, rem = _plan(cfg)
+
+    def run(kind, p, x, grouped):
+        fn = lambda p, x: B.block_apply_seq(cfg, kind, p, x, positions)  # noqa: E731
+        if grouped and remat != "none":
+            return _grad_checkpoint(fn, p, x)
+        return fn(p, x)
+
+    for j, kind in enumerate(prefix):
+        x, aux = run(kind, params["prefix"][j], x, False)
+        aux_total = aux_total + aux
+    for i in range(n_groups):
+        for j, kind in enumerate(pattern):
+            x, aux = run(kind, _index(params["groups"][j], i), x, True)
+            aux_total = aux_total + aux
+    for j, kind in enumerate(rem):
+        x, aux = run(kind, params["rem"][j], x, False)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def forward(cfg, params, batch, *, remat: str = "none"):
+    """batch: ``{"tokens": [B,S] int}`` -> (final-norm hidden states
+    [B,S,d], aux)."""
+    _check_trainable(cfg)
+    x, positions = _inputs_embeds(cfg, params, batch)
+    x, aux = _run_blocks_seq(cfg, params, x, positions, remat=remat)
+    return apply_norm(cfg.norm, params["ln_f"], x), aux
+
+
+def _chunk_loss(x_i, labels_i, head):
+    """Summed cross-entropy of one chunk; the logits are f32."""
+    logits = (x_i @ head).float()
+    gold = torch.gather(logits, -1, labels_i[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def loss_fn(cfg, params, batch, *, remat: str = "dots",
+            aux_weight: float = 0.01):
+    """Mean next-token cross-entropy of ``batch["labels"]`` [B,S], chunked
+    over the sequence in pieces of at most :data:`LOSS_CHUNK` tokens whose
+    logits are recomputed in the backward pass, so the [B,S,V] logits
+    never materialise.  Returns ``(loss + aux_weight * aux, {"ce", "aux"})``
+    as 0-d f32 tensors."""
+    x, aux = forward(cfg, params, batch, remat=remat)
+    labels = batch["labels"].long()
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    b, s, _ = x.shape
+    chunk = min(LOSS_CHUNK, s)
+    while s % chunk:
+        chunk -= 1
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        total = total + _grad_checkpoint(_chunk_loss, x[:, c0:c0 + chunk],
+                                         labels[:, c0:c0 + chunk], head)
+    loss = total / (b * s)
+    return loss + aux_weight * aux, {"ce": loss, "aux": aux}

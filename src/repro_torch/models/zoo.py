@@ -1,5 +1,5 @@
-"""Model zoo: the entry points the serve engine calls, by the reference's
-names."""
+"""Model zoo: the entry points the serve engine and the trainer call, by
+the reference's names."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from .bridge import params_from_numpy
 __all__ = ["init", "step_packed", "decode_step", "supports_chunked_prefill",
            "supports_paged_kv", "init_cache", "dense_packed_plans",
            "dense_step_plans", "init_paged_cache", "map_paged_caches",
-           "copy_paged_blocks", "params_from_numpy"]
+           "copy_paged_blocks", "params_from_numpy", "forward", "loss_fn"]
 
 init = transformer.init
 step_packed = transformer.step_packed
@@ -22,3 +22,5 @@ dense_step_plans = transformer.dense_step_plans
 init_paged_cache = transformer.init_paged_cache
 map_paged_caches = transformer.map_paged_caches
 copy_paged_blocks = transformer.copy_paged_blocks
+forward = transformer.forward
+loss_fn = transformer.loss_fn
