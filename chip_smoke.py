@@ -6,7 +6,7 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
 
   1. device   — the card's name, count and power limit (no card: exit 1);
-  2. build    — nvcc builds all seven kernel libraries at once; ptxas
+  2. build    — nvcc builds all eight kernel libraries at once; ptxas
                 register/smem/spill lines (the flat segment kernel must not
                 spill at D = 256, the RWKV-6 scan not at all);
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
@@ -22,14 +22,25 @@ caught:
                 the flash attention forward (o and lse) and its dQ and
                 dK/dV kernels, causal, windowed (1024, 32) and non-causal,
                 MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim, f32
-                and bf16, the gradients from a random dO;
+                and bf16, the gradients from a random dO; the dense decode
+                kernel on rings read in place through [B, Kv, S, D] views
+                (yi-6b's full and at the slice's prompts, recurrentgemma's
+                wrapped and with idle rows), the reference's sweep (ragged
+                k_pos with -1 and future entries, windows 0 and 256,
+                MHA/GQA/MQA), an all-empty cache (exact zeros), every head
+                dim at S below one split, above it and not a multiple of
+                it, f32 and bf16;
   4. timing   — kernel, plain version, one PyTorch library call where one
-                exists, and the card's bound, at each main path's shapes;
+                exists, and the card's bound, at each main path's shapes
+                (the dense decode kernel at yi-6b's legacy decode and at
+                recurrentgemma's swa rings);
   5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
                 rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
                 steps (prefill chunks + decode riders) and a decode step on
-                the card against the CPU; then yi-6b's training loss and
-                every gradient leaf (2 layers, f32) against the CPU;
+                the card against the CPU; yi-6b's one-shot prefill and two
+                dense decode steps (the flash forward and dense decode
+                kernels); then yi-6b's training loss and every gradient
+                leaf (2 layers, f32) against the CPU;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
                 SmartConf knobs live; then a KV budget cut must release
@@ -37,7 +48,8 @@ caught:
   7. slice    — full recurrentgemma-9b (38 layers, bf16) serves 8 requests,
                 two of them longer than its 2048-token window, through the
                 launcher's functions under default options (packed ticks,
-                dense rings, RG-LRU state), knobs live;
+                dense rings, RG-LRU state), knobs live; each drain tick
+                launches the dense decode kernel once per swa layer (12);
   8. slice    — full rwkv6-7b (32 layers, bf16) serves 8 requests through
                 the launcher's functions under default options (packed
                 ticks, per-slot WKV state, no rings), knobs live; then the
@@ -50,11 +62,25 @@ caught:
                 preemption checkpoint that a fresh Trainer restores bit for
                 bit.  Each step launches the flash forward 2 x layers x
                 microbatches times (remat runs it again in the backward
-                pass) and each backward kernel layers x microbatches times.
+                pass) and each backward kernel layers x microbatches times;
+ 10. split    — full yi-6b again (phase 6's weights kept), the same 8
+                requests through the launcher's functions with
+                ``prefill_mode="legacy"`` (one-shot prefill per admitted
+                request, 32 flash forward launches each, then dense decode
+                ticks, 32 dense decode launches each) and ``"bucketed"``
+                (padded chunks at batch width on paged KV, then decode
+                ticks on the paged decode kernel), knobs live: at most 2
+                dispatches a bucketed tick, 1 plus the tick's admissions a
+                legacy one; tokens/s, TTFT, tick ms, peak memory, and the
+                share of tokens equal to phase 6's and to each other's
+                (bf16 near-ties: information); then the same requests on
+                2 layers in f32, where both modes must give the packed
+                engine's tokens.
 
-Before the last line it prints a JSON object with every kernel's numbers,
-then the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.
+Before the last line it prints a JSON object with every kernel's numbers
+(launches summed over the serving and training phases, each of which sets
+the counts it reads to 0 before it drives its path), then the card's name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -76,6 +102,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import HEAD_DIMS, _build  # noqa: E402
+from repro_torch.kernels.decode_attention import (  # noqa: E402
+    decode_attention, decode_attention_plain, decode_mask)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, attention_lse_ref, attention_ref, flash_attention,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd_lse)
@@ -153,6 +181,10 @@ DEC_SRC = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FLAT_SRC = "src/repro_torch/kernels/segment_attention/csrc/segment_attention.cu"
 RGLRU_SRC = "src/repro_torch/kernels/rglru/csrc/rglru_scan.cu"
 RWKV6_SRC = "src/repro_torch/kernels/rwkv6/csrc/rwkv6_scan.cu"
+DENSE_SRC = ("src/repro_torch/kernels/decode_attention/csrc/"
+             "decode_attention.cu")
+# phase 10: the split serve modes, in the order it runs them
+SPLIT_MODES = ("legacy", "bucketed")
 
 
 def say(*a) -> None:
@@ -330,6 +362,47 @@ def rwkv6_case(gen, bh, s, decay="model"):
                 s0=torch.randn(bh, n, n, generator=gen, device=dev))
 
 
+def dense_case(gen, *, q_pos, h, kv, d, s, idle=0):
+    """One query token per row against a dense ring ``[B, S, Kv, D]`` as
+    the model keeps it: each row holds its last ``min(q_pos + 1, s)``
+    positions, its own included, at ring slot ``p % s`` (wrapped once
+    q_pos >= s), the rest unwritten; then ``idle`` rows as the engine
+    passes its idle slots (position 0, nothing written)."""
+    b = len(q_pos) + idle
+    k_pos = torch.full((b, s), -1, dtype=torch.int32)
+    for r, qp in enumerate(q_pos):
+        p = torch.arange(max(0, qp - s + 1), qp + 1)
+        k_pos[r, p % s] = p.to(torch.int32)
+    return dict(q=torch.randn(b, h, d, generator=gen),
+                k_ring=torch.randn(b, s, kv, d, generator=gen),
+                v_ring=torch.randn(b, s, kv, d, generator=gen),
+                k_pos=k_pos,
+                q_pos=torch.tensor(list(q_pos) + [0] * idle,
+                                   dtype=torch.int32))
+
+
+def sweep_dense_case(gen, *, b, h, kv, s, d):
+    """The reference's kernel sweep: contiguous [B, Kv, S, D] K and V,
+    k_pos uniform in [-1, 600) (unwritten and future entries), every row
+    at position 599."""
+    return dict(q=torch.randn(b, h, d, generator=gen),
+                k=torch.randn(b, kv, s, d, generator=gen),
+                v=torch.randn(b, kv, s, d, generator=gen),
+                k_pos=torch.randint(-1, 600, (b, s), generator=gen,
+                                    dtype=torch.int32),
+                q_pos=torch.full((b,), 599, dtype=torch.int32))
+
+
+def dense_args(x):
+    """A dense case's kernel arguments; a ring goes in as its [B, Kv, S, D]
+    view, read in place, as ``layers.decode_attention`` passes it."""
+    if "k_ring" not in x:
+        return x
+    return dict(q=x["q"], k=x["k_ring"].transpose(1, 2),
+                v=x["v_ring"].transpose(1, 2), k_pos=x["k_pos"],
+                q_pos=x["q_pos"])
+
+
 def on(dev, case, dtype):
     return {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev))
             for k, v in case.items()}
@@ -454,6 +527,7 @@ def phase_kernels(dev) -> dict:
             if name == "main" and dtype == torch.bfloat16:
                 errs["paged_decode_attention"] = err
     errs["segment_attention"] = phase_kernels_flat(dev, gen)
+    errs["decode_attention"] = phase_kernels_dense(dev, gen)
     errs["rglru_scan_state"] = phase_kernels_rglru(dev, gen)
     errs["rwkv6_scan_state"] = phase_kernels_rwkv6(dev)
     errs.update(phase_kernels_flash(dev))
@@ -493,6 +567,64 @@ def phase_kernels_flat(dev, gen) -> float:
             if name == "main" and dtype == torch.bfloat16:
                 main_err = err
             del got, want
+        torch.cuda.empty_cache()
+    return main_err
+
+
+def dense_cases() -> dict:
+    """name -> (case builder, kwargs, window): yi-6b's legacy decode rings
+    full and at the slice's prompts, recurrentgemma's swa rings wrapped
+    and with idle rows, the reference's sweep (windows 0 and 256, GQA,
+    MQA, MHA), an all-empty cache, and every head dim with MHA, GQA and
+    MQA at S below one split, above it and not a multiple of it."""
+    lens, rg = prompt_lens(), rg_prompt_lens()
+    cases = {
+        "main": (dense_case, dict(q_pos=[CACHE_LEN - 1] * SLOTS, h=H, kv=KV,
+                                  d=D, s=CACHE_LEN), 0),
+        "yi-prompts": (dense_case, dict(q_pos=[int(n) + 16 for n in lens],
+                                        h=H, kv=KV, d=D, s=CACHE_LEN), 0),
+        "rg-wrapped": (dense_case, dict(
+            q_pos=[RG_WINDOW - 1 + int(n) for n in rg], h=RG_H, kv=RG_KV,
+            d=RG_D, s=RG_WINDOW), RG_WINDOW),
+        "rg-idle": (dense_case, dict(q_pos=[int(n) + 5 for n in rg[:6]],
+                                     h=RG_H, kv=RG_KV, d=RG_D, s=RG_WINDOW,
+                                     idle=2), RG_WINDOW),
+        "empty": (dense_case, dict(q_pos=[], h=4, kv=2, d=64, s=128,
+                                   idle=2), 0),
+    }
+    for b, h, kv, s, d, w in ((2, 8, 2, 512, 64, 0), (1, 4, 1, 1024, 128, 256),
+                              (2, 4, 4, 384, 64, 0)):
+        cases[f"sweep-{b}x{h}/{kv}-S{s}-D{d}-w{w}"] = (
+            sweep_dense_case, dict(b=b, h=h, kv=kv, s=s, d=d), w)
+    for i, d in enumerate(HEAD_DIMS):
+        for j, (h, kv, what) in enumerate(((4, 4, "mha"), (8, 2, "gqa"),
+                                           (16, 1, "mqa"))):
+            s = (31, 300, 2049)[(i + j) % 3]
+            cases[f"d{d}-{what}-S{s}"] = (dense_case, dict(
+                q_pos=[5, s + 40, s // 2], h=h, kv=kv, d=d, s=s, idle=1),
+                9 if what == "gqa" else 0)
+    return cases
+
+
+def phase_kernels_dense(dev, gen) -> float:
+    """Dense decode attention against its plain version computed in f32
+    from the same inputs; rows no key admits exactly zero."""
+    main_err = 0.0
+    for name, (make, spec, window) in dense_cases().items():
+        case = make(gen, **spec)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = dense_args(on(dev, case, dtype))
+            got = decode_attention(**x, window=window)
+            torch.cuda.synchronize()
+            want = decode_attention_plain(
+                **dense_args(on(dev, on(dev, case, dtype), torch.float32)),
+                window=window)
+            live = decode_mask(x["k_pos"], x["q_pos"], window).any(dim=1)
+            err = compare(f"decode_attention/{name}", got, want, dtype,
+                          dead=~live)
+            if name == "main" and dtype == torch.bfloat16:
+                main_err = err
+            del x, got, want
         torch.cuda.empty_cache()
     return main_err
 
@@ -758,6 +890,8 @@ def phase_timing(dev, card) -> dict:
         shapes=shapes)
     del k, v, kf, vf, mask, x
     out["segment_attention"] = timing_flat(dev, gen)
+    out["decode_attention"], out["decode_attention (rg swa)"] = \
+        timing_dense(dev, gen)
     out["rglru_scan_state"] = timing_rglru(dev, gen)
     out["rwkv6_scan_state"] = timing_rwkv6(dev)
     torch.cuda.empty_cache()
@@ -823,6 +957,62 @@ def timing_flat(dev, gen) -> dict:
              shapes=f"bf16 H{RG_H}/Kv{RG_KV}/D{RG_D}, {RG_SLOTS} x "
                     f"{RG_WINDOW} ring keys + {RG_WIDTH} lanes")
     return r
+
+
+def dense_bound(x, window=0):
+    """Least time for this call's work: bytes (the q of rows that admit a
+    key, the whole output, each admitted key's K and V rows once, k_pos,
+    q_pos) against flops (4*D per admitted (query head, key) pair), at the
+    peak for the input dtype."""
+    adm = decode_mask(x["k_pos"], x["q_pos"], window)          # [B, S]
+    b, h, d = x["q"].shape
+    kv = x["k"].shape[1]
+    esz = x["q"].element_size()
+    n_adm = int(adm.sum())
+    nbytes = (int(adm.any(dim=1).sum()) * h * d * esz + b * h * d * esz
+              + n_adm * 2 * kv * d * esz + adm.numel() * 4 + b * 4)
+    flops = n_adm * h * 4 * d
+    peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
+        else PEAK_F32_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def timing_dense(dev, gen) -> tuple[dict, dict]:
+    """Dense decode attention, bf16, on full rings read in place: yi-6b's
+    legacy decode (B 8, H 32, Kv 4, D 128, S 2048, no window) and
+    recurrentgemma's swa rings (B 8, H 16, Kv 1, D 256, 2048 entries,
+    wrapped, window 2048).  The library call is SDPA on [B, H, 1, S] with
+    the boolean mask and ``enable_gqa``, on contiguous copies of the
+    rings."""
+    import torch.nn.functional as F
+    shapes = {
+        "yi": (dict(q_pos=[CACHE_LEN - 1] * SLOTS, h=H, kv=KV, d=D,
+                    s=CACHE_LEN), 0,
+               f"bf16 B{SLOTS} H{H}/Kv{KV} D{D} S{CACHE_LEN} (yi-6b legacy "
+               "decode, full rings)"),
+        "rg": (dict(q_pos=[RG_WINDOW - 1 + int(n) for n in rg_prompt_lens()],
+                    h=RG_H, kv=RG_KV, d=RG_D, s=RG_WINDOW), RG_WINDOW,
+               f"bf16 B{RG_SLOTS} H{RG_H}/Kv{RG_KV} D{RG_D} ring {RG_WINDOW} "
+               f"window {RG_WINDOW} (recurrentgemma swa, wrapped)")}
+    rows = []
+    for spec, window, note in shapes.values():
+        x = dense_args(on(dev, dense_case(gen, **spec), torch.bfloat16))
+        mask = decode_mask(x["k_pos"], x["q_pos"], window)[:, None, None, :]
+        k, v = x["k"].contiguous(), x["v"].contiguous()
+        qd = x["q"][:, :, None, :]                        # [B, H, 1, D]
+        bound, by = dense_bound(x, window)
+        rows.append(dict(
+            ms=time_ms(lambda: decode_attention(**x, window=window)),
+            plain_ms=time_ms(lambda: decode_attention_plain(
+                **x, window=window)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qd, k, v, attn_mask=mask, enable_gqa=True)),
+            library_note="sdpa, boolean mask, enable_gqa", bound_ms=bound,
+            bound_by=by, shapes=note))
+        del x, k, v, mask
+    return rows[0], rows[1]
 
 
 def timing_rglru(dev, gen) -> dict:
@@ -972,7 +1162,10 @@ def phase_parity(dev, card):
     """Full-width yi-6b, 2 layers, f32, TF32 off: card vs CPU logits and
     block stores, beside the CPU against itself with every weight
     multiplied in f32 by 1 + 1e-7 N(0, 1), a perturbation at the level of
-    f32 rounding (the noise floor of this random-weight model)."""
+    f32 rounding (the noise floor of this random-weight model).  The
+    packed path on paged KV, then the split path's one-shot ``prefill``
+    and two dense ``decode_step`` calls (the flash forward and the dense
+    decode kernels on the card)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
@@ -1025,6 +1218,29 @@ def phase_parity(dev, card):
     def rel(a, b):
         return float((a - b).abs().max() / a.abs().max())
 
+    def run_dense(weights, d):
+        p = params_from_numpy(weights, d)
+        rng = np.random.default_rng(4)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 70))
+                                  .astype(np.int32)).to(d)
+        logits, caches = zoo.prefill(cfg, p, {"tokens": tokens},
+                                     cache_len=cache)
+        out = [logits]
+        # the second step leaves row 1 out
+        for step, act in ((0, None), (1, [True, False, True])):
+            tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, 3)
+                                   .astype(np.int32)).to(d)
+            pos = torch.full((3,), 70 + step, dtype=torch.int32, device=d)
+            act = None if act is None else torch.tensor(act, device=d)
+            lg = zoo.decode_step(cfg, p, caches, tok, pos, active=act)
+            out.append(lg if act is None else lg[act])
+        return ([lg.cpu() for lg in out],
+                [caches["groups"][0][k].cpu() for k in ("k", "v")])
+
+    dense = [run_dense(w, d) for w, d in ((tree, torch.device("cpu")),
+                                          (nudged, torch.device("cpu")),
+                                          (tree, dev))]
+    torch.cuda.empty_cache()
     cpu = run(tree, torch.device("cpu"))
     floor = run(nudged, torch.device("cpu"))
     got = run(tree, dev)
@@ -1045,8 +1261,21 @@ def phase_parity(dev, card):
         f"= {kerr:.3e} (limit {STORE_LIMIT:g}; CPU noise floor "
         f"{kfloor:.3e}); max|K| "
         f"{float(cpu[1][0].abs().max()):.1f}")
+    cpu, floor, got = dense
+    names = ("prefill", "decode_step", "decode_step, one row left out")
+    for name, lc, lg, ln in zip(names, cpu[0], got[0], floor[0]):
+        err = rel(lc, lg)
+        worst = max(worst, err)
+        say(f"[parity] yi-6b 2 layers f32, dense {name}: max|dlogit| / "
+            f"max|logit| = {err:.3e} (limit {LOGIT_LIMIT:g}; CPU noise floor "
+            f"{rel(lc, ln):.3e}) on {card}")
+    derr = max(rel(a, b) for a, b in zip(cpu[1], got[1]))
+    kerr = max(kerr, derr)
+    say(f"[parity] dense rings after prefill and two steps: max|err| / "
+        f"max|x| = {derr:.3e} (limit {STORE_LIMIT:g}; CPU noise floor "
+        f"{max(rel(a, b) for a, b in zip(cpu[1], floor[1])):.3e})")
     if not worst <= LOGIT_LIMIT or not kerr <= STORE_LIMIT:
-        fail("card and CPU disagree on yi-6b logits or KV stores")
+        fail("card and CPU disagree on yi-6b logits or KV caches")
 
 
 def phase_parity_train(dev, card):
@@ -1260,8 +1489,10 @@ def phase_parity_rwkv6(dev, card):
         fail("card and CPU disagree on rwkv6-7b logits or state")
 
 
-def phase_slice(dev, card) -> dict:
-    """Full yi-6b bf16 through the launcher's own functions."""
+def phase_slice(dev, card) -> tuple[dict, dict, dict]:
+    """Full yi-6b bf16 through the launcher's own functions.  Returns the
+    launches, the weights (phase 10 serves them again) and the greedy
+    tokens by request."""
     cfg = get_config("yi-6b")
     lens = prompt_lens()
     rng = np.random.default_rng(1)
@@ -1346,7 +1577,8 @@ def phase_slice(dev, card) -> dict:
     if not after < before:
         fail("the KV budget cut released no device memory")
     eng.close()
-    return launches
+    tokens = {r.req_id: list(r.generated) for r in eng.finished}
+    return launches, eng.params, tokens
 
 
 def phase_rg_slice(dev, card) -> dict:
@@ -1388,12 +1620,20 @@ def phase_rg_slice(dev, card) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     segment_attention.launches = 0
     rglru_scan_state.launches = 0
+    decode_attention.launches = 0
     t0 = last[0] = time.perf_counter()
     stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"segment_attention": segment_attention.launches,
-                "rglru_scan_state": rglru_scan_state.launches}
+                "rglru_scan_state": rglru_scan_state.launches,
+                "decode_attention": decode_attention.launches}
+    # drain ticks: a decode step, no prefill (each of its 12 swa layers
+    # launches the dense decode kernel)
+    n_drain = sum(1 for st in stats
+                  if st["dispatches"] and not st["prefill_issued_tokens"])
+    swa = sum(blocks.split_kind(k)[0] == "swa" for k in
+              (cfg.block_pattern * cfg.num_layers)[:cfg.num_layers])
     say("[rg-slice] " + summary(eng, len(prompts), len(stats)))
     n_done = len(eng.finished)
     max_disp = max(st["dispatches"] for st in stats)
@@ -1405,7 +1645,8 @@ def phase_rg_slice(dev, card) -> dict:
         f"{eng.preemptions}; kernel launches {launches} = "
         f"{launches['segment_attention'] / max(1, n_mixed):g} flat segment "
         f"and {launches['rglru_scan_state'] / max(1, n_mixed):g} RG-LRU per "
-        "mixed tick")
+        f"mixed tick, {launches['decode_attention'] / max(1, n_drain):g} "
+        f"dense decode per drain tick ({n_drain} drain ticks)")
     for k, vals in knobs.items():
         say(f"[rg-slice] knob {k}: {vals[0]} -> {vals[-1]}, distinct values "
             f"{len(set(vals))}, trajectory {runs(vals)}")
@@ -1433,6 +1674,9 @@ def phase_rg_slice(dev, card) -> dict:
         fail("the HBM goal was violated")
     if not all(launches.values()):
         fail(f"a kernel of the path never launched: {launches}")
+    if launches["decode_attention"] != swa * n_drain:
+        fail(f"expected {swa} dense decode launches per drain tick, got "
+             f"{launches['decode_attention']} in {n_drain} drain ticks")
     if not all(len(set(v)) > 1 for v in knobs.values()):
         fail("a SmartConf knob never moved")
     rows_cost(eng, card, "rglru", "rg-slice")
@@ -1673,6 +1917,153 @@ def phase_train_slice(dev, card, timing) -> dict:
     return launches, dict(step_ms=med * 1e3, losses=losses)
 
 
+def phase_split_slice(dev, card, params, packed_tokens) -> dict:
+    """Full yi-6b bf16 (phase 6's weights) through the launcher's own
+    functions in the split modes, knobs live: ``prefill_mode="legacy"``
+    (one-shot prefill per admitted request, then dense decode ticks) and
+    ``"bucketed"`` (padded chunks at engine batch width on paged KV, then
+    decode ticks), the same 8 requests as phase 6."""
+    cfg = get_config("yi-6b")
+    lens = prompt_lens()
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    new_tokens, layers = 32, cfg.num_layers
+    counted = (flash_attention, decode_attention, paged_decode_attention,
+               paged_segment_attention, segment_attention)
+    launches = {}
+    # each run's greedy tokens by request, to compare the next runs with
+    earlier = {"phase 6's packed run": packed_tokens}
+    for mode in SPLIT_MODES:
+        eng = build_engine(cfg, max_batch=SLOTS, cache_len=CACHE_LEN,
+                           budget_headroom_bytes=1e9, latency_goal_s=0.02,
+                           device=dev, params=params, prefill_mode=mode)
+        kv = "paged" if eng.paged else "dense"
+        tag = f"[split-{mode}]"
+        say(f"{tag} {cfg.name} bf16, {cfg.num_layers} layers, phase 6's "
+            f"weights; prefill[{eng.prefill_impl}], kv[{kv}]; HBM goal "
+            f"{eng.accountant.budget_bytes / 1e9:.3f} GB")
+        if eng.paged != (mode == "bucketed") or eng.prefill_impl != mode:
+            fail(f"prefill_mode={mode!r} resolved to prefill "
+                 f"{eng.prefill_impl}, kv {kv}")
+        if None in (eng.sc_queue, eng.sc_kv, eng.sc_chunk):
+            fail("a SmartConf knob is not live")
+        knobs = {"serve.max_queue_tokens": [eng.max_queue_tokens],
+                 "serve.kv_block_budget": [eng.pool.max_blocks],
+                 "serve.prefill_chunk_tokens": [eng.prefill_chunk]}
+        tick_s = {"mixed": [], "decode-only": []}
+        per_tick = []            # (dispatches, prefill calls, decoded)
+        last, calls = [0.0], [0]
+
+        def on_tick(e, st):
+            for name, val in (("serve.max_queue_tokens", e.max_queue_tokens),
+                              ("serve.kv_block_budget", e.pool.max_blocks),
+                              ("serve.prefill_chunk_tokens",
+                               e.prefill_chunk)):
+                knobs[name].append(val)
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            kind = "mixed" if st["prefill_issued_tokens"] else "decode-only"
+            tick_s[kind].append(now - last[0])
+            last[0] = now
+            per_tick.append((st["dispatches"], e.prefill_calls - calls[0],
+                             st["decode_tokens"] > 0))
+            calls[0] = e.prefill_calls
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        for fn in counted:
+            fn.launches = 0
+        t0 = last[0] = time.perf_counter()
+        stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {fn.__name__: fn.launches for fn in counted}
+        say(f"{tag} " + summary(eng, len(prompts), len(stats)))
+        n_done = len(eng.finished)
+        gen_tokens = sum(len(r.generated) for r in eng.finished)
+        n_decode = sum(d for _, _, d in per_tick)
+        tokens = {r.req_id: list(r.generated) for r in eng.finished}
+        say(f"{tag} finished {n_done}/{len(prompts)} in {len(stats)} ticks "
+            f"({n_decode} with a decode step); dispatches per tick "
+            f"{[d for d, _, _ in per_tick]}; prefill calls "
+            f"{eng.prefill_calls}; kernel launches {got}; preemptions "
+            f"{eng.preemptions}; HBM violations {eng.accountant.violations}")
+        for k, vals in knobs.items():
+            say(f"{tag} knob {k}: {vals[0]} -> {vals[-1]}, distinct values "
+                f"{len(set(vals))}, trajectory {runs(vals)}")
+        say(f"{tag} device memory: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
+            f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+        say(f"{tag} on {card}: {gen_tokens} tokens in {wall:.3f} s = "
+            f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
+            f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
+            f"{eng.ttft.p99() * 1e3:.1f} ms")
+        for kind, ts in tick_s.items():
+            if ts:
+                say(f"{tag} {kind} ticks on {card}: {len(ts)}, mean "
+                    f"{np.mean(ts) * 1e3:.1f} ms, first {ts[0] * 1e3:.1f} ms, "
+                    f"max {max(ts) * 1e3:.1f} ms")
+        for name, other in earlier.items():
+            same = sum(a == b for i, g in tokens.items()
+                       for a, b in zip(g, other[i]))
+            first = sum(g[:1] == other[i][:1] for i, g in tokens.items())
+            say(f"{tag} greedy tokens equal to {name}: {same}/{gen_tokens}, "
+                f"first tokens {first}/{len(tokens)} (information: bf16 "
+                "near-ties may differ; the CPU tests hold token identity)")
+        earlier[f"the {mode} run"] = tokens
+        if n_done != len(prompts):
+            fail("not every request finished")
+        for r in eng.finished:
+            g = np.asarray(r.generated)
+            if len(g) != new_tokens or g.min() < 0 or g.max() >= cfg.vocab_size:
+                fail(f"request {r.req_id} generated {g!r}")
+        for disp, new_calls, decoded in per_tick:
+            if mode == "bucketed" and (disp > 2 or new_calls > 1):
+                fail(f"a bucketed tick made {disp} dispatches")
+            if disp != new_calls + decoded:
+                fail(f"a {mode} tick made {disp} dispatches for {new_calls} "
+                     f"prefill calls and {int(decoded)} decode steps")
+        if mode == "legacy":
+            want = {"flash_attention": layers * eng.prefill_calls,
+                    "decode_attention": layers * n_decode}
+        else:
+            want = {"paged_decode_attention": layers * n_decode}
+        want = {fn.__name__: want.get(fn.__name__, 0) for fn in counted}
+        if got != want:
+            fail(f"{mode} kernel launches {got}, expected {want}")
+        if mode == "legacy" and eng.prefill_calls != len(prompts):
+            fail(f"{eng.prefill_calls} one-shot prefills for {len(prompts)} "
+                 "requests")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    # the same requests through yi-6b at full width, 2 layers, f32 (TF32
+    # off since phase 5), in each mode: in f32 the split modes must give
+    # the packed engine's tokens, as the CPU tests hold them to (in bf16,
+    # above, near-ties of the random weights make the shares information)
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    p2 = zoo.init(cfg2, torch.Generator(device=dev).manual_seed(0), dev)
+    f32 = {}
+    for mode in ("packed",) + SPLIT_MODES:
+        eng = build_engine(cfg2, max_batch=SLOTS, cache_len=CACHE_LEN,
+                           budget_headroom_bytes=1e9, latency_goal_s=0.02,
+                           device=dev, params=p2, prefill_mode=mode)
+        serve_requests(eng, prompts, new_tokens)
+        f32[mode] = {r.req_id: list(r.generated) for r in eng.finished}
+        eng.close()
+    for mode in SPLIT_MODES:
+        same = sum(a == b for i, g in f32[mode].items()
+                   for a, b in zip(g, f32["packed"][i]))
+        say(f"[split-{mode}] yi-6b 2 layers f32 on {card}: greedy tokens "
+            f"equal to the packed engine's {same}/{len(prompts) * new_tokens}")
+        if f32[mode] != f32["packed"]:
+            fail(f"{mode} and packed serving give other tokens in f32")
+    del p2
+    torch.cuda.empty_cache()
+    return launches
+
+
 def device_breakdown(prof) -> tuple[dict, float, float]:
     """From a ``torch.profiler`` run: device ms by kind of kernel, the
     device's busy ms (the union of its kernels' intervals) and the span
@@ -1759,13 +2150,24 @@ def main() -> None:
     phase_parity_rg(dev, card)
     phase_parity_rwkv6(dev, card)
     phase_parity_train(dev, card)
-    launches = phase_slice(dev, card)
+    launches: dict = {}
+
+    def count(got):
+        # each phase resets the counts it reads; the line sums the phases
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+
+    got, yi_params, yi_tokens = phase_slice(dev, card)
+    count(got)
     torch.cuda.empty_cache()
-    launches.update(phase_rg_slice(dev, card))
+    count(phase_rg_slice(dev, card))
     torch.cuda.empty_cache()
-    launches.update(phase_rwkv6_slice(dev, card))
+    count(phase_rwkv6_slice(dev, card))
     torch.cuda.empty_cache()
-    launches.update(phase_train_slice(dev, card, timing)[0])
+    count(phase_train_slice(dev, card, timing)[0])
+    torch.cuda.empty_cache()
+    count(phase_split_slice(dev, card, yi_params, yi_tokens))
+    del yi_params
     meta = {
         "paged_segment_attention": (
             SEG_SRC,
@@ -1790,6 +2192,9 @@ def main() -> None:
         "flash_attention_dkv": (
             FLASH_BWD_SRC,
             "src/repro/kernels/flash_attention/flash_attention_bwd.py:76"),
+        "decode_attention": (
+            DENSE_SRC,
+            "src/repro/kernels/decode_attention/decode_attention.py:84"),
     }
     kernels = []
     for name, (src, replaces) in meta.items():

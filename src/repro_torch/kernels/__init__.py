@@ -28,18 +28,26 @@ KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def check_operand(name: str, t: torch.Tensor, *, dtype: torch.dtype,
-                  ndim: int, device: torch.device, align: int = 16) -> None:
-    """Raise unless ``t`` is a contiguous tensor of the given dtype, rank
-    and device whose base address is ``align``-byte aligned (the kernels
-    read tiles with 16-byte vector loads)."""
+                  ndim: int, device: torch.device, align: int = 16,
+                  contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a tensor of the given dtype, rank and device
+    whose base address is ``align``-byte aligned (the kernels read tiles
+    with 16-byte vector loads), and contiguous.  With ``contiguous=False``
+    a strided view is taken instead, as long as its last dimension is
+    contiguous and every other stride keeps rows ``align``-byte aligned
+    (a kernel that takes the strides reads it in place)."""
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: rank {t.dim()}, expected {ndim}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if not contiguous and (t.stride(-1) != 1 or any(
+            st * t.element_size() % align for st in t.stride()[:-1])):
+        raise ValueError(f"{name}: strides {t.stride()} need a contiguous "
+                         f"last dimension and {align}-byte aligned rows")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: base address not {align}-byte aligned")
 

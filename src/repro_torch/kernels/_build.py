@@ -37,6 +37,8 @@ SOURCES = {
     / "flash_attention.cu",
     "flash_attention_bwd": _KERNELS / "flash_attention" / "csrc"
     / "flash_attention_bwd.cu",
+    "decode_attention": _KERNELS / "decode_attention" / "csrc"
+    / "decode_attention.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",

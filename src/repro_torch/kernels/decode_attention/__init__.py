@@ -1,11 +1,8 @@
-"""Dense decode attention: the plain oracle and the cache sizing helper.
+from .decode_attention import (DEFAULT_BLOCK_KV, decode_attention,
+                               padded_cache_len)
+from .ops import decode_attention_op
+from .ref import decode_attention_plain, decode_attention_ref, decode_mask
 
-The dense kernel itself is not on the serve path (paged KV is), so only
-:func:`padded_cache_len` (engine sizing) and :func:`decode_attention_ref`
-(the oracle the paged decode oracle defers to) are ported so far."""
-
-from .decode_attention import DEFAULT_BLOCK_KV, padded_cache_len
-from .ref import decode_attention_ref, decode_mask
-
-__all__ = ["DEFAULT_BLOCK_KV", "decode_attention_ref", "decode_mask",
+__all__ = ["DEFAULT_BLOCK_KV", "decode_attention", "decode_attention_op",
+           "decode_attention_plain", "decode_attention_ref", "decode_mask",
            "padded_cache_len"]

@@ -1,21 +1,21 @@
 """Plain PyTorch oracle for paged decode attention.
 
 Gathers each row's logical KV view through the block table and defers to
-the dense decode oracle.  Logical position ``p`` of row ``b`` lives in
-physical block ``block_tables[b, p // T]`` at offset ``p % T``.
+the dense decode kernel's plain version.  Logical position ``p`` of row
+``b`` lives in physical block ``block_tables[b, p // T]`` at offset
+``p % T``.
 
 A row that admits no key gives exact zeros.  The engine's idle slots are
 such rows (position 0, table row all -1) on every decode-only tick with
 fewer running requests than slots.  The JAX package's Pallas kernel and
-the CUDA kernel give zeros there; the JAX package's oracle, and the dense
-oracle here, give the mean of V."""
+the CUDA kernel give zeros there; the JAX package's oracle gives the mean
+of V."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
-                                                      decode_mask)
+from repro_torch.kernels.decode_attention.ref import decode_attention_plain
 
 
 def paged_gather(k_store, v_store, block_tables):
@@ -43,6 +43,4 @@ def paged_decode_attention_ref(q, k_store, v_store, block_tables, q_pos, *,
     [B] -> [B,H,D].  Keys past q_pos, behind -1 entries, or outside the
     window are masked; a row with no key left is exact zeros."""
     k, v, k_pos = paged_gather(k_store, v_store, block_tables)
-    out = decode_attention_ref(q, k, v, k_pos, q_pos, window=window)
-    live = decode_mask(k_pos, q_pos, window).any(dim=-1)       # [B]
-    return torch.where(live[:, None, None], out, 0.0)
+    return decode_attention_plain(q, k, v, k_pos, q_pos, window=window)

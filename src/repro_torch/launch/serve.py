@@ -23,19 +23,22 @@ from repro_torch.serve import Request, ServeEngine, ServeOptions
 def build_engine(cfg, *, max_batch: int, cache_len: int,
                  budget_headroom_bytes: float,
                  latency_goal_s: float | None, device=None,
-                 seed: int = 0) -> ServeEngine:
-    """Random weights from ``seed`` on ``device`` and an engine whose HBM
-    goal is the weights plus ``budget_headroom_bytes`` — the launcher's
-    setup, shared with the chip smoke run."""
+                 seed: int = 0, prefill_mode: str = "auto",
+                 params: dict | None = None) -> ServeEngine:
+    """Random weights from ``seed`` on ``device`` (or ``params``, weights
+    already there) and an engine whose HBM goal is the weights plus
+    ``budget_headroom_bytes`` — the launcher's setup, shared with the chip
+    smoke run."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    params = zoo.init(cfg, gen, device)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        params = zoo.init(cfg, gen, device)
     weights = sum(t.numel() * t.element_size()
                   for t in tree_leaves(params))
     budget = int(weights + budget_headroom_bytes)
     return ServeEngine(cfg, params, device=device, options=ServeOptions(
         max_batch=max_batch, cache_len=cache_len, hbm_budget_bytes=budget,
-        latency_goal_s=latency_goal_s))
+        latency_goal_s=latency_goal_s, prefill_mode=prefill_mode))
 
 
 def serve_requests(eng: ServeEngine, prompts: list[np.ndarray],
@@ -80,6 +83,14 @@ def main() -> None:
     ap.add_argument("--latency-goal-ms", type=float, default=None,
                     help="decode-latency p99 goal: makes the "
                          "serve.prefill_chunk_tokens knob live")
+    ap.add_argument("--prefill-mode", default="auto",
+                    choices=["auto", "bucketed", "packed", "one_shot"],
+                    help="packed (auto) = unified ticks: one token-packed "
+                         "stream per tick carrying prefill chunks and every "
+                         "running slot's decode token; bucketed = a padded "
+                         "power-of-two chunk per prefilling slot, then a "
+                         "decode step; one_shot = whole-prompt prefill per "
+                         "admitted request into dense KV, then decode steps")
     ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda); cpu runs the "
@@ -95,7 +106,7 @@ def main() -> None:
         budget_headroom_bytes=args.budget_headroom_mb * 1e6,
         latency_goal_s=(None if args.latency_goal_ms is None
                         else args.latency_goal_ms / 1e3),
-        device=args.device, seed=args.seed)
+        device=args.device, seed=args.seed, prefill_mode=args.prefill_mode)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 48)))
                for _ in range(args.requests)]

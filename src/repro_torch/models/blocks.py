@@ -19,8 +19,10 @@ returns them) and return the new activations.  Writes that the reference
 drops (``mode="drop"``) are left out of a write plan the caller computes
 once per step, so the device never selects lanes itself.
 
-Training runs whole sequences without caches (:func:`block_apply_seq`)
-on the attention kinds only.
+Whole sequences (:func:`block_apply_seq`) run on the attention kinds
+only: without a cache in training, writing a dense ring in the one-shot
+prefill.  Padded per-slot prompt chunks (:func:`block_apply_chunk`, the
+bucketed prefill) run on every kind.
 """
 
 from __future__ import annotations
@@ -249,47 +251,85 @@ def _ffn(cfg, params, x):
 
 
 # ---------------------------------------------------------------------------
-# apply: full sequence (training)
+# apply: full sequence (training, one-shot prefill)
 # ---------------------------------------------------------------------------
 
 
-def block_apply_seq(cfg, kind: str, params: dict, x, positions):
-    """x: [B,S,d]; positions: [S] absolute (``arange(S)`` in training).
-    Returns ``(x, aux)`` with ``aux`` the f32 load-balancing loss (0 for a
-    dense FFN).  The attention kinds only, without a cache: the
-    reference's prefill form, which writes one, is ROADMAP Queue 1 item
-    5b; the recurrent kinds' one-shot forms are items 5b and 10, MoE item
-    7."""
+def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None):
+    """x: [B,S,d]; positions: [S] absolute (``arange(S)``).  With ``cache``
+    (the one-shot prefill) the computed K/V are written into this layer's
+    dense ring in place (:func:`_write_cache`).  Returns ``(x, aux)`` with
+    ``aux`` the f32 load-balancing loss (0 for a dense FFN).  The attention
+    kinds only: the recurrent kinds' one-shot forms (``time_mix_chunked``,
+    ``rglru_block``) are ROADMAP Queue 1 item 5c, MoE item 7."""
     base = _check_ported(kind)
     if base in RECURRENT_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} over a whole sequence (training): "
-            "time_mix_chunked / rglru_block are ROADMAP Queue 1 items 5b "
-            "and 10 (not ported yet)")
+            f"block kind {kind!r} over a whole sequence (training, one-shot "
+            "prefill): time_mix_chunked / rglru_block are ROADMAP Queue 1 "
+            "item 5c (not ported yet)")
     q, k, v = _attn_qkv(cfg, base, params, x, positions)
     o = layers.attention(q, k, v, q_pos=positions, k_pos=positions,
                          causal=base != "bidir", window=_window(cfg, base))
     x = x + layers.attn_output(params["attn"], o)
+    if cache is not None:
+        _write_cache(cache, k, v, positions)
     return _ffn(cfg, params, x), torch.zeros((), dtype=torch.float32,
                                              device=x.device)
 
 
+def _write_cache(cache: dict, k, v, positions) -> None:
+    """Write a whole sequence's K/V ([B,S,Kv,D]) into a ring of ``n``
+    entries in place: with ``S >= n`` the last ``n`` positions, each at
+    its ring slot ``p % n`` (the reference's ``argsort(slots)`` order),
+    else positions ``[0, S)`` at the front."""
+    n = cache["k"].shape[1]
+    b, s = k.shape[:2]
+    if s >= n:
+        tail = positions[-n:]
+        slots = (tail % n).long()
+        cache["k"][:, slots] = k[:, -n:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, -n:].to(cache["v"].dtype)
+        cache["pos"][:, slots] = tail.to(torch.int32).expand(b, n)
+        return
+    cache["k"][:, :s] = k.to(cache["k"].dtype)
+    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    cache["pos"][:, :s] = positions.to(torch.int32).expand(b, s)
+
+
 # ---------------------------------------------------------------------------
-# apply: padded per-slot chunk (recurrent kinds)
+# apply: padded per-slot chunk (bucketed prefill)
 # ---------------------------------------------------------------------------
 
 
-def block_apply_chunk(cfg, kind: str, params: dict, x, pos, valid, cache):
+def block_apply_chunk(cfg, kind: str, params: dict, x, pos, valid, cache,
+                      block_tables=None, plan=None):
     """x: [B,C,d] chunk, rows left-aligned; pos: [B,C] positions; valid:
-    [B,C] bool marks real tokens; cache: this layer's per-slot scan state,
-    updated in place.  A row whose chunk starts at position 0 begins a
-    prompt in a (possibly reused) slot: its state restarts from zero
-    (attention masks an earlier occupant by position; recurrent state has
-    no positions).  Only the recurrent kinds come here."""
+    [B,C] bool marks real tokens (False = pad or inactive row); cache:
+    this layer's dense ring, paged block store or per-slot scan state,
+    updated in place.
+
+    * Attention, paged (``block_tables`` [B,M] given; ``plan`` is the
+      chunk's :func:`paged_write_plan` over its flattened ``[B*C]`` lanes,
+      see ``transformer.chunk_plan``): write-then-gather — the chunk's K/V
+      go into the store first, then queries attend to each row's logical
+      view (``paged_gather``), exact because rows prefill front to back.
+    * Attention, dense (``plan`` maps each ring length to the chunk's
+      :func:`dense_packed_plan`, each row one segment): queries attend to
+      the ring followed by the chunk's own keys under one softmax; ring
+      entries at or after a row's chunk start are stale (an earlier
+      occupant) and masked.  Then each row's last ``min(len, ring)``
+      valid K/V are written back.
+    * Recurrent: a row whose chunk starts at position 0 begins a prompt in
+      a (possibly reused) slot, so its state restarts from zero (recurrent
+      state has no positions to mask by); pads leave the state alone.
+
+    The attention over the chunk is plain torch (``layers.chunk_attention``),
+    as the reference computes it in XLA."""
     base = _check_ported(kind)
-    if base not in RECURRENT_KINDS:
-        raise ValueError(f"block_apply_chunk serves recurrent kinds, got "
-                         f"{kind!r}")
+    if base in ATTN_KINDS:
+        return _chunk_attention_block(cfg, base, params, x, pos, valid,
+                                      cache, block_tables, plan)
     fresh = (pos[:, 0] == 0) & valid[:, 0]                       # [B]
     state = {n: torch.where(fresh.view((-1,) + (1,) * (a.dim() - 1)),
                             torch.zeros_like(a), a)
@@ -308,6 +348,34 @@ def block_apply_chunk(cfg, kind: str, params: dict, x, pos, valid, cache):
                                                   valid)
     _store_state(cache, {"S": s_new, "tm_last": tm_last, "cm_last": cm_last})
     return x + cm_out
+
+
+def _chunk_attention_block(cfg, base, params, x, pos, valid, cache,
+                           block_tables, plan):
+    """The attention branches of :func:`block_apply_chunk`."""
+    q, k, v = _attn_qkv(cfg, base, params, x, pos)
+    window = _window(cfg, base)
+    b, c, kvh, hd = k.shape
+    k_lanes, v_lanes = k.reshape(b * c, kvh, hd), v.reshape(b * c, kvh, hd)
+    if block_tables is not None:
+        from repro_torch.kernels.paged_attention import paged_gather
+        _paged_scatter(cache, k_lanes, v_lanes, plan)
+        k_eff, v_eff, kpos_eff = paged_gather(cache["k"], cache["v"],
+                                              block_tables)
+        o = layers.chunk_attention(q, k_eff.transpose(1, 2),
+                                   v_eff.transpose(1, 2), k_pos=kpos_eff,
+                                   q_pos=pos, window=window)
+    else:
+        kpos_cache = torch.where(cache["pos"] < pos[:, :1], cache["pos"], -1)
+        k_eff = torch.cat([cache["k"], k.to(cache["k"].dtype)], dim=1)
+        v_eff = torch.cat([cache["v"], v.to(cache["v"].dtype)], dim=1)
+        kpos_eff = torch.cat([kpos_cache, torch.where(valid, pos, -1)], dim=1)
+        o = layers.chunk_attention(q, k_eff, v_eff, k_pos=kpos_eff, q_pos=pos,
+                                   window=window)
+        _dense_write(cache, k_lanes, v_lanes, pos.reshape(-1),
+                     plan[cache["k"].shape[1]])
+    x = x + layers.attn_output(params["attn"], o)
+    return _ffn(cfg, params, x)
 
 
 def _store_state(cache: dict, new: dict, active=None) -> None:
@@ -413,11 +481,12 @@ def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
     layer's paged store, dense ring or recurrent state.  Paged (with
     ``block_tables``): ``plan`` is the rows' :func:`paged_write_plan` and
     attention runs through the paged decode kernel.  Dense: ``plan`` maps
-    each ring length to the rows' :func:`dense_step_plan`, and attention is
-    plain torch over the ring (the reference computes it outside any
-    kernel).  Either plan leaves out rows that are not decoding this tick;
-    for the recurrent kinds, ``active`` ([B] bool) keeps those rows' state
-    untouched."""
+    each ring length to the rows' :func:`dense_step_plan`, and attention
+    runs through the dense decode kernel, which reads the ring in place
+    (the reference computes it in XLA; its Pallas kernel was written for
+    this step).  Either plan leaves out rows that are not decoding this
+    tick; for the recurrent kinds, ``active`` ([B] bool) keeps those rows'
+    state untouched."""
     base = _check_ported(kind)
     if base == "rglru":
         h = apply_norm(cfg.norm, params["ln1"], x)[:, 0]

@@ -5,9 +5,12 @@ reference's: ``wq``/``wk``/``wv`` are ``[d, heads, head_dim]`` used as
 ``bsd,dhk->bshk`` and ``wo`` is ``[heads, head_dim, d]``, so weights carry
 over without transposes.  Projections are plain matrix products
 (``torch.matmul``).  Packed attention runs through the hand-written
-kernels; the dense decode step's one-token attention is plain torch, as
-the reference computes it in XLA outside any kernel.  Full-sequence
-self-attention (training) runs through the flash attention kernels.
+kernels, and so does the dense decode step's one-token attention (the
+dense decode kernel the reference wrote for it, where the reference
+itself computes it in XLA).  A padded prompt chunk's attention over its
+ring or paged view is plain torch, as the reference computes it in XLA
+outside any kernel.  Full-sequence self-attention (training, one-shot
+prefill) runs through the flash attention kernels.
 """
 
 from __future__ import annotations
@@ -152,10 +155,18 @@ def chunk_attention(q, k, v, *, k_pos, q_pos, window: int = 0):
 
 def decode_attention(q, k_cache, v_cache, *, k_pos, q_pos, window: int = 0):
     """One token against a dense cache: q [B,1,H,D]; caches [B,S,Kv,D];
-    k_pos [B,S]; q_pos [B].  The one-query case of
-    :func:`chunk_attention`."""
-    return chunk_attention(q, k_cache, v_cache, k_pos=k_pos,
-                           q_pos=q_pos[:, None], window=window)
+    k_pos [B,S]; q_pos [B] -> [B,1,H,D].  The caches go to
+    ``decode_attention_op`` as ``[B,Kv,S,D]`` views, read in place: the
+    dense decode kernel on a card, its plain version on the CPU.  The
+    one-query case of :func:`chunk_attention` but for two things, both
+    the reference's Pallas kernel's: the probabilities meet V in f32 (not
+    rounded to q's dtype), and a row no key admits gives exact zeros (not
+    the mean of V)."""
+    from repro_torch.kernels.decode_attention import decode_attention_op
+    o = decode_attention_op(q[:, 0], k_cache.transpose(1, 2),
+                            v_cache.transpose(1, 2), k_pos, q_pos,
+                            window=window)
+    return o[:, None]
 
 
 def attention(q, k, v, *, q_pos, k_pos, causal: bool = True,

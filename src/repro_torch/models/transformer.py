@@ -21,6 +21,12 @@ Public entry points:
                                         chunks + length-1 decode segments]
     decode_step(cfg, params, caches, token, pos, block_tables=None,
                 active=None)            -> logits [B, V]       [in place]
+    prefill_chunk(cfg, params, caches, tokens, start, lengths,
+                  block_tables=None)    -> logits [B, V]       [in place;
+                                        one padded chunk per slot]
+    prefill(cfg, params, batch, cache_len=) -> (logits [B, V], caches)
+                                        [one-shot, fresh dense caches]
+    merge_slot(caches, one, slot)       [a one-row cache into a slot]
     forward(cfg, params, batch, remat="none") -> (hidden [B, S, d], aux)
     loss_fn(cfg, params, batch, remat="dots") -> (loss, {"ce", "aux"})
                                         [chunked cross-entropy; training]
@@ -194,10 +200,37 @@ def dense_packed_plans(caches, slot_id, pos, start, seg_len) -> dict:
             for n in ring_lens(caches)}
 
 
+def chunk_plan(caches, pos, valid, block_tables=None):
+    """A padded chunk's K/V write plan over its flattened ``[B*C]`` lanes
+    (pos, valid: [B,C]), for :func:`prefill_chunk`: each row's real tokens
+    are one segment of a packed stream, pads and inactive rows dead lanes
+    — :func:`~repro_torch.models.blocks.paged_write_plan` with
+    ``block_tables``, else :func:`dense_packed_plans`."""
+    b, c = pos.shape
+    rows = torch.arange(b, device=pos.device).repeat_interleave(c)
+    seg = torch.where(valid.reshape(-1), rows, -1)
+    if block_tables is not None:
+        return B.paged_write_plan(seg, pos.reshape(-1), block_tables,
+                                  _block_tokens(caches))
+    return dense_packed_plans(caches, seg, pos.reshape(-1), pos[:, 0],
+                              valid.sum(dim=1))
+
+
 def dense_step_plans(caches, pos, active=None) -> dict:
     """One :func:`~repro_torch.models.blocks.dense_step_plan` per ring
     length, for :func:`decode_step` on dense caches."""
     return {n: B.dense_step_plan(pos, active, n) for n in ring_lens(caches)}
+
+
+def merge_slot(caches: dict, one: dict, slot: int) -> None:
+    """Copy a one-row dense cache tree (:func:`prefill`'s, batch 1) into
+    row ``slot`` of the engine's caches in place: every leaf of the slot,
+    so whatever an earlier occupant left there is overwritten (the
+    reference's ``merge_fn``)."""
+    for key, axis in (("prefix", 0), ("groups", 1), ("rem", 0)):
+        for c, o in zip(caches.get(key, ()), one.get(key, ())):
+            for n, a in c.items():
+                a.select(axis, slot).copy_(o[n].select(axis, 0))
 
 
 def init_paged_cache(cfg, num_blocks: int, block_tokens: int, device) -> dict:
@@ -285,6 +318,38 @@ def step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
     return _logits(cfg, params, xl)
 
 
+def prefill_chunk(cfg, params, caches, tokens, start, lengths,
+                  block_tables=None, plan=None):
+    """Advance prefill by one padded chunk per slot, in place.
+
+    tokens: [B,C] int32, rows left-aligned and zero-padded; start: [B]
+    int32 position of each row's first chunk token; lengths: [B] int32
+    real tokens this chunk (0 = inactive row: no cache or state writes,
+    garbage logits).  block_tables: [B,M] int32 for paged caches, None
+    for dense ones.  ``plan`` is the chunk's write plan over the flattened
+    ``[B*C]`` lanes, :func:`chunk_plan`, computed here when not given
+    (which synchronises on a CUDA stream).  Returns the next-token
+    logits [B,V] at each row's last real token.  Attention chunks attend
+    to earlier chunks through the caches, recurrent layers thread their
+    scan state, so calling this over a long prompt is exact chunked
+    prefill."""
+    _check_supported(cfg)
+    b, c = tokens.shape
+    t = torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
+    pos = start[:, None] + t                                         # [B,C]
+    valid = t < lengths[:, None]
+    if plan is None:
+        plan = chunk_plan(caches, pos, valid, block_tables)
+    x = params["embed"][tokens]
+    for kind, p, cache in _layers(cfg, params, caches):
+        x = B.block_apply_chunk(cfg, kind, p, x, pos, valid, cache,
+                                block_tables, plan)
+    x = apply_norm(cfg.norm, params["ln_f"], x)
+    last = (lengths.long() - 1).clamp(0, c - 1)
+    xl = x[torch.arange(b, device=x.device), last]                   # [B,d]
+    return _logits(cfg, params, xl)
+
+
 def decode_step(cfg, params, caches, token, pos, block_tables=None,
                 active=None, plan=None):
     """token: [B] int32; pos: [B] int32.  ``active`` ([B] bool) leaves
@@ -315,15 +380,16 @@ def decode_step(cfg, params, caches, token, pos, block_tables=None,
 
 
 def _check_trainable(cfg) -> None:
-    """Training covers the attention kinds; the recurrent kinds' one-shot
-    forms (ROADMAP Queue 1 items 5b and 10), MoE (item 7) and the modality
-    frontends (item 12) raise."""
+    """Whole sequences (training, one-shot prefill) cover the attention
+    kinds; the recurrent kinds' one-shot forms (ROADMAP Queue 1 item 5c),
+    MoE (item 7) and the modality frontends (item 12) raise."""
     _check_supported(cfg)
     for kind in _all_kinds(cfg):
         if B.split_kind(kind)[0] in B.RECURRENT_KINDS:
             raise NotImplementedError(
-                f"{cfg.name}: training the {kind!r} kind is ROADMAP Queue 1 "
-                "items 5b and 10 (not ported yet)")
+                f"{cfg.name}: the {kind!r} kind over a whole sequence "
+                "(training, one-shot prefill) is ROADMAP Queue 1 item 5c "
+                "(not ported yet)")
 
 
 def _grad_checkpoint(fn, *args):
@@ -341,9 +407,12 @@ def _inputs_embeds(cfg, params, batch):
     return x, positions
 
 
-def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none"):
-    """prefix -> groups -> remainder over the whole sequence, no caches.
-    With ``remat`` other than ``"none"`` every group layer recomputes its
+def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
+                    caches=None):
+    """prefix -> groups -> remainder over the whole sequence.  ``caches``
+    is None in training; in the one-shot prefill it is a dense cache tree
+    from :func:`init_cache`, which every layer fills in place.  With
+    ``remat`` other than ``"none"`` every group layer recomputes its
     activations in the backward pass; the reference rematerialises the
     scanned group body under its ``remat`` policy, and the flash kernels'
     outputs are not among what ``"dots"`` saves, so there too the
@@ -351,9 +420,13 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none"):
     ``(x, aux_total)``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix, pattern, n_groups, rem = _plan(cfg)
+    layer_caches = (_layers(cfg, params, caches) if caches is not None
+                    else None)
 
     def run(kind, p, x, grouped):
-        fn = lambda p, x: B.block_apply_seq(cfg, kind, p, x, positions)  # noqa: E731
+        cache = None if layer_caches is None else next(layer_caches)[2]
+        fn = lambda p, x: B.block_apply_seq(cfg, kind, p, x, positions,  # noqa: E731
+                                            cache)
         if grouped and remat != "none":
             return _grad_checkpoint(fn, p, x)
         return fn(p, x)
@@ -378,6 +451,22 @@ def forward(cfg, params, batch, *, remat: str = "none"):
     x, positions = _inputs_embeds(cfg, params, batch)
     x, aux = _run_blocks_seq(cfg, params, x, positions, remat=remat)
     return apply_norm(cfg.norm, params["ln_f"], x), aux
+
+
+@torch.no_grad()
+def prefill(cfg, params, batch, *, cache_len: int):
+    """One-shot prefill of whole prompts: batch ``{"tokens": [B,S] int}``
+    -> (next-token logits [B,V] at the last position, fresh dense caches
+    of ``cache_len`` filled with the prompts' K/V).  Without gradients the
+    attention takes the flash forward kernel without its LSE output.  The
+    attention kinds only (the recurrent one-shot forms are ROADMAP Queue 1
+    item 5c)."""
+    _check_trainable(cfg)
+    x, positions = _inputs_embeds(cfg, params, batch)
+    caches = init_cache(cfg, x.shape[0], cache_len, x.device)
+    x, _ = _run_blocks_seq(cfg, params, x, positions, caches=caches)
+    x = apply_norm(cfg.norm, params["ln_f"], x[:, -1])
+    return _logits(cfg, params, x), caches
 
 
 def _chunk_loss(x_i, labels_i, head):

@@ -15,11 +15,21 @@ prefills by capping how many tokens one tick's packed stream may carry.
 Hot path (one ``tick``): controller updates -> admission -> scheduling
 (slot + paged KV lease) -> ONE model dispatch -> completion/free.
 
-  * **Unified prefill+decode ticks** — each tick packs prefill chunks from
-    as many requests as fit under the ``serve.prefill_chunk_tokens`` budget
-    PLUS one length-1 decode segment per running slot into a single
-    ``[1, width]`` stream (``step_packed``); a tick with no prefill work
-    runs the decode step instead.  Either way one dispatch per tick.
+  * **Unified prefill+decode ticks** (``prefill_mode="auto"`` or
+    ``"packed"``) — each tick packs prefill chunks from as many requests
+    as fit under the ``serve.prefill_chunk_tokens`` budget PLUS one
+    length-1 decode segment per running slot into a single ``[1, width]``
+    stream (``step_packed``); a tick with no prefill work runs the decode
+    step instead.  Either way one dispatch per tick.
+  * **Split ticks** (the reference's oracle modes) — a prefill dispatch,
+    then the decode step over every running slot.  ``"bucketed"``
+    advances every prefilling slot by one padded chunk of a power-of-two
+    width capped by ``serve.prefill_chunk_tokens`` (``prefill_chunk``):
+    at most two dispatches a tick.  ``"legacy"`` (alias ``"one_shot"``)
+    prefills each admitted request's whole prompt at once (``prefill``)
+    into fresh dense caches and merges them into its slot: one dispatch
+    per admission plus the decode step.  Legacy needs dense KV and the
+    attention kinds.
   * **Paged KV** (``kv_mode="auto"`` on attention-only archs) — per-layer
     physical block stores ``[capacity, Kv, T, D]`` addressed through
     per-sequence block tables (``serve/paging.py``).
@@ -43,9 +53,9 @@ only wait is the stream synchronise after a dispatch that samples a
 token, so the latency sensors measure device time, not enqueue time.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item, see ``serve/options.py``): the split-path prefill modes, the prefix
-cache, speculation, mesh serving, SLO brownout, telemetry, replicas,
-worker-preemption drain.
+item, see ``serve/options.py``): legacy prefill on recurrent archs, the
+modality frontends, the prefix cache, speculation, mesh serving, SLO
+brownout, telemetry, replicas, worker-preemption drain.
 """
 
 from __future__ import annotations
@@ -173,19 +183,33 @@ class ServeEngine:
                              f"engine on {device}")
         if not zoo.supports_chunked_prefill(cfg):
             raise NotImplementedError(
-                f"{cfg.name}: block pattern {cfg.block_pattern} needs the "
-                "one-shot prefill path, ROADMAP Queue 1 items 5 and 12 (not "
+                f"{cfg.name}: a modality frontend serves through the one-shot "
+                "prefill with its frontend, ROADMAP Queue 1 item 12 (not "
                 "ported yet)")
         for kind in set(cfg.block_pattern):
             blocks._check_ported(kind)
-        if opts.kv_mode == "paged" and not zoo.supports_paged_kv(cfg):
+        # auto resolves to packed for every arch the port serves
+        mode = "packed" if opts.prefill_mode == "auto" else opts.prefill_mode
+        if mode == "legacy" and any(
+                blocks.split_kind(k)[0] in blocks.RECURRENT_KINDS
+                for k in cfg.block_pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: prefill_mode='legacy' needs the one-shot forms "
+                "of its recurrent blocks (time_mix_chunked / rglru_block), "
+                "ROADMAP Queue 1 item 5c (not ported yet)")
+        self.prefill_impl = mode
+        self.fused_prefill = mode != "legacy"
+        if opts.kv_mode == "paged" and not (zoo.supports_paged_kv(cfg)
+                                            and self.fused_prefill):
             raise ValueError(
                 f"{cfg.name}: paged KV requires an attention-only block "
-                "pattern")
-        # auto: paged where every block is attention, dense rings and
-        # recurrent state otherwise (the reference's resolution)
+                "pattern and chunked prefill (prefill_mode != 'legacy')")
+        # auto: paged where every block is attention and prefill is
+        # chunked, dense rings and recurrent state otherwise (the
+        # reference's resolution)
         self.paged = opts.kv_mode == "paged" or (
-            opts.kv_mode == "auto" and zoo.supports_paged_kv(cfg))
+            opts.kv_mode == "auto" and self.fused_prefill
+            and zoo.supports_paged_kv(cfg))
         max_batch = opts.max_batch
         hbm_budget_bytes = opts.hbm_budget_bytes
         block_tokens = opts.block_tokens
@@ -197,7 +221,6 @@ class ServeEngine:
         # sized as the reference sizes it, so blocks_per_seq matches too
         self.cache_len = cache_len = padded_cache_len(opts.cache_len)
         self.clock = clock
-        self.prefill_impl = "packed"
         # the packed stream's width cap: the live serve.prefill_chunk_tokens
         # value caps how many real tokens ride in it each tick
         self.packed_width = cache_len
@@ -398,9 +421,10 @@ class ServeEngine:
 
     @property
     def model_programs(self) -> int:
-        """Distinct model call shapes so far: one per packed stream width,
-        plus the decode step once a decode-only tick ran (the reference
-        compiles one program per shape)."""
+        """Distinct model call shapes so far: one per prefill call shape
+        (packed stream width, bucketed chunk width or legacy prompt
+        length), plus the decode step once a decode tick ran (the
+        reference compiles one program per shape)."""
         return len(self._prefill_shapes) + (1 if self._decode_dispatched
                                             else 0)
 
@@ -416,7 +440,12 @@ class ServeEngine:
         self._shed_expired()
         self._admit()
         self._schedule()
-        n_tokens = self._tick_unified()
+        if self.prefill_impl == "packed":
+            n_tokens = self._tick_unified()
+        else:
+            if self.prefilling:        # bucketed; legacy prefilled at once
+                self._prefill_tick_bucketed()
+            n_tokens = self._decode_tick()
         self._finish()
         if self._window_evict:
             self._trim_windows()
@@ -575,7 +604,11 @@ class ServeEngine:
             if self.paged:
                 self._bt_np[req.slot] = lease.table_row()
                 self._bt_dirty = True
-            self.prefilling[req.slot] = req
+            if self.fused_prefill:
+                self.prefilling[req.slot] = req
+            else:
+                self._do_prefill_legacy(req)
+                self.running[req.slot] = req
 
     def _lease_for(self, need: int):
         """Acquire the request's KV lease (no prefix cache yet: nothing is
@@ -861,6 +894,101 @@ class ServeEngine:
         self._slot_tok = torch.where(sample, nxt, self._slot_tok)
         self._gen_buf[self._rows, gidx] = nxt
 
+    # ----------------------------------------------- split ticks: prefill
+    def _chunk_plan(self, start: np.ndarray, lengths: np.ndarray,
+                    width: int):
+        """The padded chunk's K/V write plan over its flattened
+        ``[max_batch * width]`` lanes, made on the host and uploaded."""
+        t = np.arange(width, dtype=np.int32)[None, :]
+        return self._upload(zoo.chunk_plan(
+            self.caches, torch.from_numpy(start[:, None] + t),
+            torch.from_numpy(t < lengths[:, None]),
+            torch.from_numpy(self._bt_np) if self.paged else None))
+
+    def _prefill_tick_bucketed(self) -> None:
+        """Advance every prefilling slot by one chunk in a single padded
+        call.  The chunk width is the power-of-two bucket covering the
+        largest chunk this tick (each chunk capped by the live
+        ``serve.prefill_chunk_tokens``), so mixed prompt lengths reuse a
+        few shapes; the other slots ride as inactive rows."""
+        cap = max(1, int(self.prefill_chunk))
+        width = _bucket(max(min(len(r.prompt) - r.prefilled, cap)
+                            for r in self.prefilling.values()))
+        tokens = np.zeros((self.max_batch, width), np.int32)
+        start = np.zeros((self.max_batch,), np.int32)
+        lengths = np.zeros((self.max_batch,), np.int32)
+        done = np.zeros((self.max_batch,), bool)
+        for slot, req in self.prefilling.items():
+            n = min(len(req.prompt) - req.prefilled, cap, width)
+            tokens[slot, :n] = req.prompt[req.prefilled:req.prefilled + n]
+            start[slot] = req.prefilled
+            lengths[slot] = n
+            done[slot] = req.prefilled + n >= len(req.prompt)
+        plan = self._chunk_plan(start, lengths, width)
+        self._step_prefill_chunk(self._dev(tokens), self._dev(start),
+                                 self._dev(lengths), self._dev(done), plan)
+        self.prefill_calls += 1
+        self.model_dispatches += 1
+        self._tick_dispatches += 1
+        self._prefill_shapes.add(width)
+        self._record_prefill_pad(width * len(self.prefilling),
+                                 int(lengths.sum()), int((lengths > 0).sum()))
+        if done.any():
+            # a first token is a completion boundary: wait for the device
+            # (no host transfer) so TTFT reflects compute
+            self._sync()
+        now = self.clock()
+        for slot in list(self.prefilling):
+            req = self.prefilling[slot]
+            req.prefilled += int(lengths[slot])
+            req.prefill_chunks += 1
+            if done[slot]:
+                req.gen_count = 1            # first token is on the device
+                self._stamp_first_token(req, now)
+                self.slot_pos[slot] = len(req.prompt)
+                self.running[slot] = self.prefilling.pop(slot)
+
+    def _step_prefill_chunk(self, tokens, start, lengths, done,
+                            plan) -> None:
+        logits = zoo.prefill_chunk(self.cfg, self.params, self.caches,
+                                   tokens, start, lengths,
+                                   self._bt() if self.paged else None,
+                                   plan=plan)
+        first = logits.argmax(dim=-1).to(torch.int32)
+        self._slot_tok = torch.where(done, first, self._slot_tok)
+        # a first token lands at its gen ring's head, the other rows'
+        # writes in the trash column
+        self._gen_buf[self._rows, torch.where(done, 0, self.cache_len)] = \
+            first
+
+    def _do_prefill_legacy(self, req: Request) -> None:
+        """Exact whole-prompt prefill of one admitted request (the one-shot
+        oracle): ``prefill`` into fresh one-row dense caches, merged into
+        the request's slot in place (every leaf of the row, so an earlier
+        occupant's ring entries go too); the first token stays on the
+        device."""
+        logits, one = zoo.prefill(self.cfg, self.params,
+                                  {"tokens": self._dev(req.prompt[None, :]
+                                                       .astype(np.int32))},
+                                  cache_len=self.cache_len)
+        zoo.merge_slot(self.caches, one, req.slot)
+        del one
+        self.prefill_calls += 1
+        self.model_dispatches += 1
+        self._tick_dispatches += 1
+        self._prefill_shapes.add(len(req.prompt))
+        self._record_prefill_pad(len(req.prompt), len(req.prompt), 1)
+        first = logits[0].argmax().to(torch.int32)
+        self._slot_tok[req.slot] = first
+        self._gen_buf[req.slot, 0] = first
+        req.gen_count = 1
+        req.prefilled = len(req.prompt)
+        req.prefill_chunks = 1
+        self._sync()
+        self._stamp_first_token(req, self.clock())
+        self.slot_pos[req.slot] = len(req.prompt)
+
+    # ------------------------------------------------------------ decode
     def _decode_tick(self) -> int:
         if not self.running:
             return 0

@@ -5,7 +5,8 @@ for everything the port serves.  Features the port does not serve yet
 raise ``NotImplementedError`` naming their ROADMAP item when the options
 are built — none is silently ignored.  The port reads no environment
 variables: what the reference's ``resolve()`` took from the environment is
-passed explicitly.
+passed explicitly (its ``REPRO_PREFILL_MODE`` re-routing of ``auto``
+included: no environment variable picks a path).
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ class ServeOptions:
     block_tokens: int = 16
     enable_smartconf: bool = True
     latency_goal_s: float | None = None
-    prefill_mode: str = "auto"          # auto resolves to packed
+    # auto resolves to packed; bucketed and legacy (alias one_shot) are
+    # the split paths: prefill, then a decode step, each tick
+    prefill_mode: str = "auto"
     # auto resolves to paged on attention-only archs, dense otherwise
     kv_mode: str = "auto"
     slo: object | None = None
@@ -43,12 +46,10 @@ class ServeOptions:
     telemetry: object | None = None
 
     def __post_init__(self) -> None:
-        if self.prefill_mode not in ("auto", "packed"):
-            if self.prefill_mode not in ("bucketed", "legacy", "one_shot"):
-                raise ValueError(f"unknown prefill_mode {self.prefill_mode!r}")
-            raise NotImplementedError(
-                f"prefill_mode={self.prefill_mode!r}: the split-path oracle "
-                "modes are ROADMAP Queue 1 item 5 (not ported yet)")
+        if self.prefill_mode == "one_shot":
+            object.__setattr__(self, "prefill_mode", "legacy")
+        if self.prefill_mode not in ("auto", "packed", "bucketed", "legacy"):
+            raise ValueError(f"unknown prefill_mode {self.prefill_mode!r}")
         if self.kv_mode not in ("auto", "paged", "dense"):
             raise ValueError(f"unknown kv_mode {self.kv_mode!r}")
         unported = (

@@ -1,7 +1,6 @@
-"""The train step factory: the port of
-``src/repro/train/train_step.py::make_train_step``.  Its sharding
-derivation, ``make_prefill_step`` and ``make_serve_step`` wait for ROADMAP
-Queue 1 items 11 and 5b."""
+"""The step factories: the port of ``src/repro/train/train_step.py``'s
+``make_train_step``, ``make_prefill_step`` and ``make_serve_step``.  Its
+sharding derivation waits for ROADMAP Queue 1 item 11."""
 
 from __future__ import annotations
 
@@ -9,7 +8,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import zoo
 from repro_torch.optim import accum, adamw
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_serve_step"]
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
@@ -29,3 +28,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, *,
         return params, opt_state, dict(metrics, loss=loss, **aux)
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig, *, cache_len: int):
+    """``prefill_step(params, batch) -> (logits [B,V], caches)``: the
+    one-shot prefill into fresh dense caches of ``cache_len``."""
+    def prefill_step(params, batch):
+        return zoo.prefill(cfg, params, batch, cache_len=cache_len)
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig):
+    """``serve_step(params, caches, token, pos) -> logits [B,V]``: one
+    decode step on dense caches, which it updates in place."""
+    def serve_step(params, caches, token, pos):
+        return zoo.decode_step(cfg, params, caches, token, pos)
+
+    return serve_step

@@ -200,14 +200,37 @@ def test_typed_rejections(prompt_len, reason):
     assert eng.reject_counts[str(reason)] == 1
 
 
-@pytest.mark.parametrize("field,value", [
-    ("prefill_mode", "bucketed"), ("prefill_mode", "legacy"),
-    ("prefill_mode", "one_shot"), ("prefix_cache", True), ("spec_depth", 2),
-    ("mesh", "2x4"), ("slo", object()), ("telemetry", object()),
-    ("replicas", 2)])
-def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeOptions(**{field: value})
+@pytest.mark.parametrize("arch,options,error,match", [
+    # legacy prefill runs the recurrent one-shot forms, not ported yet
+    ("recurrentgemma-9b", {"prefill_mode": "legacy"}, NotImplementedError,
+     "ROADMAP Queue 1 item 5c"),
+    # the one-shot prefill has no paged cache: refused, as the reference
+    ("yi-6b", {"prefill_mode": "one_shot", "kv_mode": "paged"}, ValueError,
+     "paged KV requires"),
+    # a modality frontend serves only through the one-shot path with it
+    ("internvl2-1b", {}, NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (None, {"prefix_cache": True}, NotImplementedError, "ROADMAP"),
+    (None, {"spec_depth": 2}, NotImplementedError, "ROADMAP"),
+    (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP"),
+    (None, {"slo": object()}, NotImplementedError, "ROADMAP"),
+    (None, {"telemetry": object()}, NotImplementedError, "ROADMAP"),
+    (None, {"replicas": 2}, NotImplementedError, "ROADMAP")])
+def test_unported_options_raise(arch, options, error, match):
+    """Options the port does not serve raise when built (``arch`` None),
+    or when an engine for that arch is built with them."""
+    if arch is None:
+        with pytest.raises(error, match=match):
+            ServeOptions(**options)
+        return
+    _, _, cfg, tp = _weights(arch)
+    with pytest.raises(error, match=match):
+        ServeEngine(cfg, tp, device="cpu", **options)
+
+
+def test_one_shot_is_an_alias_of_legacy():
+    assert ServeOptions(prefill_mode="one_shot").prefill_mode == "legacy"
+    with pytest.raises(ValueError, match="unknown prefill_mode"):
+        ServeOptions(prefill_mode="chunked")
 
 
 def test_engine_needs_the_card_unless_asked_for_the_cpu():
