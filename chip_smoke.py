@@ -8,7 +8,8 @@ caught:
   1. device   — the card's name, count and power limit (no card: exit 1);
   2. build    — nvcc builds all eight kernel libraries at once; ptxas
                 register/smem/spill lines (the flat segment kernel must not
-                spill at D = 256, the RWKV-6 scan not at all);
+                spill at D = 256, the RWKV-6 scan and the tensor-core
+                backward kernels not at all) and the build's seconds;
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors: the paged ones at yi-6b shapes, the flat
                 segment one at recurrentgemma's (MQA, D 256, window 2048,
@@ -21,8 +22,11 @@ caught:
                 [512, 4096, 64], and threaded across a cut of 147 steps;
                 the flash attention forward (o and lse) and its dQ and
                 dK/dV kernels, causal, windowed (1024, 32) and non-causal,
-                MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim, f32
-                and bf16, the gradients from a random dO; the dense decode
+                MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim
+                (120 too), f32 and bf16, the gradients from a random dO,
+                both backward routes (tensor cores: bf16 at D 64, 120 and
+                128; CUDA cores: the rest), the CUDA library's route rule
+                held to the wrapper's; the dense decode
                 kernel on rings read in place through [B, Kv, S, D] views
                 (yi-6b's full and at the slice's prompts, recurrentgemma's
                 wrapped and with idle rows), the reference's sweep (ragged
@@ -33,18 +37,22 @@ caught:
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes
                 (the dense decode kernel at yi-6b's legacy decode and at
-                recurrentgemma's swa rings);
+                recurrentgemma's swa rings; the backward rows with their
+                route, tiles and TFLOP/s);
   5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
                 rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
                 steps (prefill chunks + decode riders) and a decode step on
                 the card against the CPU; yi-6b's one-shot prefill and two
                 dense decode steps (the flash forward and dense decode
                 kernels); then yi-6b's training loss and every gradient
-                leaf (2 layers, f32) against the CPU;
+                leaf (2 layers, f32) against the CPU; then h2o-danube-3-4b
+                (head dim 120, 2 layers, f32): a packed step's logits and
+                the training loss and gradients, at yi-6b's limits;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
                 SmartConf knobs live; then a KV budget cut must release
-                device memory;
+                device memory (phases 6-8 and 10 print their in-phase peak
+                memory, less what other phases hold, beside the HBM goal);
   7. slice    — full recurrentgemma-9b (38 layers, bf16) serves 8 requests,
                 two of them longer than its 2048-token window, through the
                 launcher's functions under default options (packed ticks,
@@ -62,7 +70,8 @@ caught:
                 preemption checkpoint that a fresh Trainer restores bit for
                 bit.  Each step launches the flash forward 2 x layers x
                 microbatches times (remat runs it again in the backward
-                pass) and each backward kernel layers x microbatches times;
+                pass) and each backward kernel layers x microbatches times,
+                every one of them on the tensor-core route;
  10. split    — full yi-6b again (phase 6's weights kept), the same 8
                 requests through the launcher's functions with
                 ``prefill_mode="legacy"`` (one-shot prefill per admitted
@@ -73,9 +82,10 @@ caught:
                 dispatches a bucketed tick, 1 plus the tick's admissions a
                 legacy one; tokens/s, TTFT, tick ms, peak memory, and the
                 share of tokens equal to phase 6's and to each other's
-                (bf16 near-ties: information); then the same requests on
-                2 layers in f32, where both modes must give the packed
-                engine's tokens.
+                (bf16 near-ties: information), each request's first-token
+                top-2 logit margin, no HBM violation in the ledger; then
+                the same requests on 2 layers in f32, where both modes must
+                give the packed engine's tokens.
 
 Before the last line it prints a JSON object with every kernel's numbers
 (launches summed over the serving and training phases, each of which sets
@@ -85,9 +95,11 @@ and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -105,8 +117,9 @@ from repro_torch.kernels import HEAD_DIMS, _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain, decode_mask)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_bwd_ref, attention_lse_ref, attention_ref, flash_attention,
-    flash_attention_dkv, flash_attention_dq, flash_attention_fwd_lse)
+    attention_bwd_ref, attention_lse_ref, attention_ref, bwd_route,
+    flash_attention, flash_attention_dkv, flash_attention_dq,
+    flash_attention_fwd_lse, library_bwd_route)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_ref, paged_gather)
 from repro_torch.kernels.rglru import (rglru_ref_state,  # noqa: E402
@@ -446,6 +459,22 @@ def phase_build():
                        not in line for line in rwkv):
         fail(f"the RWKV-6 scan spills: {rwkv}")
     say(f"[build] rwkv6_scan: {rwkv}")
+    # the tensor-core backward kernels: registers and spills by instance
+    tc, name = {}, ""
+    for line in _build.build_log("flash_attention_bwd").splitlines():
+        m = re.search(r"(flash_d\w+_kernel_wgmma)ILi(\d+)E", line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            name = f"{m.group(1)}<{m.group(2)}>"
+        elif name and ("spill" in line or "registers" in line):
+            tc.setdefault(name, []).append(line.strip())
+        elif "C7520" in line or "C7510" in line:
+            say(f"[build] flash_attention_bwd: {line.strip()}")
+    for name, lines in tc.items():
+        say(f"[build] tensor-core backward {name}: {'; '.join(lines)}")
+    if len(tc) != 6 or any(
+            "0 bytes spill stores, 0 bytes spill loads" not in " ".join(v)
+            for v in tc.values()):
+        fail(f"the tensor-core backward kernels spill or are missing: {tc}")
 
 
 def compare(name, got, want, dtype, dead=None) -> float:
@@ -454,12 +483,14 @@ def compare(name, got, want, dtype, dead=None) -> float:
     tol = TOL[dtype]
     g, w = got.float(), want.to(dtype).float()
     err = float((g - w).abs().max()) if g.numel() else 0.0
+    top = float(want.abs().max()) if want.numel() else 0.0
     ok = bool(torch.allclose(g, w, atol=tol, rtol=tol))
     zero = True
     if dead is not None and bool(dead.any()):
         zero = bool((got[dead] == 0).all())
     say(f"[kernels] {name} {str(dtype)[6:]}: max|err| {err:.3e} "
-        f"(atol=rtol={tol:g}) {'ok' if ok else 'MISMATCH'}"
+        f"({err / top if top else 0.0:.2e} of max|ref| {top:.3g}; "
+        f"atol=rtol={tol:g}) {'ok' if ok else 'MISMATCH'}"
         + ("" if dead is None else f"; dead lanes zero: {zero}"))
     if not (ok and zero):
         fail(f"{name} {dtype} disagrees with its plain version")
@@ -481,6 +512,8 @@ def phase_kernels(dev) -> dict:
                     t=8, b=2, m=8, holes=1),
         "d64": dict(segs=[(0, 5, 30), (1, 40, 1)], p=40, h=8, kv=4, d=64,
                     t=16, b=2, m=6),
+        "d120": dict(segs=[(1, 3, 50), (0, 77, 1)], p=56, h=32, kv=8,
+                     d=120, t=16, b=2, m=6, holes=1),
         "d256": dict(segs=[(1, 7, 25), (0, 60, 1)], p=32, h=8, kv=4, d=256,
                      t=16, b=2, m=6, holes=1),
     }
@@ -493,6 +526,8 @@ def phase_kernels(dev) -> dict:
                        holes=2, window=40, idle=2),
         "d16": dict(q_pos=[3, 40], h=4, kv=2, d=16, t=8, m=8),
         "d64": dict(q_pos=[30, 70], h=8, kv=4, d=64, t=16, m=6),
+        "d120": dict(q_pos=[45, 90], h=32, kv=8, d=120, t=16, m=6,
+                     holes=1),
         "d256": dict(q_pos=[11, 80], h=8, kv=4, d=256, t=16, m=6, holes=1),
     }
     errs = {"paged_segment_attention": 0.0, "paged_decode_attention": 0.0}
@@ -727,6 +762,12 @@ def phase_kernels_flash(dev) -> dict:
     inputs; the backward kernels take the forward kernel's o and lse and a
     random dO, as the plain backward does."""
     gen = torch.Generator(device=dev).manual_seed(5)
+    rules = {(str(dt)[6:], d): (bwd_route(dt, d), library_bwd_route(dt, d))
+             for dt in (torch.float32, torch.bfloat16) for d in HEAD_DIMS}
+    say(f"[kernels] backward route by (dtype, D), wrapper and library: "
+        f"{rules}")
+    if any(a != b for a, b in rules.values()):
+        fail("the CUDA library's backward route differs from bwd_route")
     errs = {}
     for name, (b, h, kv, s, d, causal, window) in flash_cases().items():
         case = flash_case(gen, b, h, kv, s, d)
@@ -749,6 +790,7 @@ def phase_kernels_flash(dev) -> dict:
                      compare(f"{tag} lse", lse, want_lse, torch.float32))}
             del want_o, want_lse
             want = attention_bwd_ref(*f32[:4], lse, f32[4], **mask)
+            tag = f"{tag} {bwd_route(dtype, d)}"
             e["flash_attention_dq"] = compare(f"{tag} dq", dq, want[0], dtype)
             e["flash_attention_dkv"] = max(
                 compare(f"{tag} dk", dk, want[1], dtype),
@@ -1133,25 +1175,38 @@ def timing_flash(dev) -> dict:
         "flash_attention_dkv": (
             lambda: flash_attention_dkv(q, k, v, do, lse, dsum), None,
             sdpa_bwd, bwd_note)}
+    route = bwd_route(torch.bfloat16, D)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_kt, n_qt = -(-FA_S // 64), -(-FA_S // 64)
+    say(f"[timing] flash backward at bf16 D {D}: route {route}; dK/dV one "
+        f"CTA (a consumer warpgroup and a producer warp) per 64 keys x KV "
+        f"head x batch, key tile 0 (the most causal work) first: "
+        f"{n_kt * KV * FA_B} CTAs here, {n_kt * KV} at a training "
+        f"microbatch (batch 1), for {sms} SMs, one CTA per SM; dQ one CTA "
+        f"per 64 q rows x query head x batch, the longest first: "
+        f"{n_qt * H * FA_B} CTAs, two per SM; 64-key (dQ) and 64-row "
+        "(dK/dV) steps in a two-stage TMA ring")
     out = {}
     for name, (kern, plain, lib_ms, note) in runs.items():
         bound, by, ops = flash_bound(name, FA_B, H, KV, FA_S, D, True, 0,
                                      torch.bfloat16)
         ms = time_ms(kern, iters=10, warmup=2)
+        via = f", route {route}" if plain is None else ""
         out[name] = dict(
             ms=ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
             library_note=note,
             plain_ms=(plain_bwd if plain is None
                       else time_ms(plain, iters=2, warmup=1)),
-            shapes=f"{shapes}, {ops / 1e9:.1f} GFLOP = "
+            shapes=f"{shapes}{via}, {ops / 1e9:.1f} GFLOP = "
                    f"{ops / ms / 1e9:.1f} TFLOP/s")
     fwd_ops = flash_bound("flash_attention", FA_B, H, KV, FA_S, D, True, 0,
                           torch.bfloat16)[2]
     bwd_ms = out["flash_attention_dq"]["ms"] + out["flash_attention_dkv"]["ms"]
     bwd_bound = (out["flash_attention_dq"]["bound_ms"]
                  + out["flash_attention_dkv"]["bound_ms"])
-    say(f"[timing] flash backward: dQ + dK/dV kernels {bwd_ms:.4f} ms "
-        f"against sdpa's backward {sdpa_bwd:.4f} ms; bound of the two "
+    say(f"[timing] flash backward ({route}): dQ + dK/dV kernels "
+        f"{bwd_ms:.4f} ms against sdpa's backward {sdpa_bwd:.4f} ms; bound "
+        f"of the two "
         f"kernels' products (3.5x the forward's) {bwd_bound:.4f} ms, FA2 "
         f"joint minimum (2.5x) {2.5 * fwd_ops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
     del qg, kg, vg, lib_o
@@ -1278,18 +1333,19 @@ def phase_parity(dev, card):
         fail("card and CPU disagree on yi-6b logits or KV caches")
 
 
-def phase_parity_train(dev, card):
-    """Full-width yi-6b, 2 layers, f32, TF32 off: one ``loss_fn`` with
-    gradients (remat on, the flash kernels on the card, the plain versions
-    on the CPU) at batch 2 x 130 tokens, card against CPU on the loss, the
-    global gradient norm and every gradient leaf relative to its largest
-    magnitude; beside each the CPU against itself with every weight
-    multiplied by 1 + 1e-7 N(0, 1).  The card runs first, then the CPU,
-    then the weights are nudged in place: one copy of the 3.5 GB of f32
-    weights at a time on the host."""
+def phase_parity_train(dev, card, arch: str = "yi-6b"):
+    """Full-width ``arch`` (yi-6b; h2o-danube-3-4b, head dim 120), 2
+    layers, f32, TF32 off: one ``loss_fn`` with gradients (remat on, the
+    flash kernels on the card, the plain versions on the CPU) at batch 2 x
+    130 tokens, card against CPU on the loss, the global gradient norm and
+    every gradient leaf relative to its largest magnitude; beside each the
+    CPU against itself with every weight multiplied by 1 + 1e-7 N(0, 1).
+    The card runs first, then the CPU, then the weights are nudged in
+    place: one copy of the f32 weights (3.5 GB for yi-6b) at a time on the
+    host."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               dtype="float32")
     params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(3)
@@ -1317,7 +1373,7 @@ def phase_parity_train(dev, card):
     del params
     loss_err = abs(got[0] - cpu[0]) / abs(cpu[0])
     gnorm_err = abs(got[1] - cpu[1]) / cpu[1]
-    say(f"[parity] yi-6b 2 layers f32 training on {card}: loss "
+    say(f"[parity] {arch} 2 layers f32 training on {card}: loss "
         f"{cpu[0]:.6f}, card - CPU {loss_err:.3e} relative (limit "
         f"{TRAIN_LOSS_LIMIT:g}; CPU noise floor "
         f"{abs(floor[0] - cpu[0]) / abs(cpu[0]):.3e}); grad norm {cpu[1]:.6f},"
@@ -1332,7 +1388,55 @@ def phase_parity_train(dev, card):
             f"{rel(g, floor[2][key]):.3e})")
     if not (loss_err <= TRAIN_LOSS_LIMIT and gnorm_err <= TRAIN_GNORM_LIMIT
             and worst <= TRAIN_GRAD_LIMIT):
-        fail("card and CPU disagree on yi-6b's training loss or gradients")
+        fail(f"card and CPU disagree on {arch}'s training loss or "
+             "gradients")
+
+
+def phase_parity_danube(dev, card):
+    """Full-width h2o-danube-3-4b (head dim 120, window 4096), 2 layers,
+    f32, TF32 off: one packed step (prefill chunks of four slots on paged
+    KV, the paged segment kernel at D 120), card against CPU on the
+    logits beside the CPU noise floor, at yi-6b's limit; then its training
+    loss and gradients (the flash kernels at D 120) as yi-6b's."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), num_layers=2,
+                              dtype="float32")
+    if cfg.resolved_head_dim != 120:
+        fail(f"{cfg.name} has head dim {cfg.resolved_head_dim}, not 120")
+    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    b, t, cache = 4, 16, 256
+    m = cache // t
+    tables = torch.from_numpy(np.random.default_rng(0).permutation(b * m)
+                              .astype(np.int32).reshape(b, m))
+    segs = [(0, 0, 40), (1, 0, 17), (2, 0, 64), (3, 0, 3)]
+
+    def run(p, d):
+        caches = zoo.init_paged_cache(cfg, b * m, t, d)
+        arrays = packed_arrays(np.random.default_rng(1), cfg.vocab_size,
+                               segs, 128, b)
+        return zoo.step_packed(
+            cfg, p, caches, *(torch.from_numpy(a).to(d) for a in arrays),
+            tables.to(d)).cpu()
+
+    got = run(tree_map(lambda x: x.to(dev), params), dev)
+    torch.cuda.empty_cache()
+    cpu = run(params, torch.device("cpu"))
+    noise = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for leaf in tree_leaves(params):
+            leaf.mul_(1 + 1e-7 * torch.randn(leaf.shape, generator=noise))
+    floor = run(params, torch.device("cpu"))
+    del params
+    scale = float(cpu.abs().max())
+    err = float((cpu - got).abs().max()) / scale
+    say(f"[parity] {cfg.name} 2 layers f32 (head dim 120), step_packed on "
+        f"paged KV: max|dlogit| / max|logit| = {err:.3e} (limit "
+        f"{LOGIT_LIMIT:g}; CPU noise floor "
+        f"{float((cpu - floor).abs().max()) / scale:.3e}) on {card}")
+    if not err <= LOGIT_LIMIT:
+        fail(f"card and CPU disagree on {cfg.name}'s logits")
+    phase_parity_train(dev, card, "h2o-danube-3-4b")
 
 
 def packed_arrays(rng, vocab, segs, width, b):
@@ -1498,6 +1602,7 @@ def phase_slice(dev, card) -> tuple[dict, dict, dict]:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
     new_tokens = 32
+    held = torch.cuda.memory_allocated(dev)
     eng = build_engine(cfg, max_batch=SLOTS, cache_len=CACHE_LEN,
                        budget_headroom_bytes=1e9, latency_goal_s=0.02,
                        device=dev, seed=0)
@@ -1547,6 +1652,7 @@ def phase_slice(dev, card) -> tuple[dict, dict, dict]:
     say(f"[slice] device memory: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
         f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+    in_phase_peak("[slice]", dev, eng, held)
     say(f"[slice] on {card}: {gen_tokens} tokens in {wall:.3f} s = "
         f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
         f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
@@ -1590,6 +1696,7 @@ def phase_rg_slice(dev, card) -> dict:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
     new_tokens = 32
+    held = torch.cuda.memory_allocated(dev)
     eng = build_engine(cfg, max_batch=RG_SLOTS, cache_len=RG_CACHE_LEN,
                        budget_headroom_bytes=RG_HEADROOM, latency_goal_s=0.02,
                        device=dev, seed=0)
@@ -1653,6 +1760,7 @@ def phase_rg_slice(dev, card) -> dict:
     say(f"[rg-slice] device memory: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
         f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+    in_phase_peak("[rg-slice]", dev, eng, held)
     say(f"[rg-slice] on {card}: {gen_tokens} tokens in {wall:.3f} s = "
         f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
         f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
@@ -1693,6 +1801,7 @@ def phase_rwkv6_slice(dev, card) -> dict:
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
     new_tokens = 32
+    held = torch.cuda.memory_allocated(dev)
     eng = build_engine(cfg, max_batch=RWKV_SLOTS, cache_len=RWKV_CACHE_LEN,
                        budget_headroom_bytes=RWKV_HEADROOM,
                        latency_goal_s=0.02, device=dev, seed=0)
@@ -1747,6 +1856,7 @@ def phase_rwkv6_slice(dev, card) -> dict:
     say(f"[rwkv6-slice] device memory: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
         f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+    in_phase_peak("[rwkv6-slice]", dev, eng, held)
     say(f"[rwkv6-slice] on {card}: {gen_tokens} tokens in {wall:.3f} s = "
         f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
         f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
@@ -1814,6 +1924,8 @@ def phase_train_slice(dev, card, timing) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counted:
         fn.launches = 0
+    for fn in (flash_attention_dq, flash_attention_dkv):
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     for i in range(TRAIN_STEPS):
         w0 = tr.ckpt.write_seconds
         t0 = time.perf_counter()
@@ -1836,6 +1948,8 @@ def phase_train_slice(dev, card, timing) -> dict:
                               for n, a in held_out.items()})
     val = float(val)
     launches = {fn.__name__: fn.launches for fn in counted}
+    routes = {fn.__name__: dict(fn.route_launches)
+              for fn in (flash_attention_dq, flash_attention_dkv)}
     write_s = tr.ckpt.write_seconds / max(1, tr.ckpt.writes)
     losses = [m["loss"] for m in tr.metrics_log]
     gnorms = [m["grad_norm"] for m in tr.metrics_log]
@@ -1859,12 +1973,13 @@ def phase_train_slice(dev, card, timing) -> dict:
     say(f"[train] profiled step {TRAIN_STEPS} on {card}: device busy "
         f"{busy:.1f} of {span:.1f} ms ({busy / span:.1%}); device ms by "
         "kind: " + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items()))
-    if not kinds.get("flash dK/dV"):
-        fail("the profiler saw no flash kernel on the device")
+    if not kinds.get("flash dK/dV") or not kinds.get("flash dQ"):
+        fail("the profiler saw no flash backward kernel on the device")
     say(f"[train] kernel launches {launches}: per step "
         f"{ {k: launches[k] / TRAIN_STEPS for k in per_step} } against "
         f"{per_step}; flash_attention (no lse) {launches['flash_attention']}"
-        f" in the validation pass ({TRAIN_LAYERS} layers)")
+        f" in the validation pass ({TRAIN_LAYERS} layers); backward "
+        f"launches by route {routes}")
     say(f"[train] device memory: max_memory_allocated {peak / 1e9:.3f} GB "
         f"against {state / 1e9:.3f} GB of state; checkpoint writes "
         f"{tr.ckpt.writes}, {write_s:.1f} s each")
@@ -1880,6 +1995,9 @@ def phase_train_slice(dev, card, timing) -> dict:
     want["flash_attention"] = TRAIN_LAYERS
     if launches != want:
         fail(f"flash kernel launches {launches}, expected {want}")
+    for k, r in routes.items():
+        if r != {"tensor_core": launches[k], "cuda_core": 0}:
+            fail(f"{k} launches by route {r}: not all on the tensor cores")
     if not tr.ckpt.writes:
         fail("no checkpoint was written in training")
     if not all(len(set(v)) > 1 for v in knobs.values()):
@@ -1933,7 +2051,10 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
     launches = {}
     # each run's greedy tokens by request, to compare the next runs with
     earlier = {"phase 6's packed run": packed_tokens}
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     for mode in SPLIT_MODES:
+        # what other phases hold: the engine's own weights are in its goal
+        held = torch.cuda.memory_allocated(dev) - weights
         eng = build_engine(cfg, max_batch=SLOTS, cache_len=CACHE_LEN,
                            budget_headroom_bytes=1e9, latency_goal_s=0.02,
                            device=dev, params=params, prefill_mode=mode)
@@ -1973,7 +2094,9 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
         for fn in counted:
             fn.launches = 0
         t0 = last[0] = time.perf_counter()
-        stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
+        with first_token_top2(eng) as margins:
+            stats = serve_requests(eng, prompts, new_tokens,
+                                   on_tick=on_tick)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {fn.__name__: fn.launches for fn in counted}
@@ -1993,6 +2116,13 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
         say(f"{tag} device memory: max_memory_allocated "
             f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
             f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+        in_phase_peak(tag, dev, eng, held)
+        gaps = {i: float(v[0] - v[1]) for i, v in sorted(margins.items())}
+        say(f"{tag} first-token top-2 logit margin by request: "
+            + ", ".join(f"{i}: {g:.4f}" for i, g in gaps.items())
+            + f"; min {min(gaps.values()):.4f}, median "
+            f"{float(np.median(list(gaps.values()))):.4f} (bf16 logits; "
+            "information)")
         say(f"{tag} on {card}: {gen_tokens} tokens in {wall:.3f} s = "
             f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
             f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
@@ -2012,6 +2142,11 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
         earlier[f"the {mode} run"] = tokens
         if n_done != len(prompts):
             fail("not every request finished")
+        if eng.accountant.violations:
+            fail("the HBM goal was violated")
+        if sorted(margins) != sorted(tokens):
+            fail(f"first-token margins for {sorted(margins)}, requests "
+                 f"{sorted(tokens)}")
         for r in eng.finished:
             g = np.asarray(r.generated)
             if len(g) != new_tokens or g.min() < 0 or g.max() >= cfg.vocab_size:
@@ -2064,6 +2199,60 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def first_token_top2(eng):
+    """While open, one split-mode engine's prefill step keeps, by request
+    id, the two largest logits of the row its first token is the argmax of
+    (device tensors: no synchronisation in the serving loop).  Legacy: each
+    request's one-shot ``zoo.prefill``; bucketed: the request's last
+    ``zoo.prefill_chunk`` row, the chunk that completes its prompt.  On
+    exit the engine's own method is back (no reference cycle keeps the
+    engine alive)."""
+    out = {}
+
+    def top2(row):
+        return row.float().topk(2).values
+
+    if eng.prefill_impl == "legacy":
+        step = eng._do_prefill_legacy
+
+        def legacy(req):
+            real = zoo.prefill
+
+            def spy(*a, **k):
+                logits, one = real(*a, **k)
+                out[req.req_id] = top2(logits[0])
+                return logits, one
+            zoo.prefill = spy
+            try:
+                step(req)
+            finally:
+                zoo.prefill = real
+        name, wrapper = "_do_prefill_legacy", legacy
+    else:
+        step = eng._step_prefill_chunk
+
+        def chunk(*args):
+            real, slots = zoo.prefill_chunk, dict(eng.prefilling)
+
+            def spy(*a, **k):
+                logits = real(*a, **k)
+                for slot, req in slots.items():
+                    out[req.req_id] = top2(logits[slot])
+                return logits
+            zoo.prefill_chunk = spy
+            try:
+                step(*args)
+            finally:
+                zoo.prefill_chunk = real
+        name, wrapper = "_step_prefill_chunk", chunk
+    setattr(eng, name, wrapper)
+    try:
+        yield out
+    finally:
+        delattr(eng, name)
+
+
 def device_breakdown(prof) -> tuple[dict, float, float]:
     """From a ``torch.profiler`` run: device ms by kind of kernel, the
     device's busy ms (the union of its kernels' intervals) and the span
@@ -2102,6 +2291,19 @@ def runs(vals) -> str:
         else:
             out.append([v, 1])
     return ", ".join(f"{v} (x{n})" if n > 1 else f"{v}" for v, n in out)
+
+
+def in_phase_peak(tag: str, dev, eng, held: int) -> None:
+    """A serving phase's in-phase peak device memory beside its HBM goal:
+    ``max_memory_allocated`` since the phase's reset, less ``held``, what
+    other phases keep resident (phase 6's weights in phases 7 and 8).
+    Information, not a check: the ledger the goal is enforced on counts
+    weights and KV, not activations (ROADMAP Queue 3)."""
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    goal = eng.accountant.budget_bytes
+    say(f"{tag} in-phase peak {peak / 1e9:.3f} GB (max_memory_allocated "
+        f"less {held / 1e9:.3f} GB other phases hold) beside the HBM goal "
+        f"{goal / 1e9:.3f} GB: {(peak - goal) / 1e9:+.3f} GB")
 
 
 def rows_cost(eng, card, kind: str, tag: str) -> None:
@@ -2150,6 +2352,7 @@ def main() -> None:
     phase_parity_rg(dev, card)
     phase_parity_rwkv6(dev, card)
     phase_parity_train(dev, card)
+    phase_parity_danube(dev, card)
     launches: dict = {}
 
     def count(got):

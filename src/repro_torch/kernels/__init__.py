@@ -21,8 +21,9 @@ import torch
 __all__ = ["HEAD_DIMS", "KERNEL_DTYPES", "check_operand", "use_plain"]
 
 # head dims the kernels are instantiated for: 16 = reduced() configs,
-# 128 = yi-6b and most GQA archs, 256 = gemma3 and recurrentgemma
-HEAD_DIMS = (16, 64, 128, 256)
+# 64 = rwkv6, 120 = h2o-danube-3-4b, 128 = yi-6b and most GQA archs,
+# 256 = gemma3 and recurrentgemma
+HEAD_DIMS = (16, 64, 120, 128, 256)
 # dtype code passed across the C interface
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -263,6 +263,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, kpos, qpos, o_part, ml_part, out, B, H, Kv, S, split_len, n_split, sb, sh, ss, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, kpos, qpos, o_part, ml_part, out, B, H, Kv, S, split_len, n_split, sb, sh, ss, window, scale, s);
+    case 120: return launch<T, 120>(q, k, v, kpos, qpos, o_part, ml_part, out, B, H, Kv, S, split_len, n_split, sb, sh, ss, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, kpos, qpos, o_part, ml_part, out, B, H, Kv, S, split_len, n_split, sb, sh, ss, window, scale, s);
     case 256: return launch<T, 256>(q, k, v, kpos, qpos, o_part, ml_part, out, B, H, Kv, S, split_len, n_split, sb, sh, ss, window, scale, s);
     default: return cudaErrorInvalidValue;

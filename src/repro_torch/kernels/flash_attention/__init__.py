@@ -1,6 +1,7 @@
 from .flash_attention import flash_attention, flash_attention_fwd_lse
-from .flash_attention_bwd import (flash_attention_bwd, flash_attention_dkv,
-                                  flash_attention_dq)
+from .flash_attention_bwd import (TENSOR_CORE_HEAD_DIMS, bwd_route,
+                                  flash_attention_bwd, flash_attention_dkv,
+                                  flash_attention_dq, library_bwd_route)
 from .ops import attention_op
 from .ref import attention_bwd_ref, attention_lse_ref, attention_ref
 from .vjp import FlashAttention, flash_attention_grad
@@ -9,4 +10,5 @@ __all__ = ["flash_attention", "flash_attention_fwd_lse",
            "flash_attention_bwd", "flash_attention_dq",
            "flash_attention_dkv", "flash_attention_grad", "FlashAttention",
            "attention_op", "attention_ref", "attention_lse_ref",
-           "attention_bwd_ref"]
+           "attention_bwd_ref", "bwd_route", "library_bwd_route",
+           "TENSOR_CORE_HEAD_DIMS"]

@@ -181,6 +181,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
+    case 120: return launch<T, 120>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
     case 256: return launch<T, 256>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
     default: return cudaErrorInvalidValue;

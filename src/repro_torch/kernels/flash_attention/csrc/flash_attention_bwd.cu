@@ -18,22 +18,64 @@
 // forward, 0.973 ms.  The bytes (q, k, v, o, dO, lse, Dsum in; dq, dk, dv
 // out) take ~0.08 ms at 3.35 TB/s.
 //
-// Design: two kernels, no atomics, deterministic.
-//  * dQ: one CTA per (q tile of 64 rows, 32 at D = 256; query head; batch),
-//    longest tiles first, looping over the admitted 32-key tiles as the
-//    forward does.  Per tile a thread computes 4 (2) rows x 4 keys of s
-//    and dO V^T in one pass over D, forms dS in registers, and dS goes
-//    through shared memory into dS K; dq accumulates in f32 registers.
-//  * dK/dV: one CTA per (key tile of 32 keys, 16 at D = 256; KV head;
-//    batch).  It loops over the group's query heads and, for each, the
-//    32-row q tiles that admit the tile, and accumulates dk and dv in f32
-//    registers across the whole group before writing [B,Kv,S,D] once: K/V
-//    is never repeated in memory and no [B,H,S,D] intermediate exists.
-//    The TPU kernel computes per-query-head dk/dv in q's dtype and sums
-//    the group outside; summing in f32 first rounds once (bf16 differs).
-// Tiles are staged as f32 in shared memory with padded rows; CUDA-core
-// FMAs (no wgmma/TMA).  Any S is taken without padding.
+// Two routes, a fixed dispatch on dtype and head dim in the extern "C"
+// entry points (flash_attention_bwd.py's `bwd_route` states the same rule;
+// it is no fallback, and a launch that fails returns its error):
+//
+// * Tensor cores: bf16 at D 64, 120 and 128 (`flash_dq_kernel_wgmma`,
+//   `flash_dkv_kernel_wgmma`).  A CTA is one consumer warpgroup and one
+//   producer warp.  The producer issues TMA loads (3-D tensor maps over
+//   [B*H or B*Kv, S, D], 64-column boxes in the 128-byte swizzle, so the
+//   hardware zero-fills the ragged S tail and D = 120's columns 120-127
+//   without crossing into the next head) into a ring of two stages with
+//   full/empty mbarriers, so the next tile arrives during the current
+//   tile's products.  Every product is wgmma m64nNk16 with bf16 operands
+//   and f32 accumulators: the first two (S = Q K^T, dP = dO V^T, or their
+//   transposes) read both operands from shared memory K-major; P and dS
+//   are formed in registers, rounded to bf16 and fed back as the A operand
+//   in registers of the second products (dV += P^T dO, dK += dS^T Q,
+//   dQ += dS K), whose B operand is the same shared tile read MN-major.
+//   Rounding P and dS to bf16 is what FlashAttention-2/3 and SDPA do; the
+//   reference keeps them in f32 (ROADMAP Queue 3 logs the difference).
+//    - dK/dV: one CTA per (64 keys, KV head, batch), key tile 0 first
+//      (under the causal mask it has the most work).  K and V stay in
+//      shared memory; the CTA walks the group's G query heads and, for
+//      each, the 64-row q tiles that admit its keys, forming
+//      S^T = K Q^T, dP^T = V dO^T, P^T = exp(scale S^T - lse) under the
+//      mask and dS^T = P^T (dP^T - Dsum); dK and dV accumulate in f32
+//      registers across the whole group and are written once (no
+//      atomics, deterministic).  The producer also stages each q tile's
+//      lse and Dsum.  64 keys give 256 CTAs at one microbatch of yi-6b
+//      (B 1, Kv 4, S 4096) for 132 SMs, one CTA per SM (about 230
+//      registers a thread at D 128: dK, dV, S^T and dP^T in f32; two
+//      CTAs per SM would cap a thread at 200).
+//    - dQ: one CTA per (64 q rows, query head, batch), longest tiles
+//      first, walking the admitted 64-key tiles: S = Q K^T, dP = dO V^T,
+//      dS, then dQ += dS K; two CTAs per SM (about 155 registers at
+//      D 128).
+//   Tiles wholly inside the mask skip the mask test.
+// * CUDA cores: f32 at every D (the route phase 5's card-against-CPU
+//   training parity measures) and bf16 at D 16 and 256 (D 256's 64 x 256
+//   f32 dK and dV accumulators exceed one warpgroup's registers).
+//    - dQ: one CTA per (q tile of 64 rows, 32 at D = 256; query head;
+//      batch), longest tiles first, looping over the admitted 32-key tiles
+//      as the forward does.  Per tile a thread computes 4 (2) rows x 4
+//      keys of s and dO V^T in one pass over D, forms dS in registers, and
+//      dS goes through shared memory into dS K; dq accumulates in f32
+//      registers.
+//    - dK/dV: one CTA per (key tile of 32 keys, 16 at D = 256; KV head;
+//      batch).  It loops over the group's query heads and, for each, the
+//      32-row q tiles that admit the tile, and accumulates dk and dv in
+//      f32 registers across the whole group before writing [B,Kv,S,D]
+//      once.  Tiles are staged as f32 in shared memory with padded rows;
+//      scalar FMAs.
+// The TPU kernel computes per-query-head dk/dv in q's dtype and sums the
+// group outside; both routes sum in f32 first and round once.  Any S is
+// taken without padding.
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -338,22 +380,503 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-#define FLASH_BWD_DISPATCH(FN, ...)                                   \
-  switch (D) {                                                        \
-    case 16: return FN<T, 16>(__VA_ARGS__);                           \
-    case 64: return FN<T, 64>(__VA_ARGS__);                           \
-    case 128: return FN<T, 128>(__VA_ARGS__);                         \
-    case 256: return FN<T, 256>(__VA_ARGS__);                         \
-    default: return cudaErrorInvalidValue;                            \
+// ------------------------------------------------------------------------
+// Tensor-core route: bf16 at D 64, 120 and 128.
+namespace tc {
+
+using hopper::desc_k;
+using hopper::desc_mn;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_wait;
+using hopper::pack_bf16;
+using hopper::smem_u32;
+using hopper::tma_load_3d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs;
+using hopper::wgmma_ss_n64;
+using hopper::wgmma_wait;
+
+constexpr int kKeys = 64;        // keys per dK/dV CTA and per dQ step
+constexpr int kRows = 64;        // q rows per dQ CTA and per dK/dV step
+constexpr int kStages = 2;       // tiles in flight
+constexpr int kConsumers = 128;  // one warpgroup
+constexpr int kThreadsTC = kConsumers + 32;  // and one producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the head dim in whole 64-column chunks (D = 120 reads 128, the last 8
+// columns zeros)
+template <int D>
+__host__ __device__ constexpr int padded() { return D <= 64 ? 64 : 128; }
+// bytes of one [rows, DP] bf16 tile: DP / 64 chunks of rows x 128 bytes
+template <int DP>
+__host__ __device__ constexpr int tile_bytes(int rows) {
+  return DP * rows * 2;
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// every (q, key) pair of the tile is admitted: no mask test needed
+__device__ __forceinline__ bool whole_tile(int q0, int k0, int S, int causal,
+                                           int window) {
+  return q0 + kRows <= S && k0 + kKeys <= S &&
+         (!causal || k0 + kKeys - 1 <= q0) &&
+         (window <= 0 || q0 + kRows - 1 - k0 < window);
+}
+
+// the warpgroup of this thread, warp-uniform for the compiler (which
+// otherwise serialises the wgmma of the consumers' path): 0 the consumer
+// warpgroup, 1 the producer warp
+__device__ __forceinline__ int role() {
+  return __shfl_sync(0xffffffffu, (int)threadIdx.x / kConsumers, 0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 1)
+flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ dsum,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int H, int Kv, int S,
+                       int causal, int window, float scale) {
+  constexpr int DP = padded<D>();
+  constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
+  constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
+  constexpr int Q_BYTES = tile_bytes<DP>(kRows);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = align1024(smem_raw);
+  uint8_t* v_s = k_s + KV_BYTES;
+  uint8_t* q_s = v_s + KV_BYTES;            // [kStages][Q_BYTES]
+  uint8_t* do_s = q_s + kStages * Q_BYTES;  // [kStages][Q_BYTES]
+  __shared__ float lse_s[kStages][kRows];   // lse * log2(e)
+  __shared__ float dsum_s[kStages][kRows];
+  __shared__ __align__(8) uint64_t kv_full, full[kStages], empty[kStages];
+
+  const int k0 = blockIdx.x * kKeys;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int G = H / Kv;
+  const int valid_k = min(kKeys, S - k0);
+  // q rows that admit a key of this tile: [q_lo, q_hi]
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(S - 1, k0 + valid_k - 1 + window - 1)
+                              : S - 1;
+  const int qt_lo = q_lo / kRows;
+  const int n_qt = q_hi / kRows - qt_lo + 1;
+  const int n_it = G * n_qt;  // (query head, q tile) steps
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (role() == 1) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0) {
+      const int bkv = b * Kv + kvh;
+      mbar_arrive_expect_tx(&kv_full, 2 * KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c) {
+        tma_load_3d(k_s + c * KV_CHUNK, &tm_k, &kv_full, c * 64, k0, bkv);
+        tma_load_3d(v_s + c * KV_CHUNK, &tm_v, &kv_full, c * 64, k0, bkv);
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int q0 = (qt_lo + it % n_qt) * kRows;
+      const int bh = b * H + kvh * G + it / n_qt;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      const size_t row0 = (size_t)bh * S;
+      for (int r = lane; r < kRows; r += 32) {
+        const int qi = q0 + r;
+        lse_s[s][r] = qi < S ? lse[row0 + qi] * kLog2e : 0.f;
+        dsum_s[s][r] = qi < S ? dsum[row0 + qi] : 0.f;
+      }
+      // every lane arrives after its own lse/Dsum stores; lane 0 also
+      // sets the bytes the phase waits for
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load_3d(q_s + s * Q_BYTES + c * Q_CHUNK, &tm_q, &full[s],
+                      c * 64, q0, bh);
+          tma_load_3d(do_s + s * Q_BYTES + c * Q_CHUNK, &tm_do, &full[s],
+                      c * 64, q0, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
   }
 
+  // the consumer warpgroup: accumulator rows `row` and `row + 8` (keys),
+  // columns `col + 8j` and `col + 8j + 1` (q rows of the step)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
+  mbar_wait(&kv_full, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int q0 = (qt_lo + it % n_qt) * kRows;
+    const uint32_t q_addr = smem_u32(q_s + s * Q_BYTES);
+    const uint32_t do_addr = smem_u32(do_s + s * Q_BYTES);
+    mbar_wait(&full[s], (it / kStages) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T, [keys, q rows]
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss_n64(st, desc_k(k_addr, KV_CHUNK, kk),
+                   desc_k(q_addr, Q_CHUNK, kk), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss_n64(dpt, desc_k(v_addr, KV_CHUNK, kk),
+                   desc_k(do_addr, Q_CHUNK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    // P^T, while dP^T is still in flight
+    const bool whole = whole_tile(q0, k0, S, causal, window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = col + 8 * (i / 4) + (i % 2);
+      float p = hopper::exp2_approx(st[i] * scale_log2 - lse_s[s][c]);
+      if (!whole) {
+        const int qi = q0 + c, kj = k0 + row + 8 * ((i / 2) % 2);
+        if (!(qi < S && flash::admits(qi, kj, S, causal, window))) p = 0.f;
+      }
+      st[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dpt);
+    // dS^T = P^T (dP^T - Dsum); both rounded to bf16 as A operands
+    uint32_t pa[kRows / 16][4], da[kRows / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = col + 8 * (i / 4) + (i % 2);
+      dpt[i] = st[i] * (dpt[i] - dsum_s[s][c]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        pa[kk][x] = pack_bf16(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1]);
+        da[kk][x] = pack_bf16(dpt[8 * kk + 2 * x], dpt[8 * kk + 2 * x + 1]);
+      }
+
+    // dV += P^T dO, dK += dS^T Q: B read MN-major from the same tiles
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_rs<DP>(dv_acc, pa[kk], desc_mn(do_addr, Q_CHUNK, 16 * kk));
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_rs<DP>(dk_acc, da[kk], desc_mn(q_addr, Q_CHUNK, 16 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    mbar_arrive(&empty[s]);  // this stage's tiles, lse and Dsum are read
+  }
+
+  const size_t krow0 = (size_t)(b * Kv + kvh) * S + k0;
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int r = row + 8 * ((i / 2) % 2), c = col + 8 * (i / 4);
+    if (r < valid_k && c < D) {
+      const size_t o = (krow0 + r) * D + c;
+      *reinterpret_cast<uint32_t*>(dk + o) =
+          pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + o) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 2)
+flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum,
+                      __nv_bfloat16* __restrict__ dq, int H, int Kv, int S,
+                      int causal, int window, float scale) {
+  constexpr int DP = padded<D>();
+  constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
+  constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
+  constexpr int Q_BYTES = tile_bytes<DP>(kRows);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);
+  uint8_t* do_s = q_s + Q_BYTES;
+  uint8_t* k_s = do_s + Q_BYTES;             // [kStages][KV_BYTES]
+  uint8_t* v_s = k_s + kStages * KV_BYTES;   // [kStages][KV_BYTES]
+  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kRows;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, bkv = b * Kv + h / (H / Kv);
+  const int valid_q = min(kRows, S - q0);
+  // admitted keys of this tile's rows: [k_lo, k_hi]
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(S, q0 + kRows) - 1 : S - 1;
+  const int kt_lo = k_lo / kKeys;
+  const int n_it = k_hi / kKeys - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (role() == 1) {  // the producer warp: one lane issues
+    if (threadIdx.x != kConsumers) return;
+    mbar_arrive_expect_tx(&q_full, 2 * Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < DP / 64; ++c) {
+      tma_load_3d(q_s + c * Q_CHUNK, &tm_q, &q_full, c * 64, q0, bh);
+      tma_load_3d(do_s + c * Q_CHUNK, &tm_do, &q_full, c * 64, q0, bh);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int k0 = (kt_lo + it) * kKeys;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c) {
+        tma_load_3d(k_s + s * KV_BYTES + c * KV_CHUNK, &tm_k, &full[s],
+                    c * 64, k0, bkv);
+        tma_load_3d(v_s + s * KV_BYTES + c * KV_CHUNK, &tm_v, &full[s],
+                    c * 64, k0, bkv);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: accumulator rows `row` and `row + 8` (q rows),
+  // columns `col + 8j` and `col + 8j + 1` (keys of the step)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], ds_row[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qi = q0 + row + 8 * e;
+    lse2[e] = qi < S ? lse[(size_t)bh * S + qi] * kLog2e : 0.f;
+    ds_row[e] = qi < S ? dsum[(size_t)bh * S + qi] : 0.f;
+  }
+  float dq_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s), do_addr = smem_u32(do_s);
+  mbar_wait(&q_full, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int k0 = (kt_lo + it) * kKeys;
+    const uint32_t k_addr = smem_u32(k_s + s * KV_BYTES);
+    const uint32_t v_addr = smem_u32(v_s + s * KV_BYTES);
+    mbar_wait(&full[s], (it / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, [q rows, keys]
+    float st[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss_n64(st, desc_k(q_addr, Q_CHUNK, kk),
+                   desc_k(k_addr, KV_CHUNK, kk), 1);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss_n64(dp, desc_k(do_addr, Q_CHUNK, kk),
+                   desc_k(v_addr, KV_CHUNK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    const bool whole = whole_tile(q0, k0, S, causal, window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = (i / 2) % 2;
+      float p = hopper::exp2_approx(st[i] * scale_log2 - lse2[e]);
+      if (!whole) {
+        const int qi = q0 + row + 8 * e, kj = k0 + col + 8 * (i / 4) + (i % 2);
+        if (!(qi < S && flash::admits(qi, kj, S, causal, window))) p = 0.f;
+      }
+      st[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[kKeys / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = st[i] * (dp[i] - ds_row[(i / 2) % 2]);
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        da[kk][x] = pack_bf16(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+
+    // dQ += dS K: K read MN-major from the same tile
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs<DP>(dq_acc, da[kk], desc_mn(k_addr, KV_CHUNK, 16 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    mbar_arrive(&empty[s]);  // this stage's K and V are read
+  }
+
+  const size_t qrow0 = (size_t)bh * S + q0;
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int r = row + 8 * ((i / 2) % 2), c = col + 8 * (i / 4);
+    if (r < valid_q && c < D)
+      *reinterpret_cast<uint32_t*>(dq + (qrow0 + r) * D + c) =
+          pack_bf16(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* dsum,
+                      void* dq, int B, int H, int Kv, int S, int causal,
+                      int window, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::make_map(&mq, q, B * H, S, D, kRows) ||
+      !hopper::make_map(&mdo, dout, B * H, S, D, kRows) ||
+      !hopper::make_map(&mk, k, B * Kv, S, D, kKeys) ||
+      !hopper::make_map(&mv, v, B * Kv, S, D, kKeys))
+    return cudaErrorNotSupported;
+  constexpr int DP = padded<D>();
+  const size_t smem =
+      1024 + 2 * tile_bytes<DP>(kRows) + 2 * kStages * tile_bytes<DP>(kKeys);
+  auto kern = flash_dq_kernel_wgmma<D>;
+  cudaError_t e = flash::allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((S + kRows - 1) / kRows, H, B), kThreadsTC, smem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dq), H,
+      Kv, S, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* dsum,
+                       void* dk, void* dv, int B, int H, int Kv, int S,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hopper::make_map(&mq, q, B * H, S, D, kRows) ||
+      !hopper::make_map(&mdo, dout, B * H, S, D, kRows) ||
+      !hopper::make_map(&mk, k, B * Kv, S, D, kKeys) ||
+      !hopper::make_map(&mv, v, B * Kv, S, D, kKeys))
+    return cudaErrorNotSupported;
+  constexpr int DP = padded<D>();
+  const size_t smem =
+      1024 + 2 * tile_bytes<DP>(kKeys) + 2 * kStages * tile_bytes<DP>(kRows);
+  auto kern = flash_dkv_kernel_wgmma<D>;
+  cudaError_t e = flash::allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((S + kKeys - 1) / kKeys, Kv, B), kThreadsTC, smem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), H, Kv, S, causal, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// The route rule: bf16 at D 64, 120 and 128 takes the tensor cores, every
+// other supported call the CUDA cores.
+bool tensor_core_route(int D, int dtype) {
+  return dtype == 1 && (D == 64 || D == 120 || D == 128);
+}
+
+#define FLASH_BWD_CASE(FN, DV, ...) \
+  case DV:                          \
+    return FN<DV>(__VA_ARGS__);
+
+cudaError_t dispatch_dq_tc(int D, const void* q, const void* k,
+                           const void* v, const void* dout, const void* lse,
+                           const void* dsum, void* dq, int B, int H, int Kv,
+                           int S, int causal, int window, float scale,
+                           cudaStream_t s) {
+  switch (D) {
+    FLASH_BWD_CASE(tc::launch_dq, 64, q, k, v, dout, lse, dsum, dq, B, H,
+                   Kv, S, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dq, 120, q, k, v, dout, lse, dsum, dq, B, H,
+                   Kv, S, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dq, 128, q, k, v, dout, lse, dsum, dq, B, H,
+                   Kv, S, causal, window, scale, s)
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_dkv_tc(int D, const void* q, const void* k,
+                            const void* v, const void* dout, const void* lse,
+                            const void* dsum, void* dk, void* dv, int B,
+                            int H, int Kv, int S, int causal, int window,
+                            float scale, cudaStream_t s) {
+  switch (D) {
+    FLASH_BWD_CASE(tc::launch_dkv, 64, q, k, v, dout, lse, dsum, dk, dv, B,
+                   H, Kv, S, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dkv, 120, q, k, v, dout, lse, dsum, dk, dv, B,
+                   H, Kv, S, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dkv, 128, q, k, v, dout, lse, dsum, dk, dv, B,
+                   H, Kv, S, causal, window, scale, s)
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the CUDA-core kernels: f32 at every head dim, bf16 at D 16 and 256
 template <typename T>
 cudaError_t dispatch_dq(int D, const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* dsum,
                         void* dq, int B, int H, int Kv, int S, int causal,
                         int window, float scale, cudaStream_t s) {
-  FLASH_BWD_DISPATCH(launch_dq, q, k, v, dout, lse, dsum, dq, B, H, Kv, S,
-                     causal, window, scale, s)
+  constexpr bool f32 = std::is_same<T, float>::value;
+#define FLASH_DQ(DV) \
+  return launch_dq<T, DV>(q, k, v, dout, lse, dsum, dq, B, H, Kv, S, causal, window, scale, s)
+  switch (D) {
+    case 16: FLASH_DQ(16);
+    case 256: FLASH_DQ(256);
+    case 64: if constexpr (f32) FLASH_DQ(64); break;
+    case 120: if constexpr (f32) FLASH_DQ(120); break;
+    case 128: if constexpr (f32) FLASH_DQ(128); break;
+  }
+#undef FLASH_DQ
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -362,8 +885,18 @@ cudaError_t dispatch_dkv(int D, const void* q, const void* k, const void* v,
                          void* dk, void* dv, int B, int H, int Kv, int S,
                          int causal, int window, float scale,
                          cudaStream_t s) {
-  FLASH_BWD_DISPATCH(launch_dkv, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv,
-                     S, causal, window, scale, s)
+  constexpr bool f32 = std::is_same<T, float>::value;
+#define FLASH_DKV(DV) \
+  return launch_dkv<T, DV>(q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, S, causal, window, scale, s)
+  switch (D) {
+    case 16: FLASH_DKV(16);
+    case 256: FLASH_DKV(256);
+    case 64: if constexpr (f32) FLASH_DKV(64); break;
+    case 120: if constexpr (f32) FLASH_DKV(120); break;
+    case 128: if constexpr (f32) FLASH_DKV(128); break;
+  }
+#undef FLASH_DKV
+  return cudaErrorInvalidValue;
 }
 
 bool bad_shape(int B, int H, int Kv, int S) {
@@ -372,6 +905,12 @@ bool bad_shape(int B, int H, int Kv, int S) {
 }
 
 }  // namespace
+
+// 1 when a call of this head dim and dtype (0 = float32, 1 = bfloat16)
+// takes the tensor-core kernels, 0 when it takes the CUDA-core ones.
+extern "C" int flash_attention_bwd_route(int D, int dtype) {
+  return tensor_core_route(D, dtype) ? 1 : 0;
+}
 
 // q, dout [B,H,S,D]; k, v [B,Kv,S,D]; lse, dsum [B,H,S] f32; dq [B,H,S,D].
 // causal: 0/1; window <= 0 = none.  dtype: 0 = float32, 1 = bfloat16.
@@ -385,6 +924,9 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, S)) return cudaErrorInvalidValue;
+  if (tensor_core_route(D, dtype))
+    return dispatch_dq_tc(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, S,
+                          causal, window, scale, s);
   if (dtype == 0)
     return dispatch_dq<float>(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, S,
                               causal, window, scale, s);
@@ -404,6 +946,9 @@ extern "C" int flash_attention_dkv_launch(const void* q, const void* k,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, S)) return cudaErrorInvalidValue;
+  if (tensor_core_route(D, dtype))
+    return dispatch_dkv_tc(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, S,
+                           causal, window, scale, s);
   if (dtype == 0)
     return dispatch_dkv<float>(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv,
                                S, causal, window, scale, s);

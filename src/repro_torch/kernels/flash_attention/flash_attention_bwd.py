@@ -9,9 +9,16 @@ outside its kernels), and launches the dQ kernel
 (:func:`flash_attention_dkv`).  dK and dV come out as ``[B, Kv, S, D]``
 with each GQA group summed in f32 inside the kernel.
 
+Two routes, by dtype and head dim alone (:func:`bwd_route`; the CUDA
+source's entry points apply the same rule): bf16 at D 64, 120 and 128
+runs the tensor-core kernels (wgmma fed by TMA), f32 at every head dim and
+bf16 at D 16 and 256 the CUDA-core kernels.  Neither falls back to the
+other.
+
 Each kernel wrapper checks its operands, launches on the current stream,
 raises if the launch failed, and counts its launches in
-``<wrapper>.launches``.  The plain version is
+``<wrapper>.launches`` and, by route, in ``<wrapper>.route_launches``.
+The plain version is
 :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`.
 """
 
@@ -26,6 +33,20 @@ from repro_torch.kernels import KERNEL_DTYPES, _build, check_operand
 
 from .flash_attention import check_qkv
 
+ROUTES = ("tensor_core", "cuda_core")
+# head dims whose bf16 backward runs on the tensor cores
+TENSOR_CORE_HEAD_DIMS = (64, 120, 128)
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernels a call of this dtype and head dim takes:
+    ``"tensor_core"`` for bf16 at D 64, 120 and 128, ``"cuda_core"`` for
+    f32 at every head dim and bf16 at D 16 and 256 (whose 64 x 256 f32 dK
+    and dV accumulators exceed one warpgroup's registers)."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
 
 @functools.cache
 def _launchers():
@@ -37,6 +58,15 @@ def _launchers():
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     dq.restype = dkv.restype = ctypes.c_int
     return dq, dkv
+
+
+def library_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route the CUDA library's own dispatch takes for a call (built on
+    first use): what :func:`bwd_route` must agree with."""
+    fn = _build.library("flash_attention_bwd").flash_attention_bwd_route
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return ROUTES[0] if fn(head_dim, KERNEL_DTYPES[dtype]) else ROUTES[1]
 
 
 def _check_bwd(q, k, v, do, lse, dsum) -> None:
@@ -74,10 +104,12 @@ def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
     if err:
         raise RuntimeError(f"flash attention dQ: CUDA error {err} at launch")
     flash_attention_dq.launches += 1
+    flash_attention_dq.route_launches[bwd_route(q.dtype, q.shape[-1])] += 1
     return dq
 
 
 flash_attention_dq.launches = 0
+flash_attention_dq.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
@@ -97,10 +129,12 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
         raise RuntimeError(f"flash attention dK/dV: CUDA error {err} at "
                            "launch")
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.route_launches[bwd_route(q.dtype, q.shape[-1])] += 1
     return dk, dv
 
 
 flash_attention_dkv.launches = 0
+flash_attention_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,

@@ -158,6 +158,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, bt, qpos, out, B, H, Kv, N, Tk, M, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, bt, qpos, out, B, H, Kv, N, Tk, M, window, scale, s);
+    case 120: return launch<T, 120>(q, k, v, bt, qpos, out, B, H, Kv, N, Tk, M, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, bt, qpos, out, B, H, Kv, N, Tk, M, window, scale, s);
     case 256: return launch<T, 256>(q, k, v, bt, qpos, out, B, H, Kv, N, Tk, M, window, scale, s);
     default: return cudaErrorInvalidValue;

@@ -157,6 +157,8 @@ segment_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kg = tid / BQ;
   const int my_seg = qseg_s[r_me], my_pos = qpos_s[r_me];
   const int d0 = tid % CW, r0 = tid / CW;   // P V step
+  // the threads past RSTRIDE x CW own no column (D = 120: the last 8)
+  const bool pv_lane = tid < RSTRIDE * CW;
   float acc[ROWS][COLS];
 #pragma unroll
   for (int i = 0; i < ROWS; ++i)
@@ -244,21 +246,24 @@ segment_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         __syncthreads();
 
-#pragma unroll
-        for (int i = 0; i < ROWS; ++i) {
-          const float a = a_s[r0 + i * RSTRIDE];
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) acc[i][c] *= a;
-        }
-        for (int t = 0; t < BK; ++t) {
-          float vv[COLS];
-#pragma unroll
-          for (int c = 0; c < COLS; ++c) vv[c] = v_s[t * LD + d0 + c * CW];
+        if (pv_lane) {
 #pragma unroll
           for (int i = 0; i < ROWS; ++i) {
-            const float pr = p_s[(r0 + i * RSTRIDE) * PS + t];
+            const float a = a_s[r0 + i * RSTRIDE];
 #pragma unroll
-            for (int c = 0; c < COLS; ++c) acc[i][c] = fmaf(pr, vv[c], acc[i][c]);
+            for (int c = 0; c < COLS; ++c) acc[i][c] *= a;
+          }
+          for (int t = 0; t < BK; ++t) {
+            float vv[COLS];
+#pragma unroll
+            for (int c = 0; c < COLS; ++c) vv[c] = v_s[t * LD + d0 + c * CW];
+#pragma unroll
+            for (int i = 0; i < ROWS; ++i) {
+              const float pr = p_s[(r0 + i * RSTRIDE) * PS + t];
+#pragma unroll
+              for (int c = 0; c < COLS; ++c)
+                acc[i][c] = fmaf(pr, vv[c], acc[i][c]);
+            }
           }
         }
         // the next tile's first writes (tags) are read only after the
@@ -271,7 +276,7 @@ segment_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int r = r0 + i * RSTRIDE;
-    if (r >= valid_q) continue;
+    if (!pv_lane || r >= valid_q) continue;
     const float l = l_s[r];
 #pragma unroll
     for (int c = 0; c < COLS; ++c)
@@ -318,6 +323,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
+    case 120: return launch<T, 120>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
     case 256: return launch<T, 256>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
     default: return cudaErrorInvalidValue;

@@ -17,8 +17,15 @@ same bf16 inputs and rounds its outputs to bf16 once, except that the
 Pallas backward rounds each query head's dK/dV to bf16 before summing the
 GQA group, so the two differ by up to an ulp of bf16 (2^-8) per head.
 
+The backward's route rule (bf16 at D 64, 120 and 128 on the tensor cores,
+everything else on the CUDA cores) is pinned here on the CPU.
+
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
-the card, at D = 128 and 256 too; they skip where there is no card.  The
+the card, at D = 120, 128 and 256 too, the tensor-core backward also at
+its tile edges (S = 1, 63, 64, 65, 127, 130 and 4096; windows 32 and
+1024, causal and not; groups of 1, 4 and 8) with the route each call took
+read from the wrappers' per-route counters; they skip where there is no
+card.  The
 machine with the card has no JAX, so this file imports the JAX package
 only inside the ``jx`` fixture, and runs there without the repository's
 conftest:
@@ -35,9 +42,10 @@ import torch
 
 from repro_torch.kernels import HEAD_DIMS
 from repro_torch.kernels.flash_attention import (
-    FlashAttention, attention_bwd_ref, attention_lse_ref, attention_op,
-    attention_ref, flash_attention, flash_attention_bwd,
-    flash_attention_dkv, flash_attention_dq, flash_attention_fwd_lse)
+    TENSOR_CORE_HEAD_DIMS, FlashAttention, attention_bwd_ref,
+    attention_lse_ref, attention_op, attention_ref, bwd_route,
+    flash_attention, flash_attention_bwd, flash_attention_dkv,
+    flash_attention_dq, flash_attention_fwd_lse, library_bwd_route)
 from repro_torch.models import layers
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -258,6 +266,24 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
             flash_attention_bwd(q, k, v, q, torch.zeros(2, 4, 8), do)
 
 
+# the backward's route by (dtype, head dim), written out
+ROUTES = {("float32", 16): "cuda_core", ("float32", 64): "cuda_core",
+          ("float32", 120): "cuda_core", ("float32", 128): "cuda_core",
+          ("float32", 256): "cuda_core", ("bfloat16", 16): "cuda_core",
+          ("bfloat16", 64): "tensor_core", ("bfloat16", 120): "tensor_core",
+          ("bfloat16", 128): "tensor_core", ("bfloat16", 256): "cuda_core"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_backward_route_rule(d, dtype):
+    """bf16 at D 64, 120 and 128 takes the tensor-core kernels; f32 at
+    every head dim and bf16 at D 16 and 256 the CUDA-core ones.  The
+    wrappers count launches by this function, and the CUDA library's own
+    dispatch is held to it on the card."""
+    assert bwd_route(TORCH_DT[dtype], d) == ROUTES[dtype, d]
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels vs the plain versions (on the card)
 # ---------------------------------------------------------------------------
@@ -343,3 +369,60 @@ def test_function_launches_the_kernels_on_card(cuda):
                                x["do"].cpu())
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_library_backward_route_agrees_on_card(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in HEAD_DIMS:
+            assert library_bwd_route(dtype, d) == bwd_route(dtype, d)
+
+
+# tile edges of the tensor-core backward (64-row q tiles, 64-key tiles):
+# (S, G, causal, window) at Kv 2, bf16
+TC_EDGE_CASES = [
+    (1, 1, True, 0),
+    (63, 4, True, 0),
+    (64, 8, True, 0),
+    (64, 4, False, 0),
+    (65, 1, False, 0),
+    (65, 8, True, 32),
+    (127, 4, True, 32),
+    (127, 1, False, 1024),
+    (130, 8, False, 32),
+    (130, 4, True, 1024),
+    (4096, 4, True, 0),
+    (4096, 8, True, 1024),
+    (4096, 1, False, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TENSOR_CORE_HEAD_DIMS)
+@pytest.mark.parametrize("case", TC_EDGE_CASES,
+                         ids=lambda c: f"S{c[0]}-G{c[1]}-"
+                                       f"{'c' if c[2] else 'nc'}-w{c[3]}")
+def test_tensor_core_backward_at_tile_edges_on_card(cuda, case, d):
+    s, g, causal, window = case
+    kv = 2
+    c = make_case(s, d, kv * g, kv, seed=7, b=1 if s > 1000 else 2,
+                  scale=0.7)
+    q, k, v, do = (to_torch(c[n], "bfloat16", cuda)
+                   for n in ("q", "k", "v", "do"))
+    mask = dict(causal=causal, window=window)
+    o, lse = attention_lse_ref(q.float(), k.float(), v.float(), **mask)
+    dsum = (do.float() * o).sum(-1)
+    wrappers = (flash_attention_dq, flash_attention_dkv)
+    before = [dict(f.route_launches) for f in wrappers]
+    dq = flash_attention_dq(q, k, v, do, lse, dsum, **mask)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, dsum, **mask)
+    torch.cuda.synchronize()
+    for f, was in zip(wrappers, before):
+        assert f.route_launches == {"tensor_core": was["tensor_core"] + 1,
+                                    "cuda_core": was["cuda_core"]}
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), o, lse,
+                             do.float(), **mask)
+    tol = CARD_TOL["bfloat16"]
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), w.to(got.dtype).float(),
+                                   atol=tol, rtol=tol, msg=name)

@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import check_operand, use_plain
+from repro_torch.kernels import HEAD_DIMS, check_operand, use_plain
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_op,
@@ -355,7 +355,7 @@ def test_check_operand_refuses(tensor, kw, err):
 @pytest.mark.parametrize("h,kv", HEADS + [(32, 4)])
 @pytest.mark.parametrize("window", [0, 9])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_segment_kernel_matches_plain_on_card(cuda, h, kv, window, dtype, d):
     case = segment_case(np.random.default_rng(d + h), h=h, kv=kv, d=d, t=16)
     x = to_torch(case, dtype, cuda)
@@ -376,7 +376,7 @@ def test_segment_kernel_matches_plain_on_card(cuda, h, kv, window, dtype, d):
 @pytest.mark.parametrize("h,kv", HEADS + [(16, 1)])
 @pytest.mark.parametrize("window", [0, 9])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("p", [32, 77])
 def test_flat_segment_kernel_matches_plain_on_card(cuda, h, kv, window, dtype,
                                                    d, p):
@@ -401,7 +401,7 @@ def test_flat_segment_kernel_matches_plain_on_card(cuda, h, kv, window, dtype,
 @pytest.mark.parametrize("h,kv", HEADS + [(32, 4)])
 @pytest.mark.parametrize("window", [0, 9])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [16, 64, 128, 256])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_decode_kernel_matches_plain_on_card(cuda, h, kv, window, dtype, d):
     case = decode_case(np.random.default_rng(d + h), h=h, kv=kv, d=d, t=16)
     x = to_torch(case, dtype, cuda)
