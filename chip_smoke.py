@@ -9,7 +9,8 @@ caught:
   2. build    — nvcc builds all eight kernel libraries at once; ptxas
                 register/smem/spill lines (the flat segment kernel must not
                 spill at D = 256, the RWKV-6 scan and the tensor-core
-                backward kernels not at all) and the build's seconds;
+                forward and backward kernels not at all) and the build's
+                seconds;
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors: the paged ones at yi-6b shapes, the flat
                 segment one at recurrentgemma's (MQA, D 256, window 2048,
@@ -24,9 +25,13 @@ caught:
                 dK/dV kernels, causal, windowed (1024, 32) and non-causal,
                 MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim
                 (120 too), f32 and bf16, the gradients from a random dO,
-                both backward routes (tensor cores: bf16 at D 64, 120 and
-                128; CUDA cores: the rest), the CUDA library's route rule
-                held to the wrapper's; the dense decode
+                both forward and both backward routes (tensor cores: bf16
+                at D 64, 120 and 128; CUDA cores: the rest), the CUDA
+                libraries' route rules held to the wrappers'; paged decode
+                also on rows whose live blocks span several of its key
+                splits or sit in one, and a stale table entry in a later
+                split (a device-side assert, in a child process); the dense
+                decode
                 kernel on rings read in place through [B, Kv, S, D] views
                 (yi-6b's full and at the slice's prompts, recurrentgemma's
                 wrapped and with idle rows), the reference's sweep (ragged
@@ -37,8 +42,9 @@ caught:
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes
                 (the dense decode kernel at yi-6b's legacy decode and at
-                recurrentgemma's swa rings; the backward rows with their
-                route, tiles and TFLOP/s);
+                recurrentgemma's swa rings; the flash rows with their
+                route, tiles and TFLOP/s; paged decode with its key split
+                and CTAs);
   5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
                 rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
                 steps (prefill chunks + decode riders) and a decode step on
@@ -71,12 +77,14 @@ caught:
                 bit.  Each step launches the flash forward 2 x layers x
                 microbatches times (remat runs it again in the backward
                 pass) and each backward kernel layers x microbatches times,
-                every one of them on the tensor-core route;
+                every one of them on the tensor-core route (asserted), and
+                the profiled step's flash forward device ms are printed;
  10. split    — full yi-6b again (phase 6's weights kept), the same 8
                 requests through the launcher's functions with
                 ``prefill_mode="legacy"`` (one-shot prefill per admitted
-                request, 32 flash forward launches each, then dense decode
-                ticks, 32 dense decode launches each) and ``"bucketed"``
+                request, 32 flash forward launches each, all on the
+                tensor-core route, then dense decode ticks, 32 dense decode
+                launches each) and ``"bucketed"``
                 (padded chunks at batch width on paged KV, then decode
                 ticks on the paged decode kernel), knobs live: at most 2
                 dispatches a bucketed tick, 1 plus the tick's admissions a
@@ -119,9 +127,11 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, attention_lse_ref, attention_ref, bwd_route,
     flash_attention, flash_attention_dkv, flash_attention_dq,
-    flash_attention_fwd_lse, library_bwd_route)
+    flash_attention_fwd_lse, fwd_route, library_bwd_route,
+    library_fwd_route)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
-    paged_decode_attention, paged_decode_attention_ref, paged_gather)
+    paged_decode_attention, paged_decode_attention_ref, paged_gather,
+    split_blocks)
 from repro_torch.kernels.rglru import (rglru_ref_state,  # noqa: E402
                                        rglru_scan_state)
 from repro_torch.kernels.rwkv6 import (rwkv6_ref_state,  # noqa: E402
@@ -459,22 +469,25 @@ def phase_build():
                        not in line for line in rwkv):
         fail(f"the RWKV-6 scan spills: {rwkv}")
     say(f"[build] rwkv6_scan: {rwkv}")
-    # the tensor-core backward kernels: registers and spills by instance
-    tc, name = {}, ""
-    for line in _build.build_log("flash_attention_bwd").splitlines():
-        m = re.search(r"(flash_d\w+_kernel_wgmma)ILi(\d+)E", line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            name = f"{m.group(1)}<{m.group(2)}>"
-        elif name and ("spill" in line or "registers" in line):
-            tc.setdefault(name, []).append(line.strip())
-        elif "C7520" in line or "C7510" in line:
-            say(f"[build] flash_attention_bwd: {line.strip()}")
+    # the tensor-core forward and backward kernels: registers and spills by
+    # instance (three head dims each)
+    tc = {}
+    for lib in ("flash_attention", "flash_attention_bwd"):
+        name = ""
+        for line in _build.build_log(lib).splitlines():
+            m = re.search(r"(flash_\w+_kernel_wgmma)ILi(\d+)E", line)
+            if "Compiling entry" in line or "Function properties" in line:
+                name = f"{m.group(1)}<{m.group(2)}>" if m else ""
+            elif name and ("spill" in line or "registers" in line):
+                tc.setdefault(name, []).append(line.strip())
+            elif "C7520" in line or "C7510" in line:
+                say(f"[build] {lib}: {line.strip()}")
     for name, lines in tc.items():
-        say(f"[build] tensor-core backward {name}: {'; '.join(lines)}")
-    if len(tc) != 6 or any(
+        say(f"[build] tensor-core {name}: {'; '.join(lines)}")
+    if len(tc) != 9 or any(
             "0 bytes spill stores, 0 bytes spill loads" not in " ".join(v)
             for v in tc.values()):
-        fail(f"the tensor-core backward kernels spill or are missing: {tc}")
+        fail(f"the tensor-core flash kernels spill or are missing: {tc}")
 
 
 def compare(name, got, want, dtype, dead=None) -> float:
@@ -529,7 +542,16 @@ def phase_kernels(dev) -> dict:
         "d120": dict(q_pos=[45, 90], h=32, kv=8, d=120, t=16, m=6,
                      holes=1),
         "d256": dict(q_pos=[11, 80], h=8, kv=4, d=256, t=16, m=6, holes=1),
+        # live blocks across many key splits, across a split edge, in one
+        "splits": dict(q_pos=[1000, 100, 130, 520, 20, 127], h=H, kv=KV,
+                       d=D, t=T, m=64, holes=6, idle=2),
+        "splits-window": dict(q_pos=[1000, 100, 130, 520, 20, 127], h=H,
+                              kv=KV, d=D, t=T, m=64, holes=6, idle=2,
+                              window=300),
+        "splits-mqa": dict(q_pos=[2000, 700, 33], h=8, kv=1, d=128, t=16,
+                           m=128, holes=4, idle=1, window=600),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {"paged_segment_attention": 0.0, "paged_decode_attention": 0.0}
     for name, spec in seg_cases.items():
         spec = dict(spec)
@@ -550,6 +572,8 @@ def phase_kernels(dev) -> dict:
         spec = dict(spec)
         window = spec.pop("window", 0)
         case = decode_case(gen, **spec)
+        b, m = case["block_tables"].shape
+        per, n_split = split_blocks(m, b * spec["kv"], sms)
         for dtype in (torch.float32, torch.bfloat16):
             x = on(dev, case, dtype)
             got = paged_decode_attention(**x, window=window)
@@ -557,16 +581,50 @@ def phase_kernels(dev) -> dict:
             want = paged_decode_attention_ref(
                 **on(dev, on(dev, case, dtype), torch.float32),
                 window=window)
-            err = compare(f"paged_decode_attention/{name}", got, want, dtype,
+            err = compare(f"paged_decode_attention/{name} ({n_split} splits "
+                          f"of {per} entries)", got, want, dtype,
                           dead=(x["block_tables"] < 0).all(dim=1))
             if name == "main" and dtype == torch.bfloat16:
                 errs["paged_decode_attention"] = err
+    paged_stale_entry_asserts()
     errs["segment_attention"] = phase_kernels_flat(dev, gen)
     errs["decode_attention"] = phase_kernels_dense(dev, gen)
     errs["rglru_scan_state"] = phase_kernels_rglru(dev, gen)
     errs["rwkv6_scan_state"] = phase_kernels_rwkv6(dev)
     errs.update(phase_kernels_flash(dev))
     return errs
+
+
+STALE_PAGED = """
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels.paged_attention import paged_decode_attention
+dev, bf = torch.device("cuda", 0), torch.bfloat16
+n, b, m = 600, 8, 64
+tables = torch.arange(b * m, dtype=torch.int32).reshape(b, m)
+tables[0, 1000 // 16] = n
+paged_decode_attention(
+    torch.randn(b, 32, 128).to(dev, bf), torch.randn(n, 4, 16, 128).to(dev, bf),
+    torch.randn(n, 4, 16, 128).to(dev, bf), tables.to(dev),
+    torch.tensor([1000] + [100] * (b - 1), dtype=torch.int32).to(dev))
+torch.cuda.synchronize()
+"""
+
+
+def paged_stale_entry_asserts() -> None:
+    """A table entry past the store in the last live block of a long row
+    (read by a later key split's CTA) stops the paged decode kernel on a
+    device-side assert, where the plain version raises IndexError; in a
+    child process, since the assert ends its CUDA context."""
+    run = subprocess.run([sys.executable, "-c", STALE_PAGED], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    out = run.stdout + run.stderr
+    ok = run.returncode != 0 and "device-side assert" in out
+    say(f"[kernels] paged_decode_attention/stale entry in a later split: "
+        f"child exit {run.returncode}, device-side assert "
+        f"{'seen' if ok else 'NOT seen'}")
+    if not ok:
+        fail(f"a stale table entry did not stop paged decode: {out[-2000:]}")
 
 
 def phase_kernels_flat(dev, gen) -> float:
@@ -762,12 +820,16 @@ def phase_kernels_flash(dev) -> dict:
     inputs; the backward kernels take the forward kernel's o and lse and a
     random dO, as the plain backward does."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    rules = {(str(dt)[6:], d): (bwd_route(dt, d), library_bwd_route(dt, d))
-             for dt in (torch.float32, torch.bfloat16) for d in HEAD_DIMS}
-    say(f"[kernels] backward route by (dtype, D), wrapper and library: "
-        f"{rules}")
-    if any(a != b for a, b in rules.values()):
-        fail("the CUDA library's backward route differs from bwd_route")
+    for what, rule, library in (("forward", fwd_route, library_fwd_route),
+                                ("backward", bwd_route, library_bwd_route)):
+        rules = {(str(dt)[6:], d): (rule(dt, d), library(dt, d))
+                 for dt in (torch.float32, torch.bfloat16)
+                 for d in HEAD_DIMS}
+        say(f"[kernels] {what} route by (dtype, D), wrapper and library: "
+            f"{rules}")
+        if any(a != b for a, b in rules.values()):
+            fail(f"the CUDA library's {what} route differs from "
+                 f"{rule.__name__}")
     errs = {}
     for name, (b, h, kv, s, d, causal, window) in flash_cases().items():
         case = flash_case(gen, b, h, kv, s, d)
@@ -783,11 +845,12 @@ def phase_kernels_flash(dev) -> dict:
             f32 = [t.float() for t in (q, k, v, o, do)]
             want_o, want_lse = attention_lse_ref(*f32[:3], **mask)
             tag = f"flash/{name} [{b}, {h}/{kv}, {s}, {d}]"
-            e = {"flash_attention": compare(f"{tag} o", o_only, want_o,
+            fwd = f"{tag} {fwd_route(dtype, d)}"
+            e = {"flash_attention": compare(f"{fwd} o", o_only, want_o,
                                             dtype),
                  "flash_attention_fwd_lse": max(
-                     compare(f"{tag} o (with lse)", o, want_o, dtype),
-                     compare(f"{tag} lse", lse, want_lse, torch.float32))}
+                     compare(f"{fwd} o (with lse)", o, want_o, dtype),
+                     compare(f"{fwd} lse", lse, want_lse, torch.float32))}
             del want_o, want_lse
             want = attention_bwd_ref(*f32[:4], lse, f32[4], **mask)
             tag = f"{tag} {bwd_route(dtype, d)}"
@@ -814,6 +877,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> dict:
+    """Device time per call by kernel, from torch.profiler over ``iters``
+    calls after one warm-up: what a kernel takes on the card, apart from
+    the host's enqueue cost, which CUDA events over back-to-back calls of
+    a short kernel also see."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name
+            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {k: v / iters for k, v in out.items()}
 
 
 def _live_blocks(tables, slot, hi_pos, lo_pos, window):
@@ -923,8 +1008,17 @@ def phase_timing(dev, card) -> dict:
     mask = (k_pos >= 0) & (k_pos <= x["q_pos"][:, None])
     qd = x["q"][:, :, None, :]                       # [B, H, 1, D]
     bound, by = decode_bound(x)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = x["q"].shape[0]
+    per, n_split = split_blocks(M, rows * KV, sms)
+    say(f"[timing] paged decode at bf16 D {D}, {rows} rows x {KV} KV heads, "
+        f"a {M}-entry table: {n_split} key splits of {per} entries, "
+        f"{n_split * KV * rows} split CTAs for {sms} SMs "
+        f"({n_split * KV * rows / sms:.2f} per SM), then a combine kernel of "
+        f"{H * rows} CTAs")
     out["paged_decode_attention"] = dict(
         ms=time_ms(lambda: paged_decode_attention(**x)),
+        device_ms=device_ms(lambda: paged_decode_attention(**x)),
         plain_ms=time_ms(lambda: paged_decode_attention_ref(**x)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qd, k, v, attn_mask=mask[:, None, None, :])),
@@ -945,6 +1039,11 @@ def phase_timing(dev, card) -> dict:
         say(f"[timing] {name} {r['shapes']} on {card}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        if "device_ms" in r:
+            say(f"[timing] {name}: device ms per call by kernel (profiler) "
+                + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms"].items())
+                + f"; together {sum(r['device_ms'].values()):.4f} against "
+                f"{r['ms']:.4f} ms by events over back-to-back calls")
     return out
 
 
@@ -1047,6 +1146,8 @@ def timing_dense(dev, gen) -> tuple[dict, dict]:
         bound, by = dense_bound(x, window)
         rows.append(dict(
             ms=time_ms(lambda: decode_attention(**x, window=window)),
+            device_ms=device_ms(lambda: decode_attention(**x,
+                                                         window=window)),
             plain_ms=time_ms(lambda: decode_attention_plain(
                 **x, window=window)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1178,6 +1279,11 @@ def timing_flash(dev) -> dict:
     route = bwd_route(torch.bfloat16, D)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_kt, n_qt = -(-FA_S // 64), -(-FA_S // 64)
+    say(f"[timing] flash forward at bf16 D {D}: route "
+        f"{fwd_route(torch.bfloat16, D)}; one CTA (a consumer warpgroup and "
+        f"a producer warp) per 64 q rows x query head x batch, the longest "
+        f"first: {n_qt * H * FA_B} CTAs for {sms} SMs, two per SM; 64-key "
+        "tiles in a two-stage TMA ring, P in registers")
     say(f"[timing] flash backward at bf16 D {D}: route {route}; dK/dV one "
         f"CTA (a consumer warpgroup and a producer warp) per 64 keys x KV "
         f"head x batch, key tile 0 (the most causal work) first: "
@@ -1191,7 +1297,8 @@ def timing_flash(dev) -> dict:
         bound, by, ops = flash_bound(name, FA_B, H, KV, FA_S, D, True, 0,
                                      torch.bfloat16)
         ms = time_ms(kern, iters=10, warmup=2)
-        via = f", route {route}" if plain is None else ""
+        via = (f", route "
+               f"{route if plain is None else fwd_route(torch.bfloat16, D)}")
         out[name] = dict(
             ms=ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
             library_note=note,
@@ -1924,7 +2031,6 @@ def phase_train_slice(dev, card, timing) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counted:
         fn.launches = 0
-    for fn in (flash_attention_dq, flash_attention_dkv):
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     for i in range(TRAIN_STEPS):
         w0 = tr.ckpt.write_seconds
@@ -1948,8 +2054,7 @@ def phase_train_slice(dev, card, timing) -> dict:
                               for n, a in held_out.items()})
     val = float(val)
     launches = {fn.__name__: fn.launches for fn in counted}
-    routes = {fn.__name__: dict(fn.route_launches)
-              for fn in (flash_attention_dq, flash_attention_dkv)}
+    routes = {fn.__name__: dict(fn.route_launches) for fn in counted}
     write_s = tr.ckpt.write_seconds / max(1, tr.ckpt.writes)
     losses = [m["loss"] for m in tr.metrics_log]
     gnorms = [m["grad_norm"] for m in tr.metrics_log]
@@ -1973,13 +2078,18 @@ def phase_train_slice(dev, card, timing) -> dict:
     say(f"[train] profiled step {TRAIN_STEPS} on {card}: device busy "
         f"{busy:.1f} of {span:.1f} ms ({busy / span:.1%}); device ms by "
         "kind: " + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items()))
-    if not kinds.get("flash dK/dV") or not kinds.get("flash dQ"):
-        fail("the profiler saw no flash backward kernel on the device")
+    say(f"[train] flash forward device ms in the profiled step on {card}: "
+        f"{kinds.get('flash forward', 0.0):.1f} "
+        f"({2 * TRAIN_LAYERS * TRAIN_MICRO} launches)")
+    if not all(kinds.get(k) for k in ("flash forward", "flash dQ",
+                                      "flash dK/dV")):
+        fail("the profiler saw no flash forward or backward kernel on the "
+             "device")
     say(f"[train] kernel launches {launches}: per step "
         f"{ {k: launches[k] / TRAIN_STEPS for k in per_step} } against "
         f"{per_step}; flash_attention (no lse) {launches['flash_attention']}"
-        f" in the validation pass ({TRAIN_LAYERS} layers); backward "
-        f"launches by route {routes}")
+        f" in the validation pass ({TRAIN_LAYERS} layers); launches by "
+        f"route {routes}")
     say(f"[train] device memory: max_memory_allocated {peak / 1e9:.3f} GB "
         f"against {state / 1e9:.3f} GB of state; checkpoint writes "
         f"{tr.ckpt.writes}, {write_s:.1f} s each")
@@ -2093,6 +2203,8 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         for fn in counted:
             fn.launches = 0
+        flash_attention.route_launches = dict.fromkeys(
+            flash_attention.route_launches, 0)
         t0 = last[0] = time.perf_counter()
         with first_token_top2(eng) as margins:
             stats = serve_requests(eng, prompts, new_tokens,
@@ -2100,6 +2212,7 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {fn.__name__: fn.launches for fn in counted}
+        fwd_routes = dict(flash_attention.route_launches)
         say(f"{tag} " + summary(eng, len(prompts), len(stats)))
         n_done = len(eng.finished)
         gen_tokens = sum(len(r.generated) for r in eng.finished)
@@ -2108,7 +2221,8 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
         say(f"{tag} finished {n_done}/{len(prompts)} in {len(stats)} ticks "
             f"({n_decode} with a decode step); dispatches per tick "
             f"{[d for d, _, _ in per_tick]}; prefill calls "
-            f"{eng.prefill_calls}; kernel launches {got}; preemptions "
+            f"{eng.prefill_calls}; kernel launches {got}, the flash "
+            f"forward's by route {fwd_routes}; preemptions "
             f"{eng.preemptions}; HBM violations {eng.accountant.violations}")
         for k, vals in knobs.items():
             say(f"{tag} knob {k}: {vals[0]} -> {vals[-1]}, distinct values "
@@ -2165,6 +2279,10 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
         want = {fn.__name__: want.get(fn.__name__, 0) for fn in counted}
         if got != want:
             fail(f"{mode} kernel launches {got}, expected {want}")
+        if fwd_routes != {"tensor_core": got["flash_attention"],
+                          "cuda_core": 0}:
+            fail(f"{mode} flash forward launches by route {fwd_routes}: not "
+                 "all on the tensor cores")
         if mode == "legacy" and eng.prefill_calls != len(prompts):
             fail(f"{eng.prefill_calls} one-shot prefills for {len(prompts)} "
                  "requests")

@@ -32,13 +32,12 @@
 //     FMAs for every two loads;
 //   * it writes its unnormalised accumulator, running max m and sum l as
 //     f32 partials to scratch the wrapper allocates.
-// The combine kernel, one CTA per (head, row), merges the splits with the
-// logsumexp rule of `distributed/collectives.py::sp_decode_combine` and
-// writes exact zeros where the combined l is 0 (a row no key admits, as the
-// Pallas kernel's `l == 0` guard and the plain version give).  An empty
-// split keeps m at the finite NEG_INIT, so exp(m_s - m) never meets
-// -inf - -inf.  Any S, no padding.  CUDA-core FMAs only (no wgmma/TMA yet).
+// The combine kernel (split_combine.cuh, shared with the paged decode
+// kernel), one CTA per (head, row), merges the splits with the logsumexp
+// rule and writes exact zeros where no key was admitted.  Any S, no
+// padding.  CUDA-core FMAs only (no wgmma/TMA yet).
 #include "attn_common.cuh"
+#include "split_combine.cuh"
 
 namespace {
 
@@ -196,31 +195,6 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One CTA per (head, row), one thread per element of D.
-template <typename T>
-__global__ void decode_combine_kernel(const float* __restrict__ o_part,
-                                      const float* __restrict__ ml_part,
-                                      T* __restrict__ out, int H, int Kv,
-                                      int D, int n_split) {
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int G = H / Kv, kv = h / G, g = h % G;
-  const size_t base = ((size_t)b * Kv + kv) * n_split;  // split 0's part
-  float m = attn::NEG_INIT;
-  for (int s = 0; s < n_split; ++s)
-    m = fmaxf(m, ml_part[((base + s) * G + g) * 2]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const size_t p = (base + s) * G + g;
-      const float w = expf(ml_part[p * 2] - m);
-      l = fmaf(w, ml_part[p * 2 + 1], l);
-      a = fmaf(w, o_part[p * D + d], a);
-    }
-    out[((size_t)b * H + h) * D + d] =
-        attn::from_float<T>(l == 0.f ? 0.f : a / l);
-  }
-}
-
 // dynamic shared memory of one split CTA (the wrapper checks the same sum)
 size_t smem_bytes(int G, int D) {
   return sizeof(float) * (2 * (size_t)G * D + (size_t)kTile * (2 * D + 4) +
@@ -249,7 +223,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       sb, sh, ss, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(
+  attn::decode_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(
       o_part, ml_part, static_cast<T*>(out), H, Kv, D, n_split);
   return cudaGetLastError();
 }

@@ -13,20 +13,54 @@
 // of QK^T and PV, 0.278 ms at the bf16 tensor-core peak, against ~152 MB
 // of q, k, v, o and lse, 0.045 ms at 3.35 TB/s.
 //
-// Design: one CTA per (q tile of 64 rows, 32 at D = 256; query head;
-// batch), the tiles with the most keys launched first.  The TPU kernel's
-// sequential kv grid axis becomes a loop inside the CTA over the 32-key
-// tiles from the window's first tile to the diagonal tile only, each
-// staged in shared memory as f32 (padded rows, conflict-free reads).  The
-// online softmax state lives in registers: a thread owns 4 (2) rows and 4
-// keys of the score tile and the same rows times D/8 columns of the
-// output, so the row max and sum are three xor-shuffles among the 8 lanes
-// of a row group.  Scores are scaled by D^-0.5 after the dot, as the TPU
-// kernel does; the probabilities go through shared memory into P V.  At
-// the end o = acc / l (0 where l == 0) and, when lse is not null,
-// lse = m + log(max(l, 1e-30)).  Any S is taken without padding.  CUDA-core
-// FMAs (no wgmma/TMA): a first kernel that is right, far from its bound.
+// Two routes, a fixed dispatch on dtype and head dim in the extern "C"
+// entry point (flash_tc.cuh's `tensor_core_route`, which
+// `flash_attention_fwd_route` reports and flash_attention.py's
+// `fwd_route` states again; it is no fallback, and a launch that fails
+// returns its error):
+//
+// * Tensor cores: bf16 at D 64, 120 and 128 (`flash_fwd_kernel_wgmma`).
+//   One CTA per (64 q rows, query head, batch), the tiles with the most
+//   keys launched first, two CTAs per SM.  A CTA is one consumer
+//   warpgroup and one producer warp.  The producer loads the Q tile once
+//   and streams 64-key K and V tiles, from the window's first tile to the
+//   diagonal tile only, through a two-stage full/empty mbarrier ring, by
+//   TMA (3-D tensor maps over [B*H or B*Kv, S, D], 64-column boxes in the
+//   128-byte swizzle: the hardware zero-fills the ragged S tail and
+//   D = 120's columns 120-127 without crossing into the next head).  The
+//   consumer computes S = Q K^T by wgmma from shared memory (both operands
+//   K-major) into f32 registers and keeps the online softmax there: a
+//   thread holds 2 rows x 16 keys of S, so a row's max and sum are two
+//   xor-shuffles among the 4 lanes of a quad; scores are taken in the
+//   log2 domain (D^-0.5 log2(e) folded into one scale, ex2.approx), a
+//   masked score is -inf and gives p = 0, and tiles wholly inside the
+//   mask skip the mask test.  P is rounded to bf16 and packed straight
+//   from the accumulator layout into register A operands of O += P V,
+//   whose B operand is the same V tile read MN-major: nothing goes back
+//   to shared memory.  P meets V in bf16, as FlashAttention-2/3 and SDPA
+//   do; the reference keeps P in f32 (ROADMAP Queue 3 logs the
+//   difference).  The epilogue writes o = acc / l (0 where l == 0) and,
+//   when lse is not null, lse = (m2 + log2(max(l, 1e-30))) / log2(e) in
+//   natural-log units (m2 the running max in the log2 domain).
+// * CUDA cores: f32 at every D (the route phase 5's card-against-CPU
+//   parity measures) and bf16 at D 16 and 256 (`flash_fwd_kernel`).  One
+//   CTA per (q tile of 64 rows, 32 at D = 256; query head; batch), the
+//   tiles with the most keys launched first.  The TPU kernel's sequential
+//   kv grid axis becomes a loop inside the CTA over the 32-key tiles from
+//   the window's first tile to the diagonal tile only, each staged in
+//   shared memory as f32 (padded rows, conflict-free reads).  The online
+//   softmax state lives in registers: a thread owns 4 (2) rows and 4 keys
+//   of the score tile and the same rows times D/8 columns of the output,
+//   so the row max and sum are three xor-shuffles among the 8 lanes of a
+//   row group.  Scores are scaled by D^-0.5 after the dot, as the TPU
+//   kernel does; the probabilities go through shared memory into P V.  At
+//   the end o = acc / l (0 where l == 0) and, when lse is not null,
+//   lse = m + log(max(l, 1e-30)).  Scalar FMAs.
+// Any S is taken without padding.
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -174,21 +208,247 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* out, void* lse, int B, int H, int Kv, int S,
-                     int causal, int window, float scale, cudaStream_t s) {
+// ------------------------------------------------------------------------
+// Tensor-core route: bf16 at D 64, 120 and 128.
+namespace tc {
+
+using hopper::desc_k;
+using hopper::desc_mn;
+using hopper::exp2_approx;
+using hopper::fence_regs;
+using hopper::mbar_arrive;
+using hopper::mbar_arrive_expect_tx;
+using hopper::mbar_wait;
+using hopper::pack_bf16;
+using hopper::smem_u32;
+using hopper::tma_load_3d;
+using hopper::wgmma_commit;
+using hopper::wgmma_fence;
+using hopper::wgmma_rs;
+using hopper::wgmma_ss_n64;
+using hopper::wgmma_wait;
+
+using namespace flash_tc;
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsTC, 2)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ out,
+                       float* __restrict__ lse, int H, int Kv, int S,
+                       int causal, int window, float scale) {
+  constexpr int DP = padded<D>();
+  constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
+  constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
+  constexpr int Q_BYTES = tile_bytes<DP>(kRows);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);
+  uint8_t* k_s = q_s + Q_BYTES;              // [kStages][KV_BYTES]
+  uint8_t* v_s = k_s + kStages * KV_BYTES;   // [kStages][KV_BYTES]
+  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kRows;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, bkv = b * Kv + h / (H / Kv);
+  const int valid_q = min(kRows, S - q0);
+  // admitted keys of this tile's rows: [k_lo, k_hi]
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(S, q0 + kRows) - 1 : S - 1;
+  const int kt_lo = k_lo / kKeys;
+  const int n_it = k_hi / kKeys - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (role() == 1) {  // the producer warp: one lane issues
+    if (threadIdx.x != kConsumers) return;
+    mbar_arrive_expect_tx(&q_full, Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < DP / 64; ++c)
+      tma_load_3d(q_s + c * Q_CHUNK, &tm_q, &q_full, c * 64, q0, bh);
+    stream_kv<DP>(k_s, v_s, &tm_k, &tm_v, full, empty, kt_lo, n_it, bkv);
+    return;
+  }
+
+  // the consumer warpgroup: accumulator rows `row` and `row + 8` (q rows),
+  // columns `col + 8j` and `col + 8j + 1` (keys of the step, or columns of
+  // the output); element i of an accumulator lies in row row + 8((i/2)%2)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  float m[2] = {attn::NEG_INIT, attn::NEG_INIT};  // running max, log2 units
+  float l[2] = {0.f, 0.f};                        // running sum of p
+  float o_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o_acc[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s);
+  mbar_wait(&q_full, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int k0 = (kt_lo + it) * kKeys;
+    const uint32_t k_addr = smem_u32(k_s + s * KV_BYTES);
+    const uint32_t v_addr = smem_u32(v_s + s * KV_BYTES);
+    mbar_wait(&full[s], (it / kStages) & 1);
+
+    // S = Q K^T, [q rows, keys]
+    float st[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss_n64(st, desc_k(q_addr, Q_CHUNK, kk),
+                   desc_k(k_addr, KV_CHUNK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+
+    // online softmax in the log2 domain; a masked score is -inf (p = 0)
+    const bool whole = whole_tile(q0, k0, S, causal, window);
+    float mx[2] = {attn::MASKED, attn::MASKED};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = (i / 2) % 2;
+      float x = st[i] * scale_log2;
+      if (!whole) {
+        const int qi = q0 + row + 8 * e, kj = k0 + col + 8 * (i / 4) + (i % 2);
+        if (!flash::admits(qi, kj, S, causal, window)) x = attn::MASKED;
+      }
+      st[i] = x;
+      mx[e] = fmaxf(mx[e], x);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+      const float m_new = fmaxf(m[e], mx[e]);  // finite: m starts at NEG_INIT
+      alpha[e] = exp2_approx(m[e] - m_new);
+      m[e] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int e = (i / 2) % 2;
+      st[i] = exp2_approx(st[i] - m[e]);  // exp2(-inf) = 0
+      sum[e] += st[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 1);
+      sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 2);
+      l[e] = alpha[e] * l[e] + sum[e];
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+    uint32_t pa[kKeys / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        pa[kk][x] = pack_bf16(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1]);
+
+    // O += P V: V read MN-major from the same tile
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs<DP>(o_acc, pa[kk], desc_mn(v_addr, KV_CHUNK, 16 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    mbar_arrive(&empty[s]);  // this stage's K and V are read
+  }
+
+  const size_t qrow0 = (size_t)bh * S + q0;
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) inv[e] = l[e] == 0.f ? 0.f : 1.f / l[e];
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int e = (i / 2) % 2;
+    const int r = row + 8 * e, c = col + 8 * (i / 4);
+    if (r < valid_q && c < D)
+      *reinterpret_cast<uint32_t*>(out + (qrow0 + r) * D + c) =
+          pack_bf16(o_acc[i] * inv[e], o_acc[i + 1] * inv[e]);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (row + 8 * e < valid_q)
+        lse[qrow0 + row + 8 * e] =
+            (m[e] + log2f(fmaxf(l[e], 1e-30f))) / kLog2e;
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   void* lse, int B, int H, int Kv, int S, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!hopper::make_map(&mq, q, B * H, S, D, kRows) ||
+      !hopper::make_map(&mk, k, B * Kv, S, D, kKeys) ||
+      !hopper::make_map(&mv, v, B * Kv, S, D, kKeys))
+    return cudaErrorNotSupported;
+  constexpr int DP = padded<D>();
+  const size_t smem =
+      1024 + tile_bytes<DP>(kRows) + 2 * kStages * tile_bytes<DP>(kKeys);
+  auto kern = flash_fwd_kernel_wgmma<D>;
+  cudaError_t e = flash::allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
+  kern<<<dim3((S + kRows - 1) / kRows, H, B), kThreadsTC, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), H, Kv, S, causal, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
+                        void* out, void* lse, int B, int H, int Kv, int S,
+                        int causal, int window, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
-    case 120: return launch<T, 120>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
-    case 256: return launch<T, 256>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
+    case 64: return tc::launch<64>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
+    case 120: return tc::launch<120>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
+    case 128: return tc::launch<128>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// the CUDA-core kernel: f32 at every head dim, bf16 at D 16 and 256
+template <typename T>
+cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+                     void* out, void* lse, int B, int H, int Kv, int S,
+                     int causal, int window, float scale, cudaStream_t s) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+#define FLASH_FWD(DV) \
+  return launch<T, DV>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s)
+  switch (D) {
+    case 16: FLASH_FWD(16);
+    case 256: FLASH_FWD(256);
+    case 64: if constexpr (f32) FLASH_FWD(64); break;
+    case 120: if constexpr (f32) FLASH_FWD(120); break;
+    case 128: if constexpr (f32) FLASH_FWD(128); break;
+  }
+#undef FLASH_FWD
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
+
+// 1 when a call of this head dim and dtype (0 = float32, 1 = bfloat16)
+// takes the tensor-core kernel, 0 when it takes the CUDA-core one.
+extern "C" int flash_attention_fwd_route(int D, int dtype) {
+  return flash_tc::tensor_core_route(D, dtype) ? 1 : 0;
+}
 
 // q [B,H,S,D]; k/v [B,Kv,S,D]; out [B,H,S,D]; lse [B,H,S] f32 or null.
 // causal: 0/1; window <= 0 = none.  dtype: 0 = float32, 1 = bfloat16.
@@ -202,6 +462,9 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Kv <= 0 || H % Kv != 0 || H > 65535 || B > 65535 || S <= 0)
     return cudaErrorInvalidValue;
+  if (flash_tc::tensor_core_route(D, dtype))
+    return dispatch_tc(D, q, k, v, out, lse, B, H, Kv, S, causal, window,
+                       scale, s);
   if (dtype == 0)
     return dispatch<float>(D, q, k, v, out, lse, B, H, Kv, S, causal, window,
                            scale, s);

@@ -75,7 +75,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
-#include "hopper.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -399,41 +399,7 @@ using hopper::wgmma_rs;
 using hopper::wgmma_ss_n64;
 using hopper::wgmma_wait;
 
-constexpr int kKeys = 64;        // keys per dK/dV CTA and per dQ step
-constexpr int kRows = 64;        // q rows per dQ CTA and per dK/dV step
-constexpr int kStages = 2;       // tiles in flight
-constexpr int kConsumers = 128;  // one warpgroup
-constexpr int kThreadsTC = kConsumers + 32;  // and one producer warp
-constexpr float kLog2e = 1.4426950408889634f;
-
-// the head dim in whole 64-column chunks (D = 120 reads 128, the last 8
-// columns zeros)
-template <int D>
-__host__ __device__ constexpr int padded() { return D <= 64 ? 64 : 128; }
-// bytes of one [rows, DP] bf16 tile: DP / 64 chunks of rows x 128 bytes
-template <int DP>
-__host__ __device__ constexpr int tile_bytes(int rows) {
-  return DP * rows * 2;
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-// every (q, key) pair of the tile is admitted: no mask test needed
-__device__ __forceinline__ bool whole_tile(int q0, int k0, int S, int causal,
-                                           int window) {
-  return q0 + kRows <= S && k0 + kKeys <= S &&
-         (!causal || k0 + kKeys - 1 <= q0) &&
-         (window <= 0 || q0 + kRows - 1 - k0 < window);
-}
-
-// the warpgroup of this thread, warp-uniform for the compiler (which
-// otherwise serialises the wgmma of the consumers' path): 0 the consumer
-// warpgroup, 1 the producer warp
-__device__ __forceinline__ int role() {
-  return __shfl_sync(0xffffffffu, (int)threadIdx.x / kConsumers, 0);
-}
+using namespace flash_tc;
 
 template <int D>
 __global__ void __launch_bounds__(kThreadsTC, 1)
@@ -664,19 +630,7 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       tma_load_3d(q_s + c * Q_CHUNK, &tm_q, &q_full, c * 64, q0, bh);
       tma_load_3d(do_s + c * Q_CHUNK, &tm_do, &q_full, c * 64, q0, bh);
     }
-    for (int it = 0; it < n_it; ++it) {
-      const int s = it % kStages;
-      const int k0 = (kt_lo + it) * kKeys;
-      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-      mbar_arrive_expect_tx(&full[s], 2 * KV_BYTES);
-#pragma unroll
-      for (int c = 0; c < DP / 64; ++c) {
-        tma_load_3d(k_s + s * KV_BYTES + c * KV_CHUNK, &tm_k, &full[s],
-                    c * 64, k0, bkv);
-        tma_load_3d(v_s + s * KV_BYTES + c * KV_CHUNK, &tm_v, &full[s],
-                    c * 64, k0, bkv);
-      }
-    }
+    stream_kv<DP>(k_s, v_s, &tm_k, &tm_v, full, empty, kt_lo, n_it, bkv);
     return;
   }
 
@@ -817,12 +771,6 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-// The route rule: bf16 at D 64, 120 and 128 takes the tensor cores, every
-// other supported call the CUDA cores.
-bool tensor_core_route(int D, int dtype) {
-  return dtype == 1 && (D == 64 || D == 120 || D == 128);
-}
-
 #define FLASH_BWD_CASE(FN, DV, ...) \
   case DV:                          \
     return FN<DV>(__VA_ARGS__);
@@ -909,7 +857,7 @@ bool bad_shape(int B, int H, int Kv, int S) {
 // 1 when a call of this head dim and dtype (0 = float32, 1 = bfloat16)
 // takes the tensor-core kernels, 0 when it takes the CUDA-core ones.
 extern "C" int flash_attention_bwd_route(int D, int dtype) {
-  return tensor_core_route(D, dtype) ? 1 : 0;
+  return flash_tc::tensor_core_route(D, dtype) ? 1 : 0;
 }
 
 // q, dout [B,H,S,D]; k, v [B,Kv,S,D]; lse, dsum [B,H,S] f32; dq [B,H,S,D].
@@ -924,7 +872,7 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, S)) return cudaErrorInvalidValue;
-  if (tensor_core_route(D, dtype))
+  if (flash_tc::tensor_core_route(D, dtype))
     return dispatch_dq_tc(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, S,
                           causal, window, scale, s);
   if (dtype == 0)
@@ -946,7 +894,7 @@ extern "C" int flash_attention_dkv_launch(const void* q, const void* k,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, S)) return cudaErrorInvalidValue;
-  if (tensor_core_route(D, dtype))
+  if (flash_tc::tensor_core_route(D, dtype))
     return dispatch_dkv_tc(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, S,
                            causal, window, scale, s);
   if (dtype == 0)

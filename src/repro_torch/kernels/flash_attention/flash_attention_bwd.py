@@ -31,11 +31,8 @@ import torch
 
 from repro_torch.kernels import KERNEL_DTYPES, _build, check_operand
 
-from .flash_attention import check_qkv
-
-ROUTES = ("tensor_core", "cuda_core")
-# head dims whose bf16 backward runs on the tensor cores
-TENSOR_CORE_HEAD_DIMS = (64, 120, 128)
+from .flash_attention import (ROUTES, TENSOR_CORE_HEAD_DIMS, check_qkv,
+                              library_route)
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -61,12 +58,10 @@ def _launchers():
 
 
 def library_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The route the CUDA library's own dispatch takes for a call (built on
-    first use): what :func:`bwd_route` must agree with."""
-    fn = _build.library("flash_attention_bwd").flash_attention_bwd_route
-    fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return ROUTES[0] if fn(head_dim, KERNEL_DTYPES[dtype]) else ROUTES[1]
+    """What :func:`bwd_route` must agree with: the backward library's own
+    rule."""
+    return library_route("flash_attention_bwd", "flash_attention_bwd_route",
+                         dtype, head_dim)
 
 
 def _check_bwd(q, k, v, do, lse, dsum) -> None:

@@ -17,15 +17,16 @@ same bf16 inputs and rounds its outputs to bf16 once, except that the
 Pallas backward rounds each query head's dK/dV to bf16 before summing the
 GQA group, so the two differ by up to an ulp of bf16 (2^-8) per head.
 
-The backward's route rule (bf16 at D 64, 120 and 128 on the tensor cores,
-everything else on the CUDA cores) is pinned here on the CPU.
+The forward's and the backward's route rule (bf16 at D 64, 120 and 128 on
+the tensor cores, everything else on the CUDA cores) is pinned here on the
+CPU, and so are the forward wrappers' per-route counters.
 
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
-the card, at D = 120, 128 and 256 too, the tensor-core backward also at
-its tile edges (S = 1, 63, 64, 65, 127, 130 and 4096; windows 32 and
-1024, causal and not; groups of 1, 4 and 8) with the route each call took
-read from the wrappers' per-route counters; they skip where there is no
-card.  The
+the card, at D = 120, 128 and 256 too, the tensor-core forward and
+backward also at their tile edges (S = 1, 63, 64, 65, 127, 130 and 4096;
+windows 32 and 1024, causal and not; groups of 1, 4 and 8) with the route
+each call took read from the wrappers' per-route counters; they skip
+where there is no card.  The
 machine with the card has no JAX, so this file imports the JAX package
 only inside the ``jx`` fixture, and runs there without the repository's
 conftest:
@@ -45,7 +46,8 @@ from repro_torch.kernels.flash_attention import (
     TENSOR_CORE_HEAD_DIMS, FlashAttention, attention_bwd_ref,
     attention_lse_ref, attention_op, attention_ref, bwd_route,
     flash_attention, flash_attention_bwd, flash_attention_dkv,
-    flash_attention_dq, flash_attention_fwd_lse, library_bwd_route)
+    flash_attention_dq, flash_attention_fwd_lse, fwd_route,
+    library_bwd_route, library_fwd_route)
 from repro_torch.models import layers
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -284,6 +286,31 @@ def test_backward_route_rule(d, dtype):
     assert bwd_route(TORCH_DT[dtype], d) == ROUTES[dtype, d]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_route_rule(d, dtype):
+    """The forward takes the same rule: bf16 at D 64, 120 and 128 on the
+    tensor-core kernel, f32 at every head dim and bf16 at D 16 and 256 on
+    the CUDA-core one."""
+    assert fwd_route(TORCH_DT[dtype], d) == ROUTES[dtype, d]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_route_counters_ignore_cpu_calls(dtype):
+    """Both forward wrappers count launches by route, from zero for both
+    routes; a CPU call runs the plain version and counts nothing."""
+    fwds = (flash_attention, flash_attention_fwd_lse)
+    for f in fwds:
+        assert f.route_launches == {"tensor_core": 0, "cuda_core": 0}
+    c = make_case(63, 64, 4, 2)
+    q, k, v = (to_torch(c[n], dtype).transpose(1, 2) for n in "qkv")
+    attention_op(q, k, v)
+    FlashAttention.apply(*(to_torch(c[n], dtype) for n in "qkv"), True, 0)
+    for f in fwds:
+        assert f.launches == 0
+        assert f.route_launches == {"tensor_core": 0, "cuda_core": 0}
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels vs the plain versions (on the card)
 # ---------------------------------------------------------------------------
@@ -426,3 +453,62 @@ def test_tensor_core_backward_at_tile_edges_on_card(cuda, case, d):
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         torch.testing.assert_close(got.float(), w.to(got.dtype).float(),
                                    atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_library_forward_route_agrees_on_card(cuda):
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in HEAD_DIMS:
+            assert library_fwd_route(dtype, d) == fwd_route(dtype, d)
+
+
+# tile edges of the tensor-core forward (64-row q tiles, 64-key tiles):
+# (S, G, causal, window) at Kv 2, bf16; windows 32 and 70 end inside a
+# key tile, 64 on its edge
+TC_FWD_EDGE_CASES = [
+    (1, 1, True, 0),
+    (1, 8, False, 0),
+    (63, 4, True, 0),
+    (63, 1, False, 32),
+    (64, 8, True, 0),
+    (64, 4, False, 0),
+    (64, 1, True, 32),
+    (65, 1, False, 0),
+    (65, 8, True, 32),
+    (65, 4, True, 64),
+    (130, 8, False, 32),
+    (130, 4, True, 70),
+    (130, 1, True, 0),
+    (4096, 8, True, 1024),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", TENSOR_CORE_HEAD_DIMS)
+@pytest.mark.parametrize("case", TC_FWD_EDGE_CASES,
+                         ids=lambda c: f"S{c[0]}-G{c[1]}-"
+                                       f"{'c' if c[2] else 'nc'}-w{c[3]}")
+def test_tensor_core_forward_at_tile_edges_on_card(cuda, case, d):
+    s, g, causal, window = case
+    kv = 2
+    c = make_case(s, d, kv * g, kv, seed=8, b=1 if s > 1000 else 2,
+                  scale=0.7)
+    q, k, v = (to_torch(c[n], "bfloat16", cuda) for n in "qkv")
+    mask = dict(causal=causal, window=window)
+    fwds = (flash_attention, flash_attention_fwd_lse)
+    before = [dict(f.route_launches) for f in fwds]
+    o_only = flash_attention(q, k, v, **mask)
+    o, lse = flash_attention_fwd_lse(q, k, v, **mask)
+    torch.cuda.synchronize()
+    for f, was in zip(fwds, before):
+        assert f.route_launches == {"tensor_core": was["tensor_core"] + 1,
+                                    "cuda_core": was["cuda_core"]}
+    want_o, want_lse = attention_lse_ref(q.float(), k.float(), v.float(),
+                                         **mask)
+    tol = CARD_TOL["bfloat16"]
+    for got in (o_only, o):
+        torch.testing.assert_close(got.float(),
+                                   want_o.to(got.dtype).float(), atol=tol,
+                                   rtol=tol)
+    assert torch.equal(o, o_only)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)

@@ -13,8 +13,13 @@ the kernels the dot after it: a few f32 ulps); bf16 ``atol=rtol=2e-2``
 (both sides accumulate in f32 from the same bf16 inputs and round once to
 bf16, so they differ by at most an ulp or two of the output).
 
+The paged decode kernel splits each row's table across CTAs; the split
+choice (:func:`split_blocks`, from the shapes alone) is pinned here on the
+CPU.
+
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
-the card; they skip where there is no card.  The machine with the card has
+the card, paged decode also on rows whose live blocks span several splits
+or sit in one; they skip where there is no card.  The machine with the card has
 no JAX, so this file imports the JAX package only inside the ``jx``
 fixture, and runs there without the repository's conftest:
 
@@ -22,6 +27,7 @@ fixture, and runs there without the repository's conftest:
         tests/test_torch_kernels.py
 """
 
+import inspect
 import types
 from pathlib import Path
 
@@ -33,7 +39,7 @@ from repro_torch.kernels import HEAD_DIMS, check_operand, use_plain
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_op,
-    paged_decode_attention_ref, paged_gather)
+    paged_decode_attention_ref, paged_gather, split_blocks)
 from repro_torch.kernels.segment_attention import (
     paged_segment_attention, paged_segment_attention_op,
     paged_segment_attention_ref, segment_attention, segment_attention_op,
@@ -339,6 +345,35 @@ def test_use_plain_by_device_alone():
         use_plain(torch.zeros(2, device="meta"))
 
 
+@pytest.mark.parametrize("m,groups,sms", [
+    (128, 32, 132), (1, 8, 132), (4, 8, 132), (64, 32, 132), (64, 8, 132),
+    (256, 4, 132), (128, 512, 132), (100, 3, 7), (7, 300, 132)])
+def test_split_blocks_cover_the_table(m, groups, sms):
+    """Every split is a non-empty run of consecutive entries, and the runs
+    cover all m entries of a row's table exactly once."""
+    per, n = split_blocks(m, groups, sms)
+    assert per >= 1 and n >= 1
+    runs = [range(s * per, min(m, (s + 1) * per)) for s in range(n)]
+    assert all(len(r) for r in runs)
+    assert [j for r in runs for j in r] == list(range(m))
+
+
+def test_split_blocks_take_shapes_alone():
+    """The split comes from ints only, never from q_pos or the tables, so
+    choosing it reads nothing back from the device."""
+    params = inspect.signature(split_blocks).parameters
+    assert list(params) == ["m", "groups", "sms"]
+    assert all(p.annotation in (int, "int") for p in params.values())
+
+
+def test_split_blocks_fill_the_card_at_yi6b():
+    """yi-6b's decode tick: 8 rows x 4 KV heads over a 128-entry table on
+    132 SMs gives about two CTAs per SM."""
+    per, n = split_blocks(128, 8 * 4, 132)
+    assert (per, n) == (15, 9)
+    assert 1.75 <= n * 8 * 4 / 132 <= 2.5
+
+
 @pytest.mark.parametrize("tensor,kw,err", [
     (torch.zeros(4, 4), dict(dtype=torch.bfloat16, ndim=2), TypeError),
     (torch.zeros(4, 4), dict(dtype=torch.float32, ndim=3), ValueError),
@@ -417,6 +452,51 @@ def test_decode_kernel_matches_plain_on_card(cuda, h, kv, window, dtype, d):
     assert (got[IDLE_ROW] == 0).all() and (want[IDLE_ROW] == 0).all()
 
 
+def split_case(rng, *, h, kv, d, t=16, m=64):
+    """Rows at positions whose live blocks span many splits, cross a split
+    edge, or sit in the first split (at the card's split of 8 rows over a
+    64-entry table), each with its own block allocated and interior -1
+    holes elsewhere; then two idle rows (position 0, table row all -1)."""
+    q_pos = np.array([1000, 100, 130, 520, 20, 127, 0, 0], np.int32)
+    b = len(q_pos)
+    tab, n = _tables(rng, b, m, holes=[(0, 5), (0, 40), (0, 61), (2, 3),
+                                       (3, 20), (3, 31), (5, 2)])
+    tab[6:] = -1
+    own = q_pos[:6] // t
+    assert all(tab[r, j] >= 0 for r, j in enumerate(own))
+    return dict(q=rng.standard_normal((b, h, d)).astype(np.float32),
+                k_store=rng.standard_normal((n, kv, t, d)).astype(np.float32),
+                v_store=rng.standard_normal((n, kv, t, d)).astype(np.float32),
+                block_tables=tab, q_pos=q_pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv", [(32, 4), (8, 1), (4, 4)])
+@pytest.mark.parametrize("window", [0, 37, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_decode_kernel_across_splits_on_card(cuda, h, kv, window, dtype, d):
+    """Against the plain version where each row's live blocks span several
+    splits, cross a split edge or sit in one split, with holes, windows
+    that start inside a block, and idle rows (exact zeros)."""
+    case = split_case(np.random.default_rng(d + h + window), h=h, kv=kv, d=d)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    per, _ = split_blocks(64, len(case["q_pos"]) * kv, sms)
+    last = case["q_pos"][:6] // 16 // per   # each row's last live split
+    assert last.max() > 0 and last.min() == 0
+    x = to_torch(case, dtype, cuda)
+    before = paged_decode_attention.launches
+    got = f32(paged_decode_attention(**x, window=window))
+    assert paged_decode_attention.launches == before + 1
+    want = paged_decode_attention_ref(
+        **{k: (v.float() if v.is_floating_point() else v)
+           for k, v in x.items()}, window=window)
+    want = f32(want.to(TORCH_DT[dtype]))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert np.allclose(got, want, atol=tol, rtol=tol)
+    assert (got[6:] == 0).all() and (want[6:] == 0).all()
+
+
 STALE = """
 import sys, numpy as np, torch
 sys.path[:0] = ["src", "tests"]
@@ -447,6 +527,41 @@ def test_kernels_fail_on_stale_indices(cuda, wrapper, field):
         make=make, wrapper=wrapper, field=field, value=value,
         family="segment_attention" if seg else "paged_attention",
         at="[0]" if field == "q_seg" else "[0, 0]")
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", src], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode != 0
+    assert "device-side assert" in run.stdout + run.stderr, run.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_one_stage_ring_on_card(cuda, dtype):
+    """64-token blocks at D 256: two ring stages of K and V tiles would not
+    fit two CTAs on an SM (nor, in f32, one), so the kernel loads each
+    tile after the last one is read."""
+    case = decode_case(np.random.default_rng(64), h=8, kv=2, d=256, t=64)
+    x = to_torch(case, dtype, cuda)
+    got = f32(paged_decode_attention(**x, window=100))
+    want = paged_decode_attention_ref(
+        **{k: (v.float() if v.is_floating_point() else v)
+           for k, v in x.items()}, window=100)
+    want = f32(want.to(TORCH_DT[dtype]))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    assert np.allclose(got, want, atol=tol, rtol=tol)
+    assert (got[IDLE_ROW] == 0).all()
+
+
+@pytest.mark.cuda
+def test_decode_kernel_fails_on_a_stale_entry_in_a_later_split(cuda):
+    """A stale entry in the last live block of a long row, which a later
+    split's CTA reads, stops the kernel on a device-side assert too."""
+    import subprocess
+    import sys
+    src = STALE.replace("h=4, kv=2", "h=8, kv=2, d=64").format(
+        make="split_case", wrapper="paged_decode_attention",
+        field="block_tables", value='len(case["k_store"])',
+        family="paged_attention", at="[0, 1000 // 16]")
     root = Path(__file__).resolve().parents[1]
     run = subprocess.run([sys.executable, "-c", src], cwd=root,
                          capture_output=True, text=True, timeout=600)
