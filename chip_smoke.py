@@ -7,20 +7,29 @@ caught:
 
   1. device   — the card's name, count and power limit (no card: exit 1);
   2. build    — nvcc builds all eight kernel libraries at once; ptxas
-                register/smem/spill lines (the flat segment kernel must not
-                spill at D = 256, the RWKV-6 scan and the tensor-core
-                forward and backward kernels not at all) and the build's
-                seconds;
+                register/smem/spill lines (the flat segment kernel's
+                CUDA-core route must not spill at D = 256; the RWKV-6 scan,
+                the tensor-core flash forward and backward kernels and the
+                tensor-core flat and paged segment kernels, D 256 included,
+                not at all) and the build's seconds;
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors: the paged ones at yi-6b shapes, the flat
                 segment one at recurrentgemma's (MQA, D 256, window 2048,
                 wrapped and stale rings), plus ragged segments, MQA/GQA/MHA,
                 small windows, holes, every head dim, f32 and bf16 (dead
-                lanes exact zeros); the RG-LRU scan from a nonzero state at
-                odd lengths and at [8, 4096, 4096]; the RWKV-6 scan (y and
-                the final state) from a random non-symmetric state at odd
-                lengths, with strong decays and neutral pad steps, at
-                [512, 4096, 64], and threaded across a cut of 147 steps;
+                lanes exact zeros), both segment routes (tensor cores: bf16
+                at D 64, 120, 128, 256, paged also T 8-64; CUDA cores: the
+                rest, T 12 among them), decode riders of 7 slots beside a
+                chunk's start in one q tile, G 12 (60 rows), G 16, G 80 (two
+                head chunks), windows cutting a key tile, ragged and
+                all-dead q tiles, the libraries' route rules held to the
+                wrappers', a stale table entry or segment a device-side
+                assert of the tensor-core paged route (child processes),
+                the worst error by route; the RG-LRU scan from a nonzero
+                state at odd lengths and at [8, 4096, 4096]; the RWKV-6 scan
+                (y and the final state) from a random non-symmetric state
+                at odd lengths, with strong decays and neutral pad steps,
+                at [512, 4096, 64], and threaded across a cut of 147 steps;
                 the flash attention forward (o and lse) and its dQ and
                 dK/dV kernels, causal, windowed (1024, 32) and non-causal,
                 MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim
@@ -44,7 +53,9 @@ caught:
                 (the dense decode kernel at yi-6b's legacy decode and at
                 recurrentgemma's swa rings; the flash rows with their
                 route, tiles and TFLOP/s; paged decode with its key split
-                and CTAs);
+                and CTAs; each segment row with its route, grid, live work
+                items, 64-key stages, the longest item's stages and
+                TFLOP/s);
   5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
                 rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
                 steps (prefill chunks + decode riders) and a decode step on
@@ -56,13 +67,15 @@ caught:
                 the training loss and gradients, at yi-6b's limits;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
-                SmartConf knobs live; then a KV budget cut must release
+                SmartConf knobs live, every paged segment launch on the
+                tensor-core route (asserted); then a KV budget cut must release
                 device memory (phases 6-8 and 10 print their in-phase peak
                 memory, less what other phases hold, beside the HBM goal);
   7. slice    — full recurrentgemma-9b (38 layers, bf16) serves 8 requests,
                 two of them longer than its 2048-token window, through the
                 launcher's functions under default options (packed ticks,
-                dense rings, RG-LRU state), knobs live; each drain tick
+                dense rings, RG-LRU state), knobs live, every flat segment
+                launch on the tensor-core route (asserted); each drain tick
                 launches the dense decode kernel once per swa layer (12);
   8. slice    — full rwkv6-7b (32 layers, bf16) serves 8 requests through
                 the launcher's functions under default options (packed
@@ -137,8 +150,10 @@ from repro_torch.kernels.rglru import (rglru_ref_state,  # noqa: E402
 from repro_torch.kernels.rwkv6 import (rwkv6_ref_state,  # noqa: E402
                                        rwkv6_scan_state)
 from repro_torch.kernels.segment_attention import (  # noqa: E402
-    paged_segment_attention, paged_segment_attention_ref, segment_attention,
-    segment_attention_ref)
+    library_paged_segment_route, library_segment_route,
+    paged_segment_attention, paged_segment_attention_ref, paged_segment_route,
+    segment_attention, segment_attention_ref, segment_grid, segment_route,
+    tile_items)
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
@@ -287,6 +302,12 @@ def decode_case(gen, *, q_pos, h, kv, d, t, m, holes=0, idle=0):
                 k_store=torch.randn(n_blocks, kv, t, d, generator=gen),
                 v_store=torch.randn(n_blocks, kv, t, d, generator=gen),
                 block_tables=tables, q_pos=qp)
+
+
+# decode riders of slots 0-6 (on a block's first key, its last, between)
+# beside slot 7's chunk from its start: phase 3's tile of many work items
+RIDERS7 = [(0, 83, 1), (1, 143, 1), (2, 300, 1), (3, 64, 1), (4, 77, 1),
+           (5, 131, 1), (6, 2, 1), (7, 0, 45)]
 
 
 def main_segment_segs():
@@ -455,8 +476,9 @@ def phase_build():
                 entry = line
             if any(w in line for w in ("registers", "spill", "Compiling entry")):
                 say(f"[build] {name}: {line.strip()}")
-            # ptxas names the flat kernel's D = 256 instances segment_kernel<T, 256>
-            if (name == "segment_attention" and "segment_kernel" in entry
+            # ptxas names the flat CUDA-core kernel's D = 256 instances
+            # segment_kernel<T, 256> (the tensor-core ones are below)
+            if (name == "segment_attention" and "segment_kernelI" in entry
                     and "Li256E" in entry and "spill" in line):
                 spills_256.append(line.strip())
     if not spills_256 or any("0 bytes spill stores, 0 bytes spill loads"
@@ -469,25 +491,31 @@ def phase_build():
                        not in line for line in rwkv):
         fail(f"the RWKV-6 scan spills: {rwkv}")
     say(f"[build] rwkv6_scan: {rwkv}")
-    # the tensor-core forward and backward kernels: registers and spills by
-    # instance (three head dims each)
+    # the tensor-core kernels: registers, shared memory and spills by
+    # instance (the flash forward and backward at three head dims each, the
+    # flat and paged segment kernels at four)
     tc = {}
-    for lib in ("flash_attention", "flash_attention_bwd"):
+    for lib in ("flash_attention", "flash_attention_bwd", "segment_attention",
+                "paged_segment_attention"):
         name = ""
         for line in _build.build_log(lib).splitlines():
-            m = re.search(r"(flash_\w+_kernel_wgmma)ILi(\d+)E", line)
+            m = re.search(r"(flash_\w+_kernel_wgmma|segment_kernel_wgmma)"
+                          r"ILi(\d+)E(?:Lb([01])E)?", line)
             if "Compiling entry" in line or "Function properties" in line:
-                name = f"{m.group(1)}<{m.group(2)}>" if m else ""
+                name = (f"{m.group(1)}<{m.group(2)}"
+                        + {None: "", "0": ", flat", "1": ", paged"}[m.group(3)]
+                        + ">") if m else ""
             elif name and ("spill" in line or "registers" in line):
                 tc.setdefault(name, []).append(line.strip())
             elif "C7520" in line or "C7510" in line:
                 say(f"[build] {lib}: {line.strip()}")
     for name, lines in tc.items():
         say(f"[build] tensor-core {name}: {'; '.join(lines)}")
-    if len(tc) != 9 or any(
+    segs = [n for n in tc if n.startswith("segment")]
+    if len(tc) != 17 or len(segs) != 8 or any(
             "0 bytes spill stores, 0 bytes spill loads" not in " ".join(v)
             for v in tc.values()):
-        fail(f"the tensor-core flash kernels spill or are missing: {tc}")
+        fail(f"the tensor-core kernels spill or are missing: {tc}")
 
 
 def compare(name, got, want, dtype, dead=None) -> float:
@@ -529,6 +557,24 @@ def phase_kernels(dev) -> dict:
                      d=120, t=16, b=2, m=6, holes=1),
         "d256": dict(segs=[(1, 7, 25), (0, 60, 1)], p=32, h=8, kv=4, d=256,
                      t=16, b=2, m=6, holes=1),
+        # decode riders of 7 slots beside a chunk's start share the first
+        # q tiles (a work item each); 149 lanes leave a ragged last tile
+        # and tiles of dead lanes; G 8, 12 (60 rows), 16 (MQA) and 1 (MHA)
+        "riders7": dict(segs=RIDERS7, p=149, h=32, kv=4, d=128, t=16, b=8,
+                        m=22, holes=6),
+        "riders7-g12": dict(segs=RIDERS7, p=149, h=48, kv=4, d=128, t=16,
+                            b=8, m=22, holes=6, window=37),
+        "riders7-mqa": dict(segs=RIDERS7, p=149, h=16, kv=1, d=256, t=16,
+                            b=8, m=22, holes=6),
+        "riders7-mha": dict(segs=RIDERS7, p=149, h=4, kv=4, d=64, t=16, b=8,
+                            m=22, holes=6, window=100),
+        # block tokens: 32 and 8 on the tensor cores, 12 on the CUDA cores
+        "t32": dict(segs=RIDERS7, p=149, h=32, kv=4, d=120, t=32, b=8, m=11,
+                    holes=4, window=37),
+        "t8": dict(segs=[(1, 200, 130), (0, 0, 70), (2, 400, 1)], p=256,
+                   h=8, kv=4, d=256, t=8, b=3, m=75, holes=3, window=100),
+        "t12": dict(segs=RIDERS7, p=149, h=32, kv=4, d=128, t=12, b=8, m=29,
+                    holes=4),
     }
     dec_cases = {
         "main": dict(q_pos=[int(n) + 16 for n in lens], h=H, kv=KV, d=D,
@@ -553,21 +599,29 @@ def phase_kernels(dev) -> dict:
     }
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {"paged_segment_attention": 0.0, "paged_decode_attention": 0.0}
+    segment_routes_agree()
+    worst = {}
     for name, spec in seg_cases.items():
         spec = dict(spec)
         window = spec.pop("window", 0)
         case = segment_case(gen, **spec)
         for dtype in (torch.float32, torch.bfloat16):
             x = on(dev, case, dtype)
+            route = paged_segment_route(dtype, spec["d"], spec["t"])
             got = paged_segment_attention(**x, window=window)
             torch.cuda.synchronize()
             want = paged_segment_attention_ref(
                 **on(dev, on(dev, case, dtype), torch.float32),
                 window=window)
-            err = compare(f"paged_segment_attention/{name}", got, want,
-                          dtype, dead=x["q_seg"] < 0)
+            err = compare(f"paged_segment_attention/{name} [{route}]", got,
+                          want, dtype, dead=x["q_seg"] < 0)
+            rel = err / max(float(want.abs().max()), 1e-30)
+            if rel >= worst.get(route, ("", 0.0))[1]:
+                worst[route] = (f"{name} {str(dtype)[6:]}", rel)
             if name == "main" and dtype == torch.bfloat16:
                 errs["paged_segment_attention"] = err
+    say(f"[kernels] paged_segment_attention worst error by route, relative "
+        f"to the largest reference value: {worst}")
     for name, spec in dec_cases.items():
         spec = dict(spec)
         window = spec.pop("window", 0)
@@ -587,6 +641,7 @@ def phase_kernels(dev) -> dict:
             if name == "main" and dtype == torch.bfloat16:
                 errs["paged_decode_attention"] = err
     paged_stale_entry_asserts()
+    segment_stale_entry_asserts()
     errs["segment_attention"] = phase_kernels_flat(dev, gen)
     errs["decode_attention"] = phase_kernels_dense(dev, gen)
     errs["rglru_scan_state"] = phase_kernels_rglru(dev, gen)
@@ -611,20 +666,70 @@ torch.cuda.synchronize()
 """
 
 
-def paged_stale_entry_asserts() -> None:
-    """A table entry past the store in the last live block of a long row
-    (read by a later key split's CTA) stops the paged decode kernel on a
-    device-side assert, where the plain version raises IndexError; in a
-    child process, since the assert ends its CUDA context."""
-    run = subprocess.run([sys.executable, "-c", STALE_PAGED], cwd=ROOT,
+STALE_SEGMENT = """
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels.segment_attention import paged_segment_attention
+dev, bf = torch.device("cuda", 0), torch.bfloat16
+n, b, m = 200, 8, 22
+tables = torch.arange(b * m, dtype=torch.int32).reshape(b, m)
+q_seg = torch.full((64,), -1, dtype=torch.int32)
+q_seg[:8] = torch.arange(8)
+{edit}
+paged_segment_attention(
+    torch.randn(64, 32, 128).to(dev, bf), torch.randn(n, 4, 16, 128).to(dev, bf),
+    torch.randn(n, 4, 16, 128).to(dev, bf), tables.to(dev),
+    torch.full((64,), 300, dtype=torch.int32).to(dev), q_seg.to(dev))
+torch.cuda.synchronize()
+"""
+
+
+def asserts_in_child(src: str, what: str) -> None:
+    """Run ``src`` in a child process, since a device-side assert ends its
+    CUDA context, and fail unless it stopped on one."""
+    run = subprocess.run([sys.executable, "-c", src], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     out = run.stdout + run.stderr
     ok = run.returncode != 0 and "device-side assert" in out
-    say(f"[kernels] paged_decode_attention/stale entry in a later split: "
-        f"child exit {run.returncode}, device-side assert "
+    say(f"[kernels] {what}: child exit {run.returncode}, device-side assert "
         f"{'seen' if ok else 'NOT seen'}")
     if not ok:
-        fail(f"a stale table entry did not stop paged decode: {out[-2000:]}")
+        fail(f"{what}: no device-side assert: {out[-2000:]}")
+
+
+def segment_stale_entry_asserts() -> None:
+    """A table entry past the store in the walk of one of a tile's decode
+    riders, and a segment past the tables, stop the tensor-core paged
+    segment kernel (bf16, D 128, T 16) on a device-side assert, where the
+    plain version raises IndexError."""
+    for what, edit in (("stale entry", "tables[5, 300 // 16] = n"),
+                       ("segment past the tables", "q_seg[3] = b")):
+        asserts_in_child(STALE_SEGMENT.format(edit=edit),
+                         f"paged_segment_attention [tensor_core]/{what}")
+
+
+def segment_routes_agree() -> None:
+    """Each segment library's own route rule, held to the wrapper's."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in HEAD_DIMS:
+            if library_segment_route(dtype, d) != segment_route(dtype, d):
+                fail(f"flat segment routes disagree at {dtype} D {d}")
+            for t in (1, 4, 8, 12, 16, 32, 64):
+                if (library_paged_segment_route(dtype, d, t)
+                        != paged_segment_route(dtype, d, t)):
+                    fail(f"paged segment routes disagree at {dtype} D {d} "
+                         f"T {t}")
+    say("[kernels] segment route rules: each library's agrees with its "
+        "wrapper's (tensor cores: bf16 at D 64, 120, 128, 256; paged also "
+        "T 8, 16, 32, 64)")
+
+
+def paged_stale_entry_asserts() -> None:
+    """A table entry past the store in the last live block of a long row
+    (read by a later key split's CTA) stops the paged decode kernel on a
+    device-side assert, where the plain version raises IndexError."""
+    asserts_in_child(STALE_PAGED,
+                     "paged_decode_attention/stale entry in a later split")
 
 
 def phase_kernels_flat(dev, gen) -> float:
@@ -643,24 +748,40 @@ def phase_kernels_flat(dev, gen) -> float:
         for h, kv, what in ((4, 4, "mha"), (8, 2, "gqa"), (8, 1, "mqa")):
             cases[f"d{d}-{what}"] = dict(small, h=h, kv=kv, d=d,
                                          window=9 if what == "gqa" else 0)
+    # decode riders of 7 slots (0 and 1 wrapped) beside a chunk over a
+    # stale ring and a mid-prompt chunk; 96-entry rings, so 64-key tiles
+    # straddle two slots; G 16 (MQA), 12 (60 rows) and 80 (two head chunks)
+    riders = dict(segs=[(0, 150, 1), (1, 201, 1), (2, 40, 1), (3, 95, 1),
+                        (4, 7, 1), (5, 60, 1), (6, 1, 1), (7, 0, 50),
+                        (5, 61, 30)], p=149, b=8, ring=96, prev=(7,))
+    cases["riders7-mqa"] = dict(riders, h=16, kv=1, d=256, window=37)
+    cases["riders7-g12"] = dict(riders, h=48, kv=4, d=120, window=0)
+    cases["riders7-g80"] = dict(riders, h=80, kv=1, d=64, window=96)
     main_err = 0.0
+    worst = {}
     for name, spec in cases.items():
         spec = dict(spec)
         window = spec.pop("window")
         case = flat_case(gen, **spec)
         for dtype in (torch.float32, torch.bfloat16):
             x = on(dev, case, dtype)
+            route = segment_route(dtype, spec["d"])
             got = segment_attention(**x, window=window)
             torch.cuda.synchronize()
             want = segment_attention_ref(
                 **on(dev, on(dev, case, dtype), torch.float32),
                 window=window)
-            err = compare(f"segment_attention/{name}", got, want, dtype,
-                          dead=x["q_seg"] < 0)
+            err = compare(f"segment_attention/{name} [{route}]", got, want,
+                          dtype, dead=x["q_seg"] < 0)
+            rel = err / max(float(want.abs().max()), 1e-30)
+            if rel >= worst.get(route, ("", 0.0))[1]:
+                worst[route] = (f"{name} {str(dtype)[6:]}", rel)
             if name == "main" and dtype == torch.bfloat16:
                 main_err = err
             del got, want
         torch.cuda.empty_cache()
+    say(f"[kernels] segment_attention worst error by route, relative to the "
+        f"largest reference value: {worst}")
     return main_err
 
 
@@ -936,7 +1057,79 @@ def segment_bound(x, window=0):
         else PEAK_F32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", flops)
+
+
+def segment_work(x, b, walk) -> dict:
+    """A tensor-core segment kernel's work at this call, from the same
+    inputs: the work items the shapes allow (tiles x KV heads x items per
+    tile), the live ones (a q tile's live segments, per KV head and head
+    chunk), the 64-key stages they walk (``walk(seg, lo, hi)`` for an item
+    whose queries sit at positions lo..hi), the longest item's stages, and
+    the tensor-core flops those stages issue."""
+    p, h, d = x["q"].shape
+    kv = x["k_store" if b else "k"].shape[1]
+    qp, qs = x["q_pos"].cpu().tolist(), x["q_seg"].cpu().tolist()
+    bq, n_tiles, chunks, s_max = segment_grid(p, h, kv, b)
+    stages = []
+    for tile in range(n_tiles):
+        tok = qs[tile * bq:(tile + 1) * bq]
+        for seg in tile_items(tok)[0]:
+            pos = [qp[tile * bq + i] for i, sg in enumerate(tok) if sg == seg]
+            stages.append(walk(seg, min(pos), max(pos)))
+    per = kv * chunks
+    return dict(bound=(n_tiles, per, s_max), items=len(stages) * per, d=d,
+                stages=sum(stages) * per, longest=max(stages, default=0),
+                issued=sum(stages) * per * 64 * 64 * 4 * d)
+
+
+def paged_work(x, window=0) -> dict:
+    """segment_work for the paged kernel: an item walks the live blocks of
+    its table row from its earliest query's window start to its latest
+    query, 64 / T blocks a stage."""
+    tabs = x["block_tables"].cpu()
+    t = x["k_store"].shape[2]
+
+    def walk(seg, lo, hi):
+        j_lo = max(0, lo - window + 1) // t if window > 0 else 0
+        live = int((tabs[seg, j_lo:min(hi // t, tabs.shape[1] - 1) + 1]
+                    >= 0).sum())
+        return -(-live // (64 // t))
+    return segment_work(x, tabs.shape[0], walk)
+
+
+def flat_work(x, window=0) -> dict:
+    """segment_work for the flat kernel: an item walks the 64-key tiles
+    that hold a written key of its segment inside [its earliest query's
+    window start, its latest query], as its producer decides."""
+    n = x["k"].shape[0]
+    n_kt = -(-n // 64)
+    pad = torch.full((n_kt * 64 - n,), -1, dtype=torch.int32)
+    kp = torch.cat([x["k_pos"].cpu(), pad])
+    ks = torch.cat([x["k_seg"].cpu(), pad])
+
+    def walk(seg, lo, hi):
+        near = (ks == seg) & (kp >= 0) & (kp <= hi)
+        if window > 0:
+            near &= (lo - kp) < window
+        return int(near.reshape(n_kt, 64).any(dim=1).sum())
+    return segment_work(x, None, walk)
+
+
+def work_line(name, route, work, flops, ms, sms) -> str:
+    """One segment row's work, for phase 4's output: the persistent grid
+    is as many CTAs as the card holds at once (two a SM at D <= 128, one
+    at D 256), at most one per possible item."""
+    bound = math.prod(work["bound"])
+    ctas = min(bound, sms * (2 if work["d"] <= 128 else 1))
+    return (f"[timing] {name}: route {route}; {bound} possible work items "
+            f"(tiles x KV heads x items a tile: {work['bound']}), "
+            f"{work['items']} live, taken by a persistent grid of {ctas} "
+            f"CTAs; {work['stages']} 64-key stages, the longest item "
+            f"{work['longest']}; admitted {flops / 1e9:.2f} GFLOP = "
+            f"{flops / ms / 1e9:.1f} TFLOP/s, tensor-core products issued "
+            f"{work['issued'] / 1e9:.2f} GFLOP = "
+            f"{work['issued'] / ms / 1e9:.1f} TFLOP/s")
 
 
 def decode_bound(x, window=0):
@@ -989,9 +1182,9 @@ def phase_timing(dev, card) -> dict:
     mask = ((kseg[None, :] == qs[:, None]) & (qs[:, None] >= 0)
             & (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None]))
     qt = x["q"].transpose(0, 1)[None]                 # [1, H, P, D]
-    bound, by = segment_bound(x)
+    bound, by, flops = segment_bound(x)
     shapes = "bf16 at yi-6b main-path shapes"
-    out["paged_segment_attention"] = dict(
+    r = out["paged_segment_attention"] = dict(
         ms=time_ms(lambda: paged_segment_attention(**x)),
         plain_ms=time_ms(lambda: paged_segment_attention_ref(**x), iters=3,
                          warmup=1),
@@ -999,6 +1192,10 @@ def phase_timing(dev, card) -> dict:
             qt, kf, vf, attn_mask=mask[None, None])),
         library_note="sdpa, boolean mask", bound_ms=bound, bound_by=by,
         shapes=shapes)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say(work_line("paged segment at yi-6b's mixed tick",
+                  paged_segment_route(torch.bfloat16, D, T), paged_work(x),
+                  flops, r["ms"], sms))
     x = on(dev, decode_case(gen, q_pos=[int(n) + 16 for n in prompt_lens()],
                             h=H, kv=KV, d=D, t=T, m=M), torch.bfloat16)
     k, v, k_pos = paged_gather(x["k_store"], x["v_store"],   # [B,Kv,MT,D]
@@ -1008,7 +1205,6 @@ def phase_timing(dev, card) -> dict:
     mask = (k_pos >= 0) & (k_pos <= x["q_pos"][:, None])
     qd = x["q"][:, :, None, :]                       # [B, H, 1, D]
     bound, by = decode_bound(x)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = x["q"].shape[0]
     per, n_split = split_blocks(M, rows * KV, sms)
     say(f"[timing] paged decode at bf16 D {D}, {rows} rows x {KV} KV heads, "
@@ -1069,7 +1265,7 @@ def flat_bound(x, window=0):
         else PEAK_F32_FLOPS
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", flops)
 
 
 def timing_flat(dev, gen) -> dict:
@@ -1088,7 +1284,7 @@ def timing_flat(dev, gen) -> dict:
     kf = x["k"].transpose(0, 1)[None].repeat_interleave(RG_H // RG_KV, dim=1)
     vf = x["v"].transpose(0, 1)[None].repeat_interleave(RG_H // RG_KV, dim=1)
     qt = x["q"].transpose(0, 1)[None]                 # [1, H, P, D]
-    bound, by = flat_bound(x, w)
+    bound, by, flops = flat_bound(x, w)
     r = dict(ms=time_ms(lambda: segment_attention(**x, window=w)),
              plain_ms=time_ms(lambda: segment_attention_ref(**x, window=w),
                               iters=2, warmup=1),
@@ -1097,6 +1293,10 @@ def timing_flat(dev, gen) -> dict:
              library_note="sdpa, boolean mask", bound_ms=bound, bound_by=by,
              shapes=f"bf16 H{RG_H}/Kv{RG_KV}/D{RG_D}, {RG_SLOTS} x "
                     f"{RG_WINDOW} ring keys + {RG_WIDTH} lanes")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say(work_line("flat segment at recurrentgemma-9b's mixed tick",
+                  segment_route(torch.bfloat16, RG_D), flat_work(x, w),
+                  flops, r["ms"], sms))
     return r
 
 
@@ -1739,6 +1939,8 @@ def phase_slice(dev, card) -> tuple[dict, dict, dict]:
 
     torch.cuda.reset_peak_memory_stats(dev)
     paged_segment_attention.launches = 0
+    paged_segment_attention.route_launches = dict.fromkeys(
+        paged_segment_attention.route_launches, 0)
     paged_decode_attention.launches = 0
     t0 = last[0] = time.perf_counter()
     stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
@@ -1779,6 +1981,10 @@ def phase_slice(dev, card) -> tuple[dict, dict, dict]:
         fail("more than one model dispatch in a tick")
     if not all(launches.values()):
         fail(f"a kernel of the path never launched: {launches}")
+    routes = paged_segment_attention.route_launches
+    say(f"[slice] paged segment launches by route: {routes}")
+    if routes["tensor_core"] != launches["paged_segment_attention"]:
+        fail(f"a paged segment launch left the tensor cores: {routes}")
     if not all(len(set(v)) > 1 for v in knobs.values()):
         fail("a SmartConf knob never moved")
     cap = eng.pool.capacity
@@ -1833,6 +2039,8 @@ def phase_rg_slice(dev, card) -> dict:
 
     torch.cuda.reset_peak_memory_stats(dev)
     segment_attention.launches = 0
+    segment_attention.route_launches = dict.fromkeys(
+        segment_attention.route_launches, 0)
     rglru_scan_state.launches = 0
     decode_attention.launches = 0
     t0 = last[0] = time.perf_counter()
@@ -1889,6 +2097,10 @@ def phase_rg_slice(dev, card) -> dict:
         fail("the HBM goal was violated")
     if not all(launches.values()):
         fail(f"a kernel of the path never launched: {launches}")
+    routes = segment_attention.route_launches
+    say(f"[rg-slice] flat segment launches by route: {routes}")
+    if routes["tensor_core"] != launches["segment_attention"]:
+        fail(f"a flat segment launch left the tensor cores: {routes}")
     if launches["decode_attention"] != swa * n_drain:
         fail(f"expected {swa} dense decode launches per drain tick, got "
              f"{launches['decode_attention']} in {n_drain} drain ticks")

@@ -1,8 +1,11 @@
-// Tile sizes and helpers shared by the tensor-core flash attention kernels
-// (the forward in flash_attention.cu, dQ and dK/dV in
-// flash_attention_bwd.cu), and the route rule that sends a call to them.
+// Tile sizes and helpers shared by the tensor-core attention kernels (the
+// flash forward in flash_attention.cu, dQ and dK/dV in
+// flash_attention_bwd.cu, the segment kernels of segment_tc.cuh), the
+// online-softmax step of the forward and segment kernels, and the route
+// rule that sends a flash call to them.
 #pragma once
 
+#include "attn_common.cuh"
 #include "hopper.cuh"
 
 namespace flash_tc {
@@ -24,7 +27,9 @@ inline bool tensor_core_route(int D, int dtype) {
 // the head dim in whole 64-column chunks (D = 120 reads 128, the last 8
 // columns zeros)
 template <int D>
-__host__ __device__ constexpr int padded() { return D <= 64 ? 64 : 128; }
+__host__ __device__ constexpr int padded() {
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
 // bytes of one [rows, DP] bf16 tile: DP / 64 chunks of rows x 128 bytes
 template <int DP>
 __host__ __device__ constexpr int tile_bytes(int rows) {
@@ -48,6 +53,74 @@ __device__ __forceinline__ bool whole_tile(int q0, int k0, int S, int causal,
 // warpgroup, 1 the producer warp
 __device__ __forceinline__ int role() {
   return __shfl_sync(0xffffffffu, (int)threadIdx.x / kConsumers, 0);
+}
+
+// One step of the online softmax over an S tile of NK keys in a consumer
+// thread's accumulator layout (rows `row` and `row + 8` of the warpgroup's
+// 64, columns `col + 8j` and `col + 8j + 1`; element i lies in row half
+// (i / 2) % 2, key column col + 8 (i / 4) + i % 2).  Scores become log2
+// units (`scale_log2` = D^-0.5 log2(e)); unless `whole`, a score for which
+// `admit(row half, key column)` is false becomes -inf and gives p = 0.  A
+// row's max and sum are two xor-shuffles among the 4 lanes of a quad.  On
+// return st holds p (unrounded), m and l are updated, and alpha is each
+// row's rescale factor for its accumulator.  m must start finite
+// (NEG_INIT), so alpha is never NaN.
+template <int NK, typename Admit>
+__device__ __forceinline__ void softmax_step(float (&st)[NK / 2], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             float scale_log2, bool whole,
+                                             Admit admit) {
+  const int col = 2 * (threadIdx.x % 4);
+  float mx[2] = {attn::MASKED, attn::MASKED};
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) {
+    const int e = (i / 2) % 2;
+    float x = st[i] * scale_log2;
+    if (!whole && !admit(e, col + 8 * (i / 4) + (i % 2))) x = attn::MASKED;
+    st[i] = x;
+    mx[e] = fmaxf(mx[e], x);
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+    mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+    const float m_new = fmaxf(m[e], mx[e]);
+    alpha[e] = hopper::exp2_approx(m[e] - m_new);
+    m[e] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) {
+    const int e = (i / 2) % 2;
+    st[i] = hopper::exp2_approx(st[i] - m[e]);  // exp2(-inf) = 0
+    sum[e] += st[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 1);
+    sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 2);
+    l[e] = alpha[e] * l[e] + sum[e];
+  }
+}
+
+// acc *= alpha by row, in the same accumulator layout
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&acc)[N],
+                                           const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= alpha[(i / 2) % 2];
+}
+
+// P rounded to bf16 and packed straight from the accumulator layout into
+// register A operands of the next product, 16 keys each
+template <int NK>
+__device__ __forceinline__ void pack_p(const float (&st)[NK / 2],
+                                       uint32_t (&pa)[NK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      pa[kk][x] = hopper::pack_bf16(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1]);
 }
 
 // The producer lane of a CTA that owns one q tile (the forward and dQ

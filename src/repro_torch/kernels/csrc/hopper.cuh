@@ -33,6 +33,12 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
                    smem_u32(bar))
@@ -141,6 +147,19 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
 
+#define HOPPER_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, " \
+  "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, " \
+  "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, " \
+  "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, " \
+  "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, " \
+  "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
+  "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, " \
+  "%127}"
+
 // d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, K-major.
 // Accumulator layout: warp w, lane l holds rows 16w + l/4 (+8) and columns
 // 8j + 2(l%4) (+1): d[4j + e] is row 16w + l/4 + 8(e/2), column
@@ -180,14 +199,29 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " HOPPER_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : HOPPER_F32(d, 0), HOPPER_F32(d, 32), HOPPER_F32(d, 64),
+        HOPPER_F32(d, 96)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
-  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256,
+                "wgmma_rs: N is 64, 128 or 256");
   if constexpr (N == 64)
     wgmma_rs_n64(d, a, b);
-  else
+  else if constexpr (N == 128)
     wgmma_rs_n128(d, a, b);
+  else
+    wgmma_rs_n256(d, a, b);
 }
 
 #undef HOPPER_F4
@@ -195,6 +229,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 #undef HOPPER_F32
 #undef HOPPER_R32
 #undef HOPPER_R64
+#undef HOPPER_R128
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -235,22 +270,33 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A bf16 tensor as a 3-D tensor map in the 128-byte swizzle: `dims`
+// innermost first (the first is the contiguous head dim), `strides` the
+// byte strides of the second and third, `box` the box read at a time (its
+// first entry 64 columns).  Elements outside `dims` arrive as zeros.
+inline bool make_map_3d(CUtensorMap* map, const void* ptr,
+                        const cuuint64_t (&dims)[3],
+                        const cuuint64_t (&strides)[2],
+                        const cuuint32_t (&box)[3]) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A bf16 tensor [heads, S, D] (D contiguous) as a 3-D tensor map read in
 // boxes of 64 columns x `rows` rows of one head, 128-byte swizzle.  Rows
 // past S and columns past D (D = 120: columns 120-127 of the second box)
 // arrive as zeros, and a box never reaches into the next head.
 inline bool make_map(CUtensorMap* map, const void* ptr, int heads, int S,
                      int D, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map_3d(map, ptr,
+                     {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads},
+                     {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2},
+                     {64, (cuuint32_t)rows, 1});
 }
 
 }  // namespace hopper

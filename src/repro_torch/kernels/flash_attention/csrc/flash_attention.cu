@@ -214,7 +214,6 @@ namespace tc {
 
 using hopper::desc_k;
 using hopper::desc_mn;
-using hopper::exp2_approx;
 using hopper::fence_regs;
 using hopper::mbar_arrive;
 using hopper::mbar_arrive_expect_tx;
@@ -314,48 +313,16 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(st);
 
     // online softmax in the log2 domain; a masked score is -inf (p = 0)
-    const bool whole = whole_tile(q0, k0, S, causal, window);
-    float mx[2] = {attn::MASKED, attn::MASKED};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int e = (i / 2) % 2;
-      float x = st[i] * scale_log2;
-      if (!whole) {
-        const int qi = q0 + row + 8 * e, kj = k0 + col + 8 * (i / 4) + (i % 2);
-        if (!flash::admits(qi, kj, S, causal, window)) x = attn::MASKED;
-      }
-      st[i] = x;
-      mx[e] = fmaxf(mx[e], x);
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
-      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
-      const float m_new = fmaxf(m[e], mx[e]);  // finite: m starts at NEG_INIT
-      alpha[e] = exp2_approx(m[e] - m_new);
-      m[e] = m_new;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int e = (i / 2) % 2;
-      st[i] = exp2_approx(st[i] - m[e]);  // exp2(-inf) = 0
-      sum[e] += st[i];
-    }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 1);
-      sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], 2);
-      l[e] = alpha[e] * l[e] + sum[e];
-    }
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+    float alpha[2];
+    softmax_step<kKeys>(st, m, l, alpha, scale_log2,
+                        whole_tile(q0, k0, S, causal, window),
+                        [&](int e, int kj) {
+                          return flash::admits(q0 + row + 8 * e, k0 + kj, S,
+                                               causal, window);
+                        });
+    scale_rows(o_acc, alpha);
     uint32_t pa[kKeys / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kKeys / 16; ++kk)
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        pa[kk][x] = pack_bf16(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1]);
+    pack_p<kKeys>(st, pa);
 
     // O += P V: V read MN-major from the same tile
     wgmma_fence();

@@ -10,29 +10,48 @@
 // paged_segment_attention (Pallas TPU kernel `_paged_kernel`).
 //
 // Bound on this card: bytes for decode riders and short chunks (each K/V
-// block feeds at most BQ x G rows), operations for long prefill chunks,
-// where each block is re-read by every q tile of the chunk and the
-// CUDA-core FMAs of QK^T and PV dominate.
+// block feeds at most 64 (token, query head) rows), operations for long
+// prefill chunks, where each block is re-read by every q tile of the chunk.
+// At yi-6b's mixed tick (bf16, H 32, Kv 4, D 128, T 16, four decode
+// riders and four prompt chunks in a 2048-lane stream) the admitted pairs
+// need 1.39 GFLOP, 1.4 us at the bf16 tensor-core peak, against 28.9 MB
+// of q, o and the live K/V blocks, 8.6 us at 3.35 TB/s.
 //
-// Design: one CTA per (q tile of BQ tokens, KV head); its rows are the
-// BQ x G (token, query head) pairs of the G = H/Kv heads sharing that KV
-// head, at most 64 rows.  The CTA finds the distinct live segments of its
-// tile and, for each, walks only that slot's table row from the window
-// start of the tile's earliest query to the causal horizon of its latest,
-// skipping -1 entries without loading them: work and traffic follow the
-// live predicate, and a decode rider never reads another slot's cache.
-// While it walks one segment's blocks, only that segment's rows do the
-// softmax update and the PV product, so a tile of decode riders from many
-// slots costs one row group per block, not the whole tile.
-// The TPU kernel instead walks all B x M blocks for every (head, q tile)
-// on a sequential grid axis.  Online-softmax state stays on chip for the
-// whole walk (m, l in shared memory, acc in registers).  Scores are scaled
-// by D^-0.5 after the dot, accumulation is f32, the output is written in
-// q's dtype, and dead lanes (q_seg < 0) or lanes no key admits write exact
-// zeros.  A segment >= B or a table entry >= N is a device-side assert,
-// where the plain version raises IndexError.  Plain loads and CUDA-core
-// FMAs only (no wgmma/TMA yet).
+// Two routes, a fixed dispatch on dtype, head dim and block tokens in the
+// extern "C" entry point (segment_tc.cuh's `paged_route`, which
+// `paged_segment_attention_route` reports and segment_attention.py's
+// `paged_segment_route` states again; no fallback, and a launch that fails
+// returns its error):
+//
+// * Tensor cores: bf16 at D 64, 120, 128 and 256 with T 8, 16, 32 or 64
+//   (`segment_kernel_wgmma<D, true>` in kernels/csrc/segment_tc.cuh, whose
+//   header states the design).  A work item is a (q tile of 64 / G
+//   tokens, KV head, live segment of the tile); a one-block plan kernel
+//   lists the live ones (and asserts the indices) and a persistent grid
+//   takes them, so the decode riders of a tile walk their slots' tables in
+//   parallel.  A producer warp compacts the live table entries with a warp
+//   ballot and TMA-loads 64 / T blocks a stage into a two-stage ring; one
+//   consumer warpgroup runs the flash forward's wgmma step.  P meets V in bf16, as the flash forward's does (ROADMAP
+//   Queue 3 logs the difference).
+// * CUDA cores: f32 at every D, bf16 at D 16 and at T outside 8-64
+//   (`paged_segment_kernel`, below).  One CTA per (q tile of BQ tokens, KV
+//   head); its rows are the BQ x G (token, query head) pairs of the G =
+//   H/Kv heads sharing that KV head, at most 64 rows.  The CTA finds the
+//   distinct live segments of its tile and, for each, walks only that
+//   slot's table row from the window start of the tile's earliest query to
+//   the causal horizon of its latest, skipping -1 entries without loading
+//   them.  While it walks one segment's blocks, only that segment's rows do
+//   the softmax update and the PV product.  Online-softmax state stays on
+//   chip for the whole walk (m, l in shared memory, acc in registers);
+//   scores are scaled by D^-0.5 after the dot; plain loads and CUDA-core
+//   FMAs.
+// The TPU kernel instead walks all B x M blocks for every (head, q tile) on
+// a sequential grid axis.  Both routes accumulate in f32, write the output
+// in q's dtype, and write exact zeros for dead lanes (q_seg < 0) and lanes
+// no key admits.  A segment >= B or a table entry >= N is a device-side
+// assert, where the plain version raises IndexError.
 #include "attn_common.cuh"
+#include "segment_tc.cuh"
 
 namespace {
 
@@ -233,17 +252,84 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   }
 }
 
+// the tensor-core route: bf16 at D 64, 120, 128 and 256, T 8 to 64
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* bt, const void* qpos, const void* qseg,
+                      void* out, void* work, int P, int H, int Kv, int N,
+                      int Tk, int B, int M, int window, float scale,
+                      cudaStream_t stream) {
+  seg_tc::Args a{};
+  a.G = H / Kv;
+  seg_tc::tile_shape(a.G, &a.GC, &a.BQ);
+  if (a.GC != a.G) return cudaErrorInvalidValue;  // G <= 64
+  // the store as [N * Kv, T, D]: one box is one block of one KV head
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Tk,
+                              (cuuint64_t)N * Kv};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Tk * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)Tk, 1};
+  CUtensorMap mq, mk, mv;
+  if (!seg_tc::make_q_map(&mq, q, P, H, D, a.GC, a.BQ) ||
+      !hopper::make_map_3d(&mk, k, dims, strides, box) ||
+      !hopper::make_map_3d(&mv, v, dims, strides, box))
+    return cudaErrorNotSupported;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.q_pos = static_cast<const int*>(qpos);
+  a.q_seg = static_cast<const int*>(qseg);
+  a.tables = static_cast<const int*>(bt);
+  a.P = P;
+  a.H = H;
+  a.Kv = Kv;
+  a.N = N;
+  a.T = Tk;
+  a.B = B;
+  a.M = M;
+  a.window = window;
+  a.scale = scale;
+  return seg_tc::launch<D, true>(mq, mk, mv, a, static_cast<int*>(work),
+                                 (P + a.BQ - 1) / a.BQ, a.BQ < B ? a.BQ : B,
+                                 stream);
+}
+
+cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
+                        const void* bt, const void* qpos, const void* qseg,
+                        void* out, void* work, int P, int H, int Kv, int N,
+                        int Tk, int B, int M, int window, float scale,
+                        cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_tc<64>(q, k, v, bt, qpos, qseg, out, work, P, H, Kv, N, Tk, B, M, window, scale, s);
+    case 120: return launch_tc<120>(q, k, v, bt, qpos, qseg, out, work, P, H, Kv, N, Tk, B, M, window, scale, s);
+    case 128: return launch_tc<128>(q, k, v, bt, qpos, qseg, out, work, P, H, Kv, N, Tk, B, M, window, scale, s);
+    case 256: return launch_tc<256>(q, k, v, bt, qpos, qseg, out, work, P, H, Kv, N, Tk, B, M, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// 1 when a call of this head dim, dtype (0 = float32, 1 = bfloat16) and
+// block tokens takes the tensor-core kernel, 0 when it takes the CUDA-core
+// one.
+extern "C" int paged_segment_attention_route(int D, int dtype, int T) {
+  return seg_tc::paged_route(D, dtype, T) ? 1 : 0;
+}
+
 // q [P,H,D]; k/v store [N,Kv,T,D]; block_tables [B,M] int32 (-1 = hole);
-// q_pos/q_seg [P] int32 (segment = table row, -1 = dead lane); out [P,H,D].
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
+// q_pos/q_seg [P] int32 (segment = table row, -1 = dead lane); out [P,H,D];
+// work: int32 scratch of the tensor-core route, 2 + ceil(P / BQ) *
+// min(BQ, B) entries (BQ = 64 / G tokens a q tile), unused (may be null)
+// on the CUDA cores.  dtype: 0 = float32, 1 = bfloat16.  Returns the
+// launches' cudaError_t.
 extern "C" int paged_segment_attention_launch(
     const void* q, const void* k_store, const void* v_store,
     const void* block_tables, const void* q_pos, const void* q_seg,
-    void* out, int P, int H, int Kv, int N, int Tk, int B, int M, int D,
-    int window, float scale, int dtype, void* stream) {
+    void* out, void* work, int P, int H, int Kv, int N, int Tk, int B, int M,
+    int D, int window, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Kv <= 0 || H % Kv != 0 || Kv > 65535) return cudaErrorInvalidValue;
+  if (seg_tc::paged_route(D, dtype, Tk))
+    return dispatch_tc(D, q, k_store, v_store, block_tables, q_pos, q_seg,
+                       out, work, P, H, Kv, N, Tk, B, M, window, scale, s);
   if (dtype == 0)
     return dispatch<float>(D, q, k_store, v_store, block_tables, q_pos,
                            q_seg, out, P, H, Kv, N, Tk, B, M, window, scale,

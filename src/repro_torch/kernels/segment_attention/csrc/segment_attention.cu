@@ -10,60 +10,106 @@
 // Replaces: src/repro/kernels/segment_attention/segment_attention.py,
 // segment_attention (Pallas TPU kernel `_kernel`).
 //
-// Bound on this card: bytes where a query tile admits few keys (decode
-// riders, short chunks), operations for long prefill chunks, where every
-// query head re-reads the chunk's keys and the CUDA-core FMAs of QK^T and
-// PV dominate.
+// Bound on this card: operations.  At recurrentgemma-9b's mixed tick (bf16,
+// MQA: H 16, Kv 1, D 256; 8 x 2048 ring keys and a 4096-lane stream,
+// window 2048) the admitted pairs need 82.5 GFLOP, 0.083 ms at the bf16
+// tensor-core peak, against 81.4 MB of q, o and the admitted keys' K and
+// V, 0.024 ms at 3.35 TB/s.
 //
-// Design: a first small kernel summarises every 32-key tile (the range of
-// segments and positions of its keys that could be admitted at all).  Then
-// one CTA per (q tile of 16 queries, query head); GQA and MQA map the head
-// to its KV head as h / (H / Kv), so no K/V is repeated.  The CTA marks, in
-// one parallel pass over the summaries, the key tiles whose ranges meet its
-// own live queries' (a conservative test), walks only those in key order,
-// loads each one's k_seg / k_pos, evaluates the exact predicate for its
-// 16 x 32 pairs, and skips a tile no pair admits before loading its K/V.
-// On an admitted tile it computes the scores, updates an f32 online softmax
-// (m, l in shared memory, acc in registers) and accumulates P V.  The TPU
-// kernel instead walks every key tile on a sequential grid axis.  Scores
-// are scaled by D^-0.5 after the dot; lanes that admit no key (dead lanes,
-// q_seg < 0, included) finish with l == 0 and write exact zeros.  The tile
-// sizes keep a thread's share of a 16 x 256 output at 32 floats, so D = 256
-// compiles without spills.  Plain loads and CUDA-core FMAs (no wgmma/TMA).
+// Two routes, a fixed dispatch on dtype and head dim in the extern "C"
+// entry point (segment_tc.cuh's `route`, which `segment_attention_route`
+// reports and segment_attention.py's `segment_route` states again; no
+// fallback, and a launch that fails returns its error):
+//
+// * Tensor cores: bf16 at D 64, 120, 128 and 256 (`segment_kernel_wgmma<D,
+//   false>` in kernels/csrc/segment_tc.cuh, whose header states the
+//   design).  A first small kernel summarises every 64-key tile.  A work
+//   item is a (q tile of 64 / G tokens, KV head, live segment of the
+//   tile), listed by a one-block plan kernel and taken by a persistent
+//   grid: its 64 rows are (token, query head) pairs of one KV head, so
+//   each K/V tile is read once for all G query heads (MQA's 16 at
+//   recurrentgemma-9b).  A producer warp picks the candidate tiles from the
+//   summaries and TMA-loads each one's K and V into a two-stage ring; one
+//   consumer warpgroup runs the flash forward's wgmma step.  P meets V in
+//   bf16, as the flash forward's does (ROADMAP Queue 3 logs the
+//   difference).
+// * CUDA cores: f32 at every D and bf16 at D 16 (`segment_kernel`, below).
+//   A first small kernel summarises every 32-key tile (the range of
+//   segments and positions of its keys that could be admitted at all).
+//   Then one CTA per (q tile of 16 queries, query head); GQA and MQA map
+//   the head to its KV head as h / (H / Kv), so no K/V is repeated.  The
+//   CTA marks, in one parallel pass over the summaries, the key tiles whose
+//   ranges meet its own live queries' (a conservative test), walks only
+//   those in key order, loads each one's k_seg / k_pos, evaluates the exact
+//   predicate for its 16 x 32 pairs, and skips a tile no pair admits before
+//   loading its K/V.  On an admitted tile it computes the scores, updates an
+//   f32 online softmax (m, l in shared memory, acc in registers) and
+//   accumulates P V; scores are scaled by D^-0.5 after the dot.  The tile
+//   sizes keep a thread's share of a 16 x 256 output at 32 floats, so
+//   D = 256 compiles without spills.  Plain loads and CUDA-core FMAs.
+// The TPU kernel instead walks every key tile on a sequential grid axis.
+// Both routes write exact zeros for lanes that admit no key (dead lanes,
+// q_seg < 0, included).
 #include <limits.h>
 
+#include <type_traits>
+
 #include "attn_common.cuh"
+#include "segment_tc.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int BQ = 16;              // queries per CTA
-constexpr int BK = 32;              // keys per tile: one warp summarises one
+constexpr int BK = 32;              // keys per tile
 constexpr int kCandWords = 16;      // candidate bits per pass, in words
 constexpr int kChunk = 32 * kCandWords;  // key tiles marked per pass
 constexpr int TPR = BK * BQ / kThreads;  // score pairs per thread (one row)
-static_assert(BK == 32, "tile_info_kernel gives one warp to one tile");
 static_assert(kChunk % kThreads == 0, "candidate pass tiling");
 
-// info[j] = (seg_lo, seg_hi, pos_lo, pos_hi) over the keys of tile j that
-// could be admitted at all (k_seg >= 0 and k_pos >= 0); a tile with none
-// gets seg_lo = INT_MAX, seg_hi = -1 and meets no query range.
+// info[j] = (seg_lo, seg_hi, pos_lo, pos_hi) over the keys of the KT-key
+// tile j that could be admitted at all (k_seg >= 0 and k_pos >= 0); a tile
+// with none gets seg_lo = INT_MAX, seg_hi = -1 and meets no query range.
+// One warp per tile.
+template <int KT>
 __global__ void tile_info_kernel(const int* __restrict__ k_pos,
                                  const int* __restrict__ k_seg, int N,
                                  int n_tiles, int4* __restrict__ info) {
+  static_assert(KT % 32 == 0, "a lane takes every 32nd key of the tile");
   const int tile = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   if (tile >= n_tiles) return;  // the whole warp leaves together
-  const int j = tile * BK + lane;
-  const int s = j < N ? k_seg[j] : -1;
-  const int p = j < N ? k_pos[j] : -1;
-  const bool live = s >= 0 && p >= 0;
+  int seg_lo = INT_MAX, seg_hi = -1, pos_lo = INT_MAX, pos_hi = -1;
+#pragma unroll
+  for (int x = 0; x < KT / 32; ++x) {
+    const int j = tile * KT + x * 32 + lane;
+    const int s = j < N ? k_seg[j] : -1;
+    const int p = j < N ? k_pos[j] : -1;
+    if (s >= 0 && p >= 0) {
+      seg_lo = min(seg_lo, s);
+      seg_hi = max(seg_hi, s);
+      pos_lo = min(pos_lo, p);
+      pos_hi = max(pos_hi, p);
+    }
+  }
   const unsigned all = 0xffffffffu;
-  const int seg_lo = __reduce_min_sync(all, live ? s : INT_MAX);
-  const int seg_hi = __reduce_max_sync(all, live ? s : -1);
-  const int pos_lo = __reduce_min_sync(all, live ? p : INT_MAX);
-  const int pos_hi = __reduce_max_sync(all, live ? p : -1);
+  seg_lo = __reduce_min_sync(all, seg_lo);
+  seg_hi = __reduce_max_sync(all, seg_hi);
+  pos_lo = __reduce_min_sync(all, pos_lo);
+  pos_hi = __reduce_max_sync(all, pos_hi);
   if (lane == 0) info[tile] = make_int4(seg_lo, seg_hi, pos_lo, pos_hi);
+}
+
+// summaries of every KT-key tile, on the stream
+template <int KT>
+cudaError_t summarise(const void* kpos, const void* kseg, void* info, int N,
+                      cudaStream_t stream) {
+  const int n_tiles = (N + KT - 1) / KT;
+  tile_info_kernel<KT><<<(n_tiles * 32 + kThreads - 1) / kThreads, kThreads,
+                         0, stream>>>(static_cast<const int*>(kpos),
+                                      static_cast<const int*>(kseg), N,
+                                      n_tiles, static_cast<int4*>(info));
+  return cudaGetLastError();
 }
 
 // dst[r * ld + c] = float(src[r * stride + c]) for r < rows, c < D, rows at
@@ -292,11 +338,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int Kv, int N, int window, float scale,
                    cudaStream_t stream) {
   const int n_tiles = (N + BK - 1) / BK;
-  tile_info_kernel<<<(n_tiles * 32 + kThreads - 1) / kThreads, kThreads, 0,
-                     stream>>>(static_cast<const int*>(kpos),
-                               static_cast<const int*>(kseg), N, n_tiles,
-                               static_cast<int4*>(info));
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = summarise<BK>(kpos, kseg, info, N, stream);
   if (e != cudaSuccess) return e;
   const size_t smem =
       sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * (BK + 1));
@@ -315,33 +357,104 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the CUDA-core kernel: f32 at every head dim, bf16 at D 16
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      const void* qpos, const void* qseg, const void* kpos,
                      const void* kseg, void* info, void* out, int P, int H,
                      int Kv, int N, int window, float scale, cudaStream_t s) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+#define SEGMENT(DV) \
+  return launch<T, DV>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s)
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
-    case 120: return launch<T, 120>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
-    case 256: return launch<T, 256>(q, k, v, qpos, qseg, kpos, kseg, info, out, P, H, Kv, N, window, scale, s);
+    case 16: SEGMENT(16);
+    case 64: if constexpr (f32) SEGMENT(64); break;
+    case 120: if constexpr (f32) SEGMENT(120); break;
+    case 128: if constexpr (f32) SEGMENT(128); break;
+    case 256: if constexpr (f32) SEGMENT(256); break;
+  }
+#undef SEGMENT
+  return cudaErrorInvalidValue;
+}
+
+// the tensor-core route: bf16 at D 64, 120, 128 and 256
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const void* qpos, const void* qseg, const void* kpos,
+                      const void* kseg, void* info, void* work, void* out,
+                      int P, int H, int Kv, int N, int window, float scale,
+                      cudaStream_t stream) {
+  constexpr int kKeys = flash_tc::kKeys;
+  cudaError_t e = summarise<kKeys>(kpos, kseg, info, N, stream);
+  if (e != cudaSuccess) return e;
+  seg_tc::Args a{};
+  a.G = H / Kv;
+  seg_tc::tile_shape(a.G, &a.GC, &a.BQ);
+  // k/v [N, Kv, D]: one box {64 columns, 1 KV head, 64 keys} is 64 rows
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)Kv, (cuuint64_t)N};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)Kv * D * 2};
+  const cuuint32_t box[3] = {64, 1, (cuuint32_t)kKeys};
+  CUtensorMap mq, mk, mv;
+  if (!seg_tc::make_q_map(&mq, q, P, H, D, a.GC, a.BQ) ||
+      !hopper::make_map_3d(&mk, k, dims, strides, box) ||
+      !hopper::make_map_3d(&mv, v, dims, strides, box))
+    return cudaErrorNotSupported;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.q_pos = static_cast<const int*>(qpos);
+  a.q_seg = static_cast<const int*>(qseg);
+  a.k_pos = static_cast<const int*>(kpos);
+  a.k_seg = static_cast<const int*>(kseg);
+  a.info = static_cast<const int4*>(info);
+  a.P = P;
+  a.H = H;
+  a.Kv = Kv;
+  a.N = N;
+  a.n_tiles = (N + kKeys - 1) / kKeys;
+  a.window = window;
+  a.scale = scale;
+  return seg_tc::launch<D, false>(mq, mk, mv, a, static_cast<int*>(work),
+                                  (P + a.BQ - 1) / a.BQ, a.BQ, stream);
+}
+
+cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
+                        const void* qpos, const void* qseg, const void* kpos,
+                        const void* kseg, void* info, void* work, void* out,
+                        int P, int H, int Kv, int N, int window, float scale,
+                        cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_tc<64>(q, k, v, qpos, qseg, kpos, kseg, info, work, out, P, H, Kv, N, window, scale, s);
+    case 120: return launch_tc<120>(q, k, v, qpos, qseg, kpos, kseg, info, work, out, P, H, Kv, N, window, scale, s);
+    case 128: return launch_tc<128>(q, k, v, qpos, qseg, kpos, kseg, info, work, out, P, H, Kv, N, window, scale, s);
+    case 256: return launch_tc<256>(q, k, v, qpos, qseg, kpos, kseg, info, work, out, P, H, Kv, N, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// 1 when a call of this head dim and dtype (0 = float32, 1 = bfloat16)
+// takes the tensor-core kernel, 0 when it takes the CUDA-core one.
+extern "C" int segment_attention_route(int D, int dtype) {
+  return seg_tc::route(D, dtype) ? 1 : 0;
+}
+
 // q [P,H,D]; k/v [N,Kv,D]; q_pos/q_seg [P] and k_pos/k_seg [N] int32;
-// info: int32 scratch of 4 * ceil(N / 32) entries; out [P,H,D].
+// info: int32 scratch of 4 * ceil(N / 32) entries (one int4 summary per
+// key tile: 32 keys on the CUDA cores, 64 on the tensor cores); work: int32
+// scratch of the tensor-core route, 2 + ceil(P / BQ) * BQ entries (BQ =
+// 64 / min(G, 64) tokens a q tile), unused (may be null) on the CUDA
+// cores; out [P,H,D].
 // dtype: 0 = float32, 1 = bfloat16.  Returns the launches' cudaError_t.
 extern "C" int segment_attention_launch(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* q_seg, const void* k_pos, const void* k_seg, void* info,
-    void* out, int P, int H, int Kv, int N, int D, int window, float scale,
-    int dtype, void* stream) {
+    void* work, void* out, int P, int H, int Kv, int N, int D, int window,
+    float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % Kv != 0 || H > 65535) return cudaErrorInvalidValue;
+  if (Kv <= 0 || H % Kv != 0 || H > 65535) return cudaErrorInvalidValue;
+  if (seg_tc::route(D, dtype))
+    return dispatch_tc(D, q, k, v, q_pos, q_seg, k_pos, k_seg, info, work,
+                       out, P, H, Kv, N, window, scale, s);
   if (dtype == 0)
     return dispatch<float>(D, q, k, v, q_pos, q_seg, k_pos, k_seg, info, out,
                            P, H, Kv, N, window, scale, s);
