@@ -8,10 +8,13 @@ caught:
   1. device   — the card's name, count and power limit (no card: exit 1);
   2. build    — nvcc builds all eight kernel libraries at once; ptxas
                 register/smem/spill lines (the flat segment kernel's
-                CUDA-core route must not spill at D = 256; the RWKV-6 scan,
-                the tensor-core flash forward and backward kernels and the
-                tensor-core flat and paged segment kernels, D 256 included,
-                not at all) and the build's seconds;
+                CUDA-core route must not spill at D = 256; the RWKV-6 scan
+                and every dense decode instance, with their registers
+                printed, the tensor-core flash forward and backward kernels
+                and the tensor-core flat and paged segment kernels, D 256
+                included, not at all), the build's seconds, and the dense
+                decode and RWKV-6 libraries' shared-memory sums held equal
+                to their wrappers';
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors: the paged ones at yi-6b shapes, the flat
                 segment one at recurrentgemma's (MQA, D 256, window 2048,
@@ -28,8 +31,10 @@ caught:
                 the worst error by route; the RG-LRU scan from a nonzero
                 state at odd lengths and at [8, 4096, 4096]; the RWKV-6 scan
                 (y and the final state) from a random non-symmetric state
-                at odd lengths, with strong decays and neutral pad steps,
-                at [512, 4096, 64], and threaded across a cut of 147 steps;
+                at odd lengths and its 16-step stage's edges, with strong
+                decays and neutral pad steps, over 1, 3 and 512 rows, at
+                [512, 4096, 64], on inputs only 8-byte aligned, and
+                threaded across a cut of 147 steps;
                 the flash attention forward (o and lse) and its dQ and
                 dK/dV kernels, causal, windowed (1024, 32) and non-causal,
                 MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim
@@ -47,11 +52,16 @@ caught:
                 k_pos with -1 and future entries, windows 0 and 256,
                 MHA/GQA/MQA), an all-empty cache (exact zeros), every head
                 dim at S below one split, above it and not a multiple of
-                it, f32 and bf16;
+                it, f32 and bf16; and its edges: S off a 64-key tile at
+                every head dim with G 1, 8 and 16, G 3, 20 and 64 (head
+                chunks), windows ending inside a tile, rings wrapped many
+                times over, rows whose keys all lie ahead (exact zeros);
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes
                 (the dense decode kernel at yi-6b's legacy decode and at
-                recurrentgemma's swa rings; the flash rows with their
+                recurrentgemma's swa rings, with its split plan; the RWKV-6
+                and RG-LRU scans with the profiler's device time, the
+                RWKV-6 scan's achieved GB/s; the flash rows with their
                 route, tiles and TFLOP/s; paged decode with its key split
                 and CTAs; each segment row with its route, grid, live work
                 items, 64-key stages, the longest item's stages and
@@ -117,7 +127,9 @@ and power limit; the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
+import importlib
 import json
 import math
 import re
@@ -162,6 +174,11 @@ from repro_torch.models.bridge import (keyed_leaves,  # noqa: E402
                                        tree_map)
 from repro_torch.optim import accum, adamw  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+
+# the wrapper modules (their packages export the functions by these names)
+dense_mod = importlib.import_module(
+    "repro_torch.kernels.decode_attention.decode_attention")
+rwkv6_mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
@@ -406,22 +423,24 @@ def rwkv6_case(gen, bh, s, decay="model"):
                 s0=torch.randn(bh, n, n, generator=gen, device=dev))
 
 
-def dense_case(gen, *, q_pos, h, kv, d, s, idle=0):
+def dense_case(gen, *, q_pos, h, kv, d, s, idle=0, ahead=0):
     """One query token per row against a dense ring ``[B, S, Kv, D]`` as
     the model keeps it: each row holds its last ``min(q_pos + 1, s)``
     positions, its own included, at ring slot ``p % s`` (wrapped once
     q_pos >= s), the rest unwritten; then ``idle`` rows as the engine
-    passes its idle slots (position 0, nothing written)."""
-    b = len(q_pos) + idle
+    passes its idle slots (position 0, nothing written), and ``ahead``
+    rows at position 5 whose every slot holds a later position."""
+    b = len(q_pos) + idle + ahead
     k_pos = torch.full((b, s), -1, dtype=torch.int32)
     for r, qp in enumerate(q_pos):
         p = torch.arange(max(0, qp - s + 1), qp + 1)
         k_pos[r, p % s] = p.to(torch.int32)
+    k_pos[b - ahead:] = torch.arange(6, 6 + s, dtype=torch.int32)
     return dict(q=torch.randn(b, h, d, generator=gen),
                 k_ring=torch.randn(b, s, kv, d, generator=gen),
                 v_ring=torch.randn(b, s, kv, d, generator=gen),
                 k_pos=k_pos,
-                q_pos=torch.tensor(list(q_pos) + [0] * idle,
+                q_pos=torch.tensor(list(q_pos) + [0] * idle + [5] * ahead,
                                    dtype=torch.int32))
 
 
@@ -485,12 +504,28 @@ def phase_build():
                              not in line for line in spills_256):
         fail(f"the flat segment kernel spills at D = 256: {spills_256}")
     say(f"[build] segment_attention at D = 256: {spills_256}")
-    rwkv = [line.strip() for line in _build.build_log("rwkv6_scan")
-            .splitlines() if "spill" in line]
-    if not rwkv or any("0 bytes spill stores, 0 bytes spill loads"
-                       not in line for line in rwkv):
-        fail(f"the RWKV-6 scan spills: {rwkv}")
-    say(f"[build] rwkv6_scan: {rwkv}")
+    # the RWKV-6 scan and every dense decode instance: registers, and no
+    # spill at all
+    for lib, kern in (("rwkv6_scan", "rwkv6_scan_kernel"),
+                      ("decode_attention", "decode_split_kernel")):
+        inst, name = {}, ""
+        for line in _build.build_log(lib).splitlines():
+            m = re.search(kern + r"I(\w+?)EE", line)
+            if "Compiling entry" in line:
+                name = m.group(1) if m else ""
+            elif name and ("spill" in line or "registers" in line):
+                inst.setdefault(name, []).append(
+                    line.strip().replace("ptxas info    : ", ""))
+        regs = {n: re.search(r"Used (\d+) registers", " ".join(v))
+                for n, v in inst.items()}
+        say(f"[build] {lib}: {len(inst)} instances, registers "
+            + ", ".join(f"{n} {r.group(1) if r else '?'}"
+                        for n, r in regs.items()))
+        spilled = {n: v for n, v in inst.items() if not any(
+            "0 bytes spill stores, 0 bytes spill loads" in x for x in v)}
+        if not inst or spilled:
+            fail(f"{lib} spills or is missing: {spilled or inst}")
+    smem_parity()
     # the tensor-core kernels: registers, shared memory and spills by
     # instance (the flash forward and backward at three head dims each, the
     # flat and paged segment kernels at four)
@@ -516,6 +551,26 @@ def phase_build():
             "0 bytes spill stores, 0 bytes spill loads" not in " ".join(v)
             for v in tc.values()):
         fail(f"the tensor-core kernels spill or are missing: {tc}")
+
+
+def smem_parity() -> None:
+    """The libraries' shared-memory sums against the wrappers' (each
+    wrapper sizes or checks its launch with its own): dense decode over
+    every dtype, head dim, group, tile and split length the planner can
+    give, and the RWKV-6 scan's one size."""
+    f = _build.library("decode_attention").decode_attention_smem_bytes
+    f.restype = ctypes.c_longlong
+    bad = [(e, d, g, t, n) for e in (2, 4) for d in HEAD_DIMS
+           for g in (1, 2, 3, 4, 5, 8, 9, 16, 17, 64)
+           for t in dense_mod.KEY_TILES for n in (16, 64, 128, 256, 512)
+           if f(e, d, g, t, n) != dense_mod.smem_bytes(e, d, g, t, n)]
+    r = _build.library("rwkv6_scan").rwkv6_scan_smem_bytes
+    r.restype = ctypes.c_int
+    say(f"[build] shared memory, library against wrapper: dense decode "
+        f"{'equal' if not bad else bad[:4]}; rwkv6_scan {r()} against "
+        f"{rwkv6_mod.smem_bytes()}")
+    if bad or r() != rwkv6_mod.smem_bytes():
+        fail("a library's shared memory differs from its wrapper's")
 
 
 def compare(name, got, want, dtype, dead=None) -> float:
@@ -789,8 +844,9 @@ def dense_cases() -> dict:
     """name -> (case builder, kwargs, window): yi-6b's legacy decode rings
     full and at the slice's prompts, recurrentgemma's swa rings wrapped
     and with idle rows, the reference's sweep (windows 0 and 256, GQA,
-    MQA, MHA), an all-empty cache, and every head dim with MHA, GQA and
-    MQA at S below one split, above it and not a multiple of it."""
+    MQA, MHA), an all-empty cache, every head dim with MHA, GQA and MQA
+    at S below one split, above it and not a multiple of it, and the
+    edges of the kernel's tiles, key parts and head chunks."""
     lens, rg = prompt_lens(), rg_prompt_lens()
     cases = {
         "main": (dense_case, dict(q_pos=[CACHE_LEN - 1] * SLOTS, h=H, kv=KV,
@@ -817,6 +873,28 @@ def dense_cases() -> dict:
             cases[f"d{d}-{what}-S{s}"] = (dense_case, dict(
                 q_pos=[5, s + 40, s // 2], h=h, kv=kv, d=d, s=s, idle=1),
                 9 if what == "gqa" else 0)
+    # the kernel's edges: S off a 64-key tile at every
+    # head dim with G 1, 8 and 16, G 3 (idle warps), G 20 (a second head
+    # chunk of 4), G 64 (four head chunks), windows that end inside a tile,
+    # rings wrapped many times over, and rows whose keys all lie ahead
+    for i, d in enumerate(HEAD_DIMS):
+        for j, (h, kv) in enumerate(((4, 4), (16, 2), (16, 1))):
+            s = (97, 2047, 2049)[(i + j) % 3]
+            cases[f"edge-d{d}-G{h // kv}-S{s}"] = (dense_case, dict(
+                q_pos=[s + 300, s // 2, 3 * s - 1], h=h, kv=kv, d=d, s=s,
+                idle=1), 0)
+    for h, kv, d, s in ((6, 2, 64, 2047), (40, 2, 128, 2049),
+                        (64, 1, 128, 2049), (64, 1, 256, 97)):
+        cases[f"heads-G{h // kv}-d{d}-S{s}"] = (dense_case, dict(
+            q_pos=[s - 1, s + 40, 5], h=h, kv=kv, d=d, s=s, idle=1), 0)
+    for w in (100, 1000):
+        cases[f"window-{w}-S2047"] = (dense_case, dict(
+            q_pos=[2046, 5000, 70, 2047], h=H, kv=KV, d=D, s=2047, idle=1), w)
+    cases["wrapped-many"] = (dense_case, dict(
+        q_pos=[RG_WINDOW - 1 + 911 * r for r in range(RG_SLOTS)], h=RG_H,
+        kv=RG_KV, d=RG_D, s=RG_WINDOW), RG_WINDOW)
+    cases["keys-ahead"] = (dense_case, dict(q_pos=[300, 40], h=8, kv=2, d=64,
+                                            s=130, ahead=2), 0)
     return cases
 
 
@@ -865,26 +943,46 @@ def phase_kernels_rglru(dev, gen) -> float:
 
 def phase_kernels_rwkv6(dev) -> float:
     """The RWKV-6 scan against its plain version, y and s_out, from a
-    random non-symmetric s0 with a random u: odd lengths, strong decays,
-    neutral pad steps, the main [512, 4096, 64]; then two launches split
-    at step 147 (not a multiple of 32), threading s_out, against one."""
+    random non-symmetric s0 with a random u: odd lengths and the 16-step
+    stage's edges (15, 16, 17, 33), strong decays, neutral pad steps, one
+    and three rows, the main [512, 4096, 64], inputs only 8-byte aligned
+    (the kernel's 8-byte copies); then two launches split at step 147 (off
+    a stage edge), threading s_out, against one."""
     gen = torch.Generator(device=dev).manual_seed(3)
     main_err = 0.0
-    for name, s, decay in (("S1", 1, "model"), ("S7", 7, "model"),
-                           ("S33", 33, "model"), ("S129", 129, "model"),
-                           ("strong", 129, "strong"), ("pads", 129, "pads"),
-                           ("main", RWKV_WIDTH, "model")):
-        x = rwkv6_case(gen, RWKV_BH, s, decay)
+    for name, bh, s, decay in (
+            ("S1", RWKV_BH, 1, "model"), ("S7", RWKV_BH, 7, "model"),
+            ("S15", RWKV_BH, 15, "model"), ("S16", RWKV_BH, 16, "model"),
+            ("S17", RWKV_BH, 17, "strong"), ("S33", RWKV_BH, 33, "pads"),
+            ("S129", RWKV_BH, 129, "model"),
+            ("strong", RWKV_BH, 129, "strong"),
+            ("pads", RWKV_BH, 129, "pads"), ("BH1", 1, 300, "model"),
+            ("BH3", 3, RWKV_WIDTH, "strong"),
+            ("main", RWKV_BH, RWKV_WIDTH, "model")):
+        x = rwkv6_case(gen, bh, s, decay)
         y, s_out = rwkv6_scan_state(**x)
         torch.cuda.synchronize()
         want_y, want_s = rwkv6_ref_state(**x)
-        err = max(compare(f"rwkv6_scan_state/{name} [{RWKV_BH}, {s}, "
+        err = max(compare(f"rwkv6_scan_state/{name} [{bh}, {s}, "
                           f"{RWKV_N}] y", y, want_y, torch.float32),
                   compare(f"rwkv6_scan_state/{name} s_out", s_out, want_s,
                           torch.float32))
         if name == "main":
             main_err = err
         del x, y, s_out, want_y, want_s
+    # streams 8 but not 16 bytes aligned: views 2 floats into a buffer
+    x = rwkv6_case(gen, 3, 300, "pads")
+    for n in ("r", "k", "v", "logw"):
+        buf = torch.empty(x[n].numel() + 2, device=dev)
+        x[n] = buf[2:].view_as(x[n]).copy_(x[n])
+    if rwkv6_mod.copy_bytes(x["r"], x["k"], x["v"], x["logw"]) != 8:
+        fail("the unaligned RWKV-6 case does not take 8-byte copies")
+    y, s_out = rwkv6_scan_state(**x)
+    torch.cuda.synchronize()
+    want_y, want_s = rwkv6_ref_state(**x)
+    compare("rwkv6_scan_state/8-byte copies y", y, want_y, torch.float32)
+    compare("rwkv6_scan_state/8-byte copies s_out", s_out, want_s,
+            torch.float32)
     x = rwkv6_case(gen, RWKV_BH, 300)
     cut = 147
     y, s_out = rwkv6_scan_state(**x)
@@ -1338,7 +1436,16 @@ def timing_dense(dev, gen) -> tuple[dict, dict]:
                f"bf16 B{RG_SLOTS} H{RG_H}/Kv{RG_KV} D{RG_D} ring {RG_WINDOW} "
                f"window {RG_WINDOW} (recurrentgemma swa, wrapped)")}
     rows = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for spec, window, note in shapes.values():
+        plan = dense_mod.launch_plan(SLOTS, spec["h"], spec["kv"], spec["s"],
+                                     spec["d"], 2, sms)
+        say(f"[timing] dense decode at {note}: {plan['n_split']} key splits "
+            f"of {plan['split']} slots, {plan['ctas']} split CTAs of "
+            f"{dense_mod.WARPS} warps for {sms} SMs ({plan['per_sm']} a SM "
+            f"by shared memory, {plan['smem']} bytes), a {plan['stages']}-"
+            f"stage ring of {plan['tile']}-key tiles, {plan['head_chunks']} "
+            f"head chunk(s); then a combine of {spec['h'] * SLOTS} CTAs")
         x = dense_args(on(dev, dense_case(gen, **spec), torch.bfloat16))
         mask = decode_mask(x["k_pos"], x["q_pos"], window)[:, None, None, :]
         k, v = x["k"].contiguous(), x["v"].contiguous()
@@ -1368,6 +1475,7 @@ def timing_rglru(dev, gen) -> dict:
     ops = 3 * b * s * f                          # exp, multiply, add
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
     return dict(ms=time_ms(lambda: rglru_scan_state(**x)),
+                device_ms=device_ms(lambda: rglru_scan_state(**x), iters=5),
                 plain_ms=time_ms(lambda: rglru_ref_state(**x), iters=1,
                                  warmup=1),
                 library_ms=None,
@@ -1391,6 +1499,7 @@ def timing_rwkv6(dev) -> dict:
     ops = bh * s * (5 * n * n + 6 * n)
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
     r = dict(ms=time_ms(lambda: rwkv6_scan_state(**x)),
+             device_ms=device_ms(lambda: rwkv6_scan_state(**x), iters=5),
              plain_ms=time_ms(lambda: rwkv6_ref_state(**x), iters=2,
                               warmup=1),
              library_ms=None,
@@ -1399,6 +1508,12 @@ def timing_rwkv6(dev) -> dict:
              bound_by="bytes" if t_bytes >= t_ops else "operations",
              shapes=f"f32 [{bh}, {s}, {n}] ({nbytes / 1e9:.3f} GB, "
                     f"{ops / 1e9:.1f} GFLOP)")
+    say(f"[timing] rwkv6_scan_state: {bh} rows of {rwkv6_mod.THREADS} "
+        f"threads, {rwkv6_mod.STAGES} stages of {rwkv6_mod.CHUNK} steps "
+        f"({rwkv6_mod.smem_bytes()} bytes a CTA); {nbytes / 1e9:.3f} GB in "
+        f"{r['ms']:.4f} ms = {nbytes / r['ms'] / 1e6:.1f} GB/s by events, "
+        f"{nbytes / sum(r['device_ms'].values()) / 1e6:.1f} GB/s by device "
+        f"time ({100 * r['bound_ms'] / r['ms']:.1f}% of the byte bound)")
     del x
     return r
 

@@ -1,6 +1,6 @@
-// Helpers shared by the paged attention kernels: f32/bf16 conversion and a
-// 16-byte-vectorised copy of a dense [rows, D] tile from device memory into
-// a float tile in shared memory.
+// Helpers shared by the attention kernels: f32/bf16 conversion, four
+// elements read as floats, and a 16-byte-vectorised copy of a dense
+// [rows, D] tile from device memory into a float tile in shared memory.
 #pragma once
 
 #include <assert.h>
@@ -29,6 +29,19 @@ template <> __device__ __forceinline__ float from_float<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// four consecutive elements as floats (8- or 16-byte aligned)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // dst[r * ld + c] = float(src[r * D + c]) for r < rows, c < D.  `src` must

@@ -1,6 +1,6 @@
-// Hopper (sm_90a) building blocks for the tensor-core kernels: mbarriers,
-// TMA tile loads through tensor maps, wgmma descriptors and instructions,
-// and the host-side encoding of a tensor map.
+// Hopper (sm_90a) building blocks for the kernels: cp.async copies,
+// mbarriers, TMA tile loads through tensor maps, wgmma descriptors and
+// instructions, and the host-side encoding of a tensor map.
 //
 // Shared-memory tiles are bf16 in 64-column chunks, each chunk [rows][64]
 // with 128-byte rows in the 128-byte swizzle that TMA writes and wgmma
@@ -68,6 +68,33 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---------------------------------------------------------------- cp.async
+// A copy of 16 bytes (8: .ca, the only form that takes fewer) from device
+// memory into shared memory, in flight until its group is waited for.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  static_assert(BYTES == 16 || BYTES == 8, "cp.async takes 16 or 8 bytes here");
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+}
+// close the copies issued since the last commit into one group
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------- TMA

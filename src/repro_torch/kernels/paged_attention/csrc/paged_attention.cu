@@ -68,32 +68,10 @@ size_t smem_bytes(int G, int tile_keys, int stages, int bps) {
          sizeof(int) * 2 * (size_t)bps;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   hopper::smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
 
-// four consecutive elements as floats (8- or 16-byte aligned)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
+using attn::load4;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -177,8 +155,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_store,
       const int entry = ent_s[tile * nb_tile + r / Tk];
       const size_t off =
           (((size_t)entry * Kv + kv) * Tk + r % Tk) * D + (size_t)c * V;
-      cp_async16(ks + r * RS + c * 16, k_store + off);
-      cp_async16(vs + r * RS + c * 16, v_store + off);
+      hopper::cp_async<16>(ks + r * RS + c * 16, k_store + off);
+      hopper::cp_async<16>(vs + r * RS + c * 16, v_store + off);
     }
     cp_async_commit();
   };
@@ -314,7 +292,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       nb, stages, window, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn::decode_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(
+  attn::decode_combine_kernel<T>
+      <<<dim3(H, B), attn::combine_threads(D), 0, stream>>>(
       o_part, ml_part, static_cast<T*>(out), H, Kv, D, n_split);
   return cudaGetLastError();
 }

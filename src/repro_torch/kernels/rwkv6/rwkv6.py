@@ -10,11 +10,16 @@ per-step outputs: the scan-state ABI that carries each slot's WKV state
 across prefill chunks and packed ticks.  ``rwkv6_scan`` starts from zero.
 The kernel takes any ``S``; nothing is padded to a time chunk.
 
+The kernel gives each bh row one CTA of four warps (sixteen rows of two
+state columns per thread) and streams time through a ring of
+``STAGES`` shared-memory stages of ``CHUNK`` steps by ``cp.async``; a
+CTA takes :func:`smem_bytes` of dynamic shared memory, four CTAs an SM.
+
 The wrapper checks device, dtype (f32 only: what ``time_mix_chunk``
-passes), head dim (64 only: the kernel keeps two columns of the state per
-lane of a warp), shape and contiguity, launches on the current stream,
-raises if the launch failed, and counts launches in
-``rwkv6_scan_state.launches``.  The plain version is
+passes), head dim (64 only: the kernel's thread layout covers 64 x 64),
+shape and contiguity, picks the copy width (:func:`copy_bytes`), launches
+on the current stream, raises if the launch failed, and counts launches
+in ``rwkv6_scan_state.launches``.  The plain version is
 :func:`~repro_torch.kernels.rwkv6.ref.rwkv6_ref_state`.
 """
 
@@ -28,12 +33,29 @@ import torch
 from repro_torch.kernels import _build, check_operand
 
 HEAD_DIM = 64
+THREADS = 128               # four warps a bh row (csrc kThreads)
+CHUNK = 16                  # time steps a shared-memory stage holds
+STAGES = 3                  # stages of the cp.async ring
+
+
+def smem_bytes() -> int:
+    """Dynamic shared memory of one CTA (csrc ``rwkv6_scan_smem_bytes``):
+    each stage holds r, k, exp(logw) and v for ``CHUNK`` steps, the steps'
+    bonus dot products and their step pairs' sums, all f32."""
+    return 4 * STAGES * (4 * CHUNK * HEAD_DIM + 2 * CHUNK)
+
+
+def copy_bytes(*streams: torch.Tensor) -> int:
+    """Bytes a ``cp.async`` copy of the streamed inputs takes: 16 when every
+    base address is 16-byte aligned, else 8 (the wrapper admits 8-byte
+    aligned inputs; each step's row of 256 bytes keeps the alignment)."""
+    return 16 if all(t.data_ptr() % 16 == 0 for t in streams) else 8
 
 
 @functools.cache
 def _launcher():
     fn = _build.library("rwkv6_scan").rwkv6_scan_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -70,6 +92,7 @@ def rwkv6_scan_state(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _launcher()(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                       logw.data_ptr(), u.data_ptr(), s0.data_ptr(),
                       y.data_ptr(), s_out.data_ptr(), bh, s,
+                      copy_bytes(r, k, v, logw),
                       torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"rwkv6_scan_state: CUDA error {err} at launch")

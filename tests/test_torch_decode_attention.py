@@ -29,14 +29,19 @@ import types
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro_torch.kernels import check_operand
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_op,
                                                   decode_attention_plain,
                                                   decode_mask)
+from repro_torch.kernels import HEAD_DIMS
 from repro_torch.kernels.decode_attention.decode_attention import (
-    KEY_TILE, split_len)
+    HEAD_CHUNK, KEY_TILE, KEY_TILES, MAX_SMEM, MAX_SPLIT, TWO_PER_SM,
+    ctas_per_sm, key_parts, launch_plan, row_bytes, smem_bytes, split_len,
+    tile_keys)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -215,23 +220,143 @@ def test_strided_check_refuses(tensor):
                       device=torch.device("cpu"), contiguous=False)
 
 
-@pytest.mark.parametrize("s,groups,want_len", [
-    (2048, 32, 256),     # yi-6b's legacy decode: 8 rows x 4 KV heads
-    (2048, 8, 64),       # recurrentgemma's swa rings: 8 rows x 1 KV head
-    (9, 32, KEY_TILE),   # shorter than one tile
-    (100_000, 1, 384)])
-def test_split_gives_the_card_a_wave(s, groups, want_len):
-    """Splits are whole tiles that cover S; the two main-path shapes get
-    at least one CTA per SM of a 132-SM card."""
-    n = split_len(s, groups, 132)
-    assert n == want_len and n % KEY_TILE == 0
+@pytest.mark.parametrize("s,groups,tile,per_sm,want_len", [
+    (2048, 32, 64, 2, 256),   # yi-6b's legacy decode: 8 rows x 4 KV heads
+    (2048, 8, 64, 2, 64),     # 8 rows x 1 KV head at two CTAs an SM
+    (9, 32, 64, 2, KEY_TILE),  # shorter than one tile
+    (100_000, 1, 64, 2, 384),
+    (2048, 8, 64, 1, 128),    # recurrentgemma's swa rings: one CTA an SM
+    (2048, 32, 32, 1, 512),   # four splits a (row, KV head), one CTA an SM
+    (20_000, 1, 64, 2, 128),  # one wave's splits
+    (100_000, 600, 64, 2, 512),  # more groups than a wave: MAX_SPLIT rules
+    (97, 24, 16, 2, 16)])
+def test_split_gives_the_card_a_wave(s, groups, tile, per_sm, want_len):
+    """Splits are whole tiles that cover S, none longer than MAX_SPLIT;
+    at the main path's S the splits fit one wave of ``per_sm`` CTAs on
+    each SM of a 132-SM card, and splits one tile shorter would not."""
+    n = split_len(s, groups, 132, tile, per_sm)
+    assert n == want_len and n % tile == 0 and n <= max(tile, MAX_SPLIT)
     n_split = -(-s // n)
     assert (n_split - 1) * n < s <= n_split * n
     if s == 2048:
-        assert groups * n_split >= 132
+        assert groups * n_split <= per_sm * 132
+        assert n == tile or groups * -(-s // (n - tile)) > per_sm * 132
+
+
+@settings(max_examples=200, deadline=None)
+@given(s=st.integers(1, 70_000), groups=st.integers(1, 2000),
+       sms=st.integers(1, 200), tile=st.sampled_from(KEY_TILES),
+       per_sm=st.sampled_from([1, 2]))
+def test_every_key_lies_in_exactly_one_split(s, groups, sms, tile, per_sm):
+    """The splits [i n, (i + 1) n) for i < n_split partition [0, s): each
+    key slot has one split, and every split holds at least one slot."""
+    n = split_len(s, groups, sms, tile, per_sm)
+    n_split = -(-s // n)
+    owner = np.arange(s) // n
+    assert owner.max() == n_split - 1
+    assert np.bincount(owner, minlength=n_split).min() >= 1
+    assert n % tile == 0 and n <= max(tile, MAX_SPLIT)
+    # never more CTAs than one wave holds, unless MAX_SPLIT forces them
+    if n_split > 1 and n_split * groups > per_sm * sms:
+        assert n_split == -(-s // MAX_SPLIT) or n == tile
+
+
+@pytest.mark.parametrize("esz,d,g,want", [
+    # (bytes a K/V element, head dim, query heads a KV head) -> (keys a
+    # tile, CTAs an SM)
+    (2, 128, 8, (64, 2)),     # yi-6b, bf16
+    (2, 256, 16, (64, 1)),    # recurrentgemma-9b's swa layers, bf16
+    (2, 120, 4, (64, 2)),     # h2o-danube-3-4b, bf16
+    (4, 128, 8, (64, 1)),
+    (4, 256, 16, (32, 1)),    # f32 at D 256: three 64-key stages do not fit
+    (4, 256, 1, (32, 1)),
+    (2, 16, 1, (64, 2)),
+    (2, 128, 16, (64, 2)),
+    (2, 128, 64, (64, 2))])   # four head chunks of 16
+def test_tile_and_ctas_per_sm(esz, d, g, want):
+    assert (tile_keys(esz, d, g), ctas_per_sm(esz, d, g)) == want
+
+
+@pytest.mark.parametrize("esz", [2, 4])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 8, 12, 16, 17, 64, 80])
+def test_every_shape_fits_a_cta(esz, d, g):
+    """Every head dim, dtype and group size plans a CTA within MAX_SMEM
+    (TWO_PER_SM where two are planned), whose warps' key parts hold at
+    most 32 keys (one a lane), with the ring large enough to hold the key
+    parts' partials for their merge."""
+    tile = tile_keys(esz, d, g)
+    per = tile // key_parts(g)
+    assert tile % key_parts(g) == 0 and 1 <= per <= 32
+    need = smem_bytes(esz, d, g, tile, MAX_SPLIT)
+    assert need <= (TWO_PER_SM if ctas_per_sm(esz, d, g) == 2 else MAX_SMEM)
+    rb = row_bytes(esz, d)
+    assert rb & (rb - 1) == 0 and d * esz <= rb < 2 * max(16, d * esz)
+    heads = min(g, HEAD_CHUNK)
+    assert 4 * key_parts(g) * heads * (d + 4) <= need
+
+
+@pytest.mark.parametrize("name,shape,want", [
+    ("yi-6b legacy decode", (8, 32, 4, 2048, 128, 2),
+     dict(tile=64, per_sm=2, head_chunks=1, split=256, n_split=8,
+          ctas=256, smem=105_520)),
+    ("recurrentgemma-9b swa rings", (8, 16, 1, 2048, 256, 2),
+     dict(tile=64, per_sm=1, head_chunks=1, split=128, n_split=16,
+          ctas=128, smem=217_632)),
+    ("G 64, four head chunks", (2, 64, 1, 2049, 128, 2),
+     dict(tile=64, per_sm=2, head_chunks=4, split=64, n_split=33,
+          ctas=264, smem=110_872))])
+def test_launch_plan_at_the_main_shapes(name, shape, want):
+    plan = launch_plan(*shape, 132)
+    assert {k: plan[k] for k in want} == want, name
+    assert plan["stages"] == 3 and plan["smem"] <= MAX_SMEM
 
 
 # ------------------------------------------------------------ on the card
+def ring_case(rng, *, q_pos, h, kv, s, d, idle=0):
+    """Rings ``[B, Kv, S, D]`` as the model fills them: each row holds its
+    last ``min(q_pos + 1, s)`` positions at slot ``p % s`` (wrapped once
+    ``q_pos >= s``), the rest unwritten; then ``idle`` rows at position 0
+    with nothing written, as the engine passes its idle slots."""
+    b = len(q_pos) + idle
+    k_pos = np.full((b, s), -1, np.int32)
+    for r, qp in enumerate(q_pos):
+        p = np.arange(max(0, qp - s + 1), qp + 1)
+        k_pos[r, p % s] = p
+    return dict(q=rng.standard_normal((b, h, d)).astype(np.float32),
+                k=rng.standard_normal((b, kv, s, d)).astype(np.float32),
+                v=rng.standard_normal((b, kv, s, d)).astype(np.float32),
+                k_pos=k_pos,
+                q_pos=np.array(list(q_pos) + [0] * idle, np.int32))
+
+
+def _edge_cases():
+    """Every head dim at G 1, 8 and 16 and S off a 64-key tile (97, 2047,
+    2049: a ring short of its window, one slot short of yi-6b's and one
+    past it), over wrapped and partly filled rings with an idle row; then
+    G 3 (idle warps), G 20 (a second head chunk of 4) and the largest G
+    tested, 64 (four chunks), and windows that cut a tile."""
+    cases = {}
+    for i, d in enumerate(HEAD_DIMS):
+        for j, (h, kv) in enumerate(((4, 4), (16, 2), (16, 1))):
+            s = (97, 2047, 2049)[(i + j) % 3]
+            cases[f"edge-D{d}-G{h // kv}-S{s}"] = (
+                lambda rng, h=h, kv=kv, s=s, d=d: ring_case(
+                    rng, q_pos=[s + 300, s // 2, 3 * s - 1], h=h, kv=kv,
+                    s=s, d=d, idle=1), 0)
+    for h, kv, d, s in ((6, 2, 64, 2047), (40, 2, 128, 2049),
+                        (64, 1, 128, 2049), (64, 1, 256, 97)):
+        cases[f"heads-G{h // kv}-D{d}-S{s}"] = (
+            lambda rng, h=h, kv=kv, s=s, d=d: ring_case(
+                rng, q_pos=[s - 1, s + 40, 5], h=h, kv=kv, s=s, d=d,
+                idle=1), 0)
+    for w in (100, 1000):      # a window that ends inside a 64-key tile
+        cases[f"window-{w}-S2047"] = (
+            lambda rng: ring_case(rng, q_pos=[2046, 5000, 70, 2047], h=32,
+                                  kv=4, s=2047, d=128, idle=1), w)
+    return cases
+
+
 CARD_CASES = {
     # the reference's sweep, at its shapes
     **{f"sweep-{b}x{h}/{kv}-S{s}-D{d}-w{w}": (
@@ -242,6 +367,16 @@ CARD_CASES = {
         lambda rng, h=h, kv=kv, s=s, d=d: sweep_case(rng, 3, h, kv, s, d), 0)
         for d in (16, 64, 128, 256)
         for h, kv, s in ((4, 4, 31), (8, 2, 300), (16, 1, 2049))},
+    **_edge_cases(),
+    # every row wrapped many times over: its whole ring admitted
+    "wrapped-rg": (lambda rng: ring_case(
+        rng, q_pos=[2047 + 911 * r for r in range(8)], h=16, kv=1, s=2048,
+        d=256), 2048),
+    # idle rows only, and rows whose keys all lie in their future
+    "no-key-admits": (lambda rng: dict(
+        ring_case(rng, q_pos=[], h=8, kv=2, s=130, d=64, idle=3),
+        k_pos=rng.integers(10, 40, (3, 130)).astype(np.int32),
+        q_pos=np.array([0, 9, -1], np.int32)), 0),
 }
 
 
@@ -267,9 +402,13 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_reads_a_strided_ring_on_card(cuda):
+@pytest.mark.parametrize("s,window", [(2048, 0), (2047, 0), (2049, 300)])
+def test_kernel_reads_a_strided_ring_on_card(cuda, s, window):
+    """The model's ``[B, S, Kv, D]`` ring read in place through its
+    ``[B, Kv, S, D]`` view gives its contiguous copy's output bit for bit,
+    and the plain version's within the bf16 tolerance."""
     rng = np.random.default_rng(8)
-    b, s, kv, h, d = 4, 2048, 4, 32, 128
+    b, kv, h, d = 4, 4, 32, 128
     ring_k = torch.randn(b, s, kv, d, device=cuda, dtype=torch.bfloat16)
     ring_v = torch.randn(b, s, kv, d, device=cuda, dtype=torch.bfloat16)
     q = torch.randn(b, h, d, device=cuda, dtype=torch.bfloat16)
@@ -277,11 +416,17 @@ def test_kernel_reads_a_strided_ring_on_card(cuda):
     q_pos = torch.tensor([1400, 20, 0, 1499], dtype=torch.int32)
     k_pos, q_pos = k_pos.to(cuda), q_pos.to(cuda)
     got = decode_attention(q, ring_k.transpose(1, 2), ring_v.transpose(1, 2),
-                           k_pos, q_pos)
+                           k_pos, q_pos, window=window)
     want = decode_attention(q, ring_k.transpose(1, 2).contiguous(),
-                            ring_v.transpose(1, 2).contiguous(), k_pos, q_pos)
+                            ring_v.transpose(1, 2).contiguous(), k_pos, q_pos,
+                            window=window)
+    plain = decode_attention_plain(
+        q.float(), ring_k.transpose(1, 2).float(),
+        ring_v.transpose(1, 2).float(), k_pos, q_pos, window=window)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    torch.testing.assert_close(got.float(), plain.bfloat16().float(),
+                               atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda

@@ -32,6 +32,8 @@ import torch
 from repro_torch.kernels.rwkv6 import (rwkv6_op, rwkv6_ref, rwkv6_ref_state,
                                        rwkv6_scan, rwkv6_scan_state,
                                        rwkv6_state_op)
+from repro_torch.kernels.rwkv6.rwkv6 import (CHUNK, STAGES, THREADS,
+                                             copy_bytes, smem_bytes)
 
 TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 MODEL_TOL = 1e-5
@@ -350,13 +352,43 @@ def test_packed_segment_restart_resets_all_three_state_leaves(jx):
                                    atol=1e-6, rtol=0)
 
 
+# -------------------------------------------------- the kernel's launch
+def test_launch_shape_of_the_scan():
+    """A CTA of four warps a bh row, three stages of 16 steps of r, k,
+    exp(logw) and v plus the steps' bonus and pair sums: 49,536 bytes, so
+    four CTAs (every row of the 512 at rwkv6-7b's mixed tick on 132 SMs)
+    fit an SM's 228 KB with 1 KB reserved each."""
+    assert (THREADS, CHUNK, STAGES) == (128, 16, 3)
+    assert smem_bytes() == 49_536
+    assert 4 * (smem_bytes() + 1024) <= 233_472 < 5 * (smem_bytes() + 1024)
+    assert 512 <= 4 * 132
+
+
+@pytest.mark.parametrize("offset,want", [(0, 16), (2, 8), (4, 16), (6, 8)])
+def test_copy_bytes_follows_the_inputs_alignment(offset, want):
+    """Streams whose base address is 16-byte aligned take 16-byte copies;
+    one that is only 8-byte aligned (the wrapper's floor) takes 8."""
+    buf = torch.zeros(4 * 64 + 8)
+    view = buf[offset:offset + 4 * 64].view(1, 4, 64)
+    assert buf.data_ptr() % 16 == 0
+    fresh = torch.zeros(1, 4, 64)
+    assert copy_bytes(fresh, fresh, fresh, view) == want
+    assert copy_bytes(fresh) == 16
+
+
 # ------------------------------------------------------------ on the card
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,s,decay", [(3, 1, "model"), (3, 7, "model"),
                                         (5, 33, "model"), (2, 129, "model"),
                                         (64, 100, "strong"),
                                         (64, 100, "pads"),
-                                        (512, 300, "model")])
+                                        (512, 300, "model"),
+                                        # a stage's edges: 16 steps
+                                        (1, 15, "model"), (3, 16, "model"),
+                                        (1, 17, "strong"), (3, 33, "pads"),
+                                        (1, 4096, "model"),
+                                        (3, 4096, "strong"),
+                                        (512, 4096, "model")])
 def test_scan_kernel_matches_plain_on_card(cuda, bh, s, decay):
     args = t(*scan_case(np.random.default_rng(s), bh, s, 64, decay),
              device=cuda)
@@ -370,14 +402,34 @@ def test_scan_kernel_matches_plain_on_card(cuda, bh, s, decay):
 
 
 @pytest.mark.cuda
-def test_scan_kernel_threads_state_on_card(cuda):
-    """Two launches split at step 19, threading s_out, equal one launch."""
-    r, k, v, logw, u, s0 = t(*scan_case(np.random.default_rng(9), 8, 70,
+@pytest.mark.parametrize("s", [17, 300])
+def test_scan_kernel_takes_8_byte_aligned_inputs_on_card(cuda, s):
+    """Inputs 8- but not 16-byte aligned (views 2 floats into a buffer)
+    take the kernel's 8-byte copies and give what aligned copies give."""
+    args = t(*scan_case(np.random.default_rng(s), 3, s, 64, "pads"),
+             device=cuda)
+    views = []
+    for a in args[:4]:
+        buf = torch.empty(a.numel() + 2, device=cuda)
+        views.append(buf[2:].view_as(a).copy_(a))
+    assert copy_bytes(*views) == 8 and copy_bytes(*args[:4]) == 16
+    got = rwkv6_scan_state(*views, *args[4:])
+    want = rwkv6_scan_state(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cut", [19, 33, 147])
+def test_scan_kernel_threads_state_on_card(cuda, cut):
+    """Two launches split at a step off a stage edge (16 steps), threading
+    s_out, equal one launch."""
+    r, k, v, logw, u, s0 = t(*scan_case(np.random.default_rng(9), 8, 300,
                                         64), device=cuda)
     y, s_out = rwkv6_scan_state(r, k, v, logw, u, s0)
-    y1, s1 = rwkv6_scan_state(*(a[:, :19].contiguous()
+    y1, s1 = rwkv6_scan_state(*(a[:, :cut].contiguous()
                                 for a in (r, k, v, logw)), u, s0)
-    y2, s2 = rwkv6_scan_state(*(a[:, 19:].contiguous()
+    y2, s2 = rwkv6_scan_state(*(a[:, cut:].contiguous()
                                 for a in (r, k, v, logw)), u, s1)
     torch.cuda.synchronize()
     torch.testing.assert_close(torch.cat([y1, y2], 1), y, atol=1e-5,
