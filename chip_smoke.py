@@ -8,13 +8,13 @@ caught:
   1. device   — the card's name, count and power limit (no card: exit 1);
   2. build    — nvcc builds all eight kernel libraries at once; ptxas
                 register/smem/spill lines (the flat segment kernel's
-                CUDA-core route must not spill at D = 256; the RWKV-6 scan
-                and every dense decode instance, with their registers
-                printed, the tensor-core flash forward and backward kernels
-                and the tensor-core flat and paged segment kernels, D 256
-                included, not at all), the build's seconds, and the dense
-                decode and RWKV-6 libraries' shared-memory sums held equal
-                to their wrappers';
+                CUDA-core route must not spill at D = 256; every RG-LRU
+                scan, RWKV-6 scan and dense decode instance, with their
+                registers printed, the tensor-core flash forward and
+                backward kernels and the tensor-core flat and paged segment
+                kernels, D 256 included, not at all), the build's seconds,
+                and the dense decode, RWKV-6 and RG-LRU libraries'
+                shared-memory sums held equal to their wrappers';
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
                 same CUDA tensors: the paged ones at yi-6b shapes, the flat
                 segment one at recurrentgemma's (MQA, D 256, window 2048,
@@ -28,8 +28,13 @@ caught:
                 all-dead q tiles, the libraries' route rules held to the
                 wrappers', a stale table entry or segment a device-side
                 assert of the tensor-core paged route (child processes),
-                the worst error by route; the RG-LRU scan from a nonzero
-                state at odd lengths and at [8, 4096, 4096]; the RWKV-6 scan
+                the worst error by route; the RG-LRU scan (h and h_out)
+                from a nonzero state around its 32-step stage, over 1, 3
+                and 8 rows, F 64 and 33, every instance (CTA width, copy
+                width, store), inputs only 4-byte aligned, at [8, 4096,
+                4096], pad steps that must pass h through bit for bit and
+                two launches threading the state that must equal one bit
+                for bit; the RWKV-6 scan
                 (y and the final state) from a random non-symmetric state
                 at odd lengths and its 16-step stage's edges, with strong
                 decays and neutral pad steps, over 1, 3 and 512 rows, at
@@ -60,12 +65,13 @@ caught:
                 exists, and the card's bound, at each main path's shapes
                 (the dense decode kernel at yi-6b's legacy decode and at
                 recurrentgemma's swa rings, with its split plan; the RWKV-6
-                and RG-LRU scans with the profiler's device time, the
-                RWKV-6 scan's achieved GB/s; the flash rows with their
-                route, tiles and TFLOP/s; paged decode with its key split
-                and CTAs; each segment row with its route, grid, live work
-                items, 64-key stages, the longest item's stages and
-                TFLOP/s);
+                and RG-LRU scans with the profiler's device time and their
+                achieved GB/s, the RG-LRU scan also at [1, 4096, 4096]
+                (one slot's prompt, in CTAs of 32 channels); the flash
+                rows with their route, tiles and TFLOP/s; paged decode
+                with its key split and CTAs; each segment row with its
+                route, grid, live work items, 64-key stages, the longest
+                item's stages and TFLOP/s);
   5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
                 rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
                 steps (prefill chunks + decode riders) and a decode step on
@@ -179,6 +185,7 @@ from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 dense_mod = importlib.import_module(
     "repro_torch.kernels.decode_attention.decode_attention")
 rwkv6_mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
+rglru_mod = importlib.import_module("repro_torch.kernels.rglru.rglru")
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
@@ -397,6 +404,13 @@ def rglru_case(gen, b, s, f):
                 h0=torch.randn(b, f, generator=gen))
 
 
+def offset_view(x, offset):
+    """A copy of ``x`` ``offset`` floats into a buffer of its own (an
+    operand only 4-byte aligned when ``offset`` is odd)."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    return buf[offset:offset + x.numel()].view_as(x).copy_(x)
+
+
 def rwkv6_prompt_lens() -> np.ndarray:
     """rwkv6-7b's slice: 64 to 3000 tokens."""
     return np.random.default_rng(0).integers(64, 3001, RWKV_SLOTS)
@@ -504,9 +518,10 @@ def phase_build():
                              not in line for line in spills_256):
         fail(f"the flat segment kernel spills at D = 256: {spills_256}")
     say(f"[build] segment_attention at D = 256: {spills_256}")
-    # the RWKV-6 scan and every dense decode instance: registers, and no
-    # spill at all
-    for lib, kern in (("rwkv6_scan", "rwkv6_scan_kernel"),
+    # every RG-LRU scan, RWKV-6 scan and dense decode instance: registers,
+    # and no spill at all
+    for lib, kern in (("rglru_scan", "rglru_scan_kernel"),
+                      ("rwkv6_scan", "rwkv6_scan_kernel"),
                       ("decode_attention", "decode_split_kernel")):
         inst, name = {}, ""
         for line in _build.build_log(lib).splitlines():
@@ -557,7 +572,7 @@ def smem_parity() -> None:
     """The libraries' shared-memory sums against the wrappers' (each
     wrapper sizes or checks its launch with its own): dense decode over
     every dtype, head dim, group, tile and split length the planner can
-    give, and the RWKV-6 scan's one size."""
+    give, the RWKV-6 scan's one size and the RG-LRU scan's two."""
     f = _build.library("decode_attention").decode_attention_smem_bytes
     f.restype = ctypes.c_longlong
     bad = [(e, d, g, t, n) for e in (2, 4) for d in HEAD_DIMS
@@ -566,10 +581,15 @@ def smem_parity() -> None:
            if f(e, d, g, t, n) != dense_mod.smem_bytes(e, d, g, t, n)]
     r = _build.library("rwkv6_scan").rwkv6_scan_smem_bytes
     r.restype = ctypes.c_int
+    g = _build.library("rglru_scan").rglru_scan_smem_bytes
+    g.restype = ctypes.c_int
+    rg = {w: (g(w), rglru_mod.smem_bytes(w)) for w in rglru_mod.CHANNELS}
     say(f"[build] shared memory, library against wrapper: dense decode "
         f"{'equal' if not bad else bad[:4]}; rwkv6_scan {r()} against "
-        f"{rwkv6_mod.smem_bytes()}")
-    if bad or r() != rwkv6_mod.smem_bytes():
+        f"{rwkv6_mod.smem_bytes()}; rglru_scan (channels): "
+        + ", ".join(f"{k} {a} against {b}" for k, (a, b) in rg.items()))
+    if (bad or r() != rwkv6_mod.smem_bytes()
+            or any(a != b for a, b in rg.values())):
         fail("a library's shared memory differs from its wrapper's")
 
 
@@ -922,21 +942,86 @@ def phase_kernels_dense(dev, gen) -> float:
 
 
 def phase_kernels_rglru(dev, gen) -> float:
-    """The RG-LRU scan from a nonzero state: odd lengths at the model's
-    recurrent width, then the main [8, 4096, 4096]; h and h_out."""
+    """The RG-LRU scan from a nonzero state against its plain version, h
+    and h_out: S around its 32-step stage and up to the main [8, 4096,
+    4096], 1, 3 and 8 rows (both CTA widths), F 64 and 33 (off the CTA
+    width, and rows that lose 16-byte alignment), then every instance (CTA
+    width, copy width) with a full and a part-filled last CTA, reached
+    through B, F and inputs 1 float into their buffers (only 4-byte
+    aligned), each checked to take the instance it is meant to; then pad
+    steps (log_a = b = 0) that must pass h through bit for bit in every
+    instance, and two launches split at step 45 (off a stage edge),
+    threading h_out, that must give one launch's outputs bit for bit."""
     main_err = 0.0
-    for s in (1, 7, 129, RG_WIDTH):
-        x = on(dev, rglru_case(gen, RG_SLOTS, s, RG_F), torch.float32)
+    edge = rglru_mod.STEPS
+    cases = [(f"S{s}", RG_SLOTS, s, RG_F, 0, None)
+             for s in (1, 7, edge - 1, edge, edge + 1, 129)]
+    cases += [("B1", 1, RG_WIDTH, RG_F, 0, None),
+              ("B3", 3, 300, RG_F, 0, None),
+              ("F64", 3, 129, 64, 0, None), ("F33", 3, 129, 33, 0, None)]
+    # (channels, copy bytes) on 132 SMs: 64 from 264 CTAs of 64 on
+    cases += [("instance", b, 77, f, off, want) for b, f, off, want in (
+        (RG_SLOTS, RG_F, 0, (64, 16)), (5, 4100, 0, (64, 16)),
+        (RG_SLOTS, RG_F, 1, (64, 4)), (5, 4098, 0, (64, 4)),
+        (2, RG_F, 0, (32, 16)), (3, 100, 0, (32, 16)),
+        (3, RG_F, 1, (32, 4)), (3, 33, 0, (32, 4)))]
+    cases += [("main", RG_SLOTS, RG_WIDTH, RG_F, 0, None)]
+    ran = set()
+    for name, b, s, f, off, want in cases:
+        x = on(dev, rglru_case(gen, b, s, f), torch.float32)
+        if off:
+            x["log_a"], x["b"] = (offset_view(x[n], off)
+                                  for n in ("log_a", "b"))
+        used = rglru_mod.launch_plan(x["log_a"], x["b"])
+        if want and used != want:
+            fail(f"RG-LRU [{b}, {s}, {f}] at offset {off} takes {used}, not "
+                 f"{want}")
+        ran.add(used)
         h, h_out = rglru_scan_state(**x)
         torch.cuda.synchronize()
         want_h, want_out = rglru_ref_state(**x)
-        err = max(compare(f"rglru_scan_state/S{s} h", h, want_h,
-                          torch.float32),
-                  compare(f"rglru_scan_state/S{s} h_out", h_out, want_out,
-                          torch.float32))
-        if s == RG_WIDTH:
+        tag = (f"rglru_scan_state/{name} [{b}, {s}, {f}]"
+               + (f" {off} float in" if off else "")
+               + f" ({used[0]} channels, {used[1]}-byte copies)")
+        err = max(compare(f"{tag} h", h, want_h, torch.float32),
+                  compare(f"{tag} h_out", h_out, want_out, torch.float32))
+        if name == "main":
             main_err = err
         del x, h, h_out, want_h, want_out
+    if len(ran) != 4:
+        fail(f"the RG-LRU cases ran {sorted(ran)}, not all four instances")
+    # pad steps from the start and across a stage edge, each instance
+    for b, f in ((RG_SLOTS, RG_F), (5, 4098), (3, 300), (3, 33)):
+        x = on(dev, rglru_case(gen, b, 300, f), torch.float32)
+        for lo, hi in ((0, 10), (20, 70)):
+            x["log_a"][:, lo:hi] = 0
+            x["b"][:, lo:hi] = 0
+        used = rglru_mod.launch_plan(x["log_a"], x["b"])
+        h, h_out = rglru_scan_state(**x)
+        torch.cuda.synchronize()
+        same = (torch.equal(h[:, :10], x["h0"][:, None].expand(-1, 10, -1))
+                and torch.equal(h[:, 20:70],
+                                h[:, 19:20].expand(-1, 50, -1)))
+        say(f"[kernels] rglru_scan_state/pad steps [{b}, 300, {f}] {used}: "
+            f"h passed through bit for bit: {same}")
+        if not same:
+            fail("RG-LRU pad steps do not pass h through bit for bit")
+        want_h, want_out = rglru_ref_state(**x)
+        compare("rglru_scan_state/pad steps h", h, want_h, torch.float32)
+    # two launches threading the state against one
+    x = on(dev, rglru_case(gen, RG_SLOTS, 300, RG_F), torch.float32)
+    cut = 45
+    h, h_out = rglru_scan_state(**x)
+    h1, s1 = rglru_scan_state(x["log_a"][:, :cut].contiguous(),
+                              x["b"][:, :cut].contiguous(), x["h0"])
+    h2, s2 = rglru_scan_state(x["log_a"][:, cut:].contiguous(),
+                              x["b"][:, cut:].contiguous(), s1)
+    torch.cuda.synchronize()
+    same = torch.equal(torch.cat([h1, h2], 1), h) and torch.equal(s2, h_out)
+    say(f"[kernels] rglru_scan_state/split at {cut}: equal to one launch "
+        f"bit for bit: {same}")
+    if not same:
+        fail("RG-LRU state threaded across two launches differs from one")
     torch.cuda.empty_cache()
     return main_err
 
@@ -1102,21 +1187,27 @@ def device_ms(fn, iters: int = 20) -> dict:
     """Device time per call by kernel, from torch.profiler over ``iters``
     calls after one warm-up: what a kernel takes on the card, apart from
     the host's enqueue cost, which CUDA events over back-to-back calls of
-    a short kernel also see."""
+    a short kernel also see.  A profile that caught no device event (it
+    happens now and then when profiles follow each other closely) is
+    taken again, up to three times; empty if none caught one."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     out: dict[str, float] = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            m = re.search(r"(\w+_kernel)", e.name)
-            name = m.group(1) if m else e.name
-            out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    for _ in range(3):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                m = re.search(r"(\w+_kernel)", e.name)
+                name = m.group(1) if m else e.name
+                out[name] = (out.get(name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3)
+        if out:
+            break
     return {k: v / iters for k, v in out.items()}
 
 
@@ -1322,7 +1413,7 @@ def phase_timing(dev, card) -> dict:
     out["segment_attention"] = timing_flat(dev, gen)
     out["decode_attention"], out["decode_attention (rg swa)"] = \
         timing_dense(dev, gen)
-    out["rglru_scan_state"] = timing_rglru(dev, gen)
+    out["rglru_scan_state"] = timing_rglru(dev, gen, card)
     out["rwkv6_scan_state"] = timing_rwkv6(dev)
     torch.cuda.empty_cache()
     out.update(timing_flash(dev))
@@ -1465,24 +1556,49 @@ def timing_dense(dev, gen) -> tuple[dict, dict]:
     return rows[0], rows[1]
 
 
-def timing_rglru(dev, gen) -> dict:
-    """The RG-LRU scan at [8, 4096, 4096] f32 (a full-width mixed tick's
-    recurrent rows).  No PyTorch call computes this recurrence, so there
-    is no library time."""
-    x = on(dev, rglru_case(gen, RG_SLOTS, RG_WIDTH, RG_F), torch.float32)
+def rglru_timed(x, fn, label, card) -> dict:
+    """One RG-LRU scan call's time by events and by the profiler, its
+    bound, achieved GB/s and share of the bound, printed."""
     b, s, f = x["b"].shape
     nbytes = (3 * b * s * f + 2 * b * f) * 4     # log_a, b in; h out; h0, h_out
     ops = 3 * b * s * f                          # exp, multiply, add
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
-    return dict(ms=time_ms(lambda: rglru_scan_state(**x)),
-                device_ms=device_ms(lambda: rglru_scan_state(**x), iters=5),
-                plain_ms=time_ms(lambda: rglru_ref_state(**x), iters=1,
-                                 warmup=1),
-                library_ms=None,
-                library_note="no PyTorch call computes the recurrence",
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                shapes=f"f32 [{b}, {s}, {f}]")
+    r = dict(ms=time_ms(lambda: fn(**x)),
+             device_ms=device_ms(lambda: fn(**x), iters=5),
+             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             shapes=f"f32 [{b}, {s}, {f}]")
+    dev_ms = sum(r["device_ms"].values())
+    by_dev = (f"{dev_ms:.4f} ms device", f"{nbytes / dev_ms / 1e6:.1f} GB/s",
+              f"{100 * r['bound_ms'] / dev_ms:.1f}%") if dev_ms else (
+        "device time not measured (the profiler caught no kernel)", "-", "-")
+    say(f"[timing] rglru_scan_state {label} {r['shapes']} on {card}: "
+        f"{r['ms']:.4f} ms by events, {by_dev[0]}; "
+        f"{nbytes / 1e9:.4f} GB at {nbytes / r['ms'] / 1e6:.1f} GB/s by "
+        f"events, {by_dev[1]} by device time; "
+        f"{100 * r['bound_ms'] / r['ms']:.1f}% of the {r['bound_ms']:.4f} ms "
+        f"{r['bound_by']} bound by events, {by_dev[2]} by device time")
+    return r
+
+
+def timing_rglru(dev, gen, card) -> dict:
+    """The RG-LRU scan at [8, 4096, 4096] f32 (a full-width mixed tick's
+    recurrent rows), then at [1, 4096, 4096] (one slot's whole prompt),
+    each with the (channels, copy bytes) the wrapper plans.  No PyTorch
+    call computes this recurrence, so there is no library time."""
+    x = on(dev, rglru_case(gen, RG_SLOTS, RG_WIDTH, RG_F), torch.float32)
+    plan = rglru_mod.launch_plan(x["log_a"], x["b"])
+    r = rglru_timed(x, rglru_scan_state, f"main, planned {plan}", card)
+    r.update(plain_ms=time_ms(lambda: rglru_ref_state(**x), iters=1,
+                              warmup=1),
+             library_ms=None,
+             library_note="no PyTorch call computes the recurrence")
+    del x
+    x = on(dev, rglru_case(gen, 1, RG_WIDTH, RG_F), torch.float32)
+    plan = rglru_mod.launch_plan(x["log_a"], x["b"])
+    rglru_timed(x, rglru_scan_state, f"one slot's prompt, planned {plan}",
+                card)
+    return r
 
 
 def timing_rwkv6(dev) -> dict:
@@ -1508,12 +1624,14 @@ def timing_rwkv6(dev) -> dict:
              bound_by="bytes" if t_bytes >= t_ops else "operations",
              shapes=f"f32 [{bh}, {s}, {n}] ({nbytes / 1e9:.3f} GB, "
                     f"{ops / 1e9:.1f} GFLOP)")
+    dev_ms = sum(r["device_ms"].values())
     say(f"[timing] rwkv6_scan_state: {bh} rows of {rwkv6_mod.THREADS} "
         f"threads, {rwkv6_mod.STAGES} stages of {rwkv6_mod.CHUNK} steps "
         f"({rwkv6_mod.smem_bytes()} bytes a CTA); {nbytes / 1e9:.3f} GB in "
         f"{r['ms']:.4f} ms = {nbytes / r['ms'] / 1e6:.1f} GB/s by events, "
-        f"{nbytes / sum(r['device_ms'].values()) / 1e6:.1f} GB/s by device "
-        f"time ({100 * r['bound_ms'] / r['ms']:.1f}% of the byte bound)")
+        + (f"{nbytes / dev_ms / 1e6:.1f} GB/s" if dev_ms else "not measured")
+        + f" by device time ({100 * r['bound_ms'] / r['ms']:.1f}% of the "
+        "byte bound)")
     del x
     return r
 

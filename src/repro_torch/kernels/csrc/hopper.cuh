@@ -71,21 +71,30 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------- cp.async
-// A copy of 16 bytes (8: .ca, the only form that takes fewer) from device
-// memory into shared memory, in flight until its group is waited for.
+// A copy of 16 bytes (8 or 4: .ca, the only form that takes fewer) from
+// device memory into shared memory, in flight until its group is waited
+// for (or until the barrier it arrives on completes).
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  static_assert(BYTES == 16 || BYTES == 8, "cp.async takes 16 or 8 bytes here");
+  static_assert(BYTES == 16 || BYTES == 8 || BYTES == 4,
+                "cp.async takes 16, 8 or 4 bytes");
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                      smem_u32(dst)),
                  "l"(src)
                  : "memory");
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
                      smem_u32(dst)),
-                 "l"(src)
+                 "l"(src), "n"(BYTES)
                  : "memory");
+}
+// arrive on `bar` once this thread's cp.async copies so far have landed
+// (one of the arrivals the barrier was initialised to expect)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 // close the copies issued since the last commit into one group
 __device__ __forceinline__ void cp_async_commit() {
