@@ -41,8 +41,10 @@ caught:
                 [512, 4096, 64], on inputs only 8-byte aligned, and
                 threaded across a cut of 147 steps;
                 the flash attention forward (o and lse) and its dQ and
-                dK/dV kernels, causal, windowed (1024, 32) and non-causal,
-                MHA/GQA/MQA, S = 1, 63, 130 and 4096, every head dim
+                dK/dV kernels, causal, windowed (2048, 1024, 32) and
+                non-causal, MHA/GQA/MQA, S = 1, 63, 130 and 4096 (at both
+                main paths' shapes: yi-6b's training and recurrentgemma's,
+                16/1 heads, D 256, window 2048), every head dim
                 (120 too), f32 and bf16, the gradients from a random dO,
                 both forward and both backward routes (tensor cores: bf16
                 at D 64, 120 and 128; CUDA cores: the rest), the CUDA
@@ -63,6 +65,9 @@ caught:
                 times over, rows whose keys all lie ahead (exact zeros);
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes
+                (the flash rows also at recurrentgemma-9b's training shape:
+                bf16 B 2, H 16, Kv 1, D 256, S 4096, window 2048, the
+                CUDA-core route, beside SDPA with the window as a mask)
                 (the dense decode kernel at yi-6b's legacy decode and at
                 recurrentgemma's swa rings, with its split plan; the RWKV-6
                 and RG-LRU scans with the profiler's device time and their
@@ -72,15 +77,25 @@ caught:
                 with its key split and CTAs; each segment row with its
                 route, grid, live work items, 64-key stages, the longest
                 item's stages and TFLOP/s);
-  5. parity   — yi-6b (2 layers), recurrentgemma-9b (5 layers) and
-                rwkv6-7b (2 layers) at full width, f32, TF32 off: packed
-                steps (prefill chunks + decode riders) and a decode step on
-                the card against the CPU; yi-6b's one-shot prefill and two
-                dense decode steps (the flash forward and dense decode
-                kernels); then yi-6b's training loss and every gradient
-                leaf (2 layers, f32) against the CPU; then h2o-danube-3-4b
-                (head dim 120, 2 layers, f32): a packed step's logits and
-                the training loss and gradients, at yi-6b's limits;
+  5. parity   — full-width f32 cuts, TF32 off (seed-0 weights drawn on
+                the host by a worker thread during phases 3 and 4, copied
+                to the card), the card against the CPU beside
+                the noise floor (the card against itself with its weights
+                nudged at f32 rounding):
+                yi-6b, h2o-danube-3-4b (head dim 120), gemma3-4b (one local
+                and the global layer: head dim 256, two rope thetas, 262k
+                vocabulary) and starcoder2-15b (G 12, LayerNorm, GELU), 2
+                layers each: packed steps on paged KV (prefill chunks +
+                decode riders) and a paged decode step, a training loss
+                and every gradient leaf (the last two on one row), and for
+                yi-6b and h2o a one-shot prefill and two dense decode
+                steps; recurrentgemma-9b (5 layers) and rwkv6-7b (2
+                layers): packed steps on dense state and a decode step, a
+                one-shot prefill (150 tokens; rwkv6 97, a remainder chunk)
+                and a training gradient (rglru_block, time_mix_chunked, the
+                flash kernels at D 256); the gradient norm's limit is ten
+                times the largest of five nudged readings, for every arch;
+                each cut's seconds on the card and the CPU;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
                 SmartConf knobs live, every paged segment launch on the
@@ -93,10 +108,23 @@ caught:
                 dense rings, RG-LRU state), knobs live, every flat segment
                 launch on the tensor-core route (asserted); each drain tick
                 launches the dense decode kernel once per swa layer (12);
+                then the same weights and requests with
+                ``prefill_mode="legacy"``: one-shot prefill per admitted
+                request (rglru_block; 12 flash forwards on the CUDA-core
+                route, D 256), dense decode ticks, 1 plus the tick's
+                admissions dispatches at most, 0 HBM violations, tokens
+                shared with the packed run, rglru_block's ms per layer at
+                the longest prompt; one prompt layer by layer through the
+                one-shot and the packed forms in bf16, each layer's and the
+                logits' gap within ten times the gap one more bf16 rounding
+                of the input makes; then a 5-layer f32 cut, packed and
+                legacy, must give the same tokens;
   8. slice    — full rwkv6-7b (32 layers, bf16) serves 8 requests through
                 the launcher's functions under default options (packed
                 ticks, per-slot WKV state, no rings), knobs live; then the
-                cost of the reference's B x P recurrent rows;
+                cost of the reference's B x P recurrent rows; then legacy
+                mode as phase 7's (time_mix_chunked; no kernel launches;
+                the f32 cut has 2 layers);
   9. train    — yi-6b at full width and 4 of its 32 layers (bf16, seeded
                 random weights) takes 6 AdamW steps through the Trainer
                 (batch 2 x 4096, 2 microbatches, remat, both SmartConf knobs
@@ -108,6 +136,11 @@ caught:
                 pass) and each backward kernel layers x microbatches times,
                 every one of them on the tensor-core route (asserted), and
                 the profiled step's flash forward device ms are printed;
+                then full-width cuts of recurrentgemma-9b (3 layers: rglru,
+                rglru, swa) and rwkv6-7b (2 layers) take 6 steps each the
+                same way (no checkpoint), with the reckoned peak memory
+                beside max_memory_allocated, every flash launch (D 256) on
+                the CUDA-core route (asserted);
  10. split    — full yi-6b again (phase 6's weights kept), the same 8
                 requests through the launcher's functions with
                 ``prefill_mode="legacy"`` (one-shot prefill per admitted
@@ -120,9 +153,10 @@ caught:
                 legacy one; tokens/s, TTFT, tick ms, peak memory, and the
                 share of tokens equal to phase 6's and to each other's
                 (bf16 near-ties: information), each request's first-token
-                top-2 logit margin, no HBM violation in the ledger; then
-                the same requests on 2 layers in f32, where both modes must
-                give the packed engine's tokens.
+                top-2 logit margin, no HBM violation in the ledger, one
+                prompt layer by layer through the one-shot and packed forms
+                as in phase 7; then the same requests on 2 layers in f32,
+                where both modes must give the packed engine's tokens.
 
 Before the last line it prints a JSON object with every kernel's numbers
 (launches summed over the serving and training phases, each of which sets
@@ -132,6 +166,7 @@ and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
@@ -175,9 +210,11 @@ from repro_torch.kernels.segment_attention import (  # noqa: E402
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
+from repro_torch.models import rglru as rglru_model  # noqa: E402
+from repro_torch.models import rwkv6 as rwkv6_model  # noqa: E402
+from repro_torch.models.layers import apply_norm  # noqa: E402
 from repro_torch.models.bridge import (keyed_leaves,  # noqa: E402
-                                       params_from_numpy, tree_leaves,
-                                       tree_map)
+                                       tree_leaves, tree_map)
 from repro_torch.optim import accum, adamw  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
@@ -187,6 +224,7 @@ dense_mod = importlib.import_module(
 rwkv6_mod = importlib.import_module("repro_torch.kernels.rwkv6.rwkv6")
 rglru_mod = importlib.import_module("repro_torch.kernels.rglru.rglru")
 
+DEVICE = torch.device("cuda")
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -203,7 +241,7 @@ M = CACHE_LEN // T
 RG_H, RG_KV, RG_D, RG_WINDOW = 16, 1, 256, 2048
 RG_SLOTS, RG_CACHE_LEN, RG_WIDTH, RG_F = 8, 4096, 4096, 4096
 # card vs CPU on the 5-layer model, relative to the largest value: about
-# ten times the largest CPU noise floor phase 5 prints beside them
+# ten times the largest noise floor phase 5 prints beside them
 RG_LOGIT_LIMIT, RG_STATE_LIMIT = 1e-3, 1e-3
 # SmartConf steers a hard goal to its virtual goal, (1 - 0.05) of it: with
 # 20.9 GB of weights a goal of weights + 1 GB puts the virtual goal below
@@ -216,7 +254,7 @@ RWKV_H, RWKV_N, RWKV_SLOTS, RWKV_CACHE_LEN = 64, 64, 8, 4096
 RWKV_WIDTH = RWKV_CACHE_LEN
 RWKV_BH = RWKV_SLOTS * RWKV_H
 # card vs CPU on the 2-layer model, relative to the largest value: about
-# ten times the largest CPU noise floor phase 5 prints beside them (3.4e-6
+# ten times the largest noise floor phase 5 prints beside them (3.4e-6
 # on the logits, 1.9e-6 on the state leaves)
 RWKV_LOGIT_LIMIT, RWKV_STATE_LIMIT = 4e-5, 2e-5
 # phase 7's headroom: SmartConf's virtual goal, 0.95 of the hard one, then
@@ -225,15 +263,30 @@ RWKV_HEADROOM = 2.2e9
 # yi-6b training attention at the slice's settings: batch 2 x 4096 tokens
 # (timed whole; each microbatch of the slice is batch 1), causal
 FA_B, FA_S = 2, 4096
-# card vs CPU on the 2-layer model's loss, gradient norm and gradient
-# leaves (each relative to its largest value): about ten times the CPU
-# noise floors phase 5 prints beside them (3.4e-7, 4.5e-5, and up to
-# 1.25e-3 on a leaf: this random-weight model's attention is nearly
-# one-hot, so its gradients move ~1e-3 under an f32-rounding nudge)
-TRAIN_LOSS_LIMIT, TRAIN_GNORM_LIMIT, TRAIN_GRAD_LIMIT = 3e-6, 5e-4, 1e-2
+# card vs CPU on the 2-layer model's loss and gradient leaves (each
+# relative to its largest value): about ten times the noise floors
+# phase 5 prints beside them (3.4e-7, and up to 1.25e-3 on a leaf: this
+# random-weight model's attention is nearly one-hot, so its gradients move
+# ~1e-3 under an f32-rounding nudge)
+TRAIN_LOSS_LIMIT, TRAIN_GRAD_LIMIT = 3e-6, 1e-2
+# the gradient norm, one number, moves by a different amount under each
+# nudge (gemma3-4b's read 2.0e-4 to 1.2e-3 under five): its limit is this
+# many times the largest of its floor readings, the noise floor's nudge
+# and GNORM_NUDGES more, for every arch
+GNORM_FLOOR_TIMES, GNORM_NUDGES = 10, 4
+# phases 7 and 8: the one-shot and packed forms' bf16 hidden states (each
+# layer's) and logits may differ by this many times the difference one
+# more bf16 rounding of the input makes
+GAP_FLOOR_TIMES = 10
 # the training slice: yi-6b at full width, 4 of its 32 layers
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2, 4096, 2, 6
 TRAIN_MIN_FREE_DISK = 30e9     # two 12.2 GB checkpoints on disk while writing
+# phase 9's cuts of the recurrent archs at full width: recurrentgemma-9b's
+# first (rglru, rglru, swa) group, so the swa layer's flash kernels train
+# at D 256; rwkv6-7b's first two layers (at full depth neither fits:
+# 10.4 and 7.0 B parameters need 167 and 112 GB of bf16 weights and grads,
+# f32 moments and accumulator, 16 bytes a parameter)
+TRAIN_CUTS = (("recurrentgemma-9b", 3), ("rwkv6-7b", 2))
 ROOT = Path(__file__).resolve().parent
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 FLASH_BWD_SRC = ("src/repro_torch/kernels/flash_attention/csrc/"
@@ -1100,12 +1153,19 @@ def flash_case(gen, b, h, kv, s, d):
                 do=torch.randn(b, h, s, d, generator=gen, device=dev))
 
 
+# flash_cases() entries at the shapes the main paths give the kernels
+MAIN_FLASH = ("main", "rg")
+
+
 def flash_cases() -> dict:
-    """name -> (B, H, Kv, S, D, causal, window): yi-6b's training shapes,
-    gemma3's local layers (window 1024) and, at every head dim, MHA, GQA
-    (32/4) and MQA at S = 1, 63, 130 under causal, windowed (32) and
-    non-causal masks (with and without a window)."""
+    """name -> (B, H, Kv, S, D, causal, window): the main paths' shapes
+    (yi-6b's training; recurrentgemma-9b's training and legacy prefill:
+    16 query heads on one KV head, D 256, window 2048), gemma3's local
+    layers (window 1024) and, at every head dim, MHA, GQA (32/4) and MQA
+    at S = 1, 63, 130 under causal, windowed (32) and non-causal masks
+    (with and without a window)."""
     cases = {"main": (FA_B, H, KV, FA_S, D, True, 0),
+             "rg": (FA_B, RG_H, RG_KV, FA_S, RG_D, True, RG_WINDOW),
              "gemma3-local": (1, 8, 4, FA_S, 256, True, 1024)}
     masks = [(True, 0), (True, 32), (False, 0), (False, 32)]
     for i, d in enumerate(HEAD_DIMS):
@@ -1122,7 +1182,8 @@ def phase_kernels_flash(dev) -> dict:
     """The flash forward (o without and with lse) and the dQ and dK/dV
     kernels against the plain versions computed in f32 from the same
     inputs; the backward kernels take the forward kernel's o and lse and a
-    random dO, as the plain backward does."""
+    random dO, as the plain backward does.  Returns each kernel's largest
+    bf16 error over the main paths' shapes (:data:`MAIN_FLASH`)."""
     gen = torch.Generator(device=dev).manual_seed(5)
     for what, rule, library in (("forward", fwd_route, library_fwd_route),
                                 ("backward", bwd_route, library_bwd_route)):
@@ -1162,8 +1223,8 @@ def phase_kernels_flash(dev) -> dict:
             e["flash_attention_dkv"] = max(
                 compare(f"{tag} dk", dk, want[1], dtype),
                 compare(f"{tag} dv", dv, want[2], dtype))
-            if name == "main" and dtype == torch.bfloat16:
-                errs = e
+            if name in MAIN_FLASH and dtype == torch.bfloat16:
+                errs = {k: max(errs.get(k, 0.0), x) for k, x in e.items()}
             del want, f32, o_only, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
     return errs
@@ -1418,6 +1479,11 @@ def phase_timing(dev, card) -> dict:
     torch.cuda.empty_cache()
     out.update(timing_flash(dev))
     torch.cuda.empty_cache()
+    # recurrentgemma-9b's swa layers in training: D 256 takes the
+    # CUDA-core kernels
+    out.update(timing_flash(dev, (FA_B, RG_H, RG_KV, FA_S, RG_D, RG_WINDOW),
+                            "recurrentgemma-9b training"))
+    torch.cuda.empty_cache()
     for name, r in out.items():
         lib = ("null (" + r["library_note"] + ")" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms ({r['library_note']})")
@@ -1670,151 +1736,148 @@ def flash_bound(kernel, b, h, kv, s, d, causal, window, dtype):
             "bytes" if t_bytes >= t_ops else "operations", ops)
 
 
-def timing_flash(dev) -> dict:
-    """The three flash kernels at yi-6b's training shapes (bf16, causal),
-    beside the plain versions (the plain backward computes dq, dk and dv
-    together, so both backward rows carry its time) and SDPA: its forward
-    for the two forward rows, its autograd backward (dQ, dK and dV
-    together) for the two backward rows."""
+def timing_flash(dev, shape=None, what="yi-6b training") -> dict:
+    """The three flash kernels at a training shape (bf16): yi-6b's (B, H,
+    Kv, S, D, window) by default, causal, beside the plain versions (the
+    plain backward computes dq, dk and dv together, so both backward rows
+    carry its time) and SDPA: its forward for the two forward rows, its
+    autograd backward (dQ, dK and dV together) for the two backward rows;
+    with a window SDPA takes the causal window as a boolean mask.  The
+    rows are keyed by kernel name, with `` (what)`` after it when a shape
+    is given."""
     import torch.nn.functional as F
+    b, h, kv, s, d, window = shape or (FA_B, H, KV, FA_S, D, 0)
     x = {n: t.to(torch.bfloat16) for n, t in flash_case(
-        torch.Generator(device=dev).manual_seed(6), FA_B, H, KV, FA_S,
-        D).items()}
+        torch.Generator(device=dev).manual_seed(6), b, h, kv, s,
+        d).items()}
     q, k, v, do = x["q"], x["k"], x["v"], x["do"]
-    o, lse = flash_attention_fwd_lse(q, k, v)
+    mask = dict(causal=True, window=window)
+    o, lse = flash_attention_fwd_lse(q, k, v, **mask)
     dsum = (do.float() * o.float()).sum(-1)
+    if window:
+        t = torch.arange(s, device=dev)
+        sdpa_mask = dict(attn_mask=(t[None, :] <= t[:, None])
+                         & (t[:, None] - t[None, :] < window))
+        fwd_note = f"sdpa(causal window {window} as a boolean mask, " \
+                   "enable_gqa=True)"
+    else:
+        sdpa_mask = dict(is_causal=True)
+        fwd_note = "sdpa(is_causal=True, enable_gqa=True)"
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    lib_o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
-                                           enable_gqa=True)
+    lib_o = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=True,
+                                           **sdpa_mask)
     sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+        q, k, v, enable_gqa=True, **sdpa_mask))
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(
         lib_o, (qg, kg, vg), do, retain_graph=True))
-    plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do),
+    plain_bwd = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                  **mask),
                         iters=2, warmup=1)
-    shapes = (f"bf16 B{FA_B} H{H}/Kv{KV} S{FA_S} D{D} causal (yi-6b "
-              "training)")
-    fwd_note = "sdpa(is_causal=True, enable_gqa=True)"
+    shapes = (f"bf16 B{b} H{h}/Kv{kv} S{s} D{d} causal"
+              f"{f' window {window}' if window else ''} ({what})")
     bwd_note = "sdpa's autograd backward: dQ, dK and dV together"
     runs = {
-        "flash_attention": (lambda: flash_attention(q, k, v),
-                            lambda: attention_ref(q, k, v), sdpa_fwd,
-                            fwd_note),
+        "flash_attention": (lambda: flash_attention(q, k, v, **mask),
+                            lambda: attention_ref(q, k, v, **mask),
+                            sdpa_fwd, fwd_note),
         "flash_attention_fwd_lse": (
-            lambda: flash_attention_fwd_lse(q, k, v),
-            lambda: attention_lse_ref(q, k, v), sdpa_fwd, fwd_note),
+            lambda: flash_attention_fwd_lse(q, k, v, **mask),
+            lambda: attention_lse_ref(q, k, v, **mask), sdpa_fwd, fwd_note),
         "flash_attention_dq": (
-            lambda: flash_attention_dq(q, k, v, do, lse, dsum), None,
+            lambda: flash_attention_dq(q, k, v, do, lse, dsum, **mask), None,
             sdpa_bwd, bwd_note),
         "flash_attention_dkv": (
-            lambda: flash_attention_dkv(q, k, v, do, lse, dsum), None,
-            sdpa_bwd, bwd_note)}
-    route = bwd_route(torch.bfloat16, D)
+            lambda: flash_attention_dkv(q, k, v, do, lse, dsum, **mask),
+            None, sdpa_bwd, bwd_note)}
+    route = bwd_route(torch.bfloat16, d)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_kt, n_qt = -(-FA_S // 64), -(-FA_S // 64)
-    say(f"[timing] flash forward at bf16 D {D}: route "
-        f"{fwd_route(torch.bfloat16, D)}; one CTA (a consumer warpgroup and "
-        f"a producer warp) per 64 q rows x query head x batch, the longest "
-        f"first: {n_qt * H * FA_B} CTAs for {sms} SMs, two per SM; 64-key "
-        "tiles in a two-stage TMA ring, P in registers")
-    say(f"[timing] flash backward at bf16 D {D}: route {route}; dK/dV one "
-        f"CTA (a consumer warpgroup and a producer warp) per 64 keys x KV "
-        f"head x batch, key tile 0 (the most causal work) first: "
-        f"{n_kt * KV * FA_B} CTAs here, {n_kt * KV} at a training "
-        f"microbatch (batch 1), for {sms} SMs, one CTA per SM; dQ one CTA "
-        f"per 64 q rows x query head x batch, the longest first: "
-        f"{n_qt * H * FA_B} CTAs, two per SM; 64-key (dQ) and 64-row "
-        "(dK/dV) steps in a two-stage TMA ring")
+    n_kt, n_qt = -(-s // 64), -(-s // 64)
+    if route == "tensor_core":
+        say(f"[timing] flash forward at bf16 D {d}: route "
+            f"{fwd_route(torch.bfloat16, d)}; one CTA (a consumer warpgroup "
+            f"and a producer warp) per 64 q rows x query head x batch, the "
+            f"longest first: {n_qt * h * b} CTAs for {sms} SMs, two per SM; "
+            "64-key tiles in a two-stage TMA ring, P in registers")
+        say(f"[timing] flash backward at bf16 D {d}: route {route}; dK/dV "
+            f"one CTA (a consumer warpgroup and a producer warp) per 64 keys "
+            f"x KV head x batch, key tile 0 (the most causal work) first: "
+            f"{n_kt * kv * b} CTAs here, {n_kt * kv} at a training "
+            f"microbatch (batch 1), for {sms} SMs, one CTA per SM; dQ one "
+            f"CTA per 64 q rows x query head x batch, the longest first: "
+            f"{n_qt * h * b} CTAs, two per SM; 64-key (dQ) and 64-row "
+            "(dK/dV) steps in a two-stage TMA ring")
+    else:
+        say(f"[timing] flash at bf16 D {d} ({what}): forward route "
+            f"{fwd_route(torch.bfloat16, d)}, backward route {route}")
     out = {}
+    suffix = f" ({what})" if shape else ""
     for name, (kern, plain, lib_ms, note) in runs.items():
-        bound, by, ops = flash_bound(name, FA_B, H, KV, FA_S, D, True, 0,
+        bound, by, ops = flash_bound(name, b, h, kv, s, d, True, window,
                                      torch.bfloat16)
         ms = time_ms(kern, iters=10, warmup=2)
         via = (f", route "
-               f"{route if plain is None else fwd_route(torch.bfloat16, D)}")
-        out[name] = dict(
+               f"{route if plain is None else fwd_route(torch.bfloat16, d)}")
+        out[name + suffix] = dict(
             ms=ms, bound_ms=bound, bound_by=by, library_ms=lib_ms,
             library_note=note,
             plain_ms=(plain_bwd if plain is None
                       else time_ms(plain, iters=2, warmup=1)),
             shapes=f"{shapes}{via}, {ops / 1e9:.1f} GFLOP = "
                    f"{ops / ms / 1e9:.1f} TFLOP/s")
-    fwd_ops = flash_bound("flash_attention", FA_B, H, KV, FA_S, D, True, 0,
+    fwd_ops = flash_bound("flash_attention", b, h, kv, s, d, True, window,
                           torch.bfloat16)[2]
-    bwd_ms = out["flash_attention_dq"]["ms"] + out["flash_attention_dkv"]["ms"]
-    bwd_bound = (out["flash_attention_dq"]["bound_ms"]
-                 + out["flash_attention_dkv"]["bound_ms"])
-    say(f"[timing] flash backward ({route}): dQ + dK/dV kernels "
-        f"{bwd_ms:.4f} ms against sdpa's backward {sdpa_bwd:.4f} ms; bound "
-        f"of the two "
-        f"kernels' products (3.5x the forward's) {bwd_bound:.4f} ms, FA2 "
-        f"joint minimum (2.5x) {2.5 * fwd_ops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
+    dq, dkv = (out[n + suffix] for n in ("flash_attention_dq",
+                                         "flash_attention_dkv"))
+    say(f"[timing] flash backward ({route}, {what}): dQ + dK/dV kernels "
+        f"{dq['ms'] + dkv['ms']:.4f} ms against sdpa's backward "
+        f"{sdpa_bwd:.4f} ms; bound of the two kernels' products (3.5x the "
+        f"forward's) {dq['bound_ms'] + dkv['bound_ms']:.4f} ms, FA2 joint "
+        f"minimum (2.5x) {2.5 * fwd_ops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
     del qg, kg, vg, lib_o
     return out
 
 
-def phase_parity(dev, card):
-    """Full-width yi-6b, 2 layers, f32, TF32 off: card vs CPU logits and
-    block stores, beside the CPU against itself with every weight
-    multiplied in f32 by 1 + 1e-7 N(0, 1), a perturbation at the level of
-    f32 rounding (the noise floor of this random-weight model).  The
-    packed path on paged KV, then the split path's one-shot ``prefill``
-    and two dense ``decode_step`` calls (the flash forward and the dense
-    decode kernels on the card)."""
+def phase_parity(dev, card, cfg, host, dense: bool = True,
+                 grad_rows: int = 2):
+    """Full-width ``cfg`` (a 2-layer f32 cut), TF32 off, card vs CPU,
+    beside the card against itself with every weight multiplied in f32 by
+    1 + 1e-7 N(0, 1), a perturbation at the level of f32 rounding (the
+    noise floor of this random-weight model): the packed path on paged KV
+    (two ticks, then a paged decode step: logits and block stores); with
+    ``dense``, the split path's one-shot ``prefill`` and two dense
+    ``decode_step`` calls (the flash forward and the dense decode kernels
+    on the card: logits and rings); then one ``loss_fn`` with gradients
+    at batch ``grad_rows`` x 130 (the flash forward and backward
+    kernels).  ``host``: ``cfg``'s weights on the host
+    (:func:`host_weights`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
-                              dtype="float32")
-    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    tree = tree_map(lambda t: t.numpy(), params)
-    del params
-    noise = np.random.default_rng(2)
-    nudged = tree_map(lambda a: a * (1 + 1e-7 * noise.standard_normal(
-        a.shape, dtype=np.float32)), tree)
+    name = f"{cfg.name} {cfg.num_layers} layers f32"
+    params = tree_map(lambda t: t.to(dev), host)
     b, t, cache = 4, 16, 256
     m = cache // t
     tables = np.random.default_rng(0).permutation(b * m).astype(
         np.int32).reshape(b, m)
+    # tick 1: prefill chunks of all four slots; tick 2: slots 1 and 3
+    # decode, slots 0 and 2 prefill further
+    ticks = [[(0, 0, 40), (1, 0, 17), (2, 0, 64), (3, 0, 3)],
+             [(0, 40, 24), (1, 17, 1), (2, 64, 30), (3, 3, 1)]]
 
-    def run(weights, d):
-        p = params_from_numpy(weights, d)
+    def run(p, d):
         caches = zoo.init_paged_cache(cfg, b * m, t, d)
         bt = torch.from_numpy(tables).to(d)
-        logits = []
-        # tick 1: prefill chunks of all four slots
-        segs1 = [(0, 0, 40), (1, 0, 17), (2, 0, 64), (3, 0, 3)]
-        # tick 2: slots 1 and 3 decode, slots 0 and 2 prefill further
-        segs2 = [(0, 40, 24), (1, 17, 1), (2, 64, 30), (3, 3, 1)]
-        tok_rng = np.random.default_rng(1)
-        for segs in (segs1, segs2):
-            width = 128
-            tokens = np.zeros((1, width), np.int32)
-            slot = np.full(width, -1, np.int32)
-            pos = np.zeros(width, np.int32)
-            start = np.zeros(b, np.int32)
-            seg_len = np.zeros(b, np.int32)
-            c = 0
-            for s, st, n in segs:
-                tokens[0, c:c + n] = tok_rng.integers(0, cfg.vocab_size, n)
-                slot[c:c + n] = s
-                pos[c:c + n] = np.arange(st, st + n)
-                start[s], seg_len[s] = st, n
-                c += n
-            logits.append(zoo.step_packed(
-                cfg, p, caches, *(torch.from_numpy(a).to(d) for a in
-                                  (tokens, slot, pos, start, seg_len)), bt))
-        tok = torch.from_numpy(tok_rng.integers(0, cfg.vocab_size, b)
+        rng = np.random.default_rng(1)
+        logits = [zoo.step_packed(cfg, p, caches, *(
+            torch.from_numpy(a).to(d) for a in packed_arrays(
+                rng, cfg.vocab_size, segs, 128, b)), bt) for segs in ticks]
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, b)
                                .astype(np.int32)).to(d)
         dpos = torch.tensor([64, 18, 94, 4], dtype=torch.int32, device=d)
         logits.append(zoo.decode_step(cfg, p, caches, tok, dpos, bt))
         return ([lg.cpu() for lg in logits],
                 [caches["groups"][0][k].cpu() for k in ("k", "v")])
 
-    def rel(a, b):
-        return float((a - b).abs().max() / a.abs().max())
-
-    def run_dense(weights, d):
-        p = params_from_numpy(weights, d)
+    def run_dense(p, d):
         rng = np.random.default_rng(4)
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 70))
                                   .astype(np.int32)).to(d)
@@ -1832,151 +1895,198 @@ def phase_parity(dev, card):
         return ([lg.cpu() for lg in out],
                 [caches["groups"][0][k].cpu() for k in ("k", "v")])
 
-    dense = [run_dense(w, d) for w, d in ((tree, torch.device("cpu")),
-                                          (nudged, torch.device("cpu")),
-                                          (tree, dev))]
-    torch.cuda.empty_cache()
-    cpu = run(tree, torch.device("cpu"))
-    floor = run(nudged, torch.device("cpu"))
-    got = run(tree, dev)
-    torch.cuda.empty_cache()
+    grad = grad_run(cfg, train_batch(cfg.vocab_size, 130, rows=grad_rows))
+    (got, cpu, floor), *dense, train = card_cpu_floor(
+        dev, params, host, name, run, *([run_dense] if dense else []), grad)
+    train += (card_gnorm_floors(dev, params, grad),)
+    del params, host
     worst = 0.0
     for i, (lc, lg, ln) in enumerate(zip(cpu[0], got[0], floor[0])):
         err = rel(lc, lg)
         worst = max(worst, err)
-        say(f"[parity] yi-6b 2 layers f32, step {i + 1} "
+        say(f"[parity] {name}, step {i + 1} "
             f"({'step_packed' if i < 2 else 'decode_step'}): max|dlogit| / "
-            f"max|logit| = {err:.3e} (limit {LOGIT_LIMIT:g}; CPU noise floor "
-            f"{rel(lc, ln):.3e}) on {card}")
+            f"max|logit| = {err:.3e} (limit {LOGIT_LIMIT:g}; noise floor "
+            f"{rel(lg, ln):.3e}) on {card}")
     # relative, as for the logits: the stores of this random-weight model
     # reach |K| ~ 1e2, where f32 rounding alone is ~1e-5 of that
     kerr = max(rel(a, b) for a, b in zip(cpu[1], got[1]))
-    kfloor = max(rel(a, b) for a, b in zip(cpu[1], floor[1]))
-    say(f"[parity] block stores after the three steps: max|err| / max|x| "
-        f"= {kerr:.3e} (limit {STORE_LIMIT:g}; CPU noise floor "
-        f"{kfloor:.3e}); max|K| "
-        f"{float(cpu[1][0].abs().max()):.1f}")
-    cpu, floor, got = dense
-    names = ("prefill", "decode_step", "decode_step, one row left out")
-    for name, lc, lg, ln in zip(names, cpu[0], got[0], floor[0]):
-        err = rel(lc, lg)
-        worst = max(worst, err)
-        say(f"[parity] yi-6b 2 layers f32, dense {name}: max|dlogit| / "
-            f"max|logit| = {err:.3e} (limit {LOGIT_LIMIT:g}; CPU noise floor "
-            f"{rel(lc, ln):.3e}) on {card}")
-    derr = max(rel(a, b) for a, b in zip(cpu[1], got[1]))
-    kerr = max(kerr, derr)
-    say(f"[parity] dense rings after prefill and two steps: max|err| / "
-        f"max|x| = {derr:.3e} (limit {STORE_LIMIT:g}; CPU noise floor "
-        f"{max(rel(a, b) for a, b in zip(cpu[1], floor[1])):.3e})")
+    kfloor = max(rel(a, b) for a, b in zip(got[1], floor[1]))
+    say(f"[parity] {name}, block stores after the three steps: max|err| / "
+        f"max|x| = {kerr:.3e} (limit {STORE_LIMIT:g}; noise floor "
+        f"{kfloor:.3e}); max|K| {float(cpu[1][0].abs().max()):.1f}")
+    for got, cpu, floor in dense:
+        steps = ("prefill", "decode_step", "decode_step, one row left out")
+        for step, lc, lg, ln in zip(steps, cpu[0], got[0], floor[0]):
+            err = rel(lc, lg)
+            worst = max(worst, err)
+            say(f"[parity] {name}, dense {step}: max|dlogit| / max|logit| = "
+                f"{err:.3e} (limit {LOGIT_LIMIT:g}; noise floor "
+                f"{rel(lg, ln):.3e}) on {card}")
+        derr = max(rel(a, b) for a, b in zip(cpu[1], got[1]))
+        kerr = max(kerr, derr)
+        say(f"[parity] {name}, dense rings after prefill and two steps: "
+            f"max|err| / max|x| = {derr:.3e} (limit {STORE_LIMIT:g}; "
+            f"noise floor "
+            f"{max(rel(a, b) for a, b in zip(got[1], floor[1])):.3e})")
     if not worst <= LOGIT_LIMIT or not kerr <= STORE_LIMIT:
-        fail("card and CPU disagree on yi-6b logits or KV caches")
+        fail(f"card and CPU disagree on {cfg.name} logits or KV caches")
+    if not train_parity_ok(card, cfg, *train):
+        fail(f"card and CPU disagree on {cfg.name}'s training loss or "
+             "gradients")
 
 
-def phase_parity_train(dev, card, arch: str = "yi-6b"):
-    """Full-width ``arch`` (yi-6b; h2o-danube-3-4b, head dim 120), 2
-    layers, f32, TF32 off: one ``loss_fn`` with gradients (remat on, the
-    flash kernels on the card, the plain versions on the CPU) at batch 2 x
-    130 tokens, card against CPU on the loss, the global gradient norm and
-    every gradient leaf relative to its largest magnitude; beside each the
-    CPU against itself with every weight multiplied by 1 + 1e-7 N(0, 1).
-    The card runs first, then the CPU, then the weights are nudged in
-    place: one copy of the f32 weights (3.5 GB for yi-6b) at a time on the
-    host."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config(arch), num_layers=2,
-                              dtype="float32")
-    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+def phase_parity_attention(dev, card, drawn: dict):
+    """Phase 5's attention archs, each a full-width 2-layer f32 cut
+    through :func:`phase_parity`: yi-6b; h2o-danube-3-4b (head dim 120,
+    window 4096); gemma3-4b (head dim 256, a 262k vocabulary; the cut
+    takes one local and the global layer, so both rope thetas run);
+    starcoder2-15b (48 heads on 4 KV heads, LayerNorm and GELU).  The
+    last two take their gradient on one row and no dense steps: yi-6b
+    and h2o-danube-3-4b run the dense path's code, recurrentgemma-9b's
+    cut its D 256 instances, and the CPU's f32 passes set the phase's
+    time.  ``drawn``: :func:`parity_cuts`' host weights by name, each
+    taken out as it is used."""
+    cuts = {"yi-6b": (True, 2), "h2o-danube-3-4b": (True, 2),
+            "gemma3-4b": (False, 1), "starcoder2-15b": (False, 1)}
+    for arch, (dense, grad_rows) in cuts.items():
+        cfg, host = drawn.pop(arch).result()
+        if arch == "h2o-danube-3-4b" and cfg.resolved_head_dim != 120:
+            fail(f"{cfg.name} has head dim {cfg.resolved_head_dim}, not 120")
+        say(f"[parity] {cfg.name}: {cfg.num_layers} layers "
+            f"{cfg.block_pattern}, head dim {cfg.resolved_head_dim}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads, norm {cfg.norm}, "
+            f"mlp {cfg.mlp}, vocab {cfg.vocab_size}")
+        phase_parity(dev, card, cfg, host, dense, grad_rows)
+        del host
+
+
+def parity_cuts() -> dict:
+    """Phase 5's full-width f32 cuts by name: 2 layers of yi-6b,
+    h2o-danube-3-4b, gemma3-4b (one local and the global layer),
+    starcoder2-15b and rwkv6-7b; 5 of recurrentgemma-9b."""
+    extra = {"gemma3-4b": {"block_pattern": ("local", "global")},
+             "recurrentgemma-9b": {"num_layers": 5}}
+    return {arch: dataclasses.replace(
+        get_config(arch), **{"num_layers": 2, "dtype": "float32",
+                             **extra.get(arch, {})})
+        for arch in ("yi-6b", "h2o-danube-3-4b", "gemma3-4b",
+                     "starcoder2-15b", "recurrentgemma-9b", "rwkv6-7b")}
+
+
+def host_weights(cfg):
+    """``(cfg, its weights)`` drawn on the host by ``zoo.init`` from seed
+    0, the weights phase 5 has held to the card since it began; rwkv6-7b's
+    bonus u and decay base w0 are then drawn at random from the same
+    generator in place of their constant initial values (0 and -6, a
+    decay of ~0.9975), so the bonus and a spread of decays are exercised.
+    The host's generator is sequential (~1e8 values a second), so
+    :func:`main` draws them on a worker thread while phases 3 and 4 run
+    on the card."""
+    gen = torch.Generator().manual_seed(0)
+    params = zoo.init(cfg, gen, "cpu")
+    if "rwkv6" in cfg.block_pattern:
+        tm = params["groups"][0]["tm_cm"]
+        tm["u"].normal_(0.0, 0.5, generator=gen)
+        tm["w0"].uniform_(-3.0, 1.0, generator=gen)
+    return cfg, params
+
+
+def nudged(dev, params, seed: int) -> dict:
+    """``params`` (on the card) with every weight multiplied in f32 by 1 +
+    1e-7 N(0, 1), drawn on the card from ``seed``: a perturbation at the
+    level of f32 rounding."""
+    noise = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        return tree_map(lambda t: t * (1 + 1e-7 * torch.randn(
+            t.shape, generator=noise, device=dev)), params)
+
+
+def card_cpu_floor(dev, params, host, name: str, *runs) -> list:
+    """Each ``run(p, d)`` on the card with ``params`` (the f32 weights on
+    the card), on the card again with them nudged (the noise floor, read
+    against the card's run: :func:`nudged`, seed 2; how far f32 rounding
+    alone moves this model, which the device does not change), then on
+    the CPU with ``host``, the same weights on the host: ``[(card, CPU,
+    floor)]`` per run.  Neither is changed.  Prints the seconds of each
+    part."""
+    t0 = time.perf_counter()
+    got = [run(params, dev) for run in runs]
+    floor = [run(nudged(dev, params, 2), dev) for run in runs]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu = [run(host, torch.device("cpu")) for run in runs]
+    say(f"[times] {name}: card runs and noise-floor runs {t1 - t0:.1f} s, "
+        f"CPU runs {time.perf_counter() - t1:.1f} s")
+    return list(zip(got, cpu, floor))
+
+
+def card_gnorm_floors(dev, params, run) -> list:
+    """The gradient norm of the grad ``run`` on the card under GNORM_NUDGES
+    more nudges of ``params`` (seeds 3, 4, ...): further readings of how
+    far the norm moves under f32 rounding alone."""
+    out = []
+    for seed in range(3, 3 + GNORM_NUDGES):
+        out.append(run(nudged(dev, params, seed), dev, leaves=False)[1])
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel(a, b) -> float:
+    """max |a - b| over max |a|; on the card where one of them lies there
+    (the host takes seconds over a gradient of 1e9 entries)."""
+    if a.device != b.device:
+        a, b = a.to(DEVICE), b.to(DEVICE)
+    return float((a - b).abs().max() / a.abs().max())
+
+
+def train_batch(vocab: int, s: int, rows: int = 2) -> dict:
+    """Phase 5's training batch: ``rows`` x ``s`` tokens and labels."""
     rng = np.random.default_rng(3)
-    batch = {n: rng.integers(0, cfg.vocab_size, (2, 130)).astype(np.int32)
-             for n in ("tokens", "labels")}
+    return {n: rng.integers(0, vocab, (rows, s)).astype(np.int32)
+            for n in ("tokens", "labels")}
 
-    def run(p, d):
+
+def grad_run(cfg, batch):
+    """``run(p, d, leaves=True)``: one ``loss_fn`` with gradients (remat
+    on) -> (loss, global gradient norm, {leaf: gradient, on ``d``}, the
+    dict empty without ``leaves``)."""
+    def run(p, d, leaves=True):
         loss, _, grads = accum.value_and_grad(
             lambda p, b: zoo.loss_fn(cfg, p, b), p,
             {n: torch.from_numpy(a).to(d) for n, a in batch.items()})
+        for t in tree_leaves(p):      # marked in place: later runs take none
+            t.requires_grad_(False)
         return (float(loss), float(adamw.global_norm(grads)),
-                {key: g.cpu() for key, g in keyed_leaves(grads)})
+                dict(keyed_leaves(grads)) if leaves else {})
+    return run
 
-    def rel(a, b):
-        return float((a - b).abs().max() / a.abs().max())
 
-    got = run(tree_map(lambda t: t.to(dev), params), dev)
-    torch.cuda.empty_cache()
-    cpu = run(params, torch.device("cpu"))
-    noise = torch.Generator().manual_seed(2)
-    with torch.no_grad():
-        for t in tree_leaves(params):
-            t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=noise))
-    floor = run(params, torch.device("cpu"))
-    del params
+def train_parity_ok(card, cfg, got, cpu, floor, card_gnorms) -> bool:
+    """Print the card against the CPU on the loss, the gradient norm and
+    every gradient leaf (each relative to its largest value) beside the
+    noise floor (the norm's also beside ``card_gnorms``, its readings
+    under more nudges); True when all are inside their limits."""
     loss_err = abs(got[0] - cpu[0]) / abs(cpu[0])
     gnorm_err = abs(got[1] - cpu[1]) / cpu[1]
-    say(f"[parity] {arch} 2 layers f32 training on {card}: loss "
-        f"{cpu[0]:.6f}, card - CPU {loss_err:.3e} relative (limit "
-        f"{TRAIN_LOSS_LIMIT:g}; CPU noise floor "
-        f"{abs(floor[0] - cpu[0]) / abs(cpu[0]):.3e}); grad norm {cpu[1]:.6f},"
-        f" {gnorm_err:.3e} (limit {TRAIN_GNORM_LIMIT:g}; floor "
-        f"{abs(floor[1] - cpu[1]) / cpu[1]:.3e})")
+    floors = [abs(g - got[1]) / got[1] for g in (floor[1], *card_gnorms)]
+    gnorm_limit = GNORM_FLOOR_TIMES * max(floors)
+    say(f"[parity] {cfg.name} {cfg.num_layers} layers f32 training on "
+        f"{card}: loss {cpu[0]:.6f}, card - CPU {loss_err:.3e} relative "
+        f"(limit {TRAIN_LOSS_LIMIT:g}; noise floor "
+        f"{abs(floor[0] - got[0]) / abs(got[0]):.3e}); grad norm {cpu[1]:.6f},"
+        f" {gnorm_err:.3e} (limit {gnorm_limit:.3e}, {GNORM_FLOOR_TIMES}x the "
+        f"largest floor; floors " + ", ".join(f"{f:.3e}" for f in floors)
+        + ")")
     worst = 0.0
     for key, g in cpu[2].items():
         err = rel(g, got[2][key])
         worst = max(worst, err)
         say(f"[parity] grad {key}: max|err| / max|g| = {err:.3e} (limit "
-            f"{TRAIN_GRAD_LIMIT:g}; CPU noise floor "
-            f"{rel(g, floor[2][key]):.3e})")
-    if not (loss_err <= TRAIN_LOSS_LIMIT and gnorm_err <= TRAIN_GNORM_LIMIT
-            and worst <= TRAIN_GRAD_LIMIT):
-        fail(f"card and CPU disagree on {arch}'s training loss or "
-             "gradients")
-
-
-def phase_parity_danube(dev, card):
-    """Full-width h2o-danube-3-4b (head dim 120, window 4096), 2 layers,
-    f32, TF32 off: one packed step (prefill chunks of four slots on paged
-    KV, the paged segment kernel at D 120), card against CPU on the
-    logits beside the CPU noise floor, at yi-6b's limit; then its training
-    loss and gradients (the flash kernels at D 120) as yi-6b's."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), num_layers=2,
-                              dtype="float32")
-    if cfg.resolved_head_dim != 120:
-        fail(f"{cfg.name} has head dim {cfg.resolved_head_dim}, not 120")
-    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
-    b, t, cache = 4, 16, 256
-    m = cache // t
-    tables = torch.from_numpy(np.random.default_rng(0).permutation(b * m)
-                              .astype(np.int32).reshape(b, m))
-    segs = [(0, 0, 40), (1, 0, 17), (2, 0, 64), (3, 0, 3)]
-
-    def run(p, d):
-        caches = zoo.init_paged_cache(cfg, b * m, t, d)
-        arrays = packed_arrays(np.random.default_rng(1), cfg.vocab_size,
-                               segs, 128, b)
-        return zoo.step_packed(
-            cfg, p, caches, *(torch.from_numpy(a).to(d) for a in arrays),
-            tables.to(d)).cpu()
-
-    got = run(tree_map(lambda x: x.to(dev), params), dev)
-    torch.cuda.empty_cache()
-    cpu = run(params, torch.device("cpu"))
-    noise = torch.Generator().manual_seed(2)
-    with torch.no_grad():
-        for leaf in tree_leaves(params):
-            leaf.mul_(1 + 1e-7 * torch.randn(leaf.shape, generator=noise))
-    floor = run(params, torch.device("cpu"))
-    del params
-    scale = float(cpu.abs().max())
-    err = float((cpu - got).abs().max()) / scale
-    say(f"[parity] {cfg.name} 2 layers f32 (head dim 120), step_packed on "
-        f"paged KV: max|dlogit| / max|logit| = {err:.3e} (limit "
-        f"{LOGIT_LIMIT:g}; CPU noise floor "
-        f"{float((cpu - floor).abs().max()) / scale:.3e}) on {card}")
-    if not err <= LOGIT_LIMIT:
-        fail(f"card and CPU disagree on {cfg.name}'s logits")
-    phase_parity_train(dev, card, "h2o-danube-3-4b")
+            f"{TRAIN_GRAD_LIMIT:g}; noise floor "
+            f"{rel(got[2][key], floor[2][key]):.3e})")
+    return (loss_err <= TRAIN_LOSS_LIMIT and gnorm_err <= gnorm_limit
+            and worst <= TRAIN_GRAD_LIMIT)
 
 
 def packed_arrays(rng, vocab, segs, width, b):
@@ -1997,19 +2107,57 @@ def packed_arrays(rng, vocab, segs, width, b):
     return tokens, slot, pos, start, seg_len
 
 
-def phase_parity_rg(dev, card):
+def oneshot_run(cfg, length: int, cache: int):
+    """``run(p, d)``: a one-shot ``prefill`` of one seeded prompt of
+    ``length`` tokens into fresh dense caches of ``cache`` -> (logits,
+    {leaf: tensor on the CPU} of every cache leaf)."""
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size,
+                                               (1, length)).astype(np.int32)
+
+    def run(p, d):
+        logits, caches = zoo.prefill(cfg, p, {"tokens": torch.from_numpy(
+            tokens).to(d)}, cache_len=cache)
+        return logits.cpu(), {k: t.cpu() for k, t in keyed_leaves(caches)}
+    return run
+
+
+def oneshot_ok(card, name: str, got, cpu, floor, logit_limit,
+               state_limit) -> bool:
+    """Print the one-shot prefill's logits and every cache leaf, card
+    against CPU beside the noise floor; True when inside the
+    limits."""
+    err = rel(cpu[0], got[0])
+    say(f"[parity] {name}, one-shot prefill of one prompt: "
+        f"max|dlogit| / max|logit| = {err:.3e} (limit {logit_limit:g}; "
+        f"noise floor {rel(got[0], floor[0]):.3e}) on {card}")
+    serr = 0.0
+    for key, a in cpu[1].items():
+        if not a.is_floating_point() or not a.abs().max():
+            continue          # positions, and leaves the prompt leaves zero
+        serr = max(serr, rel(a, got[1][key]))
+        say(f"[parity] {name}, one-shot cache {key}: max|err| / max|x| = "
+            f"{rel(a, got[1][key]):.3e} (limit {state_limit:g}; noise "
+            f"floor {rel(got[1][key], floor[1][key]):.3e})")
+    ints = [k for k, a in cpu[1].items() if not a.is_floating_point()]
+    same = all(torch.equal(cpu[1][k], got[1][k]) for k in ints)
+    return err <= logit_limit and serr <= state_limit and same
+
+
+def phase_parity_rg(dev, card, drawn):
     """Full-width recurrentgemma-9b, 5 layers (one rglru, rglru, swa group
     and the 2-layer rglru remainder), f32, TF32 off, dense rings: two
     packed steps (prefill chunks, then chunks beside decode riders) and a
-    decode step with one idle row, card against CPU; beside it the CPU
-    against itself with every weight multiplied by 1 + 1e-7 N(0, 1).  The
-    card runs first, then the CPU, then the weights are nudged in place:
-    one copy of the 13 GB of f32 weights at a time."""
+    decode step with one idle row; a one-shot ``prefill`` of a 150-token
+    prompt (``rglru_block``, the flash forward at D 256); one ``loss_fn``
+    with gradients at batch 1 x 130 (the flash forward and backward at D
+    256; one row: the CPU's f32 passes over a 256k vocabulary set this
+    phase's time): card against CPU, beside the card against itself with
+    every weight multiplied by 1 + 1e-7 N(0, 1) (:func:`card_cpu_floor`).
+    ``drawn``: the future of :func:`host_weights`."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=5,
-                              dtype="float32")
-    params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    cfg, host = drawn.result()
+    params = tree_map(lambda t: t.to(dev), host)
     b, cache = 4, 256
     ticks = [[(0, 0, 24), (1, 0, 9), (2, 0, 28), (3, 0, 3)],
              [(0, 24, 20), (1, 9, 1), (2, 28, 30), (3, 3, 1)]]
@@ -2034,53 +2182,50 @@ def phase_parity_rg(dev, card):
                  "rglru h": g[0]["h"].cpu(), "conv": g[1]["conv"].cpu(),
                  "rem h": caches["rem"][1]["h"].cpu()})
 
-    def rel(a, b):
-        return float((a - b).abs().max() / a.abs().max())
-
-    got = run(tree_map(lambda t: t.to(dev), params), dev)
-    torch.cuda.empty_cache()
-    cpu = run(params, torch.device("cpu"))
-    noise = torch.Generator().manual_seed(2)
-    for t in tree_leaves(params):
-        t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=noise))
-    floor = run(params, torch.device("cpu"))
-    del params
+    name = "recurrentgemma-9b 5 layers f32"
+    grad = grad_run(cfg, train_batch(cfg.vocab_size, 130, rows=1))
+    (got, cpu, floor), oneshot, train = card_cpu_floor(
+        dev, params, host, name, run, oneshot_run(cfg, 150, cache), grad)
+    train += (card_gnorm_floors(dev, params, grad),)
+    del params, host
     worst = 0.0
     for i, (lc, lg, ln) in enumerate(zip(cpu[0], got[0], floor[0])):
         err = rel(lc, lg)
         worst = max(worst, err)
-        say(f"[parity] recurrentgemma-9b 5 layers f32, step {i + 1} "
+        say(f"[parity] {name}, step {i + 1} "
             f"({'step_packed' if i < 2 else 'decode_step'}): max|dlogit| / "
-            f"max|logit| = {err:.3e} (limit {RG_LOGIT_LIMIT:g}; CPU noise "
-            f"floor {rel(lc, ln):.3e}) on {card}")
+            f"max|logit| = {err:.3e} (limit {RG_LOGIT_LIMIT:g}; noise "
+            f"floor {rel(lg, ln):.3e}) on {card}")
     serr = 0.0
-    for name in cpu[1]:
-        a, g, f = cpu[1][name], got[1][name], floor[1][name]
+    for leaf in cpu[1]:
+        a, g, f = cpu[1][leaf], got[1][leaf], floor[1][leaf]
         serr = max(serr, rel(a, g))
-        say(f"[parity] {name} after the three steps: max|err| / max|x| = "
-            f"{rel(a, g):.3e} (limit {RG_STATE_LIMIT:g}; CPU noise floor "
-            f"{rel(a, f):.3e}); max|x| {float(a.abs().max()):.1f}")
+        say(f"[parity] {leaf} after the three steps: max|err| / max|x| = "
+            f"{rel(a, g):.3e} (limit {RG_STATE_LIMIT:g}; noise floor "
+            f"{rel(g, f):.3e}); max|x| {float(a.abs().max()):.1f}")
     if not worst <= RG_LOGIT_LIMIT or not serr <= RG_STATE_LIMIT:
         fail("card and CPU disagree on recurrentgemma logits or caches")
+    if not oneshot_ok(card, name, *oneshot, RG_LOGIT_LIMIT, RG_STATE_LIMIT):
+        fail("card and CPU disagree on recurrentgemma's one-shot prefill")
+    if not train_parity_ok(card, cfg, *train):
+        fail("card and CPU disagree on recurrentgemma's training loss or "
+             "gradients")
 
 
-def phase_parity_rwkv6(dev, card):
+def phase_parity_rwkv6(dev, card, drawn):
     """Full-width rwkv6-7b, 2 layers, f32, TF32 off: two packed steps
     (prefill chunks, then chunks beside decode riders) and a decode step
-    with one idle row, card against CPU, on logits and every state leaf;
-    beside it the CPU against itself with every weight multiplied by
-    1 + 1e-7 N(0, 1).  The bonus u and the decay base w0 are drawn at
-    random in place of their constant initial values (0 and -6, a decay
-    of ~0.9975), so the bonus and a spread of decays are exercised."""
+    with one idle row; a one-shot ``prefill`` of a 97-token prompt
+    (``time_mix_chunked``'s remainder chunk: 32, 32, 32, 1); one
+    ``loss_fn`` with gradients at batch 2 x 97: card against CPU, on
+    logits, every state leaf and every gradient leaf, beside the card
+    against itself with every weight multiplied by 1 + 1e-7 N(0, 1) (the
+    bonus u and the decay base w0 drawn at random: :func:`host_weights`).
+    ``drawn``: the future of :func:`host_weights`."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("rwkv6-7b"), num_layers=2,
-                              dtype="float32")
-    gen = torch.Generator().manual_seed(0)
-    params = zoo.init(cfg, gen, "cpu")
-    tm = params["groups"][0]["tm_cm"]
-    tm["u"].normal_(0.0, 0.5, generator=gen)
-    tm["w0"].uniform_(-3.0, 1.0, generator=gen)
+    cfg, host = drawn.result()
+    params = tree_map(lambda t: t.to(dev), host)
     b, cache = 4, 256
     ticks = [[(0, 0, 24), (1, 0, 9), (2, 0, 28), (3, 0, 3)],
              [(0, 24, 20), (1, 9, 1), (2, 28, 30), (3, 3, 1)]]
@@ -2102,35 +2247,36 @@ def phase_parity_rwkv6(dev, card):
         return ([lg.cpu() for lg in logits],
                 {n: a.cpu() for n, a in caches["groups"][0].items()})
 
-    def rel(a, b):
-        return float((a - b).abs().max() / a.abs().max())
-
-    got = run(tree_map(lambda t: t.to(dev), params), dev)
-    torch.cuda.empty_cache()
-    cpu = run(params, torch.device("cpu"))
-    noise = torch.Generator().manual_seed(2)
-    for t in tree_leaves(params):
-        t.mul_(1 + 1e-7 * torch.randn(t.shape, generator=noise))
-    floor = run(params, torch.device("cpu"))
-    del params
+    name = "rwkv6-7b 2 layers f32"
+    grad = grad_run(cfg, train_batch(cfg.vocab_size, 97))
+    (got, cpu, floor), oneshot, train = card_cpu_floor(
+        dev, params, host, name, run, oneshot_run(cfg, 97, cache), grad)
+    train += (card_gnorm_floors(dev, params, grad),)
+    del params, host
     worst = 0.0
     for i, (lc, lg, ln) in enumerate(zip(cpu[0], got[0], floor[0])):
         err = rel(lc, lg)
         worst = max(worst, err)
-        say(f"[parity] rwkv6-7b 2 layers f32, step {i + 1} "
+        say(f"[parity] {name}, step {i + 1} "
             f"({'step_packed' if i < 2 else 'decode_step'}): max|dlogit| / "
-            f"max|logit| = {err:.3e} (limit {RWKV_LOGIT_LIMIT:g}; CPU noise "
-            f"floor {rel(lc, ln):.3e}) on {card}")
+            f"max|logit| = {err:.3e} (limit {RWKV_LOGIT_LIMIT:g}; noise "
+            f"floor {rel(lg, ln):.3e}) on {card}")
     serr = 0.0
-    for name in cpu[1]:
-        a, g, f = cpu[1][name], got[1][name], floor[1][name]
+    for leaf in cpu[1]:
+        a, g, f = cpu[1][leaf], got[1][leaf], floor[1][leaf]
         serr = max(serr, rel(a, g))
-        say(f"[parity] rwkv6 {name} (both layers) after the three steps: "
+        say(f"[parity] rwkv6 {leaf} (both layers) after the three steps: "
             f"max|err| / max|x| = {rel(a, g):.3e} (limit "
-            f"{RWKV_STATE_LIMIT:g}; CPU noise floor {rel(a, f):.3e}); "
+            f"{RWKV_STATE_LIMIT:g}; noise floor {rel(g, f):.3e}); "
             f"max|x| {float(a.abs().max()):.1f}")
     if not worst <= RWKV_LOGIT_LIMIT or not serr <= RWKV_STATE_LIMIT:
         fail("card and CPU disagree on rwkv6-7b logits or state")
+    if not oneshot_ok(card, name, *oneshot, RWKV_LOGIT_LIMIT,
+                      RWKV_STATE_LIMIT):
+        fail("card and CPU disagree on rwkv6-7b's one-shot prefill")
+    if not train_parity_ok(card, cfg, *train):
+        fail("card and CPU disagree on rwkv6-7b's training loss or "
+             "gradients")
 
 
 def phase_slice(dev, card) -> tuple[dict, dict, dict]:
@@ -2341,7 +2487,28 @@ def phase_rg_slice(dev, card) -> dict:
         fail("a SmartConf knob never moved")
     rows_cost(eng, card, "rglru", "rg-slice")
     eng.close()
-    return launches
+    params = eng.params
+    tokens = {r.req_id: list(r.generated) for r in eng.finished}
+    del eng
+    torch.cuda.empty_cache()
+
+    def expect(e, n_decode):
+        # the one-shot prefill runs the flash forward once per swa layer,
+        # each decode step the dense decode kernel once per swa layer
+        return {"flash_attention": swa * e.prefill_calls,
+                "decode_attention": swa * n_decode}
+
+    got = legacy_slice(dev, card, cfg, params, prompts, new_tokens, tokens,
+                       dict(max_batch=RG_SLOTS, cache_len=RG_CACHE_LEN,
+                            budget_headroom_bytes=RG_HEADROOM),
+                       "rg-legacy", (flash_attention, decode_attention,
+                                     segment_attention, rglru_scan_state),
+                       expect)
+    f32_modes_agree(dev, card, cfg, 5, prompts, new_tokens,
+                    dict(max_batch=RG_SLOTS, cache_len=RG_CACHE_LEN,
+                         budget_headroom_bytes=RG_HEADROOM), "rg-legacy")
+    return {k: launches.get(k, 0) + got.get(k, 0)
+            for k in set(launches) | set(got)}
 
 
 def phase_rwkv6_slice(dev, card) -> dict:
@@ -2435,7 +2602,275 @@ def phase_rwkv6_slice(dev, card) -> dict:
         fail("a SmartConf knob never moved")
     rows_cost(eng, card, "rwkv6", "rwkv6-slice")
     eng.close()
-    return launches
+    params = eng.params
+    tokens = {r.req_id: list(r.generated) for r in eng.finished}
+    del eng
+    torch.cuda.empty_cache()
+    # the one-shot prefill and the decode steps are plain tensor code on
+    # rwkv6, as in the reference: no kernel launches
+    got = legacy_slice(dev, card, cfg, params, prompts, new_tokens, tokens,
+                       dict(max_batch=RWKV_SLOTS, cache_len=RWKV_CACHE_LEN,
+                            budget_headroom_bytes=RWKV_HEADROOM),
+                       "rwkv6-legacy", (rwkv6_scan_state, flash_attention,
+                                        decode_attention),
+                       lambda e, n_decode: {})
+    f32_modes_agree(dev, card, cfg, 2, prompts, new_tokens,
+                    dict(max_batch=RWKV_SLOTS, cache_len=RWKV_CACHE_LEN,
+                         budget_headroom_bytes=RWKV_HEADROOM), "rwkv6-legacy")
+    return {k: launches.get(k, 0) + got.get(k, 0)
+            for k in set(launches) | set(got)}
+
+
+def legacy_slice(dev, card, cfg, params, prompts, new_tokens, packed_tokens,
+                 opts, tag, counted, expect) -> dict:
+    """The same weights and requests again with ``prefill_mode="legacy"``
+    (``opts``: the packed run's engine settings): one-shot prefill per
+    admitted request through the recurrent one-shot forms, then decode
+    ticks, knobs live.  Prints tokens/s, TTFT, admission-tick and
+    decode-tick ms, dispatches per tick (1 plus the tick's admissions at
+    most), the in-phase peak beside the goal, the tokens each request
+    shares with the packed run (bf16 near-ties: information) and the
+    one-shot forms' ms per layer at the longest prompt.  ``expect(eng,
+    n_decode)`` gives the launches of ``counted`` the run must make (the
+    others none); every flash forward launch takes the CUDA-core route
+    (D 256)."""
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    held = torch.cuda.memory_allocated(dev) - weights
+    eng = build_engine(cfg, latency_goal_s=0.02, device=dev, params=params,
+                       prefill_mode="legacy", **opts)
+    tag = f"[{tag}]"
+    say(f"{tag} {cfg.name} bf16, {cfg.num_layers} layers, the packed run's "
+        f"weights; prefill[{eng.prefill_impl}], kv["
+        f"{'paged' if eng.paged else 'dense'}]; HBM goal "
+        f"{eng.accountant.budget_bytes / 1e9:.3f} GB")
+    if eng.paged or eng.prefill_impl != "legacy":
+        fail("prefill_mode='legacy' did not resolve to one-shot prefill on "
+             "dense KV")
+    knobs = {"serve.max_queue_tokens": [eng.max_queue_tokens],
+             "serve.kv_block_budget": [eng.pool.max_blocks],
+             "serve.prefill_chunk_tokens": [eng.prefill_chunk]}
+    tick_s = {"admission": [], "decode-only": []}
+    per_tick = []            # (dispatches, prefill calls, decoded)
+    last, calls = [0.0], [0]
+
+    def on_tick(e, st):
+        knobs["serve.max_queue_tokens"].append(e.max_queue_tokens)
+        knobs["serve.kv_block_budget"].append(e.pool.max_blocks)
+        knobs["serve.prefill_chunk_tokens"].append(e.prefill_chunk)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        new_calls = e.prefill_calls - calls[0]
+        tick_s["admission" if new_calls else "decode-only"].append(
+            now - last[0])
+        last[0] = now
+        per_tick.append((st["dispatches"], new_calls, st["decode_tokens"] > 0))
+        calls[0] = e.prefill_calls
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counted:
+        fn.launches = 0
+    flash_attention.route_launches = dict.fromkeys(
+        flash_attention.route_launches, 0)
+    t0 = last[0] = time.perf_counter()
+    with first_token_top2(eng) as margins:
+        stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {fn.__name__: fn.launches for fn in counted}
+    routes = dict(flash_attention.route_launches)
+    say(f"{tag} " + summary(eng, len(prompts), len(stats)))
+    n_done = len(eng.finished)
+    gen_tokens = sum(len(r.generated) for r in eng.finished)
+    n_decode = sum(d for _, _, d in per_tick)
+    tokens = {r.req_id: list(r.generated) for r in eng.finished}
+    say(f"{tag} finished {n_done}/{len(prompts)} in {len(stats)} ticks "
+        f"({n_decode} with a decode step); dispatches per tick "
+        f"{[d for d, _, _ in per_tick]}; prefill calls {eng.prefill_calls}; "
+        f"kernel launches {got}, the flash forward's by route {routes}; "
+        f"preemptions {eng.preemptions}; HBM violations "
+        f"{eng.accountant.violations}")
+    for k, vals in knobs.items():
+        say(f"{tag} knob {k}: {vals[0]} -> {vals[-1]}, distinct values "
+            f"{len(set(vals))}, trajectory {runs(vals)}")
+    say(f"{tag} device memory: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB; accountant "
+        f"peak {eng.accountant.peak_bytes / 1e9:.3f} GB")
+    in_phase_peak(tag, dev, eng, held)
+    say(f"{tag} on {card}: {gen_tokens} tokens in {wall:.3f} s = "
+        f"{gen_tokens / wall:.2f} tokens/s (first launches included); "
+        f"TTFT mean {eng.ttft.mean() * 1e3:.1f} ms, p99 "
+        f"{eng.ttft.p99() * 1e3:.1f} ms")
+    for kind, ts in tick_s.items():
+        if ts:
+            say(f"{tag} {kind} ticks on {card}: {len(ts)}, mean "
+                f"{np.mean(ts) * 1e3:.1f} ms, first {ts[0] * 1e3:.1f} ms, "
+                f"max {max(ts) * 1e3:.1f} ms")
+    same = sum(a == b for i, g in tokens.items()
+               for a, b in zip(g, packed_tokens[i]))
+    say(f"{tag} greedy tokens equal to the packed run's: {same}/"
+        f"{gen_tokens}, by request "
+        + ", ".join(f"{i}: {sum(a == b for a, b in zip(g, packed_tokens[i]))}"
+                    for i, g in sorted(tokens.items()))
+        + " (information: bf16 near-ties may differ; the CPU tests hold "
+        "token identity)")
+    gaps = {i: float(v[0] - v[1]) for i, v in sorted(margins.items())}
+    say(f"{tag} first-token top-2 logit margin by request: "
+        + ", ".join(f"{i}: {g:.4f}" for i, g in gaps.items())
+        + f"; first tokens equal to the packed run's "
+        f"{sum(g[:1] == packed_tokens[i][:1] for i, g in tokens.items())}/"
+        f"{len(tokens)} (bf16 logits; information)")
+    oneshot_layer_ms(eng, card, tag, max(len(p) for p in prompts))
+    oneshot_vs_packed(card, cfg, params, prompts, opts["cache_len"], tag)
+    if n_done != len(prompts):
+        fail("not every request finished")
+    if eng.accountant.violations:
+        fail("the HBM goal was violated")
+    for r in eng.finished:
+        g = np.asarray(r.generated)
+        if len(g) != new_tokens or g.min() < 0 or g.max() >= cfg.vocab_size:
+            fail(f"request {r.req_id} generated {g!r}")
+    for disp, new_calls, decoded in per_tick:
+        if disp != new_calls + decoded:
+            fail(f"a legacy tick made {disp} dispatches for {new_calls} "
+                 f"prefill calls and {int(decoded)} decode steps")
+    if eng.prefill_calls != len(prompts):
+        fail(f"{eng.prefill_calls} one-shot prefills for {len(prompts)} "
+             "requests")
+    want = expect(eng, n_decode)
+    want = {fn.__name__: want.get(fn.__name__, 0) for fn in counted}
+    if got != want:
+        fail(f"legacy kernel launches {got}, expected {want}")
+    if routes != {"tensor_core": 0, "cuda_core": got.get("flash_attention",
+                                                          0)}:
+        fail(f"flash forward launches by route {routes}: the D 256 launches "
+             "must take the CUDA-core route")
+    eng.close()
+    return got
+
+
+def oneshot_vs_packed(card, cfg, params, prompts, cache_len: int,
+                      tag: str) -> None:
+    """One prompt (the longest of at most 2048 tokens) through the model
+    layer by layer three times, bf16, each into fresh dense caches: the
+    one-shot form (``block_apply_seq``, as ``zoo.prefill``), the packed
+    form (``block_apply_packed``, one segment, as ``zoo.step_packed``) and
+    the one-shot form again with its input embeddings times 1 + 2^-9 N(0,
+    1) in bf16 (about the spread of one more bf16 rounding), the noise
+    floor.  Prints the hidden states' max|d| / max|x| after every layer
+    and the first-token logits' max|dlogit| / max|logit|, one-shot against
+    packed beside one-shot against the floor; fails when a layer's or the
+    logits' gap exceeds GAP_FLOOR_TIMES times its floor (a fault of one
+    path in bf16)."""
+    dev = params["embed"].device
+    i = max((j for j, pr in enumerate(prompts) if len(pr) <= 2048),
+            key=lambda j: len(prompts[j]))
+    s = len(prompts[i])
+    tokens = torch.as_tensor(np.asarray(prompts[i], np.int32)[None],
+                             device=dev)
+    noise = torch.Generator(device=dev).manual_seed(8)
+    slot = torch.zeros(s, dtype=torch.int32, device=dev)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    start = torch.zeros(1, dtype=torch.int32, device=dev)
+    seg_len = torch.full((1,), s, dtype=torch.int32, device=dev)
+    gaps, floors, out = [], [], {}
+    with torch.no_grad():
+        x, positions = transformer._inputs_embeds(cfg, params,
+                                                  {"tokens": tokens})
+        xn = (x.float() * (1 + 2.0 ** -9 * torch.randn(
+            x.shape, generator=noise, device=dev))).to(x.dtype)
+        xs = {"oneshot": x, "packed": x, "floor": xn}
+        caches = {m: zoo.init_cache(cfg, 1, cache_len, dev) for m in xs}
+        plan = transformer.dense_packed_plans(caches["packed"], slot, pos,
+                                              start, seg_len)
+        walks = [transformer._layers(cfg, params, caches[m]) for m in xs]
+        for (kind, p, c1), (_, _, c2), (_, _, c3) in zip(*walks):
+            xs["oneshot"] = blocks.block_apply_seq(cfg, kind, p, xs["oneshot"],
+                                                   positions, c1)[0]
+            xs["packed"] = blocks.block_apply_packed(
+                cfg, kind, p, xs["packed"], pos, slot, start, seg_len, c2,
+                None, plan)
+            xs["floor"] = blocks.block_apply_seq(cfg, kind, p, xs["floor"],
+                                                 positions, c3)[0]
+            a = xs["oneshot"].float()
+            gaps.append(rel(a, xs["packed"].float()))
+            floors.append(rel(a, xs["floor"].float()))
+        for m, h in xs.items():
+            out[m] = transformer._logits(
+                cfg, params, apply_norm(cfg.norm, params["ln_f"], h[:, -1]))
+    gap, floor = rel(out["oneshot"], out["packed"]), rel(out["oneshot"],
+                                                         out["floor"])
+    first = {m: int(lg.argmax()) for m, lg in out.items()}
+    say(f"{tag} request {i} ({s} tokens) layer by layer, bf16 on {card}: "
+        "hidden max|d| / max|x|, one-shot against packed "
+        + ", ".join(f"{g:.2e}" for g in gaps) + "; one-shot against its "
+        "input rounded once more (the floor) "
+        + ", ".join(f"{f:.2e}" for f in floors))
+    say(f"{tag} request {i} first-token logits: one-shot against packed "
+        f"max|dlogit| / max|logit| = {gap:.3e}, the floor {floor:.3e} "
+        f"(limit {GAP_FLOOR_TIMES}x the floor, as for each layer); first "
+        f"tokens {first}")
+    if not all(g <= GAP_FLOOR_TIMES * f for g, f in zip(gaps + [gap],
+                                                         floors + [floor])):
+        fail(f"{cfg.name}: the one-shot and packed forms disagree in bf16 "
+             "beyond the rounding floor")
+
+
+def f32_modes_agree(dev, card, cfg, layers: int, prompts, new_tokens, opts,
+                    tag) -> None:
+    """The same requests through a ``layers``-layer full-width f32 cut of
+    ``cfg`` (TF32 off since phase 5), packed and legacy: in f32 the two
+    modes must give the same greedy tokens, as the CPU tests hold them to
+    (in bf16 near-ties of the random weights make the shares
+    information)."""
+    cut = dataclasses.replace(cfg, num_layers=layers, dtype="float32")
+    params = zoo.init(cut, torch.Generator(device=dev).manual_seed(0), dev)
+    out = {}
+    for mode in ("packed", "legacy"):
+        eng = build_engine(cut, latency_goal_s=0.02, device=dev,
+                           params=params, prefill_mode=mode, **opts)
+        serve_requests(eng, prompts, new_tokens)
+        out[mode] = {r.req_id: list(r.generated) for r in eng.finished}
+        eng.close()
+    del params
+    torch.cuda.empty_cache()
+    same = sum(a == b for i, g in out["legacy"].items()
+               for a, b in zip(g, out["packed"][i]))
+    say(f"[{tag}] {cfg.name} {layers} layers f32 on {card}: legacy greedy "
+        f"tokens equal to the packed engine's {same}/"
+        f"{len(prompts) * new_tokens}")
+    if out["legacy"] != out["packed"]:
+        fail(f"{cfg.name}: legacy and packed serving give other tokens in "
+             "f32")
+
+
+def oneshot_layer_ms(eng, card, tag, s: int) -> None:
+    """One recurrent layer's one-shot form (``rglru_block`` or
+    ``time_mix_chunked``) over a seeded bf16 input of the longest prompt's
+    ``s`` tokens from zero state, on the first group layer's weights, and
+    times the arch's number of such layers."""
+    cfg, dev = eng.cfg, eng.device
+    kinds = cfg.block_pattern * cfg.num_layers
+    for kind in sorted({blocks.split_kind(k)[0] for k in cfg.block_pattern}
+                       & set(blocks.RECURRENT_KINDS)):
+        p = tree_map(lambda t: t[0],
+                     eng.params["groups"][list(cfg.block_pattern).index(kind)])
+        x = torch.randn(1, s, cfg.d_model, device=dev, dtype=torch.bfloat16,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+        if kind == "rglru":
+            st = rglru_model.init_state(cfg, 1, dev)
+            fn, name = (lambda: rglru_model.rglru_block(p["rglru"], x, st),
+                        "rglru_block")
+        else:
+            st = rwkv6_model.init_state(cfg, 1, dev)
+            fn, name = (lambda: rwkv6_model.time_mix_chunked(
+                p["tm_cm"], x, st["S"], st["tm_last"]), "time_mix_chunked")
+        with torch.no_grad():
+            ms = time_ms(fn, iters=5, warmup=1)
+        n = sum(blocks.split_kind(k)[0] == kind
+                for k in kinds[:cfg.num_layers])
+        say(f"{tag} {name} at the longest prompt ({s} tokens, bf16, one "
+            f"row) on {card}: {ms:.3f} ms per layer; x {n} layers: "
+            f"{n * ms:.1f} ms of a one-shot prefill")
 
 
 def phase_train_slice(dev, card, timing) -> dict:
@@ -2590,6 +3025,118 @@ def phase_train_slice(dev, card, timing) -> dict:
     return launches, dict(step_ms=med * 1e3, losses=losses)
 
 
+def train_reckoning(cfg, n_par: int, largest: int, micro: int,
+                    seq: int) -> dict:
+    """What a training step should hold at its peak, reckoned from the
+    shapes before it runs (bytes): weights and grads in bf16, f32 moments
+    and accumulator; the input of every layer, which remat keeps; one
+    recurrent layer's graph as the backward pass recomputes it (the
+    RG-LRU's doubling scan saves two [micro, S, F] f32 tensors a level;
+    ``time_mix_chunked`` about four [micro, L, L, H, N] f32 tensors a
+    chunk, measured at small widths on the CPU); one loss chunk's f32
+    logits, three times over (logits, softmax, gradient); and AdamW's f32
+    temporaries, about three of the largest leaf at a time."""
+    d = cfg.d_model
+    kinds = {blocks.split_kind(k)[0] for k in cfg.block_pattern}
+    layer = 0
+    if "rglru" in kinds:
+        f = cfg.num_heads * cfg.resolved_head_dim
+        layer = 2 * math.ceil(math.log2(seq + 1)) * micro * seq * f * 4
+    if "rwkv6" in kinds:
+        layer = 4 * micro * seq * rwkv6_model.CHUNK * d * 4
+    out = dict(state=n_par * (2 + 2 + 4 + 4 + 4),
+               inputs=cfg.num_layers * micro * seq * d * 2, layer=layer,
+               loss=3 * transformer.LOSS_CHUNK * cfg.vocab_size * 4,
+               optimizer=3 * largest * 4)
+    out["total"] = sum(out.values())
+    return out
+
+
+def phase_train_cut(dev, card, arch: str, layers: int) -> dict:
+    """``arch`` at full width and ``layers`` layers (full depth does not
+    fit: bf16 weights and grads with f32 moments), bf16, seeded random
+    weights, through the Trainer as phase 9 runs yi-6b: TRAIN_STEPS AdamW
+    steps at batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches,
+    remat, no checkpoint.  The recurrent layers train through their
+    one-shot forms; every flash launch (recurrentgemma's swa layer, D
+    256) must take the CUDA-core route.  Returns the flash launches."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    workdir = ROOT / "build" / f"chip_smoke_train_{arch}"
+    shutil.rmtree(workdir, ignore_errors=True)
+    tc = TrainerConfig(workdir=str(workdir), total_steps=TRAIN_STEPS,
+                       ckpt_interval=1000, ckpt_keep=1,
+                       batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                       n_micro=TRAIN_MICRO, seed=0)
+    opt = adamw.AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    tr = Trainer(cfg, opt, tc, device=dev)
+    n_par = sum(p.numel() for p in tree_leaves(tr.params))
+    micro = TRAIN_BATCH // TRAIN_MICRO
+    reckon = train_reckoning(cfg, n_par,
+                             max(p.numel() for p in tree_leaves(tr.params)),
+                             micro, TRAIN_SEQ)
+    tag = f"[train-{arch}]"
+    say(f"{tag} {cfg.name} bf16, {layers} of {get_config(arch).num_layers} "
+        f"layers {(cfg.block_pattern * layers)[:layers]} at full width: "
+        f"{n_par / 1e9:.3f} B parameters; batch {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"in {TRAIN_MICRO} microbatches, remat {tc.remat}; reckoned peak "
+        f"{reckon['total'] / 1e9:.2f} GB = "
+        + " + ".join(f"{k} {v / 1e9:.2f}" for k, v in reckon.items()
+                     if k != "total"))
+    if reckon["total"] + held > torch.cuda.mem_get_info(dev)[1]:
+        fail(f"{tag} the reckoned peak does not fit on the card")
+    counted = (flash_attention, flash_attention_fwd_lse, flash_attention_dq,
+               flash_attention_dkv)
+    for fn in counted:
+        fn.launches = 0
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        tr.run(1)                    # waits for the step's metrics
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) - held
+    launches = {fn.__name__: fn.launches for fn in counted}
+    routes = {fn.__name__: dict(fn.route_launches) for fn in counted}
+    losses = [m["loss"] for m in tr.metrics_log]
+    gnorms = [m["grad_norm"] for m in tr.metrics_log]
+    med = float(np.median(step_s[1:]))
+    swa = sum(blocks.split_kind(k)[0] in blocks.ATTN_KINDS
+              for k in (cfg.block_pattern * layers)[:layers])
+    per_step = {"flash_attention": 0,
+                "flash_attention_fwd_lse": 2 * swa * TRAIN_MICRO,
+                "flash_attention_dq": swa * TRAIN_MICRO,
+                "flash_attention_dkv": swa * TRAIN_MICRO}
+    say(f"{tag} losses {[round(x, 4) for x in losses]}; grad norms "
+        f"{[round(x, 4) for x in gnorms]}; ln {cfg.vocab_size} = "
+        f"{math.log(cfg.vocab_size):.4f}")
+    say(f"{tag} on {card}: step ms {[round(x * 1e3, 1) for x in step_s]}, "
+        f"median of steps 2-{TRAIN_STEPS} {med * 1e3:.1f} ms = "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med:.0f} tokens/s")
+    say(f"{tag} device memory: max_memory_allocated {peak / 1e9:.3f} GB "
+        f"(less {held / 1e9:.3f} GB other phases hold) against the "
+        f"reckoned {reckon['total'] / 1e9:.3f} GB")
+    say(f"{tag} flash launches {launches} against {per_step} per step; by "
+        f"route {routes}")
+    tr.close()
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail("a loss or gradient norm is not finite")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"the first loss {losses[0]} is not within 1 of "
+             f"ln {cfg.vocab_size}")
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    if launches != want:
+        fail(f"flash kernel launches {launches}, expected {want}")
+    for k, r in routes.items():
+        if r != {"tensor_core": 0, "cuda_core": launches[k]}:
+            fail(f"{k} launches by route {r}: the D "
+                 f"{cfg.resolved_head_dim} launches must take the CUDA-core "
+                 "route")
+    return launches
+
+
 def phase_split_slice(dev, card, params, packed_tokens) -> dict:
     """Full yi-6b bf16 (phase 6's weights) through the launcher's own
     functions in the split modes, knobs live: ``prefill_mode="legacy"``
@@ -2699,6 +3246,8 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
                 f"first tokens {first}/{len(tokens)} (information: bf16 "
                 "near-ties may differ; the CPU tests hold token identity)")
         earlier[f"the {mode} run"] = tokens
+        if mode == "legacy":
+            oneshot_vs_packed(card, cfg, params, prompts, CACHE_LEN, tag)
         if n_done != len(prompts):
             fail("not every request finished")
         if eng.accountant.violations:
@@ -2906,16 +3455,30 @@ def rows_cost(eng, card, kind: str, tag: str) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        say(f"[times] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     dev = phase_device()
     card = card_line()
     phase_build()
-    errs = phase_kernels(dev)
-    timing = phase_timing(dev, card)
-    phase_parity(dev, card)
-    phase_parity_rg(dev, card)
-    phase_parity_rwkv6(dev, card)
-    phase_parity_train(dev, card)
-    phase_parity_danube(dev, card)
+    mark("1-2, device and build")
+    # phase 5's host weights, drawn one cut after another on a worker
+    # thread while phases 3 and 4 keep the card busy
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        drawn = {arch: pool.submit(host_weights, cfg)
+                 for arch, cfg in parity_cuts().items()}
+        errs = phase_kernels(dev)
+        mark("3, kernels")
+        timing = phase_timing(dev, card)
+        mark("4, timing")
+        phase_parity_attention(dev, card, drawn)
+        mark("5, parity of the attention archs")
+        phase_parity_rg(dev, card, drawn.pop("recurrentgemma-9b"))
+        mark("5, parity of recurrentgemma-9b")
+        phase_parity_rwkv6(dev, card, drawn.pop("rwkv6-7b"))
+        mark("5, parity of rwkv6-7b")
     launches: dict = {}
 
     def count(got):
@@ -2926,14 +3489,22 @@ def main() -> None:
     got, yi_params, yi_tokens = phase_slice(dev, card)
     count(got)
     torch.cuda.empty_cache()
+    mark("6, yi-6b serving")
     count(phase_rg_slice(dev, card))
     torch.cuda.empty_cache()
+    mark("7, recurrentgemma-9b serving, packed and legacy")
     count(phase_rwkv6_slice(dev, card))
     torch.cuda.empty_cache()
+    mark("8, rwkv6-7b serving, packed and legacy")
     count(phase_train_slice(dev, card, timing)[0])
     torch.cuda.empty_cache()
+    for arch, layers in TRAIN_CUTS:
+        count(phase_train_cut(dev, card, arch, layers))
+        torch.cuda.empty_cache()
+    mark("9, training")
     count(phase_split_slice(dev, card, yi_params, yi_tokens))
     del yi_params
+    mark("10, split modes")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,
@@ -2976,6 +3547,7 @@ def main() -> None:
                 continue     # no PyTorch call computes this function
             if not math.isfinite(r[key]):
                 fail(f"{name} {key} is not finite")
+    mark(f"chip_smoke.py on {card}, the build included,")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {

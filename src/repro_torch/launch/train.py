@@ -6,7 +6,8 @@ Runs the SmartConf-governed :class:`~repro_torch.train.trainer.Trainer`
 checkpoint and stops) on CUDA, or with ``--device cpu`` on the CPU with
 the kernels' plain versions.  Without ``--full-size`` the arch runs at
 its ``reduced()`` size.  The attention archs (yi-6b, h2o-danube-3-4b,
-gemma3-4b, starcoder2-15b) train; the others raise NotImplementedError.
+gemma3-4b, starcoder2-15b) and the recurrent ones (recurrentgemma-9b,
+rwkv6-7b) train; the MoE and modality archs raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -19,10 +19,10 @@ returns them) and return the new activations.  Writes that the reference
 drops (``mode="drop"``) are left out of a write plan the caller computes
 once per step, so the device never selects lanes itself.
 
-Whole sequences (:func:`block_apply_seq`) run on the attention kinds
-only: without a cache in training, writing a dense ring in the one-shot
-prefill.  Padded per-slot prompt chunks (:func:`block_apply_chunk`, the
-bucketed prefill) run on every kind.
+Whole sequences (:func:`block_apply_seq`) run on every kind: without a
+cache in training, writing a dense ring or the recurrent state in the
+one-shot prefill.  Padded per-slot prompt chunks (:func:`block_apply_chunk`,
+the bucketed prefill) run on every kind too.
 """
 
 from __future__ import annotations
@@ -257,25 +257,42 @@ def _ffn(cfg, params, x):
 
 def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None):
     """x: [B,S,d]; positions: [S] absolute (``arange(S)``).  With ``cache``
-    (the one-shot prefill) the computed K/V are written into this layer's
-    dense ring in place (:func:`_write_cache`).  Returns ``(x, aux)`` with
-    ``aux`` the f32 load-balancing loss (0 for a dense FFN).  The attention
-    kinds only: the recurrent kinds' one-shot forms (``time_mix_chunked``,
-    ``rglru_block``) are ROADMAP Queue 1 item 5c, MoE item 7."""
+    (the one-shot prefill) this layer's cache is written in place: the
+    computed K/V into its dense ring (:func:`_write_cache`), or the
+    recurrent state after the last position into its state leaves.
+    Without (training) the recurrent kinds start from zero state.  The
+    recurrent kinds run their one-shot forms (``rglru_block``,
+    ``time_mix_chunked``).  Returns ``(x, aux)`` with ``aux`` the f32
+    load-balancing loss (0 for a dense FFN)."""
     base = _check_ported(kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if base in RECURRENT_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} over a whole sequence (training, one-shot "
-            "prefill): time_mix_chunked / rglru_block are ROADMAP Queue 1 "
-            "item 5c (not ported yet)")
+        lib = rglru_lib if base == "rglru" else rwkv6_lib
+        st = (cache if cache is not None
+              else lib.init_state(cfg, x.shape[0], x.device))
+        h = apply_norm(cfg.norm, params["ln1"], x)
+        if base == "rglru":
+            y, new = rglru_lib.rglru_block(params["rglru"], h, st)
+            x = _ffn(cfg, params, x + y)
+        else:
+            p = params["tm_cm"]
+            y, s_new, tm_last = rwkv6_lib.time_mix_chunked(p, h, st["S"],
+                                                           st["tm_last"])
+            x = x + y
+            h2 = apply_norm(cfg.norm, params["ln2"], x)
+            cm_out, cm_last = rwkv6_lib.channel_mix(p, h2, st["cm_last"])
+            x = x + cm_out
+            new = {"S": s_new, "tm_last": tm_last, "cm_last": cm_last}
+        if cache is not None:
+            _store_state(cache, new)
+        return x, aux
     q, k, v = _attn_qkv(cfg, base, params, x, positions)
     o = layers.attention(q, k, v, q_pos=positions, k_pos=positions,
                          causal=base != "bidir", window=_window(cfg, base))
     x = x + layers.attn_output(params["attn"], o)
     if cache is not None:
         _write_cache(cache, k, v, positions)
-    return _ffn(cfg, params, x), torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+    return _ffn(cfg, params, x), aux
 
 
 def _write_cache(cache: dict, k, v, positions) -> None:

@@ -7,7 +7,10 @@ recurrent unit, paired 2:1 with local attention.
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 Wrapped in the Griffin recipe: linear in, a short causal conv, a gated
-GeLU branch, linear out.  Prefill chunks (and packed streams, scattered to
+GeLU branch, linear out.  Whole sequences (training, the one-shot
+prefill) run :func:`rglru_block`, a log-depth parallel prefix in plain
+torch that autograd differentiates, as the reference's
+``associative_scan``; prefill chunks (and packed streams, scattered to
 per-slot rows) advance the recurrence through
 ``kernels.rglru.rglru_state_op``, carrying ``h`` and the conv window across
 chunk boundaries; decode is the one-token step.  Rounding follows the
@@ -78,6 +81,44 @@ def _gate_out(params, x, h):
     """The gated GeLU branch times the recurrence, then ``w_out``."""
     gate = F.gelu((x @ params["w_gate_branch"]).float(), approximate="tanh")
     return (h.float() * gate).to(x.dtype) @ params["w_out"]
+
+
+def _doubling_scan(log_a, b):
+    """Inclusive scan of ``h_t = exp(log_a_t) h_{t-1} + b_t`` along dim 1
+    ([B, T, F] f32, element 0 the seed), by doubling: at k = 1, 2, 4, ...
+    element t takes in element t - k under the reference's combine
+    ``(a1 + a2, exp(a2) b1 + b2)``.  Every partial sum of ``log_a`` is
+    <= 0, so ``exp`` never overflows; each level is out of place, so
+    autograd differentiates it.  Returns the scanned ``b`` (= h)."""
+    t, k = log_a.shape[1], 1
+    while k < t:
+        b = torch.cat([b[:, :k], torch.exp(log_a[:, k:]) * b[:, :-k]
+                       + b[:, k:]], dim=1)
+        if 2 * k < t:           # the last level needs no more log_a
+            log_a = torch.cat([log_a[:, :k], log_a[:, :-k] + log_a[:, k:]],
+                              dim=1)
+        k *= 2
+    return b
+
+
+def rglru_block(params, x, state):
+    """The one-shot form over a whole sequence (training, the one-shot
+    prefill).  x: [B,S,d]; state {h: [B,dr] f32, conv: [B,W-1,dr]}
+    carried in.  The recurrence is seeded with ``(0, h)`` at t = -1, as
+    the reference seeds its ``associative_scan``; the doubling scan
+    combines in another tree, so results agree with it to f32 rounding.
+    Returns (y [B,S,d], {h: h at the last step (f32), conv: the last W-1
+    entries of [conv ++ u] in u's dtype}); the caller's state is not
+    modified."""
+    s = x.shape[1]
+    u = x @ params["w_in"]
+    ext = torch.cat([state["conv"].to(u.dtype), u], dim=1)
+    log_a, inp = _gates(params, _conv_taps(ext, params["conv_w"], s))
+    h = _doubling_scan(
+        torch.cat([torch.zeros_like(log_a[:, :1]), log_a], dim=1),
+        torch.cat([state["h"].float()[:, None, :], inp], dim=1))[:, 1:]
+    new_state = {"h": h[:, -1], "conv": ext[:, -(CONV_WIDTH - 1):]}
+    return _gate_out(params, x, h), new_state
 
 
 def rglru_chunk(params, x, state, valid):

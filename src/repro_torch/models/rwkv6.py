@@ -7,10 +7,13 @@ State per head: S in R^{N x N} (N = head dim, 64).  Per-token recurrence:
     y_t[j]    = sum_i r_t[i] * (S_{t-1}[i, j] + u[i] * k_t[i] * v_t[j])
 
 with w_t = exp(-exp(w0 + lora_w(x_t))) the Finch data-dependent decay.
-Heads are ``d // 64``, whatever ``cfg.num_heads`` says.  Prefill chunks
-(and packed streams, scattered to per-slot rows) advance the recurrence
-through ``kernels.rwkv6.rwkv6_state_op``, carrying ``S`` and both token
-shifts across chunk boundaries; decode is the one-token step in plain
+Heads are ``d // 64``, whatever ``cfg.num_heads`` says.  Whole sequences
+(training, the one-shot prefill) run :func:`time_mix_chunked`, the
+reference's chunked closed form in plain torch that autograd
+differentiates.  Prefill chunks (and packed streams, scattered to
+per-slot rows) advance the recurrence through
+``kernels.rwkv6.rwkv6_state_op``, carrying ``S`` and both token shifts
+across chunk boundaries; decode is the one-token step in plain
 torch, as in the reference.  Rounding follows the reference: projections
 in the model's dtype, the decay, the recurrence and the group norm in f32,
 the gate's SiLU in the model's dtype.
@@ -24,6 +27,7 @@ from .layers import dense_init, torch_dtype
 
 HEAD_DIM = 64
 LORA_DIM = 64
+CHUNK = 32  # the closed form's decay kernel D is O(B * L^2 * d)
 
 
 def rwkv6_init(cfg, dtype, device, generator, lead: tuple[int, ...] = ()):
@@ -112,6 +116,67 @@ def _out(params, y, g, dtype):
     dtype, as ``jax.nn.silu`` does), then ``wo``."""
     y = _groupnorm(y, params["ln_scale"])
     return (y * (g * torch.sigmoid(g))).to(dtype) @ params["wo"]
+
+
+def chunk_lengths(s: int) -> list[int]:
+    """How :func:`time_mix_chunked` cuts a sequence of ``s`` steps: ``n =
+    max(1, s // CHUNK)`` chunks of ``s // n`` steps (the reference's own
+    split, wherever its ``L * n_chunks == s`` holds), then one last chunk
+    of the remainder, where the reference rejects the length (97 ->
+    32, 32, 32, 1)."""
+    n = max(1, s // CHUNK)
+    size, rest = divmod(s, n)
+    return [size] * n + ([rest] if rest else [])
+
+
+def _chunk_closed_form(state, r, k, v, logw, u):
+    """One chunk of the reference's closed form, term for term.  r, k, v,
+    logw: [B,L,H,N] f32; state: S [B,H,N,N] f32 before the chunk; u:
+    [H,N].  Returns (S after the chunk, y [B,L,H,N])."""
+    length = logw.shape[1]
+    cum = torch.cumsum(logw, dim=1)                          # inclusive
+    ecum = cum - logw                                        # exclusive
+    # D[t,s,i] = prod_{s<u<t} w_u = exp(ecum_t - cum_s), strictly s < t;
+    # the exponent is masked before exp (exp(-inf) = 0, the reference's
+    # where), so no overflow above the diagonal reaches the gradient
+    strict = torch.ones(length, length, dtype=torch.bool,
+                        device=logw.device).tril(-1)[None, :, :, None, None]
+    decay = torch.exp(torch.where(strict, ecum[:, :, None] - cum[:, None],
+                                  float("-inf")))            # [B,L,L,H,N]
+    # the reference's einsums blhi,blshi,bshi,bshj->blhj and
+    # blhi,hi,blhi,blhj->blhj, with the sums over i taken first: products
+    # a GPU batches well, where a four-operand einsum lowers to many tiny
+    # batched products
+    att = (r[:, :, None] * decay * k[:, None]).sum(-1)       # [B,L,L,H]
+    y_intra = torch.einsum("blsh,bshj->blhj", att, v)
+    y_diag = (r * u * k).sum(-1, keepdim=True) * v
+    y_cross = torch.einsum("blhi,bhij->blhj", r * torch.exp(ecum), state)
+    # S' = diag(A_total) S + sum_s (A_total / A_s) k_s v_s^T
+    decay_k = torch.exp(cum[:, -1:] - cum) * k
+    state = (torch.exp(cum[:, -1])[..., None] * state
+             + torch.einsum("blhi,blhj->bhij", decay_k, v))
+    return state, y_intra + y_diag + y_cross
+
+
+def time_mix_chunked(params, x, state, x_last):
+    """The one-shot time mix over a whole sequence (training, the one-shot
+    prefill).  x: [B,S,d] ln1-normalised; state: S [B,H,N,N]; x_last:
+    [B,d], the token before x.  A Python loop over :func:`chunk_lengths`
+    carries S through :func:`_chunk_closed_form` (the reference's
+    ``lax.scan``).  Returns (y [B,S,d], S' [B,H,N,N] f32, x_last' [B,d]);
+    the caller's state is not modified."""
+    h = x.shape[-1] // HEAD_DIM
+    r, k, v, g, logw = _projections(params, x, _shifted(x, x_last))
+    r, k, v, logw = (_heads(t, h).float() for t in (r, k, v, logw))
+    u = params["u"].float()
+    state, ys, t0 = state.float(), [], 0
+    for length in chunk_lengths(x.shape[1]):
+        sl = slice(t0, t0 + length)
+        state, y = _chunk_closed_form(state, r[:, sl], k[:, sl], v[:, sl],
+                                      logw[:, sl], u)
+        ys.append(y)
+        t0 += length
+    return _out(params, torch.cat(ys, dim=1), g, x.dtype), state, x[:, -1]
 
 
 def _last_valid(seq, prev, lengths):

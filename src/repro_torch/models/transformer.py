@@ -379,19 +379,6 @@ def decode_step(cfg, params, caches, token, pos, block_tables=None,
 # ---------------------------------------------------------------------------
 
 
-def _check_trainable(cfg) -> None:
-    """Whole sequences (training, one-shot prefill) cover the attention
-    kinds; the recurrent kinds' one-shot forms (ROADMAP Queue 1 item 5c),
-    MoE (item 7) and the modality frontends (item 12) raise."""
-    _check_supported(cfg)
-    for kind in _all_kinds(cfg):
-        if B.split_kind(kind)[0] in B.RECURRENT_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: the {kind!r} kind over a whole sequence "
-                "(training, one-shot prefill) is ROADMAP Queue 1 item 5c "
-                "(not ported yet)")
-
-
 def _grad_checkpoint(fn, *args):
     """``fn(*args)``, its activations recomputed in the backward pass when a
     gradient is being taken (``torch.utils.checkpoint``, non-reentrant)."""
@@ -447,7 +434,7 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
 def forward(cfg, params, batch, *, remat: str = "none"):
     """batch: ``{"tokens": [B,S] int}`` -> (final-norm hidden states
     [B,S,d], aux)."""
-    _check_trainable(cfg)
+    _check_supported(cfg)
     x, positions = _inputs_embeds(cfg, params, batch)
     x, aux = _run_blocks_seq(cfg, params, x, positions, remat=remat)
     return apply_norm(cfg.norm, params["ln_f"], x), aux
@@ -457,11 +444,11 @@ def forward(cfg, params, batch, *, remat: str = "none"):
 def prefill(cfg, params, batch, *, cache_len: int):
     """One-shot prefill of whole prompts: batch ``{"tokens": [B,S] int}``
     -> (next-token logits [B,V] at the last position, fresh dense caches
-    of ``cache_len`` filled with the prompts' K/V).  Without gradients the
-    attention takes the flash forward kernel without its LSE output.  The
-    attention kinds only (the recurrent one-shot forms are ROADMAP Queue 1
-    item 5c)."""
-    _check_trainable(cfg)
+    of ``cache_len`` filled with the prompts' K/V and the recurrent state
+    after their last position).  Without gradients the attention takes the
+    flash forward kernel without its LSE output; the recurrent kinds run
+    their one-shot forms."""
+    _check_supported(cfg)
     x, positions = _inputs_embeds(cfg, params, batch)
     caches = init_cache(cfg, x.shape[0], cache_len, x.device)
     x, _ = _run_blocks_seq(cfg, params, x, positions, caches=caches)

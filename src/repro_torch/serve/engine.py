@@ -28,8 +28,8 @@ Hot path (one ``tick``): controller updates -> admission -> scheduling
     at most two dispatches a tick.  ``"legacy"`` (alias ``"one_shot"``)
     prefills each admitted request's whole prompt at once (``prefill``)
     into fresh dense caches and merges them into its slot: one dispatch
-    per admission plus the decode step.  Legacy needs dense KV and the
-    attention kinds.
+    per admission plus the decode step.  Legacy needs dense KV; the
+    recurrent kinds prefill through their one-shot forms.
   * **Paged KV** (``kv_mode="auto"`` on attention-only archs) — per-layer
     physical block stores ``[capacity, Kv, T, D]`` addressed through
     per-sequence block tables (``serve/paging.py``).
@@ -53,9 +53,9 @@ only wait is the stream synchronise after a dispatch that samples a
 token, so the latency sensors measure device time, not enqueue time.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item, see ``serve/options.py``): legacy prefill on recurrent archs, the
-modality frontends, the prefix cache, speculation, mesh serving, SLO
-brownout, telemetry, replicas, worker-preemption drain.
+item, see ``serve/options.py``): the modality frontends, the prefix
+cache, speculation, mesh serving, SLO brownout, telemetry, replicas,
+worker-preemption drain.
 """
 
 from __future__ import annotations
@@ -190,13 +190,6 @@ class ServeEngine:
             blocks._check_ported(kind)
         # auto resolves to packed for every arch the port serves
         mode = "packed" if opts.prefill_mode == "auto" else opts.prefill_mode
-        if mode == "legacy" and any(
-                blocks.split_kind(k)[0] in blocks.RECURRENT_KINDS
-                for k in cfg.block_pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: prefill_mode='legacy' needs the one-shot forms "
-                "of its recurrent blocks (time_mix_chunked / rglru_block), "
-                "ROADMAP Queue 1 item 5c (not ported yet)")
         self.prefill_impl = mode
         self.fused_prefill = mode != "legacy"
         if opts.kv_mode == "paged" and not (zoo.supports_paged_kv(cfg)

@@ -201,9 +201,6 @@ def test_typed_rejections(prompt_len, reason):
 
 
 @pytest.mark.parametrize("arch,options,error,match", [
-    # legacy prefill runs the recurrent one-shot forms, not ported yet
-    ("recurrentgemma-9b", {"prefill_mode": "legacy"}, NotImplementedError,
-     "ROADMAP Queue 1 item 5c"),
     # the one-shot prefill has no paged cache: refused, as the reference
     ("yi-6b", {"prefill_mode": "one_shot", "kv_mode": "paged"}, ValueError,
      "paged KV requires"),
@@ -214,7 +211,11 @@ def test_typed_rejections(prompt_len, reason):
     (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP"),
     (None, {"slo": object()}, NotImplementedError, "ROADMAP"),
     (None, {"telemetry": object()}, NotImplementedError, "ROADMAP"),
-    (None, {"replicas": 2}, NotImplementedError, "ROADMAP")])
+    (None, {"replicas": 2}, NotImplementedError, "ROADMAP")],
+    # the ids the cases had before a legacy case left the list
+    ids=["yi-6b-options1-ValueError-paged KV requires",
+         "internvl2-1b-options2-NotImplementedError-ROADMAP Queue 1 item 12"]
+    + [f"None-options{i}-NotImplementedError-ROADMAP" for i in range(3, 9)])
 def test_unported_options_raise(arch, options, error, match):
     """Options the port does not serve raise when built (``arch`` None),
     or when an engine for that arch is built with them."""

@@ -1,13 +1,15 @@
 """The port's split serve path against the JAX package's, on the CPU.
 
 The one-shot ``prefill`` (logits and the filled dense caches, rings that
-wrap included), the padded ``prefill_chunk`` on dense rings and on the
-paged block store (ragged rows, chunks that do not divide the prompts,
-rows going inactive), the step factories, and the engine in
-``prefill_mode="bucketed"`` (dense and paged KV) and ``"legacy"`` (dense):
-greedy tokens identical to the JAX engine in the same mode and to the
-port's own packed engine, with the same dispatch, program and prefill-call
-counts.  ``reduced()`` configs in f32; weights and caches are the JAX
+wrap included; the recurrent archs' state through their one-shot forms),
+the padded ``prefill_chunk`` on dense rings and on the paged block store
+(ragged rows, chunks that do not divide the prompts, rows going
+inactive), the step factories, and the engine in
+``prefill_mode="bucketed"`` (dense and paged KV) and ``"legacy"`` (dense;
+also on recurrentgemma-9b and rwkv6-7b, and with prompts longer than the
+reduced swa window): greedy tokens identical to the JAX engine in the
+same mode and to the port's own packed engine, with the same dispatch,
+program and prefill-call counts.  ``reduced()`` configs in f32; weights and caches are the JAX
 package's, carried across with ``params_from_numpy``.  Logits and caches
 agree to ``atol=1e-4, rtol=1e-5``: the two packages sum in other orders
 (the port's one-shot attention is the flash route's plain version, the
@@ -34,6 +36,7 @@ from repro_torch.serve import Request, ServeEngine
 from repro_torch.train import train_step
 
 ARCHS = ["yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b"]
+RECURRENT_ARCHS = ["recurrentgemma-9b", "rwkv6-7b"]
 ATOL, RTOL = 1e-4, 1e-5
 PROMPT_LENS = (5, 19, 33)
 MAX_NEW = 4
@@ -68,11 +71,12 @@ def _assert_caches(jc, tc):
 
 
 # ------------------------------------------------------- one-shot prefill
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT_ARCHS)
 def test_prefill_matches_jax(arch):
     """Two 40-token prompts into 64-entry caches: the full-attention rings
     fill their front, the windowed ones (32 reduced) keep the last 32
-    positions in ring order."""
+    positions in ring order; recurrent layers hold the state after the
+    last position (rwkv6: one chunk of 40, as the reference cuts it)."""
     jcfg, params, cfg, tp = _weights(arch, seed=1)
     tokens = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 40)).astype(np.int32)
@@ -128,6 +132,36 @@ def test_merge_slot_overwrites_an_earlier_occupant():
         assert torch.equal(a[:, 1], o[:, 0])
         assert torch.equal(a[:, 0], b[:, 0]) and torch.equal(a[:, 2], b[:, 2])
     assert (one["groups"][0]["pos"][:, 0, 9:] == -1).all()
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ARCHS)
+def test_merge_slot_carries_the_recurrent_leaves(arch):
+    """On the recurrent archs a merged slot takes every leaf of the
+    prefill's row: the RG-LRU's h and conv window and the swa ring, or the
+    WKV state S and both token shifts; the other rows keep theirs."""
+    _, _, cfg, tp = _weights(arch)
+    caches = zoo.init_cache(cfg, 3, 48, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    leaves = [(c, n) for c in caches["groups"] + caches.get("rem", [])
+              for n in c]
+    for c, n in leaves:
+        c[n].copy_(torch.randint(0, 40, c[n].shape, generator=gen)
+                   if n == "pos" else torch.randn(c[n].shape, generator=gen))
+    names = {n for _, n in leaves}
+    assert names >= ({"h", "conv"} if arch == "recurrentgemma-9b"
+                     else {"S", "tm_last", "cm_last"})
+    before = [c[n].clone() for c, n in leaves]
+    tokens = torch.randint(0, cfg.vocab_size, (1, 9), generator=gen)
+    _, one = zoo.prefill(cfg, tp, {"tokens": tokens}, cache_len=48)
+    zoo.merge_slot(caches, one, 1)
+    ones = [c[n] for c in one["groups"] + one.get("rem", []) for n in c]
+    for (c, n), b, o in zip(leaves, before, ones):
+        axis = 1 if any(c is g for g in caches["groups"]) else 0
+        assert torch.equal(c[n].select(axis, 1), o.select(axis, 0)), n
+        for row in (0, 2):
+            assert torch.equal(c[n].select(axis, row), b.select(axis, row))
+    assert not any(torch.equal(o, torch.zeros_like(o)) for o in ones
+                   if o.dtype.is_floating_point)
 
 
 # ------------------------------------------------------ padded chunk prefill
@@ -218,13 +252,18 @@ def _both(arch, mode, kv_mode, prompts=None):
     return want, got, packed
 
 
-@pytest.mark.parametrize("mode,kv_mode", [("bucketed", "dense"),
-                                          ("bucketed", "paged"),
-                                          ("legacy", "dense")])
-@pytest.mark.parametrize("arch", ARCHS)
+SPLIT_CASES = [(arch, mode, kv_mode) for arch in ARCHS
+               for mode, kv_mode in (("bucketed", "dense"),
+                                     ("bucketed", "paged"),
+                                     ("legacy", "dense"))]
+SPLIT_CASES += [(arch, "legacy", "dense") for arch in RECURRENT_ARCHS]
+
+
+@pytest.mark.parametrize("arch,mode,kv_mode", SPLIT_CASES,
+                         ids=["-".join(c) for c in SPLIT_CASES])
 def test_split_modes_match_jax_engine(arch, mode, kv_mode):
     """Three requests through two slots (the third reuses a slot whose
-    ring still holds its first occupant's entries): the same tokens,
+    ring or state still holds its first occupant's): the same tokens,
     ticks, dispatches (per tick too), programs, prefill calls and padding
     as the JAX engine, and the same tokens as the port's packed engine."""
     want, got, packed = _both(arch, mode, kv_mode)
@@ -234,6 +273,19 @@ def test_split_modes_match_jax_engine(arch, mode, kv_mode):
     # bucketed: a prefill call and a decode step; legacy: both slots'
     # prefill calls in the first tick, then its decode step
     assert max(got["per_tick"]) == (2 if mode == "bucketed" else 3)
+
+
+def test_legacy_prompts_past_the_window_match_jax_engine():
+    """Legacy recurrentgemma with prompts longer than its reduced 32-entry
+    swa window (the one-shot prefill keeps each ring's last 32 positions
+    in ring order, then decode wraps them further): the JAX legacy
+    engine's tokens, and the port's packed engine's."""
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 512, n).astype(np.int32) for n in (45, 70, 33)]
+    want, got, packed = _both("recurrentgemma-9b", "legacy", "dense",
+                              prompts)
+    assert got == want
+    assert got["tokens"] == packed["tokens"]
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "rwkv6-7b"])

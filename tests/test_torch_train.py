@@ -2,12 +2,15 @@
 
 Reduced configs (f32), the same weights (the JAX ``zoo.init`` tree bridged
 into torch) and the same numpy batches go through both packages:
-``loss_fn`` and every gradient leaf for the four attention archs under
-the reference's default XLA attention route and, for gemma3-4b (GQA,
-sliding-window and global layers), its Pallas route in interpret mode;
+``loss_fn`` and every gradient leaf for the four attention archs and the
+two recurrent ones (recurrentgemma-9b's RG-LRU and rwkv6-7b's time mix
+through their one-shot forms) under the reference's default XLA
+attention route and, for gemma3-4b (GQA, sliding-window and global
+layers), its Pallas route in interpret mode;
 ``adamw.update`` and ``accumulate_grads``; the data stream; the
 checkpoint format in both directions; a trainer restart in both
-directions; preemption; and the kinds that are not ported.
+directions; preemption; remat on an attention and a recurrent arch; and
+the kinds that are not ported.
 
 Tolerances: the loss within ``2e-5`` relative, as the reference holds
 its two attention routes (``tests/test_kernels.py``); each gradient leaf
@@ -34,7 +37,10 @@ from repro_torch.models.bridge import params_from_numpy, tree_leaves, tree_map
 from repro_torch.optim import accum, adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
-ARCHS = ["yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b"]
+ARCHS = ["yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b",
+         "recurrentgemma-9b", "rwkv6-7b"]
+# rwkv6 has d // 64 heads: two at d 128, where plain reduced() gives one
+OVERRIDES = {"rwkv6-7b": {"d_model": 128}}
 LOSS_RTOL = 2e-5
 GRAD_REL = 2e-4
 
@@ -63,8 +69,9 @@ def jx(monkeypatch):
 
 
 def configs_for(jx, arch):
-    return (jx.configs.reduced(jx.configs.get_config(arch)),
-            reduced(get_config(arch)))
+    extra = OVERRIDES.get(arch, {})
+    return (jx.configs.reduced(jx.configs.get_config(arch), **extra),
+            reduced(get_config(arch), **extra))
 
 
 def numpy_batch(vocab, b, s, seed=0):
@@ -118,8 +125,7 @@ def test_loss_and_grads_match_jax(jx, monkeypatch, arch, route):
     assert_tree_close(grads, jax_keyed(jx, jg))
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "recurrentgemma-9b",
-                                  "deepseek-moe-16b", "whisper-tiny",
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "whisper-tiny",
                                   "internvl2-1b"])
 def test_unported_kinds_raise(arch):
     cfg = reduced(get_config(arch))
@@ -129,38 +135,56 @@ def test_unported_kinds_raise(arch):
         zoo.loss_fn(cfg, {}, batch)
 
 
-def test_remat_recomputes_each_group_layer_and_keeps_the_gradients():
-    """remat="dots" runs every group layer's attention again in the
-    backward pass (two forward calls per layer), and the gradients are
-    those without remat."""
+def _remat_check(arch):
+    """remat="dots" runs every group layer's attention, or its RG-LRU
+    one-shot form, again in the backward pass (two forward calls per
+    layer), and the gradients are those without remat."""
     from repro_torch.kernels.flash_attention import vjp
-    cfg = reduced(get_config("yi-6b"))
+    from repro_torch.models import rglru
+    cfg = reduced(get_config(arch))
     params = zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = {k: torch.from_numpy(v)
              for k, v in numpy_batch(cfg.vocab_size, 2, 24).items()}
     calls = []
-    forward = vjp.FlashAttention.forward
+    forward, block = vjp.FlashAttention.forward, rglru.rglru_block
 
     def counting(ctx, *a):
         calls.append(1)
         return forward(ctx, *a)
 
+    def counting_block(*a):
+        calls.append(1)
+        return block(*a)
+
     out = {}
     for remat in ("none", "dots"):
         calls.clear()
         vjp.FlashAttention.forward = staticmethod(counting)
+        rglru.rglru_block = counting_block
         try:
             out[remat] = accum.value_and_grad(
                 lambda p, b: zoo.loss_fn(cfg, p, b, remat=remat), params,
                 batch)
         finally:
             vjp.FlashAttention.forward = staticmethod(forward)
+            rglru.rglru_block = block
         out[remat + "_calls"] = len(calls)
     assert out["none_calls"] == cfg.num_layers
     assert out["dots_calls"] == 2 * cfg.num_layers
     assert float(out["none"][0]) == float(out["dots"][0])
     for a, b in zip(tree_leaves(out["none"][2]), tree_leaves(out["dots"][2])):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_remat_recomputes_each_group_layer_and_keeps_the_gradients():
+    """yi-6b: every layer's attention runs twice under remat."""
+    _remat_check("yi-6b")
+
+
+def test_remat_recomputes_each_recurrent_layer_and_keeps_the_gradients():
+    """recurrentgemma-9b's (rglru, rglru, swa) group: both RG-LRU one-shot
+    forms and the attention run twice under remat."""
+    _remat_check("recurrentgemma-9b")
 
 
 # ---------------------------------------------------------------------------
