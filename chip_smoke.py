@@ -156,7 +156,29 @@ caught:
                 top-2 logit margin, no HBM violation in the ledger, one
                 prompt layer by layer through the one-shot and packed forms
                 as in phase 7; then the same requests on 2 layers in f32,
-                where both modes must give the packed engine's tokens.
+                where both modes must give the packed engine's tokens;
+ 11. slo      — ``benchmarks/bench_slo.py``'s lanes on the port, its
+                constants copied: the admission lane on full yi-6b (phase
+                6's weights; a calm then a storm trace over 6 virtual s,
+                max_batch 4, cache_len 64, 3 tiers, TTFT SLO 0.8 s; slow
+                ticks, a KV budget cut at tick 30 restored at 60, a NaN
+                window at 40, a worker preemption at 20) under the
+                adaptive brownout and three static tier gates; the replica
+                lane (two replicas at 4 of the 32 layers, replica 1 a
+                straggler all storm long, preempted at tick 12, its router
+                sensor NaN at 40) under adaptive and three static weight
+                splits.  Each lane's adaptive goodput must beat every
+                static policy's with no unhandled exception, the NaN
+                windows must engage fallbacks in the written audit.jsonl,
+                every chaos event must have a Decision within 6 ticks, the
+                budget cut must shrink the block store on the card, every
+                paged segment launch must take the tensor cores, and the
+                adaptive admission run's every tick (its stats but the
+                weight-dependent hbm) must equal the same run of the port
+                on the CPU at ``reduced()`` size.  Goodput and throughput
+                are virtual tok/s, the same on any device; the card's own
+                numbers are each run's wall s, ticks, median mixed and
+                decode-only tick ms and in-phase peak memory.
 
 Before the last line it prints a JSON object with every kernel's numbers
 (launches summed over the serving and training phases, each of which sets
@@ -175,8 +197,10 @@ import json
 import math
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,7 +209,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.smartconf import ConfRegistry  # noqa: E402
+from repro_torch.core.telemetry import Telemetry  # noqa: E402
 from repro_torch.data import SyntheticTokens  # noqa: E402
 from repro_torch.kernels import HEAD_DIMS, _build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -216,6 +242,11 @@ from repro_torch.models.layers import apply_norm  # noqa: E402
 from repro_torch.models.bridge import (keyed_leaves,  # noqa: E402
                                        tree_leaves, tree_map)
 from repro_torch.optim import accum, adamw  # noqa: E402
+from repro_torch.serve import (ChaosMonkey, ChaosSpec,  # noqa: E402
+                               OpenLoopDriver, ReplicaRouter, ServeEngine,
+                               ServeOptions, SLOSpec, TickCostModel, TierSpec,
+                               TraceConfig, VirtualClock, as_requests,
+                               concat_traces, synthesize_trace)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # the wrapper modules (their packages export the functions by these names)
@@ -300,6 +331,25 @@ DENSE_SRC = ("src/repro_torch/kernels/decode_attention/csrc/"
              "decode_attention.cu")
 # phase 10: the split serve modes, in the order it runs them
 SPLIT_MODES = ("legacy", "bucketed")
+# phase 11: benchmarks/bench_slo.py's admission and replica lanes, its
+# constants copied (that module imports JAX): a calm poisson half, then a
+# bursty storm half; 3 tiers; the virtual-time tick cost model; the smoke
+# horizon
+SLO_CALM_RPS, SLO_STORM_RPS, SLO_STORM_FACTOR, SLO_STORM_DUTY = \
+    15.0, 60.0, 4.0, 0.5
+SLO_TTFT_S, SLO_WINDOW, SLO_HORIZON_S = 0.8, 24, 6.0
+SLO_MAX_BATCH, SLO_CACHE_LEN = 4, 64
+SLO_SHARES, SLO_DEADLINES = (0.25, 0.35, 0.40), (6.0, 10.0, 14.0)
+SLO_COST = dict(base_s=0.02, prefill_token_s=1e-3, decode_token_s=8e-3)
+SLO_STATIC = {"static_open": 2, "static_mid": 1, "static_tight": 0}
+# a chaos fault at tick T must have a controller Decision by T + 6
+SLO_REACTION_TICKS = 6
+ROUTER_CALM_RPS, ROUTER_STORM_RPS, ROUTER_STALL_PERIOD = 36.0, 50.0, 4
+ROUTER_SPLITS = {"equal": (1.0, 1.0), "favor0": (3.0, 1.0),
+                 "favor1": (1.0, 3.0)}
+# the replica lane at full width on 4 of yi-6b's 32 layers (the admission
+# lane keeps all 32)
+ROUTER_LAYERS = 4
 
 
 def say(*a) -> None:
@@ -379,6 +429,11 @@ def decode_case(gen, *, q_pos, h, kv, d, t, m, holes=0, idle=0):
                 k_store=torch.randn(n_blocks, kv, t, d, generator=gen),
                 v_store=torch.randn(n_blocks, kv, t, d, generator=gen),
                 block_tables=tables, q_pos=qp)
+
+
+# phase 11's mixed tick: slots 0 and 1 decode (one on a block's last key),
+# slots 2 and 3 prefill chunks, dead lanes after
+SLO_SEGS = [(0, 37, 1), (1, 63, 1), (2, 0, 30), (3, 16, 20)]
 
 
 # decode riders of slots 0-6 (on a block's first key, its last, between)
@@ -703,6 +758,10 @@ def phase_kernels(dev) -> dict:
                    h=8, kv=4, d=256, t=8, b=3, m=75, holes=3, window=100),
         "t12": dict(segs=RIDERS7, p=149, h=32, kv=4, d=128, t=12, b=8, m=29,
                     holes=4),
+        # phase 11's mixed tick: 4 slots of 4 blocks (cache_len 64), two
+        # decode riders beside two chunks in a 64-lane stream
+        "slo": dict(segs=SLO_SEGS, p=64, h=H, kv=KV, d=D, t=T,
+                    b=SLO_MAX_BATCH, m=SLO_CACHE_LEN // T, holes=1),
     }
     dec_cases = {
         "main": dict(q_pos=[int(n) + 16 for n in lens], h=H, kv=KV, d=D,
@@ -724,6 +783,9 @@ def phase_kernels(dev) -> dict:
                               window=300),
         "splits-mqa": dict(q_pos=[2000, 700, 33], h=8, kv=1, d=128, t=16,
                            m=128, holes=4, idle=1, window=600),
+        # phase 11's decode-only tick: 3 of its 4 slots running
+        "slo": dict(q_pos=[40, 63, 17], h=H, kv=KV, d=D, t=T,
+                    m=SLO_CACHE_LEN // T, holes=1, idle=1),
     }
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {"paged_segment_attention": 0.0, "paged_decode_attention": 0.0}
@@ -1244,17 +1306,18 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> dict:
+def device_ms(fn, bound_ms: float, iters: int = 20) -> dict:
     """Device time per call by kernel, from torch.profiler over ``iters``
     calls after one warm-up: what a kernel takes on the card, apart from
     the host's enqueue cost, which CUDA events over back-to-back calls of
-    a short kernel also see.  A profile that caught no device event (it
-    happens now and then when profiles follow each other closely) is
-    taken again, up to three times; empty if none caught one."""
+    a short kernel also see.  A profile that caught no device event, or
+    less time than the call's bound ``bound_ms`` (it happens now and then
+    when profiles follow each other closely), is taken again, up to three
+    times; empty (not measured) if none caught the whole call."""
     fn()
     torch.cuda.synchronize()
-    out: dict[str, float] = {}
     for _ in range(3):
+        out: dict[str, float] = {}
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1266,10 +1329,12 @@ def device_ms(fn, iters: int = 20) -> dict:
                 m = re.search(r"(\w+_kernel)", e.name)
                 name = m.group(1) if m else e.name
                 out[name] = (out.get(name, 0.0)
-                             + e.time_range.elapsed_us() / 1e3)
-        if out:
-            break
-    return {k: v / iters for k, v in out.items()}
+                             + e.time_range.elapsed_us() / 1e3 / iters)
+        if out and sum(out.values()) >= bound_ms:
+            return out
+        say(f"[timing] a profile caught {sum(out.values()):.4f} ms a call "
+            f"against a {bound_ms:.4f} ms bound: taken again")
+    return {}
 
 
 def _live_blocks(tables, slot, hi_pos, lo_pos, window):
@@ -1464,7 +1529,7 @@ def phase_timing(dev, card) -> dict:
         f"{H * rows} CTAs")
     out["paged_decode_attention"] = dict(
         ms=time_ms(lambda: paged_decode_attention(**x)),
-        device_ms=device_ms(lambda: paged_decode_attention(**x)),
+        device_ms=device_ms(lambda: paged_decode_attention(**x), bound),
         plain_ms=time_ms(lambda: paged_decode_attention_ref(**x)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qd, k, v, attn_mask=mask[:, None, None, :])),
@@ -1490,7 +1555,10 @@ def phase_timing(dev, card) -> dict:
         say(f"[timing] {name} {r['shapes']} on {card}: kernel "
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        if "device_ms" in r:
+        if "device_ms" in r and not r["device_ms"]:
+            say(f"[timing] {name}: device time not measured (no profile "
+                f"caught the whole call)")
+        elif "device_ms" in r:
             say(f"[timing] {name}: device ms per call by kernel (profiler) "
                 + ", ".join(f"{k} {v:.4f}" for k, v in r["device_ms"].items())
                 + f"; together {sum(r['device_ms'].values()):.4f} against "
@@ -1611,7 +1679,8 @@ def timing_dense(dev, gen) -> tuple[dict, dict]:
         rows.append(dict(
             ms=time_ms(lambda: decode_attention(**x, window=window)),
             device_ms=device_ms(lambda: decode_attention(**x,
-                                                         window=window)),
+                                                         window=window),
+                                bound),
             plain_ms=time_ms(lambda: decode_attention_plain(
                 **x, window=window)),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
@@ -1629,15 +1698,17 @@ def rglru_timed(x, fn, label, card) -> dict:
     nbytes = (3 * b * s * f + 2 * b * f) * 4     # log_a, b in; h out; h0, h_out
     ops = 3 * b * s * f                          # exp, multiply, add
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    bound = max(t_bytes, t_ops) * 1e3
     r = dict(ms=time_ms(lambda: fn(**x)),
-             device_ms=device_ms(lambda: fn(**x), iters=5),
-             bound_ms=max(t_bytes, t_ops) * 1e3,
+             device_ms=device_ms(lambda: fn(**x), bound, iters=5),
+             bound_ms=bound,
              bound_by="bytes" if t_bytes >= t_ops else "operations",
              shapes=f"f32 [{b}, {s}, {f}]")
     dev_ms = sum(r["device_ms"].values())
     by_dev = (f"{dev_ms:.4f} ms device", f"{nbytes / dev_ms / 1e6:.1f} GB/s",
               f"{100 * r['bound_ms'] / dev_ms:.1f}%") if dev_ms else (
-        "device time not measured (the profiler caught no kernel)", "-", "-")
+        "device time not measured (no profile caught the whole call)", "-",
+        "-")
     say(f"[timing] rglru_scan_state {label} {r['shapes']} on {card}: "
         f"{r['ms']:.4f} ms by events, {by_dev[0]}; "
         f"{nbytes / 1e9:.4f} GB at {nbytes / r['ms'] / 1e6:.1f} GB/s by "
@@ -1680,13 +1751,15 @@ def timing_rwkv6(dev) -> dict:
     # sum r u k, 2 N to add it times v to y, N exps
     ops = bh * s * (5 * n * n + 6 * n)
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+    bound = max(t_bytes, t_ops) * 1e3
     r = dict(ms=time_ms(lambda: rwkv6_scan_state(**x)),
-             device_ms=device_ms(lambda: rwkv6_scan_state(**x), iters=5),
+             device_ms=device_ms(lambda: rwkv6_scan_state(**x), bound,
+                                 iters=5),
              plain_ms=time_ms(lambda: rwkv6_ref_state(**x), iters=2,
                               warmup=1),
              library_ms=None,
              library_note="no PyTorch call computes the recurrence",
-             bound_ms=max(t_bytes, t_ops) * 1e3,
+             bound_ms=bound,
              bound_by="bytes" if t_bytes >= t_ops else "operations",
              shapes=f"f32 [{bh}, {s}, {n}] ({nbytes / 1e9:.3f} GB, "
                     f"{ops / 1e9:.1f} GFLOP)")
@@ -3311,6 +3384,387 @@ def phase_split_slice(dev, card, params, packed_tokens) -> dict:
     return launches
 
 
+# ----------------------------------------------- phase 11: SLO serving
+def slo_tiers() -> tuple:
+    return tuple(TierSpec(i, share, deadline_s=dl) for i, (share, dl)
+                 in enumerate(zip(SLO_SHARES, SLO_DEADLINES)))
+
+
+def shift_trace(horizon_s: float, calm_rps: float, storm_rps: float,
+                seeds: tuple[int, int], burst_factor: float,
+                burst_duty: float) -> list:
+    """A calm poisson half, then a sustained bursty storm half: the regime
+    shift no static setting matches on both sides."""
+    half = horizon_s / 2.0
+    shape = dict(prompt_lo=4, prompt_hi=24, prompt_alpha=1.3, new_lo=2,
+                 new_hi=8, new_alpha=1.6, tiers=slo_tiers())
+    calm = TraceConfig(process="poisson", rate_rps=calm_rps,
+                       horizon_s=half, seed=seeds[0], **shape)
+    storm = TraceConfig(process="bursty", rate_rps=storm_rps,
+                        horizon_s=half, t_start=half, seed=seeds[1],
+                        burst_factor=burst_factor, burst_period_s=half / 2.0,
+                        burst_duty=burst_duty, **shape)
+    return concat_traces(synthesize_trace(calm), synthesize_trace(storm))
+
+
+def admission_trace(horizon_s: float = SLO_HORIZON_S) -> list:
+    return shift_trace(horizon_s, SLO_CALM_RPS, SLO_STORM_RPS, (17, 23),
+                       SLO_STORM_FACTOR, SLO_STORM_DUTY)
+
+
+def router_trace(horizon_s: float = SLO_HORIZON_S) -> list:
+    return shift_trace(horizon_s, ROUTER_CALM_RPS, ROUTER_STORM_RPS,
+                       (31, 37), 2.0, 0.5)
+
+
+def admission_chaos() -> ChaosSpec:
+    """Slow ticks, a KV budget cut at tick 30 restored at 60, a NaN window
+    on the latency sensors at 40, one worker preemption at 20."""
+    return ChaosSpec(
+        seed=5, slow_tick_prob=0.04, slow_tick_s=0.15,
+        budget_cut_tick=30, budget_cut_frac=0.6, budget_restore_tick=60,
+        sensor_fault_tick=40, sensor_fault_ticks=10, sensor_fault_mode="nan",
+        preempt_tick=20, preempt_resume_ticks=3)
+
+
+def router_sensor_chaos() -> ChaosSpec:
+    """The router's own NaN window: its sensor for replica 1."""
+    return ChaosSpec(seed=7, sensor_fault_tick=40, sensor_fault_ticks=10,
+                     sensor_fault_mode="nan",
+                     sensor_names=("route.replica1.ttft_p99_s",))
+
+
+def nan_window(spec: ChaosSpec) -> range:
+    return range(spec.sensor_fault_tick,
+                 spec.sensor_fault_tick + spec.sensor_fault_ticks)
+
+
+def timed_ticks(obj, device) -> list:
+    """Wraps ``obj.tick``: each tick's stats and its wall ms, device work
+    complete."""
+    log = []
+    tick = obj.tick
+
+    def timed():
+        t0 = time.perf_counter()
+        st = tick()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        log.append((st, (time.perf_counter() - t0) * 1e3))
+        return st
+
+    obj.tick = timed
+    return log
+
+
+def store_cuts(eng, device) -> list:
+    """Wraps ``eng.set_kv_budget`` (the chaos budget cut and restore):
+    the block store's capacity and bytes, and the device's allocated
+    bytes, before and after each call."""
+    log = []
+    inner = eng.set_kv_budget
+
+    def state():
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(eng.caches))
+        mem = (torch.cuda.memory_allocated(device)
+               if device.type == "cuda" else 0)
+        return eng.pool.capacity, nbytes, mem
+
+    def cut(blocks):
+        before = state()
+        inner(blocks)
+        log.append((blocks, before, state()))
+
+    eng.set_kv_budget = cut
+    return log
+
+
+def drive_lane(target, arrivals, vc, chaos, device) -> dict:
+    """The open-loop driver over ``target`` (an engine or the router) at
+    the lanes' cost model; besides its summary, every tick's stats but
+    ``hbm`` (the one weight-dependent key) and wall ms by kind of tick."""
+    log = timed_ticks(target, device)
+    drv = OpenLoopDriver(target, arrivals, clock=vc,
+                         cost=TickCostModel(**SLO_COST), chaos=chaos,
+                         drain_s=max(SLO_DEADLINES) + 8.0)
+    t0 = time.perf_counter()
+    out = drv.run()
+    out["wall_s"] = time.perf_counter() - t0
+    out["per_tick"] = [{k: v for k, v in st.items() if k != "hbm"}
+                       for st, _ in log]
+    out["tick_ms"] = {"mixed": [], "decode-only": []}
+    for st, ms in log:
+        if st["dispatches"]:
+            out["tick_ms"]["mixed" if st["prefill_issued_tokens"]
+                           else "decode-only"].append(ms)
+    return out
+
+
+def run_admission(cfg, params, device, trace, *, adaptive: bool,
+                  admit_tier_max: int | None = None,
+                  telemetry_dir: str | None = None) -> dict:
+    """``bench_slo._run_policy`` on the port: one engine under the
+    admission lane's trace, chaos schedule and virtual-time cost model."""
+    device = torch.device(device)
+    vc = VirtualClock()
+    tel = Telemetry(enabled=True, clock=vc) if telemetry_dir else None
+    eng = ServeEngine(cfg, params, device=device, options=ServeOptions(
+        max_batch=SLO_MAX_BATCH, cache_len=SLO_CACHE_LEN, block_tokens=16,
+        enable_smartconf=adaptive,
+        slo=SLOSpec(ttft_s=SLO_TTFT_S, window=SLO_WINDOW),
+        num_tiers=len(SLO_SHARES), admit_tier_max=admit_tier_max,
+        telemetry=tel), registry=ConfRegistry(), clock=vc)
+    monkey = ChaosMonkey(admission_chaos()).install(eng)
+    cuts = store_cuts(eng, device)
+    out = drive_lane(eng, as_requests(trace, vocab=cfg.vocab_size, seed=1),
+                     vc, monkey, device)
+    out["chaos_events"] = len(monkey.events)
+    out["chaos_schedule"] = list(monkey.events)
+    out["sensor_faults"] = sum(sc.sensor_faults for sc in eng.controllers())
+    out["store_cuts"] = cuts
+    if tel is not None:
+        out["telemetry_paths"] = tel.write(telemetry_dir)
+    eng.close()
+    return out
+
+
+def run_router(cfg, params, device, trace, *, adaptive: bool,
+               weights=None, telemetry_dir: str | None = None) -> dict:
+    """``bench_slo._run_router_policy`` on the port: two replicas sharing
+    ``params`` behind one router, engine-level SmartConf off (the
+    policies differ only in the router's weights); replica 1 runs one
+    tick in ``ROUTER_STALL_PERIOD`` all storm long, is preempted at tick
+    12, and the router's sensor for it reads NaN for ticks 40-49."""
+    device = torch.device(device)
+    vc = VirtualClock()
+    tel = Telemetry(enabled=True, clock=vc) if telemetry_dir else None
+    slo = SLOSpec(ttft_s=SLO_TTFT_S, window=SLO_WINDOW)
+    engines = [ServeEngine(cfg, params, device=device, options=ServeOptions(
+        max_batch=SLO_MAX_BATCH, cache_len=SLO_CACHE_LEN, block_tokens=16,
+        enable_smartconf=False, prefill_mode="packed", slo=slo,
+        num_tiers=len(SLO_SHARES)), clock=vc) for _ in range(2)]
+    half = SLO_HORIZON_S / 2.0
+
+    def stall(tick):
+        if vc.now >= half and tick % ROUTER_STALL_PERIOD:
+            return 1
+        return None
+
+    rt = ReplicaRouter(engines, clock=vc, slo=slo, adaptive=adaptive,
+                       weights=weights, telemetry=tel, stall=stall)
+    m_eng = ChaosMonkey(ChaosSpec(
+        seed=5, slow_tick_prob=0.03, slow_tick_s=0.1,
+        preempt_tick=12, preempt_resume_ticks=3)).install(engines[1])
+    m_rt = ChaosMonkey(router_sensor_chaos()).install(rt)
+    out = drive_lane(rt, as_requests(trace, vocab=cfg.vocab_size, seed=1),
+                     vc, lambda d, t: m_eng(d, t) + m_rt(d, t), device)
+    out["chaos_events"] = len(m_eng.events) + len(m_rt.events)
+    out["sensor_faults"] = rt.sensor_faults
+    out["final_weights"] = list(rt.weights)
+    out["reroutes"] = rt.reroutes
+    out["stalled_ticks"] = rt.stalled_ticks
+    if tel is not None:
+        out["telemetry_paths"] = tel.write(telemetry_dir)
+    rt.close()
+    return out
+
+
+def read_audit(paths: dict) -> list[dict]:
+    with open(paths["audit"]) as fh:
+        return [json.loads(line) for line in fh]
+
+
+def admission_audit_faults(r: dict) -> list[str]:
+    """``bench_slo._assert_telemetry`` from the written artifacts: every
+    chaos fault followed by a Decision within ``SLO_REACTION_TICKS``, a
+    last-known-good fallback of ``serve.admit_tier_max`` in the NaN
+    window, chaos marks on the trace.  Returns what failed."""
+    audit = read_audit(r["telemetry_paths"])
+    ticks = sorted({d["tick"] for d in audit})
+    bad = [f"chaos event {name} at tick {t} has no Decision within "
+           f"{SLO_REACTION_TICKS} ticks" for t, name in r["chaos_schedule"]
+           if not any(t <= d <= t + SLO_REACTION_TICKS for d in ticks)]
+    window = nan_window(admission_chaos())
+    if not any(d["fallback"] and d["conf"] == "serve.admit_tier_max"
+               and d["tick"] in window for d in audit):
+        bad.append("no fallback Decision of serve.admit_tier_max in the "
+                   "NaN window")
+    with open(r["telemetry_paths"]["trace"]) as fh:
+        events = json.load(fh)["traceEvents"]
+    if not any(e["name"].startswith("chaos:") for e in events):
+        bad.append("trace.json carries no chaos marks")
+    return bad
+
+
+def router_audit_faults(r: dict) -> list[str]:
+    """The replica lane's gates on the written audit trail: weight
+    Decisions, insane readings and a fallback inside the router's NaN
+    window."""
+    wdec = [d for d in read_audit(r["telemetry_paths"])
+            if d["conf"].startswith("route.replica_weights")]
+    if not wdec:
+        return ["no route.replica_weights Decisions in audit.jsonl"]
+    bad = []
+    window = nan_window(router_sensor_chaos())
+    if not any(d["fallback"] and d["tick"] in window for d in wdec):
+        bad.append("the router's NaN window engaged no fallback")
+    if not any(not d["sane"] for d in wdec):
+        bad.append("no insane reading in the router's audit trail")
+    return bad
+
+
+def lane_faults(res: dict, lane: str) -> list[str]:
+    """The bench's gates on one lane's runs: no unhandled exception, the
+    chaos schedule fired, the adaptive run saw sensor faults, adaptive
+    goodput above every static policy's."""
+    bad = []
+    for name, r in res.items():
+        if r["unhandled"]:
+            bad.append(f"{lane} {name}: unhandled {r['unhandled']}")
+        if not r["chaos_events"]:
+            bad.append(f"{lane} {name}: the chaos schedule never fired")
+    ad = res["adaptive"]
+    if not ad["sensor_faults"]:
+        bad.append(f"{lane}: the NaN window never reached a controller")
+    for name, r in res.items():
+        if name != "adaptive" and not ad["goodput_tps"] > r["goodput_tps"]:
+            bad.append(f"{lane}: adaptive goodput {ad['goodput_tps']} tok/s "
+                       f"not above {name}'s {r['goodput_tps']}")
+    return bad
+
+
+def lane_rows(tag: str, res: dict, card: str, weights_gb: float) -> None:
+    for name, r in res.items():
+        ms = {k: (f"{statistics.median(v):.1f} ms (x{len(v)})" if v
+                  else "none") for k, v in r["tick_ms"].items()}
+        say(f"{tag} {name}: goodput {r['goodput_tps']} tok/s, throughput "
+            f"{r['throughput_tps']} tok/s (virtual); finished "
+            f"{r['finished']}, rejected {r['reject_counts']}, preemptions "
+            f"{r['preemptions']}, sensor faults {r['sensor_faults']}, chaos "
+            f"events {r['chaos_events']}; on {card}: {r['wall_s']:.2f} s "
+            f"wall, {r['ticks']} ticks, median mixed tick {ms['mixed']}, "
+            f"decode-only {ms['decode-only']}; in-phase peak "
+            f"{r['peak_gb']:.3f} GB beside {weights_gb:.3f} GB of weights")
+    best = max((n for n in res if n != "adaptive"),
+               key=lambda n: res[n]["goodput_tps"])
+    ad = res["adaptive"]["goodput_tps"]
+    say(f"{tag} adaptive {ad} tok/s against the best static, {best}, "
+        f"{res[best]['goodput_tps']} tok/s: margin "
+        f"{ad / max(res[best]['goodput_tps'], 1e-9)}x")
+
+
+def phase_slo(dev, card, params) -> dict:
+    """``bench_slo``'s admission lane on full yi-6b (phase 6's weights)
+    and its replica lane on 4 of its layers, each adaptive policy beside
+    the static ones, every tick one packed dispatch on the card; the
+    adaptive admission run's trajectory against the same run of the port
+    on the CPU at ``reduced()`` size."""
+    cfg = get_config("yi-6b")
+    counted = (paged_segment_attention, paged_decode_attention)
+    launches = dict.fromkeys((f.__name__ for f in counted), 0)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    held = torch.cuda.memory_allocated(dev) - weights
+    routes = dict.fromkeys(paged_segment_attention.route_launches, 0)
+
+    def run(fn, *a, **kw):
+        # each run sets the counts it reads to 0 before driving its path
+        for f in counted:
+            f.launches = 0
+        paged_segment_attention.route_launches = dict.fromkeys(routes, 0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = fn(*a, **kw)
+        r["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+        for f in counted:
+            launches[f.__name__] += f.launches
+        for k, n in paged_segment_attention.route_launches.items():
+            routes[k] += n
+        return r
+
+    trace = admission_trace()
+    say(f"[slo] {cfg.name} {cfg.dtype}, {cfg.num_layers} layers, phase 6's "
+        f"weights; admission lane: {len(trace)} arrivals over "
+        f"{SLO_HORIZON_S} virtual s, max_batch {SLO_MAX_BATCH}, cache_len "
+        f"{SLO_CACHE_LEN}, TTFT SLO {SLO_TTFT_S} s, window {SLO_WINDOW}")
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"adaptive": run(run_admission, cfg, params, dev, trace,
+                               adaptive=True,
+                               telemetry_dir=f"{tmp}/admission")}
+        for name, tier in SLO_STATIC.items():
+            res[name] = run(run_admission, cfg, params, dev, trace,
+                            adaptive=False, admit_tier_max=tier)
+        bad += lane_faults(res, "admission")
+        bad += admission_audit_faults(res["adaptive"])
+        lane_rows("[slo]", res, card, weights / 1e9)
+        for blocks, (c0, b0, m0), (c1, b1, m1) in \
+                res["adaptive"]["store_cuts"]:
+            say(f"[slo] set_kv_budget({blocks}): store {c0} -> {c1} blocks, "
+                f"{b0 / 1e6:.2f} -> {b1 / 1e6:.2f} MB; memory_allocated "
+                f"{m0 / 1e9:.4f} -> {m1 / 1e9:.4f} GB")
+        cut = res["adaptive"]["store_cuts"][0]
+        if not (cut[2][0] < cut[1][0] and cut[2][1] < cut[1][1]
+                and cut[2][2] < cut[1][2]):
+            bad.append(f"the budget cut did not shrink the block store on "
+                       f"the card: {cut}")
+
+        # the same adaptive run of the port on the CPU at reduced() size:
+        # no controller reading depends on a token's value
+        small = reduced(cfg)
+        cpu = torch.device("cpu")
+        t0 = time.perf_counter()
+        ref = run_admission(small, zoo.init(
+            small, torch.Generator().manual_seed(0), cpu), cpu, trace,
+            adaptive=True)
+        ad = res["adaptive"]
+        same = [k for k in ("per_tick", "goodput_tokens_by_tier",
+                            "reject_counts", "preemptions", "sensor_faults",
+                            "chaos_schedule", "ticks", "finished")
+                if ad[k] == ref[k]]
+        say(f"[slo] the adaptive run against the port's on the CPU at "
+            f"reduced() size ({time.perf_counter() - t0:.1f} s): "
+            f"{ad['ticks']} ticks against {ref['ticks']}; admit_tier_max by "
+            f"tick {runs([st['admit_tier_max'] for st in ad['per_tick']])}; "
+            f"goodput tokens by tier {ad['goodput_tokens_by_tier']} against "
+            f"{ref['goodput_tokens_by_tier']}; equal: {same}")
+        if len(same) != 8:
+            bad.append("the adaptive admission run left the CPU's "
+                       "trajectory")
+
+        rcfg = dataclasses.replace(cfg, num_layers=ROUTER_LAYERS)
+        rparams = dict(params, groups=[tree_map(lambda t: t[:ROUTER_LAYERS],
+                                                g)
+                                       for g in params["groups"]])
+        rtrace = router_trace()
+        say(f"[slo-router] {cfg.name} {cfg.dtype} at full width, {ROUTER_LAYERS} "
+            f"of {cfg.num_layers} layers, two replicas sharing the "
+            f"weights; {len(rtrace)} arrivals")
+        rres = {"adaptive": run(run_router, rcfg, rparams, dev, rtrace,
+                                adaptive=True,
+                                telemetry_dir=f"{tmp}/router")}
+        for name, w in ROUTER_SPLITS.items():
+            rres[f"static_{name}"] = run(run_router, rcfg, rparams, dev,
+                                         rtrace, adaptive=False, weights=w)
+        bad += lane_faults(rres, "router")
+        bad += [f"router {name}: the straggler stall never engaged"
+                for name, r in rres.items() if not r["stalled_ticks"]]
+        bad += router_audit_faults(rres["adaptive"])
+        lane_rows("[slo-router]", rres, card, weights / 1e9)
+        say(f"[slo-router] adaptive final weights "
+            f"{rres['adaptive']['final_weights']}, reroutes "
+            f"{rres['adaptive']['reroutes']}, stalled ticks "
+            f"{rres['adaptive']['stalled_ticks']}")
+    say(f"[slo] kernel launches {launches}; paged segment launches by "
+        f"route {routes}")
+    if not all(launches.values()):
+        bad.append(f"a kernel of the path never launched: {launches}")
+    if routes["tensor_core"] != launches["paged_segment_attention"]:
+        bad.append(f"a paged segment launch left the tensor cores: {routes}")
+    if bad:
+        fail("; ".join(bad))
+    return launches
+
+
 @contextlib.contextmanager
 def first_token_top2(eng):
     """While open, one split-mode engine's prefill step keeps, by request
@@ -3503,8 +3957,11 @@ def main() -> None:
         torch.cuda.empty_cache()
     mark("9, training")
     count(phase_split_slice(dev, card, yi_params, yi_tokens))
-    del yi_params
     mark("10, split modes")
+    count(phase_slo(dev, card, yi_params))
+    del yi_params
+    torch.cuda.empty_cache()
+    mark("11, SLO serving")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,

@@ -7,6 +7,8 @@ Public API:
   * :class:`GoalSpec` — user-facing performance goal (value, hard?).
   * :class:`SmartController` + synthesis helpers — the control law (paper §5).
   * ``sensors`` — performance sensors for the framework's own PerfConfs.
+  * ``telemetry`` — metrics, Chrome-trace spans, the flight recorder and
+    the controllers' decision audit.
 """
 
 from .controller import (
@@ -28,6 +30,14 @@ from .smartconf import (
     parse_sys_file,
 )
 from .profiler import ProfileBuffer, read_sysfile, synthesize, write_sysfile
+from .telemetry import (
+    Decision,
+    DecisionLog,
+    FlightRecorder,
+    MetricsRegistry,
+    Telemetry,
+    Tracer,
+)
 from .sensors import (
     HBMAccountant,
     LatencySensor,
@@ -43,6 +53,8 @@ __all__ = [
     "ConfRegistry", "GLOBAL_REGISTRY", "Guardrails", "SmartConf",
     "SmartConfIndirect", "Transducer", "parse_goals_file", "parse_sys_file",
     "ProfileBuffer", "read_sysfile", "synthesize", "write_sysfile",
+    "Decision", "DecisionLog", "FlightRecorder", "MetricsRegistry",
+    "Telemetry", "Tracer",
     "HBMAccountant", "LatencySensor", "QueueGauge", "StepTimer",
     "ThroughputSensor", "device_live_bytes",
 ]

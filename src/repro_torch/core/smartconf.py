@@ -223,6 +223,11 @@ class SmartConf:
         self.clamped_actuations = 0      # slew-clamped get_conf calls
         self._consec_faults = 0
         self._sensor_failed = False
+        # telemetry audit trail: a core.telemetry.DecisionLog (or None).
+        # set_perf stages the sensor-side facts; the matching get_conf
+        # completes the Decision with the actuation-side facts.
+        self.audit = None
+        self._audit_pending: tuple[float, float | None, bool] | None = None
 
         # Resolve mapping + initial value from SmartConf.sys when on disk.
         if sys_dir is not None:
@@ -317,10 +322,39 @@ class SmartConf:
         because the sensor keeps returning insane readings."""
         return self._sensor_failed
 
+    # ------------------------------------------------------------- telemetry
+    def attach_audit(self, log) -> None:
+        """Attach a ``core.telemetry.DecisionLog``; every subsequent
+        set_perf/get_conf pair appends one :class:`Decision`."""
+        self.audit = log
+
+    def _record_decision(self, raw: float, applied: float, *,
+                         clamped: bool) -> None:
+        log = self.audit
+        if log is None:
+            return
+        from .telemetry import Decision
+        pend = self._audit_pending
+        self._audit_pending = None
+        sensor, deputy, sane = pend if pend is not None \
+            else (float("nan"), None, not self._sensor_failed)
+        c = self._controller
+        lp = c.last_perf
+        log.append(Decision(
+            tick=log.tick, conf=self.conf_name, metric=self.metric,
+            goal=float(self.goal.value), sensor=float(sensor),
+            deputy=None if deputy is None else float(deputy), sane=sane,
+            error=float("nan") if lp is None else float(c.virtual_goal - lp),
+            raw=float(raw), applied=float(applied), clamped=clamped,
+            fallback=self._sensor_failed))
+
     # ------------------------------------------------------------------ API
     def set_perf(self, actual: float) -> None:
         """Feed the latest performance measurement to the controller."""
-        if not self._admit_reading(actual):
+        ok = self._admit_reading(actual)
+        if self.audit is not None:
+            self._audit_pending = (float(actual), None, ok)
+        if not ok:
             return
         if self.profiling:
             self._record_sample(self._controller.conf, actual)
@@ -328,11 +362,13 @@ class SmartConf:
 
     def get_conf(self) -> float:
         """Compute the adjusted configuration value (Eq. 2 machinery)."""
+        clamped_before = self.clamped_actuations
         if self._sensor_failed:
-            value = self._pinned_conf()
+            raw = value = self._pinned_conf()
             self._controller._conf = value
         else:
-            value = self._apply_guards(self._controller.actuate())
+            raw = self._controller.actuate()
+            value = self._apply_guards(raw)
         if self._controller.goal_unreachable:
             warnings.warn(
                 f"SmartConf[{self.conf_name}]: goal {self.goal.value} on "
@@ -340,7 +376,12 @@ class SmartConf:
                 RuntimeWarning,
                 stacklevel=2,
             )
-        return int(value) if self._controller.model.integer else value
+        out = int(value) if self._controller.model.integer else value
+        if self.audit is not None:
+            self._record_decision(
+                float(raw), float(out),
+                clamped=self.clamped_actuations > clamped_before)
+        return out
 
     def set_goal(self, goal: float | GoalSpec) -> None:
         """Runtime goal update by users/administrators (paper §4.3)."""
@@ -464,8 +505,13 @@ class SmartConfIndirect(SmartConf):
             if (self.guardrails is not None and self._consec_faults
                     >= max(1, self.guardrails.fault_tolerance)):
                 self._sensor_failed = True
+            if self.audit is not None:
+                self._audit_pending = (float(actual), float(deputy), False)
             return
-        if not self._admit_reading(actual):
+        ok = self._admit_reading(actual)
+        if self.audit is not None:
+            self._audit_pending = (float(actual), float(deputy), ok)
+        if not ok:
             return
         if self.profiling:
             # Profile against the deputy: it is what actually drives the metric.
@@ -477,6 +523,9 @@ class SmartConfIndirect(SmartConf):
         value = self.transducer.transduce(desired_deputy)
         if self._controller.model.integer:
             value = int(round(value))
+        if self.audit is not None:
+            self._record_decision(float(desired_deputy), float(value),
+                                  clamped=False)
         return value
 
     setPerf = set_perf

@@ -1,5 +1,7 @@
-"""Preemption handling for the trainer: SIGTERM sets a flag, the training
-loop writes a checkpoint and stops.  A copy of ``PreemptionHandler`` from
+"""Preemption handling: SIGTERM sets a flag; the training loop writes a
+checkpoint and stops, the serve engine drains (requeues its in-flight
+requests and refuses new ones until the flag clears).  A copy of
+``PreemptionHandler`` from
 ``src/repro/distributed/fault_tolerance.py``; its heartbeat monitor and
 straggler detector wait for ROADMAP Queue 1 item 11."""
 
@@ -12,7 +14,8 @@ __all__ = ["PreemptionHandler"]
 
 
 class PreemptionHandler:
-    """SIGTERM -> set flag; the training loop checkpoints and exits cleanly.
+    """SIGTERM -> set flag; the training loop checkpoints and exits cleanly,
+    the serve engine drains.
     ``install()`` is idempotent; in tests, call :meth:`trigger` directly."""
 
     def __init__(self) -> None:

@@ -1,30 +1,40 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id>``.
 
 Runs the continuous-batching engine with SmartConf-governed admission and
-KV budgets against a synthetic batch of requests, on the CUDA device
-unless ``--device cpu`` is given (reduced config unless ``--full-size``).
+KV budgets against a synthetic batch of requests, or with ``--trace``
+against an open-loop arrival trace on a virtual clock (tier gating, SLO
+accounting, optional fault injection, ``--replicas`` engines behind the
+replica router), on the CUDA device unless ``--device cpu`` is given
+(reduced config unless ``--full-size``).
 """
 
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import reduced
+from repro_torch.core.telemetry import Telemetry
 from repro_torch.models import zoo
 from repro_torch.models.bridge import tree_leaves
 from repro_torch.models.transformer import resolve_device
-from repro_torch.serve import Request, ServeEngine, ServeOptions
+from repro_torch.serve import (ChaosMonkey, ChaosSpec, OpenLoopDriver,
+                               ReplicaRouter, Request, ServeEngine,
+                               ServeOptions, SLOSpec, TraceConfig,
+                               VirtualClock, as_requests, synthesize_trace)
 
 
 def build_engine(cfg, *, max_batch: int, cache_len: int,
                  budget_headroom_bytes: float,
                  latency_goal_s: float | None, device=None,
                  seed: int = 0, prefill_mode: str = "auto",
-                 params: dict | None = None) -> ServeEngine:
+                 params: dict | None = None, slo: SLOSpec | None = None,
+                 telemetry: Telemetry | None = None,
+                 clock=time.monotonic) -> ServeEngine:
     """Random weights from ``seed`` on ``device`` (or ``params``, weights
     already there) and an engine whose HBM goal is the weights plus
     ``budget_headroom_bytes`` — the launcher's setup, shared with the chip
@@ -36,9 +46,13 @@ def build_engine(cfg, *, max_batch: int, cache_len: int,
     weights = sum(t.numel() * t.element_size()
                   for t in tree_leaves(params))
     budget = int(weights + budget_headroom_bytes)
-    return ServeEngine(cfg, params, device=device, options=ServeOptions(
-        max_batch=max_batch, cache_len=cache_len, hbm_budget_bytes=budget,
-        latency_goal_s=latency_goal_s, prefill_mode=prefill_mode))
+    return ServeEngine(cfg, params, device=device, clock=clock,
+                       options=ServeOptions(
+                           max_batch=max_batch, cache_len=cache_len,
+                           hbm_budget_bytes=budget,
+                           latency_goal_s=latency_goal_s,
+                           prefill_mode=prefill_mode, slo=slo,
+                           telemetry=telemetry))
 
 
 def serve_requests(eng: ServeEngine, prompts: list[np.ndarray],
@@ -72,6 +86,83 @@ def summary(eng: ServeEngine, n_requests: int, ticks: int) -> str:
             f"{eng.preemptions} preemptions")
 
 
+def run_trace(cfg, args) -> None:
+    """Open-loop mode: the arrival trace replayed on a virtual clock, with
+    ``--chaos`` faults (with replicas they land on replica 0, and the
+    router must route around them); prints the reference's trace summary
+    line; exits non-zero if a tick raised."""
+    vc = VirtualClock()
+    slo = SLOSpec(ttft_s=args.ttft_slo_s) if args.ttft_slo_s else None
+    # virtual-time timestamps: the artifacts are deterministic
+    tel = Telemetry(enabled=True, clock=vc) if args.telemetry_dir else None
+
+    def engine(params, telemetry):
+        return build_engine(
+            cfg, max_batch=args.max_batch, cache_len=args.cache_len,
+            budget_headroom_bytes=args.budget_headroom_mb * 1e6,
+            latency_goal_s=(None if args.latency_goal_ms is None
+                            else args.latency_goal_ms / 1e3),
+            device=args.device, seed=args.seed,
+            prefill_mode=args.prefill_mode, params=params, slo=slo,
+            telemetry=telemetry, clock=vc)
+
+    first = engine(None, tel)
+    if args.replicas > 1:
+        # the telemetry hub (and its decision audit) goes to the router,
+        # which owns the fleet-level loop, and to replica 0; the replicas
+        # share one params dict
+        engines = [first] + [engine(first.params, None)
+                             for _ in range(args.replicas - 1)]
+        eng = ReplicaRouter(engines, clock=vc, slo=slo,
+                            adaptive=slo is not None, telemetry=tel)
+    else:
+        eng = first
+    trace = synthesize_trace(TraceConfig(
+        process=args.trace, rate_rps=args.rate_rps,
+        horizon_s=args.horizon_s, seed=args.seed))
+    chaos = None
+    if args.chaos:
+        chaos = ChaosMonkey(ChaosSpec(
+            seed=args.seed, slow_tick_prob=0.04, slow_tick_s=0.15,
+            budget_cut_tick=30, budget_cut_frac=0.6, budget_restore_tick=60,
+            sensor_fault_tick=40, sensor_fault_ticks=10,
+            preempt_tick=20, preempt_resume_ticks=3)).install(first)
+    drv = OpenLoopDriver(
+        eng, as_requests(trace, vocab=cfg.vocab_size, seed=args.seed),
+        clock=vc, chaos=chaos)
+    out = drv.run()
+    slo_part = (f"goodput {out['goodput_tps']:.1f} tok/s under SLO "
+                f"(throughput {out['throughput_tps']:.1f}); "
+                if slo else "")
+    print(f"{cfg.name}: open-loop {args.trace} trace, "
+          f"{out['submitted']} arrivals over {args.horizon_s:.0f}s "
+          f"(virtual elapsed {out['elapsed_s']:.1f}s, {out['ticks']} ticks); "
+          f"{out['finished']} finished, {out['rejected']} rejected "
+          f"{dict(out['reject_counts'])}; {slo_part}"
+          f"{out['preemptions']} preemptions, "
+          f"recompute {out['recompute_tokens']} tokens, "
+          f"chaos events {len(chaos.events) if chaos else 0}, "
+          f"unhandled {len(out['unhandled'])}"
+          + (f"; {args.replicas} replicas: weights "
+             f"{[round(w, 2) for w in eng.weights]}, "
+             f"{eng.reroutes} rerouted on replica loss"
+             if args.replicas > 1 else ""))
+    if tel is not None:
+        print_telemetry(tel.write(args.telemetry_dir))
+    eng.close()
+    if out["unhandled"]:
+        # the driver caught what a tick raised (a kernel fault among them)
+        # and stopped: the run failed
+        raise SystemExit(f"unhandled exception in a tick: "
+                         f"{out['unhandled'][0]}")
+
+
+def print_telemetry(paths: dict) -> None:
+    print(f"telemetry: {paths['trace']} (Chrome trace-event JSON, opens in "
+          f"Perfetto), {paths['metrics']}, {paths['audit']}, "
+          f"{paths['flight']}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=list(ARCH_IDS))
@@ -96,22 +187,56 @@ def main() -> None:
                     help="torch device (default: cuda); cpu runs the "
                          "kernels' plain versions")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="with --trace: N engine replicas behind one "
+                         "ReplicaRouter (weighted-least-loaded dispatch; "
+                         "with --ttft-slo-s the route.replica_weights are "
+                         "SmartConf-actuated on each replica's TTFT-p99)")
+    ap.add_argument("--trace", default=None,
+                    choices=["poisson", "bursty", "diurnal"],
+                    help="replay an open-loop arrival trace on a virtual "
+                         "clock instead of the one-shot synthetic batch")
+    ap.add_argument("--rate-rps", type=float, default=10.0,
+                    help="mean arrival rate for --trace (requests/s)")
+    ap.add_argument("--horizon-s", type=float, default=10.0,
+                    help="trace horizon in virtual seconds")
+    ap.add_argument("--ttft-slo-s", type=float, default=None,
+                    help="TTFT p99 SLO: per-request goodput accounting and "
+                         "the serve.admit_tier_max brownout controller")
+    ap.add_argument("--chaos", action="store_true",
+                    help="inject faults during --trace: slow ticks, a "
+                         "mid-run KV budget cut, a NaN sensor window, one "
+                         "worker preemption")
+    ap.add_argument("--telemetry-dir", default=None,
+                    help="enable telemetry and write trace.json, "
+                         "metrics.json, audit.jsonl (controller Decisions) "
+                         "and flight.json into this directory")
     args = ap.parse_args()
 
     cfg = get_config(args.arch)
     if not args.full_size:
         cfg = reduced(cfg)
+    if args.replicas > 1 and args.trace is None:
+        raise SystemExit("--replicas N needs --trace: the ReplicaRouter "
+                         "serves an open-loop arrival stream")
+    if args.trace is not None:
+        run_trace(cfg, args)
+        return
+    tel = Telemetry(enabled=True) if args.telemetry_dir else None
     eng = build_engine(
         cfg, max_batch=args.max_batch, cache_len=args.cache_len,
         budget_headroom_bytes=args.budget_headroom_mb * 1e6,
         latency_goal_s=(None if args.latency_goal_ms is None
                         else args.latency_goal_ms / 1e3),
-        device=args.device, seed=args.seed, prefill_mode=args.prefill_mode)
+        device=args.device, seed=args.seed, prefill_mode=args.prefill_mode,
+        telemetry=tel)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 48)))
                for _ in range(args.requests)]
     stats = serve_requests(eng, prompts, args.max_new_tokens)
     print(summary(eng, args.requests, len(stats)))
+    if tel is not None:
+        print_telemetry(tel.write(args.telemetry_dir))
     eng.close()
 
 

@@ -44,6 +44,20 @@ Hot path (one ``tick``): controller updates -> admission -> scheduling
   * **Deferred host sync** — sampled tokens stay on the device
     (``_gen_buf``); the host reads a sequence back once, when it finishes.
 
+SLO and overload contract (the reference's ``serve/README.md``): with an
+``SLOSpec`` a finished request counts toward goodput only if its own TTFT
+met ``slo.ttft_s`` and it completed inside its deadline
+(``slo_good_tokens``); the ``serve.admit_tier_max`` brownout controller
+(``sc_admit``) holds TTFT-p99, read from admission eligibility
+(``ttft_ctrl``), under that bound by shedding the highest tiers first; a
+browned-out request whose TTFT bound is already blown is rejected
+(``RejectReason.BROWNOUT_SHED``).  A triggered ``PreemptionHandler``
+drains the engine: every in-flight request goes back to the queue, new
+submissions bounce (``RejectReason.DRAINING``) and ticks idle until the
+flag clears.  A ``Telemetry`` hub, when passed, records spans, metrics,
+the flight recorder and every controller Decision; telemetry never
+switches a path.
+
 Where the reference jit-compiles each step with cache donation, the port
 runs eagerly and updates the block stores and token buffers **in place**.
 The host knows which stream lanes are live, so it builds each step's K/V
@@ -54,8 +68,7 @@ token, so the latency sensors measure device time, not enqueue time.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item, see ``serve/options.py``): the modality frontends, the prefix
-cache, speculation, mesh serving, SLO brownout, telemetry, replicas,
-worker-preemption drain.
+cache, speculation, mesh serving.
 """
 
 from __future__ import annotations
@@ -75,22 +88,28 @@ from repro_torch.core import (ControllerModel, GoalSpec, Guardrails,
                               ThroughputSensor)
 from repro_torch.core.sensors import HBMAccountant
 from repro_torch.core.smartconf import ConfRegistry
+from repro_torch.core.telemetry import Telemetry, Tracer
+from repro_torch.distributed.fault_tolerance import PreemptionHandler
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import blocks, zoo
 from repro_torch.models.bridge import tree_leaves
 from repro_torch.models.transformer import resolve_device
 from .kv_cache import QUEUE_TOKEN_BYTES, KVBlockPool
-from .options import ServeOptions
+from .options import ServeOptions, SLOSpec
 from .paging import PagedKVAllocator
 
-__all__ = ["Admission", "Request", "RejectReason", "ServeEngine",
+__all__ = ["Admission", "Request", "RejectReason", "SLOSpec", "ServeEngine",
            "ServeOptions", "TICK_STATS_KEYS"]
 
 _MIN_BUCKET = 16
 
+# rejections in one tick at or past this count dump the flight recorder
+_REJECT_STORM_PER_TICK = 3
+
 # The TickStats schema, key for key and in order the reference's: every
 # dict `tick()` returns has exactly these keys.  Keys of features the port
-# does not serve yet report their idle value (0 / 1).
+# does not serve yet (prefix cache, speculation, mesh) report their idle
+# value (0 / 1).
 TICK_STATS_KEYS: tuple[str, ...] = (
     "tick",
     "queued", "waiting", "running", "finished", "hbm", "tokens",
@@ -113,6 +132,8 @@ class RejectReason(str, enum.Enum):
     PROMPT_TOO_LONG = "prompt_too_long"    # prompt+new tokens exceed cache_len
     KV_FOOTPRINT = "kv_footprint"          # KV need exceeds the block budget
     DEADLINE_EXPIRED = "deadline_expired"  # deadline passed while waiting
+    BROWNOUT_SHED = "brownout_shed"        # browned out past the TTFT SLO
+    DRAINING = "draining"                  # worker preemption in progress
 
     def __str__(self) -> str:              # counters key on the short name
         return self.value
@@ -158,6 +179,7 @@ class Request:
     admit_seq: int = 0          # scheduling order; highest = first preempted
     preempted: int = 0          # times this request was kicked back to queue
     reject_reason: RejectReason | None = None
+    slo_ok: bool | None = None  # set at completion: counted toward goodput?
     lease: object | None = None  # KVLease while scheduled
 
 
@@ -165,10 +187,13 @@ class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: dict, *,
                  options: ServeOptions | None = None,
                  registry: ConfRegistry | None = None,
+                 preemption: PreemptionHandler | None = None,
                  clock: Callable[[], float] = time.monotonic,
+                 telemetry: Telemetry | None = None,
                  device=None, **kwargs) -> None:
         """``device`` defaults to CUDA and must hold ``params``; pass
-        ``device="cpu"`` to serve with the kernels' plain versions."""
+        ``device="cpu"`` to serve with the kernels' plain versions.
+        ``telemetry`` defaults to ``options.telemetry``."""
         if options is None:
             options = ServeOptions(**kwargs)
         elif kwargs:
@@ -207,6 +232,9 @@ class ServeEngine:
         hbm_budget_bytes = opts.hbm_budget_bytes
         block_tokens = opts.block_tokens
         enable_smartconf = opts.enable_smartconf
+        slo = opts.slo
+        if telemetry is None:
+            telemetry = opts.telemetry
 
         self.cfg = cfg
         self.params = params
@@ -299,17 +327,42 @@ class ServeEngine:
 
         # sensors share the injected clock so tests can be deterministic.
         # tick_latency spans the whole tick; decode_latency only the model
-        # span of ticks that advanced a decoding slot, device wait included
+        # span of ticks that advanced a decoding slot, device wait included.
+        # Under an SLO the latency windows shrink to slo.window so the
+        # brownout controller reads the current load regime
+        slo_window = slo.window if slo is not None else 512
         self.tick_latency = LatencySensor(clock=clock)
-        self.decode_latency = LatencySensor(window=512, clock=clock)
-        self.ttft = LatencySensor(window=512, clock=clock)
+        self.decode_latency = LatencySensor(window=slo_window, clock=clock)
+        self.ttft = LatencySensor(window=slo_window, clock=clock)
+        # controller-facing TTFT, measured from admission eligibility (the
+        # tick the request first cleared the tier gate), not from submit():
+        # the brownout gate's own parking delay must never feed back into
+        # the signal that opens and closes the gate.  Client TTFT
+        # (self.ttft) still decides goodput
+        self.ttft_ctrl = LatencySensor(window=slo_window, clock=clock)
         self.throughput = ThroughputSensor(window_seconds=5.0, clock=clock)
+
+        # SLO / multi-tenant overload state: tiered admission with
+        # brownout, per-request deadlines, goodput-under-SLO accounting
+        self.slo = slo
         self.num_tiers = max(1, int(opts.num_tiers))
         self.admit_tier_max = (self.num_tiers - 1
                                if opts.admit_tier_max is None
                                else int(opts.admit_tier_max))
+        self.slo_good_requests = 0
+        self.slo_miss_requests = 0
+        self.slo_good_tokens = 0
+        self.slo_miss_tokens = 0
+        # chaos hook: every sensor reading the controllers consume passes
+        # through the tap (the SmartConf guardrails must absorb it)
         self.sensor_tap = opts.sensor_tap
+        # worker preemption: on trigger the engine drains instead of
+        # crashing (see _drain_for_preemption)
+        self.preemption = preemption if preemption is not None \
+            else PreemptionHandler()
+        self._draining = False
         self._closed = False
+        self.tp_shards = 1         # mesh serving is not ported
 
         # SmartConf PerfConfs
         self.enable_smartconf = enable_smartconf
@@ -318,6 +371,10 @@ class ServeEngine:
         self.sc_queue = None
         self.sc_kv = None
         self.sc_chunk = None
+        self.sc_admit = None
+        # the decode-latency goal: latency_goal_s, else the SLO's decode_s
+        decode_goal = opts.latency_goal_s if opts.latency_goal_s is not None \
+            else (slo.decode_s if slo is not None else None)
         # sensor-sanity guardrails: a dropped-out or corrupted sensor must
         # never reach Eq. 2 — after 3 consecutive insane readings the knob
         # pins to its last-known-good value
@@ -339,12 +396,12 @@ class ServeEngine:
                 model=ControllerModel(alpha=float(max(1, self.pool.block_bytes)),
                                       lam=0.05, delta=1.15, conf_min=1.0,
                                       conf_max=1e9))
-            if opts.latency_goal_s is not None:
+            if decode_goal is not None:
                 # alpha: prefill seconds per token, start 1e-4; the slew
                 # clamp bounds one actuation to a quarter of the knob range
                 self.sc_chunk = SmartConf(
                     "serve.prefill_chunk_tokens", metric="decode_p99_s",
-                    goal=GoalSpec(opts.latency_goal_s, hard=False),
+                    goal=GoalSpec(decode_goal, hard=False),
                     initial=float(cache_len), registry=self.registry,
                     guardrails=dataclasses.replace(
                         lat_rails, max_step=max(float(block_tokens),
@@ -352,7 +409,41 @@ class ServeEngine:
                     model=ControllerModel(alpha=1e-4, lam=0.1, delta=1.3,
                                           conf_min=float(block_tokens),
                                           conf_max=float(cache_len)))
+        if enable_smartconf and slo is not None and opts.admit_tier_max is None:
+            # brownout controller: admit_tier_max is a direct PerfConf on
+            # TTFT-p99 with a hard goal; overload sheds the lowest tiers
+            # first (conf drops), calm traffic re-opens them.  alpha: one
+            # more tier is modelled to add half the SLO bound to p99
+            self.sc_admit = SmartConf(
+                "serve.admit_tier_max", metric="ttft_p99_s",
+                goal=GoalSpec(float(slo.ttft_s), hard=True),
+                initial=float(self.num_tiers - 1), registry=self.registry,
+                guardrails=dataclasses.replace(lat_rails),
+                model=ControllerModel(alpha=0.5 * float(slo.ttft_s),
+                                      lam=0.1, delta=1.3, conf_min=0.0,
+                                      conf_max=float(self.num_tiers - 1)))
+
+        # telemetry: off unless a hub is passed, and then the hot path pays
+        # one `is not None` test per instrumentation point
         self.ticks_run = 0
+        self._tel = telemetry if (telemetry is not None
+                                  and telemetry.enabled) else None
+        self._tick_readings: dict[str, tuple[float, float]] = {}
+        if self._tel is not None:
+            # pre-create the hot-path instruments
+            m = self._tel.metrics
+            self._tel_h_tick = m.histogram("serve.tick_latency_s")
+            self._tel_h_decode = m.histogram("serve.decode_latency_s")
+            self._tel_h_ttft = m.histogram("serve.ttft_s")
+            self._tel_c_ticks = m.counter("serve.ticks")
+            self._tel_c_tokens = m.counter("serve.tokens")
+            for reason in RejectReason:
+                m.counter(f"serve.reject.{reason}")
+            self._tick_rejects0 = 0
+            self._tel_faults_seen = 0
+            self._tel_fallback_seen: set[str] = set()
+            for sc in self.controllers():
+                sc.attach_audit(self._tel.audit)
 
     # ------------------------------------------------------------------ API
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -372,15 +463,23 @@ class ServeEngine:
         self.rejected += 1
         self.reject_counts[str(reason)] += 1
         self.shed.append(req)
+        if self._tel is not None:
+            self._tel.metrics.counter(f"serve.reject.{reason}").inc()
+            self._tel.tracer.async_end(
+                "request", req.req_id, args={"rejected": str(reason)})
         return reason
 
     def submit(self, req: Request) -> Admission:
         """Validate + enqueue; returns a typed :class:`Admission` receipt.
-        An empty prompt, a prompt that cannot fit the cache, or a footprint
-        no block budget could hold is rejected here, at the door."""
+        A draining engine, an empty prompt, a prompt that cannot fit the
+        cache, or a footprint no block budget could hold is rejected here,
+        at the door."""
         req.prompt_bytes = len(req.prompt) * QUEUE_TOKEN_BYTES
         req.submitted_t = self.clock()
         fp = self._footprint_blocks(req)
+        if self._draining or self.preemption.triggered:
+            return Admission(False, self._reject(req, RejectReason.DRAINING),
+                             footprint_blocks=fp)
         if len(req.prompt) == 0:
             return Admission(False,
                              self._reject(req, RejectReason.EMPTY_PROMPT),
@@ -429,22 +528,55 @@ class ServeEngine:
         self._tick_dispatches = 0
         self._tick_decode = 0
         self._tick_decode_slots = 0
+        tel = self._tel
+        if tel is not None:
+            tel.audit.tick = self.ticks_run
+            tel.tracer.begin_tick(self.ticks_run)
+            self._tick_readings = {}
+            self._tick_rejects0 = self.rejected
+        if self.preemption.triggered:
+            # worker preemption: drain once (requeue every in-flight
+            # request), then idle; the queue survives for a handoff
+            if not self._draining:
+                self._drain_for_preemption()
+            self.tick_latency.record(self.clock() - t0)
+            stats = self._stats(0)
+            self.ticks_run += 1
+            if tel is not None:
+                tel.tracer.phase("drain")
+                self._tel_finish_tick(stats, self.clock() - t0)
+            return stats
+        self._draining = False          # preemption cleared: resume serving
+        if tel is not None:
+            tel.tracer.phase("control")
         self._update_controllers()
         self._shed_expired()
+        if tel is not None:
+            tel.tracer.phase("admit")
         self._admit()
+        if tel is not None:
+            tel.tracer.phase("schedule")
         self._schedule()
         if self.prefill_impl == "packed":
             n_tokens = self._tick_unified()
         else:
+            if tel is not None:
+                tel.tracer.phase("pack")
             if self.prefilling:        # bucketed; legacy prefilled at once
                 self._prefill_tick_bucketed()
+            if tel is not None:
+                tel.tracer.phase("dispatch")
             n_tokens = self._decode_tick()
+        if tel is not None:
+            tel.tracer.phase("finish")
         self._finish()
         if self._window_evict:
             self._trim_windows()
         self.tick_latency.record(self.clock() - t0)
         stats = self._stats(n_tokens)
         self.ticks_run += 1
+        if tel is not None:
+            self._tel_finish_tick(stats, self.clock() - t0)
         return stats
 
     def _stats(self, n_tokens: int) -> dict:
@@ -472,9 +604,9 @@ class ServeEngine:
             "preemptions": self.preemptions,
             "admit_tier_max": self.admit_tier_max,
             "rejected": self.rejected,
-            "draining": False,
-            "slo_good_tokens": 0,
-            "slo_miss_tokens": 0,
+            "draining": self._draining,
+            "slo_good_tokens": self.slo_good_tokens,
+            "slo_miss_tokens": self.slo_miss_tokens,
             "prefix_hit_tokens": 0,
             "prefix_cache_blocks": 0,
             "kv_cache_share": 0.0,
@@ -488,37 +620,150 @@ class ServeEngine:
     def run(self, ticks: int) -> list[dict]:
         return [self.tick() for _ in range(ticks)]
 
+    def controllers(self) -> list:
+        """The live SmartConf controllers, in the reference's order."""
+        return [sc for sc in (self.sc_queue, self.sc_kv, self.sc_chunk,
+                              self.sc_admit) if sc is not None]
+
+    # ----------------------------------------------------------- telemetry
+    def _tel_finish_tick(self, stats: dict, wall_dt: float) -> None:
+        """Per-tick telemetry epilogue (only reached when enabled): close
+        the tick span, fold the stats into the metrics, snapshot the
+        sensor readings into the flight-recorder ring, and dump the ring
+        on any guardrail fault, fallback engagement, or rejection storm."""
+        tel = self._tel
+        tick = stats["tick"]
+        tel.tracer.end_tick(args={
+            "tokens": stats["tokens"], "queued": stats["queued"],
+            "running": stats["running"], "rejected": stats["rejected"],
+            "admit_tier_max": stats["admit_tier_max"],
+            "draining": stats["draining"]})
+        self._tel_c_ticks.inc()
+        self._tel_c_tokens.inc(stats["tokens"])
+        if wall_dt > 0.0:
+            # wall span of the tick body; under a VirtualClock this is 0
+            # and the open-loop driver charges the virtual cost through
+            # charge_tick_cost instead
+            self._tel_h_tick.record(wall_dt)
+        m = tel.metrics
+        m.gauge("serve.hbm_bytes").set(float(stats["hbm"]))
+        m.gauge("serve.admit_tier_max").set(float(stats["admit_tier_max"]))
+        m.gauge("serve.kv_used_blocks").set(float(stats["kv_used_blocks"]))
+        m.gauge("serve.queued_tokens").set(float(self.queued_tokens))
+        tel.flight.record(tick, dict(self._tick_readings))
+        faults = 0
+        for sc in self.controllers():
+            faults += sc.sensor_faults
+            if sc.sensor_failed:
+                if sc.conf_name not in self._tel_fallback_seen:
+                    self._tel_fallback_seen.add(sc.conf_name)
+                    tel.flight.dump(f"fallback:{sc.conf_name}", tick)
+            else:
+                self._tel_fallback_seen.discard(sc.conf_name)
+        if faults > self._tel_faults_seen:
+            self._tel_faults_seen = faults
+            tel.flight.dump("guardrail_fault", tick)
+        if self.rejected - self._tick_rejects0 >= _REJECT_STORM_PER_TICK:
+            tel.flight.dump("rejection_storm", tick)
+
+    def note_chaos(self, name: str) -> None:
+        """Chaos-injection stamp (called by ChaosMonkey): an instant on the
+        chaos track, a counter, and a flight-recorder dump."""
+        if self._tel is None:
+            return
+        tel = self._tel
+        tel.tracer.instant(f"chaos:{name}", tid=Tracer.TID_CHAOS,
+                           args={"tick": self.ticks_run})
+        tel.metrics.counter(f"chaos.{name.split(':', 1)[0]}").inc()
+        tel.flight.dump(f"chaos:{name.split(':', 1)[0]}", self.ticks_run)
+
+    def note_arrival(self, req: Request) -> None:
+        """Driver-side arrival stamp: an instant on the driver track plus
+        the open end of the request's async lifetime span (closed at
+        finish or rejection)."""
+        if self._tel is None:
+            return
+        trc = self._tel.tracer
+        trc.instant("arrival", tid=Tracer.TID_DRIVER,
+                    args={"req": req.req_id, "tier": req.tier})
+        trc.async_begin("request", req.req_id,
+                        args={"tier": req.tier,
+                              "prompt_len": int(len(req.prompt)),
+                              "deadline_s": req.deadline_s})
+
+    def charge_tick_cost(self, dt: float, *, decoded: bool = False) -> None:
+        """Virtual-time cost feedback from the open-loop driver: the clock
+        is frozen within a tick, so the driver charges the modelled tick
+        cost into the latency sensors (and telemetry histograms) after the
+        fact."""
+        self.tick_latency.record(dt)
+        if decoded:
+            self.decode_latency.record(dt)
+        if self._tel is not None:
+            self._tel_h_tick.record(dt)
+            if decoded:
+                self._tel_h_decode.record(dt)
+
     # ------------------------------------------------------------ internals
     def _sense(self, name: str, value: float) -> float:
-        """Controller-facing sensor read, routed through the tap."""
+        """Controller-facing sensor read — the one road a reading takes to
+        a controller: through the chaos tap when one is installed, and
+        recorded raw and tapped into the flight recorder's tick snapshot."""
         tap = self.sensor_tap
-        return tap(name, value) if tap is not None else value
+        out = tap(name, value) if tap is not None else value
+        if self._tel is not None:
+            self._tick_readings[name] = (value, out)
+        return out
 
     def _update_controllers(self) -> None:
-        if self.sc_queue is None:
+        if not self.enable_smartconf:
             return
-        hbm = self._sense("hbm_bytes", float(self.hbm_bytes()))
-        self.sc_queue.set_perf(
-            hbm, self._sense("queued_tokens", float(self.queued_tokens)))
-        self.max_queue_tokens = max(0, int(self.sc_queue.get_conf()))
-        self.sc_kv.set_perf(
-            hbm, self._sense("kv_used_blocks", float(self.pool.used_blocks)))
-        self.pool.set_budget(max(1, int(self.sc_kv.get_conf())))
-        if self.paged and self.pool.over_budget:
-            # the budget bit below occupancy: make the cut physical
-            self._enforce_kv_budget()
-        if self.sc_chunk is not None:
-            self.sc_chunk.set_perf(
-                self._sense("decode_p99_s", self.decode_latency.p99()))
-            self.prefill_chunk = max(1, int(self.sc_chunk.get_conf()))
+        if self.sc_queue is not None:
+            hbm = self._sense("hbm_bytes", float(self.hbm_bytes()))
+            self.sc_queue.set_perf(
+                hbm, self._sense("queued_tokens", float(self.queued_tokens)))
+            self.max_queue_tokens = max(0, int(self.sc_queue.get_conf()))
+            self.sc_kv.set_perf(
+                hbm,
+                self._sense("kv_used_blocks", float(self.pool.used_blocks)))
+            self.pool.set_budget(max(1, int(self.sc_kv.get_conf())))
+            if self.paged and self.pool.over_budget:
+                # the budget bit below occupancy: make the cut physical
+                self._enforce_kv_budget()
+            if self.sc_chunk is not None:
+                self.sc_chunk.set_perf(
+                    self._sense("decode_p99_s", self.decode_latency.p99()))
+                self.prefill_chunk = max(1, int(self.sc_chunk.get_conf()))
+        if self.sc_admit is not None:
+            # censored per-tick observation: the head-of-line request's
+            # eventual TTFT is at least its current wait; an empty queue
+            # contributes zero.  Without it the sensor freezes when the
+            # gate closes and the brownout latches shut
+            now = self.clock()
+            if self.queued:
+                head = self.queued[0]
+                epoch = head.queued_t if head.queued_t is not None \
+                    else head.submitted_t
+                self.ttft_ctrl.record(max(0.0, now - epoch))
+            else:
+                self.ttft_ctrl.record(0.0)
+            self.sc_admit.set_perf(
+                self._sense("ttft_p99_s", self.ttft_ctrl.p99()))
+            self.admit_tier_max = int(self.sc_admit.get_conf())
 
     def _stamp_first_token(self, req: Request, now: float) -> None:
         """One TTFT sample per request, at the first compute response
-        (preempted requests keep their original stamp)."""
+        (preempted requests keep their original stamp): the client TTFT
+        (from submit; decides goodput) and the controller-facing one (from
+        admission eligibility; feeds sc_admit)."""
         if req.first_token_t is not None:
             return
         req.first_token_t = now
         self.ttft.record(now - req.submitted_t)
+        epoch = req.queued_t if req.queued_t is not None else req.submitted_t
+        self.ttft_ctrl.record(now - epoch)
+        if self._tel is not None:
+            self._tel_h_ttft.record(now - req.submitted_t)
 
     def _shed_expired(self) -> None:
         """Deadline-expired requests still waiting in line are shed with a
@@ -550,21 +795,41 @@ class ServeEngine:
 
     def _admit(self) -> None:
         """FIFO admission into the token queue under
-        ``serve.max_queue_tokens``, gated by the static ``admit_tier_max``:
-        requests above it wait without blocking eligible tiers behind
-        them."""
+        ``serve.max_queue_tokens``, gated by the brownout tier: requests
+        above ``admit_tier_max`` wait while their TTFT SLO is still
+        winnable, without blocking eligible tiers behind them, and are
+        shed with a typed reason once it is blown."""
+        # the gate applies to the admitted queue too: when it drops, queued
+        # requests above it (not prefilling yet, so no KV to drop) go back
+        # to the front of the waiting line in admission order
+        if any(r.tier > self.admit_tier_max for r in self.queued):
+            keep: collections.deque[Request] = collections.deque()
+            back: list[Request] = []
+            for req in self.queued:
+                if req.tier > self.admit_tier_max:
+                    self.queued_tokens -= len(req.prompt)
+                    self.accountant.credit("queue", req.prompt_bytes)
+                    back.append(req)
+                else:
+                    keep.append(req)
+            self.queued = keep
+            self.waiting.extendleft(reversed(back))
         browned: collections.deque[Request] = collections.deque()
         now = self.clock()
         while self.waiting:
             req = self.waiting.popleft()
             if req.tier > self.admit_tier_max:
-                browned.append(req)
+                if (self.slo is not None
+                        and now - req.submitted_t > self.slo.ttft_s):
+                    self._reject(req, RejectReason.BROWNOUT_SHED)
+                else:
+                    browned.append(req)     # shed lowest tiers first: wait
                 continue
             if self.queued_tokens + len(req.prompt) > self.max_queue_tokens:
                 browned.append(req)         # queue full: FIFO order holds
                 break
             if req.queued_t is None:
-                req.queued_t = now
+                req.queued_t = now          # the ttft_ctrl epoch (once)
             self.queued.append(req)
             self.queued_tokens += len(req.prompt)
             self.accountant.charge("queue", req.prompt_bytes)
@@ -702,6 +967,11 @@ class ServeEngine:
         slot, req = max(cands, key=lambda sr: (sr[1].tier, sr[1].admit_seq))
         self._requeue_slot(slot, req)
         self.preemptions += 1
+        if self._tel is not None:
+            self._tel.tracer.instant(
+                "preempt", args={"req": req.req_id, "tier": req.tier,
+                                 "tick": self.ticks_run})
+            self._tel.metrics.counter("serve.preemptions").inc()
 
     def _requeue_slot(self, slot: int, req: Request) -> None:
         """Undo a slot's in-flight work back to the queue head (state reset
@@ -725,6 +995,50 @@ class ServeEngine:
         self.queued.appendleft(req)
         self.queued_tokens += len(req.prompt)
         self.accountant.charge("queue", req.prompt_bytes)
+
+    # ------------------------------------------------- worker preemption
+    def _drain_for_preemption(self) -> None:
+        """The answer to ``PreemptionHandler.trigger``: every in-flight
+        request is requeued (newest first, so the queue keeps admission
+        order), new submissions bounce with a typed reason, and ticks idle
+        until the signal clears."""
+        in_flight = sorted(
+            list(self.prefilling.items()) + list(self.running.items()),
+            key=lambda sr: sr[1].admit_seq, reverse=True)
+        for slot, req in in_flight:
+            self._requeue_slot(slot, req)
+            self.preemptions += 1
+        self._draining = True
+        if self._tel is not None:
+            self._tel.tracer.instant(
+                "worker_preemption_drain",
+                args={"requeued": len(in_flight), "tick": self.ticks_run})
+            self._tel.metrics.counter("serve.preemptions").inc(
+                len(in_flight))
+
+    def drained_requests(self) -> list[Request]:
+        """Requests parked by a drain (queued + waiting, admission order):
+        what a replacement worker resubmits."""
+        return list(self.queued) + list(self.waiting)
+
+    @property
+    def accepting(self) -> bool:
+        """Whether ``submit`` would pass the drain gate right now: False
+        from the preemption trigger until the first tick after the flag
+        clears.  The replica router dispatches only to accepting
+        engines."""
+        return not (self._draining or self.preemption.triggered)
+
+    def take_drained(self) -> list[Request]:
+        """Hand off every parked request: the returned requests leave this
+        engine's queues and its memory ledger, so a later rejoin of this
+        engine cannot serve them twice."""
+        out = self.drained_requests()
+        self.queued.clear()
+        self.waiting.clear()
+        self.queued_tokens = 0
+        self.accountant.set("queue", 0)
+        return out
 
     # --------------------------------------------------------- model calls
     def _record_prefill_pad(self, issued: int, live: int, segments: int):
@@ -781,7 +1095,11 @@ class ServeEngine:
         decode step instead (still one dispatch).  Returns the number of
         tokens generated this tick."""
         if not self.prefilling:
+            if self._tel is not None:
+                self._tel.tracer.phase("dispatch")
             return self._decode_tick()
+        if self._tel is not None:
+            self._tel.tracer.phase("pack")
         n_dec = len(self.running)
         budget = max(1, min(int(self.prefill_chunk), self.packed_width))
         demand = sum(len(r.prompt) - r.prefilled
@@ -834,6 +1152,8 @@ class ServeEngine:
             cursor += 1
         plan = self._packed_plan(slot_id, posw, start, seg_len)
         t_disp = self.clock()
+        if self._tel is not None:
+            self._tel.tracer.phase("dispatch")
         self._step_unified(self._dev(tokens), self._dev(slot_id),
                            self._dev(posw), self._dev(start),
                            self._dev(seg_len), self._dev(is_dec),
@@ -850,8 +1170,13 @@ class ServeEngine:
             # a sampled token is a completion boundary: wait for the device
             # (no host transfer) so TTFT/decode latency reflect compute
             self._sync()
+        if self._tel is not None:
+            self._tel.tracer.phase("sample")
         if n_dec:
-            self.decode_latency.record(self.clock() - t_disp)
+            dt = self.clock() - t_disp
+            self.decode_latency.record(dt)
+            if self._tel is not None and dt > 0.0:
+                self._tel_h_decode.record(dt)
         now = self.clock()
         for slot, req, n in packed:
             req.prefilled += n
@@ -996,6 +1321,7 @@ class ServeEngine:
                                    self._dev(gidx))
         # the decode-only latency sensor wraps just the dispatch + device
         # wait: the sc_chunk controller sees decode compute, not host work
+        t_disp = self.clock()
         with self.decode_latency.measure():
             logits = zoo.decode_step(self.cfg, self.params, self.caches,
                                      self._slot_tok, pos_d,
@@ -1005,6 +1331,10 @@ class ServeEngine:
             self._slot_tok = torch.where(active_d, nxt, self._slot_tok)
             self._gen_buf[self._rows, gidx_d] = nxt
             self._sync()
+        if self._tel is not None:
+            dt = self.clock() - t_disp
+            if dt > 0.0:
+                self._tel_h_decode.record(dt)
         self.model_dispatches += 1
         self._tick_dispatches += 1
         self._decode_dispatched = True
@@ -1032,6 +1362,18 @@ class ServeEngine:
             req.generated = [int(t) for t in
                              gen[slot, :min(req.gen_count,
                                             req.max_new_tokens)]]
+            req.slo_ok = self._meets_slo(req)
+            if req.slo_ok:
+                self.slo_good_requests += 1
+                self.slo_good_tokens += len(req.generated)
+            else:
+                self.slo_miss_requests += 1
+                self.slo_miss_tokens += len(req.generated)
+            if self._tel is not None:
+                self._tel.tracer.async_end(
+                    "request", req.req_id,
+                    args={"slo_ok": bool(req.slo_ok),
+                          "tokens": len(req.generated)})
             self.finished.append(req)
             del self.running[slot]
             self._free_slots.append(slot)
@@ -1064,10 +1406,25 @@ class ServeEngine:
         if changed:
             self._bt_dirty = True
 
+    def _meets_slo(self, req: Request) -> bool:
+        """Goodput-under-SLO membership: the request's own TTFT met the SLO
+        bound and it completed inside its deadline."""
+        if (req.deadline_s is not None and req.done_t is not None
+                and req.done_t - req.submitted_t > req.deadline_s):
+            return False
+        if (self.slo is not None and req.first_token_t is not None
+                and req.first_token_t - req.submitted_t > self.slo.ttft_s):
+            return False
+        return True
+
+    @property
+    def goodput_tokens(self) -> int:
+        """Generated tokens of finished requests that met their SLO."""
+        return self.slo_good_tokens
+
     def close(self) -> None:
         if self._closed:
             return
         self._closed = True
-        for sc in (self.sc_queue, self.sc_kv, self.sc_chunk):
-            if sc is not None:
-                sc.close()
+        for sc in self.controllers():
+            sc.close()

@@ -30,8 +30,9 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch.configs import get_config, reduced
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models.bridge import params_from_numpy
+from repro_torch.core.telemetry import Telemetry
 from repro_torch.serve import (TICK_STATS_KEYS, Request, ServeEngine,
-                               ServeOptions)
+                               ServeOptions, SLOSpec)
 from repro_torch.serve.engine import RejectReason
 
 PROMPT_LENS = (5, 19, 33)
@@ -209,13 +210,13 @@ def test_typed_rejections(prompt_len, reason):
     (None, {"prefix_cache": True}, NotImplementedError, "ROADMAP"),
     (None, {"spec_depth": 2}, NotImplementedError, "ROADMAP"),
     (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP"),
-    (None, {"slo": object()}, NotImplementedError, "ROADMAP"),
-    (None, {"telemetry": object()}, NotImplementedError, "ROADMAP"),
-    (None, {"replicas": 2}, NotImplementedError, "ROADMAP")],
+    # one engine is one replica: more go behind the router
+    (None, {"replicas": 2}, ValueError, "ReplicaRouter")],
     # the ids the cases had before a legacy case left the list
     ids=["yi-6b-options1-ValueError-paged KV requires",
          "internvl2-1b-options2-NotImplementedError-ROADMAP Queue 1 item 12"]
-    + [f"None-options{i}-NotImplementedError-ROADMAP" for i in range(3, 9)])
+    + [f"None-options{i}-NotImplementedError-ROADMAP" for i in range(3, 6)]
+    + ["None-replicas-ValueError-ReplicaRouter"])
 def test_unported_options_raise(arch, options, error, match):
     """Options the port does not serve raise when built (``arch`` None),
     or when an engine for that arch is built with them."""
@@ -226,6 +227,106 @@ def test_unported_options_raise(arch, options, error, match):
     _, _, cfg, tp = _weights(arch)
     with pytest.raises(error, match=match):
         ServeEngine(cfg, tp, device="cpu", **options)
+
+
+@pytest.mark.parametrize("options", [
+    {"slo": SLOSpec(ttft_s=1.0)},
+    {"telemetry": Telemetry(enabled=True)}],
+    ids=["slo", "telemetry"])
+def test_slo_options_now_build(options):
+    """The SLO and telemetry options (once refused) build, and an engine
+    with them serves on the CPU."""
+    opts = ServeOptions(max_batch=2, cache_len=64, **options)
+    _, _, cfg, tp = _weights("yi-6b")
+    eng = ServeEngine(cfg, tp, options=opts, device="cpu")
+    stats = _drive(eng, Request, _prompts(cfg, (7, 12)), 3)
+    assert len(eng.finished) == 2 and tuple(stats[-1]) == TICK_STATS_KEYS
+    assert (eng.sc_admit is not None) == ("slo" in options)
+    assert (eng._tel is not None) == ("telemetry" in options)
+    eng.close()
+
+
+def test_slo_stats_match_jax():
+    """A short SLO run with deadlines, a brownout gate and a worker
+    preemption: every tick's ``slo_good_tokens``, ``slo_miss_tokens``,
+    ``draining``, ``admit_tier_max`` and ``rejected`` equal the JAX
+    engine's."""
+    jcfg, jp, cfg, tp = _weights("yi-6b")
+    prompts = _prompts(cfg, (9, 30, 14, 40, 6, 22, 17, 11))
+    keys = ("slo_good_tokens", "slo_miss_tokens", "draining",
+            "admit_tier_max", "rejected", "preemptions", "finished")
+    runs = []
+    for eng_cls, req_cls, cfg_, params in ((JServeEngine, JRequest, jcfg, jp),
+                                           (ServeEngine, Request, cfg, tp)):
+        clock = Clock()
+        kw = {} if eng_cls is JServeEngine else {"device": "cpu"}
+        eng = eng_cls(cfg_, params, max_batch=2, cache_len=64,
+                      slo=SLOSpec(ttft_s=0.05, window=8), num_tiers=3,
+                      clock=clock, **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(req_cls(i, p, 5, tier=i % 3,
+                               deadline_s=0.3 if i % 4 == 3 else None))
+        stats = []
+        for t in range(60):
+            if t == 4:
+                eng.preemption.trigger()
+            elif t == 6:
+                eng.preemption.reset()
+            stats.append(eng.tick())
+            clock.now += 0.01
+        runs.append([{k: st[k] for k in keys} for st in stats])
+        eng.close()
+    assert runs[1] == runs[0]
+    last = runs[1][-1]
+    assert last["slo_good_tokens"] and last["slo_miss_tokens"]
+    assert any(st["draining"] for st in runs[1])
+    assert min(st["admit_tier_max"] for st in runs[1]) < 2 and last["rejected"]
+
+
+def test_launcher_trace_mode_prints_the_summary_line(monkeypatch, tmp_path):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "yi-6b", "--device", "cpu", "--trace", "poisson",
+        "--ttft-slo-s", "1", "--chaos", "--replicas", "2", "--horizon-s",
+        "4", "--telemetry-dir", str(tmp_path)])
+    out = io.StringIO()
+    with redirect_stdout(out), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        launch_serve.main()
+    summary, tel = out.getvalue().strip().splitlines()[-2:]
+    assert summary.startswith("yi-6b-smoke: open-loop poisson trace, ")
+    assert "goodput" in summary and "unhandled 0" in summary
+    assert "2 replicas: weights" in summary
+    assert tel.startswith("telemetry: ")
+    assert (tmp_path / "audit.jsonl").read_text()
+
+
+def test_launcher_trace_mode_fails_on_an_unhandled_tick(monkeypatch):
+    """A tick that raises in trace mode is caught by the driver, and the
+    launcher still prints its summary, then exits non-zero."""
+    real, seen = ServeEngine.tick, []
+
+    def tick(self):
+        seen.append(1)
+        if len(seen) == 5:
+            raise RuntimeError("kernel fault")
+        return real(self)
+    monkeypatch.setattr(ServeEngine, "tick", tick)
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "yi-6b", "--device", "cpu", "--trace", "poisson",
+        "--ttft-slo-s", "1", "--horizon-s", "2"])
+    out = io.StringIO()
+    with redirect_stdout(out), warnings.catch_warnings(), \
+            pytest.raises(SystemExit, match="RuntimeError: kernel fault"):
+        warnings.simplefilter("ignore")
+        launch_serve.main()
+    assert "unhandled 1" in out.getvalue()
+
+
+def test_launcher_replicas_need_a_trace(monkeypatch):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "yi-6b", "--device", "cpu", "--replicas", "2"])
+    with pytest.raises(SystemExit, match="needs --trace"):
+        launch_serve.main()
 
 
 def test_one_shot_is_an_alias_of_legacy():

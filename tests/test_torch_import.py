@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``.
+neither JAX nor anything of the JAX package ``repro`` or of
+``benchmarks`` (whose modules import JAX).
 
 A fresh interpreter imports every module of the port and the smoke script
 and then looks at ``sys.modules``; an AST scan of the sources catches an
@@ -30,7 +31,7 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 print(json.dumps({"modules": names, "loaded": sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "repro"))}))
+    if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))}))
 """
 
 
@@ -42,6 +43,9 @@ def test_importing_the_port_loads_no_jax():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.engine" in got["modules"]
     assert "repro_torch.kernels.segment_attention.ops" in got["modules"]
+    assert {"repro_torch.core.telemetry", "repro_torch.serve.traffic",
+            "repro_torch.serve.chaos",
+            "repro_torch.serve.router"} <= set(got["modules"])
     assert got["loaded"] == []
 
 
@@ -60,5 +64,5 @@ def _imports(path: Path) -> list[str]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax_and_no_reference_package(path):
     bad = [n for n in _imports(path)
-           if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if n.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert bad == []
