@@ -63,6 +63,15 @@ caught:
                 every head dim with G 1, 8 and 16, G 3, 20 and 64 (head
                 chunks), windows ending inside a tile, rings wrapped many
                 times over, rows whose keys all lie ahead (exact zeros);
+                then phase 12's shapes: the paged segment kernel on decode
+                segments of 2-9 lanes over table rows that share blocks
+                and a copied boundary block a prefill starts inside (bf16
+                on the tensor cores, f32 on the CUDA cores), the flat one
+                at D 256, MQA, over 2056-entry rings (wrapped, a rejected
+                draft's stale entries ahead), and both scans at T = 1,
+                nine launches threading the state against one of T = 9
+                (RG-LRU bit for bit; RWKV-6, whose one launch pairs its
+                steps, within the f32 tolerance, its gap printed);
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes
                 (the flash rows also at recurrentgemma-9b's training shape:
@@ -179,6 +188,35 @@ caught:
                 are virtual tok/s, the same on any device; the card's own
                 numbers are each run's wall s, ticks, median mixed and
                 decode-only tick ms and in-phase peak memory.
+ 12. prefix   — the prefix cache and self-speculative decode, phase 6's
+     & spec     weights: (a) full yi-6b, 8 slots, cache_len 2048, HBM
+                goal weights + 2 GB, a 1 s decode-latency goal (three
+                knobs and ``sc_cache`` live): two groups of four requests,
+                each group one 1000-token preamble and each request its
+                own tail, the first of each group run to its first token
+                before the others are submitted; cold (cache off), then
+                warm: 6000 hit tokens and 6 boundary-block copies, no HBM
+                violation, every paged segment launch on the tensor cores,
+                at most one dispatch a tick; prefill tokens, the
+                borrowers' TTFT, tokens/s, tick ms, the
+                ``serve.kv_cache_share`` trajectory, the in-phase peak; the
+                same on a 2-layer f32 cut, where warm tokens must equal
+                cold ones.  (b) markov weights (a 12-token cycle) on full
+                yi-6b, 8 forward-lap prompts, k = 0, static k = 4 and
+                adaptive: tokens equal to k = 0's (and to the map), at most
+                one dispatch a tick, accept rate above 0.9 at k = 4, decode
+                tokens a slot per tick, tick ms, tokens/s and the
+                ``serve.spec_depth`` trajectory; then a 2-layer f32 cut on
+                random weights with an oracle drafter corrupting every
+                third proposal, paged and dense: spec tokens equal k = 0's.
+                (c) the same on a 5-layer f32 cut of recurrentgemma-9b
+                (rings of 2056, one prompt past them) and a 2-layer one of
+                rwkv6-7b, with the scans' launches at T = 1.  (d)
+                ``bench_slo``'s speculation lane on full yi-6b with markov
+                weights, chaos on: adaptive depth against static depths 0,
+                1, 2, 4 and 8, adaptive goodput above every one, the NaN
+                window's fallbacks in the written audit.jsonl, every tick
+                equal to the same run on the CPU at ``reduced()`` size.
 
 Before the last line it prints a JSON object with every kernel's numbers
 (launches summed over the serving and training phases, each of which sets
@@ -243,10 +281,12 @@ from repro_torch.models.bridge import (keyed_leaves,  # noqa: E402
                                        tree_leaves, tree_map)
 from repro_torch.optim import accum, adamw  # noqa: E402
 from repro_torch.serve import (ChaosMonkey, ChaosSpec,  # noqa: E402
-                               OpenLoopDriver, ReplicaRouter, ServeEngine,
-                               ServeOptions, SLOSpec, TickCostModel, TierSpec,
-                               TraceConfig, VirtualClock, as_requests,
-                               concat_traces, synthesize_trace)
+                               OpenLoopDriver, ReplicaRouter, Request,
+                               ServeEngine, ServeOptions, SLOSpec,
+                               TickCostModel, TierSpec, TraceConfig,
+                               VirtualClock, as_requests, concat_traces,
+                               synthesize_trace)
+from repro_torch.serve.speculation import markov_params  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
 
 # the wrapper modules (their packages export the functions by these names)
@@ -350,6 +390,32 @@ ROUTER_SPLITS = {"equal": (1.0, 1.0), "favor0": (3.0, 1.0),
 # the replica lane at full width on 4 of yi-6b's 32 layers (the admission
 # lane keeps all 32)
 ROUTER_LAYERS = 4
+# phase 12a: two groups of four requests, each group one 1000-token
+# preamble (no multiple of the 16-token block: every borrower copies its
+# boundary block), each request its own tail of 32-512 tokens, 32 new
+PREFIX_GROUPS, PREFIX_PER_GROUP, PREFIX_LEN = 2, 4, 1000
+PREFIX_TAIL, PREFIX_NEW = (32, 512), 32
+# phase 12a's decode-latency goal, which makes serve.prefill_chunk_tokens
+# live.  The sensor is a p99 over few samples, so one slow mixed tick
+# (a 2048-token prefill beside the first requests' decodes) pins it: a
+# goal below that tick cuts the borrowers' prefill to 16-token chunks for
+# the rest of the run (at 0.25 s more than 2000 ticks on the card)
+PREFIX_LATENCY_GOAL_S = 1.0
+# phase 12a's HBM goal above the weights.  Phase 6's weights + 1 GB puts
+# SmartConf's virtual goal (0.95 of the hard one) ~0.35 GB over yi-6b's
+# 12.1 GB of weights; the cold run's ~10.3k tokens need ~0.66 GB of KV
+# (64 KB a token), so the KV budget controller cuts the budget below a
+# borrower's footprint once the first requests' store is resident and
+# refuses the borrowers (KV_FOOTPRINT, the reference's policy)
+PREFIX_HEADROOM = 2e9
+# phase 12b: markov weights whose greedy decode is a 12-token cycle
+# (bench_slo.SPEC_CYCLE; token 0 left out), 8 forward-lap prompts
+SPEC_CYCLE, SPEC_PROMPTS, SPEC_NEW, SPEC_K = 12, 8, 64, 4
+# the f32 cuts of phases 12a-c: full width, this many layers
+SPEC_CUT_LAYERS = 2
+# phase 12d: bench_slo's speculation lane, its constants copied
+SPEC_RATE_RPS, SPEC_LANE_S = 28.0, 8e-3
+SPEC_STATIC_DEPTHS = (0, 1, 2, 4, 8)
 
 
 def say(*a) -> None:
@@ -458,13 +524,15 @@ def main_segment_segs():
     return segs
 
 
-def flat_case(gen, *, segs, p, h, kv, d, b, ring, prev=()):
+def flat_case(gen, *, segs, p, h, kv, d, b, ring, prev=(), ahead=()):
     """The dense packed path's keys, tagged as the model tags them: every
     slot's ring flattened to one axis, then the stream's own keys.
     ``segs`` = [(slot, start, length)]; a slot's ring holds its own last
     ``ring`` positions before its start (wrapped), a slot in ``prev``
     holds an earlier occupant's positions instead, which are at or after
-    its start and so stale (masked)."""
+    its start and so stale (masked); a slot in ``ahead`` also holds the
+    8 positions after its start, a rejected draft's entries of an earlier
+    tick (stale, masked)."""
     ring_pos = torch.full((b, ring), -1, dtype=torch.int32)
     start = torch.zeros(b, dtype=torch.int32)
     q_pos = torch.zeros(p, dtype=torch.int32)
@@ -481,6 +549,9 @@ def flat_case(gen, *, segs, p, h, kv, d, b, ring, prev=()):
     for slot in prev:
         occ = torch.arange(ring + 37, dtype=torch.int32)[-ring:]
         ring_pos[slot, occ.long() % ring] = occ
+    for slot in ahead:
+        junk = start[slot] + torch.arange(8, dtype=torch.int32)
+        ring_pos[slot, junk.long() % ring] = junk
     kpos = torch.where(ring_pos < start[:, None], ring_pos, -1)
     k_pos = torch.cat([kpos.reshape(-1), torch.where(q_seg >= 0, q_pos, -1)])
     k_seg = torch.cat([torch.arange(b, dtype=torch.int32)
@@ -836,8 +907,119 @@ def phase_kernels(dev) -> dict:
     errs["decode_attention"] = phase_kernels_dense(dev, gen)
     errs["rglru_scan_state"] = phase_kernels_rglru(dev, gen)
     errs["rwkv6_scan_state"] = phase_kernels_rwkv6(dev)
+    phase_kernels_spec(dev, gen)
     errs.update(phase_kernels_flash(dev))
     return errs
+
+
+# phase 12's paged stream: decode segments of 2-9 lanes (slot 1's ends on
+# a block's last key), slot 2's prefix-hit prefill starting mid-block in
+# its copied boundary block, and slot 0's chunk; slots 0-2 share their
+# first physical blocks (see spec_paged_case)
+SPEC_PAGED_SEGS = [(3, 100, 9), (1, 44, 4), (4, 31, 2), (5, 200, 7),
+                   (2, 40, 50), (6, 15, 3), (7, 70, 6), (0, 60, 5)]
+# phase 12's flat stream at recurrentgemma's shapes: spec segments over
+# rings widened by spec_depth_max (2056), three of them wrapped, one on
+# the ring's edge, beside a prefill chunk over an earlier occupant's ring
+SPEC_RING = RG_WINDOW + 8
+SPEC_FLAT_SEGS = [(0, 3000, 9), (1, 2100, 5), (2, SPEC_RING, 4),
+                  (3, 500, 1), (4, 0, 100), (5, 4000, 6)]
+
+
+def spec_paged_case(gen, *, d, t):
+    """:func:`segment_case` at yi-6b's heads with the tables a prefix
+    cache makes: slots 0 and 1 share their first three physical blocks
+    (an adopted prefix), slot 2 shares their first two and holds a copy
+    of the third (the copy-on-write of a match that ends mid-block: slot
+    2's segment starts at 40, inside it)."""
+    case = segment_case(gen, segs=SPEC_PAGED_SEGS, p=128, h=H, kv=KV, d=d,
+                        t=t, b=SLOTS, m=-(-240 // t))
+    tab = case["block_tables"]
+    tab[1, :3] = tab[0, :3]
+    tab[2, :2] = tab[0, :2]
+    for a in (case["k_store"], case["v_store"]):
+        a[tab[2, 2]] = a[tab[0, 2]]
+    return case
+
+
+def phase_kernels_spec(dev, gen) -> None:
+    """Phase 12's shapes (the prefix cache and speculation): the paged
+    segment kernel on decode segments of 2-9 lanes, shared table rows and
+    a copied boundary block, on both routes (bf16 at D 128 and T 16 on the
+    tensor cores, f32 on the CUDA cores); the flat segment kernel at D
+    256, MQA, over 2056-entry rings, wrapped, with a rejected draft's
+    stale entries ahead of a segment; both scans at T = 1, their state
+    threaded through nine launches against one launch of T = 9."""
+    case = spec_paged_case(gen, d=D, t=T)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = on(dev, case, dtype)
+        route = paged_segment_route(dtype, D, T)
+        before = paged_segment_attention.route_launches[route]
+        got = paged_segment_attention(**x)
+        torch.cuda.synchronize()
+        if paged_segment_attention.route_launches[route] != before + 1:
+            fail(f"the spec paged case did not take the {route} route")
+        want = paged_segment_attention_ref(
+            **on(dev, on(dev, case, dtype), torch.float32))
+        compare(f"paged_segment_attention/spec segments, shared tables, a "
+                f"copied block [{route}]", got, want, dtype,
+                dead=x["q_seg"] < 0)
+    case = flat_case(gen, segs=SPEC_FLAT_SEGS, p=160, h=RG_H, kv=RG_KV,
+                     d=RG_D, b=6, ring=SPEC_RING, prev=(4,), ahead=(0, 5))
+    for dtype in (torch.float32, torch.bfloat16):
+        x = on(dev, case, dtype)
+        got = segment_attention(**x, window=RG_WINDOW)
+        torch.cuda.synchronize()
+        want = segment_attention_ref(
+            **on(dev, on(dev, case, dtype), torch.float32),
+            window=RG_WINDOW)
+        compare(f"segment_attention/spec segments over {SPEC_RING}-entry "
+                f"rings [{segment_route(dtype, RG_D)}]", got, want, dtype,
+                dead=x["q_seg"] < 0)
+    # the scans at T = 1, as a spec row's column calls run them
+    steps = 9
+    x = on(dev, rglru_case(gen, RG_SLOTS, steps, RG_F), torch.float32)
+    h, h_out = rglru_scan_state(**x)
+    hs, st = [], x["h0"]
+    for j in range(steps):
+        hj, st = rglru_scan_state(x["log_a"][:, j:j + 1].contiguous(),
+                                  x["b"][:, j:j + 1].contiguous(), st)
+        hs.append(hj)
+    torch.cuda.synchronize()
+    same = torch.equal(torch.cat(hs, 1), h) and torch.equal(st, h_out)
+    say(f"[kernels] rglru_scan_state/T = 1 x {steps} [{RG_SLOTS}, 1, "
+        f"{RG_F}]: equal to one launch of T = {steps} bit for bit: {same}")
+    if not same:
+        fail("RG-LRU at T = 1 threaded through nine launches differs from "
+             "one launch")
+    compare("rglru_scan_state/T = 1 h_out", st, rglru_ref_state(**x)[1],
+            torch.float32)
+    x = rwkv6_case(torch.Generator(device=dev).manual_seed(12), RWKV_BH,
+                   steps)
+    y, s_out = rwkv6_scan_state(**x)
+    ys, st = [], x["s0"]
+    for j in range(steps):
+        one = {n: (a[:, j:j + 1].contiguous()
+                   if a.dim() == 3 and n != "s0" else a)
+               for n, a in x.items()}
+        yj, st = rwkv6_scan_state(**dict(one, s0=st))
+        ys.append(yj)
+    torch.cuda.synchronize()
+    y1 = torch.cat(ys, 1)
+    gap = max(float((y1 - y).abs().max()), float((st - s_out).abs().max()))
+    say(f"[kernels] rwkv6_scan_state/T = 1 x {steps} [{RWKV_BH}, 1, "
+        f"{RWKV_N}]: bit for bit with one launch of T = {steps}: "
+        f"{torch.equal(y1, y) and torch.equal(st, s_out)}; max gap "
+        f"{gap:.3e} (one launch runs steps in pairs, within a few ulps of "
+        f"the step order)")
+    compare("rwkv6_scan_state/T = 1 x 9 y against T = 9", y1, y,
+            torch.float32)
+    compare("rwkv6_scan_state/T = 1 x 9 s_out against T = 9", st, s_out,
+            torch.float32)
+    want_y, want_s = rwkv6_ref_state(**x)
+    compare("rwkv6_scan_state/T = 1 x 9 y", y1, want_y, torch.float32)
+    compare("rwkv6_scan_state/T = 1 x 9 s_out", st, want_s, torch.float32)
+    torch.cuda.empty_cache()
 
 
 STALE_PAGED = """
@@ -3480,13 +3662,15 @@ def store_cuts(eng, device) -> list:
     return log
 
 
-def drive_lane(target, arrivals, vc, chaos, device) -> dict:
+def drive_lane(target, arrivals, vc, chaos, device,
+               cost: TickCostModel | None = None) -> dict:
     """The open-loop driver over ``target`` (an engine or the router) at
-    the lanes' cost model; besides its summary, every tick's stats but
-    ``hbm`` (the one weight-dependent key) and wall ms by kind of tick."""
+    the lanes' cost model (or ``cost``); besides its summary, every tick's
+    stats but ``hbm`` (the one weight-dependent key) and wall ms by kind
+    of tick."""
     log = timed_ticks(target, device)
     drv = OpenLoopDriver(target, arrivals, clock=vc,
-                         cost=TickCostModel(**SLO_COST), chaos=chaos,
+                         cost=cost or TickCostModel(**SLO_COST), chaos=chaos,
                          drain_s=max(SLO_DEADLINES) + 8.0)
     t0 = time.perf_counter()
     out = drv.run()
@@ -3907,6 +4091,575 @@ def rows_cost(eng, card, kind: str, tag: str) -> None:
         f"tokens as one row; x {layers} layers: {layers * packed:.1f} ms "
         f"against {layers * row:.1f} ms per full-width mixed tick")
 
+# ------------------------------------ phase 12: prefix cache, speculation
+def cycle_map() -> dict:
+    """The token map markov weights decode: 1 -> 2 -> ... -> 12 -> 1."""
+    cyc = np.arange(1, SPEC_CYCLE + 1)
+    return {int(cyc[i]): int(cyc[(i + 1) % SPEC_CYCLE])
+            for i in range(SPEC_CYCLE)}
+
+
+class OracleDrafter:
+    """Replays a reference continuation as the draft, corrupting one
+    token of every ``corrupt_every``-th proposal, so mid-draft rejections
+    come on a fixed schedule (the reference's test drafter): correct
+    drafts are accepted whole, corrupted ones rejected at the corrupted
+    offset."""
+
+    def __init__(self, refs, vocab, corrupt_every=0):
+        self.refs = {r: [int(t) for t in toks] for r, toks in refs.items()}
+        self.vocab = int(vocab)
+        self.corrupt_every = corrupt_every
+        self.calls = 0
+        self._rid = {}
+        self._emitted = {}
+
+    def begin(self, slot, req):
+        self._rid[slot] = req.req_id
+        self._emitted[slot] = 0
+
+    def extend(self, slot, toks):
+        if slot in self._emitted:
+            self._emitted[slot] += int(np.asarray(toks).size)
+
+    def drop(self, slot):
+        self._rid.pop(slot, None)
+        self._emitted.pop(slot, None)
+
+    def propose(self, slot, k):
+        rid = self._rid.get(slot)
+        if rid is None or k <= 0:
+            return np.zeros(0, np.int32)
+        e = self._emitted[slot]
+        d = np.asarray(self.refs.get(rid, [])[e:e + k], np.int32)
+        self.calls += 1
+        if (self.corrupt_every and d.size
+                and self.calls % self.corrupt_every == 0):
+            d = d.copy()
+            j = d.size // 2
+            d[j] = (int(d[j]) + 1) % self.vocab   # not the model's argmax
+        return d
+
+
+def prefix_prompts(vocab: int) -> list[list[np.ndarray]]:
+    """PREFIX_GROUPS groups of PREFIX_PER_GROUP prompts from seed 12: the
+    group's preamble, then each request's own tail."""
+    rng = np.random.default_rng(12)
+    groups = []
+    for _ in range(PREFIX_GROUPS):
+        pre = rng.integers(0, vocab, PREFIX_LEN)
+        groups.append([np.concatenate([pre, rng.integers(
+            0, vocab, int(rng.integers(PREFIX_TAIL[0], PREFIX_TAIL[1] + 1)))])
+            .astype(np.int32) for _ in range(PREFIX_PER_GROUP)])
+    return groups
+
+
+def drive_prefix(eng, groups, new_tokens: int) -> dict:
+    """Each group's first request runs to its first token (its prompt
+    enters the cache when its prefill completes), then the other requests
+    are submitted; ticks until all finish.  Returns the per-tick stats
+    and wall ms, the tokens by request, the borrowers' TTFT and their
+    admission receipts' hits, and the host seconds the scheduling's store
+    growth and copy-on-write took (device work complete)."""
+    log = timed_ticks(eng, eng.device)
+    host = {"_grow_store_for": 0.0, "_apply_cow": 0.0}
+    for name in host:
+        def timed(*a, _fn=getattr(eng, name), _name=name):
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize(eng.device)
+            host[_name] += time.perf_counter() - t0
+            return out
+        setattr(eng, name, timed)
+    per = len(groups[0])
+    firsts = [Request(g * per, grp[0], new_tokens)
+              for g, grp in enumerate(groups)]
+    for r in firsts:
+        eng.submit(r)
+    while (any(r.first_token_t is None for r in firsts)
+           and len(log) < 2000):
+        eng.tick()
+    rest = [Request(g * per + i, grp[i], new_tokens)
+            for g, grp in enumerate(groups) for i in range(1, per)]
+    probes = [eng.submit(r).prefix_hit_tokens for r in rest]
+    total = len(firsts) + len(rest)
+    while len(eng.finished) < total and len(log) < 2000:
+        eng.tick()
+    for name in ("tick", *host):   # the wrappers' cycles would keep it
+        delattr(eng, name)
+    return {"host_s": host,"stats": [st for st, _ in log], "ms": [ms for _, ms in log],
+            "tokens": {r.req_id: list(r.generated) for r in eng.finished},
+            "ttft": [r.first_token_t - r.submitted_t for r in rest
+                     if r.first_token_t is not None],
+            "probes": probes, "finished": len(eng.finished),
+            "total": total}
+
+
+COUNTED = (paged_segment_attention, paged_decode_attention,
+           segment_attention, rglru_scan_state, rwkv6_scan_state)
+
+
+@contextlib.contextmanager
+def counted_launches(total: dict):
+    """Sets every kernel's launch count and the paged segment kernel's
+    route counts to 0, and on exit adds what the block launched to
+    ``total`` (by kernel name, routes under ``"routes"``)."""
+    for f in COUNTED:
+        f.launches = 0
+    routes = paged_segment_attention.route_launches
+    paged_segment_attention.route_launches = dict.fromkeys(routes, 0)
+    try:
+        yield
+    finally:
+        for f in COUNTED:
+            total[f.__name__] = total.get(f.__name__, 0) + f.launches
+        r = total.setdefault("routes", {})
+        for k, n in paged_segment_attention.route_launches.items():
+            r[k] = r.get(k, 0) + n
+
+
+def f32_cut(params, layers: int) -> dict:
+    """A ``layers``-layer cut of a group-stacked bf16 tree, in f32."""
+    return tree_map(lambda t: t.float(),
+                    dict(params, groups=[tree_map(lambda t: t[:layers], g)
+                                         for g in params["groups"]]))
+
+
+def tick_ms(res: dict) -> str:
+    kinds = {"mixed": [], "decode-only": []}
+    for st, ms in zip(res["stats"], res["ms"]):
+        if st["dispatches"]:
+            kinds["mixed" if st["prefill_issued_tokens"]
+                  else "decode-only"].append(ms)
+    return ", ".join(f"{k} {statistics.median(v):.1f} ms (x{len(v)})"
+                     for k, v in kinds.items() if v)
+
+
+def phase_prefix(dev, card, params, launches: dict) -> None:
+    """12a: the prefix cache on full yi-6b, cold (cache off) then warm,
+    three knobs and sc_cache live; then both on a 2-layer f32 cut, where
+    warm tokens must equal cold ones."""
+    cfg = get_config("yi-6b")
+    groups = prefix_prompts(cfg.vocab_size)
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    held = torch.cuda.memory_allocated(dev) - weights
+    say(f"[prefix] {cfg.name} bf16, {cfg.num_layers} layers, phase 6's "
+        f"weights; {PREFIX_GROUPS} groups of {PREFIX_PER_GROUP}: preambles "
+        f"of {PREFIX_LEN} tokens, prompts "
+        f"{[[len(p) for p in g] for g in groups]}, {PREFIX_NEW} new each")
+    res, bad = {}, []
+    for warm in (False, True):
+        tag = "warm" if warm else "cold"
+        eng = build_engine(cfg, max_batch=SLOTS, cache_len=CACHE_LEN,
+                           budget_headroom_bytes=PREFIX_HEADROOM,
+                           latency_goal_s=PREFIX_LATENCY_GOAL_S, device=dev,
+                           params=params, kv_mode="paged",
+                           prefix_cache=warm)
+        torch.cuda.reset_peak_memory_stats(dev)
+        got = {}
+        t0 = time.perf_counter()
+        with counted_launches(got):
+            r = drive_prefix(eng, groups, PREFIX_NEW)
+            torch.cuda.synchronize()
+        r["wall_s"] = time.perf_counter() - t0
+        for k, n in got.items():
+            if k != "routes":
+                launches[k] = launches.get(k, 0) + n
+        r.update(launches=got, hits=eng.prefix_hit_tokens_total,
+                 cow=eng.cow_copied_blocks,
+                 violations=eng.accountant.violations)
+        res[tag] = r
+        gen = sum(len(t) for t in r["tokens"].values())
+        issued = sum(st["prefill_issued_tokens"] for st in r["stats"])
+        live = sum(st["prefill_tokens"] for st in r["stats"])
+        say(f"[prefix] {tag}: " + summary(eng, r["total"], len(r["stats"])))
+        say(f"[prefix] {tag} on {card}: {gen} tokens in {r['wall_s']:.3f} "
+            f"s = {gen / r['wall_s']:.2f} tokens/s; ticks {tick_ms(r)}; "
+            f"prefill tokens {live} of {issued} lanes issued; borrowers' "
+            f"TTFT mean {np.mean(r['ttft'] or [0]) * 1e3:.1f} ms, max "
+            f"{max(r['ttft'] or [0]) * 1e3:.1f} ms; hit tokens {r['hits']} "
+            f"(receipts {r['probes']}), COW copies {r['cow']}; kernel "
+            f"launches {got}; serve.kv_cache_share by tick "
+            f"{runs([round(st['kv_cache_share'], 3) for st in r['stats']])}"
+            f"; serve.prefill_chunk_tokens at the end {eng.prefill_chunk}")
+        mixed = [(round(ms, 1), st["prefill_tokens"], st["prefix_hit_tokens"])
+                 for st, ms in zip(r["stats"], r["ms"])
+                 if st["prefill_issued_tokens"]]
+        say(f"[prefix] {tag} mixed ticks on {card} (ms, prefill tokens, hit "
+            f"tokens): {mixed}; store growth "
+            f"{r['host_s']['_grow_store_for'] * 1e3:.1f} ms, copy-on-write "
+            f"{r['host_s']['_apply_cow'] * 1e3:.1f} ms")
+        in_phase_peak(f"[prefix] {tag}", dev, eng, held)
+        if r["finished"] != r["total"]:
+            bad.append(f"{tag}: {r['finished']}/{r['total']} finished")
+        if r["violations"]:
+            bad.append(f"{tag}: {r['violations']} HBM violations")
+        if max(st["dispatches"] for st in r["stats"]) > 1:
+            bad.append(f"{tag}: more than one dispatch in a tick")
+        if got["routes"]["tensor_core"] != got["paged_segment_attention"]:
+            bad.append(f"{tag}: a paged segment launch left the tensor "
+                       f"cores: {got['routes']}")
+        eng.close()
+        del eng
+    borrowers = PREFIX_GROUPS * (PREFIX_PER_GROUP - 1)
+    if res["warm"]["hits"] != borrowers * PREFIX_LEN:
+        bad.append(f"warm hit tokens {res['warm']['hits']}, not "
+                   f"{borrowers * PREFIX_LEN}")
+    if res["warm"]["cow"] != borrowers:
+        bad.append(f"warm COW copies {res['warm']['cow']}, not {borrowers}")
+    if res["cold"]["hits"] or res["cold"]["cow"]:
+        bad.append("the cold run hit a cache it does not have")
+    same = sum(a == b for i, g in res["warm"]["tokens"].items()
+               for a, b in zip(g, res["cold"]["tokens"][i]))
+    say(f"[prefix] bf16 warm tokens equal to cold ones: {same}/"
+        f"{len(groups) * PREFIX_PER_GROUP * PREFIX_NEW} (near-ties of the "
+        f"random weights: information)")
+    cut_cfg = dataclasses.replace(cfg, num_layers=SPEC_CUT_LAYERS,
+                                  dtype="float32")
+    cut = f32_cut(params, SPEC_CUT_LAYERS)
+    out = {}
+    for warm in (False, True):
+        eng = build_engine(cut_cfg, max_batch=SLOTS, cache_len=CACHE_LEN,
+                           budget_headroom_bytes=PREFIX_HEADROOM,
+                           latency_goal_s=PREFIX_LATENCY_GOAL_S, device=dev,
+                           params=cut, kv_mode="paged",
+                           prefix_cache=warm)
+        with counted_launches(launches):
+            out[warm] = drive_prefix(eng, groups, PREFIX_NEW)
+        out[warm]["hits"] = eng.prefix_hit_tokens_total
+        eng.close()
+    say(f"[prefix] {SPEC_CUT_LAYERS} layers f32 on {card}: warm tokens equal "
+        f"to cold ones: {out[True]['tokens'] == out[False]['tokens']} (hit "
+        f"tokens {out[True]['hits']})")
+    if out[True]["tokens"] != out[False]["tokens"]:
+        bad.append("warm tokens differ from cold ones on the f32 cut")
+    del cut
+    launches.pop("routes", None)
+    torch.cuda.empty_cache()
+    if bad:
+        fail("; ".join(bad))
+
+
+def spec_prompts() -> list[np.ndarray]:
+    """SPEC_PROMPTS forward laps of the cycle, 40-200 tokens from seed 12,
+    each starting at its own place on the cycle."""
+    rng = np.random.default_rng(12)
+    cyc = np.arange(1, SPEC_CYCLE + 1, dtype=np.int32)
+    return [cyc[(i + np.arange(int(rng.integers(40, 201)))) % SPEC_CYCLE]
+            for i in range(SPEC_PROMPTS)]
+
+
+def serve_spec(cfg, params, dev, prompts, new_tokens, *, depth=0,
+               adaptive=False, drafter=None, max_batch=SLOTS,
+               cache_len=CACHE_LEN, **options) -> dict:
+    """One engine (HBM goal weights + 1 GB, no decode-latency goal, so
+    the depth answers to the accept rate alone) over ``prompts``; the
+    per-tick stats, wall ms, tokens, and the spec counters."""
+    eng = build_engine(cfg, max_batch=max_batch, cache_len=cache_len,
+                       budget_headroom_bytes=1e9, latency_goal_s=None,
+                       device=dev, params=params, spec_depth=depth,
+                       spec_adaptive=adaptive, **options)
+    if drafter is not None:
+        eng._drafter = drafter
+    log = timed_ticks(eng, dev)
+    t0 = time.perf_counter()
+    serve_requests(eng, prompts, new_tokens)
+    torch.cuda.synchronize()
+    del eng.tick             # the wrapper's cycle would keep the engine
+    out = {"stats": [st for st, _ in log], "ms": [ms for _, ms in log],
+           "wall_s": time.perf_counter() - t0,
+           "tokens": {r.req_id: list(r.generated) for r in eng.finished},
+           "proposed": eng.spec_proposed, "accepted": eng.spec_accepted,
+           "rings": sorted(transformer.ring_lens(eng.caches)) if not eng.paged
+           else [], "line": summary(eng, len(prompts), len(log))}
+    eng.close()
+    return out
+
+
+def phase_spec(dev, card, params, launches: dict) -> None:
+    """12b: markov weights on full yi-6b at k = 0, static k = 4 and
+    adaptive; then a 2-layer f32 cut on random weights, the oracle
+    drafter corrupting every third proposal, paged and dense."""
+    cfg = get_config("yi-6b")
+    mparams = markov_params(cfg, params, cycle_map())
+    prompts = spec_prompts()
+    say(f"[spec] {cfg.name} bf16, {cfg.num_layers} layers, markov weights "
+        f"from phase 6's (a {SPEC_CYCLE}-token cycle); {len(prompts)} "
+        f"forward-lap prompts {[len(p) for p in prompts]}, {SPEC_NEW} new "
+        f"each")
+    runs_ = {}
+    bad = []
+    for name, depth, adaptive in (("k0", 0, False),
+                                  (f"static_k{SPEC_K}", SPEC_K, False),
+                                  ("adaptive", 2, True)):
+        with counted_launches(launches):
+            r = runs_[name] = serve_spec(cfg, mparams, dev, prompts,
+                                         SPEC_NEW, depth=depth,
+                                         adaptive=adaptive)
+        st = r["stats"]
+        dec = [s_ for s_ in st if s_["decode_slots"]]
+        per_tick = (sum(s_["decode_tokens"] for s_ in dec)
+                    / max(1, sum(s_["decode_slots"] for s_ in dec)))
+        gen = sum(len(t) for t in r["tokens"].values())
+        say(f"[spec] {name}: {r['line']}")
+        say(f"[spec] {name} on {card}: {len(st)} ticks, {gen} tokens in "
+            f"{r['wall_s']:.3f} s = {gen / r['wall_s']:.2f} tokens/s; "
+            f"ticks {tick_ms(r)}; decode tokens per slot a tick "
+            f"{per_tick:.2f}; drafts accepted {r['accepted']}/"
+            f"{r['proposed']}; serve.spec_depth by tick "
+            f"{runs([s_['spec_depth'] for s_ in st])}")
+        if max(s_["dispatches"] for s_ in st) > 1:
+            bad.append(f"{name}: more than one dispatch in a tick")
+    want = {i: [cycle_map()[int(p[-1])]] for i, p in enumerate(prompts)}
+    for i, toks in want.items():
+        while len(toks) < SPEC_NEW:
+            toks.append(cycle_map()[toks[-1]])
+    if runs_["k0"]["tokens"] != want:
+        bad.append("k = 0 does not decode the markov map")
+    for name, r in runs_.items():
+        if r["tokens"] != runs_["k0"]["tokens"]:
+            bad.append(f"{name}'s tokens differ from k = 0's")
+    k4 = runs_[f"static_k{SPEC_K}"]
+    rate = k4["accepted"] / max(1, k4["proposed"])
+    say(f"[spec] accept rate at k = {SPEC_K}: {rate:.4f}")
+    if not rate > 0.9:
+        bad.append(f"accept rate {rate} at k = {SPEC_K}, not above 0.9")
+    del mparams
+    torch.cuda.empty_cache()
+    # the f32 cut: spec tokens equal k = 0's under scheduled rejections
+    cut_cfg = dataclasses.replace(cfg, num_layers=SPEC_CUT_LAYERS,
+                                  dtype="float32")
+    cut = f32_cut(params, SPEC_CUT_LAYERS)
+    rng = np.random.default_rng(13)
+    cut_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (37, 300, 801)]
+    for kv_mode in ("paged", "dense"):
+        with counted_launches(launches):
+            plain = serve_spec(cut_cfg, cut, dev, cut_prompts, 24,
+                               max_batch=2, kv_mode=kv_mode)
+            oracle = OracleDrafter(plain["tokens"], cfg.vocab_size,
+                                   corrupt_every=3)
+            spec = serve_spec(cut_cfg, cut, dev, cut_prompts, 24, depth=4,
+                              drafter=oracle, max_batch=2, kv_mode=kv_mode)
+        say(f"[spec] {SPEC_CUT_LAYERS} layers f32, {kv_mode} KV, on {card}: "
+            f"spec tokens equal to k = 0's: "
+            f"{spec['tokens'] == plain['tokens']}; drafts accepted "
+            f"{spec['accepted']}/{spec['proposed']}; ticks "
+            f"{len(spec['stats'])} against {len(plain['stats'])}")
+        if spec["tokens"] != plain["tokens"]:
+            bad.append(f"f32 cut, {kv_mode}: spec tokens differ from k = 0")
+        if not 0 < spec["accepted"] < spec["proposed"]:
+            bad.append(f"f32 cut, {kv_mode}: no partial acceptance")
+    del cut
+    launches.pop("routes", None)
+    torch.cuda.empty_cache()
+    if bad:
+        fail("; ".join(bad))
+
+
+@contextlib.contextmanager
+def t1_calls(counts: dict):
+    """Counts the model's scan calls at T = 1 (a spec row's column calls)
+    by scan, while open."""
+    real = {"rglru_scan_state": (importlib.import_module(
+                "repro_torch.kernels.rglru"), "rglru_state_op"),
+            "rwkv6_scan_state": (importlib.import_module(
+                "repro_torch.kernels.rwkv6"), "rwkv6_state_op")}
+    saved = {}
+    for name, (mod, attr) in real.items():
+        fn = saved[name] = getattr(mod, attr)
+
+        def wrap(*a, _fn=fn, _name=name, **k):
+            if a[0].shape[1] == 1:
+                counts[_name] = counts.get(_name, 0) + 1
+            return _fn(*a, **k)
+        setattr(mod, attr, wrap)
+    try:
+        yield
+    finally:
+        for name, (mod, attr) in real.items():
+            setattr(mod, attr, saved[name])
+
+
+def phase_spec_recurrent(dev, card, launches: dict) -> None:
+    """12c: spec against k = 0 on a 5-layer f32 cut of recurrentgemma-9b
+    (dense rings widened to 2056 entries, one prompt past them) and a
+    2-layer f32 cut of rwkv6-7b, the oracle drafter corrupting every
+    third proposal."""
+    bad = []
+    for arch, layers, lens, cache_len in (
+            ("recurrentgemma-9b", 5, (2100, 130), 4096),
+            ("rwkv6-7b", 2, (300, 77), 1024)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+        rng = np.random.default_rng(14)
+        prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+        got, t1 = {}, {}
+        with counted_launches(got):
+            plain = serve_spec(cfg, params, dev, prompts, 16, max_batch=2,
+                               cache_len=cache_len)
+        with counted_launches(got), t1_calls(t1):
+            spec = serve_spec(cfg, params, dev, prompts, 16, depth=4,
+                              drafter=OracleDrafter(plain["tokens"],
+                                                    cfg.vocab_size,
+                                                    corrupt_every=3),
+                              max_batch=2, cache_len=cache_len)
+        got.pop("routes", None)
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+        say(f"[spec] {arch} {layers} layers f32 on {card}: spec tokens "
+            f"equal to k = 0's: {spec['tokens'] == plain['tokens']}; drafts "
+            f"accepted {spec['accepted']}/{spec['proposed']}; dense rings "
+            f"{spec['rings']}; kernel launches {got}, of them scans at "
+            f"T = 1 {t1}")
+        if spec["tokens"] != plain["tokens"]:
+            bad.append(f"{arch}: spec tokens differ from k = 0's")
+        if not 0 < spec["accepted"] < spec["proposed"]:
+            bad.append(f"{arch}: no partial acceptance")
+        if not t1:
+            bad.append(f"{arch}: no scan ran at T = 1")
+        ring = cfg.window + 8          # spec_depth_max's default margin
+        if "swa" in cfg.block_pattern and spec["rings"] != [ring]:
+            bad.append(f"{arch}: rings {spec['rings']}, not [{ring}]")
+        del params
+        torch.cuda.empty_cache()
+    if bad:
+        fail("; ".join(bad))
+
+
+def spec_workload(cfg, horizon_s: float = SLO_HORIZON_S) -> list:
+    """``bench_slo._spec_workload``: a poisson trace whose prompts lap the
+    cycle forward in the first half (drafts land) and in reverse in the
+    second (the drafter stays confident, every draft is wrong)."""
+    trace = synthesize_trace(TraceConfig(
+        process="poisson", rate_rps=SPEC_RATE_RPS, horizon_s=horizon_s,
+        seed=29, prompt_lo=16, prompt_hi=24, prompt_alpha=1.3, new_lo=8,
+        new_hi=16, new_alpha=1.6, tiers=slo_tiers()))
+    cyc = np.arange(1, SPEC_CYCLE + 1, dtype=np.int32)
+    half = horizon_s / 2.0
+    arrivals = []
+    for t, req in as_requests(trace, vocab=cfg.vocab_size, seed=1):
+        idx = np.arange(len(req.prompt))
+        a = req.req_id % SPEC_CYCLE
+        req.prompt = cyc[((a + idx) if t < half else (a - idx)) % SPEC_CYCLE]
+        arrivals.append((t, req))
+    return arrivals
+
+
+def run_spec(cfg, params, device, *, depth: int, adaptive: bool,
+             telemetry_dir: str | None = None) -> dict:
+    """``bench_slo._run_spec_policy`` on the port (with a telemetry hub
+    when ``telemetry_dir`` is given, which switches no path)."""
+    device = torch.device(device)
+    vc = VirtualClock()
+    tel = Telemetry(enabled=True, clock=vc) if telemetry_dir else None
+    eng = ServeEngine(cfg, params, device=device, options=ServeOptions(
+        max_batch=SLO_MAX_BATCH, cache_len=SLO_CACHE_LEN, block_tokens=16,
+        enable_smartconf=True, prefill_mode="packed",
+        slo=SLOSpec(ttft_s=SLO_TTFT_S, window=SLO_WINDOW),
+        num_tiers=len(SLO_SHARES), spec_depth=depth, spec_adaptive=adaptive,
+        telemetry=tel), registry=ConfRegistry(), clock=vc)
+    monkey = ChaosMonkey(admission_chaos()).install(eng)
+    out = drive_lane(eng, spec_workload(cfg), vc, monkey, device,
+                     cost=TickCostModel(**SLO_COST, spec_lane_s=SPEC_LANE_S))
+    out["max_dispatches"] = max(st["dispatches"] for st in out["per_tick"])
+    out["chaos_events"] = len(monkey.events)
+    out["proposed"] = eng.spec_proposed
+    out["accepted"] = eng.spec_accepted
+    out["final_depth"] = eng.spec_depth
+    out["sensor_faults"] = sum(sc.sensor_faults for sc in eng.controllers())
+    if tel is not None:
+        out["telemetry_paths"] = tel.write(telemetry_dir)
+    del eng.tick             # the wrapper's cycle would keep the engine
+    eng.close()
+    return out
+
+
+def phase_spec_lane(dev, card, params, launches: dict) -> None:
+    """12d: ``bench_slo``'s speculation lane on full yi-6b with markov
+    weights, chaos on: adaptive depth against static depths 0, 1, 2, 4
+    and 8; the adaptive run tick for tick against the same run of the
+    port on the CPU at ``reduced()`` size."""
+    cfg = get_config("yi-6b")
+    mparams = markov_params(cfg, params, cycle_map())
+    weights = sum(t.numel() * t.element_size() for t in tree_leaves(mparams))
+
+    def run(**kw):
+        # the run's peak above what it found allocated, plus the markov
+        # weights: its in-phase peak were they alone resident
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with counted_launches(launches):
+            r = run_spec(cfg, mparams, dev, **kw)
+        r["peak_gb"] = (torch.cuda.max_memory_allocated(dev) - base
+                        + weights) / 1e9
+        return r
+
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        res = {"adaptive": run(depth=2, adaptive=True,
+                               telemetry_dir=f"{tmp}/spec")}
+        for k in SPEC_STATIC_DEPTHS:
+            res[f"static_k{k}"] = run(depth=k, adaptive=False)
+        bad += lane_faults(res, "spec")
+        lane_rows("[spec-lane]", res, card, weights / 1e9)
+        ad = res["adaptive"]
+        say(f"[spec-lane] adaptive: drafts accepted {ad['accepted']}/"
+            f"{ad['proposed']}, final depth {ad['final_depth']}; "
+            f"serve.spec_depth by tick "
+            f"{runs([st['spec_depth'] for st in ad['per_tick']])}")
+        audit = read_audit(ad["telemetry_paths"])
+        window = nan_window(admission_chaos())
+        fb = sorted({d["conf"] for d in audit
+                     if d["fallback"] and d["tick"] in window})
+        say(f"[spec-lane] fallback Decisions in the NaN window (ticks "
+            f"{window.start}-{window.stop - 1}): {fb}")
+        if not fb:
+            bad.append("the spec lane's NaN window engaged no fallback")
+        for name, r in res.items():
+            if r["max_dispatches"] > 1:
+                bad.append(f"spec {name}: more than one dispatch in a tick")
+        small = reduced(cfg)
+        cpu = torch.device("cpu")
+        t0 = time.perf_counter()
+        ref = run_spec(small, markov_params(small, zoo.init(
+            small, torch.Generator().manual_seed(0), cpu), cycle_map()), cpu,
+            depth=2, adaptive=True)
+        same = [k for k in ("per_tick", "goodput_tokens_by_tier",
+                            "reject_counts", "preemptions", "sensor_faults",
+                            "ticks", "finished", "accepted", "proposed")
+                if ad[k] == ref[k]]
+        say(f"[spec-lane] the adaptive run against the port's on the CPU at "
+            f"reduced() size ({time.perf_counter() - t0:.1f} s): "
+            f"{ad['ticks']} ticks against {ref['ticks']}; equal: {same}")
+        if len(same) != 9:
+            bad.append("the adaptive spec run left the CPU's trajectory")
+    del mparams
+    launches.pop("routes", None)
+    torch.cuda.empty_cache()
+    if bad:
+        fail("; ".join(bad))
+
+
+def phase_prefix_spec(dev, card, params) -> dict:
+    """Phase 12: the prefix cache and speculation.  Returns the kernel
+    launches of its serving runs."""
+    launches: dict = {}
+    t0 = time.perf_counter()
+    phase_prefix(dev, card, params, launches)
+    t1 = time.perf_counter()
+    phase_spec(dev, card, params, launches)
+    t2 = time.perf_counter()
+    phase_spec_recurrent(dev, card, launches)
+    t3 = time.perf_counter()
+    phase_spec_lane(dev, card, params, launches)
+    say(f"[times] phase 12: 12a {t1 - t0:.1f} s, 12b {t2 - t1:.1f} s, 12c "
+        f"{t3 - t2:.1f} s, 12d {time.perf_counter() - t3:.1f} s")
+    say(f"[prefix-spec] kernel launches {launches}")
+    return launches
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -3959,9 +4712,12 @@ def main() -> None:
     count(phase_split_slice(dev, card, yi_params, yi_tokens))
     mark("10, split modes")
     count(phase_slo(dev, card, yi_params))
-    del yi_params
     torch.cuda.empty_cache()
     mark("11, SLO serving")
+    count(phase_prefix_spec(dev, card, yi_params))
+    del yi_params
+    torch.cuda.empty_cache()
+    mark("12, prefix cache and speculation")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,

@@ -34,11 +34,12 @@ def build_engine(cfg, *, max_batch: int, cache_len: int,
                  seed: int = 0, prefill_mode: str = "auto",
                  params: dict | None = None, slo: SLOSpec | None = None,
                  telemetry: Telemetry | None = None,
-                 clock=time.monotonic) -> ServeEngine:
+                 clock=time.monotonic, **options) -> ServeEngine:
     """Random weights from ``seed`` on ``device`` (or ``params``, weights
     already there) and an engine whose HBM goal is the weights plus
     ``budget_headroom_bytes`` — the launcher's setup, shared with the chip
-    smoke run."""
+    smoke run.  ``options`` are further ``ServeOptions`` fields (the KV
+    mode, the prefix cache, speculation)."""
     device = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -52,7 +53,7 @@ def build_engine(cfg, *, max_batch: int, cache_len: int,
                            hbm_budget_bytes=budget,
                            latency_goal_s=latency_goal_s,
                            prefill_mode=prefill_mode, slo=slo,
-                           telemetry=telemetry))
+                           telemetry=telemetry, **options))
 
 
 def serve_requests(eng: ServeEngine, prompts: list[np.ndarray],
@@ -83,7 +84,28 @@ def summary(eng: ServeEngine, n_requests: int, ticks: int) -> str:
             f"{eng.model_dispatches/max(1, ticks):.2f} dispatches/tick, "
             f"pad_fraction {eng.pad_fraction:.2f}; "
             f"kv[{kv}] {eng.pool.used_blocks} blocks used, "
-            f"{eng.preemptions} preemptions")
+            f"{eng.preemptions} preemptions"
+            + (f"; prefix cache {eng._prefix_cache.blocks_held} blocks held, "
+               f"hit rate {eng._prefix_cache.hit_rate:.2f}, "
+               f"{eng.prefix_hit_tokens_total} prefill tokens reclaimed, "
+               f"{eng.cow_copied_blocks} COW copies"
+               if eng._prefix_cache is not None else "")
+            + (f"; spec depth {eng.spec_depth}, "
+               f"{eng.spec_accepted}/{eng.spec_proposed} drafts accepted"
+               f" (accept rate "
+               f"{eng.spec_accepted / max(1, eng.spec_proposed):.2f})"
+               if eng.spec_enabled else ""))
+
+
+def engine_options(args) -> dict:
+    """The ``ServeOptions`` fields the KV-mode, prefix-cache and
+    speculation flags set."""
+    return dict(kv_mode=args.kv_mode, prefix_cache=args.prefix_cache,
+                kv_cache_share=args.kv_cache_share,
+                spec_depth=args.spec_depth,
+                spec_depth_max=args.spec_depth_max,
+                spec_adaptive=not args.no_spec_adaptive,
+                accept_rate_goal=args.accept_rate_goal)
 
 
 def run_trace(cfg, args) -> None:
@@ -104,7 +126,7 @@ def run_trace(cfg, args) -> None:
                             else args.latency_goal_ms / 1e3),
             device=args.device, seed=args.seed,
             prefill_mode=args.prefill_mode, params=params, slo=slo,
-            telemetry=telemetry, clock=vc)
+            telemetry=telemetry, clock=vc, **engine_options(args))
 
     first = engine(None, tel)
     if args.replicas > 1:
@@ -119,7 +141,8 @@ def run_trace(cfg, args) -> None:
         eng = first
     trace = synthesize_trace(TraceConfig(
         process=args.trace, rate_rps=args.rate_rps,
-        horizon_s=args.horizon_s, seed=args.seed))
+        horizon_s=args.horizon_s, seed=args.seed,
+        prefix_groups=args.prefix_groups, prefix_len=args.prefix_len))
     chaos = None
     if args.chaos:
         chaos = ChaosMonkey(ChaosSpec(
@@ -143,6 +166,10 @@ def run_trace(cfg, args) -> None:
           f"recompute {out['recompute_tokens']} tokens, "
           f"chaos events {len(chaos.events) if chaos else 0}, "
           f"unhandled {len(out['unhandled'])}"
+          + (f"; prefix cache hit rate {first._prefix_cache.hit_rate:.2f}, "
+             f"{first.prefix_hit_tokens_total} prefill tokens reclaimed"
+             if first._prefix_cache is not None and args.replicas == 1
+             else "")
           + (f"; {args.replicas} replicas: weights "
              f"{[round(w, 2) for w in eng.weights]}, "
              f"{eng.reroutes} rerouted on replica loss"
@@ -182,6 +209,42 @@ def main() -> None:
                          "power-of-two chunk per prefilling slot, then a "
                          "decode step; one_shot = whole-prompt prefill per "
                          "admitted request into dense KV, then decode steps")
+    ap.add_argument("--kv-mode", default="auto",
+                    choices=["auto", "paged", "dense"],
+                    help="paged = block-table KV store and the paged "
+                         "kernels (attention-only archs); dense = per-slot "
+                         "rings; auto = paged where the arch allows")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix prefix cache over refcounted paged KV "
+                         "blocks: a request whose prompt shares a cached "
+                         "prefix prefills only the uncovered suffix "
+                         "(copy-on-write at the block boundary); the "
+                         "cache's share of the block budget is the "
+                         "SmartConf-actuated serve.kv_cache_share knob. "
+                         "Needs paged KV")
+    ap.add_argument("--kv-cache-share", type=float, default=0.5,
+                    help="initial fraction of the KV block budget the "
+                         "prefix cache may hold (SmartConf adjusts it)")
+    ap.add_argument("--prefix-groups", type=int, default=0,
+                    help="with --trace: shared-prefix tenant groups in the "
+                         "synthesized workload (0 = none)")
+    ap.add_argument("--prefix-len", type=int, default=32,
+                    help="with --trace: each prefix group's common "
+                         "preamble length (tokens)")
+    ap.add_argument("--spec-depth", type=int, default=0,
+                    help="self-speculative decode draft depth k (0 = off): "
+                         "each running slot's decode segment carries up to "
+                         "k n-gram drafts verified in the same dispatch; "
+                         "with SmartConf on, the initial value of the "
+                         "serve.spec_depth knob.  Needs packed prefill")
+    ap.add_argument("--spec-depth-max", type=int, default=8,
+                    help="ceiling of the serve.spec_depth knob")
+    ap.add_argument("--accept-rate-goal", type=float, default=0.5,
+                    help="sc_spec setpoint: the windowed draft accept rate "
+                         "the depth controller holds the engine above")
+    ap.add_argument("--no-spec-adaptive", action="store_true",
+                    help="pin serve.spec_depth at --spec-depth instead of "
+                         "letting SmartConf actuate it")
     ap.add_argument("--full-size", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda); cpu runs the "
@@ -229,7 +292,7 @@ def main() -> None:
         latency_goal_s=(None if args.latency_goal_ms is None
                         else args.latency_goal_ms / 1e3),
         device=args.device, seed=args.seed, prefill_mode=args.prefill_mode,
-        telemetry=tel)
+        telemetry=tel, **engine_options(args))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(8, 48)))
                for _ in range(args.requests)]

@@ -22,7 +22,8 @@ once per step, so the device never selects lanes itself.
 Whole sequences (:func:`block_apply_seq`) run on every kind: without a
 cache in training, writing a dense ring or the recurrent state in the
 one-shot prefill.  Padded per-slot prompt chunks (:func:`block_apply_chunk`,
-the bucketed prefill) run on every kind too.
+the bucketed prefill) run on every kind too, and so do packed streams whose
+decode segments carry speculative drafts (:func:`block_apply_spec`).
 """
 
 from __future__ import annotations
@@ -101,28 +102,32 @@ def block_init(cfg, kind: str, dtype, device, generator,
 # ---------------------------------------------------------------------------
 
 
-def cache_len_for(cfg, kind: str, seq_len: int) -> int:
+def cache_len_for(cfg, kind: str, seq_len: int, margin: int = 0) -> int:
     """Ring length of one layer's dense cache: windowed kinds keep only
-    ``cfg.window`` entries.  (The reference's ``margin`` for speculative
-    drafts is not ported: speculation is not.)"""
+    ``cfg.window + margin`` entries.  ``margin`` widens windowed rings for
+    speculative decode, which writes up to ``k`` draft positions past the
+    pending token: a ring must hold ``window + k`` entries, or a rejected
+    draft would overwrite a key the next tick still attends to."""
     base, _ = split_kind(kind)
     if base in ("swa", "local"):
-        return min(cfg.window, seq_len)
+        return min(cfg.window + margin, seq_len)
     return seq_len
 
 
 def block_cache_init(cfg, kind: str, batch: int, seq_len: int, device,
-                     lead: tuple[int, ...] = ()) -> dict:
+                     lead: tuple[int, ...] = (),
+                     ring_margin: int = 0) -> dict:
     """One layer's dense cache with ``lead`` stacking dims: ``{k, v:
     [B, n, Kv, D], pos: [B, n] int32 (-1 = unwritten)}`` for attention
-    kinds, ``{h: [B, dr], conv: [B, W-1, dr]}`` (f32) for rglru, ``{S:
-    [B, H, 64, 64] f32, tm_last, cm_last: [B, d]}`` for rwkv6."""
+    kinds (``n`` from :func:`cache_len_for` with ``ring_margin``), ``{h:
+    [B, dr], conv: [B, W-1, dr]}`` (f32) for rglru, ``{S: [B, H, 64, 64]
+    f32, tm_last, cm_last: [B, d]}`` for rwkv6."""
     base = _check_ported(kind)
     if base in RECURRENT_KINDS:
         lib = rglru_lib if base == "rglru" else rwkv6_lib
         return {k: v.expand(lead + v.shape).contiguous() for k, v in
                 lib.init_state(cfg, batch, device).items()}
-    n = cache_len_for(cfg, kind, seq_len)
+    n = cache_len_for(cfg, kind, seq_len, margin=ring_margin)
     shape = lead + (batch, n, cfg.num_kv_heads, cfg.resolved_head_dim)
     dt = layers.torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -471,10 +476,12 @@ def block_apply_packed(cfg, kind: str, params: dict, x, pos, slot_id, start,
     return _ffn(cfg, params, x)
 
 
-def _packed_recurrent(cfg, kind, params, x, pos, slot_id, start, seg_len,
-                      cache):
-    """The recurrent branch of :func:`block_apply_packed`.  Dead lanes are
-    scattered into a spare row past the slots that nothing reads."""
+def _rows_layout(x, pos, slot_id, start, seg_len):
+    """A packed stream scattered to the per-slot left-aligned row layout:
+    ``(xs [B,P,d], row_pos [B,P], row_valid [B,P], gather)`` where
+    ``gather(y)`` takes row outputs back to the stream (dead lanes keep
+    ``x``).  Dead lanes are scattered into a spare row past the slots that
+    nothing reads."""
     nslots, p_len = start.shape[0], x.shape[1]
     live = slot_id >= 0
     safe = slot_id.clamp(0, nslots - 1).long()
@@ -482,9 +489,74 @@ def _packed_recurrent(cfg, kind, params, x, pos, slot_id, start, seg_len,
     xs = x.new_zeros((nslots + 1, p_len, x.shape[2]))
     xs[torch.where(live, slot_id, nslots).long(), off] = x[0]
     t = torch.arange(p_len, dtype=torch.int32, device=x.device)[None, :]
-    y = block_apply_chunk(cfg, kind, params, xs[:nslots], start[:, None] + t,
-                          t < seg_len[:, None], cache)
-    return torch.where(live[None, :, None], y[safe, off][None], x)
+
+    def gather(y):
+        return torch.where(live[None, :, None], y[safe, off][None], x)
+
+    return xs[:nslots], start[:, None] + t, t < seg_len[:, None], gather
+
+
+def _packed_recurrent(cfg, kind, params, x, pos, slot_id, start, seg_len,
+                      cache):
+    """The recurrent branch of :func:`block_apply_packed`."""
+    xs, row_pos, row_valid, gather = _rows_layout(x, pos, slot_id, start,
+                                                  seg_len)
+    return gather(block_apply_chunk(cfg, kind, params, xs, row_pos,
+                                    row_valid, cache))
+
+
+# ---------------------------------------------------------------------------
+# apply: packed stream with speculative (length 1 + d) decode segments
+# ---------------------------------------------------------------------------
+
+
+def block_apply_spec(cfg, kind: str, params: dict, x, pos, slot_id, start,
+                     seg_len, spec_rows, l_max: int, cache,
+                     block_tables=None, plan=None):
+    """:func:`block_apply_packed` for a stream whose decode segments carry
+    speculative drafts (segments of ``1 + d`` lanes; ``spec_rows`` [B]
+    bool marks them; ``l_max`` the longest segment a spec row may have).
+    Returns ``(x, stack)``.
+
+    Attention kinds need nothing new: the segment predicate (same segment
+    and ``k_pos <= q_pos``) verifies every draft offset exactly, and a
+    rejected suffix's K/V heals itself — stale ring entries are masked by
+    position on the next tick, stale paged entries are overwritten before
+    the next gather.  They delegate unchanged; ``stack`` is None.
+
+    Recurrent kinds (rwkv6, rglru) change state at every token, so a
+    rejected draft must be rolled back.  The layer's state is cloned
+    before the tick; one full-chunk :func:`block_apply_chunk` advances the
+    non-spec (prefill) rows in place with the spec rows masked out (their
+    state stays the pre-tick state); then ``l_max`` width-1 column calls
+    advance the spec rows on the clone, one offset each, and ``stack``
+    keeps the state after every offset (leaves ``[l, B, ...]``).  Pads are
+    neutral in the chunk scans, so width-1 calls compose exactly.  Once
+    acceptance is known on the device the caller writes snapshot
+    ``accept[b]`` into each spec row (``transformer._resolve_pending``):
+    the reference returns the pending pair and selects from it instead."""
+    base = _check_ported(kind)
+    if base not in RECURRENT_KINDS:
+        return block_apply_packed(cfg, kind, params, x, pos, slot_id, start,
+                                  seg_len, cache, block_tables, plan), None
+    xs, row_pos, row_valid, gather = _rows_layout(x, pos, slot_id, start,
+                                                  seg_len)
+    st = {n: a.clone() for n, a in cache.items()}      # the pre-tick state
+    y_full = block_apply_chunk(cfg, kind, params, xs, row_pos,
+                               row_valid & ~spec_rows[:, None], cache)
+    l_eff = min(int(l_max), xs.shape[1])
+    stack = {n: a.new_empty((l_eff,) + a.shape) for n, a in st.items()}
+    cols = []
+    for j in range(l_eff):
+        col_valid = spec_rows[:, None] & row_valid[:, j:j + 1]
+        cols.append(block_apply_chunk(cfg, kind, params, xs[:, j:j + 1],
+                                      row_pos[:, j:j + 1], col_valid, st))
+        for n, a in st.items():
+            stack[n][j].copy_(a)
+    y_spec = torch.zeros_like(y_full)
+    y_spec[:, :l_eff] = torch.cat(cols, dim=1)
+    y = torch.where(spec_rows[:, None, None], y_spec, y_full)
+    return gather(y), stack
 
 
 # ---------------------------------------------------------------------------

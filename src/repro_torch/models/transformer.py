@@ -12,13 +12,19 @@ rwkv6-7b's is 32 groups of (rwkv6,).
 
 Public entry points:
     init(cfg, generator, device)        -> params
-    init_cache(cfg, batch, cache_len, device) -> caches   [dense rings and
-                                        recurrent state, per slot]
+    init_cache(cfg, batch, cache_len, device, ring_margin=0) -> caches
+                                        [dense rings and recurrent state,
+                                        per slot]
     init_paged_cache(cfg, num_blocks, block_tokens, device) -> caches
     step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
                 block_tables=None)      -> last_logits [B, V]  [in place;
                                         one ragged stream of prefill
                                         chunks + length-1 decode segments]
+    step_spec(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
+              spec_rows, spec_idx, draft_len, block_tables=None)
+                                        -> (accept [B], toks [B, L])
+                                        [in place; decode segments of
+                                        1 + d lanes, drafts verified]
     decode_step(cfg, params, caches, token, pos, block_tables=None,
                 active=None)            -> logits [B, V]       [in place]
     prefill_chunk(cfg, params, caches, tokens, start, lengths,
@@ -176,15 +182,18 @@ def _cache_tree(cfg, make) -> dict:
     return caches
 
 
-def init_cache(cfg, batch: int, cache_len: int, device) -> dict:
+def init_cache(cfg, batch: int, cache_len: int, device,
+               ring_margin: int = 0) -> dict:
     """Dense per-slot caches: a ``[batch, n, Kv, D]`` ring (``n`` the
-    window for windowed kinds, ``cache_len`` otherwise) with its position
-    plane for attention layers, ``{h, conv}`` scan state for rglru layers,
-    ``{S, tm_last, cm_last}`` for rwkv6 layers; group layers stacked
-    ``[n_groups, batch, ...]``."""
+    window plus ``ring_margin`` for windowed kinds, ``cache_len``
+    otherwise) with its position plane for attention layers, ``{h, conv}``
+    scan state for rglru layers, ``{S, tm_last, cm_last}`` for rwkv6
+    layers; group layers stacked ``[n_groups, batch, ...]``.
+    ``ring_margin`` is what speculative drafts need: up to ``k`` rejected
+    positions past the pending token (:func:`blocks.cache_len_for`)."""
     _check_supported(cfg)
     return _cache_tree(cfg, lambda k, lead: B.block_cache_init(
-        cfg, k, batch, cache_len, device, lead))
+        cfg, k, batch, cache_len, device, lead, ring_margin=ring_margin))
 
 
 def ring_lens(caches: dict) -> set[int]:
@@ -273,8 +282,10 @@ def _block_tokens(caches: dict) -> int:
 
 
 def _logits(cfg, params, x):
+    # a head in another dtype than x (the f32 head of
+    # ``serve.speculation.markov_params``) promotes the product, as in JAX
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return (x @ head).float()
+    return (x.to(head.dtype) @ head).float()
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +327,76 @@ def step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
     last_idx = torch.where(own, t_idx[None, :], -1).amax(dim=1)      # [B]
     xl = x[0, last_idx.clamp(min=0)]                                 # [B,d]
     return _logits(cfg, params, xl)
+
+
+def _resolve_pending(cache: dict, stack: dict, accept, spec_rows) -> None:
+    """Write the post-acceptance recurrent snapshot into each spec row of
+    one layer's state, in place: ``stack`` leaves are ``[l, B, ...]``,
+    snapshot ``j`` the state after consuming offsets ``0..j`` of the spec
+    segment, so ``accept[b]`` names the state after the last emitted and
+    consumed token.  Non-spec rows keep the full-chunk result.  Index and
+    select only: nothing waits for the device."""
+    rows = torch.arange(accept.shape[0], device=accept.device)
+    for n, a in cache.items():
+        st = stack[n]
+        sel = st[accept.long().clamp(0, st.shape[0] - 1), rows]
+        m = spec_rows.view((-1,) + (1,) * (a.dim() - 1))
+        a.copy_(torch.where(m, sel.to(a.dtype), a))
+
+
+def step_spec(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
+              spec_rows, spec_idx, draft_len, block_tables=None, plan=None):
+    """One packed stream whose decode segments carry speculative drafts,
+    in place.
+
+    The layout is :func:`step_packed`'s, except that a running slot's
+    segment is ``[pending, d1..dd]`` (length ``1 + d``, ``start = pos``):
+    the pending token — the slot's last sampled, not yet consumed token —
+    followed by ``d`` drafted continuations.  Extra inputs: spec_rows [B]
+    bool marks the draft-carrying rows; spec_idx [B, L] int the stream
+    index of each segment offset (rows with shorter segments repeat their
+    last index, masked by draft_len); draft_len [B] int drafted tokens per
+    row (0 for prefill rows, whose spec_idx[:, 0] names their last packed
+    prompt token).
+
+    Verification is the per-offset argmax of the same call: ``toks[b, j]``
+    is the model's next token after consuming offsets ``0..j``.  Greedy
+    acceptance keeps the longest matching draft prefix: ``accept[b]`` is
+    the number of leading drafts equal to the argmax before them, so the
+    emitted tokens ``toks[b, :accept[b]+1]`` are what ``accept + 1``
+    sequential steps without drafts would give.  Returns (accept [B]
+    int32, toks [B, L] int32), both on the device; nothing here waits for
+    it.  A rejected suffix's attention K/V needs no undo (see
+    :func:`blocks.block_apply_spec`); recurrent state is rolled back: each
+    recurrent layer's snapshots are resolved into its state once
+    ``accept`` is computed (:func:`_resolve_pending`).  ``plan`` is
+    :func:`step_packed`'s."""
+    _check_supported(cfg)
+    if plan is None:
+        plan = (dense_packed_plans(caches, slot_id, pos, start, seg_len)
+                if block_tables is None else
+                B.paged_write_plan(slot_id, pos, block_tables,
+                                   _block_tokens(caches)))
+    l_max = spec_idx.shape[1]
+    x = params["embed"][tokens]
+    pending = []
+    for kind, p, c in _layers(cfg, params, caches):
+        x, stack = B.block_apply_spec(cfg, kind, p, x, pos, slot_id, start,
+                                      seg_len, spec_rows, l_max, c,
+                                      block_tables, plan)
+        if stack is not None:
+            pending.append((c, stack))
+    x = apply_norm(cfg.norm, params["ln_f"], x)
+    idx = spec_idx.long()
+    toks = _logits(cfg, params, x[0, idx]).argmax(dim=-1).to(torch.int32)
+    drafted = tokens[0, idx]                                         # [B,L]
+    offs = torch.arange(1, l_max, device=x.device)[None, :]
+    match = ((drafted[:, 1:] == toks[:, :-1])
+             & (offs <= draft_len[:, None]))
+    accept = match.int().cumprod(dim=1).sum(dim=1).to(torch.int32)
+    for c, stack in pending:
+        _resolve_pending(c, stack, accept, spec_rows)
+    return accept, toks
 
 
 def prefill_chunk(cfg, params, caches, tokens, start, lengths,

@@ -6,7 +6,7 @@ from __future__ import annotations
 from . import transformer
 from .bridge import params_from_numpy
 
-__all__ = ["init", "step_packed", "decode_step", "prefill_chunk", "prefill",
+__all__ = ["init", "step_packed", "step_spec", "decode_step", "prefill_chunk", "prefill",
            "supports_chunked_prefill", "supports_paged_kv", "init_cache",
            "dense_packed_plans", "chunk_plan", "dense_step_plans",
            "merge_slot", "init_paged_cache", "map_paged_caches",
@@ -14,6 +14,7 @@ __all__ = ["init", "step_packed", "decode_step", "prefill_chunk", "prefill",
 
 init = transformer.init
 step_packed = transformer.step_packed
+step_spec = transformer.step_spec
 decode_step = transformer.decode_step
 prefill_chunk = transformer.prefill_chunk
 prefill = transformer.prefill

@@ -58,17 +58,38 @@ flag clears.  A ``Telemetry`` hub, when passed, records spans, metrics,
 the flight recorder and every controller Decision; telemetry never
 switches a path.
 
+Prefix cache (``prefix_cache=True``, paged KV only): a radix tree over
+refcounted blocks (``serve/prefix_cache.py``) remembers the full-block
+prefixes of finished prompts.  A request whose prompt shares a cached
+prefix adopts those blocks into its lease and prefills only the uncovered
+suffix; a match that ends mid-block copies that block first
+(copy-on-write).  The tree's share of the block budget is the
+``serve.kv_cache_share`` knob (``sc_cache``, on the windowed prefix hit
+rate), and a budget cut evicts cached prefixes before it preempts work.
+
+Self-speculative decode (``spec_depth > 0``, packed mode only): each
+running slot's decode segment grows from one lane to ``1 + d``, the
+device-resident pending token followed by ``d`` drafts of a deterministic
+n-gram drafter (``serve/speculation.py``), verified by per-offset argmax
+in the same dispatch (``step_spec``); a slot emits the accepted drafts
+plus the model's own next token, which is what that many ticks without
+drafts would emit.  The draft depth is the ``serve.spec_depth`` knob
+(``sc_spec``, on the windowed accept rate), subordinate to the
+decode-latency goal.  Dense windowed rings are widened by
+``spec_depth_max`` so a rejected draft never overwrites a live key.
+
 Where the reference jit-compiles each step with cache donation, the port
 runs eagerly and updates the block stores and token buffers **in place**.
 The host knows which stream lanes are live, so it builds each step's K/V
 write plan (``blocks.paged_write_plan``, or the dense rings' plans) and
 uploads it: no step synchronises on a device-side selection.  A step's
 only wait is the stream synchronise after a dispatch that samples a
-token, so the latency sensors measure device time, not enqueue time.
+token (under speculation, the read of the accepted counts and tokens),
+so the latency sensors measure device time, not enqueue time.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item, see ``serve/options.py``): the modality frontends, the prefix
-cache, speculation, mesh serving.
+item): the modality frontends (item 12), MoE (item 7), mesh serving (item
+11, see ``serve/options.py``).
 """
 
 from __future__ import annotations
@@ -97,6 +118,8 @@ from repro_torch.models.transformer import resolve_device
 from .kv_cache import QUEUE_TOKEN_BYTES, KVBlockPool
 from .options import ServeOptions, SLOSpec
 from .paging import PagedKVAllocator
+from .prefix_cache import PrefixCache
+from .speculation import NGramDrafter
 
 __all__ = ["Admission", "Request", "RejectReason", "SLOSpec", "ServeEngine",
            "ServeOptions", "TICK_STATS_KEYS"]
@@ -107,9 +130,8 @@ _MIN_BUCKET = 16
 _REJECT_STORM_PER_TICK = 3
 
 # The TickStats schema, key for key and in order the reference's: every
-# dict `tick()` returns has exactly these keys.  Keys of features the port
-# does not serve yet (prefix cache, speculation, mesh) report their idle
-# value (0 / 1).
+# dict `tick()` returns has exactly these keys.  Mesh serving is not
+# ported, so ``tp_shards`` is always 1.
 TICK_STATS_KEYS: tuple[str, ...] = (
     "tick",
     "queued", "waiting", "running", "finished", "hbm", "tokens",
@@ -142,11 +164,14 @@ class RejectReason(str, enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class Admission:
     """Typed result of :meth:`ServeEngine.submit`: ``accepted`` (also the
-    truth value), the typed ``reason`` when refused, and the KV blocks the
-    request will need resident."""
+    truth value), the typed ``reason`` when refused, the prompt tokens the
+    prefix cache could serve right now (advisory: the grant happens when
+    the request is scheduled), and the KV blocks the request will need
+    resident."""
 
     accepted: bool
     reason: RejectReason | None = None
+    prefix_hit_tokens: int = 0
     footprint_blocks: int = 0
 
     def __bool__(self) -> bool:
@@ -180,7 +205,8 @@ class Request:
     preempted: int = 0          # times this request was kicked back to queue
     reject_reason: RejectReason | None = None
     slo_ok: bool | None = None  # set at completion: counted toward goodput?
-    lease: object | None = None  # KVLease while scheduled
+    lease: object | None = None  # KVLease/DenseKVLease while scheduled
+    prefix_hit: int = 0         # prompt tokens served from the radix cache
 
 
 class ServeEngine:
@@ -246,6 +272,29 @@ class ServeEngine:
         # value caps how many real tokens ride in it each tick
         self.packed_width = cache_len
 
+        # self-speculative decode rides the packed stream: each running
+        # slot's segment is [pending token, drafts...] and the one dispatch
+        # that prefills chunks verifies every draft position
+        spec_depth = int(opts.spec_depth)
+        if spec_depth > 0 and self.prefill_impl != "packed":
+            raise ValueError(
+                f"{cfg.name}: speculative decode rides the packed stream; "
+                f"prefill_impl={self.prefill_impl!r} cannot serve it")
+        self.spec_depth_max = max(1, int(opts.spec_depth_max))
+        self.spec_enabled = spec_depth > 0
+        self.spec_depth = (min(spec_depth, self.spec_depth_max)
+                           if self.spec_enabled else 0)
+        self._spec_len_max = self.spec_depth_max + 1   # 1 pending + k drafts
+        self._drafter = NGramDrafter() if self.spec_enabled else None
+        self.spec_proposed = 0          # drafted tokens verified, lifetime
+        self.spec_accepted = 0          # drafted tokens accepted, lifetime
+        self._tick_spec_proposed = 0
+        self._tick_spec_accepted = 0
+        self._tick_spec_lanes = 0       # draft verify lanes issued
+        # windowed accept rate, the sc_spec sensor: (accepted, proposed)
+        self._accept_window: collections.deque[tuple[int, int]] = \
+            collections.deque(maxlen=slo.window if slo is not None else 64)
+
         self.accountant = HBMAccountant(budget_bytes=hbm_budget_bytes)
         self.accountant.set("weights", sum(t.numel() * t.element_size()
                                            for t in tree_leaves(params)))
@@ -267,10 +316,30 @@ class ServeEngine:
                                     max_blocks=2**30,
                                     accountant=self.accountant)
         self.registry = registry or ConfRegistry()
+
+        # radix prefix cache: needs the refcounted paged allocator (leases
+        # and copy-on-write)
+        if opts.prefix_cache and not self.paged:
+            raise ValueError(
+                f"{cfg.name}: prefix_cache requires paged KV "
+                "(kv_mode='paged' on an attention-only arch)")
+        self._prefix_cache = (PrefixCache(self.pool) if opts.prefix_cache
+                              else None)
+        if self._prefix_cache is not None:
+            self.pool.remap_hook = self._prefix_cache.remap
+        self.kv_cache_share = float(opts.kv_cache_share)
+        self.prefix_hit_tokens_total = 0   # reclaimed prefill tokens
+        self.cow_copied_blocks = 0
+        self._tick_prefix_hit = 0
+        # windowed token-weighted hit rate, the sc_cache sensor
+        self._hit_window: collections.deque[tuple[int, int]] = \
+            collections.deque(maxlen=slo.window if slo is not None else 64)
         # block-level sliding-window eviction: only when EVERY attention
         # layer is windowed (a single global layer needs the whole history)
+        # and the prefix cache is off (trimmed blocks cannot be shared)
         kinds = {k.split("+")[0] for k in cfg.block_pattern}
         self._window_evict = (self.paged and opts.window_evict
+                              and self._prefix_cache is None
                               and kinds <= {"swa", "local"}
                               and bool(cfg.window))
 
@@ -314,8 +383,12 @@ class ServeEngine:
             self._bt_dev = self._dev(self._bt_np)
             self._bt_dirty = False
         else:
-            # no ring margin: speculation, which needs one, is not ported
-            self.caches = zoo.init_cache(cfg, max_batch, cache_len, device)
+            # windowed rings need headroom for in-flight draft K/V: a
+            # rejected draft's entries must age out of the window before
+            # they can alias a live position
+            self.caches = zoo.init_cache(
+                cfg, max_batch, cache_len, device,
+                ring_margin=self.spec_depth_max if self.spec_enabled else 0)
         self.slot_pos = np.full((max_batch,), -1, np.int64)
         self._slot_tok = torch.zeros(max_batch, dtype=torch.int32,
                                      device=device)
@@ -372,9 +445,14 @@ class ServeEngine:
         self.sc_kv = None
         self.sc_chunk = None
         self.sc_admit = None
-        # the decode-latency goal: latency_goal_s, else the SLO's decode_s
-        decode_goal = opts.latency_goal_s if opts.latency_goal_s is not None \
-            else (slo.decode_s if slo is not None else None)
+        self.sc_cache = None
+        self.sc_spec = None
+        # the decode-latency goal: latency_goal_s, else the SLO's decode_s.
+        # sc_chunk targets it; the sc_spec knob is subordinate to it (a
+        # blown decode p99 shrinks the draft depth whatever Eq. 2 wants)
+        self._decode_goal = decode_goal = (
+            opts.latency_goal_s if opts.latency_goal_s is not None
+            else (slo.decode_s if slo is not None else None))
         # sensor-sanity guardrails: a dropped-out or corrupted sensor must
         # never reach Eq. 2 — after 3 consecutive insane readings the knob
         # pins to its last-known-good value
@@ -422,6 +500,40 @@ class ServeEngine:
                 model=ControllerModel(alpha=0.5 * float(slo.ttft_s),
                                       lam=0.1, delta=1.3, conf_min=0.0,
                                       conf_max=float(self.num_tiers - 1)))
+        if enable_smartconf and self._prefix_cache is not None:
+            # cache-share controller: serve.kv_cache_share is a direct
+            # PerfConf on the windowed token-weighted prefix hit rate with
+            # a lower-direction goal (the rate should stay above it); a
+            # larger share retains more prefixes (alpha > 0).  The sensor is
+            # a rate in [0, 1]; one actuation moves at most a tenth of the
+            # span; the share stays in [0.05, 0.9]
+            self.sc_cache = SmartConf(
+                "serve.kv_cache_share", metric="prefix_hit_rate",
+                goal=GoalSpec(float(opts.prefix_hit_rate_goal),
+                              direction="lower"),
+                initial=self.kv_cache_share, registry=self.registry,
+                guardrails=Guardrails(perf_lo=0.0, perf_hi=1.0,
+                                      max_step=0.1),
+                model=ControllerModel(alpha=1.0, lam=0.05, delta=1.2,
+                                      conf_min=0.05, conf_max=0.9,
+                                      integer=False))
+        if enable_smartconf and self.spec_enabled and opts.spec_adaptive:
+            # draft-depth controller: serve.spec_depth is a direct PerfConf
+            # on the windowed accept rate with a lower-direction soft goal.
+            # alpha < 0: a deeper draft drops the accept rate.  The sensor
+            # is a rate in [0, 1]; one actuation moves at most 2 steps; the
+            # depth is an integer in [1, spec_depth_max] (0, spec off, is
+            # an operator's choice, never a controller state)
+            self.sc_spec = SmartConf(
+                "serve.spec_depth", metric="accept_rate",
+                goal=GoalSpec(float(opts.accept_rate_goal),
+                              direction="lower"),
+                initial=float(self.spec_depth), registry=self.registry,
+                guardrails=Guardrails(perf_lo=0.0, perf_hi=1.0,
+                                      max_step=2.0),
+                model=ControllerModel(alpha=-0.08, lam=0.1, delta=1.3,
+                                      conf_min=1.0,
+                                      conf_max=float(self.spec_depth_max)))
 
         # telemetry: off unless a hub is passed, and then the hot path pays
         # one `is not None` test per instrumentation point
@@ -437,6 +549,9 @@ class ServeEngine:
             self._tel_h_ttft = m.histogram("serve.ttft_s")
             self._tel_c_ticks = m.counter("serve.ticks")
             self._tel_c_tokens = m.counter("serve.tokens")
+            self._tel_c_spec_prop = m.counter("serve.spec.proposed")
+            self._tel_c_spec_acc = m.counter("serve.spec.accepted")
+            self._tel_h_spec = m.histogram("serve.spec.accepted_len")
             for reason in RejectReason:
                 m.counter(f"serve.reject.{reason}")
             self._tick_rejects0 = 0
@@ -470,10 +585,11 @@ class ServeEngine:
         return reason
 
     def submit(self, req: Request) -> Admission:
-        """Validate + enqueue; returns a typed :class:`Admission` receipt.
-        A draining engine, an empty prompt, a prompt that cannot fit the
-        cache, or a footprint no block budget could hold is rejected here,
-        at the door."""
+        """Validate + enqueue; returns a typed :class:`Admission` receipt
+        (with the prefix cache on, the prompt tokens a hit would cover
+        right now).  A draining engine, an empty prompt, a prompt that
+        cannot fit the cache, or a footprint no block budget could hold is
+        rejected here, at the door."""
         req.prompt_bytes = len(req.prompt) * QUEUE_TOKEN_BYTES
         req.submitted_t = self.clock()
         fp = self._footprint_blocks(req)
@@ -492,8 +608,11 @@ class ServeEngine:
             return Admission(False,
                              self._reject(req, RejectReason.KV_FOOTPRINT),
                              footprint_blocks=fp)
+        hit = (self._prefix_cache.probe(req.prompt)
+               if self._prefix_cache is not None else 0)
         self.waiting.append(req)
-        return Admission(True, None, footprint_blocks=fp)
+        return Admission(True, None, prefix_hit_tokens=hit,
+                         footprint_blocks=fp)
 
     def _footprint_blocks(self, req: Request) -> int:
         """KV blocks the request needs resident while running."""
@@ -528,6 +647,9 @@ class ServeEngine:
         self._tick_dispatches = 0
         self._tick_decode = 0
         self._tick_decode_slots = 0
+        self._tick_prefix_hit = 0
+        self._tick_spec_proposed = self._tick_spec_accepted = 0
+        self._tick_spec_lanes = 0
         tel = self._tel
         if tel is not None:
             tel.audit.tick = self.ticks_run
@@ -557,7 +679,9 @@ class ServeEngine:
         if tel is not None:
             tel.tracer.phase("schedule")
         self._schedule()
-        if self.prefill_impl == "packed":
+        if self.spec_enabled:
+            n_tokens = self._tick_spec()
+        elif self.prefill_impl == "packed":
             n_tokens = self._tick_unified()
         else:
             if tel is not None:
@@ -607,12 +731,16 @@ class ServeEngine:
             "draining": self._draining,
             "slo_good_tokens": self.slo_good_tokens,
             "slo_miss_tokens": self.slo_miss_tokens,
-            "prefix_hit_tokens": 0,
-            "prefix_cache_blocks": 0,
-            "kv_cache_share": 0.0,
-            "spec_depth": 0,
-            "accept_rate": 0.0,
-            "spec_lanes": 0,
+            "prefix_hit_tokens": self._tick_prefix_hit,
+            "prefix_cache_blocks": (self._prefix_cache.blocks_held
+                                    if self._prefix_cache is not None
+                                    else 0),
+            "kv_cache_share": self.kv_cache_share,
+            "spec_depth": self.spec_depth,
+            "accept_rate": (self._tick_spec_accepted
+                            / self._tick_spec_proposed
+                            if self._tick_spec_proposed else 0.0),
+            "spec_lanes": self._tick_spec_lanes,
             "decode_slots": self._tick_decode_slots,
             "tp_shards": 1,
         }
@@ -623,7 +751,8 @@ class ServeEngine:
     def controllers(self) -> list:
         """The live SmartConf controllers, in the reference's order."""
         return [sc for sc in (self.sc_queue, self.sc_kv, self.sc_chunk,
-                              self.sc_admit) if sc is not None]
+                              self.sc_admit, self.sc_cache, self.sc_spec)
+                if sc is not None]
 
     # ----------------------------------------------------------- telemetry
     def _tel_finish_tick(self, stats: dict, wall_dt: float) -> None:
@@ -750,6 +879,29 @@ class ServeEngine:
             self.sc_admit.set_perf(
                 self._sense("ttft_p99_s", self.ttft_ctrl.p99()))
             self.admit_tier_max = int(self.sc_admit.get_conf())
+        if self.sc_cache is not None and self._hit_window:
+            # token-weighted hit rate over the recent admissions (the
+            # capacity a share buys is proportional to tokens); no
+            # admission yet, no observation, no actuation
+            hw = self._hit_window
+            rate = sum(h for h, _ in hw) / max(1, sum(p for _, p in hw))
+            self.sc_cache.set_perf(self._sense("prefix_hit_rate", rate))
+            self.kv_cache_share = float(self.sc_cache.get_conf())
+            self._prefix_cache.enforce(
+                int(self.kv_cache_share * self.pool.max_blocks))
+        if self.sc_spec is not None and self._accept_window:
+            # the windowed accept rate drives the depth; no drafts verified
+            # yet, no actuation.  The goal is soft and subordinate: when
+            # decode p99 blows the engine's goal the depth steps down one,
+            # whatever Eq. 2 wants
+            aw = self._accept_window
+            rate = sum(a for a, _ in aw) / max(1, sum(p for _, p in aw))
+            self.sc_spec.set_perf(self._sense("accept_rate", rate))
+            depth = int(self.sc_spec.get_conf())
+            if (self._decode_goal is not None
+                    and self.decode_latency.p99() > self._decode_goal):
+                depth = min(depth, max(1, self.spec_depth - 1))
+            self.spec_depth = max(1, min(depth, self.spec_depth_max))
 
     def _stamp_first_token(self, req: Request, now: float) -> None:
         """One TTFT sample per request, at the first compute response
@@ -848,7 +1000,7 @@ class ServeEngine:
                 self.accountant.credit("queue", req.prompt_bytes)
                 self._reject(req, RejectReason.KV_FOOTPRINT)
                 continue
-            lease = self._lease_for(need)
+            lease, hit = self._lease_for(req, need)
             if lease is None:
                 break  # KV budget exhausted; stay queued
             self.queued.popleft()
@@ -858,7 +1010,13 @@ class ServeEngine:
             req.admit_seq = self._admit_counter
             self._admit_counter += 1
             req.lease = lease
-            req.prefilled = 0
+            req.prefix_hit = hit
+            req.prefilled = hit      # cached prefix: skip to the suffix
+            if hit:
+                self.prefix_hit_tokens_total += hit
+                self._tick_prefix_hit += hit
+            if self._prefix_cache is not None:
+                self._hit_window.append((hit, len(req.prompt)))
             if self.paged:
                 self._bt_np[req.slot] = lease.table_row()
                 self._bt_dirty = True
@@ -868,29 +1026,37 @@ class ServeEngine:
                 self._do_prefill_legacy(req)
                 self.running[req.slot] = req
 
-    def _lease_for(self, need: int):
-        """Acquire the request's KV lease (no prefix cache yet: nothing is
-        shared, so no copy-on-write pairs arise).  Returns the lease, or
-        None when the budget cannot hold the request."""
-        if not self.paged:
-            return self.pool.lease(need)
+    def _lease_for(self, req: Request, need: int):
+        """Acquire the request's KV lease, adopting any cached prefix
+        (``PagedKVAllocator.lease(shared=...)``) and copying the block a
+        mid-block match ends in before the request writes into it.  On an
+        allocation failure the coldest cached prefix is evicted and the
+        acquisition retried: a cold cache yields before live traffic waits.
+        Returns ``(lease, prefix_hit_tokens)``, or ``(None, 0)`` when the
+        budget cannot hold the request."""
+        cache = self._prefix_cache
         T = self.pool.block_tokens
-        fresh = -(-need // T)
-        if self.pool.free_blocks < fresh:
-            # store smaller than demand (start-small under an HBM goal, or
-            # shrunk by an earlier cut): grow it first so a free-list miss
-            # is never miscounted as an allocation failure
-            self._grow_store_for(fresh * T)
-        lease = self.pool.lease(need)
-        if lease is None:
-            return None
-        pairs = lease.writable(0, need)
-        if pairs is None:          # copy-on-write targets unavailable
-            lease.release()
-            return None
-        if pairs:
-            self._apply_cow(pairs)
-        return lease
+        while True:
+            if cache is not None:
+                hit, shared = cache.lookup(req.prompt, self.ticks_run)
+            else:
+                hit, shared = 0, []
+            fresh = -(-need // T) - len(shared)
+            if self.paged and self.pool.free_blocks < fresh:
+                # store smaller than demand (start-small under an HBM goal,
+                # or shrunk by an earlier cut): grow it first so a free-list
+                # miss is never miscounted as an allocation failure
+                self._grow_store_for(fresh * T)
+            lease = self.pool.lease(need, shared=shared or None)
+            if lease is not None:
+                pairs = lease.writable(hit, need) if hit else []
+                if pairs is not None:
+                    if pairs:
+                        self._apply_cow(pairs)
+                    return lease, hit
+                lease.release()    # copy-on-write targets unavailable
+            if cache is None or cache.evict_lru_leaf() == 0:
+                return None, 0
 
     def _apply_cow(self, pairs: list[tuple[int, int]]) -> None:
         """Materialize copy-on-write before this tick's writes touch the
@@ -899,6 +1065,7 @@ class ServeEngine:
         src = self._dev(np.asarray([p[0] for p in pairs], np.int64))
         dst = self._dev(np.asarray([p[1] for p in pairs], np.int64))
         zoo.copy_paged_blocks(self.caches, src, dst)
+        self.cow_copied_blocks += len(pairs)
 
     # --------------------------------------------- paged KV: physical budget
     def _bt(self) -> torch.Tensor:
@@ -917,6 +1084,13 @@ class ServeEngine:
             self._enforce_kv_budget()
 
     def _enforce_kv_budget(self) -> None:
+        # a budget cut lands on the cache first: cold cached prefixes are
+        # speculative capacity and yield before any live work is undone
+        cache = self._prefix_cache
+        while (cache is not None and self.pool.over_budget
+               and cache.blocks_held > 0):
+            if cache.evict_lru_leaf() == 0:
+                break
         while self.pool.over_budget and (self.running or self.prefilling):
             self._preempt_lowest_priority()
         bps = self.blocks_per_seq
@@ -978,7 +1152,11 @@ class ServeEngine:
         to prefilled=0: recompute on readmission, counted)."""
         self.prefilling.pop(slot, None)
         self.running.pop(slot, None)
+        if self._drafter is not None:
+            self._drafter.drop(slot)
         if req.lease is not None:
+            # releases only this lease's references: blocks the radix tree
+            # still holds stay resident for later hits
             req.lease.release()
             req.lease = None
         self._free_slots.append(slot)
@@ -987,8 +1165,12 @@ class ServeEngine:
             self._bt_np[slot] = -1
             self._bt_dirty = True
         req.slot = None
-        self.recompute_tokens += req.prefilled + req.gen_count
+        # cache-covered tokens were never computed, so they are not
+        # recompute debt; the suffix and the generated tokens are
+        self.recompute_tokens += (req.prefilled - req.prefix_hit
+                                  + req.gen_count)
         req.prefilled = 0
+        req.prefix_hit = 0
         req.gen_count = 0
         req.generated = []
         req.preempted += 1
@@ -1186,6 +1368,7 @@ class ServeEngine:
                 self._stamp_first_token(req, now)
                 self.slot_pos[slot] = len(req.prompt)
                 self.running[slot] = self.prefilling.pop(slot)
+                self._cache_insert(req)
         for slot, req in decoders:
             self.slot_pos[slot] += 1
             req.gen_count += 1
@@ -1211,6 +1394,192 @@ class ServeEngine:
         # sample every segment that completed a row this tick
         self._slot_tok = torch.where(sample, nxt, self._slot_tok)
         self._gen_buf[self._rows, gidx] = nxt
+
+    # --------------------------------- speculative prefill+decode stream
+    def _tick_spec(self) -> int:
+        """:meth:`_tick_unified` with draft-and-verify decode segments.
+
+        Each running slot's decode rider grows from one lane to ``1 + d``:
+        the device-resident pending token followed by ``d`` drafts
+        (``NGramDrafter``, deterministic), all verified by per-offset
+        argmax in the same dispatch that advances prefill chunks
+        (``step_spec``).  Greedy acceptance keeps the longest matching
+        draft prefix plus the model's own next token, so a slot emits
+        ``accept + 1`` tokens, the tokens of ``accept + 1`` ticks without
+        drafts.  Drafts ride the same width budget as prefill; each is
+        clamped to the request's remaining tokens and cache, so
+        speculation never over-emits or outruns the KV lease.  Decode-only
+        ticks take this path too.  The tick's one host read is the
+        accepted counts and tokens, which the drafter needs."""
+        if not self.prefilling and not self.running:
+            return 0
+        if self._tel is not None:
+            self._tel.tracer.phase("pack")
+        L = self._spec_len_max
+        k_live = min(self.spec_depth, L - 1)
+        # drafts first: the stream width depends on the verify lanes
+        drafts: list[tuple[int, Request, np.ndarray]] = []
+        spec_tokens = 0
+        for slot, req in sorted(self.running.items(),
+                                key=lambda sr: sr[1].admit_seq):
+            d_cap = min(k_live, req.max_new_tokens - req.gen_count - 1,
+                        self.cache_len - 1 - int(self.slot_pos[slot]))
+            d = (self._drafter.propose(slot, d_cap) if d_cap > 0
+                 else np.zeros(0, np.int32))
+            drafts.append((slot, req, d))
+            spec_tokens += 1 + len(d)
+        n_dec = len(drafts)
+        budget = max(1, min(int(self.prefill_chunk), self.packed_width))
+        demand = sum(len(r.prompt) - r.prefilled
+                     for r in self.prefilling.values())
+        pre_budget = min(max(1, budget - n_dec), demand) if demand else 0
+        width = min(_bucket(max(1, pre_budget + spec_tokens)),
+                    self.packed_width)
+        width = max(width, pre_budget + spec_tokens)
+        tokens = np.zeros((1, width), np.int32)
+        slot_id = np.full((width,), -1, np.int32)
+        posw = np.zeros((width,), np.int32)
+        start = np.zeros((self.max_batch,), np.int32)
+        seg_len = np.zeros((self.max_batch,), np.int32)
+        is_dec = np.zeros((width,), bool)
+        spec_rows = np.zeros((self.max_batch,), bool)
+        sample = np.zeros((self.max_batch,), bool)
+        gidx = np.full((self.max_batch,), self.cache_len, np.int64)
+        spec_idx = np.zeros((self.max_batch, L), np.int64)
+        draft_len = np.zeros((self.max_batch,), np.int32)
+        done = np.zeros((self.max_batch,), bool)
+        cursor = 0
+        packed: list[tuple[int, Request, int]] = []
+        for slot, req in sorted(self.prefilling.items(),
+                                key=lambda sr: sr[1].admit_seq):
+            if cursor >= pre_budget:
+                break   # later arrivals re-pack from `prefilled` next tick
+            n = min(len(req.prompt) - req.prefilled, pre_budget - cursor)
+            tokens[0, cursor:cursor + n] = \
+                req.prompt[req.prefilled:req.prefilled + n]
+            slot_id[cursor:cursor + n] = slot
+            posw[cursor:cursor + n] = np.arange(req.prefilled,
+                                                req.prefilled + n)
+            start[slot] = req.prefilled
+            seg_len[slot] = n
+            if req.prefilled + n >= len(req.prompt):
+                done[slot] = sample[slot] = True
+                gidx[slot] = 0               # first token -> gen ring head
+                # draft_len 0: accept is 0 and the sampled token is the
+                # argmax at the segment's last lane, the first token
+                spec_idx[slot, :] = cursor + n - 1
+            packed.append((slot, req, n))
+            cursor += n
+        pre_cursor = cursor
+        for slot, req, d in drafts:
+            seg = 1 + len(d)
+            spos = int(self.slot_pos[slot])
+            # lane 0 carries a placeholder the step fills from the device
+            # token ring; the drafts ride from the host
+            if len(d):
+                tokens[0, cursor + 1:cursor + seg] = d
+            slot_id[cursor:cursor + seg] = slot
+            posw[cursor:cursor + seg] = np.arange(spos, spos + seg)
+            is_dec[cursor] = True
+            start[slot] = spos
+            seg_len[slot] = seg
+            spec_rows[slot] = sample[slot] = True
+            gidx[slot] = min(req.gen_count, self.cache_len)  # ==len => trash
+            spec_idx[slot, :] = cursor + np.minimum(np.arange(L), seg - 1)
+            draft_len[slot] = len(d)
+            cursor += seg
+        plan = self._packed_plan(slot_id, posw, start, seg_len)
+        t_disp = self.clock()
+        if self._tel is not None:
+            self._tel.tracer.phase("dispatch")
+        accept_d, toks_d = self._step_spec(
+            self._dev(tokens), self._dev(slot_id), self._dev(posw),
+            self._dev(start), self._dev(seg_len), self._dev(is_dec),
+            self._dev(spec_rows), self._dev(sample), self._dev(gidx),
+            self._dev(spec_idx), self._dev(draft_len), plan)
+        self.model_dispatches += 1
+        self._tick_dispatches += 1
+        self._prefill_shapes.add(width)
+        if packed:
+            self.prefill_calls += 1
+            self._record_prefill_pad(width - spec_tokens, pre_cursor,
+                                     len(packed))
+        self._tick_packed_segments += n_dec
+        # acceptance decides how far every slot advanced: the one host
+        # read of the tick (the accepted tokens feed the drafter)
+        accept = accept_d.cpu().numpy()
+        tks = toks_d.cpu().numpy()
+        if self._tel is not None:
+            self._tel.tracer.phase("sample")
+        if n_dec:
+            dt = self.clock() - t_disp
+            self.decode_latency.record(dt)
+            if self._tel is not None and dt > 0.0:
+                self._tel_h_decode.record(dt)
+        now = self.clock()
+        for slot, req, n in packed:
+            req.prefilled += n
+            req.prefill_chunks += 1
+            if done[slot]:
+                req.gen_count = 1            # first token is on the device
+                self._stamp_first_token(req, now)
+                self.slot_pos[slot] = len(req.prompt)
+                self.running[slot] = self.prefilling.pop(slot)
+                self._cache_insert(req)
+                self._drafter.begin(slot, req)
+                self._drafter.extend(slot, tks[slot, :1])
+        n_emitted = 0
+        for slot, req, d in drafts:
+            a = int(accept[slot])
+            self._drafter.extend(slot, tks[slot, :a + 1])
+            self.slot_pos[slot] += a + 1
+            req.gen_count += a + 1
+            n_emitted += a + 1
+            self._tick_spec_proposed += len(d)
+            self._tick_spec_accepted += a
+            if self._tel is not None:
+                self._tel_h_spec.record(float(a))
+        if self._tick_spec_proposed:
+            self.spec_proposed += self._tick_spec_proposed
+            self.spec_accepted += self._tick_spec_accepted
+            self._accept_window.append((self._tick_spec_accepted,
+                                        self._tick_spec_proposed))
+            if self._tel is not None:
+                self._tel_c_spec_prop.inc(self._tick_spec_proposed)
+                self._tel_c_spec_acc.inc(self._tick_spec_accepted)
+        self._tick_spec_lanes = spec_tokens - n_dec
+        self._tick_decode = n_emitted
+        self._tick_decode_slots = n_dec
+        n_tokens = n_emitted + int(done.sum())
+        if n_tokens:
+            self.throughput.record(n_tokens)
+        return n_tokens
+
+    def _step_spec(self, tokens, slot_id, pos, start, seg_len, is_dec,
+                   spec_rows, sample, gidx, spec_idx, draft_len, plan):
+        """One ``step_spec`` dispatch; returns ``(accept, toks)`` on the
+        device.  Each sampled row's accepted prefix plus the model's own
+        next token, ``toks[b, :accept[b]+1]``, lands in its gen ring from
+        ``gidx[b]`` (past the ring: the trash column), and the last of them
+        becomes the slot's pending token."""
+        safe = slot_id.clamp(0, self.max_batch - 1)
+        tokens = torch.where(is_dec[None, :], self._slot_tok[safe][None, :],
+                             tokens)
+        accept, toks = zoo.step_spec(self.cfg, self.params, self.caches,
+                                     tokens, slot_id, pos, start, seg_len,
+                                     spec_rows, spec_idx, draft_len,
+                                     self._bt() if self.paged else None,
+                                     plan=plan)
+        offs = torch.arange(spec_idx.shape[1], device=self.device)[None, :]
+        cols = gidx[:, None] + offs
+        write = ((offs <= accept[:, None]) & sample[:, None]
+                 & (cols < self.cache_len))
+        cols = torch.where(write, cols, self.cache_len)
+        self._gen_buf[self._rows[:, None], cols] = toks
+        self._slot_tok = torch.where(sample,
+                                     toks[self._rows, accept.long()],
+                                     self._slot_tok)
+        return accept, toks
 
     # ----------------------------------------------- split ticks: prefill
     def _chunk_plan(self, start: np.ndarray, lengths: np.ndarray,
@@ -1265,6 +1634,19 @@ class ServeEngine:
                 self._stamp_first_token(req, now)
                 self.slot_pos[slot] = len(req.prompt)
                 self.running[slot] = self.prefilling.pop(slot)
+                self._cache_insert(req)
+
+    def _cache_insert(self, req: Request) -> None:
+        """Prefill-complete hook: the finished prompt's full-block prefix
+        goes into the radix tree (one reference a block; decode and a
+        partial tail land strictly beyond the inserted blocks, so tree-held
+        KV is never written again), then the tree is held to its
+        ``serve.kv_cache_share`` of the block budget."""
+        cache = self._prefix_cache
+        if cache is None or req.lease is None:
+            return
+        if cache.insert(req.prompt, req.lease.blocks, self.ticks_run):
+            cache.enforce(int(self.kv_cache_share * self.pool.max_blocks))
 
     def _step_prefill_chunk(self, tokens, start, lengths, done,
                             plan) -> None:
@@ -1377,13 +1759,33 @@ class ServeEngine:
             self.finished.append(req)
             del self.running[slot]
             self._free_slots.append(slot)
+            if self._drafter is not None:
+                self._drafter.drop(slot)
             if req.lease is not None:
+                if self.spec_enabled:
+                    self._truncate_and_insert(req)
                 req.lease.release()
                 req.lease = None
             self.slot_pos[slot] = -1
             if self.paged:
                 self._bt_np[slot] = -1
                 self._bt_dirty = True
+
+    def _truncate_and_insert(self, req: Request) -> None:
+        """Speculation's finish: only accepted-token KV stays.  The final
+        sampled token was never consumed and a rejected draft tail is junk,
+        so both are cut out of the lease before the radix tree may adopt
+        its blocks; then the cacheable prefix is extended with the
+        request's own output (prompt plus accepted continuation), so a
+        repeat of this stream hits past the prompt."""
+        valid = len(req.prompt) + max(0, len(req.generated) - 1)
+        req.lease.truncate(valid)
+        cache = self._prefix_cache
+        if cache is not None and req.generated:
+            ext = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.generated[:-1], np.int32)])
+            if cache.insert(ext, req.lease.blocks, self.ticks_run):
+                cache.enforce(int(self.kv_cache_share * self.pool.max_blocks))
 
     def _trim_windows(self) -> None:
         """Block-level sliding-window eviction (all-window archs only):

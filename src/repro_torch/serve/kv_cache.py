@@ -68,6 +68,14 @@ class DenseKVLease:
             raise ValueError("extend on released lease")
         return self._pool.ensure(self._key, tokens)
 
+    def truncate(self, tokens: int) -> int:
+        """Shrink to cover at most ``tokens`` logical tokens, crediting
+        whole trailing blocks back to the ledger (the speculative-decode
+        finish path).  Returns the number of blocks freed."""
+        if self.released:
+            raise ValueError("truncate on released lease")
+        return self._pool.shrink(self._key, tokens)
+
     def release(self) -> None:
         if self.released:
             return
@@ -91,8 +99,11 @@ class KVBlockPool:
         self.alloc_failures = 0
         self._next_lease = 0
 
-    def lease(self, tokens: int) -> DenseKVLease | None:
-        """A handle covering ``tokens``, or None if the budget blocks it."""
+    def lease(self, tokens: int, shared=None) -> DenseKVLease | None:
+        """A handle covering ``tokens``, or None if the budget blocks it.
+        ``shared`` is accepted for ``PagedKVAllocator.lease``'s signature
+        and must be empty: dense rings cannot share."""
+        assert not shared, "dense KV has no shared blocks"
         key = self._next_lease
         self._next_lease += 1
         if not self.ensure(key, tokens):
@@ -126,6 +137,24 @@ class KVBlockPool:
         if self.accountant is not None:
             self.accountant.charge("kv_cache", delta * self.block_bytes)
         return True
+
+    def shrink(self, seq_id: int, tokens: int) -> int:
+        """Shrink a sequence to cover at most ``tokens``, the inverse of
+        ``ensure``.  Returns the blocks freed (0 when it already fits)."""
+        seq = self._seqs.get(seq_id)
+        if seq is None:
+            return 0
+        tokens = max(0, int(tokens))
+        keep = -(-tokens // self.block_tokens)
+        freed = seq.blocks - keep
+        seq.tokens = min(seq.tokens, tokens)
+        if freed <= 0:
+            return 0
+        seq.blocks = keep
+        self.used_blocks -= freed
+        if self.accountant is not None:
+            self.accountant.credit("kv_cache", freed * self.block_bytes)
+        return freed
 
     def free(self, seq_id: int) -> None:
         seq = self._seqs.pop(seq_id, None)

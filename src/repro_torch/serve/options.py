@@ -1,13 +1,14 @@
 """Typed engine configuration: :class:`ServeOptions` and :class:`SLOSpec`.
 
 The same fields, names and defaults as the reference's ``ServeOptions``
-for everything the port serves.  Features the port does not serve yet
-raise ``NotImplementedError`` naming their ROADMAP item when the options
-are built — none is silently ignored.  The port reads no environment
-variables: what the reference's ``resolve()`` took from the environment is
-passed explicitly (its ``REPRO_PREFILL_MODE`` re-routing of ``auto``
-included: no environment variable picks a path), and telemetry is on only
-when a hub is passed (``REPRO_TELEMETRY`` has no counterpart).
+for everything the port serves.  Mesh serving, which the port does not
+serve yet, raises ``NotImplementedError`` naming its ROADMAP item when the
+options are built — it is never silently ignored.  The port reads no
+environment variables: what the reference's ``resolve()`` took from the
+environment is passed explicitly (its ``REPRO_PREFILL_MODE`` re-routing of
+``auto`` and ``REPRO_SPEC_DEPTH`` included: no environment variable picks
+a path), and telemetry is on only when a hub is passed
+(``REPRO_TELEMETRY`` has no counterpart).
 """
 
 from __future__ import annotations
@@ -56,10 +57,17 @@ class ServeOptions:
     slo: SLOSpec | None = None
     num_tiers: int = 3
     admit_tier_max: int | None = None
+    # radix prefix cache over refcounted paged blocks (needs paged KV)
     prefix_cache: bool = False
+    kv_cache_share: float = 0.5         # cache's share of the block budget
+    prefix_hit_rate_goal: float = 0.3   # sc_cache goal (direction="lower")
     # block-level sliding-window eviction (all-window archs)
     window_evict: bool = True
-    spec_depth: int = 0
+    # self-speculative decode (packed prefill mode only)
+    spec_depth: int = 0                 # initial draft depth k; 0 = off
+    spec_depth_max: int = 8             # conf_max for sc_spec
+    spec_adaptive: bool = True          # sc_spec actuates serve.spec_depth
+    accept_rate_goal: float = 0.5       # sc_spec setpoint (direction="lower")
     mesh: str | None = None
     # one engine is one replica: N of them go behind serve.ReplicaRouter
     replicas: int = 1
@@ -78,12 +86,6 @@ class ServeOptions:
             raise ValueError(
                 f"ServeOptions replicas={self.replicas}: one engine serves "
                 "one replica; put N engines behind serve.ReplicaRouter")
-        unported = (
-            (self.prefix_cache, "prefix_cache", "Queue 1 item 6"),
-            (self.spec_depth > 0, "spec_depth > 0", "Queue 1 item 6"),
-            (self.mesh is not None, "mesh", "Queue 1 item 11"),
-        )
-        for on, name, item in unported:
-            if on:
-                raise NotImplementedError(
-                    f"ServeOptions {name}: ROADMAP {item} (not ported yet)")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "ServeOptions mesh: ROADMAP Queue 1 item 11 (not ported yet)")

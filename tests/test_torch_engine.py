@@ -207,9 +207,11 @@ def test_typed_rejections(prompt_len, reason):
      "paged KV requires"),
     # a modality frontend serves only through the one-shot path with it
     ("internvl2-1b", {}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    (None, {"prefix_cache": True}, NotImplementedError, "ROADMAP"),
-    (None, {"spec_depth": 2}, NotImplementedError, "ROADMAP"),
-    (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP"),
+    # MoE and the encoder-decoder frontend, each naming its item (the
+    # prefix cache and speculation, which held these places, now serve)
+    ("deepseek-moe-16b", {}, NotImplementedError, "ROADMAP Queue 1 item 7"),
+    ("whisper-tiny", {}, NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP Queue 1 item 11"),
     # one engine is one replica: more go behind the router
     (None, {"replicas": 2}, ValueError, "ReplicaRouter")],
     # the ids the cases had before a legacy case left the list

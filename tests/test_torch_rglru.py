@@ -17,7 +17,8 @@ on the CPU.  Tests marked ``cuda`` hold the CUDA kernel against the plain
 version on the card, every instance (reached through B, F and views
 offset in their buffers) and the ring's edges (S around a stage, F off
 the CTA width, inputs only 4-byte aligned, pad steps bit for bit, state
-threaded across launches), and skip where there is none:
+threaded across launches, nine launches of one step), and skip where
+there is none:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \\
         tests/test_torch_rglru.py
@@ -374,3 +375,21 @@ def test_scan_kernel_threads_state_across_launches(cuda):
     assert torch.equal(torch.cat([h1, h2], 1), h)
     assert torch.equal(s2, out)
     assert_plain(h, out, la, bb, h0)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_at_one_step_threads_nine_launches(cuda):
+    """A speculative row's column calls: nine launches of T = 1 at
+    recurrentgemma-9b's width, each seeding the next, give one launch of
+    T = 9 bit for bit."""
+    la, bb, h0 = card_scan(cuda, 8, 9, 4096, seed=9)
+    h, out = rglru_scan_state(la, bb, h0)
+    hs, st = [], h0
+    for j in range(9):
+        hj, st = rglru_scan_state(la[:, j:j + 1].contiguous(),
+                                  bb[:, j:j + 1].contiguous(), st)
+        hs.append(hj)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(hs, 1), h) and torch.equal(st, out)
+    assert_plain(h, out, la, bb, h0)
+

@@ -455,3 +455,27 @@ def test_ops_launch_the_kernel_on_card(cuda):
     rwkv6_op(*args[:5])
     torch.cuda.synchronize()
     assert rwkv6_scan_state.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_scan_kernel_at_one_step_threads_nine_launches(cuda):
+    """A speculative row's column calls: nine launches of T = 1 at
+    rwkv6-7b's 512 rows, each seeding the next, against one launch of
+    T = 9 and the plain version.  Not bit for bit with T = 9: one launch
+    runs its steps in pairs, within a few f32 ulps of the step order."""
+    r, k, v, logw, u, s0 = t(*scan_case(np.random.default_rng(9), 512, 9,
+                                        64), device=cuda)
+    y, s_out = rwkv6_scan_state(r, k, v, logw, u, s0)
+    ys, st = [], s0
+    for j in range(9):
+        yj, st = rwkv6_scan_state(*(a[:, j:j + 1].contiguous()
+                                    for a in (r, k, v, logw)), u, st)
+        ys.append(yj)
+    torch.cuda.synchronize()
+    y1 = torch.cat(ys, 1)
+    torch.testing.assert_close(y1, y, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(st, s_out, atol=1e-5, rtol=1e-5)
+    want_y, want_s = rwkv6_ref_state(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y1, want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(st, want_s, atol=1e-4, rtol=1e-4)
+

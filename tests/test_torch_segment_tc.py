@@ -19,7 +19,9 @@ head chunks), block tokens 16 and 32 (tensor cores) and 12 (CUDA cores),
 holes inside a segment's table row, windows that cut a key tile, streams
 whose length is no multiple of the tile with all-dead tiles (exact zeros),
 every head dim, f32 and bf16, recurrentgemma's wrapped and stale rings;
-and a stale table entry or segment stops the tensor-core paged kernel on a
+speculation's segments of 2-9 lanes over table rows that share blocks
+(and a copied boundary block a prefill starts inside), and over
+2056-entry rings; and a stale table entry or segment stops the tensor-core paged kernel on a
 device-side assert (in a child process).  They skip where there is no card:
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \\
@@ -250,11 +252,13 @@ def test_paged_long_chunks_on_card(cuda, d, t, dtype):
         check(got, want, dtype, case["q_seg"])
 
 
-def rings_case(rng, *, h, kv, d, p, segs, b, ring, prev=()):
+def rings_case(rng, *, h, kv, d, p, segs, b, ring, prev=(), ahead=()):
     """The dense packed path's keys as the model tags them: every slot's
     ring (its own last ``ring`` positions before its start, wrapped; a
     slot in ``prev`` holds an earlier occupant's later positions instead,
-    stale and masked), then the stream's own keys."""
+    stale and masked; a slot in ``ahead`` also holds the 8 positions from
+    its start on, a rejected draft's entries, stale and masked), then the
+    stream's own keys."""
     ring_pos = np.full((b, ring), -1, np.int64)
     start = np.zeros(b, np.int64)
     q_pos = np.zeros(p, np.int32)
@@ -270,6 +274,9 @@ def rings_case(rng, *, h, kv, d, p, segs, b, ring, prev=()):
     for s in prev:
         occ = np.arange(ring + 37)[-ring:]
         ring_pos[s, occ % ring] = occ
+    for s in ahead:
+        junk = start[s] + np.arange(8)
+        ring_pos[s, junk % ring] = junk
     kpos = np.where(ring_pos < start[:, None], ring_pos, -1)
     k_pos = np.concatenate([kpos.reshape(-1), np.where(q_seg >= 0, q_pos, -1)])
     k_seg = np.concatenate([np.repeat(np.arange(b), ring), q_seg])
@@ -322,6 +329,49 @@ def test_flat_recurrentgemma_tick_on_card(cuda, dtype):
     segs = [(0, 2400, 1), (1, 2100, 1), (2, 900, 400), (3, 0, 500)]
     case = rings_case(np.random.default_rng(9), h=16, kv=1, d=256, p=1024,
                       segs=segs, b=4, ring=2048, prev=(3,))
+    got, want = run_flat(cuda, case, dtype, 2048)
+    check(got, want, dtype, case["q_seg"])
+
+
+# the prefix cache and speculation: decode segments of 2-9 lanes (slot
+# 1's ends on a block's last key), slot 2's prefix-hit prefill starting
+# mid-block (at 40) in its copied boundary block, slot 0's chunk
+SPEC_SEGS = [(3, 100, 9), (1, 44, 4), (4, 31, 2), (5, 200, 7), (2, 40, 50),
+             (6, 15, 3), (7, 70, 6), (0, 60, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_spec_segments_over_shared_tables_on_card(cuda, dtype, window):
+    """yi-6b's heads at T 16 (bf16: the tensor cores; f32: the CUDA
+    cores): spec segments beside a prefix-hit prefill, with slots 0 and 1
+    sharing their first three physical blocks (an adopted prefix) and slot
+    2 sharing two and holding a copy of the third (the copy-on-write its
+    mid-block match made).  Repeated ids across table rows are valid."""
+    case = paged_case(np.random.default_rng(23), h=32, kv=4, d=128, t=16,
+                      p=128, segs=SPEC_SEGS, b=8, m=15)
+    tab = case["block_tables"]
+    tab[1, :3] = tab[0, :3]
+    tab[2, :2] = tab[0, :2]
+    for a in (case["k_store"], case["v_store"]):
+        a[tab[2, 2]] = a[tab[0, 2]]
+    got, want = run_paged(cuda, case, dtype, window)
+    check(got, want, dtype, case["q_seg"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flat_spec_segments_over_2056_entry_rings_on_card(cuda, dtype):
+    """recurrentgemma-9b's attention under speculation: MQA, D 256, window
+    2048 over rings widened by ``spec_depth_max`` (2056 entries), spec
+    segments of 2-9 lanes on wrapped rings (one at the ring's edge) with a
+    rejected draft's stale entries ahead, beside a prefill chunk over an
+    earlier occupant's ring."""
+    segs = [(0, 3000, 9), (1, 2100, 5), (2, 2056, 4), (3, 500, 1),
+            (4, 0, 100), (5, 4000, 6)]
+    case = rings_case(np.random.default_rng(12), h=16, kv=1, d=256, p=160,
+                      segs=segs, b=6, ring=2056, prev=(4,), ahead=(0, 5))
     got, want = run_flat(cuda, case, dtype, 2048)
     check(got, want, dtype, case["q_seg"])
 

@@ -289,12 +289,9 @@ def test_chaos_preemption_mid_trace_recovers(small_model):
 # ---------------------------------------------- bench_slo's admission lane
 
 # per-tick stats compared with the JAX engine's: all but ``hbm`` (the
-# weight-dependent key, dropped by ``chip_smoke.drive_lane`` too) and
-# ``kv_cache_share``, the unported prefix cache's knob (Queue 1 item 6),
-# which the port reports as 0.0 and the reference at its option's 0.5
+# weight-dependent key, dropped by ``chip_smoke.drive_lane`` too)
 def _stats(st: dict) -> dict:
-    return {k: v for k, v in st.items()
-            if k not in ("hbm", "kv_cache_share")}
+    return {k: v for k, v in st.items() if k != "hbm"}
 
 
 @pytest.fixture(scope="module")
