@@ -71,7 +71,11 @@ caught:
                 draft's stale entries ahead), and both scans at T = 1,
                 nine launches threading the state against one of T = 9
                 (RG-LRU bit for bit; RWKV-6, whose one launch pairs its
-                steps, within the f32 tolerance, its gap printed);
+                steps, within the f32 tolerance, its gap printed); and
+                both paged kernels at phase 13's head groupings on the
+                slice's mixed and decode ticks: deepseek-moe-16b's MHA
+                16/16 (G 1) and llama4-maverick-400b-a17b's 40/8 (G 5),
+                D 128, T 16;
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes
                 (the flash rows also at recurrentgemma-9b's training shape:
@@ -102,9 +106,16 @@ caught:
                 layers): packed steps on dense state and a decode step, a
                 one-shot prefill (150 tokens; rwkv6 97, a remainder chunk)
                 and a training gradient (rglru_block, time_mix_chunked, the
-                flash kernels at D 256); the gradient norm's limit is ten
-                times the largest of five nudged readings, for every arch;
-                each cut's seconds on the card and the CPU;
+                flash kernels at D 256); deepseek-moe-16b (2 layers: its
+                dense first layer and one MoE layer of 64 experts top-6
+                and two shared, 1.09 B parameters, capacity 1.25): packed
+                steps on paged KV, a paged decode step, a training loss
+                with its load-balancing aux and every gradient leaf on one
+                row, and the router's top-6 expert set of every live
+                token, card against CPU (a flip printed with its margin);
+                the gradient norm's limit is ten times the largest of five
+                nudged readings, for every arch; each cut's seconds on the
+                card and the CPU;
   6. slice    — full yi-6b (32 layers, bf16, seeded random weights) serves
                 8 requests through the launcher's functions, with the three
                 SmartConf knobs live, every paged segment launch on the
@@ -217,11 +228,31 @@ caught:
                 1, 2, 4 and 8, adaptive goodput above every one, the NaN
                 window's fallbacks in the written audit.jsonl, every tick
                 equal to the same run on the CPU at ``reduced()`` size.
+ 13. moe      — (a) full deepseek-moe-16b (28 layers: one dense, 27 MoE of
+                64 routed experts top-6 and two shared; bf16, 32.75 GB of
+                seed-0 weights drawn on the card after phase 12 frees
+                yi-6b's) serves phase 6's 8 requests through the
+                launcher's functions under phase 6's settings (packed
+                ticks, paged KV at T 16, 8 slots, cache_len 2048, the three
+                knobs live, capacity factor 1.25), HBM goal weights + 4 GB:
+                all finish, at most one dispatch a tick, no ledger
+                violation, every paged segment launch on the tensor cores
+                (asserted); tokens/s, TTFT, mixed and decode-only tick ms,
+                the knobs' trajectories, the in-phase peak beside the goal.
+                (b) ``moe_apply`` alone on one of its layers at the decode
+                shape [8, 1, 2048] and on a 2048-token stream: ms by CUDA
+                events and device time, kernels a call, its bound and the
+                share of assignments dropped.  (c) llama4-maverick-400b-
+                a17b cut in depth only, to its first 2 of 48 layers (one
+                full, one full+moe of all 128 experts of 8192, top-1, one
+                shared; d 5120, 40/8 heads: 18.55 B parameters, 37.1 GB),
+                deepseek's weights freed first, serves the first 4 of the
+                same prompts with (a)'s assertions.
 
 Before the last line it prints a JSON object with every kernel's numbers
-(launches summed over the serving and training phases, each of which sets
-the counts it reads to 0 before it drives its path), then the card's name
-and power limit; the last line is ``{"ok": true, "device": {...}}``.
+(launches summed over the serving and training phases, 13 included, each
+of which sets the counts it reads to 0 before it drives its path), then
+the card's name and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -230,6 +261,7 @@ import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -274,6 +306,7 @@ from repro_torch.kernels.segment_attention import (  # noqa: E402
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
+from repro_torch.models import moe as moe_model  # noqa: E402
 from repro_torch.models import rglru as rglru_model  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv6_model  # noqa: E402
 from repro_torch.models.layers import apply_norm  # noqa: E402
@@ -416,6 +449,20 @@ SPEC_CUT_LAYERS = 2
 # phase 12d: bench_slo's speculation lane, its constants copied
 SPEC_RATE_RPS, SPEC_LANE_S = 28.0, 8e-3
 SPEC_STATIC_DEPTHS = (0, 1, 2, 4, 8)
+# phase 13: the MoE archs.  deepseek-moe-16b at full size serves phase 6's
+# requests under an HBM goal of its weights + 4 GB: SmartConf's virtual
+# goal (0.95 of the hard one) then lies ~2.2 GB above its 32.75 GB of
+# weights, ~9.4k tokens of KV at 229 KB a token (+ 2 GB would leave under
+# 0.5 GB, phase 7's RG_HEADROOM reasoning)
+MOE_ARCH, MAVERICK = "deepseek-moe-16b", "llama4-maverick-400b-a17b"
+MOE_HEADROOM = 4e9
+# 13b: moe_apply alone at the decode shape [SLOTS, 1, d] and on a packed
+# stream of this many tokens
+MOE_STREAM = 2048
+# 13c: llama4-maverick-400b-a17b at every width and all 128 experts, cut
+# to its first 2 of 48 layers (one full, one full+moe: 18.55 B
+# parameters, 37.1 GB in bf16), serving the first 4 of phase 6's prompts
+MAVERICK_LAYERS, MAVERICK_PROMPTS = 2, 4
 
 
 def say(*a) -> None:
@@ -833,6 +880,12 @@ def phase_kernels(dev) -> dict:
         # decode riders beside two chunks in a 64-lane stream
         "slo": dict(segs=SLO_SEGS, p=64, h=H, kv=KV, d=D, t=T,
                     b=SLO_MAX_BATCH, m=SLO_CACHE_LEN // T, holes=1),
+        # phase 13's MoE archs on the slice's mixed tick: deepseek-moe-16b
+        # (MHA 16/16, G 1) and llama4-maverick-400b-a17b (40/8, G 5)
+        "deepseek": dict(segs=main_segment_segs(), p=WIDTH, h=16, kv=16,
+                         d=D, t=T, b=SLOTS, m=M, holes=6),
+        "maverick": dict(segs=main_segment_segs(), p=WIDTH, h=40, kv=8,
+                         d=D, t=T, b=SLOTS, m=M, holes=6),
     }
     dec_cases = {
         "main": dict(q_pos=[int(n) + 16 for n in lens], h=H, kv=KV, d=D,
@@ -857,6 +910,11 @@ def phase_kernels(dev) -> dict:
         # phase 11's decode-only tick: 3 of its 4 slots running
         "slo": dict(q_pos=[40, 63, 17], h=H, kv=KV, d=D, t=T,
                     m=SLO_CACHE_LEN // T, holes=1, idle=1),
+        # phase 13's decode ticks: G 1 (deepseek) and G 5 (maverick)
+        "deepseek": dict(q_pos=[int(n) + 16 for n in lens], h=16, kv=16,
+                         d=D, t=T, m=M, holes=6),
+        "maverick": dict(q_pos=[int(n) + 16 for n in lens], h=40, kv=8,
+                         d=D, t=T, m=M, holes=6),
     }
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs = {"paged_segment_attention": 0.0, "paged_decode_attention": 0.0}
@@ -2093,7 +2151,7 @@ def timing_flash(dev, shape=None, what="yi-6b training") -> dict:
 
 
 def phase_parity(dev, card, cfg, host, dense: bool = True,
-                 grad_rows: int = 2):
+                 grad_rows: int = 2, routes: dict | None = None):
     """Full-width ``cfg`` (a 2-layer f32 cut), TF32 off, card vs CPU,
     beside the card against itself with every weight multiplied in f32 by
     1 + 1e-7 N(0, 1), a perturbation at the level of f32 rounding (the
@@ -2104,7 +2162,9 @@ def phase_parity(dev, card, cfg, host, dense: bool = True,
     on the card: logits and rings); then one ``loss_fn`` with gradients
     at batch ``grad_rows`` x 130 (the flash forward and backward
     kernels).  ``host``: ``cfg``'s weights on the host
-    (:func:`host_weights`)."""
+    (:func:`host_weights`).  With ``routes`` (a dict), every ``moe_apply``
+    call of the card, noise-floor and CPU runs is recorded there
+    (:func:`recording`): ``routes["serve"]`` and ``routes["train"]``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = f"{cfg.name} {cfg.num_layers} layers f32"
@@ -2151,8 +2211,12 @@ def phase_parity(dev, card, cfg, host, dense: bool = True,
                 [caches["groups"][0][k].cpu() for k in ("k", "v")])
 
     grad = grad_run(cfg, train_batch(cfg.vocab_size, 130, rows=grad_rows))
+    runs = (run, *([run_dense] if dense else []), grad)
+    if routes is not None:
+        runs = (recording(run, routes.setdefault("serve", [])),
+                *runs[1:-1], recording(grad, routes.setdefault("train", [])))
     (got, cpu, floor), *dense, train = card_cpu_floor(
-        dev, params, host, name, run, *([run_dense] if dense else []), grad)
+        dev, params, host, name, *runs)
     train += (card_gnorm_floors(dev, params, grad),)
     del params, host
     worst = 0.0
@@ -2191,6 +2255,29 @@ def phase_parity(dev, card, cfg, host, dense: bool = True,
              "gradients")
 
 
+def phase_parity_moe(dev, card, drawn):
+    """Phase 5's MoE cut: deepseek-moe-16b at full width, 2 layers (its
+    dense first layer, d_ff 10944, and one MoE layer: 64 routed experts
+    of 1408, top-6, two shared), 1.09 B parameters, f32, through
+    :func:`phase_parity` (packed steps on paged KV and a paged decode
+    step; the training loss with its load-balancing aux and every gradient
+    leaf, on one row), at the configured capacity 1.25 (drops happen);
+    then the router's choices card against CPU (:func:`routes_agree`).  A
+    flip is printed with its margin, not failed: the logits and gradients
+    that follow from it are held to their limits."""
+    cfg, host = drawn.result()
+    n_par = sum(t.numel() for t in tree_leaves(host))
+    say(f"[parity] {cfg.name}: {cfg.num_layers} layers "
+        f"{cfg.first_k_dense} dense + {cfg.block_pattern}, {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads, {cfg.num_experts} experts top-"
+        f"{cfg.top_k}, {cfg.num_shared_experts} shared, capacity factor "
+        f"{cfg.capacity_factor}; {n_par / 1e9:.3f} B parameters")
+    routes: dict = {}
+    phase_parity(dev, card, cfg, host, False, 1, routes=routes)
+    del host
+    routes_agree(card, cfg, routes)
+
+
 def phase_parity_attention(dev, card, drawn: dict):
     """Phase 5's attention archs, each a full-width 2-layer f32 cut
     through :func:`phase_parity`: yi-6b; h2o-danube-3-4b (head dim 120,
@@ -2219,14 +2306,79 @@ def phase_parity_attention(dev, card, drawn: dict):
 def parity_cuts() -> dict:
     """Phase 5's full-width f32 cuts by name: 2 layers of yi-6b,
     h2o-danube-3-4b, gemma3-4b (one local and the global layer),
-    starcoder2-15b and rwkv6-7b; 5 of recurrentgemma-9b."""
+    starcoder2-15b, rwkv6-7b and deepseek-moe-16b (its dense first layer
+    and one MoE layer); 5 of recurrentgemma-9b."""
     extra = {"gemma3-4b": {"block_pattern": ("local", "global")},
              "recurrentgemma-9b": {"num_layers": 5}}
     return {arch: dataclasses.replace(
         get_config(arch), **{"num_layers": 2, "dtype": "float32",
                              **extra.get(arch, {})})
         for arch in ("yi-6b", "h2o-danube-3-4b", "gemma3-4b",
-                     "starcoder2-15b", "recurrentgemma-9b", "rwkv6-7b")}
+                     "starcoder2-15b", "recurrentgemma-9b", "rwkv6-7b",
+                     MOE_ARCH)}
+
+
+def recording(run, sink: list):
+    """``run`` with every ``moe_apply`` call inside it recorded: each call
+    appends ``[(router, x, valid)]`` (detached) for that call to
+    ``sink``."""
+    def rec_run(*a, **kw):
+        calls, orig = [], moe_model.moe_apply
+
+        def rec(params, x, cfg, **opts):
+            calls.append((params["router"].detach(), x.detach(),
+                          opts.get("valid")))
+            return orig(params, x, cfg, **opts)
+        moe_model.moe_apply = rec
+        try:
+            out = run(*a, **kw)
+        finally:
+            moe_model.moe_apply = orig
+        sink.append(calls)
+        return out
+    return rec_run
+
+
+def router_choices(router, x, valid, k: int):
+    """The top-k expert set (sorted ids) of every live token of one
+    ``moe_apply`` call, with each token's margin (its k-th probability less
+    the next one), on the CPU: ``(sets [N, k], margins [N])``."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    live = (torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+            if valid is None else valid.to(x.device))
+    sets = top_i[..., :k].sort(dim=-1).values[live].cpu()
+    nxt = (top_p[..., k] if k < top_p.shape[-1]
+           else torch.zeros_like(top_p[..., 0]))
+    return sets, (top_p[..., k - 1] - nxt)[live].cpu()
+
+
+def routes_agree(card, cfg, routes: dict) -> int:
+    """Phase 5's router check: the card's and the CPU's top-k expert sets
+    for every live token of every recorded ``moe_apply`` call; prints the
+    tokens compared, the smallest margin on the CPU and each flip's
+    margin.  Returns the number of flipped tokens."""
+    total = 0
+    for what, (card_calls, _, cpu_calls) in routes.items():
+        n, least, flips = 0, math.inf, 0
+        for i, (a, b) in enumerate(zip(card_calls, cpu_calls)):
+            sa, _ = router_choices(*a, cfg.top_k)
+            sb, mb = router_choices(*b, cfg.top_k)
+            bad = (sa != sb).any(dim=-1)
+            n += len(sb)
+            least = min(least, float(mb.min()))
+            for t in torch.nonzero(bad).flatten().tolist():
+                flips += 1
+                say(f"[parity] {cfg.name} router FLIP ({what}, call {i}, "
+                    f"token {t}): card {sa[t].tolist()}, CPU "
+                    f"{sb[t].tolist()}, CPU top-{cfg.top_k} margin "
+                    f"{float(mb[t]):.3e} (numerical: ROADMAP Queue 3)")
+        say(f"[parity] {cfg.name} router choices, {what} runs on {card}: "
+            f"{len(cpu_calls)} moe_apply calls, {n} live tokens' top-"
+            f"{cfg.top_k} sets card against CPU, smallest CPU margin "
+            f"{least:.3e}; flips {flips}")
+        total += flips
+    return total
 
 
 def host_weights(cfg):
@@ -2305,15 +2457,16 @@ def train_batch(vocab: int, s: int, rows: int = 2) -> dict:
 def grad_run(cfg, batch):
     """``run(p, d, leaves=True)``: one ``loss_fn`` with gradients (remat
     on) -> (loss, global gradient norm, {leaf: gradient, on ``d``}, the
-    dict empty without ``leaves``)."""
+    dict empty without ``leaves``, the load-balancing aux)."""
     def run(p, d, leaves=True):
-        loss, _, grads = accum.value_and_grad(
+        loss, parts, grads = accum.value_and_grad(
             lambda p, b: zoo.loss_fn(cfg, p, b), p,
             {n: torch.from_numpy(a).to(d) for n, a in batch.items()})
         for t in tree_leaves(p):      # marked in place: later runs take none
             t.requires_grad_(False)
         return (float(loss), float(adamw.global_norm(grads)),
-                dict(keyed_leaves(grads)) if leaves else {})
+                dict(keyed_leaves(grads)) if leaves else {},
+                float(parts["aux"]))
     return run
 
 
@@ -2333,6 +2486,11 @@ def train_parity_ok(card, cfg, got, cpu, floor, card_gnorms) -> bool:
         f" {gnorm_err:.3e} (limit {gnorm_limit:.3e}, {GNORM_FLOOR_TIMES}x the "
         f"largest floor; floors " + ", ".join(f"{f:.3e}" for f in floors)
         + ")")
+    if cfg.moe:
+        say(f"[parity] {cfg.name} load-balancing aux (0.01 of it in the "
+            f"loss): CPU {cpu[3]:.6f}, card - CPU "
+            f"{abs(got[3] - cpu[3]) / abs(cpu[3]):.3e} relative (noise floor "
+            f"{abs(floor[3] - got[3]) / abs(got[3]):.3e})")
     worst = 0.0
     for key, g in cpu[2].items():
         err = rel(g, got[2][key])
@@ -4661,6 +4819,203 @@ def phase_prefix_spec(dev, card, params) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase 13: MoE archs
+def moe_slice(dev, card, cfg, prompts, new_tokens: int, tag: str):
+    """One MoE arch in bf16 through the launcher's functions: what earlier
+    phases left unreachable collected first (their engines hold reference
+    cycles, so their weights wait for the cyclic collector), weights drawn
+    on the card from seed 0, phase 6's settings (8 slots, cache_len 2048,
+    paged KV at T 16, a 0.02 s decode-latency goal, the three knobs live)
+    under an HBM goal of weights + MOE_HEADROOM.  Asserts every request
+    finishes, at most one dispatch a tick, no ledger violation, both paged
+    kernels launched and every paged segment launch on the tensor cores.
+    Returns ``(launches, the engine)``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    eng = build_engine(cfg, max_batch=SLOTS, cache_len=CACHE_LEN,
+                       budget_headroom_bytes=MOE_HEADROOM,
+                       latency_goal_s=0.02, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = eng.accountant.breakdown()["weights"]
+    n_par = sum(t.numel() for t in tree_leaves(eng.params))
+    say(f"[{tag}] {cfg.name} bf16, {cfg.num_layers} layers "
+        f"({cfg.first_k_dense} dense first, pattern {cfg.block_pattern}), "
+        f"{cfg.num_experts} experts top-{cfg.top_k} of {cfg.moe_d_ff}, "
+        f"{cfg.num_shared_experts} shared, capacity factor "
+        f"{cfg.capacity_factor}; {n_par / 1e9:.3f} B parameters, weights "
+        f"{weights / 1e9:.3f} GB drawn in {init_s:.1f} s (peak "
+        f"{(torch.cuda.max_memory_allocated(dev) - held) / 1e9:.3f} GB "
+        f"while drawing), HBM goal {eng.accountant.budget_bytes / 1e9:.3f} "
+        f"GB; prompts {[len(p) for p in prompts]}, {new_tokens} new each")
+    knobs = {"serve.max_queue_tokens": [eng.max_queue_tokens],
+             "serve.kv_block_budget": [eng.pool.max_blocks],
+             "serve.prefill_chunk_tokens": [eng.prefill_chunk]}
+    tick_s = {"mixed": [], "decode-only": []}
+    last = [0.0]
+
+    def on_tick(e, st):
+        knobs["serve.max_queue_tokens"].append(e.max_queue_tokens)
+        knobs["serve.kv_block_budget"].append(e.pool.max_blocks)
+        knobs["serve.prefill_chunk_tokens"].append(e.prefill_chunk)
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if st["dispatches"]:
+            kind = "mixed" if st["prefill_issued_tokens"] else "decode-only"
+            tick_s[kind].append(now - last[0])
+        last[0] = now
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    got: dict = {}
+    t0 = last[0] = time.perf_counter()
+    with counted_launches(got):
+        stats = serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = got.pop("routes")
+    gen = sum(len(r.generated) for r in eng.finished)
+    max_disp = max(st["dispatches"] for st in stats)
+    say(f"[{tag}] " + summary(eng, len(prompts), len(stats)))
+    say(f"[{tag}] on {card}: {gen} tokens in {wall:.3f} s = "
+        f"{gen / wall:.2f} tokens/s (first launches included); TTFT mean "
+        f"{eng.ttft.mean() * 1e3:.1f} ms, p99 {eng.ttft.p99() * 1e3:.1f} "
+        f"ms; max dispatches/tick {max_disp}; kernel launches {got}; paged "
+        f"segment launches by route {routes}")
+    for kind, ts in tick_s.items():
+        if ts:
+            say(f"[{tag}] {kind} ticks on {card}: {len(ts)}, median "
+                f"{statistics.median(ts) * 1e3:.1f} ms, mean "
+                f"{np.mean(ts) * 1e3:.1f} ms, first {ts[0] * 1e3:.1f} ms, "
+                f"max {max(ts) * 1e3:.1f} ms")
+    for k, vals in knobs.items():
+        say(f"[{tag}] knob {k} by tick: {runs(vals)}")
+    in_phase_peak(f"[{tag}]", dev, eng, held)
+    bad = []
+    if len(eng.finished) != len(prompts):
+        bad.append(f"{len(eng.finished)}/{len(prompts)} finished")
+    for r in eng.finished:
+        g = np.asarray(r.generated)
+        if len(g) != new_tokens or g.min() < 0 or g.max() >= cfg.vocab_size:
+            bad.append(f"request {r.req_id} generated {g!r}")
+    if max_disp > 1:
+        bad.append("more than one model dispatch in a tick")
+    if eng.accountant.violations:
+        bad.append(f"{eng.accountant.violations} HBM violations")
+    if not (got["paged_segment_attention"] and got["paged_decode_attention"]):
+        bad.append(f"a paged kernel of the path never launched: {got}")
+    if routes["tensor_core"] != got["paged_segment_attention"]:
+        bad.append(f"a paged segment launch left the tensor cores: {routes}")
+    if bad:
+        fail(f"{cfg.name}: " + "; ".join(bad))
+    return got, eng
+
+
+def kernels_a_call(fn) -> int:
+    """How many kernels one call of ``fn`` launches on the card (the
+    profiler's device events)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
+def moe_alone(dev, card, cfg, params) -> None:
+    """13b: ``moe_apply`` alone on one layer of phase 13's weights, at the
+    decode shape [SLOTS, 1, d] (every row live) and on a MOE_STREAM-token
+    packed stream (every lane live), outside the engine's ticks: ms by
+    CUDA events and by the profiler's device time, the kernels a call
+    launches, its bound (the expert and shared weights read once, and
+    the products of the assignments kept, whichever takes longer) and the
+    share of assignments dropped at the configured capacity."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    d, k = cfg.d_model, cfg.top_k
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(params))
+    ms_shared = cfg.moe_d_ff * cfg.num_shared_experts
+    for name, shape in (("decode", (SLOTS, 1, d)),
+                        ("stream", (1, MOE_STREAM, d))):
+        x = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        valid = (None if name == "decode" else
+                 torch.ones(shape[:2], dtype=torch.bool, device=dev))
+        g, gt = moe_model._group_shape(*shape[:2])
+        cap = moe_model.capacity(cfg, gt)
+        probs = torch.softmax(x.reshape(g, gt, d).float() @ params["router"],
+                              dim=-1)
+        kept = int(moe_model.assign(probs, cfg, cap, valid)[3].sum())
+        tokens = shape[0] * shape[1]
+        flops = 2 * d * (3 * cfg.moe_d_ff * kept + 3 * ms_shared * tokens
+                         + cfg.num_experts * tokens)
+        bound = max((w_bytes + 2 * x.numel() * x.element_size())
+                    / PEAK_BYTES, flops / PEAK_BF16_FLOPS) * 1e3
+
+        def call():
+            return moe_model.moe_apply(params, x, cfg, valid=valid)
+        ms = time_ms(call, iters=10, warmup=2)
+        dev_ms = device_ms(call, bound, iters=10)
+        n_kernels = kernels_a_call(call)
+        dsum = sum(dev_ms.values())
+        say(f"[moe] moe_apply {name} {list(shape)} bf16 on {card}: "
+            f"{ms:.4f} ms by events, "
+            + (f"{dsum:.4f} ms device" if dev_ms else "device not measured")
+            + f" ({n_kernels} kernels a call); bound {bound:.4f} ms "
+            f"(weights {w_bytes / 1e9:.4f} GB over {PEAK_BYTES / 1e12:g} "
+            f"TB/s; {flops / 1e9:.1f} GFLOP kept over "
+            f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s): {bound / ms:.1%} of it by "
+            f"events" + (f", {bound / dsum:.1%} by device time" if dev_ms
+                         else "") + f"; {g} groups of {gt}, capacity {cap}; assignments "
+            f"dropped {1 - kept / (tokens * k):.2%} ({tokens * k - kept} of "
+            f"{tokens * k})")
+        if dev_ms:
+            top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:4]
+            say(f"[moe] {name} device ms by kernel, largest: "
+                + ", ".join(f"{n[:60]} {v:.4f}" for n, v in top))
+
+
+def phase_moe(dev, card) -> dict:
+    """Phase 13: (a) full deepseek-moe-16b serves phase 6's requests
+    (:func:`moe_slice`); (b) its ``moe_apply`` alone (:func:`moe_alone`);
+    (c) llama4-maverick-400b-a17b cut to MAVERICK_LAYERS of its 48 layers
+    at every width and all 128 experts (one full, one full+moe layer)
+    serves MAVERICK_PROMPTS of the same prompts, deepseek's weights freed
+    first.  Returns the kernel launches of both serving runs."""
+    launches: dict = {}
+    lens = prompt_lens()
+    t0 = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+    got, eng = moe_slice(dev, card, cfg, prompts, 32, "moe")
+    launches.update(got)
+    t1 = time.perf_counter()
+    moe_alone(dev, card, cfg, tree_map(lambda t: t[0],
+                                       eng.params["groups"][0]["moe"]))
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MAVERICK),
+                              num_layers=MAVERICK_LAYERS)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in lens][:MAVERICK_PROMPTS]
+    got, eng = moe_slice(dev, card, cfg, prompts, 32, "maverick")
+    for k, n in got.items():
+        launches[k] = launches.get(k, 0) + n
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    say(f"[times] phase 13: 13a {t1 - t0:.1f} s, 13b {t2 - t1:.1f} s, 13c "
+        f"{time.perf_counter() - t2:.1f} s")
+    say(f"[moe] kernel launches {launches}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -4686,6 +5041,8 @@ def main() -> None:
         mark("5, parity of recurrentgemma-9b")
         phase_parity_rwkv6(dev, card, drawn.pop("rwkv6-7b"))
         mark("5, parity of rwkv6-7b")
+        phase_parity_moe(dev, card, drawn.pop(MOE_ARCH))
+        mark("5, parity of deepseek-moe-16b")
     launches: dict = {}
 
     def count(got):
@@ -4718,6 +5075,8 @@ def main() -> None:
     del yi_params
     torch.cuda.empty_cache()
     mark("12, prefix cache and speculation")
+    count(phase_moe(dev, card))
+    mark("13, MoE")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,

@@ -6,8 +6,10 @@ Runs the SmartConf-governed :class:`~repro_torch.train.trainer.Trainer`
 checkpoint and stops) on CUDA, or with ``--device cpu`` on the CPU with
 the kernels' plain versions.  Without ``--full-size`` the arch runs at
 its ``reduced()`` size.  The attention archs (yi-6b, h2o-danube-3-4b,
-gemma3-4b, starcoder2-15b) and the recurrent ones (recurrentgemma-9b,
-rwkv6-7b) train; the MoE and modality archs raise NotImplementedError.
+gemma3-4b, starcoder2-15b), the recurrent ones (recurrentgemma-9b,
+rwkv6-7b) and the MoE ones (deepseek-moe-16b, llama4-maverick-400b-a17b,
+whose loss adds 0.01 x the load-balancing aux) train; the modality archs
+raise NotImplementedError.
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ Kinds served so far (``ArchConfig.block_pattern`` entries):
   ``global``  full attention with the long-context rope theta (gemma3)
   ``rglru``   RG-LRU recurrent block + FFN (recurrentgemma)
   ``rwkv6``   RWKV-6 time mix + channel mix (attention-free, rwkv6-7b)
-The ``+moe`` FFN is not ported yet and raises ``NotImplementedError``.
+A ``+moe`` suffix swaps the dense FFN for the MoE layer (``full+moe``:
+deepseek-moe-16b, llama4-maverick-400b-a17b), which routes with each
+path's mask of real tokens, as the reference passes it.
 
 Attention K/V lives either in the paged block store ``[N, Kv, T, D]``
 shared by all sequences through block tables, or in dense per-slot rings
@@ -31,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import layers
+from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import rwkv6 as rwkv6_lib
 from .layers import apply_norm, norm_init, project, rope
@@ -48,11 +51,7 @@ def split_kind(kind: str) -> tuple[str, bool]:
 
 
 def _check_ported(kind: str) -> str:
-    base, is_moe = split_kind(kind)
-    if is_moe:
-        raise NotImplementedError(
-            f"block kind {kind!r}: MoE is ROADMAP Queue 1 item 7 (not "
-            "ported yet)")
+    base, _ = split_kind(kind)
     if base not in CHUNKABLE_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     return base
@@ -63,6 +62,7 @@ def block_init(cfg, kind: str, dtype, device, generator,
     """Parameters of one block; ``lead`` prepends stacking dims (the
     group-stacked layers carry a leading layer axis)."""
     base = _check_ported(kind)
+    is_moe = split_kind(kind)[1]
 
     def dense(shape):
         return layers.dense_init(lead + shape, dtype, device, generator)
@@ -87,7 +87,9 @@ def block_init(cfg, kind: str, dtype, device, generator,
         params["attn"] = {"wq": dense((d, h, hd)), "wk": dense((d, kv, hd)),
                           "wv": dense((d, kv, hd)), "wo": dense((h, hd, d))}
     params["ln2"] = norm()
-    if cfg.mlp in ("swiglu", "geglu"):
+    if is_moe:
+        params["moe"] = moe_lib.moe_init(cfg, dtype, device, generator, lead)
+    elif cfg.mlp in ("swiglu", "geglu"):
         params["mlp"] = {"w_gate": dense((d, cfg.d_ff)),
                          "w_up": dense((d, cfg.d_ff)),
                          "w_down": dense((cfg.d_ff, d))}
@@ -250,9 +252,22 @@ def _attn_qkv(cfg, base, params, x, pos):
     return q, k, v
 
 
-def _ffn(cfg, params, x):
+def _ffn(cfg, params, x, valid=None, aux=False):
+    """ln2, then the dense FFN or the MoE layer, and the residual.  The
+    MoE layer routes with ``valid`` ([B, S] bool: real tokens, or None for
+    all); with ``aux`` returns ``(x, its load-balancing loss)``, the loss
+    0 for a dense FFN."""
     h2 = apply_norm(cfg.norm, params["ln2"], x)
-    return x + layers.mlp(params["mlp"], h2, cfg.mlp)
+    if "moe" in params:
+        y = moe_lib.moe_apply(params["moe"], h2, cfg, return_aux=aux,
+                              valid=valid)
+        if aux:
+            return x + y[0], y[1]
+        return x + y
+    x = x + layers.mlp(params["mlp"], h2, cfg.mlp)
+    if aux:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +293,7 @@ def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None):
         h = apply_norm(cfg.norm, params["ln1"], x)
         if base == "rglru":
             y, new = rglru_lib.rglru_block(params["rglru"], h, st)
-            x = _ffn(cfg, params, x + y)
+            x, aux = _ffn(cfg, params, x + y, aux=True)
         else:
             p = params["tm_cm"]
             y, s_new, tm_last = rwkv6_lib.time_mix_chunked(p, h, st["S"],
@@ -297,7 +312,7 @@ def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None):
     x = x + layers.attn_output(params["attn"], o)
     if cache is not None:
         _write_cache(cache, k, v, positions)
-    return _ffn(cfg, params, x), aux
+    return _ffn(cfg, params, x, aux=True)
 
 
 def _write_cache(cache: dict, k, v, positions) -> None:
@@ -360,7 +375,7 @@ def block_apply_chunk(cfg, kind: str, params: dict, x, pos, valid, cache,
     if base == "rglru":
         y, new = rglru_lib.rglru_chunk(params["rglru"], h, state, valid)
         _store_state(cache, new)
-        return _ffn(cfg, params, x + y)
+        return _ffn(cfg, params, x + y, valid)
     p = params["tm_cm"]
     y, s_new, tm_last = rwkv6_lib.time_mix_chunk(p, h, state["S"],
                                                  state["tm_last"], valid)
@@ -397,7 +412,7 @@ def _chunk_attention_block(cfg, base, params, x, pos, valid, cache,
         _dense_write(cache, k_lanes, v_lanes, pos.reshape(-1),
                      plan[cache["k"].shape[1]])
     x = x + layers.attn_output(params["attn"], o)
-    return _ffn(cfg, params, x)
+    return _ffn(cfg, params, x, valid)
 
 
 def _store_state(cache: dict, new: dict, active=None) -> None:
@@ -473,7 +488,7 @@ def block_apply_packed(cfg, kind: str, params: dict, x, pos, slot_id, start,
                                      k_seg=kseg_eff[None], window=window)
         _dense_write(cache, k[0], v[0], pos, plan[n])
     x = x + layers.attn_output(params["attn"], o)
-    return _ffn(cfg, params, x)
+    return _ffn(cfg, params, x, (slot_id >= 0)[None, :])
 
 
 def _rows_layout(x, pos, slot_id, start, seg_len):
@@ -581,7 +596,8 @@ def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
         h = apply_norm(cfg.norm, params["ln1"], x)[:, 0]
         y, new = rglru_lib.rglru_step(params["rglru"], h, cache)
         _store_state(cache, new, active)
-        return _ffn(cfg, params, x + y[:, None, :])
+        return _ffn(cfg, params, x + y[:, None, :],
+                    None if active is None else active[:, None])
     if base == "rwkv6":
         p = params["tm_cm"]
         h = apply_norm(cfg.norm, params["ln1"], x)[:, 0]
@@ -608,4 +624,4 @@ def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
                                     k_pos=cache["pos"], q_pos=pos,
                                     window=window)
     x = x + layers.attn_output(params["attn"], o)
-    return _ffn(cfg, params, x)
+    return _ffn(cfg, params, x, None if active is None else active[:, None])

@@ -88,8 +88,8 @@ token (under speculation, the read of the accepted counts and tokens),
 so the latency sensors measure device time, not enqueue time.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the modality frontends (item 12), MoE (item 7), mesh serving (item
-11, see ``serve/options.py``).
+item): the modality frontends (item 12), mesh serving (item 11, see
+``serve/options.py``).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Greedy decoding is deterministic, so the two engines must emit identical
 tokens for the same weights and prompts, with at most one model dispatch
-per tick: on paged KV for attention-only archs; on dense rings with
+per tick: on paged KV for attention-only archs (the MoE ones too, at
+their configured capacity); on dense rings with
 RG-LRU scan state for the hybrid recurrentgemma (its default) and for
 yi-6b with ``kv_mode="dense"``; on per-slot WKV state alone for the
 all-recurrent rwkv6-7b (its default).  With SmartConf on, an injected
@@ -82,7 +83,9 @@ def _drive(eng, req_cls, prompts, max_new, clock=None, max_ticks=400,
     return stats
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "h2o-danube-3-4b",
+                                  "deepseek-moe-16b",
+                                  "llama4-maverick-400b-a17b"])
 def test_greedy_tokens_match_jax_engine(arch):
     jcfg, jp, cfg, tp = _weights(arch)
     prompts = _prompts(cfg, PROMPT_LENS)
@@ -207,9 +210,8 @@ def test_typed_rejections(prompt_len, reason):
      "paged KV requires"),
     # a modality frontend serves only through the one-shot path with it
     ("internvl2-1b", {}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    # MoE and the encoder-decoder frontend, each naming its item (the
-    # prefix cache and speculation, which held these places, now serve)
-    ("deepseek-moe-16b", {}, NotImplementedError, "ROADMAP Queue 1 item 7"),
+    # the encoder-decoder frontend, naming its item (the prefix cache,
+    # speculation and MoE, which held places here, now serve)
     ("whisper-tiny", {}, NotImplementedError, "ROADMAP Queue 1 item 12"),
     (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP Queue 1 item 11"),
     # one engine is one replica: more go behind the router
@@ -217,7 +219,7 @@ def test_typed_rejections(prompt_len, reason):
     # the ids the cases had before a legacy case left the list
     ids=["yi-6b-options1-ValueError-paged KV requires",
          "internvl2-1b-options2-NotImplementedError-ROADMAP Queue 1 item 12"]
-    + [f"None-options{i}-NotImplementedError-ROADMAP" for i in range(3, 6)]
+    + [f"None-options{i}-NotImplementedError-ROADMAP" for i in range(4, 6)]
     + ["None-replicas-ValueError-ReplicaRouter"])
 def test_unported_options_raise(arch, options, error, match):
     """Options the port does not serve raise when built (``arch`` None),
@@ -534,6 +536,19 @@ def test_rwkv6_smartconf_trajectories_match_jax_engine():
     controller runs with alpha = max(1, 0) = 1, as in the reference; the
     knobs still follow the JAX engine's trajectories."""
     assert _dense_trajectories("rwkv6-7b")["block_bytes"] == 0
+
+
+def test_launcher_serves_an_moe_arch_on_cpu(monkeypatch):
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--arch", "deepseek-moe-16b", "--device", "cpu",
+        "--requests", "3", "--max-new-tokens", "3"])
+    out = io.StringIO()
+    with redirect_stdout(out), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        launch_serve.main()
+    line = out.getvalue().strip().splitlines()[-1]
+    assert line.startswith("deepseek-moe-16b-smoke: 3/3 done in ")
+    assert "1.00 dispatches/tick" in line and "kv[paged]" in line
 
 
 def test_launcher_serves_rwkv6_on_cpu(monkeypatch):

@@ -10,6 +10,10 @@ and per-slot WKV state for the all-recurrent rwkv6-7b.
 Weights and caches are the JAX package's, carried across with
 ``params_from_numpy``.  Logits and caches after each step must agree to
 ``atol=1e-4`` (recurrentgemma's logits to ``atol=1e-4, rtol=1e-5``).
+The MoE archs (deepseek-moe-16b: a dense first layer, then MoE layers;
+llama4-maverick-400b-a17b: dense and MoE layers alternating) run the same
+steps, paged and dense, at their configured ``capacity_factor`` 1.25, so
+the stream's groups drop assignments as the reference's do.
 """
 
 import jax
@@ -28,6 +32,7 @@ from repro_torch.models import zoo
 from repro_torch.models.bridge import params_from_numpy
 
 ARCHS = ["yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b"]
+MOE_ARCHS = ["deepseek-moe-16b", "llama4-maverick-400b-a17b"]
 ATOL = 1e-4
 
 
@@ -106,7 +111,7 @@ def _shapes(tree):
     return tuple(tree.shape)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_init_has_the_jax_layout(arch):
     """Same tree, same shapes, same dtype: the bridge needs no
     transposes, and the port's own init draws the same distribution."""
@@ -130,8 +135,7 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         zoo.init(cfg, torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-tiny",
-                                  "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-tiny"])
 def test_unported_block_kinds_raise(arch):
     cfg = reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -160,7 +164,7 @@ def _assert_stores(jc, tc):
         np.testing.assert_allclose(_np(b), np.asarray(a), atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_steps_match_jax(arch):
     """Two packed ticks (prefill chunks, then chunks beside decode
     riders), then a decode step with one inactive row; logits at every
@@ -314,7 +318,8 @@ def _dense_ticks(cfg, jcfg, params, tp, ticks, b=3, cache_len=96):
     return tc
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-9b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS + ["recurrentgemma-9b", "rwkv6-7b"]
+                         + MOE_ARCHS)
 def test_dense_steps_match_jax(arch):
     """Dense rings: a 40-token prompt wraps the windowed rings (window 32
     reduced), chunks ride beside decode segments, a third tick restarts

@@ -47,8 +47,10 @@ from repro_torch.serve import (TICK_STATS_KEYS, PagedKVAllocator,
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from test_torch_slo_serving import assert_decisions_match  # noqa: E402
 
-# the paged text archs the port serves (the MoE ones are Queue 1 item 7)
-PAGED_ARCHS = ("yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b")
+# the paged text archs the port serves, MoE FFNs included (only the
+# attention K/V is paged), as the reference's own test lists them
+PAGED_ARCHS = ("yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b",
+               "deepseek-moe-16b", "llama4-maverick-400b-a17b")
 _MODELS: dict = {}
 
 

@@ -49,7 +49,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke as C  # noqa: E402
 
 TEXT_ARCHS = ("yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b",
-              "recurrentgemma-9b", "rwkv6-7b")
+              "recurrentgemma-9b", "rwkv6-7b", "deepseek-moe-16b",
+              "llama4-maverick-400b-a17b")
 PROMPT_LENS = (5, 19, 33)
 MAX_NEW = 6
 ATOL = 1e-4
@@ -62,11 +63,15 @@ def _threads():
 
 
 def _models(arch):
-    """reduced() ``arch`` in both packages, the port's weights bridged."""
+    """reduced() ``arch`` in both packages, the port's weights bridged;
+    MoE archs at capacity 8.0, as the reference's speculation tests run
+    them (a spec segment groups its tokens unlike single decode tokens,
+    and only drop-free routing makes the two token-identical)."""
     if arch not in _MODELS:
-        jcfg = jax_reduced(jax_get_config(arch))
+        extra = ({"capacity_factor": 8.0} if get_config(arch).moe else {})
+        jcfg = jax_reduced(jax_get_config(arch), **extra)
         jp, _ = jzoo.init(jcfg, jax.random.key(0))
-        _MODELS[arch] = (jcfg, jp, reduced(get_config(arch)),
+        _MODELS[arch] = (jcfg, jp, reduced(get_config(arch), **extra),
                          params_from_numpy(jax.tree.map(np.asarray, jp),
                                            "cpu"))
     return _MODELS[arch]
@@ -196,6 +201,9 @@ STEP_CASES = {
     "dense-gemma3-4b-margin": ("gemma3-4b", "dense", (45, 52, 25)),
     "rglru-recurrentgemma-9b": ("recurrentgemma-9b", "dense", (45, 52, 25)),
     "rwkv6-rwkv6-7b": ("rwkv6-7b", "dense", (21, 30, 25)),
+    "paged-deepseek-moe-16b": ("deepseek-moe-16b", "paged", (21, 30, 25)),
+    "dense-llama4-maverick-400b-a17b": ("llama4-maverick-400b-a17b",
+                                        "dense", (21, 30, 25)),
 }
 
 

@@ -9,7 +9,10 @@ inactive), the step factories, and the engine in
 also on recurrentgemma-9b and rwkv6-7b, and with prompts longer than the
 reduced swa window): greedy tokens identical to the JAX engine in the
 same mode and to the port's own packed engine, with the same dispatch,
-program and prefill-call counts.  ``reduced()`` configs in f32; weights and caches are the JAX
+program and prefill-call counts.  The MoE archs (deepseek-moe-16b,
+llama4-maverick-400b-a17b) run the steps at their configured capacity
+(drops) and the engine, as the reference's own tests run it, at capacity
+8.0: a drop depends on how tokens are grouped, which differs by mode.  ``reduced()`` configs in f32; weights and caches are the JAX
 package's, carried across with ``params_from_numpy``.  Logits and caches
 agree to ``atol=1e-4, rtol=1e-5``: the two packages sum in other orders
 (the port's one-shot attention is the flash route's plain version, the
@@ -37,6 +40,7 @@ from repro_torch.train import train_step
 
 ARCHS = ["yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b"]
 RECURRENT_ARCHS = ["recurrentgemma-9b", "rwkv6-7b"]
+MOE_ARCHS = ["deepseek-moe-16b", "llama4-maverick-400b-a17b"]
 ATOL, RTOL = 1e-4, 1e-5
 PROMPT_LENS = (5, 19, 33)
 MAX_NEW = 4
@@ -49,8 +53,8 @@ def _threads():
     torch.set_num_threads(2)
 
 
-def _weights(arch, seed=0):
-    extra = OVERRIDES.get(arch, {})
+def _weights(arch, seed=0, **extra):
+    extra = {**OVERRIDES.get(arch, {}), **extra}
     jcfg = jax_reduced(jax_get_config(arch), **extra)
     params, _ = jzoo.init(jcfg, jax.random.key(seed))
     tp = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
@@ -71,7 +75,7 @@ def _assert_caches(jc, tc):
 
 
 # ------------------------------------------------------- one-shot prefill
-@pytest.mark.parametrize("arch", ARCHS + RECURRENT_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + RECURRENT_ARCHS + MOE_ARCHS)
 def test_prefill_matches_jax(arch):
     """Two 40-token prompts into 64-entry caches: the full-attention rings
     fill their front, the windowed ones (32 reduced) keep the last 32
@@ -170,7 +174,7 @@ CHUNK = 13
 
 
 @pytest.mark.parametrize("kv", ["dense", "paged"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_ARCHS)
 def test_prefill_chunk_matches_jax(arch, kv):
     """Engine-shaped schedule: every call advances each unfinished row by
     up to ``CHUNK`` tokens, finished rows ride along with length 0.  Paged:
@@ -236,7 +240,8 @@ def _serve(eng, req_cls, prompts, chunk=16, max_ticks=400):
 
 
 def _both(arch, mode, kv_mode, prompts=None):
-    jcfg, jp, cfg, tp = _weights(arch)
+    jcfg, jp, cfg, tp = _weights(
+        arch, **({"capacity_factor": 8.0} if arch in MOE_ARCHS else {}))
     if prompts is None:
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -252,7 +257,7 @@ def _both(arch, mode, kv_mode, prompts=None):
     return want, got, packed
 
 
-SPLIT_CASES = [(arch, mode, kv_mode) for arch in ARCHS
+SPLIT_CASES = [(arch, mode, kv_mode) for arch in ARCHS + MOE_ARCHS
                for mode, kv_mode in (("bucketed", "dense"),
                                      ("bucketed", "paged"),
                                      ("legacy", "dense"))]

@@ -2,9 +2,11 @@
 
 Reduced configs (f32), the same weights (the JAX ``zoo.init`` tree bridged
 into torch) and the same numpy batches go through both packages:
-``loss_fn`` and every gradient leaf for the four attention archs and the
+``loss_fn`` and every gradient leaf for the four attention archs, the
 two recurrent ones (recurrentgemma-9b's RG-LRU and rwkv6-7b's time mix
-through their one-shot forms) under the reference's default XLA
+through their one-shot forms) and the two MoE ones (deepseek-moe-16b,
+llama4-maverick-400b-a17b: the load-balancing aux, added at 0.01, and
+the router's gradients, at the configured capacity, so with drops) under the reference's default XLA
 attention route and, for gemma3-4b (GQA, sliding-window and global
 layers), its Pallas route in interpret mode;
 ``adamw.update`` and ``accumulate_grads``; the data stream; the
@@ -38,7 +40,8 @@ from repro_torch.optim import accum, adamw
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 ARCHS = ["yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b",
-         "recurrentgemma-9b", "rwkv6-7b"]
+         "recurrentgemma-9b", "rwkv6-7b", "deepseek-moe-16b",
+         "llama4-maverick-400b-a17b"]
 # rwkv6 has d // 64 heads: two at d 128, where plain reduced() gives one
 OVERRIDES = {"rwkv6-7b": {"d_model": 128}}
 LOSS_RTOL = 2e-5
@@ -121,12 +124,16 @@ def test_loss_and_grads_match_jax(jx, monkeypatch, arch, route):
     np.testing.assert_allclose(float(loss), float(jl), rtol=LOSS_RTOL)
     np.testing.assert_allclose(float(aux["ce"]), float(jaux["ce"]),
                                rtol=LOSS_RTOL)
-    assert float(aux["aux"]) == float(jaux["aux"]) == 0.0
+    if cfg.moe:
+        np.testing.assert_allclose(float(aux["aux"]), float(jaux["aux"]),
+                                   rtol=LOSS_RTOL)
+        assert float(aux["aux"]) > 0.0
+    else:
+        assert float(aux["aux"]) == float(jaux["aux"]) == 0.0
     assert_tree_close(grads, jax_keyed(jx, jg))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "whisper-tiny",
-                                  "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-1b"])
 def test_unported_kinds_raise(arch):
     cfg = reduced(get_config(arch))
     batch = {k: torch.from_numpy(v)
@@ -460,6 +467,15 @@ def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "training h2o-danube-3-4b-smoke" in out
     # the first write moves train.ckpt_interval_steps to at least 5
+    assert "last ckpt @ step 1" in out
+
+
+def test_launcher_trains_an_moe_arch_on_the_cpu(tmp_path, capsys):
+    launch_train.main(["--arch", "deepseek-moe-16b", "--steps", "2",
+                       "--batch", "2", "--seq", "16", "--device", "cpu",
+                       "--workdir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "training deepseek-moe-16b-smoke" in out
     assert "last ckpt @ step 1" in out
 
 
