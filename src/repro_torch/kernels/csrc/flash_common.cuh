@@ -24,12 +24,12 @@ __host__ __device__ constexpr int q_rows() { return D == 256 ? 32 : 64; }
 template <int D>
 __host__ __device__ constexpr int kv_rows() { return D == 256 ? 16 : 32; }
 
-// Query q admits key k: the reference's predicate (k < S, causal k <= q,
-// window q - k < window; the non-causal windowed case admits every later
-// key).  Positions are the sequence indices.
-__device__ __forceinline__ bool admits(int q, int k, int S, int causal,
+// Query q admits key k: the reference's predicate (k < Sk, the number of
+// keys; causal k <= q; window q - k < window; the non-causal windowed case
+// admits every later key).  Positions are the sequence indices.
+__device__ __forceinline__ bool admits(int q, int k, int Sk, int causal,
                                        int window) {
-  return k < S && (!causal || k <= q) && (window <= 0 || q - k < window);
+  return k < Sk && (!causal || k <= q) && (window <= 0 || q - k < window);
 }
 
 __device__ __forceinline__ float row_max(float x) {

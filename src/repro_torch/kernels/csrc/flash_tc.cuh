@@ -40,10 +40,11 @@ __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
   return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
 }
 
-// every (q, key) pair of the tile is admitted: no mask test needed
-__device__ __forceinline__ bool whole_tile(int q0, int k0, int S, int causal,
-                                           int window) {
-  return q0 + kRows <= S && k0 + kKeys <= S &&
+// every (q, key) pair of the tile is admitted: no mask test needed (Sq
+// queries, Sk keys)
+__device__ __forceinline__ bool whole_tile(int q0, int k0, int Sq, int Sk,
+                                           int causal, int window) {
+  return q0 + kRows <= Sq && k0 + kKeys <= Sk &&
          (!causal || k0 + kKeys - 1 <= q0) &&
          (window <= 0 || q0 + kRows - 1 - k0 < window);
 }

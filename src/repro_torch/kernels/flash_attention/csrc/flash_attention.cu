@@ -1,8 +1,12 @@
 // Flash attention forward for Hopper (sm_90a): causal, sliding-window and
-// non-causal GQA self-attention, q [B,H,S,D] against k/v [B,Kv,S,D], with
-// an optional logsumexp output lse [B,H,S] f32 for the backward kernels.
+// non-causal GQA attention, q [B,H,Sq,D] against k/v [B,Kv,Sk,D], with an
+// optional logsumexp output lse [B,H,Sq] f32 for the backward kernels.
 // Query head h reads KV head h / (H / Kv).  A query q admits key k when
-// k < S, k <= q (causal) and q - k < window (window > 0).
+// k < Sk, k <= q (causal) and q - k < window (window > 0).  Self-attention
+// has Sk = Sq; keys of another length (cross-attention, an encoder's
+// frames) come without a mask, and the entry point refuses a causal or
+// windowed call at Sk != Sq.  The q tiles and their valid rows follow Sq,
+// the key loop, its ragged last tile and the mask follow Sk.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py,
 // flash_attention (:83) and flash_attention_fwd_lse (:135), both over the
@@ -56,7 +60,7 @@
 //   kernel does; the probabilities go through shared memory into P V.  At
 //   the end o = acc / l (0 where l == 0) and, when lse is not null,
 //   lse = m + log(max(l, 1e-30)).  Scalar FMAs.
-// Any S is taken without padding.
+// Any Sq and Sk are taken without padding.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -75,19 +79,19 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, int H, int Kv, int S, int causal,
-                 int window, float scale) {
+                 float* __restrict__ lse, int H, int Kv, int Sq, int Sk,
+                 int causal, int window, float scale) {
   constexpr int BQ = flash::q_rows<D>();
   constexpr int RM = BQ / flash::RG;   // query rows per thread
   constexpr int LD = D + 1;
   constexpr int CPT = D / KG;          // output columns per thread
   const int tid = threadIdx.x;
   const int rg = tid / KG, kg = tid % KG;
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;  // longest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Kv);
-  const int valid_q = min(BQ, S - q0);
+  const int valid_q = min(BQ, Sq - q0);
 
   extern __shared__ float smem[];
   float* q_s = smem;            // [BQ][LD]
@@ -95,8 +99,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* v_s = k_s + BK * LD;   // [BK][LD]
   float* p_s = v_s + BK * LD;   // [BQ][PS]
 
-  const size_t row0 = (size_t)(b * H + h) * S;     // this head's first row
-  const size_t krow0 = (size_t)(b * Kv + kvh) * S;
+  const size_t row0 = (size_t)(b * H + h) * Sq;    // this head's first row
+  const size_t krow0 = (size_t)(b * Kv + kvh) * Sk;
   flash::load_rows<T, D>(q + (row0 + q0) * D, BQ, valid_q, q_s, LD);
 
   float m[RM], l[RM], acc[RM][CPT];
@@ -110,13 +114,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // admitted keys of this tile's rows: [k_lo, k_hi]
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(S, q0 + BQ) - 1 : S - 1;
+  const int k_hi = causal ? min(Sk, q0 + BQ) - 1 : Sk - 1;
   for (int kt = k_lo / BK; kt <= k_hi / BK; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the last tile's readers are done; q_s is loaded
-    flash::load_rows<T, D>(k + (krow0 + k0) * D, BK, min(BK, S - k0), k_s,
+    flash::load_rows<T, D>(k + (krow0 + k0) * D, BK, min(BK, Sk - k0), k_s,
                            LD);
-    flash::load_rows<T, D>(v + (krow0 + k0) * D, BK, min(BK, S - k0), v_s,
+    flash::load_rows<T, D>(v + (krow0 + k0) * D, BK, min(BK, Sk - k0), v_s,
                            LD);
     __syncthreads();
 
@@ -144,7 +148,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = attn::MASKED;
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
-        const bool ok = flash::admits(qi, k0 + kg + KG * j, S, causal, window);
+        const bool ok = flash::admits(qi, k0 + kg + KG * j, Sk, causal, window);
         sc[i][j] = ok ? sc[i][j] * scale : attn::MASKED;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -193,18 +197,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int H, int Kv, int S, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   void* lse, int B, int H, int Kv, int Sq, int Sk,
+                   int causal, int window, float scale, cudaStream_t stream) {
   constexpr int BQ = flash::q_rows<D>();
   const size_t smem =
       sizeof(float) * ((size_t)(BQ + 2 * BK) * (D + 1) + (size_t)BQ * PS);
   auto kern = flash_fwd_kernel<T, D>;
   cudaError_t e = flash::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((S + BQ - 1) / BQ, H, B), kThreads, smem, stream>>>(
+  kern<<<dim3((Sq + BQ - 1) / BQ, H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), H, Kv, S, causal, window, scale);
+      static_cast<float*>(lse), H, Kv, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -235,8 +239,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v,
                        __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ lse, int H, int Kv, int S,
-                       int causal, int window, float scale) {
+                       float* __restrict__ lse, int H, int Kv, int Sq,
+                       int Sk, int causal, int window, float scale) {
   constexpr int DP = padded<D>();
   constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
   constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
@@ -247,14 +251,14 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* v_s = k_s + kStages * KV_BYTES;   // [kStages][KV_BYTES]
   __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
 
-  const int n_qt = (S + kRows - 1) / kRows;
+  const int n_qt = (Sq + kRows - 1) / kRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * kRows;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, bkv = b * Kv + h / (H / Kv);
-  const int valid_q = min(kRows, S - q0);
+  const int valid_q = min(kRows, Sq - q0);
   // admitted keys of this tile's rows: [k_lo, k_hi]
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(S, q0 + kRows) - 1 : S - 1;
+  const int k_hi = causal ? min(Sk, q0 + kRows) - 1 : Sk - 1;
   const int kt_lo = k_lo / kKeys;
   const int n_it = k_hi / kKeys - kt_lo + 1;
 
@@ -312,12 +316,13 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<0>();
     fence_regs(st);
 
-    // online softmax in the log2 domain; a masked score is -inf (p = 0)
+    // online softmax in the log2 domain; a masked score is -inf (p = 0),
+    // keys past Sk among them (TMA reads them as zeros)
     float alpha[2];
     softmax_step<kKeys>(st, m, l, alpha, scale_log2,
-                        whole_tile(q0, k0, S, causal, window),
+                        whole_tile(q0, k0, Sq, Sk, causal, window),
                         [&](int e, int kj) {
-                          return flash::admits(q0 + row + 8 * e, k0 + kj, S,
+                          return flash::admits(q0 + row + 8 * e, k0 + kj, Sk,
                                                causal, window);
                         });
     scale_rows(o_acc, alpha);
@@ -335,7 +340,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_arrive(&empty[s]);  // this stage's K and V are read
   }
 
-  const size_t qrow0 = (size_t)bh * S + q0;
+  const size_t qrow0 = (size_t)bh * Sq + q0;
   float inv[2];
 #pragma unroll
   for (int e = 0; e < 2; ++e) inv[e] = l[e] == 0.f ? 0.f : 1.f / l[e];
@@ -358,12 +363,12 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   void* lse, int B, int H, int Kv, int S, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   void* lse, int B, int H, int Kv, int Sq, int Sk,
+                   int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!hopper::make_map(&mq, q, B * H, S, D, kRows) ||
-      !hopper::make_map(&mk, k, B * Kv, S, D, kKeys) ||
-      !hopper::make_map(&mv, v, B * Kv, S, D, kKeys))
+  if (!hopper::make_map(&mq, q, B * H, Sq, D, kRows) ||
+      !hopper::make_map(&mk, k, B * Kv, Sk, D, kKeys) ||
+      !hopper::make_map(&mv, v, B * Kv, Sk, D, kKeys))
     return cudaErrorNotSupported;
   constexpr int DP = padded<D>();
   const size_t smem =
@@ -371,21 +376,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   auto kern = flash_fwd_kernel_wgmma<D>;
   cudaError_t e = flash::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((S + kRows - 1) / kRows, H, B), kThreadsTC, smem, stream>>>(
+  kern<<<dim3((Sq + kRows - 1) / kRows, H, B), kThreadsTC, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, Kv, S, causal, window, scale);
+      static_cast<float*>(lse), H, Kv, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
 cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
-                        void* out, void* lse, int B, int H, int Kv, int S,
-                        int causal, int window, float scale, cudaStream_t s) {
+                        void* out, void* lse, int B, int H, int Kv, int Sq,
+                        int Sk, int causal, int window, float scale,
+                        cudaStream_t s) {
   switch (D) {
-    case 64: return tc::launch<64>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
-    case 120: return tc::launch<120>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
-    case 128: return tc::launch<128>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s);
+    case 64: return tc::launch<64>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s);
+    case 120: return tc::launch<120>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s);
+    case 128: return tc::launch<128>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -393,11 +399,12 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
 // the CUDA-core kernel: f32 at every head dim, bf16 at D 16 and 256
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* out, void* lse, int B, int H, int Kv, int S,
-                     int causal, int window, float scale, cudaStream_t s) {
+                     void* out, void* lse, int B, int H, int Kv, int Sq,
+                     int Sk, int causal, int window, float scale,
+                     cudaStream_t s) {
   constexpr bool f32 = std::is_same<T, float>::value;
 #define FLASH_FWD(DV) \
-  return launch<T, DV>(q, k, v, out, lse, B, H, Kv, S, causal, window, scale, s)
+  return launch<T, DV>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s)
   switch (D) {
     case 16: FLASH_FWD(16);
     case 256: FLASH_FWD(256);
@@ -417,26 +424,27 @@ extern "C" int flash_attention_fwd_route(int D, int dtype) {
   return flash_tc::tensor_core_route(D, dtype) ? 1 : 0;
 }
 
-// q [B,H,S,D]; k/v [B,Kv,S,D]; out [B,H,S,D]; lse [B,H,S] f32 or null.
-// causal: 0/1; window <= 0 = none.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaError_t.
+// q [B,H,Sq,D]; k/v [B,Kv,Sk,D]; out [B,H,Sq,D]; lse [B,H,Sq] f32 or
+// null.  causal: 0/1; window <= 0 = none; Sk != Sq only with neither.
+// dtype: 0 = float32, 1 = bfloat16.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out,
                                           void* lse, int B, int H, int Kv,
-                                          int S, int D, int causal,
+                                          int Sq, int Sk, int D, int causal,
                                           int window, float scale, int dtype,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Kv <= 0 || H % Kv != 0 || H > 65535 || B > 65535 || S <= 0)
+  if (Kv <= 0 || H % Kv != 0 || H > 65535 || B > 65535 || Sq <= 0 ||
+      Sk <= 0 || (Sk != Sq && (causal || window > 0)))
     return cudaErrorInvalidValue;
   if (flash_tc::tensor_core_route(D, dtype))
-    return dispatch_tc(D, q, k, v, out, lse, B, H, Kv, S, causal, window,
-                       scale, s);
+    return dispatch_tc(D, q, k, v, out, lse, B, H, Kv, Sq, Sk, causal,
+                       window, scale, s);
   if (dtype == 0)
-    return dispatch<float>(D, q, k, v, out, lse, B, H, Kv, S, causal, window,
-                           scale, s);
+    return dispatch<float>(D, q, k, v, out, lse, B, H, Kv, Sq, Sk, causal,
+                           window, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, out, lse, B, H, Kv, S, causal,
-                                   window, scale, s);
+    return dispatch<__nv_bfloat16>(D, q, k, v, out, lse, B, H, Kv, Sq, Sk,
+                                   causal, window, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -71,7 +71,11 @@
 //      scalar FMAs.
 // The TPU kernel computes per-query-head dk/dv in q's dtype and sums the
 // group outside; both routes sum in f32 first and round once.  Any S is
-// taken without padding.
+// taken without padding.  Keys may be of another length Sk than the
+// queries' Sq, as in the forward, without a mask only (the entry points
+// refuse a causal or windowed call at Sk != Sq): dQ's CTAs and its valid
+// rows, lse and Dsum follow Sq and its key loop Sk; dK/dV's CTAs follow Sk
+// and its loop over q tiles Sq.
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -90,7 +94,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ dsum, T* __restrict__ dq, int H,
-                int Kv, int S, int causal, int window, float scale) {
+                int Kv, int Sq, int Sk, int causal, int window, float scale) {
   constexpr int BQ = flash::q_rows<D>();
   constexpr int RM = BQ / flash::RG;
   constexpr int TN = BK / KG;
@@ -99,11 +103,11 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int CPT = D / KG;
   const int tid = threadIdx.x;
   const int rg = tid / KG, kg = tid % KG;
-  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_qt = (Sq + BQ - 1) / BQ;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * BQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kvh = h / (H / Kv);
-  const int valid_q = min(BQ, S - q0);
+  const int valid_q = min(BQ, Sq - q0);
 
   extern __shared__ float smem[];
   float* q_s = smem;             // [BQ][LD]
@@ -112,8 +116,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* v_s = k_s + BK * LD;    // [BK][LD]
   float* ds_s = v_s + BK * LD;   // [BQ][PS]
 
-  const size_t row0 = (size_t)(b * H + h) * S;
-  const size_t krow0 = (size_t)(b * Kv + kvh) * S;
+  const size_t row0 = (size_t)(b * H + h) * Sq;
+  const size_t krow0 = (size_t)(b * Kv + kvh) * Sk;
   flash::load_rows<T, D>(q + (row0 + q0) * D, BQ, valid_q, q_s, LD);
   flash::load_rows<T, D>(dout + (row0 + q0) * D, BQ, valid_q, do_s, LD);
 
@@ -121,20 +125,20 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qi = q0 + rg * RM + i;
-    lse_r[i] = qi < S ? lse[row0 + qi] : 0.f;
-    dsum_r[i] = qi < S ? dsum[row0 + qi] : 0.f;
+    lse_r[i] = qi < Sq ? lse[row0 + qi] : 0.f;
+    dsum_r[i] = qi < Sq ? dsum[row0 + qi] : 0.f;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
 
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(S, q0 + BQ) - 1 : S - 1;
+  const int k_hi = causal ? min(Sk, q0 + BQ) - 1 : Sk - 1;
   for (int kt = k_lo / BK; kt <= k_hi / BK; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    flash::load_rows<T, D>(k + (krow0 + k0) * D, BK, min(BK, S - k0), k_s,
+    flash::load_rows<T, D>(k + (krow0 + k0) * D, BK, min(BK, Sk - k0), k_s,
                            LD);
-    flash::load_rows<T, D>(v + (krow0 + k0) * D, BK, min(BK, S - k0), v_s,
+    flash::load_rows<T, D>(v + (krow0 + k0) * D, BK, min(BK, Sk - k0), v_s,
                            LD);
     __syncthreads();
 
@@ -170,7 +174,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int kj = k0 + kg + KG * j;
-        const float p = flash::admits(qi, kj, S, causal, window) && qi < S
+        const float p = flash::admits(qi, kj, Sk, causal, window) && qi < Sq
                             ? expf(sc[i][j] * scale - lse_r[i])
                             : 0.f;
         ds_s[(rg * RM + i) * PS + kg + KG * j] = p * (dp[i][j] - dsum_r[i]);
@@ -208,8 +212,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
                  const float* __restrict__ lse,
                  const float* __restrict__ dsum, T* __restrict__ dk,
-                 T* __restrict__ dv, int H, int Kv, int S, int causal,
-                 int window, float scale) {
+                 T* __restrict__ dv, int H, int Kv, int Sq, int Sk,
+                 int causal, int window, float scale) {
   constexpr int BN = flash::kv_rows<D>();
   constexpr int RM = BM / flash::RG;   // q rows per thread, score step
   constexpr int TN = BN / KG;          // keys per thread, score step
@@ -222,7 +226,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BN;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / Kv;
-  const int valid_k = min(BN, S - k0);
+  const int valid_k = min(BN, Sk - k0);
 
   extern __shared__ float smem[];
   float* k_s = smem;             // [BN][LD]
@@ -232,7 +236,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* p_s = do_s + BM * LD;   // [BM][PS]
   float* ds_s = p_s + BM * PS;   // [BM][PS]
 
-  const size_t krow0 = (size_t)(b * Kv + kvh) * S;
+  const size_t krow0 = (size_t)(b * Kv + kvh) * Sk;
   flash::load_rows<T, D>(k + (krow0 + k0) * D, BN, valid_k, k_s, LD);
   flash::load_rows<T, D>(v + (krow0 + k0) * D, BN, valid_k, v_s, LD);
 
@@ -244,23 +248,23 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // rows that admit a key of this tile: [q_lo, q_hi]
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(S - 1, k0 + valid_k - 1 + window - 1)
-                              : S - 1;
+  const int q_hi = window > 0 ? min(Sq - 1, k0 + valid_k - 1 + window - 1)
+                              : Sq - 1;
   for (int g = 0; g < G; ++g) {
-    const size_t row0 = (size_t)(b * H + kvh * G + g) * S;
+    const size_t row0 = (size_t)(b * H + kvh * G + g) * Sq;
     for (int qt = q_lo / BM; qt <= q_hi / BM; ++qt) {
       const int q0 = qt * BM;
       __syncthreads();  // the last step's readers are done
-      flash::load_rows<T, D>(q + (row0 + q0) * D, BM, min(BM, S - q0), q_s,
+      flash::load_rows<T, D>(q + (row0 + q0) * D, BM, min(BM, Sq - q0), q_s,
                              LD);
-      flash::load_rows<T, D>(dout + (row0 + q0) * D, BM, min(BM, S - q0),
+      flash::load_rows<T, D>(dout + (row0 + q0) * D, BM, min(BM, Sq - q0),
                              do_s, LD);
       float lse_r[RM], dsum_r[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
         const int qi = q0 + rg * RM + i;
-        lse_r[i] = qi < S ? lse[row0 + qi] : 0.f;
-        dsum_r[i] = qi < S ? dsum[row0 + qi] : 0.f;
+        lse_r[i] = qi < Sq ? lse[row0 + qi] : 0.f;
+        dsum_r[i] = qi < Sq ? dsum[row0 + qi] : 0.f;
       }
       __syncthreads();
 
@@ -296,7 +300,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           const int kj = k0 + kg + KG * j;
-          const float p = flash::admits(qi, kj, S, causal, window) && qi < S
+          const float p = flash::admits(qi, kj, Sk, causal, window) && qi < Sq
                               ? expf(sc[i][j] * scale - lse_r[i])
                               : 0.f;
           p_s[(rg * RM + i) * PS + kg + KG * j] = p;
@@ -343,27 +347,28 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
-                      void* dq, int B, int H, int Kv, int S, int causal,
-                      int window, float scale, cudaStream_t stream) {
+                      void* dq, int B, int H, int Kv, int Sq, int Sk,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
   constexpr int BQ = flash::q_rows<D>();
   const size_t smem = sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * (D + 1) +
                                        (size_t)BQ * (BK + 1));
   auto kern = flash_dq_kernel<T, D>;
   cudaError_t e = flash::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((S + BQ - 1) / BQ, H, B), kThreads, smem, stream>>>(
+  kern<<<dim3((Sq + BQ - 1) / BQ, H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<T*>(dq), H, Kv, S, causal, window, scale);
+      static_cast<T*>(dq), H, Kv, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dsum,
-                       void* dk, void* dv, int B, int H, int Kv, int S,
-                       int causal, int window, float scale,
+                       void* dk, void* dv, int B, int H, int Kv, int Sq,
+                       int Sk, int causal, int window, float scale,
                        cudaStream_t stream) {
   constexpr int BN = flash::kv_rows<D>();
   const size_t smem = sizeof(float) * ((size_t)(2 * BN + 2 * BM) * (D + 1) +
@@ -371,12 +376,12 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   auto kern = flash_dkv_kernel<T, D>;
   cudaError_t e = flash::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((S + BN - 1) / BN, Kv, B), kThreads, smem, stream>>>(
+  kern<<<dim3((Sk + BN - 1) / BN, Kv, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Kv, S, causal, window,
-      scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Kv, Sq, Sk, causal,
+      window, scale);
   return cudaGetLastError();
 }
 
@@ -410,8 +415,8 @@ flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                        const float* __restrict__ lse,
                        const float* __restrict__ dsum,
                        __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, int H, int Kv, int S,
-                       int causal, int window, float scale) {
+                       __nv_bfloat16* __restrict__ dv, int H, int Kv,
+                       int Sq, int Sk, int causal, int window, float scale) {
   constexpr int DP = padded<D>();
   constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
   constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
@@ -428,11 +433,11 @@ flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int k0 = blockIdx.x * kKeys;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int G = H / Kv;
-  const int valid_k = min(kKeys, S - k0);
+  const int valid_k = min(kKeys, Sk - k0);
   // q rows that admit a key of this tile: [q_lo, q_hi]
   const int q_lo = causal ? k0 : 0;
-  const int q_hi = window > 0 ? min(S - 1, k0 + valid_k - 1 + window - 1)
-                              : S - 1;
+  const int q_hi = window > 0 ? min(Sq - 1, k0 + valid_k - 1 + window - 1)
+                              : Sq - 1;
   const int qt_lo = q_lo / kRows;
   const int n_qt = q_hi / kRows - qt_lo + 1;
   const int n_it = G * n_qt;  // (query head, q tile) steps
@@ -463,11 +468,11 @@ flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const int q0 = (qt_lo + it % n_qt) * kRows;
       const int bh = b * H + kvh * G + it / n_qt;
       mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-      const size_t row0 = (size_t)bh * S;
+      const size_t row0 = (size_t)bh * Sq;
       for (int r = lane; r < kRows; r += 32) {
         const int qi = q0 + r;
-        lse_s[s][r] = qi < S ? lse[row0 + qi] * kLog2e : 0.f;
-        dsum_s[s][r] = qi < S ? dsum[row0 + qi] : 0.f;
+        lse_s[s][r] = qi < Sq ? lse[row0 + qi] * kLog2e : 0.f;
+        dsum_s[s][r] = qi < Sq ? dsum[row0 + qi] : 0.f;
       }
       // every lane arrives after its own lse/Dsum stores; lane 0 also
       // sets the bytes the phase waits for
@@ -523,15 +528,16 @@ flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<1>();
     fence_regs(st);
 
-    // P^T, while dP^T is still in flight
-    const bool whole = whole_tile(q0, k0, S, causal, window);
+    // P^T, while dP^T is still in flight; keys past Sk and q rows past
+    // Sq (TMA reads both as zeros) give p = 0
+    const bool whole = whole_tile(q0, k0, Sq, Sk, causal, window);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int c = col + 8 * (i / 4) + (i % 2);
       float p = hopper::exp2_approx(st[i] * scale_log2 - lse_s[s][c]);
       if (!whole) {
         const int qi = q0 + c, kj = k0 + row + 8 * ((i / 2) % 2);
-        if (!(qi < S && flash::admits(qi, kj, S, causal, window))) p = 0.f;
+        if (!(qi < Sq && flash::admits(qi, kj, Sk, causal, window))) p = 0.f;
       }
       st[i] = p;
     }
@@ -567,7 +573,7 @@ flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_arrive(&empty[s]);  // this stage's tiles, lse and Dsum are read
   }
 
-  const size_t krow0 = (size_t)(b * Kv + kvh) * S + k0;
+  const size_t krow0 = (size_t)(b * Kv + kvh) * Sk + k0;
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
     const int r = row + 8 * ((i / 2) % 2), c = col + 8 * (i / 4);
@@ -588,8 +594,8 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_do,
                       const float* __restrict__ lse,
                       const float* __restrict__ dsum,
-                      __nv_bfloat16* __restrict__ dq, int H, int Kv, int S,
-                      int causal, int window, float scale) {
+                      __nv_bfloat16* __restrict__ dq, int H, int Kv,
+                      int Sq, int Sk, int causal, int window, float scale) {
   constexpr int DP = padded<D>();
   constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
   constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
@@ -601,14 +607,14 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   uint8_t* v_s = k_s + kStages * KV_BYTES;   // [kStages][KV_BYTES]
   __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
 
-  const int n_qt = (S + kRows - 1) / kRows;
+  const int n_qt = (Sq + kRows - 1) / kRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.x) * kRows;  // longest first
   const int h = blockIdx.y, b = blockIdx.z;
   const int bh = b * H + h, bkv = b * Kv + h / (H / Kv);
-  const int valid_q = min(kRows, S - q0);
+  const int valid_q = min(kRows, Sq - q0);
   // admitted keys of this tile's rows: [k_lo, k_hi]
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int k_hi = causal ? min(S, q0 + kRows) - 1 : S - 1;
+  const int k_hi = causal ? min(Sk, q0 + kRows) - 1 : Sk - 1;
   const int kt_lo = k_lo / kKeys;
   const int n_it = k_hi / kKeys - kt_lo + 1;
 
@@ -643,8 +649,8 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int qi = q0 + row + 8 * e;
-    lse2[e] = qi < S ? lse[(size_t)bh * S + qi] * kLog2e : 0.f;
-    ds_row[e] = qi < S ? dsum[(size_t)bh * S + qi] : 0.f;
+    lse2[e] = qi < Sq ? lse[(size_t)bh * Sq + qi] * kLog2e : 0.f;
+    ds_row[e] = qi < Sq ? dsum[(size_t)bh * Sq + qi] : 0.f;
   }
   float dq_acc[DP / 2];
 #pragma unroll
@@ -677,14 +683,14 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     wgmma_wait<1>();
     fence_regs(st);
 
-    const bool whole = whole_tile(q0, k0, S, causal, window);
+    const bool whole = whole_tile(q0, k0, Sq, Sk, causal, window);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int e = (i / 2) % 2;
       float p = hopper::exp2_approx(st[i] * scale_log2 - lse2[e]);
       if (!whole) {
         const int qi = q0 + row + 8 * e, kj = k0 + col + 8 * (i / 4) + (i % 2);
-        if (!(qi < S && flash::admits(qi, kj, S, causal, window))) p = 0.f;
+        if (!(qi < Sq && flash::admits(qi, kj, Sk, causal, window))) p = 0.f;
       }
       st[i] = p;
     }
@@ -710,7 +716,7 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
     mbar_arrive(&empty[s]);  // this stage's K and V are read
   }
 
-  const size_t qrow0 = (size_t)bh * S + q0;
+  const size_t qrow0 = (size_t)bh * Sq + q0;
 #pragma unroll
   for (int i = 0; i < DP / 2; i += 2) {
     const int r = row + 8 * ((i / 2) % 2), c = col + 8 * (i / 4);
@@ -723,13 +729,14 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
-                      void* dq, int B, int H, int Kv, int S, int causal,
-                      int window, float scale, cudaStream_t stream) {
+                      void* dq, int B, int H, int Kv, int Sq, int Sk,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  if (!hopper::make_map(&mq, q, B * H, S, D, kRows) ||
-      !hopper::make_map(&mdo, dout, B * H, S, D, kRows) ||
-      !hopper::make_map(&mk, k, B * Kv, S, D, kKeys) ||
-      !hopper::make_map(&mv, v, B * Kv, S, D, kKeys))
+  if (!hopper::make_map(&mq, q, B * H, Sq, D, kRows) ||
+      !hopper::make_map(&mdo, dout, B * H, Sq, D, kRows) ||
+      !hopper::make_map(&mk, k, B * Kv, Sk, D, kKeys) ||
+      !hopper::make_map(&mv, v, B * Kv, Sk, D, kKeys))
     return cudaErrorNotSupported;
   constexpr int DP = padded<D>();
   const size_t smem =
@@ -737,24 +744,24 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   auto kern = flash_dq_kernel_wgmma<D>;
   cudaError_t e = flash::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((S + kRows - 1) / kRows, H, B), kThreadsTC, smem, stream>>>(
+  kern<<<dim3((Sq + kRows - 1) / kRows, H, B), kThreadsTC, smem, stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse),
       static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dq), H,
-      Kv, S, causal, window, scale);
+      Kv, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dsum,
-                       void* dk, void* dv, int B, int H, int Kv, int S,
-                       int causal, int window, float scale,
+                       void* dk, void* dv, int B, int H, int Kv, int Sq,
+                       int Sk, int causal, int window, float scale,
                        cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  if (!hopper::make_map(&mq, q, B * H, S, D, kRows) ||
-      !hopper::make_map(&mdo, dout, B * H, S, D, kRows) ||
-      !hopper::make_map(&mk, k, B * Kv, S, D, kKeys) ||
-      !hopper::make_map(&mv, v, B * Kv, S, D, kKeys))
+  if (!hopper::make_map(&mq, q, B * H, Sq, D, kRows) ||
+      !hopper::make_map(&mdo, dout, B * H, Sq, D, kRows) ||
+      !hopper::make_map(&mk, k, B * Kv, Sk, D, kKeys) ||
+      !hopper::make_map(&mv, v, B * Kv, Sk, D, kKeys))
     return cudaErrorNotSupported;
   constexpr int DP = padded<D>();
   const size_t smem =
@@ -762,10 +769,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   auto kern = flash_dkv_kernel_wgmma<D>;
   cudaError_t e = flash::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
-  kern<<<dim3((S + kKeys - 1) / kKeys, Kv, B), kThreadsTC, smem, stream>>>(
+  kern<<<dim3((Sk + kKeys - 1) / kKeys, Kv, B), kThreadsTC, smem, stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse),
       static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Kv, S, causal, window, scale);
+      static_cast<__nv_bfloat16*>(dv), H, Kv, Sq, Sk, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -778,15 +785,15 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 cudaError_t dispatch_dq_tc(int D, const void* q, const void* k,
                            const void* v, const void* dout, const void* lse,
                            const void* dsum, void* dq, int B, int H, int Kv,
-                           int S, int causal, int window, float scale,
-                           cudaStream_t s) {
+                           int Sq, int Sk, int causal, int window,
+                           float scale, cudaStream_t s) {
   switch (D) {
     FLASH_BWD_CASE(tc::launch_dq, 64, q, k, v, dout, lse, dsum, dq, B, H,
-                   Kv, S, causal, window, scale, s)
+                   Kv, Sq, Sk, causal, window, scale, s)
     FLASH_BWD_CASE(tc::launch_dq, 120, q, k, v, dout, lse, dsum, dq, B, H,
-                   Kv, S, causal, window, scale, s)
+                   Kv, Sq, Sk, causal, window, scale, s)
     FLASH_BWD_CASE(tc::launch_dq, 128, q, k, v, dout, lse, dsum, dq, B, H,
-                   Kv, S, causal, window, scale, s)
+                   Kv, Sq, Sk, causal, window, scale, s)
     default: return cudaErrorInvalidValue;
   }
 }
@@ -794,15 +801,15 @@ cudaError_t dispatch_dq_tc(int D, const void* q, const void* k,
 cudaError_t dispatch_dkv_tc(int D, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
                             const void* dsum, void* dk, void* dv, int B,
-                            int H, int Kv, int S, int causal, int window,
-                            float scale, cudaStream_t s) {
+                            int H, int Kv, int Sq, int Sk, int causal,
+                            int window, float scale, cudaStream_t s) {
   switch (D) {
     FLASH_BWD_CASE(tc::launch_dkv, 64, q, k, v, dout, lse, dsum, dk, dv, B,
-                   H, Kv, S, causal, window, scale, s)
+                   H, Kv, Sq, Sk, causal, window, scale, s)
     FLASH_BWD_CASE(tc::launch_dkv, 120, q, k, v, dout, lse, dsum, dk, dv, B,
-                   H, Kv, S, causal, window, scale, s)
+                   H, Kv, Sq, Sk, causal, window, scale, s)
     FLASH_BWD_CASE(tc::launch_dkv, 128, q, k, v, dout, lse, dsum, dk, dv, B,
-                   H, Kv, S, causal, window, scale, s)
+                   H, Kv, Sq, Sk, causal, window, scale, s)
     default: return cudaErrorInvalidValue;
   }
 }
@@ -811,11 +818,11 @@ cudaError_t dispatch_dkv_tc(int D, const void* q, const void* k,
 template <typename T>
 cudaError_t dispatch_dq(int D, const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* dsum,
-                        void* dq, int B, int H, int Kv, int S, int causal,
-                        int window, float scale, cudaStream_t s) {
+                        void* dq, int B, int H, int Kv, int Sq, int Sk,
+                        int causal, int window, float scale, cudaStream_t s) {
   constexpr bool f32 = std::is_same<T, float>::value;
 #define FLASH_DQ(DV) \
-  return launch_dq<T, DV>(q, k, v, dout, lse, dsum, dq, B, H, Kv, S, causal, window, scale, s)
+  return launch_dq<T, DV>(q, k, v, dout, lse, dsum, dq, B, H, Kv, Sq, Sk, causal, window, scale, s)
   switch (D) {
     case 16: FLASH_DQ(16);
     case 256: FLASH_DQ(256);
@@ -830,12 +837,12 @@ cudaError_t dispatch_dq(int D, const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_dkv(int D, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* dsum,
-                         void* dk, void* dv, int B, int H, int Kv, int S,
-                         int causal, int window, float scale,
+                         void* dk, void* dv, int B, int H, int Kv, int Sq,
+                         int Sk, int causal, int window, float scale,
                          cudaStream_t s) {
   constexpr bool f32 = std::is_same<T, float>::value;
 #define FLASH_DKV(DV) \
-  return launch_dkv<T, DV>(q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, S, causal, window, scale, s)
+  return launch_dkv<T, DV>(q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, Sq, Sk, causal, window, scale, s)
   switch (D) {
     case 16: FLASH_DKV(16);
     case 256: FLASH_DKV(256);
@@ -847,9 +854,10 @@ cudaError_t dispatch_dkv(int D, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-bool bad_shape(int B, int H, int Kv, int S) {
+bool bad_shape(int B, int H, int Kv, int Sq, int Sk, int causal,
+               int window) {
   return Kv <= 0 || H % Kv != 0 || H > 65535 || Kv > 65535 || B > 65535 ||
-         S <= 0;
+         Sq <= 0 || Sk <= 0 || (Sk != Sq && (causal || window > 0));
 }
 
 }  // namespace
@@ -860,48 +868,51 @@ extern "C" int flash_attention_bwd_route(int D, int dtype) {
   return flash_tc::tensor_core_route(D, dtype) ? 1 : 0;
 }
 
-// q, dout [B,H,S,D]; k, v [B,Kv,S,D]; lse, dsum [B,H,S] f32; dq [B,H,S,D].
-// causal: 0/1; window <= 0 = none.  dtype: 0 = float32, 1 = bfloat16.
-// Returns the launch's cudaError_t.
+// q, dout [B,H,Sq,D]; k, v [B,Kv,Sk,D]; lse, dsum [B,H,Sq] f32; dq
+// [B,H,Sq,D].  causal: 0/1; window <= 0 = none; Sk != Sq only with
+// neither.  dtype: 0 = float32, 1 = bfloat16.  Returns the launch's
+// cudaError_t.
 extern "C" int flash_attention_dq_launch(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const void* lse, const void* dsum,
                                          void* dq, int B, int H, int Kv,
-                                         int S, int D, int causal,
+                                         int Sq, int Sk, int D, int causal,
                                          int window, float scale, int dtype,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, H, Kv, S)) return cudaErrorInvalidValue;
+  if (bad_shape(B, H, Kv, Sq, Sk, causal, window))
+    return cudaErrorInvalidValue;
   if (flash_tc::tensor_core_route(D, dtype))
-    return dispatch_dq_tc(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, S,
+    return dispatch_dq_tc(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, Sq, Sk,
                           causal, window, scale, s);
   if (dtype == 0)
-    return dispatch_dq<float>(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, S,
-                              causal, window, scale, s);
+    return dispatch_dq<float>(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, Sq,
+                              Sk, causal, window, scale, s);
   if (dtype == 1)
     return dispatch_dq<__nv_bfloat16>(D, q, k, v, dout, lse, dsum, dq, B, H,
-                                      Kv, S, causal, window, scale, s);
+                                      Kv, Sq, Sk, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }
 
-// As above; dk, dv [B,Kv,S,D], each group of H / Kv query heads summed.
+// As above; dk, dv [B,Kv,Sk,D], each group of H / Kv query heads summed.
 extern "C" int flash_attention_dkv_launch(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const void* lse, const void* dsum,
                                           void* dk, void* dv, int B, int H,
-                                          int Kv, int S, int D, int causal,
-                                          int window, float scale, int dtype,
-                                          void* stream) {
+                                          int Kv, int Sq, int Sk, int D,
+                                          int causal, int window, float scale,
+                                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, H, Kv, S)) return cudaErrorInvalidValue;
+  if (bad_shape(B, H, Kv, Sq, Sk, causal, window))
+    return cudaErrorInvalidValue;
   if (flash_tc::tensor_core_route(D, dtype))
-    return dispatch_dkv_tc(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, S,
-                           causal, window, scale, s);
+    return dispatch_dkv_tc(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, Sq,
+                           Sk, causal, window, scale, s);
   if (dtype == 0)
     return dispatch_dkv<float>(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv,
-                               S, causal, window, scale, s);
+                               Sq, Sk, causal, window, scale, s);
   if (dtype == 1)
     return dispatch_dkv<__nv_bfloat16>(D, q, k, v, dout, lse, dsum, dk, dv, B,
-                                       H, Kv, S, causal, window, scale, s);
+                                       H, Kv, Sq, Sk, causal, window, scale, s);
   return cudaErrorInvalidValue;
 }

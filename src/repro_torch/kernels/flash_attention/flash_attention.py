@@ -8,7 +8,10 @@ slices one; here it is one value per row).  Both launch the same kernel,
 with and without its ``lse`` output.  Causal, sliding-window and
 non-causal attention, MHA/GQA/MQA (query head ``h`` reads KV head
 ``h // (H // Kv)``), any ``S`` without padding, head dims in
-:data:`~repro_torch.kernels.HEAD_DIMS`, f32 and bf16.
+:data:`~repro_torch.kernels.HEAD_DIMS`, f32 and bf16.  Keys may be of
+another length ``Sk`` than the queries' ``Sq`` (cross-attention:
+``k, v [B, Kv, Sk, D]``) without a mask only, ``causal=False`` and
+``window=0`` (:func:`~.ref.check_lengths`).
 
 Two routes, by dtype and head dim alone (:func:`fwd_route`; the CUDA
 source's entry point applies the same rule): bf16 at D 64, 120 and 128
@@ -33,6 +36,8 @@ import torch
 
 from repro_torch.kernels import (HEAD_DIMS, KERNEL_DTYPES, _build,
                                  check_operand)
+
+from .ref import check_lengths
 
 
 ROUTES = ("tensor_core", "cuda_core")
@@ -69,16 +74,17 @@ def library_fwd_route(dtype: torch.dtype, head_dim: int) -> str:
 @functools.cache
 def _launcher():
     fn = _build.library("flash_attention").flash_attention_fwd_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise unless q [B,H,S,D] and k, v [B,Kv,S,D] are contiguous CUDA
+def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int) -> None:
+    """Raise unless q [B,H,Sq,D] and k, v [B,Kv,Sk,D] are contiguous CUDA
     tensors of one kernel dtype whose heads group evenly and whose head
-    dim has a kernel."""
+    dim has a kernel, with ``Sk == Sq`` unless the call has no mask."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash attention kernels need CUDA tensors, got "
@@ -88,9 +94,11 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_operand(name, t, dtype=q.dtype, ndim=4, device=dev)
     b, h, s, d = q.shape
-    if v.shape != k.shape or k.shape[0] != b or k.shape[2:] != (s, d):
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d \
+            or k.shape[2] == 0:
         raise ValueError(f"k/v shapes {tuple(k.shape)} / {tuple(v.shape)} "
                          f"do not match q {tuple(q.shape)}")
+    check_lengths(s, k.shape[2], causal, window)
     kv = k.shape[1]
     if kv == 0 or h % kv:
         raise ValueError(f"{h} query heads do not group over {kv} KV heads")
@@ -107,7 +115,8 @@ def _forward(q, k, v, lse, causal: bool, window: int) -> torch.Tensor:
         return out
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, h, k.shape[1], s, d,
+        None if lse is None else lse.data_ptr(), b, h, k.shape[1], s,
+        k.shape[2], d,
         int(bool(causal)), int(window), float(d) ** -0.5,
         KERNEL_DTYPES[q.dtype], torch.cuda.current_stream(q.device)
         .cuda_stream)
@@ -124,9 +133,9 @@ def _count(wrapper, q) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: [B,H,S,D]; k,v: [B,Kv,S,D] -> o [B,H,S,D] in q's dtype.  CUDA
+    """q: [B,H,Sq,D]; k,v: [B,Kv,Sk,D] -> o [B,H,Sq,D] in q's dtype.  CUDA
     tensors only."""
-    check_qkv(q, k, v)
+    check_qkv(q, k, v, causal, window)
     out = _forward(q, k, v, None, causal, window)
     _count(flash_attention, q)
     return out
@@ -140,9 +149,9 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, *, causal: bool = True,
                             window: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """q: [B,H,S,D]; k,v: [B,Kv,S,D] -> (o [B,H,S,D] in q's dtype,
-    lse [B,H,S] f32).  CUDA tensors only."""
-    check_qkv(q, k, v)
+    """q: [B,H,Sq,D]; k,v: [B,Kv,Sk,D] -> (o [B,H,Sq,D] in q's dtype,
+    lse [B,H,Sq] f32).  CUDA tensors only."""
+    check_qkv(q, k, v, causal, window)
     b, h, s, _ = q.shape
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     out = _forward(q, k, v, lse, causal, window)

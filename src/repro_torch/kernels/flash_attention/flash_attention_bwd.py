@@ -6,8 +6,10 @@ and logsumexp ``lse``, and the output gradient ``dO``, computes
 ``Dsum = rowsum(dO * O)`` in f32 with plain torch (as the reference does
 outside its kernels), and launches the dQ kernel
 (:func:`flash_attention_dq`) and the dK/dV kernel
-(:func:`flash_attention_dkv`).  dK and dV come out as ``[B, Kv, S, D]``
-with each GQA group summed in f32 inside the kernel.
+(:func:`flash_attention_dkv`).  dK and dV come out as ``[B, Kv, Sk, D]``
+with each GQA group summed in f32 inside the kernel.  Keys of another
+length than the queries are taken as the forward takes them: without a
+mask only.
 
 Two routes, by dtype and head dim alone (:func:`bwd_route`; the CUDA
 source's entry points apply the same rule): bf16 at D 64, 120 and 128
@@ -49,9 +51,9 @@ def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
 def _launchers():
     lib = _build.library("flash_attention_bwd")
     dq, dkv = lib.flash_attention_dq_launch, lib.flash_attention_dkv_launch
-    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     dq.restype = dkv.restype = ctypes.c_int
     return dq, dkv
@@ -64,8 +66,8 @@ def library_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
                          dtype, head_dim)
 
 
-def _check_bwd(q, k, v, do, lse, dsum) -> None:
-    check_qkv(q, k, v)
+def _check_bwd(q, k, v, do, lse, dsum, causal, window) -> None:
+    check_qkv(q, k, v, causal, window)
     check_operand("do", do, dtype=q.dtype, ndim=4, device=q.device)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} does not match q "
@@ -74,22 +76,23 @@ def _check_bwd(q, k, v, do, lse, dsum) -> None:
         check_operand(name, t, dtype=torch.float32, ndim=3, device=q.device,
                       align=4)
         if t.shape != q.shape[:3]:
-            raise ValueError(f"{name} {tuple(t.shape)} is not [B, H, S] of "
+            raise ValueError(f"{name} {tuple(t.shape)} is not [B, H, Sq] of "
                              f"q {tuple(q.shape)}")
 
 
 def _args(q, k, causal, window):
     b, h, s, d = q.shape
-    return (b, h, k.shape[1], s, d, int(bool(causal)), int(window),
+    return (b, h, k.shape[1], s, k.shape[2], d, int(bool(causal)),
+            int(window),
             float(d) ** -0.5, KERNEL_DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
 def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
                        window: int = 0) -> torch.Tensor:
-    """q, do: [B,H,S,D]; k, v: [B,Kv,S,D]; lse, dsum: [B,H,S] f32 -> dq
-    [B,H,S,D] in q's dtype.  CUDA tensors only."""
-    _check_bwd(q, k, v, do, lse, dsum)
+    """q, do: [B,H,Sq,D]; k, v: [B,Kv,Sk,D]; lse, dsum: [B,H,Sq] f32 -> dq
+    [B,H,Sq,D] in q's dtype.  CUDA tensors only."""
+    _check_bwd(q, k, v, do, lse, dsum, causal, window)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
@@ -110,9 +113,9 @@ flash_attention_dq.route_launches = dict.fromkeys(ROUTES, 0)
 def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
                         window: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """As :func:`flash_attention_dq` -> (dk, dv [B,Kv,S,D]) in k's dtype,
+    """As :func:`flash_attention_dq` -> (dk, dv [B,Kv,Sk,D]) in k's dtype,
     each summed over its group of query heads.  CUDA tensors only."""
-    _check_bwd(q, k, v, do, lse, dsum)
+    _check_bwd(q, k, v, do, lse, dsum, causal, window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
@@ -134,8 +137,8 @@ flash_attention_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0):
-    """q, o, do: [B,H,S,D]; k, v: [B,Kv,S,D]; lse: [B,H,S] f32 ->
-    (dq [B,H,S,D], dk [B,Kv,S,D], dv [B,Kv,S,D]).  CUDA tensors only."""
+    """q, o, do: [B,H,Sq,D]; k, v: [B,Kv,Sk,D]; lse: [B,H,Sq] f32 ->
+    (dq [B,H,Sq,D], dk [B,Kv,Sk,D], dv [B,Kv,Sk,D]).  CUDA tensors only."""
     check_operand("o", o, dtype=q.dtype, ndim=4, device=q.device)
     dsum = (do.float() * o.float()).sum(dim=-1)
     dq = flash_attention_dq(q, k, v, do, lse, dsum, causal=causal,

@@ -1,11 +1,15 @@
 """Plain PyTorch versions of flash attention, forward and backward.
 
-Layout as the kernels take it: q, o, dO [B, H, S, D]; k, v [B, Kv, S, D];
-lse [B, H, S] f32.  Query head ``h`` reads KV head ``h // (H // Kv)``
-(MHA, GQA and MQA), computed as a grouped einsum without repeating K/V.
-A key ``k`` is admitted by query ``q`` when ``k <= q`` (``causal``) and
-``q - k < window`` (``window > 0``); the non-causal windowed case admits
-every later key, as the reference does.  Positions are ``arange(S)``.
+Layout as the kernels take it: q, o, dO [B, H, Sq, D]; k, v
+[B, Kv, Sk, D]; lse [B, H, Sq] f32.  Query head ``h`` reads KV head
+``h // (H // Kv)`` (MHA, GQA and MQA), computed as a grouped einsum
+without repeating K/V.  A key ``k`` is admitted by query ``q`` when
+``k <= q`` (``causal``) and ``q - k < window`` (``window > 0``); the
+non-causal windowed case admits every later key, as the reference does.
+Positions are ``arange(Sq)`` and ``arange(Sk)``.  Keys of another length
+than the queries (cross-attention) are taken without a mask only:
+:func:`check_lengths` raises for a causal or windowed call at
+``Sq != Sk``.
 
 Everything is computed in f32 from the inputs cast up, the scores scaled
 by ``D ** -0.5`` after the dot, and outputs are cast back to the input
@@ -13,7 +17,7 @@ dtype, as ``src/repro/kernels/flash_attention/ref.py`` does.
 :func:`attention_bwd_ref` writes out the FlashAttention-2 backward:
 ``D_i = rowsum(dO_i * O_i)``, ``P = exp(s - lse)`` under the mask, then
 dV, dS, dQ and dK, with each GQA group's dK and dV summed in f32 into
-``[B, Kv, S, D]``.
+``[B, Kv, Sk, D]``.
 """
 
 from __future__ import annotations
@@ -23,11 +27,24 @@ import torch
 NEG_INF = -1e30
 
 
-def _mask(s: int, causal: bool, window: int, device) -> torch.Tensor:
-    """[S, S] bool: query row admits key column."""
-    qi = torch.arange(s, device=device)[:, None]
-    ki = torch.arange(s, device=device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+def check_lengths(sq: int, sk: int, causal: bool, window: int) -> None:
+    """Raise for queries against keys of another length under a causal
+    mask or a window: cross-attention admits every key, and no arch needs
+    a mask across two lengths."""
+    if sq != sk and (causal or window > 0):
+        raise ValueError(
+            f"queries of length {sq} against keys of length {sk} are taken "
+            f"only without a mask (causal=False, window=0), got causal="
+            f"{causal}, window={window}")
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int,
+          device) -> torch.Tensor:
+    """[Sq, Sk] bool: query row admits key column."""
+    check_lengths(sq, sk, causal, window)
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         ok &= ki <= qi
     if window > 0:
@@ -42,17 +59,17 @@ def _grouped(x: torch.Tensor, kvh: int) -> torch.Tensor:
 
 
 def _scores(q, k, causal: bool, window: int) -> torch.Tensor:
-    """Scaled f32 scores [B, Kv, G, S, S], masked entries at -1e30."""
+    """Scaled f32 scores [B, Kv, G, Sq, Sk], masked entries at -1e30."""
     d = q.shape[-1]
     s = torch.einsum("bkgqd,bksd->bkgqs", _grouped(q, k.shape[1]),
                      k.float()) * d ** -0.5
-    ok = _mask(q.shape[2], causal, window, q.device)
+    ok = _mask(q.shape[2], k.shape[2], causal, window, q.device)
     return torch.where(ok, s, NEG_INF)
 
 
 def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: [B,H,S,D]; k,v: [B,Kv,S,D] -> (o [B,H,S,D] in q's dtype,
-    lse [B,H,S] f32)."""
+    """q: [B,H,Sq,D]; k,v: [B,Kv,Sk,D] -> (o [B,H,Sq,D] in q's dtype,
+    lse [B,H,Sq] f32)."""
     b, h, s, d = q.shape
     sc = _scores(q, k, causal, window)
     lse = torch.logsumexp(sc, dim=-1)                       # [B,Kv,G,S]
@@ -62,20 +79,20 @@ def attention_lse_ref(q, k, v, *, causal: bool = True, window: int = 0):
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
-    """q: [B,H,S,D]; k,v: [B,Kv,S,D] -> [B,H,S,D] in q's dtype."""
+    """q: [B,H,Sq,D]; k,v: [B,Kv,Sk,D] -> [B,H,Sq,D] in q's dtype."""
     return attention_lse_ref(q, k, v, causal=causal, window=window)[0]
 
 
 def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                       window: int = 0):
-    """q, o, do: [B,H,S,D]; k, v: [B,Kv,S,D]; lse: [B,H,S] f32 ->
-    (dq [B,H,S,D], dk [B,Kv,S,D], dv [B,Kv,S,D]) in q's, k's and v's
+    """q, o, do: [B,H,Sq,D]; k, v: [B,Kv,Sk,D]; lse: [B,H,Sq] f32 ->
+    (dq [B,H,Sq,D], dk [B,Kv,Sk,D], dv [B,Kv,Sk,D]) in q's, k's and v's
     dtypes."""
     b, h, s, d = q.shape
     kvh = k.shape[1]
     scale = d ** -0.5
     qg, dog = _grouped(q, kvh), _grouped(do, kvh)
-    ok = _mask(s, causal, window, q.device)
+    ok = _mask(s, k.shape[2], causal, window, q.device)
     sc = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * scale
     lse_g = lse.float().reshape(b, kvh, h // kvh, s)
     p = torch.where(ok, torch.exp(sc - lse_g[..., None]), 0.0)

@@ -5,7 +5,11 @@ KV budgets against a synthetic batch of requests, or with ``--trace``
 against an open-loop arrival trace on a virtual clock (tier gating, SLO
 accounting, optional fault injection, ``--replicas`` engines behind the
 replica router), on the CUDA device unless ``--device cpu`` is given
-(reduced config unless ``--full-size``).
+(reduced config unless ``--full-size``).  The modality archs
+(internvl2-1b, whisper-tiny) serve through the one-shot prefill on dense
+KV, as ``prefill_mode="auto"`` resolves for them; internvl2-1b's
+``num_patches`` positions (256 at full size) count against
+``--cache-len`` beside each prompt and its new tokens.
 """
 
 from __future__ import annotations

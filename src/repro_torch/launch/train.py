@@ -8,8 +8,11 @@ the kernels' plain versions.  Without ``--full-size`` the arch runs at
 its ``reduced()`` size.  The attention archs (yi-6b, h2o-danube-3-4b,
 gemma3-4b, starcoder2-15b), the recurrent ones (recurrentgemma-9b,
 rwkv6-7b) and the MoE ones (deepseek-moe-16b, llama4-maverick-400b-a17b,
-whose loss adds 0.01 x the load-balancing aux) train; the modality archs
-raise NotImplementedError.
+whose loss adds 0.01 x the load-balancing aux) train.  The modality archs
+(internvl2-1b, whisper-tiny) need patches or frames that the data stream
+does not yield, as the reference's does not: the Trainer raises a
+``ValueError`` naming the input; ``train_step.make_train_step`` on
+``zoo.make_batch`` trains them.
 """
 
 from __future__ import annotations

@@ -9,8 +9,10 @@ kernels, and so does the dense decode step's one-token attention (the
 dense decode kernel the reference wrote for it, where the reference
 itself computes it in XLA).  A padded prompt chunk's attention over its
 ring or paged view is plain torch, as the reference computes it in XLA
-outside any kernel.  Full-sequence self-attention (training, one-shot
-prefill) runs through the flash attention kernels.
+outside any kernel.  Full-sequence attention (training, one-shot
+prefill), cross-attention to an encoder's frames among it, runs through
+the flash attention kernels, and one decode token's cross-attention
+through the dense decode kernel.
 """
 
 from __future__ import annotations
@@ -169,24 +171,41 @@ def decode_attention(q, k_cache, v_cache, *, k_pos, q_pos, window: int = 0):
     return o[:, None]
 
 
+def cross_decode_attention(q, k, v):
+    """One decode token against all of an encoder's frames: q [B,1,H,D];
+    k, v [B,Se,Kv,D] (projected from ``enc_out``) -> [B,1,H,D].  Every
+    frame is admitted: ``decode_attention_op`` admits ``0 <= k_pos <=
+    q_pos``, so the frames go in at position 0 and the query at 0 too,
+    window 0.  The dense decode kernel on a card (K/V read in place as
+    ``[B,Kv,Se,D]`` views), its plain version on the CPU; the
+    probabilities meet V in f32, where the reference rounds them to q's
+    dtype first (equal in f32)."""
+    from repro_torch.kernels.decode_attention import decode_attention_op
+    b, se = k.shape[:2]
+    k_pos = torch.zeros((b, se), dtype=torch.int32, device=q.device)
+    q_pos = torch.zeros(b, dtype=torch.int32, device=q.device)
+    o = decode_attention_op(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                            k_pos, q_pos)
+    return o[:, None]
+
+
 def attention(q, k, v, *, q_pos, k_pos, causal: bool = True,
               window: int = 0):
-    """Full-sequence self-attention: q [B,S,H,D]; k,v [B,S,Kv,D] ->
-    [B,S,H,D].  ``window`` = 0 is unbounded; W keeps ``q - k < W``.
+    """Full-sequence attention: q [B,Sq,H,D]; k,v [B,Sk,Kv,D] ->
+    [B,Sq,H,D].  ``window`` = 0 is unbounded; W keeps ``q - k < W``.
+    Self-attention has ``Sk == Sq``; cross-attention (keys of another
+    length, an encoder's frames) admits every key: ``causal=False`` and
+    ``window=0``, anything else at ``Sk != Sq`` raises ``ValueError``.
 
-    Always the flash route (the reference's ``REPRO_ATTN_IMPL=pallas``;
-    its default XLA route computes the same function): when a gradient is
-    wanted, the differentiable Function over the forward-with-logsumexp
-    and backward kernels, else the forward kernel alone.  CPU tensors run
-    the plain versions.  Positions are taken to be ``arange(S)``, as
-    training passes them; ``q_pos``/``k_pos`` are not read.  Queries
-    against keys of another length (cross-attention, enc-dec only) are
-    ROADMAP Queue 1 item 12."""
+    Always the flash route (the reference's ``REPRO_ATTN_IMPL=pallas``
+    for self-attention; its default XLA route, and the route it always
+    takes for cross-attention, compute the same function): when a
+    gradient is wanted, the differentiable Function over the
+    forward-with-logsumexp and backward kernels, else the forward kernel
+    alone.  CPU tensors run the plain versions.  Positions are taken to
+    be ``arange(Sq)`` and ``arange(Sk)``, as training passes them;
+    ``q_pos``/``k_pos`` are not read."""
     del q_pos, k_pos
-    if q.shape[1] != k.shape[1]:
-        raise NotImplementedError(
-            "cross-attention (enc-dec) is ROADMAP Queue 1 item 12 (not "
-            "ported yet)")
     from repro_torch.kernels.flash_attention import (attention_op,
                                                      flash_attention_grad)
     if not (torch.is_grad_enabled()

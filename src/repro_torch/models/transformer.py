@@ -10,6 +10,21 @@ and the caches are updated in place.  recurrentgemma's plan, for one, is
 12 groups of (rglru, rglru, swa) and a 2-layer (rglru, rglru) remainder;
 rwkv6-7b's is 32 groups of (rwkv6,).
 
+The modality frontends follow the reference.  The vision prefix
+(internvl2-1b): ``batch["patches"] [B,P,frontend_dim]`` pass through the
+connector, ``gelu(patches @ w1) @ w2`` (tanh gelu), and go before the
+token embeddings, so the backbone sees ``P + S`` positions and the loss
+only the last ``S``.  The encoder-decoder (whisper-tiny): the frames
+``batch["frames"] [B,Se,d]`` plus ``pos_emb[arange(Se)]`` run the
+``enc_layers`` stacked ``bidir`` blocks and ``ln_enc``; the decoder input
+adds ``pos_emb[positions]``, and after every decoder block a
+cross-attention (``params["cross"]``, stacked over all layers: norm, q
+from x, k and v from the encoder's output, attention without a mask)
+adds its output.  ``pos_emb`` starts at zeros, as the reference's init
+leaves it.  The caches keep the encoder's output as ``enc_out [B,Se,d]``
+for decode.  Neither frontend has a chunked or packed form: the step
+functions over streams and chunks raise ``ValueError`` for them.
+
 Public entry points:
     init(cfg, generator, device)        -> params
     init_cache(cfg, batch, cache_len, device, ring_margin=0) -> caches
@@ -45,10 +60,16 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+import torch.nn.functional as F
+
 from . import blocks as B
-from .layers import apply_norm, dense_init, norm_init, torch_dtype
+from . import layers
+from .layers import (apply_norm, attn_output, dense_init, norm_init, project,
+                     torch_dtype)
 
 LOSS_CHUNK = 512
+# rows of the encoder-decoder's learned absolute positions (the reference's)
+MAX_POS = 65536
 
 # ---------------------------------------------------------------------------
 # structure helpers
@@ -105,12 +126,17 @@ def resolve_device(device) -> torch.device:
 
 
 def _check_supported(cfg) -> None:
-    if cfg.encoder_decoder or cfg.frontend == "vision":
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are ROADMAP Queue 1 item 12 "
-            "(not ported yet)")
     for kind in _all_kinds(cfg):
         B._check_ported(kind)
+
+
+def _check_chunkable(cfg) -> None:
+    """The stream and chunk steps need a chunked prefill: a modality
+    frontend, whose prefix or encoder output has no chunk form, raises."""
+    _check_supported(cfg)
+    if not supports_chunked_prefill(cfg):
+        raise ValueError(f"{cfg.name}: a modality frontend serves only the "
+                         "one-shot prefill and decode_step")
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +169,36 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
     if rem:
         params["rem"] = [B.block_init(cfg, k, dtype, device, generator)
                          for k in rem]
+    d = cfg.d_model
+    if cfg.frontend == "vision":
+        params["connector"] = {
+            "w1": dense_init((cfg.frontend_dim, d), dtype, device, generator),
+            "w2": dense_init((d, d), dtype, device, generator)}
+    if cfg.encoder_decoder:
+        params["pos_emb"] = torch.zeros((MAX_POS, d), dtype=dtype,
+                                        device=device)
+        params["encoder"] = B.block_init(cfg, "bidir", dtype, device,
+                                         generator, lead=(cfg.enc_layers,))
+        params["ln_enc"] = norm_init(cfg.norm, d, dtype, device)
+        params["cross"] = _cross_init(cfg, dtype, device, generator)
     return params
+
+
+def _cross_init(cfg, dtype, device, generator) -> dict:
+    """One cross-attention ``{"attn": {wq, wk, wv, wo}, "ln"}`` per decoder
+    layer, stacked over all ``num_layers``."""
+    lead = (cfg.num_layers,)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+
+    def dense(shape):
+        return dense_init(lead + shape, dtype, device, generator)
+
+    attn = {"wq": dense((d, h, hd)), "wk": dense((d, kv, hd)),
+            "wv": dense((d, kv, hd)), "wo": dense((h, hd, d))}
+    ln = {k: v.expand(lead + v.shape).clone()
+          for k, v in norm_init(cfg.norm, d, dtype, device).items()}
+    return {"attn": attn, "ln": ln}
 
 
 # ---------------------------------------------------------------------------
@@ -190,10 +245,17 @@ def init_cache(cfg, batch: int, cache_len: int, device,
     scan state for rglru layers, ``{S, tm_last, cm_last}`` for rwkv6
     layers; group layers stacked ``[n_groups, batch, ...]``.
     ``ring_margin`` is what speculative drafts need: up to ``k`` rejected
-    positions past the pending token (:func:`blocks.cache_len_for`)."""
+    positions past the pending token (:func:`blocks.cache_len_for`).  The
+    encoder-decoder adds ``enc_out [batch, enc_seq, d]`` (zeros until a
+    prefill writes it)."""
     _check_supported(cfg)
-    return _cache_tree(cfg, lambda k, lead: B.block_cache_init(
+    caches = _cache_tree(cfg, lambda k, lead: B.block_cache_init(
         cfg, k, batch, cache_len, device, lead, ring_margin=ring_margin))
+    if cfg.encoder_decoder:
+        caches["enc_out"] = torch.zeros(
+            (batch, cfg.enc_seq, cfg.d_model), dtype=torch_dtype(cfg.dtype),
+            device=device)
+    return caches
 
 
 def ring_lens(caches: dict) -> set[int]:
@@ -235,11 +297,13 @@ def merge_slot(caches: dict, one: dict, slot: int) -> None:
     """Copy a one-row dense cache tree (:func:`prefill`'s, batch 1) into
     row ``slot`` of the engine's caches in place: every leaf of the slot,
     so whatever an earlier occupant left there is overwritten (the
-    reference's ``merge_fn``)."""
+    reference's ``merge_fn``), the encoder's output ``enc_out`` too."""
     for key, axis in (("prefix", 0), ("groups", 1), ("rem", 0)):
         for c, o in zip(caches.get(key, ()), one.get(key, ())):
             for n, a in c.items():
                 a.select(axis, slot).copy_(o[n].select(axis, 0))
+    if "enc_out" in caches:
+        caches["enc_out"][slot].copy_(one["enc_out"][0])
 
 
 def init_paged_cache(cfg, num_blocks: int, block_tokens: int, device) -> dict:
@@ -310,7 +374,7 @@ def step_packed(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
     Returns the next-token logits [B,V] at each slot's last packed token
     (garbage for slots with no tokens this call); caches are updated in
     place."""
-    _check_supported(cfg)
+    _check_chunkable(cfg)
     if plan is None:
         plan = (dense_packed_plans(caches, slot_id, pos, start, seg_len)
                 if block_tables is None else
@@ -371,7 +435,7 @@ def step_spec(cfg, params, caches, tokens, slot_id, pos, start, seg_len,
     recurrent layer's snapshots are resolved into its state once
     ``accept`` is computed (:func:`_resolve_pending`).  ``plan`` is
     :func:`step_packed`'s."""
-    _check_supported(cfg)
+    _check_chunkable(cfg)
     if plan is None:
         plan = (dense_packed_plans(caches, slot_id, pos, start, seg_len)
                 if block_tables is None else
@@ -414,7 +478,7 @@ def prefill_chunk(cfg, params, caches, tokens, start, lengths,
     to earlier chunks through the caches, recurrent layers thread their
     scan state, so calling this over a long prompt is exact chunked
     prefill."""
-    _check_supported(cfg)
+    _check_chunkable(cfg)
     b, c = tokens.shape
     t = torch.arange(c, dtype=torch.int32, device=tokens.device)[None, :]
     pos = start[:, None] + t                                         # [B,C]
@@ -438,7 +502,10 @@ def decode_step(cfg, params, caches, token, pos, block_tables=None,
     write plan — :func:`~repro_torch.models.blocks.paged_write_plan`
     (paged, ``block_tables`` given) or :func:`dense_step_plans` (dense) —
     computed here when not given.  Returns logits [B,V]; caches are
-    updated in place."""
+    updated in place.  The encoder-decoder adds ``pos_emb[pos]`` to the
+    token's embedding and attends, after every block, to the slot's
+    ``caches["enc_out"]`` (:func:`cross_attend`, K/V projected from it
+    again at every step, as in the reference)."""
     _check_supported(cfg)
     if plan is None:
         if block_tables is None:
@@ -448,9 +515,15 @@ def decode_step(cfg, params, caches, token, pos, block_tables=None,
             plan = B.paged_write_plan(rows, pos, block_tables,
                                       _block_tokens(caches), valid=active)
     x = params["embed"][token][:, None, :]                           # [B,1,d]
-    for kind, p, c in _layers(cfg, params, caches):
+    if "pos_emb" in params:
+        x = x + params["pos_emb"][pos][:, None, :]
+    enc_out = caches.get("enc_out") if cfg.encoder_decoder else None
+    for li, (kind, p, c) in enumerate(_layers(cfg, params, caches)):
         x = B.block_apply_step(cfg, kind, p, x, pos, c, block_tables, plan,
                                active)
+        if enc_out is not None:
+            x = cross_attend(cfg, _index(params["cross"], li), x, enc_out,
+                             step=True)
     x = apply_norm(cfg.norm, params["ln_f"], x)
     return _logits(cfg, params, x)[:, 0]
 
@@ -469,35 +542,95 @@ def _grad_checkpoint(fn, *args):
 
 
 def _inputs_embeds(cfg, params, batch):
-    """Token embeddings (text only) -> (x [B,S,d], positions [S] int32)."""
+    """Token embeddings, after the connector's patch embeddings for the
+    vision prefix -> (x [B,P+S,d], positions [P+S] int32)."""
     x = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision":
+        c = params["connector"]
+        pe = F.gelu(batch["patches"].to(c["w1"].dtype) @ c["w1"],
+                    approximate="tanh") @ c["w2"]
+        x = torch.cat([pe, x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return x, positions
 
 
+def _run_encoder(cfg, params, frames):
+    """The encoder over precomputed frame embeddings [B,Se,d]: plus
+    ``pos_emb[arange(Se)]``, the stacked ``bidir`` blocks, then
+    ``ln_enc``."""
+    x = frames.to(torch_dtype(cfg.dtype))
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    x = x + params["pos_emb"][positions]
+    for i in range(cfg.enc_layers):
+        x, _ = B.block_apply_seq(cfg, "bidir", _index(params["encoder"], i),
+                                 x, positions)
+    return apply_norm(cfg.norm, params["ln_enc"], x)
+
+
+def _decoder_inputs(cfg, params, batch):
+    """(x [B,S',d], positions [S'], the encoder's output or None): the
+    embeddings of :func:`_inputs_embeds`, for the encoder-decoder plus
+    ``pos_emb[positions]``, and its encoder run over the frames."""
+    enc_out = None
+    if cfg.encoder_decoder:
+        enc_out = _run_encoder(cfg, params, batch["frames"])
+    x, positions = _inputs_embeds(cfg, params, batch)
+    if cfg.encoder_decoder:
+        x = x + params["pos_emb"][positions]
+    return x, positions, enc_out
+
+
+def cross_attend(cfg, cp, x, enc_out, *, step: bool = False):
+    """One decoder layer's cross-attention and its residual: ``x +
+    attn_output(attention(q(norm(x)), k(enc_out), v(enc_out)))`` with
+    every frame admitted.  ``cp``: the layer's ``{"attn", "ln"}``;
+    x [B,S,d]; enc_out [B,Se,d].  A sequence takes the flash kernels at
+    Sq = S and Sk = Se (:func:`layers.attention`, causal off, no window);
+    a decode step (``step``, S = 1) the dense decode kernel over the
+    frames (:func:`layers.cross_decode_attention`)."""
+    h = apply_norm(cfg.norm, cp["ln"], x)
+    q = project(h, cp["attn"]["wq"])
+    k = project(enc_out, cp["attn"]["wk"])
+    v = project(enc_out, cp["attn"]["wv"])
+    if step:
+        o = layers.cross_decode_attention(q, k, v)
+    else:
+        o = layers.attention(q, k, v, q_pos=None, k_pos=None, causal=False,
+                             window=0)
+    return x + attn_output(cp["attn"], o)
+
+
 def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
-                    caches=None):
-    """prefix -> groups -> remainder over the whole sequence.  ``caches``
-    is None in training; in the one-shot prefill it is a dense cache tree
-    from :func:`init_cache`, which every layer fills in place.  With
-    ``remat`` other than ``"none"`` every group layer recomputes its
-    activations in the backward pass; the reference rematerialises the
-    scanned group body under its ``remat`` policy, and the flash kernels'
-    outputs are not among what ``"dots"`` saves, so there too the
-    attention forward runs again in the backward pass.  Returns
-    ``(x, aux_total)``."""
+                    caches=None, enc_out=None):
+    """prefix -> groups -> remainder over the whole sequence, each layer
+    followed by its cross-attention to ``enc_out`` when one is given (the
+    encoder-decoder).  ``caches`` is None in training; in the one-shot
+    prefill it is a dense cache tree from :func:`init_cache`, which every
+    layer fills in place.  With ``remat`` other than ``"none"`` every
+    group layer, its cross-attention with it, recomputes its activations
+    in the backward pass; the reference rematerialises the scanned group
+    body under its ``remat`` policy, and the flash kernels' outputs are
+    not among what ``"dots"`` saves, so there too the attention forward
+    runs again in the backward pass.  Returns ``(x, aux_total)``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix, pattern, n_groups, rem = _plan(cfg)
     layer_caches = (_layers(cfg, params, caches) if caches is not None
                     else None)
+    layer_index = iter(range(cfg.num_layers))
 
     def run(kind, p, x, grouped):
         cache = None if layer_caches is None else next(layer_caches)[2]
-        fn = lambda p, x: B.block_apply_seq(cfg, kind, p, x, positions,  # noqa: E731
-                                            cache)
+        li = next(layer_index)
+        cp = None if enc_out is None else _index(params["cross"], li)
+
+        def fn(p, cp, x, enc_out):
+            x, aux = B.block_apply_seq(cfg, kind, p, x, positions, cache)
+            if cp is not None:
+                x = cross_attend(cfg, cp, x, enc_out)
+            return x, aux
         if grouped and remat != "none":
-            return _grad_checkpoint(fn, p, x)
-        return fn(p, x)
+            return _grad_checkpoint(fn, p, cp, x, enc_out)
+        return fn(p, cp, x, enc_out)
 
     for j, kind in enumerate(prefix):
         x, aux = run(kind, params["prefix"][j], x, False)
@@ -513,26 +646,33 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
 
 
 def forward(cfg, params, batch, *, remat: str = "none"):
-    """batch: ``{"tokens": [B,S] int}`` -> (final-norm hidden states
-    [B,S,d], aux)."""
+    """batch: ``{"tokens": [B,S] int}``, with ``"patches" [B,P,
+    frontend_dim]`` for the vision prefix or ``"frames" [B,Se,d]`` for the
+    encoder-decoder -> (final-norm hidden states [B,P+S,d], aux)."""
     _check_supported(cfg)
-    x, positions = _inputs_embeds(cfg, params, batch)
-    x, aux = _run_blocks_seq(cfg, params, x, positions, remat=remat)
+    x, positions, enc_out = _decoder_inputs(cfg, params, batch)
+    x, aux = _run_blocks_seq(cfg, params, x, positions, remat=remat,
+                             enc_out=enc_out)
     return apply_norm(cfg.norm, params["ln_f"], x), aux
 
 
 @torch.no_grad()
 def prefill(cfg, params, batch, *, cache_len: int):
     """One-shot prefill of whole prompts: batch ``{"tokens": [B,S] int}``
-    -> (next-token logits [B,V] at the last position, fresh dense caches
-    of ``cache_len`` filled with the prompts' K/V and the recurrent state
-    after their last position).  Without gradients the attention takes the
-    flash forward kernel without its LSE output; the recurrent kinds run
-    their one-shot forms."""
+    (and a frontend's ``patches`` or ``frames``, as :func:`forward`) ->
+    (next-token logits [B,V] at the last position, fresh dense caches of
+    ``cache_len`` filled with the prompts' K/V, the patch positions' too,
+    the recurrent state after their last position and the encoder's
+    output).  Without gradients the attention takes the flash forward
+    kernel without its LSE output; the recurrent kinds run their one-shot
+    forms."""
     _check_supported(cfg)
-    x, positions = _inputs_embeds(cfg, params, batch)
+    x, positions, enc_out = _decoder_inputs(cfg, params, batch)
     caches = init_cache(cfg, x.shape[0], cache_len, x.device)
-    x, _ = _run_blocks_seq(cfg, params, x, positions, caches=caches)
+    if enc_out is not None:
+        caches["enc_out"] = enc_out
+    x, _ = _run_blocks_seq(cfg, params, x, positions, caches=caches,
+                           enc_out=enc_out)
     x = apply_norm(cfg.norm, params["ln_f"], x[:, -1])
     return _logits(cfg, params, x), caches
 
@@ -549,10 +689,13 @@ def loss_fn(cfg, params, batch, *, remat: str = "dots",
     """Mean next-token cross-entropy of ``batch["labels"]`` [B,S], chunked
     over the sequence in pieces of at most :data:`LOSS_CHUNK` tokens whose
     logits are recomputed in the backward pass, so the [B,S,V] logits
-    never materialise.  Returns ``(loss + aux_weight * aux, {"ce", "aux"})``
-    as 0-d f32 tensors."""
+    never materialise; the vision prefix's positions carry no loss.
+    Returns ``(loss + aux_weight * aux, {"ce", "aux"})`` as 0-d f32
+    tensors."""
     x, aux = forward(cfg, params, batch, remat=remat)
     labels = batch["labels"].long()
+    if cfg.frontend == "vision":
+        x = x[:, -labels.shape[1]:]
     head = params["embed"].T if cfg.tie_embeddings else params["head"]
     b, s, _ = x.shape
     chunk = min(LOSS_CHUNK, s)

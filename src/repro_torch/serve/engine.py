@@ -87,9 +87,18 @@ only wait is the stream synchronise after a dispatch that samples a
 token (under speculation, the read of the accepted counts and tokens),
 so the latency sensors measure device time, not enqueue time.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): the modality frontends (item 12), mesh serving (item 11, see
-``serve/options.py``).
+The modality frontends (internvl2-1b's vision prefix, whisper-tiny's
+encoder-decoder) have no chunked prefill, as in the reference: ``auto``
+resolves to the one-shot ``legacy`` path on dense KV with the reference's
+``RuntimeWarning`` (``serve.prefill_chunk_tokens`` cannot actuate there),
+and an explicit ``packed`` or ``bucketed`` raises its ``ValueError``.
+Their one-shot prefill takes zero patches or frames, and a vision slot's
+ring holds ``num_patches`` positions before the prompt's; the admission
+check and the footprint count them, the schedule's lease does not (the
+reference's ledger).
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+mesh serving (item 11, see ``serve/options.py``).
 """
 
 from __future__ import annotations
@@ -98,6 +107,7 @@ import collections
 import dataclasses
 import enum
 import time
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -209,6 +219,15 @@ class Request:
     prefix_hit: int = 0         # prompt tokens served from the radix cache
 
 
+def _one_shot_reason(cfg: ArchConfig) -> str:
+    """Why this arch cannot leave the one-shot prefill path (the
+    reference's words): a modality frontend, whose unpadded prefix has no
+    chunk form (every block kind the port builds is chunkable)."""
+    if cfg.encoder_decoder:
+        return "the encoder-decoder frontend"
+    return "the vision-prefix frontend"
+
+
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params: dict, *,
                  options: ServeOptions | None = None,
@@ -232,15 +251,27 @@ class ServeEngine:
         if on != {device}:
             raise ValueError(f"params live on {sorted(map(str, on))}, the "
                              f"engine on {device}")
-        if not zoo.supports_chunked_prefill(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: a modality frontend serves through the one-shot "
-                "prefill with its frontend, ROADMAP Queue 1 item 12 (not "
-                "ported yet)")
         for kind in set(cfg.block_pattern):
             blocks._check_ported(kind)
-        # auto resolves to packed for every arch the port serves
-        mode = "packed" if opts.prefill_mode == "auto" else opts.prefill_mode
+        mode = opts.prefill_mode
+        if (mode in ("packed", "bucketed")
+                and not zoo.supports_chunked_prefill(cfg)):
+            raise ValueError(
+                f"{cfg.name}: {_one_shot_reason(cfg)} cannot serve "
+                f"{mode} (chunked) prefill; only prefill_mode='legacy' "
+                "(one-shot) is available for this family")
+        if mode == "auto":
+            if zoo.supports_chunked_prefill(cfg):
+                mode = "packed"
+            else:
+                # the reference says it loudly: the
+                # serve.prefill_chunk_tokens knob will NOT actuate here
+                warnings.warn(
+                    f"{cfg.name}: {_one_shot_reason(cfg)} keeps the one-shot "
+                    "legacy prefill path; serve.prefill_chunk_tokens will "
+                    "not actuate for this engine", RuntimeWarning,
+                    stacklevel=2)
+                mode = "legacy"
         self.prefill_impl = mode
         self.fused_prefill = mode != "legacy"
         if opts.kv_mode == "paged" and not (zoo.supports_paged_kv(cfg)
@@ -265,6 +296,8 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.max_batch = max_batch
+        # the vision prefix's positions ahead of each prompt in its ring
+        self._npatch = cfg.num_patches if cfg.frontend == "vision" else 0
         # sized as the reference sizes it, so blocks_per_seq matches too
         self.cache_len = cache_len = padded_cache_len(opts.cache_len)
         self.clock = clock
@@ -600,7 +633,8 @@ class ServeEngine:
             return Admission(False,
                              self._reject(req, RejectReason.EMPTY_PROMPT),
                              footprint_blocks=fp)
-        if len(req.prompt) + req.max_new_tokens > self.cache_len:
+        if (self._npatch + len(req.prompt) + req.max_new_tokens
+                > self.cache_len):
             return Admission(False,
                              self._reject(req, RejectReason.PROMPT_TOO_LONG),
                              footprint_blocks=fp)
@@ -615,8 +649,10 @@ class ServeEngine:
                          footprint_blocks=fp)
 
     def _footprint_blocks(self, req: Request) -> int:
-        """KV blocks the request needs resident while running."""
-        need = min(len(req.prompt) + req.max_new_tokens, self.cache_len)
+        """KV blocks the request needs resident while running, the vision
+        prefix's patch positions included."""
+        need = min(self._npatch + len(req.prompt) + req.max_new_tokens,
+                   self.cache_len)
         return -(-need // self.pool.block_tokens)
 
     def _kv_budget_ceiling(self) -> int:
@@ -991,6 +1027,8 @@ class ServeEngine:
     def _schedule(self) -> None:
         while self.queued and self._free_slots:
             req = self.queued[0]
+            # the lease leaves the vision prefix's patches out, as the
+            # reference's does (ROADMAP Queue 3)
             need = min(len(req.prompt) + req.max_new_tokens, self.cache_len)
             if self._footprint_blocks(req) > self.pool.max_blocks:
                 # the budget (possibly cut mid-run) can NEVER hold it: park
@@ -1666,10 +1704,17 @@ class ServeEngine:
         oracle): ``prefill`` into fresh one-row dense caches, merged into
         the request's slot in place (every leaf of the row, so an earlier
         occupant's ring entries go too); the first token stays on the
-        device."""
-        logits, one = zoo.prefill(self.cfg, self.params,
-                                  {"tokens": self._dev(req.prompt[None, :]
-                                                       .astype(np.int32))},
+        device.  A frontend gets zero patches or frames, as in the
+        reference's serving."""
+        cfg = self.cfg
+        batch = {"tokens": self._dev(req.prompt[None, :].astype(np.int32))}
+        if cfg.frontend == "vision":
+            batch["patches"] = torch.zeros(
+                (1, cfg.num_patches, cfg.frontend_dim), device=self.device)
+        if cfg.encoder_decoder:
+            batch["frames"] = torch.zeros((1, cfg.enc_seq, cfg.d_model),
+                                          device=self.device)
+        logits, one = zoo.prefill(cfg, self.params, batch,
                                   cache_len=self.cache_len)
         zoo.merge_slot(self.caches, one, req.slot)
         del one
@@ -1686,7 +1731,7 @@ class ServeEngine:
         req.prefill_chunks = 1
         self._sync()
         self._stamp_first_token(req, self.clock())
-        self.slot_pos[req.slot] = len(req.prompt)
+        self.slot_pos[req.slot] = len(req.prompt) + self._npatch
 
     # ------------------------------------------------------------ decode
     def _decode_tick(self) -> int:

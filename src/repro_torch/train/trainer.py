@@ -19,6 +19,13 @@ source there before the prefetch thread starts.  (The reference starts
 its prefetch thread before restoring, so the first batches after a
 restart are the stream's first batches, and it records the producer's
 look-ahead position instead of the consumed one.)
+
+The data stream yields tokens and labels only, as the reference's does,
+so an arch with a modality frontend (the vision prefix's patches, the
+encoder-decoder's frames) cannot train here: the constructor raises a
+``ValueError`` naming the missing input, where the reference's trainer
+stops at its first step on a ``KeyError``.  Such archs train through
+``train_step.make_train_step`` on batches from ``zoo.make_batch``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,15 @@ from repro_torch.train import train_step as ts
 __all__ = ["TrainerConfig", "Trainer"]
 
 
+def _frontend_input(cfg: ArchConfig) -> str | None:
+    """The batch key a modality frontend needs beyond tokens and labels."""
+    if cfg.encoder_decoder:
+        return "frames"
+    if cfg.frontend == "vision":
+        return "patches"
+    return None
+
+
 def _default_workdir() -> str:
     return os.path.join(tempfile.gettempdir(), "repro_torch_train")
 
@@ -67,6 +83,12 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
                  tc: TrainerConfig, device=None) -> None:
+        missing = _frontend_input(cfg)
+        if missing is not None:
+            raise ValueError(
+                f"{cfg.name}: the Trainer's data stream yields tokens and "
+                f"labels only, and this arch needs batch[{missing!r}]; train "
+                "it through train_step.make_train_step on zoo.make_batch")
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tc = tc

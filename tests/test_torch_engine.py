@@ -208,19 +208,15 @@ def test_typed_rejections(prompt_len, reason):
     # the one-shot prefill has no paged cache: refused, as the reference
     ("yi-6b", {"prefill_mode": "one_shot", "kv_mode": "paged"}, ValueError,
      "paged KV requires"),
-    # a modality frontend serves only through the one-shot path with it
-    ("internvl2-1b", {}, NotImplementedError, "ROADMAP Queue 1 item 12"),
-    # the encoder-decoder frontend, naming its item (the prefix cache,
-    # speculation and MoE, which held places here, now serve)
-    ("whisper-tiny", {}, NotImplementedError, "ROADMAP Queue 1 item 12"),
+    # (the modality frontends, the prefix cache, speculation and MoE,
+    # which held places here, now serve)
     (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP Queue 1 item 11"),
     # one engine is one replica: more go behind the router
     (None, {"replicas": 2}, ValueError, "ReplicaRouter")],
-    # the ids the cases had before a legacy case left the list
+    # the ids the cases had before earlier cases left the list
     ids=["yi-6b-options1-ValueError-paged KV requires",
-         "internvl2-1b-options2-NotImplementedError-ROADMAP Queue 1 item 12"]
-    + [f"None-options{i}-NotImplementedError-ROADMAP" for i in range(4, 6)]
-    + ["None-replicas-ValueError-ReplicaRouter"])
+         "None-options5-NotImplementedError-ROADMAP",
+         "None-replicas-ValueError-ReplicaRouter"])
 def test_unported_options_raise(arch, options, error, match):
     """Options the port does not serve raise when built (``arch`` None),
     or when an engine for that arch is built with them."""

@@ -246,9 +246,11 @@ def test_layers_attention_takes_the_function_only_for_gradients():
 
 
 def test_layers_attention_refuses_cross_attention():
+    """Keys of another length than the queries (cross-attention) are
+    taken without a mask only: the default causal call refuses them."""
     q = torch.zeros(1, 5, 4, 16)
     k = torch.zeros(1, 7, 2, 16)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="only without a mask"):
         layers.attention(q, k, k, q_pos=torch.arange(5),
                          k_pos=torch.arange(7))
 

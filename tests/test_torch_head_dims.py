@@ -2,8 +2,9 @@
 
 The README lists the attention archs the port serves and trains (yi-6b,
 h2o-danube-3-4b, gemma3-4b, starcoder2-15b), the hybrid
-recurrentgemma-9b, the attention-free rwkv6-7b and the MoE archs
-(deepseek-moe-16b, llama4-maverick-400b-a17b).  The attention
+recurrentgemma-9b, the attention-free rwkv6-7b, the MoE archs
+(deepseek-moe-16b, llama4-maverick-400b-a17b) and the modality archs
+(internvl2-1b, whisper-tiny: head dim 64).  The attention
 wrappers refuse a CUDA tensor whose head dim is not in ``HEAD_DIMS``, and
 the CPU tests run ``reduced()`` configs (head dim 16), so only this test
 sees a full-width head dim that no kernel is instantiated for
@@ -17,7 +18,8 @@ from repro_torch.kernels import HEAD_DIMS
 
 SERVED_OR_TRAINED = ("yi-6b", "h2o-danube-3-4b", "gemma3-4b",
                      "starcoder2-15b", "recurrentgemma-9b", "rwkv6-7b",
-                     "deepseek-moe-16b", "llama4-maverick-400b-a17b")
+                     "deepseek-moe-16b", "llama4-maverick-400b-a17b",
+                     "internvl2-1b", "whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", SERVED_OR_TRAINED)

@@ -19,7 +19,13 @@ CPU.
 
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
 the card, paged decode also on rows whose live blocks span several splits
-or sit in one; they skip where there is no card.  The machine with the card has
+or sit in one; and the flash kernels (forward, forward with the
+logsumexp, dQ, dK/dV) on keys of another length than the queries (the
+modality frontends' cross-attention: whisper-tiny's Sq 77 and 448 against
+its 1500 frames, ragged tile edges, GQA, both routes), with the dense
+decode kernel at the frontends' decode shapes (one token against 1500
+frames at position 0; internvl2-1b's 14 query heads on 2 KV heads, G 7);
+they skip where there is no card.  The machine with the card has
 no JAX, so this file imports the JAX package only inside the ``jx``
 fixture, and runs there without the repository's conftest:
 
@@ -36,7 +42,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import HEAD_DIMS, check_operand, use_plain
-from repro_torch.kernels.decode_attention import padded_cache_len
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_plain,
+                                                  padded_cache_len)
+from repro_torch.kernels.flash_attention import (
+    attention_bwd_ref, attention_lse_ref, flash_attention,
+    flash_attention_dkv, flash_attention_dq, flash_attention_fwd_lse,
+    fwd_route)
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_op,
     paged_decode_attention_ref, paged_gather, split_blocks)
@@ -588,3 +600,102 @@ def test_ops_launch_the_kernel_on_card(cuda):
     assert paged_segment_attention.launches == s0 + 1
     assert paged_decode_attention.launches == d0 + 1
     assert segment_attention.launches == f0 + 1
+
+
+# keys of another length than the queries: (Sq, Sk, H, Kv, D) -- whisper's
+# cross-attention (6 heads of 64 against its 1500 frames), single rows,
+# q and key tiles ragged on either side, GQA and MQA, every route
+CROSS_CARD_CASES = [(77, 1500, 6, 6, 64), (448, 1500, 6, 6, 64),
+                    (1, 65, 4, 2, 64), (130, 63, 8, 2, 64),
+                    (65, 200, 4, 1, 16), (33, 257, 4, 2, 128),
+                    (100, 70, 2, 1, 256), (64, 129, 4, 2, 120)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CROSS_CARD_CASES,
+                         ids=lambda c: f"Sq{c[0]}-Sk{c[1]}-H{c[2]}kv{c[3]}"
+                                       f"-D{c[4]}")
+def test_flash_kernels_take_cross_lengths_on_card(cuda, case, dtype):
+    sq, sk, h, kv, d = case
+    rng = np.random.default_rng(9)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                * 0.7).to(cuda, TORCH_DT[dtype])
+    q, k, v, do = rand(2, h, sq, d), rand(2, kv, sk, d), rand(2, kv, sk, d), \
+        rand(2, h, sq, d)
+    routes = dict(flash_attention.route_launches)
+    o_only = flash_attention(q, k, v, causal=False)
+    o, lse = flash_attention_fwd_lse(q, k, v, causal=False)
+    dsum = (do.float() * o.float()).sum(-1)
+    dq = flash_attention_dq(q, k, v, do, lse, dsum, causal=False)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, dsum, causal=False)
+    torch.cuda.synchronize()
+    route = fwd_route(q.dtype, d)
+    assert flash_attention.route_launches[route] == routes[route] + 1
+    f32 = [t.float() for t in (q, k, v, o, do)]
+    want_o, want_lse = attention_lse_ref(*f32[:3], causal=False)
+    want = attention_bwd_ref(*f32[:4], lse, f32[4], causal=False)
+    tol = TOL[dtype] if dtype == "bfloat16" else 1e-4
+    assert o.shape == q.shape and dk.shape == k.shape
+    assert torch.equal(o, o_only)
+    torch.testing.assert_close(o.float(), want_o.to(o.dtype).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), w.to(got.dtype).float(),
+                                   atol=tol, rtol=tol, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 16)])
+def test_flash_kernels_refuse_masked_cross_lengths_on_card(cuda, causal,
+                                                           window):
+    q = torch.zeros(1, 2, 5, 64, device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 9, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="only without a mask"):
+        flash_attention(q, k, k, causal=causal, window=window)
+
+
+# the frontends' decode shapes: (B, H, Kv, S, D, cross) -- whisper's cross
+# decode (every frame at position 0), internvl2's self-attention rings
+# (14 query heads on 2 KV heads) with prompts of several lengths, and G 7
+# at D 16 off the key tile
+FRONTEND_DECODE_CASES = [(8, 6, 6, 1500, 64, True), (3, 14, 2, 520, 64, False),
+                         (8, 14, 2, 2048, 64, False), (2, 7, 1, 97, 16, False),
+                         (4, 14, 2, 1500, 64, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FRONTEND_DECODE_CASES,
+                         ids=lambda c: f"B{c[0]}-H{c[1]}kv{c[2]}-S{c[3]}-"
+                                       f"D{c[4]}-{'cross' if c[5] else 'self'}")
+def test_dense_decode_at_frontend_shapes_on_card(cuda, case, dtype):
+    b, h, kv, s, d, cross = case
+    rng = np.random.default_rng(10)
+    dt = TORCH_DT[dtype]
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32)).to(
+        cuda, dt)
+    # the model's [B, S, Kv, D] layout read as [B, Kv, S, D] views
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, kv, d), np.float32))
+            .to(cuda, dt).transpose(1, 2) for _ in range(2))
+    if cross:
+        k_pos = torch.zeros((b, s), dtype=torch.int32, device=cuda)
+        q_pos = torch.zeros(b, dtype=torch.int32, device=cuda)
+    else:
+        lens = rng.integers(1, s + 1, b)
+        ar = np.arange(s)[None, :]
+        k_pos = torch.from_numpy(np.where(ar < lens[:, None], ar, -1)
+                                 .astype(np.int32)).to(cuda)
+        q_pos = torch.from_numpy((lens - 1).astype(np.int32)).to(cuda)
+    n0 = decode_attention.launches
+    got = decode_attention(q, k, v, k_pos, q_pos)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == n0 + 1
+    want = decode_attention_plain(q.float(), k.float(), v.float(), k_pos,
+                                  q_pos)
+    tol = TOL[dtype] if dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(got.float(), want.to(dt).float(), atol=tol,
+                               rtol=tol)

@@ -135,13 +135,6 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu():
         zoo.init(cfg, torch.Generator().manual_seed(0))
 
 
-@pytest.mark.parametrize("arch", ["internvl2-1b", "whisper-tiny"])
-def test_unported_block_kinds_raise(arch):
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.init(cfg, torch.Generator().manual_seed(0), "cpu")
-
-
 # ------------------------------------------------------------ the steps
 def _stream(rng, cfg, segs, width, b):
     tokens = np.zeros((1, width), np.int32)

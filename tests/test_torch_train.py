@@ -133,15 +133,6 @@ def test_loss_and_grads_match_jax(jx, monkeypatch, arch, route):
     assert_tree_close(grads, jax_keyed(jx, jg))
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "internvl2-1b"])
-def test_unported_kinds_raise(arch):
-    cfg = reduced(get_config(arch))
-    batch = {k: torch.from_numpy(v)
-             for k, v in numpy_batch(cfg.vocab_size, 1, 8).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.loss_fn(cfg, {}, batch)
-
-
 def _remat_check(arch):
     """remat="dots" runs every group layer's attention, or its RG-LRU
     one-shot form, again in the backward pass (two forward calls per
