@@ -291,12 +291,34 @@ caught:
                 (batch 2: internvl2 256 patches + 256 tokens, whisper 1500
                 frames + 128 tokens) on the serving weights: finite
                 losses, ms a step, the flash launches a step (cross apart)
-                all on the tensor cores.
+                all on the tensor cores;
+ 15. mesh     — serving on a (data, model) mesh of processes that share
+                the card (gloo groups; NCCL refuses two ranks on one GPU):
+                (a) in this process, at yi-6b's serving shapes (bf16,
+                32/4 heads, D 128, T 16), the paged and flat segment
+                kernels and the paged and dense decode kernels launched on
+                head chunk r of 4 (the decode ones with ``split_groups``
+                the global B x Kv) must equal the full launch's slice of
+                those heads bit for bit, each split printed, and the decode
+                kernels again at their default split, the max|diff|
+                printed; (b) yi-6b at full width, bf16, paged, default
+                options (cache_len 2048 for phase 6's prompts) with
+                ``mesh="1x4"`` serves 4 of phase 6's requests on four
+                ranks (full depth where four replicas fit), rank 0's
+                greedy tokens, and every rank's, equal to one process's at
+                the same depth and weights, the per-rank KV bytes x 4
+                equal to its store, tick ms by kind for both, the
+                all-gathers' ms a tick and each rank's peak; (c)
+                deepseek-moe-16b at full width cut to its dense layer and
+                one MoE layer, f32, capacity factor 8, dense KV (the flat
+                segment and dense decode kernels per shard), ``2x2``: the
+                tokens equal one process's, the max logit gap printed, each
+                rank's expert slice (E / 2 experts, moe_ff / 2 on decode).
 
 Before the last line it prints a JSON object with every kernel's numbers
-(launches summed over the serving and training phases, 13 and 14
-included, each of which sets the counts it reads to 0 before it drives
-its path; for the flash forwards, dQ, dK/dV and dense decode also
+(launches summed over the serving and training phases, 13, 14 and
+15's ranks included, each of which sets the counts it reads to 0 before
+it drives its path; for the flash forwards, dQ, dK/dV and dense decode also
 ``cross_launches``, those of phase 14's cross-attention), then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -352,6 +374,8 @@ from repro_torch.kernels.segment_attention import (  # noqa: E402
     paged_segment_attention, paged_segment_attention_ref, paged_segment_route,
     segment_attention, segment_attention_ref, segment_grid, segment_route,
     tile_items)
+from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.launch.mesh import spawn_mesh, world  # noqa: E402
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
@@ -536,6 +560,23 @@ FRONT_TRAIN_BATCH, FRONT_TRAIN_STEPS = 2, 3
 # phase 5's frontend cuts: a reading's limit is its fixed one or this many
 # times its own noise floor, the larger (the gradient norm's rule)
 FRONT_FLOOR_TIMES = 10
+# phase 15: yi-6b's 4 KV heads over 4 ranks (15a, 15b); 15b serves the
+# first MESH_PROMPTS of phase 6's prompts, MESH_NEW new tokens each, in
+# the default 4 slots; full depth needs this much free device memory for
+# each rank (12.1 GB of weights, its 0.5 GB slice of the store, a CUDA
+# context and a tick's transients), else MESH_CUT_LAYERS of the 32
+MESH_TP, MESH_PROMPTS, MESH_NEW = 4, 4, 16
+MESH_RANK_BYTES, MESH_CUT_LAYERS = 16e9, 8
+# 15c: deepseek-moe-16b's dense layer and one MoE layer, f32, at the
+# reference mesh suite's capacity 8 and at 16, where no assignment drops
+# on either path (the EP bodies cap over a rank's whole stream, 4 decode
+# rows included, moe_apply per group: at 8 the EP decode can drop when
+# all 4 rows pick one expert).  Where nothing drops the ranks' logits
+# must be within MESH_MOE_GAP of one process's (the EP sum's order)
+MESH_MOE_LAYERS, MESH_MOE_CAPACITY, MESH_MOE_NO_DROP = 2, 8.0, 16.0
+MESH_MOE_GAP = 1e-4
+MESH_KERNELS = (paged_segment_attention, paged_decode_attention,
+                segment_attention, decode_attention)
 
 
 def say(*a) -> None:
@@ -5664,6 +5705,349 @@ def phase_frontends(dev, card) -> dict:
     return launches
 
 
+# ----------------------------------------------- phase 15: mesh serving
+def head_chunk(x, r: int, dim: int = 1):
+    """Head chunk ``r`` of ``MESH_TP`` along ``dim``, as a rank holds it:
+    a tensor of its own (a ring's ``[B, Kv, S, D]`` view: the view of a
+    ``[B, S, Kv / M, D]`` ring of its own)."""
+    n = x.shape[dim] // MESH_TP
+    if x.is_contiguous():
+        return x.narrow(dim, r * n, n).contiguous()
+    ring = x.transpose(1, 2)                      # [B, S, Kv, D]
+    return ring.narrow(2, r * n, n).contiguous().transpose(1, 2)
+
+
+def phase_mesh_kernels(dev) -> None:
+    """15a: each of the slice's four attention kernels on head chunk r of
+    MESH_TP at yi-6b's serving shapes, against the full launch's slice of
+    those heads, bit for bit; the decode kernels with ``split_groups`` the
+    global B x Kv (a shard's own heads at the single-device split), then
+    again at their default split (the shard's B x Kv / 4), max|diff|
+    printed.  Comparison launches: not counted."""
+    gen = torch.Generator().manual_seed(15)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lens = prompt_lens()
+    bf = torch.bfloat16
+    seg = on(dev, segment_case(gen, segs=main_segment_segs(), p=WIDTH, h=H,
+                               kv=KV, d=D, t=T, b=SLOTS, m=M), bf)
+    flat = on(dev, flat_case(gen, segs=main_segment_segs(), p=WIDTH, h=H,
+                             kv=KV, d=D, b=SLOTS, ring=CACHE_LEN), bf)
+    dec = on(dev, decode_case(gen, q_pos=[int(n) + 5 for n in lens], h=H,
+                              kv=KV, d=D, t=T, m=M), bf)
+    dense = dense_args(on(dev, dense_case(
+        gen, q_pos=[int(n) + 5 for n in lens], h=H, kv=KV, d=D,
+        s=CACHE_LEN), bf))
+    pairs = SLOTS * KV
+    cases = (
+        ("paged segment", paged_segment_attention, seg,
+         ("q", "k_store", "v_store"), None),
+        ("flat segment", segment_attention, flat, ("q", "k", "v"), None),
+        ("paged decode", paged_decode_attention, dec,
+         ("q", "k_store", "v_store"),
+         lambda g: "blocks a split %d, %d splits" % split_blocks(M, g, sms)),
+        ("dense decode", decode_attention, dense, ("q", "k", "v"),
+         lambda g: "%(n_split)d splits of %(split)d slots, %(ctas)d CTAs"
+         % dense_mod.launch_plan(SLOTS, H // MESH_TP, KV // MESH_TP,
+                                 CACHE_LEN, D, 2, sms, g)))
+    for name, kernel, x, heads, split in cases:
+        full = kernel(**x)
+        torch.cuda.synchronize()
+        if split is not None:
+            say(f"[mesh] 15a {name}: the full launch ({H}/{KV} heads) "
+                f"takes {split(pairs)}")
+        worst = 0.0
+        for r in range(MESH_TP):
+            part = {k: head_chunk(v, r) if k in heads else v
+                    for k, v in x.items()}
+            want = head_chunk(full, r)
+            kw = {} if split is None else {"split_groups": pairs}
+            got = kernel(**part, **kw)
+            if not torch.equal(got, want):
+                fail(f"15a {name}: head chunk {r} of {MESH_TP} differs from "
+                     f"the full launch's slice by "
+                     f"{(got.float() - want.float()).abs().max().item():.3e}")
+            if split is not None:
+                own = kernel(**part)
+                worst = max(worst, (own.float() - want.float()).abs()
+                            .max().item())
+        torch.cuda.synchronize()
+        say(f"[mesh] 15a {name}: {MESH_TP} head chunks of {H // MESH_TP}/"
+            f"{KV // MESH_TP} heads equal the full launch's slices bit for "
+            f"bit" + ("" if split is None else
+                      f" with split_groups {pairs} ({split(pairs)}); at "
+                      f"the default split ({split(pairs // MESH_TP)}) "
+                      f"max|diff| {worst:.3e}"))
+        del full, x
+
+
+def mesh_cfg(arch: str, layers: int, dtype: str, capacity=None):
+    """``arch`` at full width cut to its first ``layers`` layers, in
+    ``dtype`` (and with ``capacity`` as its MoE capacity factor)."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype=dtype)
+    if capacity is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity)
+    return cfg
+
+
+def expert_shapes(params) -> list:
+    """Each MoE layer's ``w_gate`` shape (stacked layers keep their lead
+    dim)."""
+    out = []
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            if "moe" in tree:
+                out.append(tuple(tree["moe"]["w_gate"].shape))
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, list):
+            for v in tree:
+                walk(v)
+
+    walk(params)
+    return out
+
+
+def mesh_serve(arch: str, layers: int, dtype: str, mesh, prompts,
+               new_tokens: int, device: str, capacity=None,
+               record: bool = False, kv_mode: str = "auto") -> dict:
+    """One engine (this process's rank of ``mesh``, or one device with
+    ``mesh`` None) over ``prompts``: seed-0 weights drawn on the card,
+    default options but cache_len CACHE_LEN (and ``kv_mode``).  Returns the tokens, each
+    tick's kind, ms and all-gather ms, the launches of the run (counts
+    set to 0 just before, read just after), this process's peak, the
+    per-rank KV bytes, the expert slices and, with ``record``, every
+    dispatch's logits."""
+    dev = torch.device(device)
+    cfg = mesh_cfg(arch, layers, dtype, capacity)
+    n, rank = world()
+    for r in range(n):
+        # one rank draws at a time: a draw's f32 transients (a stacked
+        # leaf, 5.8 GB for yi-6b's w_down) beside four replicas overrun
+        # the card; each hands its cache back before the next draws
+        if r == rank:
+            params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dev)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()
+        if n > 1:
+            torch.distributed.barrier()
+    eng = ServeEngine(cfg, params, device=dev, options=ServeOptions(
+        cache_len=CACHE_LEN, mesh=mesh, kv_mode=kv_mode))
+    del params
+    gather_s, logits, ticks = [0.0], [], []
+    real_gather = collectives.all_gather
+
+    def timed_gather(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = real_gather(*a, **kw)
+        gather_s[0] += time.perf_counter() - t0
+        return out
+
+    saved = {n: getattr(zoo, n) for n in ("step_packed", "decode_step")}
+    moe_saved = {n: getattr(moe_model, n)
+                 for n in ("moe_apply_ep", "moe_apply_ep_serve")}
+    drops = [0, 0]          # moe_apply's, the EP bodies', same inputs
+
+    def recording(fn):
+        def run(*a, **kw):
+            out = fn(*a, **kw)
+            logits.append(out.float().cpu().numpy())
+            return out
+        return run
+
+    def counting(fn):
+        def run(params, x, c, *a, valid=None, **kw):
+            for i, grouped in enumerate((True, False)):
+                drops[i] += moe_model.dropped_assignments(
+                    params["router"], x, c, valid, grouped=grouped)
+            return fn(params, x, c, *a, valid=valid, **kw)
+        return run
+
+    last = [0.0]
+
+    def on_tick(e, st):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        ticks.append(("mixed" if st["prefill_issued_tokens"]
+                      else "decode-only", (now - last[0]) * 1e3,
+                      gather_s[0] * 1e3))
+        gather_s[0] = 0.0
+        last[0] = now
+
+    collectives.all_gather = timed_gather
+    if record:
+        for n, fn in saved.items():
+            setattr(zoo, n, recording(fn))
+        for n, fn in moe_saved.items():
+            setattr(moe_model, n, counting(fn))
+    try:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in MESH_KERNELS:
+            k.launches = 0
+        last[0] = time.perf_counter()
+        serve_requests(eng, prompts, new_tokens, on_tick=on_tick)
+        launches = {k.__name__: k.launches for k in MESH_KERNELS}
+    finally:
+        collectives.all_gather = real_gather
+        for n, fn in saved.items():
+            setattr(zoo, n, fn)
+        for n, fn in moe_saved.items():
+            setattr(moe_model, n, fn)
+    out = dict(
+        rank=rank, layers=cfg.num_layers, paged=eng.paged,
+        tokens={r.req_id: [int(t) for t in r.generated]
+                for r in eng.finished},
+        ticks=ticks, launches=launches, tp_shards=eng.tp_shards,
+        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+        kv_shard_bytes=eng.kv_shard_bytes(),
+        weights_gb=sum(t.numel() * t.element_size()
+                       for t in tree_leaves(eng.params)) / 1e9,
+        experts=expert_shapes(eng.params),
+        logits=logits if record else None, drops=drops)
+    eng.close()
+    return out
+
+
+def mesh_ticks(res: dict) -> str:
+    kinds: dict[str, list] = {}
+    for kind, ms, gather in res["ticks"]:
+        kinds.setdefault(kind, []).append((ms, gather))
+    return "; ".join(
+        f"{k} x{len(v)}: median {statistics.median(m for m, _ in v):.1f} "
+        f"ms a tick, all-gathers {statistics.median(g for _, g in v):.2f} "
+        f"ms of it" for k, v in kinds.items())
+
+
+def mesh_run(card: str, tag: str, arch: str, layers: int, dtype: str,
+             mesh: str, prompts, capacity=None, record=False,
+             kv_mode="auto"):
+    """One process's run, then the same on ``mesh``'s ranks (the parent's
+    engine and weights released first); every rank's tokens must equal
+    the one process's, and each rank must have launched its KV layout's
+    two attention kernels.  Returns (one process's run, the ranks'
+    runs)."""
+    one = mesh_serve(arch, layers, dtype, None, prompts, MESH_NEW, "cuda",
+                     capacity, record, kv_mode)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data, model = (int(v) for v in mesh.split("x"))
+    t0 = time.perf_counter()
+    ranks = spawn_mesh(data, model, mesh_serve, arch, layers, dtype, mesh,
+                       prompts, MESH_NEW, "cuda", capacity, record, kv_mode,
+                       device="cuda", timeout_s=300.0)
+    wall = time.perf_counter() - t0
+    say(f"[mesh] {tag} {arch} {layers} layers {dtype} on {card}: one "
+        f"process: {mesh_ticks(one)}; peak {one['peak_gb']:.3f} GB")
+    for r in ranks:
+        say(f"[mesh] {tag} rank {r['rank']} of {mesh}: {mesh_ticks(r)}; "
+            f"in-phase peak {r['peak_gb']:.3f} GB (weights "
+            f"{r['weights_gb']:.3f} GB); launches {r['launches']}")
+    say(f"[mesh] {tag} {mesh}: {data * model} ranks started, served and "
+        f"stopped in {wall:.1f} s")
+    for r in ranks:
+        if r["tokens"] != one["tokens"]:
+            bad = [i for i in one["tokens"]
+                   if r["tokens"].get(i) != one["tokens"][i]]
+            fail(f"{tag}: rank {r['rank']}'s tokens differ from one "
+                 f"process's (requests {bad})")
+        if r["tp_shards"] != model:
+            fail(f"{tag}: rank {r['rank']} served {r['tp_shards']}-way")
+        path = (("paged_segment_attention", "paged_decode_attention")
+                if r["paged"] else ("segment_attention", "decode_attention"))
+        if not all(r["launches"][k] for k in path):
+            fail(f"{tag}: rank {r['rank']} launched a kernel of its path "
+                 f"no time: {r['launches']}")
+    if len(one["tokens"]) != len(prompts) or any(
+            len(t) != MESH_NEW for t in one["tokens"].values()):
+        fail(f"{tag}: not every request finished")
+    say(f"[mesh] {tag} rank 0's greedy tokens equal one process's: "
+        f"{len(prompts)} requests x {MESH_NEW}")
+    return one, ranks
+
+
+def phase_mesh(dev, card) -> dict:
+    """Phase 15; returns the launches of 15b and 15c's ranks."""
+    t0 = time.perf_counter()
+    phase_mesh_kernels(dev)
+    t_a = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("yi-6b")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n))
+               for n in prompt_lens()][:MESH_PROMPTS]
+    free, _ = torch.cuda.mem_get_info(dev)
+    layers = (cfg.num_layers if free >= MESH_TP * MESH_RANK_BYTES
+              else MESH_CUT_LAYERS)
+    say(f"[mesh] 15b {free / 1e9:.1f} GB free on {card}: "
+        + ("full depth, " if layers == cfg.num_layers else
+           f"cut to {layers} of {cfg.num_layers} layers (four replicas need "
+           f"{MESH_TP * MESH_RANK_BYTES / 1e9:.0f} GB), ")
+        + f"prompts {[len(p) for p in prompts]}, {MESH_NEW} new each")
+    t1 = time.perf_counter()
+    one, ranks = mesh_run(card, "15b", "yi-6b", layers, "bfloat16",
+                          f"1x{MESH_TP}", prompts)
+    for r in ranks:
+        if r["kv_shard_bytes"] * MESH_TP != one["kv_shard_bytes"]:
+            fail(f"15b: rank {r['rank']} holds {r['kv_shard_bytes']} KV "
+                 f"bytes, x {MESH_TP} != {one['kv_shard_bytes']}")
+    say(f"[mesh] 15b KV per rank {ranks[0]['kv_shard_bytes'] / 1e6:.1f} MB "
+        f"x {MESH_TP} = the one process's store, "
+        f"{one['kv_shard_bytes'] / 1e6:.1f} MB")
+    launches: dict = {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    t_b = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    for cap in (MESH_MOE_CAPACITY, MESH_MOE_NO_DROP):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tag = f"15c capacity {cap:g}"
+        one, ranks = mesh_run(card, tag, MOE_ARCH, MESH_MOE_LAYERS,
+                              "float32", "2x2", prompts, cap, record=True,
+                              kv_mode="dense")
+        gap = max(float(np.abs(a - b).max())
+                  for a, b in zip(ranks[0]["logits"], one["logits"]))
+        scale = max(float(np.abs(b).max()) for b in one["logits"])
+        say(f"[mesh] {tag} max logit gap, rank 0 against one process over "
+            f"{len(one['logits'])} dispatches: {gap:.3e} (largest |logit| "
+            f"{scale:.3e}: {gap / scale:.3e} of it)")
+        # the EP bodies cap over a rank's whole stream, moe_apply per
+        # group: where either drops, the two paths route differently
+        say(f"[mesh] {tag} dropped assignments on the same MoE inputs, "
+            f"moe_apply's groups / the EP bodies' one group: one process "
+            f"{one['drops'][0]} / {one['drops'][1]}, rank 0 "
+            f"{ranks[0]['drops'][0]} / {ranks[0]['drops'][1]}")
+        for r in ranks:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    if one["drops"] != [0, 0] or ranks[0]["drops"] != [0, 0]:
+        fail(f"15c: assignments dropped at capacity {MESH_MOE_NO_DROP:g}")
+    if gap > MESH_MOE_GAP:
+        fail(f"15c: with nothing dropped rank 0's logits are {gap:.3e} "
+             f"from one process's (limit {MESH_MOE_GAP:g})")
+    moe_cfg = mesh_cfg(MOE_ARCH, MESH_MOE_LAYERS, "float32")
+    for r in ranks:
+        say(f"[mesh] 15c rank {r['rank']} holds w_gate {r['experts']} of "
+            f"{one['experts']}: its {moe_cfg.num_experts // 2} of "
+            f"{moe_cfg.num_experts} experts, and on decode their "
+            f"{moe_cfg.moe_d_ff // 2} of {moe_cfg.moe_d_ff} moe_ff columns")
+        if any(s[-3] != moe_cfg.num_experts // 2 for s in r["experts"]):
+            fail(f"15c: rank {r['rank']} holds {r['experts']}")
+    t_c = time.perf_counter() - t2
+    say(f"[times] phase 15: kernels {t_a:.1f} s, yi-6b 1x{MESH_TP} "
+        f"{t_b:.1f} s, deepseek-moe-16b 2x2 {t_c:.1f} s")
+    say(f"[mesh] kernel launches of the ranks {launches}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -5731,6 +6115,10 @@ def main() -> None:
     cross = front.pop("cross")
     count(front)
     mark("14, modality frontends")
+    gc.collect()
+    torch.cuda.empty_cache()
+    count(phase_mesh(dev, card))
+    mark("15, mesh serving")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,

@@ -3,7 +3,7 @@ checkpoint and stops, the serve engine drains (requeues its in-flight
 requests and refuses new ones until the flag clears).  A copy of
 ``PreemptionHandler`` from
 ``src/repro/distributed/fault_tolerance.py``; its heartbeat monitor and
-straggler detector wait for ROADMAP Queue 1 item 11."""
+straggler detector wait for ROADMAP Queue 1 item 11d."""
 
 from __future__ import annotations
 

@@ -124,14 +124,18 @@ def split_len(s: int, groups: int, sms: int, tile: int = KEY_TILE,
 
 @functools.lru_cache(maxsize=256)
 def launch_plan(b: int, h: int, kv: int, s: int, d: int, esz: int,
-                sms: int) -> dict:
+                sms: int, split_groups: int | None = None) -> dict:
     """How the wrapper launches one call: keys a tile, split CTAs an SM,
     head chunks, key slots a split, splits and split CTAs (cached: a
-    decode loop repeats its shapes; do not modify the dict)."""
+    decode loop repeats its shapes; do not modify the dict).  The key
+    split is planned for ``split_groups`` (row, KV head) pairs, ``b * kv``
+    by default: a tensor-parallel shard of ``kv / M`` heads passes the
+    global count and splits as one device would."""
     g = h // kv
     tile, per_sm = tile_keys(esz, d, g), ctas_per_sm(esz, d, g)
     chunks = -(-g // HEAD_CHUNK)
-    n = split_len(s, b * kv * chunks, sms, tile, per_sm)
+    pairs = b * kv if split_groups is None else split_groups
+    n = split_len(s, pairs * chunks, sms, tile, per_sm)
     n_split = -(-s // n)
     return dict(tile=tile, per_sm=per_sm, head_chunks=chunks, split=n,
                 n_split=n_split, ctas=n_split * b * kv * chunks,
@@ -157,10 +161,11 @@ def _launcher():
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_pos: torch.Tensor, q_pos: torch.Tensor, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0,
+                     split_groups: int | None = None) -> torch.Tensor:
     """q: [B, H, D]; k, v: [B, Kv, S, D] (strided, D contiguous); k_pos:
     [B, S] int32; q_pos: [B] int32 -> [B, H, D] in q's dtype.  CUDA tensors
-    only."""
+    only.  ``split_groups``: see :func:`launch_plan`."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got "
@@ -194,7 +199,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     # raises where no tile fits, before anything is allocated
     plan = launch_plan(b, h, kv, s, d, q.element_size(),
-                       sm_count(dev.index))
+                       sm_count(dev.index), split_groups)
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out.zero_()

@@ -9,9 +9,12 @@ from .decode_attention import decode_attention
 from .ref import decode_attention_plain
 
 
-def decode_attention_op(q, k, v, k_pos, q_pos, *, window: int = 0):
+def decode_attention_op(q, k, v, k_pos, q_pos, *, window: int = 0,
+                        split_groups=None):
     """q [B,H,D]; k, v [B,Kv,S,D] (strided); k_pos [B,S]; q_pos [B] ->
-    [B,H,D]."""
+    [B,H,D].  ``split_groups`` plans the kernel's key split (the plain
+    version has none)."""
     if use_plain(q, k, v, k_pos, q_pos):
         return decode_attention_plain(q, k, v, k_pos, q_pos, window=window)
-    return decode_attention(q, k, v, k_pos, q_pos, window=window)
+    return decode_attention(q, k, v, k_pos, q_pos, window=window,
+                            split_groups=split_groups)

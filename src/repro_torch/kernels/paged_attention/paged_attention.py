@@ -60,11 +60,14 @@ def _launcher():
 
 def paged_decode_attention(q: torch.Tensor, k_store: torch.Tensor,
                            v_store: torch.Tensor, block_tables: torch.Tensor,
-                           q_pos: torch.Tensor, *,
-                           window: int = 0) -> torch.Tensor:
+                           q_pos: torch.Tensor, *, window: int = 0,
+                           split_groups: int | None = None) -> torch.Tensor:
     """q: [B, H, D]; k_store/v_store: [N, Kv, T, D]; block_tables: [B, M]
     int32 (-1 = unallocated); q_pos: [B] int32 -> [B, H, D] in q's dtype.
-    CUDA tensors only."""
+    CUDA tensors only.  ``split_groups`` is the (row, KV head) count the
+    key split is planned for (:func:`split_blocks`), ``B * Kv`` by
+    default: a tensor-parallel shard holding ``Kv / M`` heads passes the
+    global ``B * Kv`` and so splits, and sums, as one device would."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"paged_decode_attention kernel needs CUDA tensors, "
@@ -96,7 +99,8 @@ def paged_decode_attention(q: torch.Tensor, k_store: torch.Tensor,
     if b == 0 or n == 0 or m == 0:
         return out.zero_()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, n_split = split_blocks(m, b * kv, sms)
+    per, n_split = split_blocks(
+        m, b * kv if split_groups is None else split_groups, sms)
     g = h // kv
     o_part = torch.empty((b, kv, n_split, g, d), dtype=torch.float32,
                          device=dev)

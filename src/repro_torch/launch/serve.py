@@ -10,11 +10,20 @@ replica router), on the CUDA device unless ``--device cpu`` is given
 KV, as ``prefill_mode="auto"`` resolves for them; internvl2-1b's
 ``num_patches`` positions (256 at full size) count against
 ``--cache-len`` beside each prompt and its new tokens.
+
+``--mesh DxM`` serves on a ``(data, model)`` mesh: ``launch.mesh
+.spawn_mesh`` starts ``D * M`` ranks on this host (a gloo group; on a
+card they share it), each runs the same engine with
+``ServeOptions(mesh="DxM")`` over the same requests, and rank 0's output
+is printed, the summary line with the reference's mesh part.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import importlib
+import io
 import time
 
 import numpy as np
@@ -23,9 +32,11 @@ import torch
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.configs.base import reduced
 from repro_torch.core.telemetry import Telemetry
+from repro_torch.launch.mesh import spawn_mesh, world
 from repro_torch.models import zoo
 from repro_torch.models.bridge import tree_leaves
 from repro_torch.models.transformer import resolve_device
+from repro_torch.serve.block_store import parse_mesh_spec
 from repro_torch.serve import (ChaosMonkey, ChaosSpec, OpenLoopDriver,
                                ReplicaRouter, Request, ServeEngine,
                                ServeOptions, SLOSpec, TraceConfig,
@@ -89,6 +100,9 @@ def summary(eng: ServeEngine, n_requests: int, ticks: int) -> str:
             f"pad_fraction {eng.pad_fraction:.2f}; "
             f"kv[{kv}] {eng.pool.used_blocks} blocks used, "
             f"{eng.preemptions} preemptions"
+            + (f"; mesh {eng.options.mesh}: {eng.tp_shards}-way TP ticks, "
+               f"{eng.kv_shard_bytes() / 1e6:.1f} MB KV per shard"
+               if eng.mesh is not None else "")
             + (f"; prefix cache {eng._prefix_cache.blocks_held} blocks held, "
                f"hit rate {eng._prefix_cache.hit_rate:.2f}, "
                f"{eng.prefix_hit_tokens_total} prefill tokens reclaimed, "
@@ -109,10 +123,10 @@ def engine_options(args) -> dict:
                 spec_depth=args.spec_depth,
                 spec_depth_max=args.spec_depth_max,
                 spec_adaptive=not args.no_spec_adaptive,
-                accept_rate_goal=args.accept_rate_goal)
+                accept_rate_goal=args.accept_rate_goal, mesh=args.mesh)
 
 
-def run_trace(cfg, args) -> None:
+def run_trace(cfg, args, write: bool = True) -> None:
     """Open-loop mode: the arrival trace replayed on a virtual clock, with
     ``--chaos`` faults (with replicas they land on replica 0, and the
     router must route around them); prints the reference's trace summary
@@ -178,7 +192,7 @@ def run_trace(cfg, args) -> None:
              f"{[round(w, 2) for w in eng.weights]}, "
              f"{eng.reroutes} rerouted on replica loss"
              if args.replicas > 1 else ""))
-    if tel is not None:
+    if tel is not None and write:
         print_telemetry(tel.write(args.telemetry_dir))
     eng.close()
     if out["unhandled"]:
@@ -278,16 +292,46 @@ def main() -> None:
                     help="enable telemetry and write trace.json, "
                          "metrics.json, audit.jsonl (controller Decisions) "
                          "and flight.json into this directory")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="serve on a (data, model) mesh of D*M ranks on "
+                         "this host, e.g. 1x2: attention heads and the KV "
+                         "cache's heads shard over model, MoE experts too; "
+                         "prints rank 0's output")
     args = ap.parse_args()
-
-    cfg = get_config(args.arch)
-    if not args.full_size:
-        cfg = reduced(cfg)
     if args.replicas > 1 and args.trace is None:
         raise SystemExit("--replicas N needs --trace: the ReplicaRouter "
                          "serves an open-loop arrival stream")
+    if args.mesh is None:
+        run(args)
+        return
+    data, model = parse_mesh_spec(args.mesh)
+    # by module name: under `python -m` this module is __main__, which a
+    # spawned rank cannot import by that name
+    rank_fn = importlib.import_module("repro_torch.launch.serve")._mesh_rank
+    print(spawn_mesh(data, model, rank_fn, args,
+                     device=args.device or "cuda")[0], end="")
+
+
+def _mesh_rank(args) -> str:
+    """One rank of ``--mesh``: the single-process run, its output kept
+    and its telemetry written on rank 0 alone.  Every rank keeps a hub
+    all the same: telemetry reads the agreed clock, a collective, so a
+    rank without one would read it fewer times than the others."""
+    rank = world()[1]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        run(args, write=rank == 0)
+    return out.getvalue() if rank == 0 else ""
+
+
+def run(args, write: bool = True) -> None:
+    """Serve as the parsed ``args`` say, in this process; ``write`` False
+    keeps the telemetry files unwritten."""
+    cfg = get_config(args.arch)
+    if not args.full_size:
+        cfg = reduced(cfg)
     if args.trace is not None:
-        run_trace(cfg, args)
+        run_trace(cfg, args, write)
         return
     tel = Telemetry(enabled=True) if args.telemetry_dir else None
     eng = build_engine(
@@ -302,7 +346,7 @@ def main() -> None:
                for _ in range(args.requests)]
     stats = serve_requests(eng, prompts, args.max_new_tokens)
     print(summary(eng, args.requests, len(stats)))
-    if tel is not None:
+    if tel is not None and write:
         print_telemetry(tel.write(args.telemetry_dir))
     eng.close()
 

@@ -26,11 +26,22 @@ cache in training, writing a dense ring or the recurrent state in the
 one-shot prefill.  Padded per-slot prompt chunks (:func:`block_apply_chunk`,
 the bucketed prefill) run on every kind too, and so do packed streams whose
 decode segments carry speculative drafts (:func:`block_apply_spec`).
+
+Under a serving mesh (``distributed.sharding.use_mesh``) the packed and
+decode paths' attention goes through the head-parallel wrappers of
+``distributed.collectives``, the caches hold this rank's chunk of the KV
+heads (and only that chunk of each new K/V is written), and the MoE
+layer goes through its expert-parallel entry points, as the reference
+routes them.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.collectives import (own_heads,
+                                                 tp_paged_decode_attention,
+                                                 tp_paged_segment_attention)
 
 from . import layers
 from . import moe as moe_lib
@@ -163,8 +174,11 @@ def dense_step_plan(pos, active, ring: int):
 
 def _dense_write(cache: dict, k, v, pos, plan) -> None:
     """Write per-lane K/V ([L, Kv, D]) and positions into the rings in
-    place, at the plan's (row, col) pairs (distinct by construction)."""
+    place, at the plan's (row, col) pairs (distinct by construction).
+    Under a serving mesh the rings hold this rank's KV head chunk, and
+    only that chunk of k and v is written."""
     lanes, rows, cols = plan
+    k, v = (own_heads(t, cache["k"].shape[2]) for t in (k, v))
     cache["k"][rows, cols] = k[lanes].to(cache["k"].dtype)
     cache["v"][rows, cols] = v[lanes].to(cache["v"].dtype)
     cache["pos"][rows, cols] = pos[lanes].to(torch.int32)
@@ -217,8 +231,10 @@ def paged_write_plan(seg, pos, block_tables, block_tokens: int, valid=None):
 def _paged_scatter(cache: dict, k, v, plan) -> None:
     """Write per-lane K/V ([L, Kv, D]) into the block store in place.
     Distinct logical positions map to distinct (block, offset) pairs, so
-    the scatter never collides."""
+    the scatter never collides.  Under a serving mesh the store holds this
+    rank's KV head chunk, and only that chunk of k and v is written."""
     lanes, phys, off = plan
+    k, v = (own_heads(t, cache["k"].shape[1]) for t in (k, v))
     cache["k"][phys, :, off] = k[lanes].to(cache["k"].dtype)
     cache["v"][phys, :, off] = v[lanes].to(cache["v"].dtype)
 
@@ -252,15 +268,20 @@ def _attn_qkv(cfg, base, params, x, pos):
     return q, k, v
 
 
-def _ffn(cfg, params, x, valid=None, aux=False):
+def _ffn(cfg, params, x, valid=None, aux=False, step=False):
     """ln2, then the dense FFN or the MoE layer, and the residual.  The
     MoE layer routes with ``valid`` ([B, S] bool: real tokens, or None for
-    all); with ``aux`` returns ``(x, its load-balancing loss)``, the loss
-    0 for a dense FFN."""
+    all), through the reference's expert-parallel entry points, which run
+    ``moe_apply`` without a serving mesh: ``moe_apply_ep_serve`` on the
+    decode ``step``, ``moe_apply_ep`` elsewhere.  With ``aux`` returns
+    ``(x, its load-balancing loss)``, the loss 0 for a dense FFN."""
     h2 = apply_norm(cfg.norm, params["ln2"], x)
     if "moe" in params:
-        y = moe_lib.moe_apply(params["moe"], h2, cfg, return_aux=aux,
-                              valid=valid)
+        if step:
+            return x + moe_lib.moe_apply_ep_serve(params["moe"], h2, cfg,
+                                                  valid=valid)
+        y = moe_lib.moe_apply_ep(params["moe"], h2, cfg, return_aux=aux,
+                                 valid=valid)
         if aux:
             return x + y[0], y[1]
         return x + y
@@ -463,20 +484,20 @@ def block_apply_packed(cfg, kind: str, params: dict, x, pos, slot_id, start,
     q, k, v = _attn_qkv(cfg, base, params, x, pos[None, :])
     window = _window(cfg, base)
     if block_tables is not None:
-        from repro_torch.kernels.segment_attention import \
-            paged_segment_attention_op
         _paged_scatter(cache, k[0], v[0], plan)
-        o = paged_segment_attention_op(q[0], cache["k"], cache["v"],
+        o = tp_paged_segment_attention(q[0], cache["k"], cache["v"],
                                        block_tables, pos, slot_id,
                                        window=window)[None]
     else:
+        # under a serving mesh the rings hold this rank's KV head chunk;
+        # the stream's own keys join them as that chunk too
         b, n, kvh, hd = cache["k"].shape
         kpos_cache = torch.where(cache["pos"] < start[:, None], cache["pos"],
                                  -1)
         k_eff = torch.cat([cache["k"].reshape(b * n, kvh, hd),
-                           k[0].to(cache["k"].dtype)])
+                           own_heads(k[0], kvh).to(cache["k"].dtype)])
         v_eff = torch.cat([cache["v"].reshape(b * n, kvh, hd),
-                           v[0].to(cache["v"].dtype)])
+                           own_heads(v[0], kvh).to(cache["v"].dtype)])
         kpos_eff = torch.cat([kpos_cache.reshape(b * n),
                               torch.where(slot_id >= 0, pos, -1)])
         kseg_eff = torch.cat([
@@ -597,7 +618,7 @@ def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
         y, new = rglru_lib.rglru_step(params["rglru"], h, cache)
         _store_state(cache, new, active)
         return _ffn(cfg, params, x + y[:, None, :],
-                    None if active is None else active[:, None])
+                    None if active is None else active[:, None], step=True)
     if base == "rwkv6":
         p = params["tm_cm"]
         h = apply_norm(cfg.norm, params["ln1"], x)[:, 0]
@@ -612,10 +633,8 @@ def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
     q, k, v = _attn_qkv(cfg, base, params, x, pos[:, None])
     window = _window(cfg, base)
     if block_tables is not None:
-        from repro_torch.kernels.paged_attention import \
-            paged_decode_attention_op
         _paged_scatter(cache, k[:, 0], v[:, 0], plan)
-        o = paged_decode_attention_op(q[:, 0], cache["k"], cache["v"],
+        o = tp_paged_decode_attention(q[:, 0], cache["k"], cache["v"],
                                       block_tables, pos,
                                       window=window)[:, None]
     else:
@@ -624,4 +643,5 @@ def block_apply_step(cfg, kind: str, params: dict, x, pos, cache,
                                     k_pos=cache["pos"], q_pos=pos,
                                     window=window)
     x = x + layers.attn_output(params["attn"], o)
-    return _ffn(cfg, params, x, None if active is None else active[:, None])
+    return _ffn(cfg, params, x, None if active is None else active[:, None],
+                step=True)

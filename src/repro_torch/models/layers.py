@@ -159,13 +159,15 @@ def decode_attention(q, k_cache, v_cache, *, k_pos, q_pos, window: int = 0):
     """One token against a dense cache: q [B,1,H,D]; caches [B,S,Kv,D];
     k_pos [B,S]; q_pos [B] -> [B,1,H,D].  The caches go to
     ``decode_attention_op`` as ``[B,Kv,S,D]`` views, read in place: the
-    dense decode kernel on a card, its plain version on the CPU.  The
+    dense decode kernel on a card, its plain version on the CPU; under a
+    serving mesh through ``tp_decode_attention``, the caches this rank's
+    KV head chunk (the reference's route for the drain tick).  The
     one-query case of :func:`chunk_attention` but for two things, both
     the reference's Pallas kernel's: the probabilities meet V in f32 (not
     rounded to q's dtype), and a row no key admits gives exact zeros (not
     the mean of V)."""
-    from repro_torch.kernels.decode_attention import decode_attention_op
-    o = decode_attention_op(q[:, 0], k_cache.transpose(1, 2),
+    from repro_torch.distributed.collectives import tp_decode_attention
+    o = tp_decode_attention(q[:, 0], k_cache.transpose(1, 2),
                             v_cache.transpose(1, 2), k_pos, q_pos,
                             window=window)
     return o[:, None]
@@ -222,9 +224,11 @@ def segment_attention(q, k, v, *, q_pos, k_pos, q_seg, k_seg,
     shares the query's segment (>= 0), is written, causal and inside the
     window; a query no key admits gives exact zeros.  Each row of the
     (B == 1) packed stream goes through ``segment_attention_op``: the flat
-    segment kernel on a card, its plain version on the CPU."""
-    from repro_torch.kernels.segment_attention import segment_attention_op
-    out = [segment_attention_op(q[i], k[i], v[i], q_pos[i], k_pos[i],
+    segment kernel on a card, its plain version on the CPU; routed, as the
+    reference routes it, through ``tp_segment_attention``, head-sharded
+    under a serving mesh (k, v this rank's KV head chunk)."""
+    from repro_torch.distributed.collectives import tp_segment_attention
+    out = [tp_segment_attention(q[i], k[i], v[i], q_pos[i], k_pos[i],
                                 q_seg[i], k_seg[i], window=window)
            for i in range(q.shape[0])]
     return torch.stack(out).to(q.dtype)

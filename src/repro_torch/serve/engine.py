@@ -97,8 +97,17 @@ ring holds ``num_patches`` positions before the prompt's; the admission
 check and the footprint count them, the schedule's lease does not (the
 reference's ledger).
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-mesh serving (item 11, see ``serve/options.py``).
+Mesh serving (``ServeOptions(mesh="DxM")``): the engine is one rank of a
+``(data, model)`` mesh of processes (``launch/mesh.py``), every rank
+running this scheduler over the same requests.  Attention heads and the
+caches' Kv dim shard over ``model`` (``serve/block_store.py``), the
+per-shard kernels' outputs all-gathered back
+(``distributed/collectives.py``); MoE experts shard over ``model`` too;
+everything else is whole on every rank, so every rank samples the same
+tokens.  Each clock reading is the MAX over the ranks
+(``collectives.agreed_clock``), so every host decision — controllers,
+gates, the SLO accounting — is the same on every rank and no rank skips
+a collective the others enter.
 """
 
 from __future__ import annotations
@@ -120,11 +129,15 @@ from repro_torch.core import (ControllerModel, GoalSpec, Guardrails,
 from repro_torch.core.sensors import HBMAccountant
 from repro_torch.core.smartconf import ConfRegistry
 from repro_torch.core.telemetry import Telemetry, Tracer
+from repro_torch.distributed.collectives import agreed_clock
 from repro_torch.distributed.fault_tolerance import PreemptionHandler
+from repro_torch.distributed.sharding import use_mesh
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import blocks, zoo
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.bridge import tree_leaves
 from repro_torch.models.transformer import resolve_device
+from .block_store import CacheShardingPlan, build_serve_mesh
 from .kv_cache import QUEUE_TOKEN_BYTES, KVBlockPool
 from .options import ServeOptions, SLOSpec
 from .paging import PagedKVAllocator
@@ -140,8 +153,7 @@ _MIN_BUCKET = 16
 _REJECT_STORM_PER_TICK = 3
 
 # The TickStats schema, key for key and in order the reference's: every
-# dict `tick()` returns has exactly these keys.  Mesh serving is not
-# ported, so ``tp_shards`` is always 1.
+# dict `tick()` returns has exactly these keys.
 TICK_STATS_KEYS: tuple[str, ...] = (
     "tick",
     "queued", "waiting", "running", "finished", "hbm", "tokens",
@@ -293,8 +305,27 @@ class ServeEngine:
         if telemetry is None:
             telemetry = opts.telemetry
 
+        # --------------------------------- mesh serving (TP packed ticks)
+        # one process per (data, model) position: attention heads and the
+        # caches' Kv dim shard over `model`, MoE experts too; everything
+        # else is whole on every rank.  Every rank takes every host
+        # decision alike, so each clock reading is agreed (the MAX over
+        # the ranks) before any sensor, controller or gate sees it
+        self.mesh = None
+        if opts.mesh is not None:
+            self.mesh = build_serve_mesh(
+                opts.mesh, heads=cfg.num_heads, kv_heads=cfg.num_kv_heads,
+                prefill_impl=self.prefill_impl)
+        self.tp_shards = (int(self.mesh.shape["model"])
+                          if self.mesh is not None else 1)
+        if self.mesh is not None:
+            clock = agreed_clock(clock, self.mesh)
+
         self.cfg = cfg
-        self.params = params
+        # this rank's experts only under a mesh; the ledger below counts
+        # the whole model, as the reference's does
+        self.params = moe_lib.place_experts(params, cfg, self.mesh,
+                                            max_batch)
         self.max_batch = max_batch
         # the vision prefix's positions ahead of each prompt in its ring
         self._npatch = cfg.num_patches if cfg.frontend == "vision" else 0
@@ -422,6 +453,11 @@ class ServeEngine:
             self.caches = zoo.init_cache(
                 cfg, max_batch, cache_len, device,
                 ring_margin=self.spec_depth_max if self.spec_enabled else 0)
+        if self.mesh is not None:
+            # this rank's Kv head chunk of every K/V plane; the resizes
+            # move whole blocks and keep it
+            self.caches = CacheShardingPlan(
+                self.mesh, paged=self.paged).place(self.caches)
         self.slot_pos = np.full((max_batch,), -1, np.int64)
         self._slot_tok = torch.zeros(max_batch, dtype=torch.int32,
                                      device=device)
@@ -468,7 +504,6 @@ class ServeEngine:
             else PreemptionHandler()
         self._draining = False
         self._closed = False
-        self.tp_shards = 1         # mesh serving is not ported
 
         # SmartConf PerfConfs
         self.enable_smartconf = enable_smartconf
@@ -675,8 +710,24 @@ class ServeEngine:
         return len(self._prefill_shapes) + (1 if self._decode_dispatched
                                             else 0)
 
+    def kv_shard_bytes(self) -> int:
+        """Per-rank bytes of the resident KV cache tree — the mesh-aware
+        HBM gauge.  Without a mesh this is the whole tree; with one, this
+        rank's slice, so for a paged store (K/V planes only)
+        ``kv_shard_bytes() * tp_shards`` is the single-device total."""
+        return sum(t.numel() * t.element_size()
+                   for t in tree_leaves(self.caches))
+
     # ------------------------------------------------------------- one tick
     def tick(self) -> dict:
+        if self.mesh is None:
+            return self._tick()
+        # the serving mesh is active for the whole tick: the attention and
+        # MoE wrappers read current_mesh()
+        with use_mesh(self.mesh):
+            return self._tick()
+
+    def _tick(self) -> dict:
         t0 = self.clock()
         self._tick_issued = self._tick_live = 0
         self._tick_packed_segments = 0
@@ -778,7 +829,8 @@ class ServeEngine:
                             if self._tick_spec_proposed else 0.0),
             "spec_lanes": self._tick_spec_lanes,
             "decode_slots": self._tick_decode_slots,
-            "tp_shards": 1,
+            # mesh-serving sensor: model-axis shards behind this tick
+            "tp_shards": self.tp_shards,
         }
 
     def run(self, ticks: int) -> list[dict]:

@@ -1,14 +1,14 @@
 """Typed engine configuration: :class:`ServeOptions` and :class:`SLOSpec`.
 
 The same fields, names and defaults as the reference's ``ServeOptions``
-for everything the port serves.  Mesh serving, which the port does not
-serve yet, raises ``NotImplementedError`` naming its ROADMAP item when the
-options are built — it is never silently ignored.  The port reads no
+for everything the port serves, mesh serving included (``mesh="DxM"``:
+one process per mesh position, see ``launch/mesh.py``).  The port reads no
 environment variables: what the reference's ``resolve()`` took from the
 environment is passed explicitly (its ``REPRO_PREFILL_MODE`` re-routing of
 ``auto`` and ``REPRO_SPEC_DEPTH`` included: no environment variable picks
-a path), and telemetry is on only when a hub is passed
-(``REPRO_TELEMETRY`` has no counterpart).
+a path; ``REPRO_SERVE_MESH`` has no counterpart, so a mesh is always an
+explicit request and an infeasible one raises), and telemetry is on only
+when a hub is passed (``REPRO_TELEMETRY`` has no counterpart).
 """
 
 from __future__ import annotations
@@ -68,6 +68,7 @@ class ServeOptions:
     spec_depth_max: int = 8             # conf_max for sc_spec
     spec_adaptive: bool = True          # sc_spec actuates serve.spec_depth
     accept_rate_goal: float = 0.5       # sc_spec setpoint (direction="lower")
+    # "DxM" (data, model) serving mesh, e.g. "2x4"; None = one device
     mesh: str | None = None
     # one engine is one replica: N of them go behind serve.ReplicaRouter
     replicas: int = 1
@@ -86,6 +87,3 @@ class ServeOptions:
             raise ValueError(
                 f"ServeOptions replicas={self.replicas}: one engine serves "
                 "one replica; put N engines behind serve.ReplicaRouter")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ServeOptions mesh: ROADMAP Queue 1 item 11 (not ported yet)")

@@ -1,6 +1,6 @@
 """The step factories: the port of ``src/repro/train/train_step.py``'s
 ``make_train_step``, ``make_prefill_step`` and ``make_serve_step``.  Its
-sharding derivation waits for ROADMAP Queue 1 item 11."""
+sharding derivation waits for ROADMAP Queue 1 item 11b."""
 
 from __future__ import annotations
 

@@ -9,8 +9,8 @@ yi-6b with ``kv_mode="dense"``; on per-slot WKV state alone for the
 all-recurrent rwkv6-7b (its default).  With SmartConf on, an injected
 clock and a sensor tap that spikes the ``hbm_bytes`` reading for three
 ticks, the three knobs must follow the same trajectories and cause the
-same preemptions.  Features the port does not serve yet must raise,
-never be ignored.
+same preemptions.  Options the port cannot serve must raise, never be
+ignored.
 """
 
 import io
@@ -209,17 +209,18 @@ def test_typed_rejections(prompt_len, reason):
     ("yi-6b", {"prefill_mode": "one_shot", "kv_mode": "paged"}, ValueError,
      "paged KV requires"),
     # (the modality frontends, the prefix cache, speculation and MoE,
-    # which held places here, now serve)
-    (None, {"mesh": "2x4"}, NotImplementedError, "ROADMAP Queue 1 item 11"),
+    # which held places here, now serve; a mesh serves across ranks, and
+    # without a process group one device is all there is)
+    ("yi-6b", {"mesh": "2x4"}, ValueError, "needs 8 devices"),
     # one engine is one replica: more go behind the router
     (None, {"replicas": 2}, ValueError, "ReplicaRouter")],
     # the ids the cases had before earlier cases left the list
     ids=["yi-6b-options1-ValueError-paged KV requires",
-         "None-options5-NotImplementedError-ROADMAP",
+         "yi-6b-mesh-ValueError-needs 8 devices",
          "None-replicas-ValueError-ReplicaRouter"])
 def test_unported_options_raise(arch, options, error, match):
-    """Options the port does not serve raise when built (``arch`` None),
-    or when an engine for that arch is built with them."""
+    """Options the port cannot serve raise when built (``arch`` None), or
+    when an engine for that arch is built with them."""
     if arch is None:
         with pytest.raises(error, match=match):
             ServeOptions(**options)

@@ -602,6 +602,66 @@ def test_ops_launch_the_kernel_on_card(cuda):
     assert segment_attention.launches == f0 + 1
 
 
+def _shard(x, dim, r, model):
+    n = x.shape[dim] // model
+    return x.narrow(dim, r * n, n).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv,model", [(32, 4, 4), (32, 4, 2), (8, 2, 2)])
+def test_paged_decode_shards_split_as_one_device_on_card(cuda, h, kv, model,
+                                                          dtype):
+    """A tensor-parallel shard (head chunk r of M, its KV heads' slice of
+    the store) launched with ``split_groups`` the global ``B * Kv`` equals
+    the full launch's slice of those heads bit for bit; ``split_groups``
+    at its default value changes nothing."""
+    x = to_torch(split_case(np.random.default_rng(h + model), h=h, kv=kv,
+                            d=128), dtype, cuda)
+    full = paged_decode_attention(**x)
+    b = x["q"].shape[0]
+    same = paged_decode_attention(**x, split_groups=b * kv)
+    assert torch.equal(same, full)
+    for r in range(model):
+        part = paged_decode_attention(
+            _shard(x["q"], 1, r, model), _shard(x["k_store"], 1, r, model),
+            _shard(x["v_store"], 1, r, model), x["block_tables"],
+            x["q_pos"], split_groups=b * kv)
+        assert torch.equal(part, _shard(full, 1, r, model))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h,kv,model", [(32, 4, 4), (32, 4, 2), (8, 2, 2)])
+def test_dense_decode_shards_split_as_one_device_on_card(cuda, h, kv, model,
+                                                          dtype):
+    """The same for dense decode on rings read in place through ``[B, Kv,
+    S, D]`` views: a shard's rings are the Kv chunk of the full ring, its
+    split planned for the global ``B * Kv``."""
+    rng = np.random.default_rng(h + model)
+    b, s, d = 4, 1100, 128
+    ring = torch.from_numpy(rng.standard_normal((2, b, s, kv, d),
+                                                np.float32)).to(
+        cuda, TORCH_DT[dtype])
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32)).to(
+        cuda, TORCH_DT[dtype])
+    k_pos = torch.arange(s, dtype=torch.int32, device=cuda).repeat(b, 1)
+    q_pos = torch.tensor([1099, 700, 64, 1000], dtype=torch.int32,
+                         device=cuda)
+    full = decode_attention(q, ring[0].transpose(1, 2),
+                            ring[1].transpose(1, 2), k_pos, q_pos)
+    same = decode_attention(q, ring[0].transpose(1, 2),
+                            ring[1].transpose(1, 2), k_pos, q_pos,
+                            split_groups=b * kv)
+    assert torch.equal(same, full)
+    for r in range(model):
+        kl, vl = (_shard(ring[i], 2, r, model).transpose(1, 2)
+                  for i in (0, 1))
+        part = decode_attention(_shard(q, 1, r, model), kl, vl, k_pos, q_pos,
+                                split_groups=b * kv)
+        assert torch.equal(part, _shard(full, 1, r, model))
+
+
 # keys of another length than the queries: (Sq, Sk, H, Kv, D) -- whisper's
 # cross-attention (6 heads of 64 against its 1500 frames), single rows,
 # q and key tiles ragged on either side, GQA and MQA, every route
