@@ -314,10 +314,33 @@ caught:
                 segment and dense decode kernels per shard), ``2x2``: the
                 tokens equal one process's, the max logit gap printed, each
                 rank's expert slice (E / 2 experts, moe_ff / 2 on decode).
+ 16. dp       — data-parallel training on a 2 x 1 mesh of processes that
+                share the card (``train_step.make_mesh_train_step``, gloo):
+                (a) yi-6b at full width cut to 2 layers (phase 9 trains 4:
+                gloo's host-staged f32 sum takes ~10 s a step there), bf16,
+                batch 2 x 4096, in one process at 2 microbatches, then on
+                the two ranks at one each (its row), FSDP off and on (the
+                f32 cut below FSDP on only): every rank's
+                loss, grad norm and every leaf of its params and moments
+                after the first step must equal one process's slices bit
+                for bit (64-bit fingerprints of the bits; where a leaf
+                moves, its gap against ten times the same step's gap on
+                weights nudged at f32 rounding), each rank must launch the
+                flash forward with LSE 2 x layers times and dQ and dK/dV
+                layers times; the step's ms, its all-reduce and all-gather
+                ms, each rank's peak beside a reckoning; the same on the
+                cut in f32 at 2 x 1024; (b) on the bf16
+                ranks with FSDP off, ``compressed_psum_grads`` of their
+                gradients against the exact f32 mean, each leaf's error
+                under 0.02 of its largest |mean|, bytes and ms; (c) the
+                gathered state of the bf16 FSDP ranks, written by rank 0,
+                restored in one process bit for bit; (d) the controller
+                twin's ``coordinated_step`` on CUDA tensors against the
+                host controllers.
 
 Before the last line it prints a JSON object with every kernel's numbers
-(launches summed over the serving and training phases, 13, 14 and
-15's ranks included, each of which sets the counts it reads to 0 before
+(launches summed over the serving and training phases, 13, 14, 15's and
+16's ranks included, each of which sets the counts it reads to 0 before
 it drives its path; for the flash forwards, dQ, dK/dV and dense decode also
 ``cross_launches``, those of phase 14's cross-attention), then the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -341,6 +364,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -349,6 +373,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.checkpoint import restore as checkpoint_restore  # noqa: E402
+from repro_torch.checkpoint import save as checkpoint_save  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.smartconf import ConfRegistry  # noqa: E402
@@ -375,7 +401,8 @@ from repro_torch.kernels.segment_attention import (  # noqa: E402
     segment_attention, segment_attention_ref, segment_grid, segment_route,
     tile_items)
 from repro_torch.distributed import collectives  # noqa: E402
-from repro_torch.launch.mesh import spawn_mesh, world  # noqa: E402
+from repro_torch.launch.mesh import (MeshPool, make_host_mesh,  # noqa: E402
+                                     spawn_mesh, world)
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
@@ -577,6 +604,23 @@ MESH_MOE_LAYERS, MESH_MOE_CAPACITY, MESH_MOE_NO_DROP = 2, 8.0, 16.0
 MESH_MOE_GAP = 1e-4
 MESH_KERNELS = (paged_segment_attention, paged_decode_attention,
                 segment_attention, decode_attention)
+# phase 16: data-parallel training on DP_DATA ranks sharing the card:
+# yi-6b at full width cut to DP_LAYERS layers (phase 9 trains 4: gloo
+# stages the f32 gradient sum through the host at ~0.5 GB/s, 10.6 s a
+# step at 4 layers, so phase 16 cuts the depth, never the width), bf16,
+# batch TRAIN_BATCH x TRAIN_SEQ, one process at TRAIN_BATCH microbatches
+# against each rank at one (its row), FSDP off and on; then the same cut
+# in f32 at DP_F32_SEQ tokens a row, FSDP on.  One step each, held to one
+# process's bit for bit and timed
+DP_DATA, DP_LAYERS, DP_F32_SEQ = 2, 2, 1024
+# where a bit moves, the leaf's gap may be this many times the gap the
+# same step shows with the weights nudged at f32 rounding (phase 5's rule)
+DP_FLOOR_TIMES = 10
+# 16b: the compressed mean's max error over the largest |exact mean|, a
+# leaf (the reference's bound, tests/test_multidevice.py)
+DP_COMPRESSED_LIMIT = 0.02
+DP_KERNELS = (flash_attention_fwd_lse, flash_attention_dq,
+              flash_attention_dkv)
 
 
 def say(*a) -> None:
@@ -6048,6 +6092,438 @@ def phase_mesh(dev, card) -> dict:
     return launches
 
 
+# --------------------------------------- phase 16: data-parallel training
+def fingerprint(t: torch.Tensor) -> tuple[int, int]:
+    """Two 64-bit sums of ``t``'s bits, each element's bit pattern times
+    an odd weight of its position (integer sums wrap, so the order of
+    addition does not matter): equal tensors give equal fingerprints,
+    and a change of any one element changes both."""
+    x = t.detach().contiguous().reshape(-1)
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = x.view(ints[x.element_size()])
+    out = [0, 0]
+    for off in range(0, bits.numel(), 1 << 24):
+        b = bits[off:off + (1 << 24)].long()
+        i = torch.arange(off, off + b.numel(), dtype=torch.int64,
+                         device=b.device)
+        for k, (mul, add) in enumerate(((0x5851F42D4C957F2D, 0x14057B7E),
+                                        (0x2545F4914F6CDD1D, 0x3C6EF372))):
+            w = (i * mul + add) | 1
+            out[k] = (out[k] + int((b * w).sum())) % (1 << 64)
+    return out[0], out[1]
+
+
+def fingerprints(tree) -> dict:
+    return {k: fingerprint(v) for k, v in keyed_leaves(tree)}
+
+
+def dp_mesh_of(rank: int):
+    """A stand-in for rank ``rank``'s view of the ``DP_DATA x 1`` mesh:
+    what ``Placement`` reads (the parent builds no process group)."""
+    return types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": DP_DATA, "model": 1},
+                                 data_index=rank, model_index=0, rank=rank)
+
+
+def dp_batch(vocab: int, seq: int) -> dict:
+    rng = np.random.default_rng(16)
+    return {n: rng.integers(0, vocab, (TRAIN_BATCH, seq)).astype(np.int32)
+            for n in ("tokens", "labels")}
+
+
+def dp_opt() -> adamw.AdamWConfig:
+    return adamw.AdamWConfig(warmup_steps=1, total_steps=10)
+
+
+def dp_reckoning(n_par: int, largest: int, pbytes: int, fsdp: bool, cfg,
+                 seq) -> dict:
+    """What a rank should hold at its step's peak (bytes), every term at
+    once (an upper reckoning: the gathered weights are freed before the
+    optimizer runs): its weights (a 1/D slice of each FSDP leaf, and the
+    gathered whole during the step), its gradients in the weights' dtype,
+    the f32 sums of the whole gradient, its moments, one f32 bucket, one
+    loss chunk's f32 logits three times over, the layers' inputs that
+    remat keeps, and AdamW's f32 temporaries, about four of the largest
+    leaf (its slice) at a time."""
+    d = DP_DATA if fsdp else 1
+    out = dict(weights=n_par * pbytes / d,
+               gathered=n_par * pbytes if fsdp else 0,
+               grads=n_par * pbytes, f32_sums=n_par * 4,
+               moments=n_par * 8 / d, bucket=collectives.BUCKET_BYTES,
+               loss=3 * transformer.LOSS_CHUNK * cfg.vocab_size * 4,
+               inputs=cfg.num_layers * seq * cfg.d_model * pbytes,
+               optimizer=4 * largest * 4 / d)
+    out["total"] = sum(out.values())
+    return out
+
+
+def compressed_check(cfg, params, rows, mesh) -> dict:
+    """16b: this rank's gradients (one forward and backward on its row),
+    their compressed mean and their exact f32 mean over ``data``: each
+    leaf's max error over its largest |exact mean|, the bytes each sends
+    into its all-reduces, and the ms of each."""
+    _, _, grads = accum.value_and_grad(
+        lambda p, b: zoo.loss_fn(cfg, p, b), params, rows)
+    keys = [k for k, _ in keyed_leaves(grads)]
+    dev = rows["tokens"].device
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    summed = collectives.reduce_f32_buckets(
+        [g for _, g in keyed_leaves(grads)], mesh, "data")
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    packed = collectives.compressed_psum_grads(grads, mesh, "data")
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    errs = {}
+    for k, exact, (_, got) in zip(keys, summed, keyed_leaves(packed)):
+        exact.mul_(1.0 / DP_DATA)
+        errs[k] = float((got.float() - exact).abs().max()
+                        / exact.abs().max().clamp_min(1e-30))
+    n = [g.numel() for _, g in keyed_leaves(grads)]
+    blocks = sum(-(-m // 128) for m in n)
+    return dict(errs=errs, exact_ms=(t1 - t0) * 1e3,
+                compressed_ms=(t2 - t1) * 1e3, exact_bytes=4 * sum(n),
+                compressed_bytes=4 * 128 * blocks + 4 * blocks)
+
+
+def mesh_train(arch: str, layers: int, dtype: str, batch: dict, fsdp: bool,
+               expect: dict, compressed: bool = False,
+               ckpt_dir: str | None = None, device: str = "cuda") -> dict:
+    """One rank of phase 16: seed-0 weights drawn on the card (the
+    parent's), this rank's slices under ``make_mesh_train_step``'s
+    placement and its row of ``batch``; one step, timed with its
+    all-reduce and all-gather ms.  Then the metrics, the flash launches
+    (counts set to 0 just before the step), this rank's state
+    fingerprints against ``expect`` (the one process's slices; the first
+    leaf that differs comes back whole, as f32 numpy) and with
+    ``ckpt_dir`` the gathered state written there by rank 0 (its
+    fingerprints returned).  With ``compressed``, 16b first."""
+    dev = torch.device(device)
+    mesh = make_host_mesh(data=DP_DATA, model=1)
+    cfg = mesh_cfg(arch, layers, dtype)
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    step = train_step.make_mesh_train_step(cfg, dp_opt(), mesh, fsdp=fsdp)
+    pl = step.placement
+    n_par = sum(p.numel() for p in tree_leaves(params))
+    largest = max(p.numel() for p in tree_leaves(params))
+    pbytes = torch.empty((), dtype=layers_dtype(dtype)).element_size()
+    rows = train_step.local_rows({k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()}, mesh)
+    out = dict(rank=mesh.rank, n_par=n_par, largest=largest, pbytes=pbytes)
+    if compressed:
+        out["compressed"] = compressed_check(cfg, params, rows, mesh)
+    mine = pl.local({"params": params})["params"]
+    del params
+    state = adamw.init(mine)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spent = {"all_reduce": 0.0, "all_gather": 0.0}
+    real = {"all_reduce": collectives.reduce_f32_buckets,
+            "all_gather": collectives.gather_leaves}
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            got = real[name](*a, **kw)
+            torch.cuda.synchronize(dev)
+            spent[name] += time.perf_counter() - t0
+            return got
+        return run
+
+    collectives.reduce_f32_buckets = timed("all_reduce")
+    collectives.gather_leaves = timed("all_gather")
+    try:
+        for k in DP_KERNELS:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        mine, state, m = step(mine, state, rows)
+        metrics = {k: float(v) for k, v in m.items()}     # waits
+        out.update(step_ms=(time.perf_counter() - t0) * 1e3,
+                   reduce_ms=spent["all_reduce"] * 1e3,
+                   gather_ms=spent["all_gather"] * 1e3)
+    finally:
+        collectives.reduce_f32_buckets = real["all_reduce"]
+        collectives.gather_leaves = real["all_gather"]
+    out.update(metrics=metrics,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches={k.__name__: k.launches for k in DP_KERNELS})
+    tree = {"params": mine, "opt": state}
+    got = fingerprints(tree)
+    want = expect[mesh.rank]
+    out["differ"] = [k for k in want if got[k] != want[k]]
+    if out["differ"]:
+        leaf = dict(keyed_leaves(tree))[out["differ"][0]]
+        out["first"] = leaf.float().cpu().numpy()
+    if ckpt_dir is not None:
+        full = pl.gather(tree)
+        if mesh.rank == 0:
+            t1 = time.perf_counter()
+            checkpoint_save(ckpt_dir, 1, full)
+            out["write_s"] = time.perf_counter() - t1
+            out["gathered"] = fingerprints(full)
+        del full
+        torch.distributed.barrier()
+    # the rank lives on in the pool: hand its cached blocks back
+    del mine, state, rows, step, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def layers_dtype(dtype: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype]
+
+
+def one_process_step(dev, cfg, batch: dict, params=None):
+    """One ``make_train_step`` step at TRAIN_BATCH microbatches on the
+    whole batch in this process (seed-0 weights drawn on the card unless
+    ``params`` are given): its state, metrics and ms."""
+    if params is None:
+        params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                          dev)
+    state = adamw.init(params)
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    params, state, m = train_step.make_train_step(
+        cfg, dp_opt(), n_micro=TRAIN_BATCH)(params, state, b)
+    metrics = {k: float(v) for k, v in m.items()}
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"params": params, "opt": state}, metrics, ms
+
+
+def dp_expect(cfg, tree, fsdp: bool) -> dict:
+    """Each rank's slices of the one process's ``tree`` under the
+    placement ``fsdp`` gives: their fingerprints, by rank."""
+    out = {}
+    for r in range(DP_DATA):
+        pl = train_step.state_placement(cfg, dp_mesh_of(r), fsdp=fsdp)
+        out[r] = fingerprints(pl.map(pl.leaf_local, tree))
+    return out
+
+
+def dp_gap(dev, cfg, batch, key: str, rank: int, fsdp: bool, got, want):
+    """A leaf that moved: its gap (max |difference| over max |one
+    process|) on rank ``rank``'s slice, and the noise floor, the same
+    step's gap with the weights nudged at f32 rounding."""
+    pl = train_step.state_placement(cfg, dp_mesh_of(rank), fsdp=fsdp)
+    mine = dict(keyed_leaves(pl.map(pl.leaf_local, want)))[key].float()
+    gap = float((torch.from_numpy(got).to(dev) - mine).abs().max()
+                / mine.abs().max())
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    nudge, _, _ = one_process_step(dev, cfg, batch,
+                                   nudged(dev, params, 2))
+    del params
+    other = dict(keyed_leaves(pl.map(pl.leaf_local, nudge)))[key].float()
+    floor = float((other - mine).abs().max() / mine.abs().max())
+    return gap, floor
+
+
+def dp_run(pool, dev, card, tag: str, arch: str, layers: int, dtype: str,
+           seq: int, modes=(False, True), ckpt_dir=None) -> dict:
+    """16a at one width: one process, then the ranks with each FSDP mode
+    of ``modes`` (16b on FSDP off in bf16, the checkpoint of 16c on FSDP
+    on); every
+    rank's first step must equal one process's bit for bit (or, where a
+    bit moves, within DP_FLOOR_TIMES its noise floor: printed with the
+    leaf) and launch the three flash kernels of training.  Returns the
+    ranks' launches and, with ``ckpt_dir``, what 16c reads."""
+    cfg = mesh_cfg(arch, layers, dtype)
+    batch = dp_batch(cfg.vocab_size, seq)
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    one, metrics, one_ms = one_process_step(dev, cfg, batch)
+    peak_one = torch.cuda.max_memory_allocated(dev) - held
+    torch.cuda.empty_cache()
+    launches: dict = {}
+    extra = {}
+    for fsdp in modes:
+        expect = dp_expect(cfg, one, fsdp)
+        t0 = time.perf_counter()
+        ranks = pool.run(mesh_train, arch, layers, dtype, batch, fsdp,
+                         expect, not fsdp and dtype == "bfloat16",
+                         ckpt_dir if fsdp else None, dev.type)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        reckon = dp_reckoning(r0["n_par"], r0["largest"], r0["pbytes"],
+                              fsdp, cfg, seq)
+        say(f"[dp] {tag} fsdp {fsdp} on {card}: {DP_DATA} ranks, {wall:.1f}"
+            f" s; one process {one_ms:.1f} ms a step at {TRAIN_BATCH} "
+            f"microbatches (its peak {peak_one / 1e9:.3f} GB)")
+        for r in ranks:
+            say(f"[dp] {tag} fsdp {fsdp} rank {r['rank']}: step "
+                f"{r['step_ms']:.1f} ms (all-reduce {r['reduce_ms']:.1f} ms,"
+                f" all-gather {r['gather_ms']:.1f} ms of it); "
+                f"max_memory_allocated "
+                f"{r['peak_gb']:.3f} GB against the reckoned "
+                f"{reckon['total'] / 1e9:.3f} GB ("
+                + ", ".join(f"{k} {v / 1e9:.2f}" for k, v in reckon.items()
+                            if k != "total")
+                + f"); launches {r['launches']}")
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+            want = {"flash_attention_fwd_lse": 2 * layers,
+                    "flash_attention_dq": layers,
+                    "flash_attention_dkv": layers}
+            if r["launches"] != want:
+                fail(f"{tag}: rank {r['rank']} launched {r['launches']} in "
+                     f"its first step, expected {want}")
+            if r["metrics"] != metrics:
+                fail(f"{tag} fsdp {fsdp}: rank {r['rank']}'s metrics "
+                     f"{r['metrics']} differ from one process's {metrics}")
+            if r["differ"]:
+                key = r["differ"][0]
+                gap, floor = dp_gap(dev, cfg, batch, key, r["rank"], fsdp,
+                                    r["first"], one)
+                say(f"[dp] {tag} fsdp {fsdp} rank {r['rank']}: "
+                    f"{len(r['differ'])} leaves differ from one process's;"
+                    f" the first, {key}, by {gap:.3e} of its largest "
+                    f"|value| (noise floor {floor:.3e})")
+                if gap > DP_FLOOR_TIMES * floor:
+                    fail(f"{tag}: {key} is {gap:.3e} from one process's, "
+                         f"over {DP_FLOOR_TIMES} x its floor {floor:.3e}")
+        if all(not r["differ"] for r in ranks):
+            say(f"[dp] {tag} fsdp {fsdp}: loss {metrics['loss']:.6f}, grad "
+                f"norm {metrics['grad_norm']:.6f} and every leaf of every "
+                f"rank's params and moments equal one process's bit for "
+                f"bit ({len(expect[0])} leaves)")
+        if "compressed" in r0:
+            c = r0["compressed"]
+            worst = max(c["errs"], key=c["errs"].get)
+            say(f"[dp] 16b {tag} on {card}: compressed mean of the ranks' "
+                f"gradients against the exact f32 mean: worst leaf {worst}"
+                f" at {c['errs'][worst]:.3e} of its largest |mean| (limit "
+                f"{DP_COMPRESSED_LIMIT}); a rank sends "
+                f"{c['compressed_bytes'] / 1e9:.3f} GB (int8 payload summed"
+                f" as int32, and the scales) against f32's "
+                f"{c['exact_bytes'] / 1e9:.3f} GB; {c['compressed_ms']:.1f}"
+                f" ms against {c['exact_ms']:.1f} ms")
+            if c["errs"][worst] >= DP_COMPRESSED_LIMIT:
+                fail(f"16b: {worst}'s compressed mean is "
+                     f"{c['errs'][worst]:.3e} off")
+        if fsdp and ckpt_dir is not None:
+            extra = dict(gathered=r0["gathered"], write_s=r0["write_s"])
+    if ckpt_dir is not None:
+        extra["one"] = one
+    else:
+        del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, **extra)
+
+
+def phase_elastic(dev, card, ckpt_dir: str, got: dict) -> None:
+    """16c: the checkpoint the ``2x1`` ranks wrote (rank 0, the gathered
+    state) restored in one process: every parameter and moment equal to
+    the state the ranks held, gathered, bit for bit."""
+    one = got.pop("one")
+    like = tree_map(torch.empty_like, one)
+    del one
+    t0 = time.perf_counter()
+    tree, _, step = checkpoint_restore(ckpt_dir, None, like)
+    load_s = time.perf_counter() - t0
+    back = fingerprints(tree)
+    same = [k for k, v in got["gathered"].items() if back.get(k) == v]
+    say(f"[dp] 16c on {card}: the {DP_DATA}x1 ranks' checkpoint (written "
+        f"in {got['write_s']:.1f} s by rank 0) restored in one process in "
+        f"{load_s:.1f} s: {len(same)}/{len(back)} leaves of params and "
+        f"moments equal the ranks' gathered state bit for bit")
+    del tree, like
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if step != 1 or len(same) != len(back) or set(back) != set(
+            got["gathered"]):
+        fail("16c: the restored state differs from the ranks'")
+
+
+def phase_controller_twin(dev, card) -> None:
+    """16d: ``tensor_controller.coordinated_step`` on CUDA tensors against
+    the host ``core/controller.py`` controllers on the same readings,
+    eight controllers (hard and soft goals, super-hard ones sharing
+    metrics) over eight intervals."""
+    from repro_torch.core import (ControllerModel, GoalSpec,
+                                  SmartController)
+    from repro_torch.core import tensor_controller as tcl
+    cases = [(dict(alpha=2.0, delta=4.0, lam=0.1, conf_max=1e9),
+              dict(value=100.0, hard=True), 0),
+             (dict(alpha=1.0, conf_max=1e9), dict(value=50.0), 1),
+             (dict(alpha=-3.0, delta=2.5, lam=0.2, conf_min=1.0,
+                   conf_max=40.0), dict(value=10.0, hard=True,
+                                        direction="lower"), 2),
+             (dict(alpha=1.0, conf_max=1e9),
+              dict(value=100.0, super_hard=True), 0),
+             (dict(alpha=0.5, delta=3.0, lam=0.05, conf_max=1e9),
+              dict(value=80.0, super_hard=True), 0),
+             (dict(alpha=4.0, delta=1.5, conf_max=500.0),
+              dict(value=30.0, super_hard=True), 2),
+             (dict(alpha=1.0, delta=5.0, lam=0.3, conf_max=1e9),
+              dict(value=70.0, hard=True), 3),
+             (dict(alpha=2.0, conf_max=1e9),
+              dict(value=60.0, super_hard=True), 2)]
+    models = [ControllerModel(integer=False, **m) for m, _, _ in cases]
+    goals = [GoalSpec(**g) for _, g, _ in cases]
+    specs = tcl.stack_specs([tcl.make_spec(m, g, metric_id=i, device=dev)
+                             for m, g, (_, _, i) in zip(models, goals,
+                                                        cases)])
+    n = tcl.interaction_counts(specs.metric_id, 8).cpu().tolist()
+    hosts = [SmartController(m, g, 1.0) for m, g in zip(models, goals)]
+    for h, g, k in zip(hosts, goals, n):
+        h.set_interacting(int(k) if g.super_hard else 1)
+    rng = np.random.default_rng(16)
+    states = tcl.init_state(torch.ones(len(cases), device=dev))
+    worst = 0.0
+    for _ in range(8):
+        meas = rng.uniform(0.0, 150.0, len(cases)).astype(np.float32)
+        states, confs = tcl.coordinated_step(
+            specs, states, torch.from_numpy(meas).to(dev))
+        want = []
+        for h, x in zip(hosts, meas):
+            h.observe(float(x))
+            want.append(h.actuate())
+        got = confs.cpu().numpy().astype(np.float64)
+        worst = max(worst, float(np.max(np.abs(got - want)
+                                         / np.maximum(np.abs(want), 1.0))))
+    say(f"[dp] 16d on {card}: coordinated_step of {len(cases)} controllers "
+        f"on {confs.device} over 8 intervals against the host controllers: "
+        f"worst relative gap {worst:.3e} (f32 against the host's f64; "
+        f"limit 1e-5)")
+    if confs.device != dev or worst > 1e-5:
+        fail("16d: the controller twin differs from the host controllers")
+
+
+def phase_dp(dev, card) -> dict:
+    """Phase 16; returns the flash launches of the ranks."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    ckpt_dir = str(ROOT / "build" / "chip_smoke_dp")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    with MeshPool(DP_DATA, 1, device="cuda", timeout_s=300.0) as pool:
+        got = dp_run(pool, dev, card, "16a bf16", "yi-6b", DP_LAYERS,
+                     "bfloat16", TRAIN_SEQ, ckpt_dir=ckpt_dir)
+        t_a = time.perf_counter() - t0
+        for k, v in got.pop("launches").items():
+            launches[k] = launches.get(k, 0) + v
+        t1 = time.perf_counter()
+        phase_elastic(dev, card, ckpt_dir, got)
+        t_c = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        f32 = dp_run(pool, dev, card, "16a f32", "yi-6b", DP_LAYERS,
+                     "float32", DP_F32_SEQ, modes=(True,))
+        for k, v in f32["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        t_f = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    phase_controller_twin(dev, card)
+    say(f"[times] phase 16: bf16 {t_a:.1f} s (16b inside), 16c "
+        f"{t_c:.1f} s, f32 cut {t_f:.1f} s, 16d "
+        f"{time.perf_counter() - t1:.1f} s")
+    say(f"[dp] kernel launches of the ranks {launches}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -6119,6 +6595,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     count(phase_mesh(dev, card))
     mark("15, mesh serving")
+    gc.collect()
+    torch.cuda.empty_cache()
+    count(phase_dp(dev, card))
+    mark("16, data-parallel training")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,

@@ -14,6 +14,12 @@ then ``os.replace``: a crash mid-write never corrupts the latest complete
 checkpoint; ``keep_n`` newest are kept.  A shard is written as soon as it
 is full and a restore reads one shard at a time, so the host holds at
 most one shard of arrays beside the tree.
+
+Checkpoints stay unsharded on disk, as the reference's: on a mesh of
+processes the trainer gathers the full tree and rank 0 writes it.
+``restore(..., placement=)`` is the elastic restore: each leaf is cut to
+this rank's slice of a mesh of any shape (the reference's
+``shardings=``).
 """
 
 from __future__ import annotations
@@ -26,25 +32,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.models.bridge import _is_namedtuple, keyed_leaves
+from repro_torch.distributed.sharding import keyed_specs
+from repro_torch.models.bridge import keyed_leaves, keyed_map
 
 __all__ = ["save", "restore", "latest_step", "Checkpointer", "keyed_leaves"]
 
 _SHARD_BYTES = 512 * 1024 * 1024
-
-
-def _rebuild(tree, leaf_fn, prefix: str = ""):
-    """``tree`` with every leaf replaced by ``leaf_fn(key string, leaf)``."""
-    if isinstance(tree, dict):
-        return {k: _rebuild(v, leaf_fn, f"{prefix}[{k!r}]")
-                for k, v in tree.items()}
-    if _is_namedtuple(tree):
-        return type(tree)(*(_rebuild(getattr(tree, n), leaf_fn,
-                                     f"{prefix}.{n}") for n in tree._fields))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, leaf_fn, f"{prefix}[{i}]")
-                          for i, v in enumerate(tree))
-    return leaf_fn(prefix, tree)
 
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
@@ -128,10 +121,12 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(directory: str, step: int | None, like):
+def restore(directory: str, step: int | None, like, *, placement=None):
     """Rebuild a tree structured like ``like`` from the checkpoint at
     ``step`` (the latest when None): every leaf takes its ``like`` leaf's
-    dtype and device.  Returns ``(tree, extra, step)``."""
+    dtype and device.  With ``placement`` (a ``distributed.sharding
+    .Placement`` whose specs mirror ``like``) each stored leaf is cut to
+    this rank's slice first.  Returns ``(tree, extra, step)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -143,6 +138,8 @@ def restore(directory: str, step: int | None, like):
     missing = [k for k in wanted if k not in manifest["keys"]]
     if missing:
         raise KeyError(f"checkpoint missing {missing[0]}")
+    specs = (dict(keyed_specs(placement.specs)) if placement is not None
+             else {})
     out: dict[str, torch.Tensor] = {}
     for i in range(manifest["n_shards"]):
         with np.load(os.path.join(path, f"shard_{i}.npz")) as z:
@@ -152,8 +149,10 @@ def restore(directory: str, step: int | None, like):
                     continue
                 ref = torch.as_tensor(wanted[key])
                 t = _from_numpy(z[name], manifest["keys"][key]["dtype"])
+                if key in specs:
+                    t = placement.leaf_local(t, specs[key]).clone()
                 out[key] = t.to(device=ref.device, dtype=ref.dtype)
-    tree = _rebuild(like, lambda key, _: out[key])
+    tree = keyed_map(lambda key, _: out[key], like)
     return tree, manifest["extra"], step
 
 
@@ -163,8 +162,9 @@ class Checkpointer:
     the share of wall time spent writing checkpoints)."""
 
     def __init__(self, directory: str, *, interval_steps: int = 100,
-                 keep_n: int = 3) -> None:
+                 keep_n: int = 3, clock=time.monotonic) -> None:
         self.directory = directory
+        self.clock = clock
         self.interval_steps = max(1, int(interval_steps))
         self.keep_n = keep_n
         self.last_saved = None
@@ -174,13 +174,21 @@ class Checkpointer:
     def set_interval(self, steps: int) -> None:
         self.interval_steps = max(1, int(steps))
 
+    def due(self, step: int) -> bool:
+        return step % self.interval_steps == 0
+
     def maybe_save(self, step: int, tree, *, extra: dict | None = None,
-                   force: bool = False) -> str | None:
-        if not force and step % self.interval_steps != 0:
+                   force: bool = False, write: bool = True) -> str | None:
+        """Write ``tree`` at ``step`` if it is due (or ``force``).  On a
+        mesh every rank calls it and only one has ``write``: the others
+        count the write's seconds, read on ``clock`` (an agreed clock),
+        all the same."""
+        if not force and not self.due(step):
             return None
-        t0 = time.monotonic()
-        out = save(self.directory, step, tree, extra=extra, keep_n=self.keep_n)
-        self.write_seconds += time.monotonic() - t0
+        t0 = self.clock()
+        out = (save(self.directory, step, tree, extra=extra,
+                    keep_n=self.keep_n) if write else None)
+        self.write_seconds += self.clock() - t0
         self.writes += 1
         self.last_saved = step
         return out

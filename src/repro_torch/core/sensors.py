@@ -212,19 +212,21 @@ class StepTimer:
     """Per-step wall-clock timer for the trainer (drives the checkpoint
     overhead controller).  It times what runs inside the ``with`` block;
     the trainer ends that block only once the step is complete on the
-    device."""
+    device.  On a mesh ``clock`` is the agreed clock, so every rank
+    reads the same step times."""
 
-    def __init__(self, window: int = 128) -> None:
+    def __init__(self, window: int = 128, clock=time.monotonic) -> None:
         self.latency = LatencySensor(window)
+        self.clock = clock
         self._start: float | None = None
 
     def __enter__(self) -> "StepTimer":
-        self._start = time.monotonic()
+        self._start = self.clock()
         return self
 
     def __exit__(self, *exc) -> None:
         if self._start is not None:
-            self.latency.record(time.monotonic() - self._start)
+            self.latency.record(self.clock() - self._start)
             self._start = None
 
     def mean(self) -> float:

@@ -110,6 +110,25 @@ def block_init(cfg, kind: str, dtype, device, generator,
     return params
 
 
+def block_axes(cfg, kind: str) -> dict:
+    """The logical dim names of :func:`block_init`'s leaves (without a
+    stacking dim)."""
+    base = _check_ported(kind)
+    norm = layers.norm_axes(cfg.norm)
+    if base == "rwkv6":
+        return {"ln1": norm, "tm_cm": rwkv6_lib.rwkv6_axes(), "ln2": norm}
+    axes = {"ln1": norm, "ln2": norm}
+    if base == "rglru":
+        axes["rglru"] = rglru_lib.rglru_axes()
+    else:
+        axes["attn"] = layers.attention_axes()
+    if split_kind(kind)[1]:
+        axes["moe"] = moe_lib.moe_axes(cfg)
+    else:
+        axes["mlp"] = layers.mlp_axes(cfg.mlp)
+    return axes
+
+
 # ---------------------------------------------------------------------------
 # dense caches: per-slot rings and recurrent state
 # ---------------------------------------------------------------------------

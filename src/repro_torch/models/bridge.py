@@ -6,7 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["keyed_leaves", "params_from_numpy", "tree_leaves", "tree_map"]
+__all__ = ["keyed_leaves", "keyed_map", "params_from_numpy", "tree_leaves",
+           "tree_map"]
 
 
 def _is_namedtuple(x) -> bool:
@@ -53,6 +54,21 @@ def keyed_leaves(tree, prefix: str = ""):
             yield from keyed_leaves(v, f"{prefix}[{i}]")
     else:
         yield prefix, tree
+
+
+def keyed_map(fn, tree, prefix: str = ""):
+    """``tree`` with every leaf replaced by ``fn(key string, leaf)``, the
+    keys :func:`keyed_leaves` gives."""
+    if isinstance(tree, dict):
+        return {k: keyed_map(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if _is_namedtuple(tree):
+        return type(tree)(*(keyed_map(fn, getattr(tree, n), f"{prefix}.{n}")
+                            for n in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(keyed_map(fn, v, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
 
 
 def _tensor(a, device):

@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import A
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -67,6 +69,13 @@ def norm_init(kind: str, d: int, dtype, device) -> dict:
             else layernorm_init(d, dtype, device))
 
 
+def norm_axes(kind: str) -> dict:
+    """The logical dim names of :func:`norm_init`'s leaves."""
+    if kind == "rms":
+        return {"scale": A("embed")}
+    return {"scale": A("embed"), "bias": A("embed")}
+
+
 def apply_norm(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
     return rmsnorm(params, x) if kind == "rms" else layernorm(params, x)
 
@@ -101,8 +110,27 @@ def dense_init(shape, dtype, device, generator: torch.Generator,
     reference's distribution (not its bits: the generators differ)."""
     scale = 1.0 / math.sqrt(shape[in_axis])
     w = torch.empty(shape, dtype=torch.float32, device=device)
+    if w.is_meta:               # shapes only (zoo.abstract_params)
+        return w.to(dtype)
     w.uniform_(-1.0, 1.0, generator=generator)
     return w.mul_(scale).to(dtype)
+
+
+def attention_axes() -> dict:
+    """The logical dim names of an attention block's projections
+    (``wq`` etc., initialised in ``blocks.block_init``)."""
+    return {"wq": A("embed", "heads", None),
+            "wk": A("embed", "kv_heads", None),
+            "wv": A("embed", "kv_heads", None),
+            "wo": A("heads", None, "embed")}
+
+
+def mlp_axes(kind: str) -> dict:
+    """The logical dim names of a dense MLP's leaves."""
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": A("embed", "ff"), "w_up": A("embed", "ff"),
+                "w_down": A("ff", "embed")}
+    return {"w_up": A("embed", "ff"), "w_down": A("ff", "embed")}
 
 
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.collectives import all_reduce
-from repro_torch.distributed.sharding import current_mesh
+from repro_torch.distributed.sharding import A, current_mesh
 
 from .layers import dense_init
 
@@ -60,6 +60,8 @@ def moe_init(cfg, dtype, device, generator,
 
     def dense(shape, dt=dtype):
         out = torch.empty(lead + shape, dtype=dt, device=device)
+        if out.is_meta:
+            return out
         flat = out.view((-1,) + shape[-2:])
         for i in range(flat.shape[0]):
             flat[i] = dense_init(shape[-2:], dt, device, generator)
@@ -73,6 +75,18 @@ def moe_init(cfg, dtype, device, generator,
         params["shared"] = {"w_gate": dense((d, ms)), "w_up": dense((d, ms)),
                             "w_down": dense((ms, d))}
     return params
+
+
+def moe_axes(cfg) -> dict:
+    """The logical dim names of :func:`moe_init`'s leaves."""
+    axes = {"router": A("embed", "experts"),
+            "w_gate": A("experts", "embed", "moe_ff"),
+            "w_up": A("experts", "embed", "moe_ff"),
+            "w_down": A("experts", "moe_ff", "embed")}
+    if cfg.num_shared_experts:
+        axes["shared"] = {"w_gate": A("embed", "ff"), "w_up": A("embed", "ff"),
+                          "w_down": A("ff", "embed")}
+    return axes
 
 
 def _group_shape(batch: int, seq: int) -> tuple[int, int]:

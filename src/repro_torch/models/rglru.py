@@ -23,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import A
+
 from .layers import dense_init
 
 CONV_WIDTH = 4
@@ -47,6 +49,15 @@ def rglru_init(cfg, dtype, device, generator, lead: tuple[int, ...] = ()):
             "wx": dense((dr, dr)), "ba": full(0.0), "bx": full(0.0),
             "lam": full(3.0),                  # sigmoid(3) ~ 0.95 decay
             "w_out": dense((dr, d))}
+
+
+def rglru_axes() -> dict:
+    """The logical dim names of :func:`rglru_init`'s leaves."""
+    return {"w_in": A("embed", "ff"), "w_gate_branch": A("embed", "ff"),
+            "conv_w": A(None, "ff"),
+            "wa": A("ff", None), "wx": A("ff", None),
+            "ba": A("embed"), "bx": A("embed"), "lam": A("embed"),
+            "w_out": A("ff", "embed")}
 
 
 def init_state(cfg, batch: int, device) -> dict:

@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import A
+
 from .layers import dense_init, torch_dtype
 
 HEAD_DIM = 64
@@ -57,6 +59,23 @@ def rwkv6_init(cfg, dtype, device, generator, lead: tuple[int, ...] = ()):
         # channel mix
         "cm_mu": full((d,), 0.5),
         "cm_k": dense((d, cfg.d_ff)), "cm_v": dense((cfg.d_ff, d)),
+    }
+
+
+def rwkv6_axes() -> dict:
+    """The logical dim names of :func:`rwkv6_init`'s leaves."""
+    return {
+        "mu_r": A("embed"), "mu_k": A("embed"), "mu_v": A("embed"),
+        "mu_g": A("embed"), "mu_w": A("embed"),
+        "wr": A("embed", "ff"), "wk": A("embed", "ff"),
+        "wv": A("embed", "ff"), "wg": A("embed", "ff"),
+        "wo": A("ff", "embed"),
+        "w0": A("embed"),
+        "w_lora_a": A("embed", None), "w_lora_b": A(None, "embed"),
+        "u": A("heads", None),
+        "ln_scale": A("embed"),
+        "cm_mu": A("embed"),
+        "cm_k": A("embed", "ff"), "cm_v": A("ff", "embed"),
     }
 
 

@@ -27,6 +27,7 @@ functions over streams and chunks raise ``ValueError`` for them.
 
 Public entry points:
     init(cfg, generator, device)        -> params
+    init_axes(cfg)                      -> the params' logical dim names
     init_cache(cfg, batch, cache_len, device, ring_margin=0) -> caches
                                         [dense rings and recurrent state,
                                         per slot]
@@ -61,6 +62,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import A
 
 from . import blocks as B
 from . import layers
@@ -182,6 +185,41 @@ def init(cfg, generator: torch.Generator, device=None) -> dict:
         params["ln_enc"] = norm_init(cfg.norm, d, dtype, device)
         params["cross"] = _cross_init(cfg, dtype, device, generator)
     return params
+
+
+def _stack_axes(tree):
+    """Stacked leaves gain a leading layer dim: unsharded."""
+    if isinstance(tree, dict):
+        return {k: _stack_axes(v) for k, v in tree.items()}
+    return A(None, *tree.names)
+
+
+def init_axes(cfg) -> dict:
+    """The axes tree of :func:`init`'s params: each leaf's logical dim
+    names (``distributed.sharding.Axes``), the reference's ``init``
+    annotations, group-stacked and encoder and cross leaves with a
+    leading ``None``."""
+    _check_supported(cfg)
+    prefix, pattern, n_groups, rem = _plan(cfg)
+    axes: dict = {"embed": A("vocab", "embed")}
+    if not cfg.tie_embeddings:
+        axes["head"] = A("embed", "vocab")
+    axes["ln_f"] = layers.norm_axes(cfg.norm)
+    if prefix:
+        axes["prefix"] = [B.block_axes(cfg, k) for k in prefix]
+    if n_groups:
+        axes["groups"] = [_stack_axes(B.block_axes(cfg, k)) for k in pattern]
+    if rem:
+        axes["rem"] = [B.block_axes(cfg, k) for k in rem]
+    if cfg.frontend == "vision":
+        axes["connector"] = {"w1": A(None, "embed"), "w2": A("embed", "embed")}
+    if cfg.encoder_decoder:
+        axes["pos_emb"] = A(None, "embed")
+        axes["encoder"] = _stack_axes(B.block_axes(cfg, "bidir"))
+        axes["ln_enc"] = layers.norm_axes(cfg.norm)
+        axes["cross"] = _stack_axes({"attn": layers.attention_axes(),
+                                     "ln": layers.norm_axes(cfg.norm)})
+    return axes
 
 
 def _cross_init(cfg, dtype, device, generator) -> dict:

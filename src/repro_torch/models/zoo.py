@@ -15,9 +15,10 @@ __all__ = ["init", "step_packed", "step_spec", "decode_step", "prefill_chunk", "
            "dense_packed_plans", "chunk_plan", "dense_step_plans",
            "merge_slot", "init_paged_cache", "map_paged_caches",
            "copy_paged_blocks", "params_from_numpy", "forward", "loss_fn",
-           "token_seq_len", "make_batch"]
+           "token_seq_len", "make_batch", "init_axes", "abstract_params"]
 
 init = transformer.init
+init_axes = transformer.init_axes
 step_packed = transformer.step_packed
 step_spec = transformer.step_spec
 decode_step = transformer.decode_step
@@ -66,3 +67,10 @@ def make_batch(cfg, shape, rng: np.random.Generator, device) -> dict:
     return {k: torch.from_numpy(v.astype(np.int32 if k in ("tokens", "labels")
                                          else np.float32)).to(device)
             for k, v in batch.items()}
+
+
+def abstract_params(cfg):
+    """``(shapes, axes)``: the params tree as meta tensors (each leaf's
+    shape and dtype, nothing allocated, no random draw) and its axes tree
+    (:func:`init_axes`), which mirrors it leaf for leaf."""
+    return transformer.init(cfg, None, "meta"), transformer.init_axes(cfg)

@@ -7,7 +7,8 @@ computed in f32 and cast back to its own dtype.  Unlike the reference,
 whose arrays are immutable, :func:`update` writes the parameters and the
 moments **in place** (under ``torch.no_grad()``): at full width the
 parameters, gradients and moments are most of device memory, and a
-second copy would not fit.  The step counter and the schedule are 0-d
+second copy would not fit.  :func:`state_pspecs` places the moments as
+the parameters are placed (ZeRO).  The step counter and the schedule are 0-d
 f32/int32 CPU tensors, so the host never waits for the device to learn
 the learning rate.
 """
@@ -73,14 +74,18 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads, state: AdamWState, params, cfg: AdamWConfig):
+def update(grads, state: AdamWState, params, cfg: AdamWConfig, *,
+           gnorm: torch.Tensor | None = None):
     """One AdamW step from ``grads`` (any float dtype).  Updates ``params``
     and ``state``'s moments in place and returns ``(params, new_state,
     metrics)``; ``metrics`` holds ``lr`` (CPU) and ``grad_norm`` (on the
-    parameters' device) as 0-d f32 tensors."""
+    parameters' device) as 0-d f32 tensors.  ``gnorm`` is the global
+    norm when ``grads`` are slices of the gradients (a rank's share under
+    FSDP): the clip must read the whole tree's norm."""
     step = state.step + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     c1 = float(1.0 - _f32(b1) ** _f32(step))
@@ -99,3 +104,10 @@ def update(grads, state: AdamWState, params, cfg: AdamWConfig):
         p.copy_((p.float() - lr_f * delta).to(p.dtype))
     metrics = {"lr": lr, "grad_norm": gnorm}
     return params, AdamWState(step, state.m, state.v), metrics
+
+
+def state_pspecs(param_pspecs) -> AdamWState:
+    """The moments' specs mirror the parameters' (ZeRO-1/2: under FSDP a
+    rank's moments are its slices of the parameters' placement); the
+    step counter is replicated."""
+    return AdamWState(step=(), m=param_pspecs, v=param_pspecs)

@@ -131,7 +131,7 @@ from repro_torch.core.smartconf import ConfRegistry
 from repro_torch.core.telemetry import Telemetry, Tracer
 from repro_torch.distributed.collectives import agreed_clock
 from repro_torch.distributed.fault_tolerance import PreemptionHandler
-from repro_torch.distributed.sharding import use_mesh
+from repro_torch.distributed.sharding import SERVE_TP_RULES, use_mesh
 from repro_torch.kernels.decode_attention import padded_cache_len
 from repro_torch.models import blocks, zoo
 from repro_torch.models import moe as moe_lib
@@ -723,8 +723,9 @@ class ServeEngine:
         if self.mesh is None:
             return self._tick()
         # the serving mesh is active for the whole tick: the attention and
-        # MoE wrappers read current_mesh()
-        with use_mesh(self.mesh):
+        # MoE wrappers read current_mesh(); serving's overlay, as the
+        # reference's engine (heads and experts on model, nothing else)
+        with use_mesh(self.mesh, SERVE_TP_RULES, fsdp=False):
             return self._tick()
 
     def _tick(self) -> dict:

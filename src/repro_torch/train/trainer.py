@@ -20,6 +20,18 @@ its prefetch thread before restoring, so the first batches after a
 restart are the stream's first batches, and it records the producer's
 look-ahead position instead of the consumed one.)
 
+On a mesh of processes (``mesh=``, this rank's ``(data, 1)``
+``launch.mesh.make_host_mesh``) the loop runs ``train_step
+.make_mesh_train_step`` on every rank: each holds its slices of the
+parameters and moments (``fsdp``) and draws its rows from the
+host-sharded stream (``host_id`` its data index).  Every rank must take
+the same host decisions or the group deadlocks: the step timer and the
+checkpoint write seconds read ``collectives.agreed_clock`` (so
+``train.ckpt_interval_steps`` moves alike and every rank saves on the
+same steps), the preemption flag is agreed by a MAX before the forced
+save, and a save gathers the full tree, which rank 0 writes.
+``data.prefetch_depth`` stays per host: it meets no collective.
+
 The data stream yields tokens and labels only, as the reference's does,
 so an arch with a modality frontend (the vision prefix's patches, the
 encoder-decoder's frames) cannot train here: the constructor raises a
@@ -33,6 +45,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
+import time
 
 import torch
 
@@ -42,6 +55,7 @@ from repro_torch.core import (ControllerModel, GoalSpec, HBMAccountant,
                               SmartConf, SmartConfIndirect, StepTimer)
 from repro_torch.core.smartconf import ConfRegistry
 from repro_torch.data import PrefetchPipeline, SyntheticTokens
+from repro_torch.distributed import collectives
 from repro_torch.distributed.fault_tolerance import PreemptionHandler
 from repro_torch.models import zoo
 from repro_torch.models.transformer import resolve_device
@@ -82,7 +96,8 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ArchConfig, opt_cfg: adamw.AdamWConfig,
-                 tc: TrainerConfig, device=None) -> None:
+                 tc: TrainerConfig, device=None, *, mesh=None,
+                 fsdp=True) -> None:
         missing = _frontend_input(cfg)
         if missing is not None:
             raise ValueError(
@@ -93,16 +108,32 @@ class Trainer:
         self.opt_cfg = opt_cfg
         self.tc = tc
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is None:
+            self.step_fn = ts.make_train_step(cfg, opt_cfg,
+                                              n_micro=tc.n_micro,
+                                              remat=tc.remat)
+            self.placement = None
+        else:
+            self.step_fn = ts.make_mesh_train_step(
+                cfg, opt_cfg, mesh, fsdp=fsdp, n_micro=tc.n_micro,
+                remat=tc.remat)
+            self.placement = self.step_fn.placement
+        clock = (collectives.agreed_clock(time.monotonic, mesh)
+                 if mesh is not None else time.monotonic)
         self.registry = ConfRegistry()
         self.accountant = HBMAccountant(budget_bytes=tc.host_rss_budget)
         self.accountant.set("runtime", 64 * 1024 * 1024)  # base host footprint
 
+        hosts = (0, 1) if mesh is None else (mesh.data_index,
+                                             mesh.shape["data"])
         self.source = SyntheticTokens(cfg.vocab_size, tc.batch_size,
-                                      tc.seq_len, seed=tc.seed)
+                                      tc.seq_len, seed=tc.seed,
+                                      host_id=hosts[0], num_hosts=hosts[1])
         self.ckpt = Checkpointer(os.path.join(tc.workdir, "ckpt"),
                                  interval_steps=tc.ckpt_interval,
-                                 keep_n=tc.ckpt_keep)
-        self.timer = StepTimer()
+                                 keep_n=tc.ckpt_keep, clock=clock)
+        self.timer = StepTimer(clock=clock)
         self.preemption = PreemptionHandler()
 
         # --- SmartConf controllers --------------------------------------
@@ -128,9 +159,11 @@ class Trainer:
         # --- model/optimizer state ---------------------------------------
         gen = torch.Generator(self.device).manual_seed(tc.seed)
         self.params = zoo.init(cfg, gen, self.device)
+        if mesh is not None:
+            # every rank draws the same weights and keeps its slices
+            self.params = self.placement.local(
+                {"params": self.params})["params"]
         self.opt_state = adamw.init(self.params)
-        self.step_fn = ts.make_train_step(cfg, opt_cfg, n_micro=tc.n_micro,
-                                          remat=tc.remat)
         self.step = 0
         self.metrics_log: list[dict] = []
         depth = self._maybe_restore()
@@ -147,7 +180,8 @@ class Trainer:
         if latest_step(d) is None:
             return 2
         tree = {"params": self.params, "opt": self.opt_state}
-        restored, extra, _ = restore(d, None, tree)
+        restored, extra, _ = restore(d, None, tree,
+                                     placement=self.placement)
         self.params = restored["params"]
         self.opt_state = restored["opt"]
         self.step = int(extra["step"])
@@ -157,13 +191,17 @@ class Trainer:
         return int(extra.get("prefetch_depth", 2))
 
     def _save(self, *, force: bool = False) -> None:
+        if not force and not self.ckpt.due(self.step):
+            return
         data = {"step": self.data_step, "seed": self.source.seed}
         extra = {"step": self.step, "data": data,
                  "ckpt_interval": self.ckpt.interval_steps,
                  "prefetch_depth": self.pipeline.depth}
-        self.ckpt.maybe_save(self.step,
-                             {"params": self.params, "opt": self.opt_state},
-                             extra=extra, force=force)
+        tree = {"params": self.params, "opt": self.opt_state}
+        if self.placement is not None:
+            tree = self.placement.gather(tree)     # every rank takes part
+        self.ckpt.maybe_save(self.step, tree, extra=extra, force=True,
+                             write=self.mesh is None or self.mesh.rank == 0)
 
     # ------------------------------------------------------------ controls
     def _update_controllers(self) -> None:
@@ -183,7 +221,10 @@ class Trainer:
         steps = steps if steps is not None else self.tc.total_steps
         target = self.step + steps
         while self.step < target:
-            if self.preemption.triggered:
+            preempted = self.preemption.triggered
+            if self.mesh is not None:
+                preempted = collectives.agreed_flag(preempted, self.mesh)
+            if preempted:
                 self._save(force=True)
                 break
             batch = {k: torch.from_numpy(v).to(self.device)
