@@ -328,8 +328,10 @@ caught:
                 weights nudged at f32 rounding), each rank must launch the
                 flash forward with LSE 2 x layers times and dQ and dK/dV
                 layers times; the step's ms, its all-reduce and all-gather
-                ms, each rank's peak beside a reckoning; the same on the
-                cut in f32 at 2 x 1024; (b) on the bf16
+                ms, each rank's peak beside a reckoning by hand and, FSDP
+                on, the dry-run's (``launch.dryrun.reckon`` of the same
+                mesh step on ``meta``, within 20% asserted); the same on the cut in f32 at
+                2 x 1024; (b) on the bf16
                 ranks with FSDP off, ``compressed_psum_grads`` of their
                 gradients against the exact f32 mean, each leaf's error
                 under 0.02 of its largest |mean|, bytes and ms; (c) the
@@ -337,10 +339,31 @@ caught:
                 restored in one process bit for bit; (d) the controller
                 twin's ``coordinated_step`` on CUDA tensors against the
                 host controllers.
+ 17. tooling  — (a) the paper's six case studies (``core.simenv``), seeds
+                1-3: SmartConf synthesized from each case's profile, the
+                reported-buggy static default and ``best_static``;
+                violations under SmartConf against the default's and
+                SmartConf's trade-off against the best static one printed;
+                every array must equal the same runs in a child process
+                with no card visible (host code: nothing touches the
+                device); (b) ``launch.dryrun`` reckons yi-6b ``train_4k``
+                on the 16 x 16 pod at full size on ``meta``, as a rank of
+                the port's ``16x1`` mesh train step, its record and wall
+                time printed; (c) the microbatch autotuner
+                (``launch.autotune``) on yi-6b at full width cut to 4
+                layers, batch 16 x 4096, one card: the budget between the
+                reckoned peaks at 1 and 16 microbatches, each probe and
+                the choice printed; then one real step at every probed
+                count, its ``max_memory_allocated`` beside the reckoned
+                peak (within 20% of the measured, asserted) and beside the
+                budget (a choice over it is printed so); (d) the five
+                ``examples/torch_*.py`` run in this process on the card at
+                their own sizes, their own asserts holding, their kernel
+                launches counted.
 
 Before the last line it prints a JSON object with every kernel's numbers
 (launches summed over the serving and training phases, 13, 14, 15's and
-16's ranks included, each of which sets the counts it reads to 0 before
+16's ranks and 17's steps and examples included, each of which sets the counts it reads to 0 before
 it drives its path; for the flash forwards, dQ, dK/dV and dense decode also
 ``cross_launches``, those of phase 14's cross-attention), then the
 card's name and power limit; the last line is ``{"ok": true, "device":
@@ -357,7 +380,10 @@ import gc
 import importlib
 import json
 import math
+import os
+import pickle
 import re
+import runpy
 import shutil
 import statistics
 import subprocess
@@ -401,7 +427,9 @@ from repro_torch.kernels.segment_attention import (  # noqa: E402
     segment_attention, segment_attention_ref, segment_grid, segment_route,
     tile_items)
 from repro_torch.distributed import collectives  # noqa: E402
-from repro_torch.launch.mesh import (MeshPool, make_host_mesh,  # noqa: E402
+from repro_torch.launch import autotune, dryrun  # noqa: E402
+from repro_torch.launch.mesh import (MeshPool, ShapeMesh,  # noqa: E402
+                                     make_host_mesh,
                                      spawn_mesh, world)
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
@@ -413,6 +441,10 @@ from repro_torch.models.layers import apply_norm, project  # noqa: E402
 from repro_torch.models.bridge import (keyed_leaves,  # noqa: E402
                                        tree_leaves, tree_map)
 from repro_torch.optim import accum, adamw  # noqa: E402
+from repro_torch.roofline.analysis import HW  # noqa: E402
+from repro_torch.roofline.op_cost import (  # noqa: E402
+    decode_bound, dense_bound, flash_bound, flat_bound,
+    segment_bound)
 from repro_torch.serve import (ChaosMonkey, ChaosSpec,  # noqa: E402
                                OpenLoopDriver, ReplicaRouter, Request,
                                ServeEngine, ServeOptions, SLOSpec,
@@ -431,9 +463,10 @@ rglru_mod = importlib.import_module("repro_torch.kernels.rglru.rglru")
 flash_vjp = importlib.import_module("repro_torch.kernels.flash_attention.vjp")
 
 DEVICE = torch.device("cuda")
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
-PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+# the H100 SXM's dense bf16 tensor-core rate, f32 rate outside the tensor
+# cores and HBM3 bandwidth (repro_torch.roofline.analysis.HW)
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS = HW["peak_flops"], HW["peak_flops_f32"]
+PEAK_BYTES = HW["hbm_bw"]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # card vs CPU on the 2-layer model, relative to the largest value: about
 # ten times the noise floor phase 5 prints beside each reading
@@ -1782,44 +1815,6 @@ def device_ms(fn, bound_ms: float, iters: int = 20) -> dict:
     return {}
 
 
-def _live_blocks(tables, slot, hi_pos, lo_pos, window):
-    j_lo = max(0, lo_pos - window + 1) // T if window else 0
-    j_hi = min(hi_pos // T, tables.shape[1] - 1)
-    row = tables[slot, j_lo:j_hi + 1]
-    return int((row >= 0).sum())
-
-
-def segment_bound(x, window=0):
-    """Least time for this call's work: bytes (q, out, the live K/V blocks
-    of every slot in the stream up to its horizon, tables, tags) against
-    flops (4*D per admitted (query head, key) pair), bf16 peaks.  Only the
-    q of lanes that admit a key counts: a dead lane, or a lane no key
-    admits, gives zeros whatever its q holds."""
-    tabs = x["block_tables"].cpu()
-    qp, qs = x["q_pos"].cpu(), x["q_seg"].cpu()
-    p, h, d = x["q"].shape
-    kv, t = x["k_store"].shape[1], x["k_store"].shape[2]
-    esz = x["q"].element_size()
-    nbytes = p * h * d * esz + tabs.numel() * 4 + 2 * p * 4
-    flops = 0
-    for s in torch.unique(qs[qs >= 0]).tolist():
-        pos = qp[qs == s]
-        nb = _live_blocks(tabs, s, int(pos.max()), int(pos.min()), window)
-        nbytes += nb * 2 * kv * t * d * esz
-        ok = (tabs[s] >= 0).repeat_interleave(t)          # [M*T]
-        kpos = torch.arange(ok.numel())
-        adm = ok[None, :] & (kpos[None, :] <= pos[:, None])
-        if window:
-            adm &= (pos[:, None] - kpos[None, :]) < window
-        flops += int(adm.sum()) * h * 4 * d
-        nbytes += int(adm.any(dim=1).sum()) * h * d * esz
-    peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
-        else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops)
-
-
 def segment_work(x, b, walk) -> dict:
     """A tensor-core segment kernel's work at this call, from the same
     inputs: the work items the shapes allow (tiles x KV heads x items per
@@ -1892,33 +1887,6 @@ def work_line(name, route, work, flops, ms, sms) -> str:
             f"{work['issued'] / ms / 1e9:.1f} TFLOP/s")
 
 
-def decode_bound(x, window=0):
-    """As segment_bound, one query token per row; only the q of rows that
-    admit a key counts."""
-    tabs, qp = x["block_tables"].cpu(), x["q_pos"].cpu()
-    b, h, d = x["q"].shape
-    kv, t = x["k_store"].shape[1], x["k_store"].shape[2]
-    esz = x["q"].element_size()
-    nbytes = b * h * d * esz + tabs.numel() * 4 + b * 4
-    flops = 0
-    for r in range(b):
-        q = int(qp[r])
-        nb = _live_blocks(tabs, r, q, q, window)
-        nbytes += nb * 2 * kv * t * d * esz
-        ok = (tabs[r] >= 0).repeat_interleave(t)
-        kpos = torch.arange(ok.numel())
-        adm = ok & (kpos <= q)
-        if window:
-            adm &= (q - kpos) < window
-        flops += int(adm.sum()) * h * 4 * d
-        nbytes += h * d * esz if bool(adm.any()) else 0
-    peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
-        else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def phase_timing(dev, card) -> dict:
     """Kernel vs plain version vs one library call, same bf16 inputs."""
     import torch.nn.functional as F
@@ -1942,7 +1910,7 @@ def phase_timing(dev, card) -> dict:
     mask = ((kseg[None, :] == qs[:, None]) & (qs[:, None] >= 0)
             & (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None]))
     qt = x["q"].transpose(0, 1)[None]                 # [1, H, P, D]
-    bound, by, flops = segment_bound(x)
+    bound, by, flops, _ = segment_bound(x)
     shapes = "bf16 at yi-6b main-path shapes"
     r = out["paged_segment_attention"] = dict(
         ms=time_ms(lambda: paged_segment_attention(**x)),
@@ -1964,7 +1932,7 @@ def phase_timing(dev, card) -> dict:
     v = v.repeat_interleave(H // v.shape[1], dim=1)
     mask = (k_pos >= 0) & (k_pos <= x["q_pos"][:, None])
     qd = x["q"][:, :, None, :]                       # [B, H, 1, D]
-    bound, by = decode_bound(x)
+    bound, by, _, _ = decode_bound(x)
     rows = x["q"].shape[0]
     per, n_split = split_blocks(M, rows * KV, sms)
     say(f"[timing] paged decode at bf16 D {D}, {rows} rows x {KV} KV heads, "
@@ -2028,31 +1996,6 @@ def phase_timing(dev, card) -> dict:
     return out
 
 
-def flat_bound(x, window=0):
-    """Least time for this call's work: bytes (the q of lanes that admit a
-    key, the whole output, each admitted key's K and V once, the tags)
-    against flops (4*D per admitted (query head, key) pair), at the bf16
-    peak for bf16 inputs."""
-    qp, qs, kp, ks = x["q_pos"], x["q_seg"], x["k_pos"], x["k_seg"]
-    p, h, d = x["q"].shape
-    n, kv, _ = x["k"].shape
-    esz = x["q"].element_size()
-    adm = ((ks[None, :] == qs[:, None]) & (qs[:, None] >= 0)
-           & (kp[None, :] >= 0) & (kp[None, :] <= qp[:, None]))
-    if window:
-        adm &= (qp[:, None] - kp[None, :]) < window
-    nbytes = (int(adm.any(dim=1).sum()) * h * d * esz + p * h * d * esz
-              + int(adm.any(dim=0).sum()) * 2 * kv * d * esz
-              + (2 * p + 2 * n) * 4)
-    flops = int(adm.sum()) * h * 4 * d
-    del adm
-    peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
-        else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", flops)
-
-
 def timing_flat(dev, gen) -> dict:
     """Flat segment attention at recurrentgemma's mixed-tick shapes, bf16:
     8 slots x 2048-entry rings plus a 4096-lane stream."""
@@ -2069,7 +2012,7 @@ def timing_flat(dev, gen) -> dict:
     kf = x["k"].transpose(0, 1)[None].repeat_interleave(RG_H // RG_KV, dim=1)
     vf = x["v"].transpose(0, 1)[None].repeat_interleave(RG_H // RG_KV, dim=1)
     qt = x["q"].transpose(0, 1)[None]                 # [1, H, P, D]
-    bound, by, flops = flat_bound(x, w)
+    bound, by, flops, _ = flat_bound(x, w)
     r = dict(ms=time_ms(lambda: segment_attention(**x, window=w)),
              plain_ms=time_ms(lambda: segment_attention_ref(**x, window=w),
                               iters=2, warmup=1),
@@ -2083,26 +2026,6 @@ def timing_flat(dev, gen) -> dict:
                   segment_route(torch.bfloat16, RG_D), flat_work(x, w),
                   flops, r["ms"], sms))
     return r
-
-
-def dense_bound(x, window=0):
-    """Least time for this call's work: bytes (the q of rows that admit a
-    key, the whole output, each admitted key's K and V rows once, k_pos,
-    q_pos) against flops (4*D per admitted (query head, key) pair), at the
-    peak for the input dtype."""
-    adm = decode_mask(x["k_pos"], x["q_pos"], window)          # [B, S]
-    b, h, d = x["q"].shape
-    kv = x["k"].shape[1]
-    esz = x["q"].element_size()
-    n_adm = int(adm.sum())
-    nbytes = (int(adm.any(dim=1).sum()) * h * d * esz + b * h * d * esz
-              + n_adm * 2 * kv * d * esz + adm.numel() * 4 + b * 4)
-    flops = n_adm * h * 4 * d
-    peak = PEAK_BF16_FLOPS if x["q"].dtype == torch.bfloat16 \
-        else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def timing_dense(dev, gen, frontends: bool = False) -> list[dict]:
@@ -2152,7 +2075,7 @@ def timing_dense(dev, gen, frontends: bool = False) -> list[dict]:
         mask = decode_mask(x["k_pos"], x["q_pos"], window)[:, None, None, :]
         k, v = x["k"].contiguous(), x["v"].contiguous()
         qd = x["q"][:, :, None, :]                        # [B, H, 1, D]
-        bound, by = dense_bound(x, window)
+        bound, by, _, _ = dense_bound(x, window)
         rows.append(dict(
             ms=time_ms(lambda: decode_attention(**x, window=window)),
             device_ms=device_ms(lambda: decode_attention(**x,
@@ -2252,45 +2175,6 @@ def timing_rwkv6(dev) -> dict:
     return r
 
 
-def flash_pairs(s: int, causal: bool, window: int, sk=None) -> int:
-    """Admitted (query, key) pairs of one head: what the kernels' work and
-    so their bound depends on.  Keys of another length ``sk`` come
-    without a mask: every pair."""
-    if sk is not None and sk != s:
-        return s * sk
-    q = np.arange(s)
-    hi = q if causal else np.full(s, s - 1)
-    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(s, int)
-    return int((hi - lo + 1).sum())
-
-
-# matrix products per admitted pair and head dim, in units of 2 D flops:
-# the forward QK^T and PV; dQ recomputes QK^T and dO V^T, then dS K; dK/dV
-# recomputes both, then P^T dO and dS^T Q
-FLASH_PRODUCTS = {"flash_attention": 2, "flash_attention_fwd_lse": 2,
-                  "flash_attention_dq": 3, "flash_attention_dkv": 4}
-
-
-def flash_bound(kernel, b, h, kv, s, d, causal, window, dtype, sk=None):
-    """Least time for one kernel's call: its bytes (each input read once,
-    each output written once) at 3.35 TB/s against its matrix products
-    over the admitted pairs at the peak for the input dtype; ``sk`` keys
-    (``s`` unless given) a head."""
-    esz = torch.tensor([], dtype=dtype).element_size()
-    sk = s if sk is None else sk
-    q_b, kv_b, row_b = b * h * s * d * esz, b * kv * sk * d * esz, b * h * s * 4
-    nbytes = {"flash_attention": 2 * q_b + 2 * kv_b,
-              "flash_attention_fwd_lse": 2 * q_b + 2 * kv_b + row_b,
-              "flash_attention_dq": 3 * q_b + 2 * kv_b + 2 * row_b,
-              "flash_attention_dkv": 2 * q_b + 4 * kv_b + 2 * row_b}[kernel]
-    ops = FLASH_PRODUCTS[kernel] * 2 * d * b * h * flash_pairs(s, causal,
-                                                                window, sk)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", ops)
-
-
 def timing_flash(dev, shape=None, what="yi-6b training", sk=None,
                  causal=True) -> dict:
     """The three flash kernels at a training shape (bf16): yi-6b's (B, H,
@@ -2375,8 +2259,8 @@ def timing_flash(dev, shape=None, what="yi-6b training", sk=None,
     out = {}
     suffix = f" ({what})" if shape else ""
     for name, (kern, plain, lib_ms, note) in runs.items():
-        bound, by, ops = flash_bound(name, b, h, kv, s, d, causal, window,
-                                     torch.bfloat16, sk)
+        bound, by, ops, _ = flash_bound(name, b, h, kv, s, d, causal,
+                                        window, torch.bfloat16, sk)
         ms = time_ms(kern, iters=10, warmup=2)
         via = (f", route "
                f"{route if plain is None else fwd_route(torch.bfloat16, d)}")
@@ -2388,7 +2272,7 @@ def timing_flash(dev, shape=None, what="yi-6b training", sk=None,
             shapes=f"{shapes}{via}, {ops / 1e9:.1f} GFLOP = "
                    f"{ops / ms / 1e9:.1f} TFLOP/s")
     fwd_ops = flash_bound("flash_attention", b, h, kv, s, d, causal, window,
-                          torch.bfloat16, sk)[2]
+                          torch.bfloat16, sk).flops
     dq, dkv = (out[n + suffix] for n in ("flash_attention_dq",
                                          "flash_attention_dkv"))
     say(f"[timing] flash backward ({route}, {what}): dQ + dK/dV kernels "
@@ -6386,6 +6270,22 @@ def dp_run(pool, dev, card, tag: str, arch: str, layers: int, dtype: str,
                 if gap > DP_FLOOR_TIMES * floor:
                     fail(f"{tag}: {key} is {gap:.3e} from one process's, "
                          f"over {DP_FLOOR_TIMES} x its floor {floor:.3e}")
+        if fsdp:
+            dry = dryrun.reckon(cfg, ShapeConfig("dp", seq, TRAIN_BATCH,
+                                                 "train"),
+                                ShapeMesh((DP_DATA, 1), ("data", "model")))
+            gb = dry["peak_bytes"] / 1e9
+            say(f"[dp] {tag} fsdp True: the dry-run reckons a rank's peak "
+                f"at {gb:.3f} GB (the {dry['train_mesh']} mesh train step "
+                "on meta); against max_memory_allocated "
+                + ", ".join(f"rank {r['rank']} "
+                            f"{(gb - r['peak_gb']) / r['peak_gb']:+.2%}"
+                            for r in ranks))
+            for r in ranks:
+                if abs(gb - r["peak_gb"]) > RECKON_LIMIT * r["peak_gb"]:
+                    fail(f"{tag}: the dry-run's reckoning of rank "
+                         f"{r['rank']}'s peak misses by more than "
+                         f"{RECKON_LIMIT:.0%}")
         if all(not r["differ"] for r in ranks):
             say(f"[dp] {tag} fsdp {fsdp}: loss {metrics['loss']:.6f}, grad "
                 f"norm {metrics['grad_norm']:.6f} and every leaf of every "
@@ -6524,6 +6424,253 @@ def phase_dp(dev, card) -> dict:
     return launches
 
 
+# ---- phase 17: the tooling ------------------------------------------------
+
+CASE_SEEDS = (1, 2, 3)
+# 17c: yi-6b at full width cut to 4 layers (as phase 9), batch 16 x 4096
+TUNE_LAYERS, TUNE_BATCH, TUNE_SEQ = 4, 16, 4096
+RECKON_LIMIT = 0.20      # |reckoned - measured| over measured, 16a, 17b
+EXAMPLES = (("torch_quickstart.py", ()), ("torch_interacting_queues.py", ()),
+            ("torch_ingraph_controller.py", ("--device", "cuda")),
+            ("torch_serve_lm.py", ("--device", "cuda")),
+            ("torch_train_lm.py", ("--device", "cuda", "--workdir",
+                                   str(ROOT / "build" /
+                                       "chip_smoke_train_lm"))))
+TRACE_FIELDS = ("t", "metric", "conf", "deputy", "tradeoff", "goal")
+
+
+def case_runs() -> dict:
+    """17a's runs, host code only: for each case study and seed, the
+    SmartConf, buggy-default and best-static traces as arrays, keyed by
+    (case, seed, policy), plus the best static value."""
+    from repro_torch.core import simenv
+    out = {}
+    for name, cls in simenv.ALL_CASES.items():
+        for seed in CASE_SEEDS:
+            env = cls()
+            runs = {"smartconf": env.evaluate(simenv.synthesize(env)[0],
+                                              seed=seed),
+                    "default": env.evaluate(
+                        simenv.StaticPolicy(env.buggy_default), seed=seed)}
+            best, runs["best_static"] = env.best_static(seed=seed)
+            for k, tr in runs.items():
+                out[(name, seed, k)] = dict(
+                    {f: getattr(tr, f) for f in TRACE_FIELDS},
+                    first_violation=tr.first_violation,
+                    violations=tr.violations, failed=tr.failed,
+                    best=best if k == "best_static" else None)
+    return out
+
+
+def cases_without_card() -> dict:
+    """:func:`case_runs` in a child process with no card visible."""
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as td:
+        path = Path(td) / "cases.pkl"
+        code = ("import pickle, sys; sys.path.insert(0, '.'); "
+                "import chip_smoke; pickle.dump(chip_smoke.case_runs(), "
+                f"open({str(path)!r}, 'wb'))")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+        subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       check=True, timeout=600)
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
+
+
+def phase_cases(card) -> None:
+    """17a."""
+    t0 = time.perf_counter()
+    got = case_runs()
+    t_host = time.perf_counter() - t0
+    want = cases_without_card()
+    diff = [k for k in want if k not in got or any(
+        not np.array_equal(got[k][f], want[k][f]) for f in TRACE_FIELDS)
+        or any(got[k][f] != want[k][f] for f in (
+            "first_violation", "violations", "failed", "best"))]
+    if diff or set(got) != set(want):
+        fail(f"[cases] runs beside the card differ from the runs with no "
+             f"card visible: {diff[:4]}")
+    from repro_torch.core import simenv
+    for name in simenv.ALL_CASES:
+        sc = [got[(name, s, "smartconf")] for s in CASE_SEEDS]
+        df = [got[(name, s, "default")] for s in CASE_SEEDS]
+        bs = [got[(name, s, "best_static")] for s in CASE_SEEDS]
+        ratio = [a["tradeoff"].sum() / b["tradeoff"].sum()
+                 for a, b in zip(sc, bs)]
+        say(f"[cases] {name}: violations SmartConf "
+            f"{[r['violations'] for r in sc]} (failed "
+            f"{[r['failed'] for r in sc]}) against the buggy default "
+            f"{[r['violations'] for r in df]} (failed "
+            f"{[r['failed'] for r in df]}); trade-off SmartConf "
+            f"{[round(float(r['tradeoff'].sum()), 2) for r in sc]} against "
+            f"best static {[round(float(r['tradeoff'].sum()), 2) for r in bs]}"
+            f" (at {[r['best'] for r in bs]}): "
+            f"{[round(float(x), 4) for x in ratio]}; seeds {CASE_SEEDS}")
+        if any(r["failed"] for r in sc):
+            fail(f"[cases] {name}: SmartConf breaks the constraint")
+        if not all(r["failed"] for r in df):
+            fail(f"[cases] {name}: the buggy default holds the constraint")
+    say(f"[cases] {len(got)} runs equal bit for bit to a child process "
+        f"with no card visible; {t_host:.1f} s here, on {card}'s host")
+
+
+def tune_cut():
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=TUNE_LAYERS)
+    shape = ShapeConfig("cut", TUNE_SEQ, TUNE_BATCH, "train")
+    return cfg, shape, ShapeMesh((1, 1), ("data", "model"))
+
+
+def measured_peaks(dev, cfg, shape, counts) -> dict:
+    """One real train step on the card at each microbatch count: its
+    ``max_memory_allocated`` less what was held before the state (seeded
+    random bf16 weights, AdamW moments, the batch) was made, and its
+    flash launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw.init(params)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                                  shape.seq_len),
+                              generator=gen, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    out = {}
+    reset_counts(TRAIN_COUNTED)
+    for n in counts:
+        step = train_step.make_train_step(cfg, adamw.AdamWConfig(),
+                                          n_micro=n)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        _, _, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize(dev)
+        out[n] = dict(peak=torch.cuda.max_memory_allocated(dev) - held,
+                      ms=(time.perf_counter() - t0) * 1e3, loss=loss)
+        if not math.isfinite(loss):
+            fail(f"[tune] the step at n_micro {n} gave loss {loss}")
+    launches = {fn.__name__: fn.launches for fn in TRAIN_COUNTED}
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def phase_tune(dev, card) -> dict:
+    """17b and 17c; returns the real steps' flash launches."""
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("yi-6b", "train_4k", force=True,
+                          out_dir=str(ROOT / "build" / "dryrun_torch"))
+    if not rec["ok"]:
+        fail(f"[dryrun] yi-6b train_4k: {rec.get('error')}")
+    mem = rec["memory"]
+    say(f"[dryrun] yi-6b train_4k on pod16x16 on meta in {rec['total_s']} "
+        f"s ({time.perf_counter() - t0:.1f} s here): {rec['rows_per_chip']} "
+        f"rows a chip, {rec['flops_per_chip'] / 1e12:.2f} TFLOP and "
+        f"{rec['bytes_per_chip'] / 1e9:.2f} GB a chip ({rec['split']}), "
+        f"collectives {rec['collective_bytes_per_chip'] / 1e9:.2f} GB; "
+        f"arguments {mem['argument_bytes'] / 1e9:.3f} GB + temporaries "
+        f"{mem['temp_bytes'] / 1e9:.3f} GB = {mem['peak_bytes'] / 1e9:.3f} "
+        f"GB a rank of the port's {rec['train_mesh']} mesh train step "
+        f"(training splits no model axis yet); roofline {rec['roofline']['dominant']} "
+        f"{rec['roofline']['bound_s'] * 1e3:.1f} ms; useful FLOPs ratio "
+        f"{rec['useful_flops_ratio']:.4f}")
+    t_dry = time.perf_counter() - t0
+    cfg, shape, mesh = tune_cut()
+    kw = dict(cfg=cfg, shape=shape, mesh=mesh)
+    t1 = time.perf_counter()
+    ends = {n: autotune.measure("yi-6b", "cut", n, **kw)
+            for n in (1, shape.global_batch)}
+    lo, hi = ends[shape.global_batch]["peak_bytes"], ends[1]["peak_bytes"]
+    budget = (hi + 2 * lo) / 3
+    history = autotune.autotune("yi-6b", "cut", budget, **kw)
+    t_tune = time.perf_counter() - t1
+    chosen = history[-1]["n_micro"]
+    for h in history:
+        say(f"[tune] probe n_micro {h['n_micro']}: reckoned peak "
+            f"{h['peak_bytes'] / 1e9:.3f} GB = arguments "
+            f"{h['static_bytes'] / 1e9:.3f} + temporaries "
+            f"{h['temp_bytes'] / 1e9:.3f} against the budget "
+            f"{budget / 1e9:.3f} GB "
+            + ("(fits)" if h["peak_bytes"] <= budget else "(over)"))
+    say(f"[tune] yi-6b {TUNE_LAYERS} of 32 layers, batch {TUNE_BATCH} x "
+        f"{TUNE_SEQ}: budget {budget / 1e9:.3f} GB between the reckoned "
+        f"peaks at 16 ({lo / 1e9:.3f}) and 1 ({hi / 1e9:.3f}) microbatches;"
+        f" chose n_micro {chosen} after {len(history)} probes, "
+        f"{t_tune:.1f} s of reckoning")
+    free = torch.cuda.mem_get_info(dev)[0]
+    counts = [h["n_micro"] for h in history if h["peak_bytes"] < free]
+    real, launches = measured_peaks(dev, cfg, shape, counts)
+    reckoned = {h["n_micro"]: h["peak_bytes"] for h in history}
+    for n, r in real.items():
+        gap = (reckoned[n] - r["peak"]) / r["peak"]
+        say(f"[tune] n_micro {n} on {card}: max_memory_allocated "
+            f"{r['peak'] / 1e9:.3f} GB against the reckoned "
+            f"{reckoned[n] / 1e9:.3f} GB ({gap:+.2%}) and the budget "
+            f"{budget / 1e9:.3f} GB "
+            + ("(fits)" if r["peak"] <= budget else "(OVER the budget)")
+            + f"; step {r['ms']:.1f} ms, loss {r['loss']:.4f}")
+        if abs(gap) > RECKON_LIMIT:
+            fail(f"[tune] the reckoned peak at n_micro {n} misses the "
+                 f"measured one by {gap:+.2%} (limit "
+                 f"{RECKON_LIMIT:.0%})")
+    if chosen in real and real[chosen]["peak"] > budget:
+        say(f"[tune] the chosen n_micro {chosen} is OVER the budget on the "
+            "card")
+    say(f"[tune] flash launches of the real steps {launches}")
+    say(f"[times] phase 17b {t_dry:.1f} s, 17c {time.perf_counter() - t1:.1f}"
+        " s")
+    return launches
+
+
+def phase_examples(dev, card) -> dict:
+    """17d: each torch example run here as its own script would run,
+    its kernel launches counted."""
+    counted = COUNTED + TRAIN_COUNTED + (decode_attention,)
+    launches: dict = {}
+    shutil.rmtree(ROOT / "build" / "chip_smoke_train_lm",
+                  ignore_errors=True)
+    argv = sys.argv
+    try:
+        for name, args in EXAMPLES:
+            reset_counts(counted)
+            t0 = time.perf_counter()
+            sys.argv = [name, *args]
+            runpy.run_path(str(ROOT / "examples" / name),
+                           run_name="__main__")
+            got = {fn.__name__: fn.launches for fn in counted if fn.launches}
+            for k, n in got.items():
+                launches[k] = launches.get(k, 0) + n
+            say(f"[examples] {' '.join((name, *args))} on {card}: "
+                f"{time.perf_counter() - t0:.1f} s, kernel launches {got}")
+    finally:
+        sys.argv = argv
+        shutil.rmtree(ROOT / "build" / "chip_smoke_train_lm",
+                      ignore_errors=True)
+    for k in ("paged_segment_attention", "paged_decode_attention",
+              "flash_attention_fwd_lse", "flash_attention_dq",
+              "flash_attention_dkv"):
+        if not launches.get(k):
+            fail(f"[examples] {k} was not launched by the examples")
+    return launches
+
+
+def phase_tooling(dev, card) -> dict:
+    """Phase 17; returns the kernel launches of its steps and examples."""
+    t0 = time.perf_counter()
+    phase_cases(card)
+    t_a = time.perf_counter() - t0
+    launches = phase_tune(dev, card)
+    t1 = time.perf_counter()
+    for k, n in phase_examples(dev, card).items():
+        launches[k] = launches.get(k, 0) + n
+    say(f"[times] phase 17: 17a {t_a:.1f} s, 17d "
+        f"{time.perf_counter() - t1:.1f} s, all {time.perf_counter() - t0:.1f}"
+        " s")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -6599,6 +6746,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     count(phase_dp(dev, card))
     mark("16, data-parallel training")
+    gc.collect()
+    torch.cuda.empty_cache()
+    count(phase_tooling(dev, card))
+    mark("17, tooling")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,

@@ -9,6 +9,8 @@ Public API:
   * ``sensors`` — performance sensors for the framework's own PerfConfs.
   * ``telemetry`` — metrics, Chrome-trace spans, the flight recorder and
     the controllers' decision audit.
+  * ``simenv`` — deterministic replicas of the paper's six case studies;
+    ``ablations`` — the two worse controller designs of §6.4.
 """
 
 from .controller import (
@@ -46,6 +48,7 @@ from .sensors import (
     ThroughputSensor,
     device_live_bytes,
 )
+from . import ablations, simenv
 
 __all__ = [
     "ControllerModel", "GoalSpec", "SmartController",
@@ -57,4 +60,5 @@ __all__ = [
     "Telemetry", "Tracer",
     "HBMAccountant", "LatencySensor", "QueueGauge", "StepTimer",
     "ThroughputSensor", "device_live_bytes",
+    "ablations", "simenv",
 ]

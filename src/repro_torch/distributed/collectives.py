@@ -108,7 +108,8 @@ def reduce_f32_buckets(tensors: list, mesh, axes) -> list:
     """Each tensor cast to f32 and summed over ``axes``, a few flat
     buckets to a collective: new f32 tensors of the inputs' shapes, each
     an allocation of its own (so a reduction over one runs as over any
-    fresh tensor), on the inputs' device."""
+    fresh tensor), on the inputs' device.  On ``meta`` (the dry-run) the
+    sum carries nothing."""
     group = mesh.axis_size(axes) > 1
     out: list = [None] * len(tensors)
     for run in _buckets([t.numel() * 4 for t in tensors], BUCKET_BYTES):
@@ -120,7 +121,7 @@ def reduce_f32_buckets(tensors: list, mesh, axes) -> list:
             n = tensors[i].numel()
             flat[off:off + n].copy_(tensors[i].reshape(-1))
             off += n
-        if group:
+        if group and not flat.is_meta:
             h = _host(flat)
             dist.all_reduce(h, group=mesh.group(axes))
             flat = h.to(dev)
@@ -138,7 +139,8 @@ def gather_leaves(tree, placement):
     :class:`~repro_torch.distributed.sharding.Placement`): every sharded
     leaf's slices all-gathered along its sharded dim, as bytes, in flat
     buckets of at most :data:`BUCKET_BYTES` a rank.  A leaf may be split on
-    one dim only; unsplit leaves come back as they are."""
+    one dim only; unsplit leaves come back as they are.  On ``meta`` (the
+    dry-run) each full leaf is made in one piece, without the bucket."""
     keys, leaves = zip(*keyed_leaves(tree))
     specs = dict(keyed_specs(placement.specs))
     todo: dict[tuple, list[int]] = {}
@@ -159,6 +161,12 @@ def gather_leaves(tree, placement):
         sizes = [leaves[i].numel() * leaves[i].element_size() for i in idx]
         for run in _buckets(sizes, BUCKET_BYTES):
             dev = leaves[idx[run[0]]].device
+            if dev.type == "meta":
+                # the dry-run: nothing to carry, the full leaves' shapes
+                for j in run:
+                    i = idx[j]
+                    full[i] = torch.cat([leaves[i]] * n, dim=where[i][0])
+                continue
             flat = torch.cat([leaves[idx[j]].contiguous().reshape(-1)
                               .view(torch.uint8) for j in run])
             h = _host(flat)

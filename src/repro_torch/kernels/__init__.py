@@ -4,7 +4,15 @@ package, each beside the plain PyTorch version of the same function.
 Dispatch is by the tensors' device alone (:func:`use_plain`):
 
   * tensors on the CPU run the plain PyTorch version (``ref.py``);
-  * tensors on a CUDA device launch the kernel, or raise.
+  * tensors on a CUDA device launch the kernel, or raise;
+  * tensors all on ``meta`` (:func:`on_meta`; what the dry-run's step
+    runs on) go to the flash attention and dense decode wrappers, which
+    launch nothing: they return ``meta`` outputs of the kernel's shapes
+    and charge the kernel's count to :mod:`repro_torch.roofline.op_cost`.
+    Every other kernel raises there (its dispatch through
+    :func:`use_plain`, its wrapper naming itself).  The plain version
+    never runs on ``meta``: it would allocate what the kernel does not
+    (the flash forward's ``[B, H, S, S]`` scores).
 
 There is no environment variable that picks an implementation and no
 fallback: a kernel that fails to build or launch is an error.  Each family
@@ -18,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["HEAD_DIMS", "KERNEL_DTYPES", "check_operand", "use_plain"]
+__all__ = ["HEAD_DIMS", "KERNEL_DTYPES", "check_operand", "on_meta",
+           "use_plain"]
 
 # head dims the kernels are instantiated for: 16 = reduced() configs,
 # 64 = rwkv6, 120 = h2o-danube-3-4b, 128 = yi-6b and most GQA archs,
@@ -66,3 +75,9 @@ def use_plain(*tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return False
     raise ValueError(f"no kernel or plain version for device {dev}")
+
+
+def on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on ``meta``: a reckoning, which the
+    flash and dense decode wrappers take without launching."""
+    return all(t.device.type == "meta" for t in tensors)

@@ -34,6 +34,8 @@ import functools
 
 import torch
 
+from repro_torch.roofline import op_cost
+from repro_torch.roofline.analysis import HW
 from repro_torch.kernels import (HEAD_DIMS, KERNEL_DTYPES, _build,
                                  check_operand)
 
@@ -165,9 +167,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      split_groups: int | None = None) -> torch.Tensor:
     """q: [B, H, D]; k, v: [B, Kv, S, D] (strided, D contiguous); k_pos:
     [B, S] int32; q_pos: [B] int32 -> [B, H, D] in q's dtype.  CUDA tensors
-    only.  ``split_groups``: see :func:`launch_plan`."""
+    only, or ``meta``: then the output and the split scratch are allocated
+    on ``meta`` for an H100's SMs, nothing launches or counts a launch, and
+    the kernel is charged :func:`~repro_torch.roofline.op_cost.dense_count`
+    with every key of the window admitted (positions are data).
+    ``split_groups``: see :func:`launch_plan`."""
     dev = q.device
-    if dev.type != "cuda":
+    meta = dev.type == "meta"
+    if dev.type != "cuda" and not meta:
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got "
                          f"{dev}")
     if q.dtype not in KERNEL_DTYPES:
@@ -199,7 +206,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     # raises where no tile fits, before anything is allocated
     plan = launch_plan(b, h, kv, s, d, q.element_size(),
-                       sm_count(dev.index), split_groups)
+                       HW["sms"] if meta else sm_count(dev.index),
+                       split_groups)
     out = torch.empty_like(q)
     if b == 0 or s == 0:
         return out.zero_()
@@ -208,6 +216,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # (m, l) [B, Kv, n_split, G, 2]
     parts = b * kv * n_split * g
     scratch = torch.empty(parts * (d + 2), dtype=torch.float32, device=dev)
+    if meta:
+        adm = b * (min(s, window) if window > 0 else s)
+        op_cost.charge("decode_attention", *op_cost.dense_count(
+            b, h, kv, d, s, q.element_size(), adm, b))
+        return out
     o_part = scratch.data_ptr()
     ml_part = o_part + 4 * parts * d
     sb, sh, ss, _ = k.stride()

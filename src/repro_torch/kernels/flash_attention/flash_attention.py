@@ -22,7 +22,11 @@ kernel.  Neither falls back to the other.
 Each wrapper checks device, dtype, shape, contiguity and alignment,
 launches on the current stream, raises if the launch failed, and counts
 its launches in ``<wrapper>.launches`` and, by route, in
-``<wrapper>.route_launches``.  The plain versions are
+``<wrapper>.route_launches``.  Given ``meta`` tensors it launches nothing
+and counts no launch: it returns ``meta`` outputs (the ones the kernel
+allocates) and charges the kernel's count
+(:func:`~repro_torch.roofline.op_cost.flash_count`) to the running
+:class:`~repro_torch.roofline.op_cost.OpCost`.  The plain versions are
 :func:`~repro_torch.kernels.flash_attention.ref.attention_ref` and
 :func:`~repro_torch.kernels.flash_attention.ref.attention_lse_ref`.
 """
@@ -36,6 +40,7 @@ import torch
 
 from repro_torch.kernels import (HEAD_DIMS, KERNEL_DTYPES, _build,
                                  check_operand)
+from repro_torch.roofline import op_cost
 
 from .ref import check_lengths
 
@@ -83,10 +88,11 @@ def _launcher():
 def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool, window: int) -> None:
     """Raise unless q [B,H,Sq,D] and k, v [B,Kv,Sk,D] are contiguous CUDA
-    tensors of one kernel dtype whose heads group evenly and whose head
-    dim has a kernel, with ``Sk == Sq`` unless the call has no mask."""
+    (or ``meta``) tensors of one kernel dtype whose heads group evenly and
+    whose head dim has a kernel, with ``Sk == Sq`` unless the call has no
+    mask."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash attention kernels need CUDA tensors, got "
                          f"{dev}")
     if q.dtype not in KERNEL_DTYPES:
@@ -108,10 +114,18 @@ def check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"batch {b} or heads {h} above the grid's 65535")
 
 
+def charge_meta(kernel: str, q, k, causal: bool, window: int) -> None:
+    """A ``meta`` call's stand-in for a launch: the kernel's count."""
+    b, h, s, d = q.shape
+    op_cost.charge(kernel, *op_cost.flash_count(
+        kernel, b, h, k.shape[1], s, d, causal, window, q.dtype,
+        k.shape[2]))
+
+
 def _forward(q, k, v, lse, causal: bool, window: int) -> torch.Tensor:
     out = torch.empty_like(q)
     b, h, s, d = q.shape
-    if out.numel() == 0:
+    if out.numel() == 0 or q.device.type == "meta":
         return out
     err = _launcher()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -134,10 +148,13 @@ def _count(wrapper, q) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B,H,Sq,D]; k,v: [B,Kv,Sk,D] -> o [B,H,Sq,D] in q's dtype.  CUDA
-    tensors only."""
+    (or meta) tensors only."""
     check_qkv(q, k, v, causal, window)
     out = _forward(q, k, v, None, causal, window)
-    _count(flash_attention, q)
+    if q.device.type == "meta":
+        charge_meta("flash_attention", q, k, causal, window)
+    else:
+        _count(flash_attention, q)
     return out
 
 
@@ -150,12 +167,15 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
                             window: int = 0
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """q: [B,H,Sq,D]; k,v: [B,Kv,Sk,D] -> (o [B,H,Sq,D] in q's dtype,
-    lse [B,H,Sq] f32).  CUDA tensors only."""
+    lse [B,H,Sq] f32).  CUDA (or meta) tensors only."""
     check_qkv(q, k, v, causal, window)
     b, h, s, _ = q.shape
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     out = _forward(q, k, v, lse, causal, window)
-    _count(flash_attention_fwd_lse, q)
+    if q.device.type == "meta":
+        charge_meta("flash_attention_fwd_lse", q, k, causal, window)
+    else:
+        _count(flash_attention_fwd_lse, q)
     return out, lse
 
 

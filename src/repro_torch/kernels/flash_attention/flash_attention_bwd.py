@@ -19,7 +19,9 @@ other.
 
 Each kernel wrapper checks its operands, launches on the current stream,
 raises if the launch failed, and counts its launches in
-``<wrapper>.launches`` and, by route, in ``<wrapper>.route_launches``.
+``<wrapper>.launches`` and, by route, in ``<wrapper>.route_launches``;
+on ``meta`` tensors it launches and counts nothing, returns its outputs'
+shapes and charges its count, as the forward's wrappers do.
 The plain version is
 :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`.
 """
@@ -33,8 +35,8 @@ import torch
 
 from repro_torch.kernels import KERNEL_DTYPES, _build, check_operand
 
-from .flash_attention import (ROUTES, TENSOR_CORE_HEAD_DIMS, check_qkv,
-                              library_route)
+from .flash_attention import (ROUTES, TENSOR_CORE_HEAD_DIMS, charge_meta,
+                              check_qkv, library_route)
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -91,10 +93,13 @@ def _args(q, k, causal, window):
 def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
                        window: int = 0) -> torch.Tensor:
     """q, do: [B,H,Sq,D]; k, v: [B,Kv,Sk,D]; lse, dsum: [B,H,Sq] f32 -> dq
-    [B,H,Sq,D] in q's dtype.  CUDA tensors only."""
+    [B,H,Sq,D] in q's dtype.  CUDA (or meta) tensors only."""
     _check_bwd(q, k, v, do, lse, dsum, causal, window)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
+        return dq
+    if q.device.type == "meta":
+        charge_meta("flash_attention_dq", q, k, causal, window)
         return dq
     err = _launchers()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
@@ -114,10 +119,14 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
                         window: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """As :func:`flash_attention_dq` -> (dk, dv [B,Kv,Sk,D]) in k's dtype,
-    each summed over its group of query heads.  CUDA tensors only."""
+    each summed over its group of query heads.  CUDA (or meta) tensors
+    only."""
     _check_bwd(q, k, v, do, lse, dsum, causal, window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
+        return dk, dv
+    if q.device.type == "meta":
+        charge_meta("flash_attention_dkv", q, k, causal, window)
         return dk, dv
     err = _launchers()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
@@ -138,7 +147,8 @@ flash_attention_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0):
     """q, o, do: [B,H,Sq,D]; k, v: [B,Kv,Sk,D]; lse: [B,H,Sq] f32 ->
-    (dq [B,H,Sq,D], dk [B,Kv,Sk,D], dv [B,Kv,Sk,D]).  CUDA tensors only."""
+    (dq [B,H,Sq,D], dk [B,Kv,Sk,D], dv [B,Kv,Sk,D]).  CUDA (or meta)
+    tensors only."""
     check_operand("o", o, dtype=q.dtype, ndim=4, device=q.device)
     dsum = (do.float() * o.float()).sum(dim=-1)
     dq = flash_attention_dq(q, k, v, do, lse, dsum, causal=causal,

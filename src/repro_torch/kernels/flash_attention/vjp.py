@@ -6,13 +6,14 @@ Forward saves ``q, k, v, o, lse``; backward makes ``dO`` contiguous (what
 autograd hands it may be a transposed view) and calls the backward
 kernels.  On CPU tensors the same Function runs the plain versions
 (:func:`~.ref.attention_lse_ref`, :func:`~.ref.attention_bwd_ref`), so the
-CPU tests exercise its wiring."""
+CPU tests exercise its wiring; on ``meta`` tensors it runs the kernels'
+reckoning (a dry-run)."""
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import use_plain
+from repro_torch.kernels import on_meta, use_plain
 
 from .flash_attention import flash_attention_fwd_lse
 from .flash_attention_bwd import flash_attention_bwd
@@ -25,7 +26,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        if use_plain(q, k, v):
+        if not on_meta(q, k, v) and use_plain(q, k, v):
             o, lse = attention_lse_ref(q, k, v, causal=causal, window=window)
         else:
             o, lse = flash_attention_fwd_lse(q, k, v, causal=causal,
@@ -38,7 +39,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        bwd = attention_bwd_ref if use_plain(q, do) else flash_attention_bwd
+        plain = not on_meta(q, do) and use_plain(q, do)
+        bwd = attention_bwd_ref if plain else flash_attention_bwd
         dq, dk, dv = bwd(q, k, v, o, lse, do, causal=ctx.causal,
                          window=ctx.window)
         return dq, dk, dv, None, None

@@ -13,6 +13,10 @@ and meets the others only in the collectives of
   ``d * M + m`` sits at ``(d, m)``.
 * :class:`MeshPool` / :func:`spawn_mesh` — start ``D * M`` ranks on a
   free localhost port and run functions on all of them.
+* :func:`make_production_mesh` — the reference's production meshes
+  (``(data=16, model=16)``, ``(pod=2, data=16, model=16)``) as
+  :class:`ShapeMesh`, shapes alone, for the dry-run's spec derivation:
+  no process group.
 
 The mesh is the port's own object and not ``init_device_mesh``: on CUDA
 that one reaches for NCCL, which refuses two ranks on one GPU, and the
@@ -33,7 +37,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-__all__ = ["ServeMesh", "make_host_mesh", "world", "MeshPool", "spawn_mesh"]
+__all__ = ["ServeMesh", "make_host_mesh", "world", "MeshPool", "spawn_mesh",
+           "ShapeMesh", "make_production_mesh"]
 
 AXES = ("data", "model")
 DEFAULT_TIMEOUT_S = 120.0
@@ -76,6 +81,51 @@ class ServeMesh:
         return (f"ServeMesh({self.shape['data']}x{self.shape['model']}, "
                 f"rank {self.rank} at data {self.data_index}, model "
                 f"{self.model_index})")
+
+
+class ShapeMesh:
+    """A mesh's shape alone: ``axis_names``, ``shape`` (axis -> size) and
+    ``size``, what the spec functions of
+    :mod:`repro_torch.distributed.sharding` read.  It also reads as rank
+    0's view of a ``(data, model)`` mesh without a process group (the
+    indices, :meth:`axis_size`, :meth:`group`), which is how the dry-run
+    runs the mesh train step on ``meta`` tensors: there the collectives
+    keep their outputs' shapes and carry nothing."""
+
+    data_index = model_index = 0
+
+    def __init__(self, sizes, names):
+        self.axis_names = tuple(names)
+        self.shape = dict(zip(self.axis_names, sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+    def axis_size(self, axes) -> int:
+        axes = (axes,) if isinstance(axes, str) else axes
+        n = 1
+        for a in axes:
+            n *= self.shape[a]
+        return n
+
+    def group(self, axes):
+        return None
+
+    def __repr__(self) -> str:
+        return f"ShapeMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ShapeMesh:
+    """Single pod: 256 chips as ``(data=16, model=16)``; two pods: 512 as
+    ``(pod=2, data=16, model=16)``, the pod axis carrying data
+    parallelism only."""
+    if multi_pod:
+        return ShapeMesh((2, 16, 16), ("pod", "data", "model"))
+    return ShapeMesh((16, 16), ("data", "model"))
 
 
 def world() -> tuple[int, int]:

@@ -1,0 +1,217 @@
+"""The port's dry-run (``repro_torch.launch.dryrun``) on reduced cells.
+
+* A reduced yi-6b train cell and decode cell (and a prefill cell) on a
+  ``1x1`` and a ``2x2`` stand-in mesh: each record is ``ok``, with the
+  reference's keys, and its argument bytes a rank equal the sum of the
+  sliced leaves, each cut by ``sharding.Placement.leaf_local`` at rank
+  0.
+* On ``1x1`` the counted product FLOPs against the reference's
+  ``hlo_cost.analyze_module(...)["flops"]`` of the same reduced cell,
+  computed in a subprocess (``tests/torch_jax_tooling.py``): within 25%;
+  decode equal; prefill equal once the flash kernel's causal skip is
+  added back (the reference's XLA attention multiplies every pair).  The
+  train cell's gap (the port's remat reruns each checkpointed layer's
+  products and the loss chunks' logits in the backward pass) is logged
+  in ROADMAP Queue 3.
+* The production meshes' shapes, the CLI's record path, and a cell that
+  cannot run on ``meta`` recorded ``ok: false`` with its op.
+"""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+import torch_jax_tooling as tooling
+from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import dryrun as dr
+from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
+from repro_torch.roofline import op_cost
+from repro_torch.train import train_step as ts
+
+CELLS = {name: ShapeConfig(name, s, b, kind)
+         for name, s, b, kind in tooling.FLOP_CELLS}
+MESHES = {"1x1": (1, 1), "2x2": (2, 2)}
+
+
+@pytest.fixture(scope="module")
+def jx(tmp_path_factory):
+    return tooling.run("hlo_flops", tmp_path_factory.mktemp("jax_flops"))
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return reduced(get_config("yi-6b"))
+
+
+def sliced_bytes(tree, specs, mesh) -> int:
+    place = shd.Placement(mesh, specs)
+    return sum(t.numel() * t.element_size() for t in
+               _leaves(place.map(place.leaf_local, tree)))
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k])
+    else:
+        for v in tree:
+            yield from _leaves(v)
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_cell_record_and_argument_bytes(cfg, cell, mesh_name, tmp_path):
+    shape, mesh = CELLS[cell], ShapeMesh(MESHES[mesh_name],
+                                         ("data", "model"))
+    rec = dr.run_cell("yi-6b", cell, mesh=mesh, shape=shape, cfg=cfg,
+                      out_dir=str(tmp_path))
+    assert rec["ok"], rec.get("traceback")
+    assert rec["mesh"] == mesh_name and rec["n_chips"] == mesh.size
+    assert rec["split"] == "ideal over model"
+    for key in ("flops_per_chip", "bytes_per_chip", "bytes_raw_per_chip",
+                "collectives", "collective_bytes_per_chip", "memory",
+                "roofline", "model_flops_global", "useful_flops_ratio"):
+        assert key in rec
+    assert (tmp_path / f"{mesh_name}__yi-6b__{cell}.json").exists()
+    # argument bytes a rank, against the leaves cut at rank 0 (a train
+    # cell's on the mesh the port trains it on: data ranks only)
+    train = shape.kind == "train"
+    fsdp = True if train else "residual"
+    if train:
+        mesh = ShapeMesh((mesh.shape["data"], 1), ("data", "model"))
+        assert rec["train_mesh"] == f"{mesh.shape['data']}x1"
+    with shd.use_mesh(mesh, fsdp=fsdp):
+        aparams, pspecs, aopt, ospecs = ts.state_shardings(
+            cfg, mesh, fsdp=fsdp, with_opt=train)
+        bspecs = ts.batch_pspecs(cfg, shape, mesh)
+    want = sliced_bytes(aparams, pspecs, mesh) + sliced_bytes(
+        dr.input_specs(cfg, shape), bspecs, mesh)
+    if train:
+        want += sliced_bytes(aopt.m, ospecs.m, mesh) + sliced_bytes(
+            aopt.v, ospecs.v, mesh)
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == want
+    assert mem["peak_bytes"] == mem["argument_bytes"] + mem["temp_bytes"]
+    assert mem["temp_bytes"] > 0
+    if mesh.shape["data"] > 1:
+        assert rec["rows_per_chip"] == shape.global_batch // 2
+    # the f32 gradient sum over data and FSDP's gathers on the train cell
+    coll = rec["collectives"]
+    if train and mesh.size > 1:
+        n_par = sum(t.numel() for t in _leaves(aparams))
+        assert coll["all-reduce"] == 4 * n_par
+    elif mesh.size == 1:
+        assert rec["collective_bytes_per_chip"] == 0
+
+
+def test_mesh_train_peak_holds_the_gather_and_the_f32_sum(cfg,
+                                                          monkeypatch):
+    """On a ``2x1`` mesh the reckoning runs the port's mesh train step on
+    rank 0's slices: its peak holds them, the parameters gathered whole
+    and the full gradients, and the sum's f32 copies come on top of the
+    one-device step's peak at the same rows.  (The FSDP threshold is cut
+    so that the reduced config's leaves are sliced at all.)"""
+    monkeypatch.setattr(shd, "FSDP_THRESHOLD", 1024)
+    shape = CELLS["train"]
+    r = dr.reckon(cfg, shape, ShapeMesh((2, 1), ("data", "model")))
+    half = ShapeConfig("t", shape.seq_len, shape.global_batch // 2, "train")
+    one = dr.reckon(cfg, half, ShapeMesh((1, 1), ("data", "model")))
+    assert r["rows"] == one["rows"] and r["train_mesh"] == "2x1"
+    with shd.use_mesh(ShapeMesh((2, 1), ("data", "model"))):
+        aparams, pspecs, _, _ = ts.state_shardings(cfg, ShapeMesh(
+            (2, 1), ("data", "model")), fsdp=True, with_opt=False)
+    sliced = [t for t, _ in dr._sliced_leaves(aparams, pspecs)]
+    assert sliced and r["collectives"]["count"] == len(sliced) + 1
+    n_par = sum(t.numel() for t in _leaves(aparams))
+    full = sum(t.numel() * t.element_size() for t in sliced)
+    assert r["argument_bytes"] < one["argument_bytes"]
+    assert r["peak_bytes"] >= r["argument_bytes"] + full + 4 * n_par
+    assert r["temp_bytes"] > one["temp_bytes"]
+
+
+def port_flops(cfg, cell):
+    mesh = ShapeMesh((1, 1), ("data", "model"))
+    return dr.reckon(cfg, CELLS[cell], mesh)["cost"]["flops"]
+
+
+@pytest.mark.parametrize("cell", list(CELLS))
+def test_flops_against_reference_hlo(jx, cfg, cell):
+    got, want = port_flops(cfg, cell), jx[cell]["flops"]
+    assert want > 0
+    assert abs(got - want) <= 0.25 * want, (got, want)
+
+
+def test_decode_flops_equal_reference(jx, cfg):
+    assert port_flops(cfg, "decode") == jx["decode"]["flops"]
+
+
+def test_prefill_gap_is_the_causal_skip(jx, cfg):
+    """The flash forward counts the causal pairs; the reference's XLA
+    attention multiplies all S x S: adding the difference back gives the
+    reference's count exactly."""
+    s, b = CELLS["prefill"].seq_len, CELLS["prefill"].global_batch
+    h, d = cfg.num_heads, cfg.resolved_head_dim
+    skipped = (2 * 2 * d * b * h * (s * s - op_cost.flash_pairs(s, True, 0))
+               * cfg.num_layers)
+    assert port_flops(cfg, "prefill") + skipped == jx["prefill"]["flops"]
+
+
+def test_production_meshes():
+    single, multi = make_production_mesh(), make_production_mesh(
+        multi_pod=True)
+    assert single.shape == {"data": 16, "model": 16} and single.size == 256
+    assert multi.axis_names == ("pod", "data", "model")
+    assert multi.size == 512
+    assert dr._mesh_name(single) == "pod16x16"
+    assert dr._mesh_name(multi) == "pod2x16x16"
+
+
+def test_full_size_train_cell_on_meta(tmp_path):
+    """yi-6b ``train_4k`` on ``pod16x16`` at full size: one rank's 16 rows
+    on meta in seconds, trained as the port trains it, on ``16x1``: its
+    arguments a little over 1/16 of the state (FSDP over data; the norms
+    stay whole), its peak over them by at least the gathered bf16
+    parameters and the f32 gradient sum."""
+    rec = dr.run_cell("yi-6b", "train_4k", out_dir=str(tmp_path))
+    assert rec["ok"], rec.get("traceback")
+    assert rec["rows_per_chip"] == 16
+    cfg = get_config("yi-6b")
+    state = cfg.param_count() * (2 + 8)          # bf16 params, f32 moments
+    mem = rec["memory"]
+    assert rec["train_mesh"] == "16x1"
+    assert state / 16 < mem["argument_bytes"] < 1.001 * state / 16
+    assert mem["temp_bytes"] > cfg.param_count() * (2 + 4)
+    assert 0.5 < rec["useful_flops_ratio"] <= 1.0
+    assert rec["roofline"]["dominant"] == "compute_s"
+    again = json.loads((tmp_path / "pod16x16__yi-6b__train_4k.json")
+                       .read_text())
+    assert again == rec
+
+
+def test_data_dependent_cell_is_recorded_with_its_op(cfg, tmp_path,
+                                                    monkeypatch):
+    def reads_back(*a, **k):
+        return torch.empty(3, device="meta").sum().item()
+    monkeypatch.setattr(ts, "make_serve_step", lambda cfg: reads_back)
+    rec = dr.run_cell("yi-6b", "decode", mesh=ShapeMesh((1, 1), (
+        "data", "model")), shape=CELLS["decode"], cfg=cfg,
+        out_dir=str(tmp_path))
+    assert rec["ok"] is False
+    assert rec["op"] == "aten._local_scalar_dense"
+    assert "DataDependentOp" in rec["error"] and rec["traceback"]
+
+
+def test_n_micro_keeps_arguments_and_flops(cfg):
+    mesh = ShapeMesh((1, 1), ("data", "model"))
+    shape = ShapeConfig("t", 64, 8, "train")
+    one = dr.reckon(cfg, shape, mesh)
+    four = dr.reckon(cfg, shape, mesh, n_micro=4)
+    assert one["argument_bytes"] == four["argument_bytes"]
+    assert np.isclose(one["cost"]["flops"], four["cost"]["flops"],
+                      rtol=1e-9)

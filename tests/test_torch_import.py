@@ -1,7 +1,8 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package ``repro`` or of
-``benchmarks`` (whose modules import JAX), and neither does
-``tests/torch_mesh_ranks.py``, which the mesh tests' ranks run.
+``benchmarks`` (whose modules import JAX), and neither do
+``tests/torch_mesh_ranks.py``, which the mesh tests' ranks run, and the
+port's runnable examples, ``examples/torch_*.py``.
 
 A fresh interpreter imports every module of the port and the smoke script
 and then looks at ``sys.modules``; an AST scan of the sources catches an
@@ -20,8 +21,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 # the mesh tests' ranks run torch_mesh_ranks, which must stand alone too
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "tests" / "torch_mesh_ranks.py"]
+SOURCES = (sorted(PORT.rglob("*.py"))
+           + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mesh_ranks.py"]
+           + sorted((ROOT / "examples").glob("torch_*.py")))
 
 _PROBE = """
 import importlib, json, pkgutil, sys
@@ -49,6 +51,9 @@ def test_importing_the_port_loads_no_jax():
     assert {"repro_torch.core.telemetry", "repro_torch.serve.traffic",
             "repro_torch.serve.chaos",
             "repro_torch.serve.router"} <= set(got["modules"])
+    assert {"repro_torch.core.simenv", "repro_torch.core.ablations",
+            "repro_torch.roofline.op_cost", "repro_torch.launch.dryrun",
+            "repro_torch.launch.autotune"} <= set(got["modules"])
     assert {"repro_torch.distributed.sharding",
             "repro_torch.distributed.collectives",
             "repro_torch.launch.mesh",
