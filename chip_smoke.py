@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tp-trace    # phases 1, 2 and 18's trace only
 
 Phases, in order; any failure exits non-zero and no phase's exception is
 caught:
@@ -348,8 +349,8 @@ caught:
                 with no card visible (host code: nothing touches the
                 device); (b) ``launch.dryrun`` reckons yi-6b ``train_4k``
                 on the 16 x 16 pod at full size on ``meta``, as a rank of
-                the port's ``16x1`` mesh train step, its record and wall
-                time printed; (c) the microbatch autotuner
+                the port's ``16x16`` tensor-parallel mesh train step, its
+                record and wall time printed; (c) the microbatch autotuner
                 (``launch.autotune``) on yi-6b at full width cut to 4
                 layers, batch 16 x 4096, one card: the budget between the
                 reckoned peaks at 1 and 16 microbatches, each probe and
@@ -360,14 +361,56 @@ caught:
                 ``examples/torch_*.py`` run in this process on the card at
                 their own sizes, their own asserts holding, their kernel
                 launches counted.
+ 18. tp       — tensor-parallel training over ``model`` on ranks that
+                share the card (one ``MeshPool`` of four,
+                ``train_step.make_mesh_train_step``, gloo): (a) the flash
+                forward with LSE, dQ and dK/dV on each of 2 head chunks
+                (a rank's query heads and the KV heads they read) equal
+                the full launch's slices bit for bit, at yi-6b's bf16
+                shape (the wgmma routes) and gemma3-4b's D 256 (the
+                CUDA-core routes); (b) yi-6b at full width cut to 2 of its
+                32 layers, f32 at 2 x 1024 under ``1x2`` and ``2x2``
+                (AdamW at eps 1, the CPU test's), every rank's loss, grad
+                norm and every leaf of its params and moments after one
+                step against one process's step on the whole batch (each
+                rank runs it in turn and keeps its slices): the loss
+                within 1e-5; the grad norm and each leaf within 1e-5, or
+                within 6x (the norm) and 3x (each leaf) its own reading
+                of two one-process steps on weights nudged at f32
+                rounding (at full width the step's own floor passes
+                1e-5; ``--tp-trace`` below says why a second order of
+                sums lands further); then bf16 at 1 x 4096 under
+                ``1x2``, its gaps
+                printed; each rank must launch the flash forward with LSE
+                2 x layers times and dQ and dK/dV layers times; the
+                step's ms with its all-reduces over ``model`` (ms, calls,
+                bytes), its gradient sum and gather over ``data``, its
+                peak, its launches by route (after a short warm-up step);
+                (c) the dry-run's reckoning of the bf16 ``1x2`` step
+                against rank 0's ``max_memory_allocated`` (within 20%,
+                asserted); (d) the bf16 ranks' gathered state, written by
+                rank 0, restored in one process bit for bit.
 
 Before the last line it prints a JSON object with every kernel's numbers
-(launches summed over the serving and training phases, 13, 14, 15's and
-16's ranks and 17's steps and examples included, each of which sets the counts it reads to 0 before
-it drives its path; for the flash forwards, dQ, dK/dV and dense decode also
-``cross_launches``, those of phase 14's cross-attention), then the
+(launches summed over the serving and training phases, 13, 14, 15's,
+16's and 18's ranks and 17's steps and examples included, each of which
+sets the counts it reads to 0 before it drives its path; for the flash
+forwards, dQ, dK/dV and dense decode also ``cross_launches``, those of
+phase 14's cross-attention; for the three flash training kernels also
+``tp_rank``, phase 18's bf16 ``1x2`` rank 0: its step ms, its
+all-reduces over ``model`` and the kernel's launches by route), then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
+
+``--tp-trace`` runs phases 1 and 2, then traces 18b's f32 cut and
+asserts nothing: on a ``1x2`` mesh at row 0, row 1 and both rows of
+18b's batch, the embedding's output, each layer's attention, MLP and
+block outputs and their gradients, every leaf gradient and the grad
+norm against one process's, each beside its floor (two nudged
+one-process runs); row 1 again in f64 on the host, one process and
+``1x2``, against which every f32 run is read; and the ``2x2`` step's
+gradients and norm as AdamW receives them.  It prints the card's line
+last.
 """
 
 from __future__ import annotations
@@ -439,7 +482,7 @@ from repro_torch.models import rglru as rglru_model  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv6_model  # noqa: E402
 from repro_torch.models.layers import apply_norm, project  # noqa: E402
 from repro_torch.models.bridge import (keyed_leaves,  # noqa: E402
-                                       tree_leaves, tree_map)
+                                       keyed_map, tree_leaves, tree_map)
 from repro_torch.optim import accum, adamw  # noqa: E402
 from repro_torch.roofline.analysis import HW  # noqa: E402
 from repro_torch.roofline.op_cost import (  # noqa: E402
@@ -6424,6 +6467,789 @@ def phase_dp(dev, card) -> dict:
     return launches
 
 
+# ------------------------------ phase 18: tensor-parallel training
+# yi-6b at full width cut to TP_LAYERS of its 32 layers (phase 16's cut:
+# gloo stages every sum through the host), ranks of one MeshPool of
+# TP_POOL sharing the card.  18b: f32 at TP_F32_ROWS x TP_F32_SEQ under
+# each of TP_F32_MESHES, held to one process with the CPU test's bounds
+# (tests/test_torch_tp_train.py); bf16 at TP_BF16_ROWS x TP_BF16_SEQ
+# under 1x2, its gaps printed.  18a: the three flash training kernels
+# on each of TP_KERNEL_M head chunks at yi-6b's bf16 shape (the wgmma
+# routes) and gemma3-4b's D 256 (the CUDA-core routes)
+TP_POOL = (2, 2)
+TP_LAYERS = 2
+TP_F32_ROWS, TP_F32_SEQ, TP_F32_MESHES = 2, 1024, ((1, 2), (2, 2))
+TP_BF16_ROWS, TP_BF16_SEQ = 1, 4096
+TP_KERNEL_M = 2
+TP_REL = 1e-5           # loss, grad norm and each leaf, relative
+TP_NUDGE_SEEDS = (29, 30)
+# Past TP_REL the grad norm and each leaf may be these many times their
+# own reading of two nudged one-process steps (the loss may not).  At
+# full width the step's own f32 floor passes 1e-5 (the grad norm's,
+# 1.6e-5), and the nudged steps keep one process's order of sums, and so
+# the part of its rounding that order fixes: `python3 chip_smoke.py
+# --tp-trace` shows the decomposition exact in f64 (5.7e-12) and, against
+# that f64 step, the tensor-parallel f32 step nearer than one process's
+# at every traced tensor (row 1's grad norm +5.7e-5 against -1.18e-4).
+# The multiples are the sound runs' largest readings rounded up: 2x2's
+# grad norm 5.65x, its worst leaf (``m['embed']``) 2.84x
+TP_NORM_TIMES = 6
+TP_LEAF_TIMES = 3
+# the warm-up step's tokens (a fresh rank's first products load cuBLAS
+# and the kernels)
+TP_WARM_SEQ = 128
+
+
+def tp_kernel_case(dev, b, h, kv, s, d, window=0):
+    gen = torch.Generator(device=dev).manual_seed(18)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf)
+    return dict(q=rnd(b, h, s, d), k=rnd(b, kv, s, d), v=rnd(b, kv, s, d),
+                do=rnd(b, h, s, d), window=window)
+
+
+def phase_tp_kernels(dev, card) -> None:
+    """18a: ``flash_attention_fwd_lse``, ``flash_attention_dq`` and
+    ``flash_attention_dkv`` on head chunk r of TP_KERNEL_M (query heads
+    and the KV heads they read, a rank's share when ``model`` splits
+    both) against the full launch's same heads, bit for bit.  Comparison
+    launches: not counted."""
+    cases = {"yi-6b bf16 D 128": tp_kernel_case(dev, 1, 32, 4,
+                                                TP_BF16_SEQ, 128),
+             "gemma3-4b bf16 D 256": tp_kernel_case(dev, 1, 8, 4, 2048,
+                                                    256, window=1024)}
+    for name, x in cases.items():
+        q, k, v, do, w = x["q"], x["k"], x["v"], x["do"], x["window"]
+        o, lse = flash_attention_fwd_lse(q, k, v, causal=True, window=w)
+        dsum = (do.float() * o.float()).sum(dim=-1)
+        dq = flash_attention_dq(q, k, v, do, lse, dsum, causal=True,
+                                window=w)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, dsum, causal=True,
+                                     window=w)
+        routes = (fwd_route(q.dtype, q.shape[-1]),
+                  bwd_route(q.dtype, q.shape[-1]))
+        for r in range(TP_KERNEL_M):
+            hq, hk = q.shape[1] // TP_KERNEL_M, k.shape[1] // TP_KERNEL_M
+
+            def qs(t):
+                return t.narrow(1, r * hq, hq).contiguous()
+
+            def ks(t):
+                return t.narrow(1, r * hk, hk).contiguous()
+            o_r, lse_r = flash_attention_fwd_lse(qs(q), ks(k), ks(v),
+                                                 causal=True, window=w)
+            dq_r = flash_attention_dq(qs(q), ks(k), ks(v), qs(do), qs(lse),
+                                      qs(dsum), causal=True, window=w)
+            dk_r, dv_r = flash_attention_dkv(qs(q), ks(k), ks(v), qs(do),
+                                             qs(lse), qs(dsum), causal=True,
+                                             window=w)
+            for what, got, want in (("o", o_r, qs(o)), ("lse", lse_r,
+                                                        qs(lse)),
+                                    ("dq", dq_r, qs(dq)), ("dk", dk_r,
+                                                           ks(dk)),
+                                    ("dv", dv_r, ks(dv))):
+                if not torch.equal(got, want):
+                    fail(f"18a {name}: head chunk {r} of {TP_KERNEL_M}: "
+                         f"{what} differs from the full launch's by "
+                         f"{(got.float() - want.float()).abs().max():.3e}")
+        torch.cuda.synchronize(dev)
+        say(f"[tp] 18a {name} on {card}: {TP_KERNEL_M} head chunks of "
+            f"{q.shape[1] // TP_KERNEL_M}/{k.shape[1] // TP_KERNEL_M} heads"
+            f" at S {q.shape[2]} (forward route {routes[0]}, backward "
+            f"{routes[1]}): o, lse, dq, dk and dv equal the full launch's "
+            "slices bit for bit")
+        del x, q, k, v, do, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+
+
+def tp_mesh(data: int, model: int):
+    """This rank's ``data x model`` mesh, or None on a rank of the pool
+    past it (every rank builds the mesh's groups)."""
+    try:
+        return make_host_mesh(data=data, model=model)
+    except ValueError:
+        return None
+
+
+def tp_batch(vocab: int, rows: int, seq: int) -> dict:
+    rng = np.random.default_rng(18)
+    return {n: rng.integers(0, vocab, (rows, seq)).astype(np.int32)
+            for n in ("tokens", "labels")}
+
+
+def tp_opt() -> adamw.AdamWConfig:
+    """The CPU test's AdamW (``tests/torch_jax_side.py::DP_OPT``): eps 1,
+    so a parameter's step reads its gradient (at 1e-8 it is lr x the
+    gradient's sign, which a last-bit change can flip)."""
+    return adamw.AdamWConfig(warmup_steps=1, total_steps=10, eps=1.0)
+
+
+def one_step(dev, cfg, batch, n_micro: int, nudge=None):
+    """One ``make_train_step`` step in this process on the whole batch,
+    seed-0 weights drawn on the card (nudged at f32 rounding from the
+    seed ``nudge``): its ``{"params", "opt"}`` state and metrics."""
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    if nudge is not None:
+        params = nudged(dev, params, nudge)
+    state = adamw.init(params)
+    params, state, m = train_step.make_train_step(
+        cfg, tp_opt(), n_micro=n_micro)(params, state, {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    return {"params": params, "opt": state}, {k: float(v)
+                                              for k, v in m.items()}
+
+
+def tp_gaps(mine: dict, ref: dict, group) -> dict:
+    """Each leaf's max |mine - ref| over max |ref|, both maxima taken over
+    the whole leaf (a MAX all-reduce of every rank's slice's)."""
+    keys = sorted(mine)
+    with torch.no_grad():
+        # (the AdamW step counter lives on the host)
+        num = torch.stack([(mine[k].float() - ref[k].float()).abs().max()
+                           .cpu() for k in keys])
+        den = torch.stack([ref[k].float().abs().max().cpu() for k in keys])
+    both = torch.stack([num, den])
+    torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX,
+                                 group=group)
+    return {k: float(both[0, i] / both[1, i].clamp_min(1e-30))
+            for i, k in enumerate(keys)}
+
+
+def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
+            ckpt_dir=None, device: str = "cuda") -> dict | None:
+    """One rank of 18b: this rank's slices of seed-0 weights drawn on the
+    card under ``make_mesh_train_step``'s placement, its rows of
+    ``batch``; one step, timed with its all-reduces over ``model`` (ms,
+    bytes, calls) and over ``data``, its peak and flash launches by route
+    (counts set to 0 just before it; a forward and backward of
+    TP_WARM_SEQ tokens before it warms the rank).  With ``ckpt_dir`` the gathered
+    state is written there by rank 0 (18d; its fingerprints returned).
+    Then, one rank after another, one process's step on the whole batch
+    at ``data`` microbatches, cut to this rank's slices: every leaf's gap
+    (over the whole leaf), and with ``floor`` each leaf's largest gap of
+    two nudged one-process steps (its f32 noise floor)."""
+    dev = torch.device(device)
+    mesh = tp_mesh(data, model)
+    if mesh is None:
+        return None
+    group = mesh.group(("data", "model"))
+    held = torch.cuda.memory_allocated(dev)
+    step = train_step.make_mesh_train_step(cfg, tp_opt(), mesh)
+    pl = step.placement
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    mine = pl.local({"params": params})["params"]
+    del params
+    state = adamw.init(mine)
+    rows = train_step.local_rows({k: torch.from_numpy(v).to(dev)
+                                  for k, v in batch.items()}, mesh)
+    warm = {k: v[:1, :TP_WARM_SEQ] for k, v in rows.items()}
+    accum.value_and_grad(lambda p, b: zoo.loss_fn(cfg, p, b, tp=step.tp),
+                         pl.gather({"params": mine}, axes=("data",))[
+                             "params"], warm)
+    del warm
+    step.tp.calls = step.tp.bytes = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    spent = {"model": 0.0, "data": 0.0, "gather": 0.0}
+    real = (collectives.ModelParallel.all_reduce,
+            collectives.reduce_f32_buckets, collectives.gather_leaves)
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            got = fn(*a, **kw)
+            torch.cuda.synchronize(dev)
+            spent[name] += time.perf_counter() - t0
+            return got
+        return run
+
+    collectives.ModelParallel.all_reduce = timed("model", real[0])
+    collectives.reduce_f32_buckets = timed("data", real[1])
+    collectives.gather_leaves = timed("gather", real[2])
+    try:
+        reset_counts(DP_KERNELS)
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        mine, state, m = step(mine, state, rows)
+        metrics = {k: float(v) for k, v in m.items()}     # waits
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        collectives.ModelParallel.all_reduce = real[0]
+        collectives.reduce_f32_buckets = real[1]
+        collectives.gather_leaves = real[2]
+    out = dict(rank=mesh.rank, metrics=metrics, step_ms=step_ms,
+               model_ms=spent["model"] * 1e3, data_ms=spent["data"] * 1e3,
+               gather_ms=spent["gather"] * 1e3,
+               model_bytes=step.tp.bytes, model_calls=step.tp.calls,
+               peak_gb=(torch.cuda.max_memory_allocated(dev) - held) / 1e9,
+               launches={k.__name__: k.launches for k in DP_KERNELS},
+               routes={k.__name__: dict(k.route_launches)
+                       for k in DP_KERNELS},
+               partial=sorted(pl.partial), split=step.tp.split)
+    tree = {"params": mine, "opt": state}
+    if ckpt_dir is not None:
+        full = pl.gather(tree)
+        if mesh.rank == 0:
+            t1 = time.perf_counter()
+            checkpoint_save(ckpt_dir, 1, full)
+            out["write_s"] = time.perf_counter() - t1
+            out["gathered"] = fingerprints(full)
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+    mine_k = dict(keyed_leaves(tree))
+    # the step's cached blocks back to the card: the ranks take turns at
+    # a one-process step of their own below
+    gc.collect()
+    torch.cuda.empty_cache()
+    refs = [None] + (list(TP_NUDGE_SEEDS) if floor else [])
+    leaf_floor: dict = {}
+    floor_m = {"loss": 0.0, "grad_norm": 0.0}
+    ref = None
+    for nudge in refs:
+        got = None
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                full, ref_m = one_step(dev, cfg, batch, data, nudge)
+                got = {k: v.clone() for k, v in keyed_leaves(
+                    pl.map(pl.leaf_local, full))}
+                del full
+                gc.collect()
+                torch.cuda.empty_cache()
+            torch.distributed.barrier(group=group)
+        if nudge is None:
+            ref, out["one_metrics"] = got, ref_m
+            out["gaps"] = tp_gaps(mine_k, ref, group)
+        else:
+            for k, v in tp_gaps(got, ref, group).items():
+                leaf_floor[k] = max(leaf_floor.get(k, 0.0), v)
+            # every rank ran the same nudged step: its metrics are local
+            for k in floor_m:
+                one_k = out["one_metrics"][k]
+                floor_m[k] = max(floor_m[k], abs(ref_m[k] - one_k)
+                                 / abs(one_k))
+        del got
+    out["floor"] = leaf_floor if floor else None
+    out["floor_metrics"] = floor_m if floor else None
+    del mine, state, rows, step, tree, mine_k, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_run(pool, dev, card, tag: str, cfg, rows: int, seq: int, data: int,
+           model: int, f32: bool, ckpt_dir=None) -> dict:
+    """One 18b run; returns rank 0's numbers and the ranks' launches."""
+    batch = tp_batch(cfg.vocab_size, rows, seq)
+    t0 = time.perf_counter()
+    ranks = [r for r in pool.run(tp_rank, cfg, batch, data, model, f32,
+                                 ckpt_dir, dev.type) if r is not None]
+    wall = time.perf_counter() - t0
+    r0 = ranks[0]
+    one_m = r0["one_metrics"]
+    gaps, floors = r0["gaps"], r0["floor"]
+    worst = max(gaps, key=gaps.get)
+    wide = {k: v for k, v in gaps.items() if v > TP_REL}
+    say(f"[tp] 18b {tag} {data}x{model} on {card}: {len(ranks)} ranks, "
+        f"{wall:.1f} s; split over model {r0['split']}, partial leaves "
+        f"{len(r0['partial'])}")
+    loss_gap = abs(r0["metrics"]["loss"] - one_m["loss"]) / one_m["loss"]
+    norm_gap = (abs(r0["metrics"]["grad_norm"] - one_m["grad_norm"])
+                / one_m["grad_norm"])
+    say(f"[tp] 18b {tag} {data}x{model}: loss {r0['metrics']['loss']:.6f} "
+        f"against one process's {one_m['loss']:.6f} (gap {loss_gap:.3e}), "
+        f"grad norm {r0['metrics']['grad_norm']:.6f} against "
+        f"{one_m['grad_norm']:.6f} (gap {norm_gap:.3e}); worst leaf {worst}"
+        f" {gaps[worst]:.3e} of its largest |value|, {len(wide)} of "
+        f"{len(gaps)} leaves past {TP_REL}")
+    for r in ranks:
+        say(f"[tp] 18b {tag} {data}x{model} rank {r['rank']}: step "
+            f"{r['step_ms']:.1f} ms (all-reduces over model "
+            f"{r['model_ms']:.1f} ms, {r['model_calls']} calls, "
+            f"{r['model_bytes'] / 1e6:.1f} MB; gradient sum over data "
+            f"{r['data_ms']:.1f} ms, gather over data {r['gather_ms']:.1f} "
+            f"ms); max_memory_allocated "
+            f"{r['peak_gb']:.3f} GB; flash launches {r['launches']}, by "
+            f"route {r['routes']}")
+        want = {"flash_attention_fwd_lse": 2 * cfg.num_layers,
+                "flash_attention_dq": cfg.num_layers,
+                "flash_attention_dkv": cfg.num_layers}
+        if r["launches"] != want:
+            fail(f"18b {tag}: rank {r['rank']} launched {r['launches']}, "
+                 f"expected {want}")
+        if r["metrics"] != r0["metrics"]:
+            fail(f"18b {tag}: rank {r['rank']}'s metrics differ from rank "
+                 "0's")
+    if f32:
+        fm = r0["floor_metrics"]
+        ratio = {k: gaps[k] / max(floors[k], 1e-30) for k in wide}
+        top = sorted(ratio, key=ratio.get, reverse=True)[:3]
+        say(f"[tp] 18b {tag} {data}x{model}: the nudged steps move the loss"
+            f" by {fm['loss']:.3e} and the grad norm by "
+            f"{fm['grad_norm']:.3e} of one process's (the grad norm's gap "
+            f"{norm_gap / fm['grad_norm']:.2f}x that); the leaves past "
+            f"{TP_REL} against their own floors, the worst: " + ", ".join(
+                f"{k} {gaps[k]:.3e} / {floors[k]:.3e} = {ratio[k]:.2f}x"
+                for k in top))
+        if loss_gap > TP_REL:
+            fail(f"18b {tag} {data}x{model}: the loss is {loss_gap:.3e} "
+                 f"from one process's, past {TP_REL}")
+        if norm_gap > max(TP_REL, TP_NORM_TIMES * fm["grad_norm"]):
+            fail(f"18b {tag} {data}x{model}: the grad norm is "
+                 f"{norm_gap:.3e} from one process's, past {TP_REL} and "
+                 f"{TP_NORM_TIMES} x its f32 noise floor "
+                 f"{fm['grad_norm']:.3e}")
+        for k in wide:
+            if gaps[k] > TP_LEAF_TIMES * floors[k]:
+                fail(f"18b {tag} {data}x{model}: {k} is {gaps[k]:.3e} from "
+                     f"one process's, past {TP_REL} and {TP_LEAF_TIMES} x "
+                     f"its own f32 noise floor {floors[k]:.3e}")
+    launches: dict = {}
+    for r in ranks:
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return dict(r0=r0, launches=launches)
+
+
+def phase_tp(dev, card) -> dict:
+    """Phase 18; returns the flash launches of the ranks and rank 0's
+    numbers of the bf16 run."""
+    t0 = time.perf_counter()
+    phase_tp_kernels(dev, card)
+    t_a = time.perf_counter() - t0
+    launches: dict = {}
+    ckpt_dir = str(ROOT / "build" / "chip_smoke_tp")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    f32 = mesh_cfg("yi-6b", TP_LAYERS, "float32")
+    bf16 = mesh_cfg("yi-6b", TP_LAYERS, "bfloat16")
+    times = {}
+    with MeshPool(*TP_POOL, device="cuda", timeout_s=300.0) as pool:
+        for data, model in TP_F32_MESHES:
+            t1 = time.perf_counter()
+            got = tp_run(pool, dev, card, "f32", f32, TP_F32_ROWS,
+                         TP_F32_SEQ, data, model, True)
+            times[f"f32 {data}x{model}"] = time.perf_counter() - t1
+            for k, v in got["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        t1 = time.perf_counter()
+        got = tp_run(pool, dev, card, "bf16", bf16, TP_BF16_ROWS,
+                     TP_BF16_SEQ, 1, 2, False, ckpt_dir)
+        times["bf16 1x2, 18d's write"] = time.perf_counter() - t1
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    r0 = got["r0"]
+    t1 = time.perf_counter()
+    dry = dryrun.reckon(bf16, ShapeConfig("tp", TP_BF16_SEQ, TP_BF16_ROWS,
+                                          "train"),
+                        ShapeMesh((1, 2), ("data", "model")))
+    gb = dry["peak_bytes"] / 1e9
+    gap = (gb - r0["peak_gb"]) / r0["peak_gb"]
+    say(f"[tp] 18c bf16 1x2 on {card}: the dry-run reckons a rank's peak "
+        f"at {gb:.3f} GB (the {dry['train_mesh']} mesh train step on "
+        f"meta, {dry['split']}; its all-reduces, at one data rank the "
+        f"sums over model alone, "
+        f"{dry['collectives']['all-reduce'] / 1e6:.1f} MB against the "
+        f"rank's {r0['model_bytes'] / 1e6:.1f} MB); against rank 0's "
+        f"max_memory_allocated {r0['peak_gb']:.3f} GB: {gap:+.2%}")
+    if abs(gap) > RECKON_LIMIT:
+        fail(f"18c: the dry-run's reckoning misses rank 0's peak by "
+             f"{gap:+.2%} (limit {RECKON_LIMIT:.0%})")
+    times["18c"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    like = adamw_tree(bf16, dev)
+    tree, _, step = checkpoint_restore(ckpt_dir, None, like)
+    back = fingerprints(tree)
+    same = [k for k, v in r0["gathered"].items() if back.get(k) == v]
+    say(f"[tp] 18d on {card}: the 1x2 ranks' checkpoint (written in "
+        f"{r0['write_s']:.1f} s by rank 0) restored in one process: "
+        f"{len(same)}/{len(back)} leaves of params and moments equal the "
+        "ranks' gathered state bit for bit")
+    del tree, like
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if step != 1 or len(same) != len(back) or set(back) != set(
+            r0["gathered"]):
+        fail("18d: the restored state differs from the ranks'")
+    times["18d's restore"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[times] phase 18: 18a {t_a:.1f} s, "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
+        + f", all {time.perf_counter() - t0:.1f} s")
+    say(f"[tp] kernel launches of the ranks {launches}")
+    tp_line = {"step_ms": r0["step_ms"], "model_all_reduce_ms": r0["model_ms"],
+               "model_all_reduce_bytes": r0["model_bytes"],
+               "launches_by_route": r0["routes"],
+               "mesh": "1x2", "dtype": "bfloat16",
+               "batch": [TP_BF16_ROWS, TP_BF16_SEQ], "layers": TP_LAYERS}
+    return dict(launches=launches, line=tp_line)
+
+
+# ---- phase 18's trace: python3 chip_smoke.py --tp-trace ------------------
+# Where an f32 tensor-parallel step leaves one process's: 18b's f32 cut on a
+# 1x2 mesh (each row alone is a 2x2 rank's microbatch, both rows 18b's 1x2
+# batch), the residual stream's recorded activations and gradients and the
+# leaves' gradients against one process's, each beside its floor: the
+# same process's readings on weights nudged at f32 rounding (TP_NUDGE_SEEDS)
+
+
+def traced_loss(cfg, params, batch, tp):
+    """``zoo.loss_fn`` (remat off: the same arithmetic) on ``batch`` with
+    the embedding's output and each layer's attention output, MLP output
+    and block output recorded, and in the backward pass the gradient of
+    each (``d`` before its name): ``(loss, {name: tensor}, names in the
+    forward's order, the leaves' gradients)``.  Under ``tp`` each is the
+    replicated tensor after its sum over ``model``."""
+    rec, order, layer = {}, [], [0]
+
+    def keep(name, t):
+        rec[name] = t.detach().clone()
+        order.append(name)
+        t.register_hook(lambda g: rec.__setitem__("d" + name,
+                                                  g.detach().clone()))
+        return t
+
+    real = (transformer._inputs_embeds, blocks.seq_attention,
+            blocks.layers.mlp, blocks.block_apply_seq)
+
+    def embeds(*a, **kw):
+        x, pos = real[0](*a, **kw)
+        return keep("embed", x), pos
+
+    def attn(*a, **kw):
+        return keep(f"L{layer[0]}.attn", real[1](*a, **kw))
+
+    def mlp(*a, **kw):
+        return keep(f"L{layer[0]}.mlp", real[2](*a, **kw))
+
+    def block(*a, **kw):
+        x, aux = real[3](*a, **kw)
+        keep(f"L{layer[0]}.out", x)
+        layer[0] += 1
+        return x, aux
+
+    transformer._inputs_embeds, blocks.seq_attention = embeds, attn
+    blocks.layers.mlp, blocks.block_apply_seq = mlp, block
+    try:
+        loss, _, grads = accum.value_and_grad(
+            lambda p, b: zoo.loss_fn(cfg, p, b, remat="none", tp=tp),
+            tree_map(torch.Tensor.detach, params), batch)
+    finally:
+        (transformer._inputs_embeds, blocks.seq_attention,
+         blocks.layers.mlp, blocks.block_apply_seq) = real
+    return float(loss), rec, order, grads
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def tp_trace_rank(cfg, batch: dict, device: str = "cuda") -> dict | None:
+    """One rank of ``--tp-trace``: for row 0, row 1 and both rows of
+    ``batch``, the tensor-parallel forward and backward on this rank's
+    slices and one process's on the whole weights (plain and nudged), all
+    by :func:`traced_loss`; returns each recorded tensor's gap and floor,
+    each leaf gradient's (a MAX all-reduce over the ranks' slices), the
+    loss and the grad norm of each run, and the same of the mean of the
+    two rows' gradients (one process's step at 2 microbatches, a 2x2
+    step's without its data axis)."""
+    from repro_torch.distributed import sharding as shd
+    dev = torch.device(device)
+    mesh = tp_mesh(1, 2)
+    if mesh is None:
+        return None
+    group = mesh.group(("data", "model"))
+    step = train_step.make_mesh_train_step(cfg, tp_opt(), mesh)
+    tp = step.tp
+    on_params = shd.Placement(mesh, step.placement.specs["params"])
+    full = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    mine = on_params.local(full)
+    rows = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    cases = {"row 0": slice(0, 1), "row 1": slice(1, 2),
+             "rows 0-1": slice(0, 2)}
+    runs = ["tp", "one"] + [f"nudge {n}" for n in TP_NUDGE_SEEDS]
+
+    def cut(grads):
+        return dict(keyed_leaves(on_params.map(on_params.leaf_local, grads)))
+
+    def norm(grads, whole: bool):
+        if whole:
+            return float(adamw.global_norm(grads))
+        return float(adamw.global_norm(grads, on_params, tp))
+
+    out, kept = {}, {}
+    for case, rs in cases.items():
+        b = {k: v[rs] for k, v in rows.items()}
+        got = {}
+        for run in runs:
+            if run == "tp":
+                loss, rec, order, g = traced_loss(cfg, mine, b, tp)
+                gn = {"placement": norm(g, False)}
+                g = dict(keyed_leaves(g))
+            else:
+                p = full if run == "one" else nudged(
+                    dev, full, int(run.split()[1]))
+                loss, rec, order, g = traced_loss(cfg, p, b, None)
+                del p
+                gn = {"whole": norm(g, True)}
+                g = cut(g)
+                gn["placement"] = norm(g_tree(g, mine), False)
+            got[run] = dict(loss=loss, rec=rec, grads=g, norm=gn)
+        one = got["one"]
+        names = order + ["d" + n for n in reversed(order)]
+        floors = [k for k in runs if k.startswith("nudge")]
+        tensors = [(n, rel_gap(got["tp"]["rec"][n], one["rec"][n]),
+                    max(rel_gap(got[k]["rec"][n], one["rec"][n])
+                        for k in floors)) for n in names]
+        leaves = tp_gaps(got["tp"]["grads"], one["grads"], group)
+        leaf_floor = {}
+        for k in floors:
+            for key, v in tp_gaps(got[k]["grads"], one["grads"],
+                                  group).items():
+                leaf_floor[key] = max(leaf_floor.get(key, 0.0), v)
+        out[case] = dict(
+            tensors=tensors,
+            leaves={k: (leaves[k], leaf_floor[k]) for k in leaves},
+            loss={k: got[k]["loss"] for k in runs},
+            norm={k: got[k]["norm"] for k in runs})
+        if case != "rows 0-1":       # on the host: the card is shared
+            kept[case] = {k: {key: t.cpu() for key, t in
+                              got[k]["grads"].items()} for k in runs}
+        if case == "row 1":
+            kept["row 1 records"] = {k: ({n: t.cpu() for n, t in
+                                          got[k]["rec"].items()},
+                                         got[k]["norm"]["placement"])
+                                     for k in runs}
+        del got
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    # the mean of the two rows' gradients, in f32 as the steps sum them
+    mean = {k: {key: (kept["row 0"][k][key].float()
+                      + kept["row 1"][k][key].float()) * 0.5
+                for key in kept["row 0"][k]} for k in runs}
+    floors = [k for k in runs if k.startswith("nudge")]
+    leaves = tp_gaps(mean["tp"], mean["one"], group)
+    leaf_floor = {key: max(tp_gaps(mean[k], mean["one"], group)[key]
+                           for k in floors) for key in leaves}
+    out["row 1 against f64"] = tp_truth(cfg, full, mine, {
+        k: v[1:2].cpu() for k, v in rows.items()}, kept, order, runs, tp,
+        on_params, mesh, group)
+    out["mean of rows 0 and 1"] = dict(
+        tensors=[], leaves={k: (leaves[k], leaf_floor[k]) for k in leaves},
+        loss={}, norm={k: {"placement": float(adamw.global_norm(
+            g_tree(mean[k], mine), on_params, tp))} for k in runs})
+    return out if mesh.rank == 0 else None
+
+
+@contextlib.contextmanager
+def in_f64():
+    """Every float the model computes in f64: the configs' f32 read as
+    f64 and ``.float()`` keeping f64 (the switch of
+    ``tests/torch_train_ranks.py::tp_grads_f64``)."""
+    from repro_torch.models import layers
+    dtypes, to32 = dict(layers.DTYPES), torch.Tensor.float
+    layers.DTYPES["float32"] = torch.float64
+    torch.Tensor.float = (lambda self, *a, **kw: self
+                          if self.dtype == torch.float64 else to32(self))
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to32
+        layers.DTYPES.update(dtypes)
+
+
+def tp_truth(cfg, full, mine, batch, kept, order, runs, tp, on_params,
+             mesh, group) -> dict:
+    """Row 1 in f64 on the host, one process's (the ranks in turn) and the
+    tensor-parallel one: the decomposition's own gap (f64 against f64),
+    and each f32 run of :func:`tp_trace_rank` on the card (tensor-parallel,
+    one process, nudged) against the f64 one, for every recorded tensor,
+    every leaf gradient and the grad norm."""
+    def host64(tree):
+        return tree_map(lambda t: t.detach().cpu().double(), tree)
+
+    with in_f64():
+        _, rec_tp, _, g_tp = traced_loss(cfg, host64(mine), batch, tp)
+        norm_tp = float(adamw.global_norm(g_tp, on_params, tp))
+        g_tp = dict(keyed_leaves(g_tp))
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                _, rec, _, g = traced_loss(cfg, host64(full), batch, None)
+                norm = float(adamw.global_norm(g))
+                g = dict(keyed_leaves(on_params.map(on_params.leaf_local,
+                                                    g)))
+                gc.collect()
+            torch.distributed.barrier(group=group)
+        names = order + ["d" + n for n in reversed(order)]
+        decomp = tp_gaps(g_tp, g, group)
+        out = {"f64 norm": norm, "f64 tp norm": norm_tp,
+               "f64 tp worst leaf": max(decomp.values()),
+               "f64 tp worst tensor": max(rel_gap(rec_tp[n], rec[n])
+                                          for n in names),
+               "tensors": [], "leaves": {}, "norms": {}}
+        recs = kept["row 1 records"]
+        for n in names:
+            out["tensors"].append((n, *(rel_gap(recs[k][0][n], rec[n])
+                                        for k in runs)))
+        for k in runs:
+            out["leaves"][k] = tp_gaps(kept["row 1"][k], g, group)
+            out["norms"][k] = recs[k][1]
+    return out
+
+
+def tp_trace_mesh_rank(cfg, batch: dict, device: str = "cuda") -> dict | None:
+    """One rank of ``--tp-trace``'s 2x2 part: 18b's f32 2x2 step, with the
+    gradients AdamW receives (this rank's slices, after the sums over
+    ``data``) and the global norm recorded, against one process's
+    gradients at 2 microbatches on the whole batch (plain and nudged, the
+    ranks taking turns), cut to the same slices: each leaf's gap and
+    floor, and the norms."""
+    from repro_torch.distributed import sharding as shd
+    dev = torch.device(device)
+    mesh = tp_mesh(2, 2)
+    if mesh is None:
+        return None
+    group = mesh.group(("data", "model"))
+    step = train_step.make_mesh_train_step(cfg, tp_opt(), mesh)
+    on_params = shd.Placement(mesh, step.placement.specs["params"])
+    full = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    # (a slice may be a view of the whole leaf: the step updates it in
+    # place)
+    mine = tree_map(torch.Tensor.clone, on_params.local(full))
+    state = adamw.init(mine)
+    rows = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    seen = {}
+    real = adamw.update
+
+    def update(grads, opt_state, params, opt_cfg, *, gnorm=None):
+        seen["grads"] = {k: t.detach().clone() for k, t in
+                         keyed_leaves(grads)}
+        seen["norm"] = float(gnorm)
+        return real(grads, opt_state, params, opt_cfg, gnorm=gnorm)
+
+    adamw.update = update
+    try:
+        step(mine, state, train_step.local_rows(rows, mesh))
+    finally:
+        adamw.update = real
+    del mine, state
+    runs = ["one"] + [f"nudge {n}" for n in TP_NUDGE_SEEDS]
+    got = {}
+    for run in runs:
+        for r in range(mesh.size):
+            if r == mesh.rank:
+                p = full if run == "one" else nudged(dev, full,
+                                                     int(run.split()[1]))
+                _, _, g = accum.accumulate_grads(
+                    lambda q, b: zoo.loss_fn(cfg, q, b), tree_map(
+                        torch.Tensor.detach, p), rows, 2)
+                del p
+                got[run] = dict(norm=float(adamw.global_norm(g)), grads={
+                    k: t.clone() for k, t in keyed_leaves(
+                        on_params.map(on_params.leaf_local, g))})
+                del g
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            torch.distributed.barrier(group=group)
+    one = got["one"]["grads"]
+    leaves = tp_gaps(seen["grads"], one, group)
+    floor = {}
+    for run in runs[1:]:
+        for k, v in tp_gaps(got[run]["grads"], one, group).items():
+            floor[k] = max(floor.get(k, 0.0), v)
+    out = {"leaves": {k: (leaves[k], floor[k]) for k in leaves},
+           "norm": dict({"tp": seen["norm"]},
+                        **{k: got[k]["norm"] for k in runs})}
+    return out if mesh.rank == 0 else None
+
+
+def g_tree(keyed: dict, like):
+    """``keyed`` ({key path: tensor}) back in the nesting of ``like``."""
+    return keyed_map(lambda k, _: keyed[k], like)
+
+
+def tp_trace(dev, card) -> None:
+    """``--tp-trace``: :func:`tp_trace_rank` (1x2) and
+    :func:`tp_trace_mesh_rank` (2x2) on a pool of TP_POOL sharing the
+    card; prints, for each case, every recorded tensor's gap and floor in
+    the order the step computes them, the first past twice its floor, the
+    worst leaf gradients against their own floors, and the losses and grad
+    norms of every run."""
+    cfg = mesh_cfg("yi-6b", TP_LAYERS, "float32")
+    batch = tp_batch(cfg.vocab_size, TP_F32_ROWS, TP_F32_SEQ)
+    t0 = time.perf_counter()
+    with MeshPool(*TP_POOL, device=dev.type, timeout_s=600.0) as pool:
+        out = [r for r in pool.run(tp_trace_rank, cfg, batch, dev.type)
+               if r is not None][0]
+        out["2x2 step"] = [r for r in pool.run(tp_trace_mesh_rank, cfg,
+                                               batch, dev.type)
+                           if r is not None][0]
+        out["2x2 step"]["tensors"], out["2x2 step"]["loss"] = [], {}
+    say(f"[tp-trace] yi-6b f32, {TP_LAYERS} layers, 1x2 on {card}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    for case, r in out.items():
+        if case == "row 1 against f64":
+            say(f"[tp-trace] {case}: the decomposition in f64: worst leaf "
+                f"gradient {r['f64 tp worst leaf']:.3e}, worst tensor "
+                f"{r['f64 tp worst tensor']:.3e}; grad norm "
+                f"{r['f64 norm']:.9f}, tensor-parallel "
+                f"{r['f64 tp norm']:.9f}")
+            runs = list(r["norms"])
+            for name, *gaps in r["tensors"]:
+                say(f"[tp-trace] {case}: {name} "
+                    + ", ".join(f"{k} {g:.3e}" for k, g in zip(runs, gaps)))
+            worst = {k: max(v, key=v.get) for k, v in r["leaves"].items()}
+            for k in runs:
+                key, emb = worst[k], r["leaves"][k]["['embed']"]
+                say(f"[tp-trace] {case}: {k}: worst leaf gradient {key} "
+                    f"{r['leaves'][k][key]:.3e}; ['embed'] {emb:.3e}; "
+                    "grad norm "
+                    f"{(r['norms'][k] - r['f64 norm']) / r['f64 norm']:+.3e}")
+            continue
+        for name, gap, floor in r["tensors"]:
+            say(f"[tp-trace] {case}: {name} gap {gap:.3e} floor {floor:.3e}"
+                f" ({gap / max(floor, 1e-30):.2f}x)")
+        first = next((t for t in r["tensors"] if t[1] > 2 * t[2]), None)
+        say(f"[tp-trace] {case}: first tensor past twice its floor: "
+            + ("none" if first is None else
+               f"{first[0]} ({first[1]:.3e} against {first[2]:.3e})"))
+        worst = sorted(r["leaves"].items(), key=lambda kv: -kv[1][0]
+                       / max(kv[1][1], 1e-30))[:6]
+        for key, (gap, floor) in worst:
+            say(f"[tp-trace] {case}: leaf gradient {key} gap {gap:.3e} "
+                f"floor {floor:.3e} ({gap / max(floor, 1e-30):.2f}x)")
+        if case == "2x2 step":
+            one = r["norm"]["one"]
+            say(f"[tp-trace] 2x2 step: the global norm AdamW reads "
+                + ", ".join(f"{k} {v:.6f} ({(v - one) / one:+.3e})"
+                            for k, v in r["norm"].items()))
+            continue
+        one = r["norm"]["one"]
+        for run, gn in r["norm"].items():
+            parts = ", ".join(
+                f"{how} {v:.6f} ({(v - one['placement']) / one['placement']:+.3e})"
+                for how, v in gn.items())
+            loss = r["loss"].get(run)
+            say(f"[tp-trace] {case}: {run}: grad norm {parts}"
+                + ("" if loss is None else f"; loss {loss:.7f}"))
+
+
+def adamw_tree(cfg, dev) -> dict:
+    """``{"params", "opt"}`` of ``cfg`` as meta-shaped empty tensors on
+    ``dev``: what a restore fills."""
+    aparams = zoo.abstract_params(cfg)[0]
+    params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                            device=dev), aparams)
+    return {"params": params, "opt": adamw.init(params)}
+
+
 # ---- phase 17: the tooling ------------------------------------------------
 
 CASE_SEEDS = (1, 2, 3)
@@ -6572,8 +7398,8 @@ def phase_tune(dev, card) -> dict:
         f"collectives {rec['collective_bytes_per_chip'] / 1e9:.2f} GB; "
         f"arguments {mem['argument_bytes'] / 1e9:.3f} GB + temporaries "
         f"{mem['temp_bytes'] / 1e9:.3f} GB = {mem['peak_bytes'] / 1e9:.3f} "
-        f"GB a rank of the port's {rec['train_mesh']} mesh train step "
-        f"(training splits no model axis yet); roofline {rec['roofline']['dominant']} "
+        f"GB a rank of the port's {rec['train_mesh']} mesh train step; "
+        f"roofline {rec['roofline']['dominant']} "
         f"{rec['roofline']['bound_s'] * 1e3:.1f} ms; useful FLOPs ratio "
         f"{rec['useful_flops_ratio']:.4f}")
     t_dry = time.perf_counter() - t0
@@ -6673,6 +7499,13 @@ def phase_tooling(dev, card) -> dict:
 
 def main() -> None:
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--tp-trace"]:
+        dev = phase_device()
+        card = card_line()
+        phase_build()
+        tp_trace(dev, card)
+        say(card)
+        return
 
     def mark(what: str) -> None:
         say(f"[times] {what} done at {time.perf_counter() - t_start:.1f} s")
@@ -6750,6 +7583,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     count(phase_tooling(dev, card))
     mark("17, tooling")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = phase_tp(dev, card)
+    count(tp["launches"])
+    mark("18, tensor-parallel training")
     meta = {
         "paged_segment_attention": (
             SEG_SRC,
@@ -6790,6 +7628,12 @@ def main() -> None:
         if name in cross:
             # of the launches, those of phase 14's cross-attention
             kernels[-1]["cross_launches"] = cross[name]
+        if name in tp["line"]["launches_by_route"]:
+            # phase 18's bf16 1x2 step on rank 0: its ms, its all-reduces
+            # over model and this kernel's launches by route
+            kernels[-1]["tp_rank"] = dict(
+                tp["line"], launches_by_route=tp["line"][
+                    "launches_by_route"][name])
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if key == "library_ms" and r[key] is None:
                 continue     # no PyTorch call computes this function

@@ -28,6 +28,22 @@ mesh under ``shard_map``:
   :data:`BUCKET_BYTES`, and FSDP's sliced leaves all-gathered as bytes
   in the same buckets, not one call a leaf (each call pays gloo's host
   round trip).
+* :class:`ModelParallel` and the tensor-parallel training collectives
+  over ``model`` (the Megatron layout the reference's GSPMD arrives at
+  under ``DEFAULT_RULES``): the conjugate pair :func:`copy_to_model`
+  (identity forward, gradient summed over ``model``) and
+  :func:`reduce_from_model` (forward summed, gradient passed through),
+  the vocab-parallel :func:`vocab_embed` and
+  :func:`vocab_cross_entropy`, and :meth:`ModelParallel.sum_buckets`
+  for the gradients of leaves a rank uses only in part.  Each keeps
+  shapes and carries nothing on ``meta`` (the dry-run), where
+  :class:`ModelParallel` counts its calls and bytes all the same.  The
+  forward is handed the
+  :class:`ModelParallel` of its step explicitly (``tp=``): nothing here
+  reads :func:`~repro_torch.distributed.sharding.current_mesh`, so
+  serving's head-parallel wrappers stay off inside a training step, and
+  the forward that non-reentrant ``checkpoint`` recomputes inside the
+  backward pass (on autograd's thread) reaches the same collectives.
 * :func:`quantize_int8`, :func:`dequantize_int8` and
   :func:`compressed_psum_grads` — the reference's int8 block-quantized
   gradient mean, as it is: a MAX all-reduce agrees on each 128-block's
@@ -53,14 +69,15 @@ import torch.distributed as dist
 
 from repro_torch.models.bridge import keyed_leaves, keyed_map, tree_map
 
-from .sharding import current_mesh, keyed_specs
+from .sharding import TP_FAMILIES, current_mesh, keyed_specs
 
 __all__ = ["tp_segment_attention", "tp_paged_segment_attention",
            "tp_paged_decode_attention", "tp_decode_attention",
            "own_heads", "all_reduce", "all_gather", "agreed_clock",
            "agreed_flag", "reduce_f32_buckets", "gather_leaves",
            "quantize_int8", "dequantize_int8", "compressed_psum_grads",
-           "BUCKET_BYTES"]
+           "BUCKET_BYTES", "ModelParallel", "copy_to_model",
+           "reduce_from_model", "vocab_embed", "vocab_cross_entropy"]
 
 _BLOCK = 128
 # host bytes a training collective stages at a time
@@ -134,51 +151,54 @@ def reduce_f32_buckets(tensors: list, mesh, axes) -> list:
     return out
 
 
-def gather_leaves(tree, placement):
-    """The full tree from this rank's slices under ``placement`` (a
-    :class:`~repro_torch.distributed.sharding.Placement`): every sharded
-    leaf's slices all-gathered along its sharded dim, as bytes, in flat
-    buckets of at most :data:`BUCKET_BYTES` a rank.  A leaf may be split on
-    one dim only; unsplit leaves come back as they are.  On ``meta`` (the
-    dry-run) each full leaf is made in one piece, without the bucket."""
+def gather_leaves(tree, placement, axes=None):
+    """The tree gathered over the mesh ``axes`` (every axis when None)
+    from this rank's slices under ``placement`` (a
+    :class:`~repro_torch.distributed.sharding.Placement`): every dim split
+    over those axes all-gathered, as bytes, in flat buckets of at most
+    :data:`BUCKET_BYTES` a rank; dims split over other axes stay this
+    rank's slices (the tensor-parallel step gathers over ``data`` and
+    keeps its ``model`` slice).  A leaf split on two dims (``("data",
+    "model", None)``) is gathered one axis group after the other, in the
+    same order on every rank.  On ``meta`` (the dry-run) each gathered
+    leaf is made in one piece, without the bucket."""
     keys, leaves = zip(*keyed_leaves(tree))
     specs = dict(keyed_specs(placement.specs))
-    todo: dict[tuple, list[int]] = {}
-    where: dict[int, tuple[int, tuple]] = {}
-    for i, (x, spec) in enumerate(zip(leaves, (specs[k] for k in keys))):
-        dims = placement.sharded_dims(spec)
-        if not dims:
-            continue
-        if len(dims) > 1:
-            raise ValueError(f"a leaf split on dims {dims}: gather_leaves "
-                             "takes one split dim a leaf")
-        where[i] = dims[0]
-        todo.setdefault(dims[0][1], []).append(i)
-    full = list(leaves)
-    for axes, idx in todo.items():
-        n = placement.mesh.axis_size(axes)
-        group = placement.mesh.group(axes)
-        sizes = [leaves[i].numel() * leaves[i].element_size() for i in idx]
-        for run in _buckets(sizes, BUCKET_BYTES):
-            dev = leaves[idx[run[0]]].device
-            if dev.type == "meta":
-                # the dry-run: nothing to carry, the full leaves' shapes
-                for j in run:
-                    i = idx[j]
-                    full[i] = torch.cat([leaves[i]] * n, dim=where[i][0])
+    todo: dict[tuple, list[tuple[int, int]]] = {}
+    for i, spec in enumerate(specs[k] for k in keys):
+        for dim, group in placement.sharded_dims(spec):
+            if axes is not None and not set(group) <= set(axes):
+                if set(group) & set(axes):
+                    raise ValueError(f"{keys[i]}: dim {dim} is split over "
+                                     f"{group}, gathered over {axes}")
                 continue
-            flat = torch.cat([leaves[idx[j]].contiguous().reshape(-1)
+            todo.setdefault(group, []).append((i, dim))
+    full = list(leaves)
+    for group_axes in sorted(todo):
+        idx = todo[group_axes]
+        n = placement.mesh.axis_size(group_axes)
+        group = placement.mesh.group(group_axes)
+        sizes = [full[i].numel() * full[i].element_size() for i, _ in idx]
+        for run in _buckets(sizes, BUCKET_BYTES):
+            dev = full[idx[run[0]][0]].device
+            if dev.type == "meta":
+                # the dry-run: nothing to carry, the gathered shapes
+                for j in run:
+                    i, dim = idx[j]
+                    full[i] = torch.cat([full[i]] * n, dim=dim)
+                continue
+            flat = torch.cat([full[idx[j][0]].contiguous().reshape(-1)
                               .view(torch.uint8) for j in run])
             h = _host(flat)
             parts = [torch.empty_like(h) for _ in range(n)]
             dist.all_gather(parts, h, group=group)
             off = 0
             for j in run:
-                i = idx[j]
-                x, nb = leaves[i], sizes[j]
+                i, dim = idx[j]
+                x, nb = full[i], sizes[j]
                 pieces = [p[off:off + nb].view(x.dtype).view(x.shape)
                           for p in parts]
-                full[i] = torch.cat(pieces, dim=where[i][0]).to(dev)
+                full[i] = torch.cat(pieces, dim=dim).to(dev)
                 off += nb
             del flat, parts, h
     by_key = dict(zip(keys, full))
@@ -359,3 +379,144 @@ def compressed_psum_grads(grads, mesh, axis_name: str):
         return (dequantize_int8(summed, glob, shape) / n).to(g.dtype)
 
     return tree_map(one, grads)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training over ``model``
+# ---------------------------------------------------------------------------
+
+
+class ModelParallel:
+    """The ``model`` axis of a training step's mesh, as its forward and
+    backward read it: ``mesh``, ``size`` (M), ``index`` (this rank's
+    model position) and ``split``, which of the logical families
+    ``heads``, ``kv_heads``, ``ff`` and ``vocab`` the step's placement
+    splits over ``model`` (``sharding.model_split``: a family whose
+    dim ``model`` does not divide stays replicated).  ``calls`` and
+    ``bytes`` count the all-reduces over ``model`` this rank has run,
+    on ``meta`` too (where they carry nothing)."""
+
+    def __init__(self, mesh, split: dict) -> None:
+        self.mesh = mesh
+        self.size = mesh.shape["model"]
+        self.index = mesh.model_index
+        self.split = {f: bool(split.get(f, False)) for f in TP_FAMILIES}
+        self.calls = 0
+        self.bytes = 0
+
+    def kv_span(self, heads: int, kv_heads: int) -> tuple[int, int]:
+        """``(first, count)`` of the KV heads this rank's chunk of
+        ``heads / M`` query heads reads when the KV heads are replicated
+        (query head ``h`` reads KV head ``h // (heads / kv_heads)``).
+        Raises ``ValueError`` when the chunk straddles two GQA groups."""
+        local, group = heads // self.size, heads // kv_heads
+        if local % group and group % local:
+            raise ValueError(
+                f"{heads} query heads over {self.size} model ranks give "
+                f"chunks of {local}, which straddle the GQA groups of "
+                f"{group} (KV heads {kv_heads}, replicated over model)")
+        return self.index * local // group, max(local // group, 1)
+
+    def _note(self, nbytes: int) -> None:
+        self.calls += 1
+        self.bytes += nbytes
+
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM):
+        """``x`` reduced over ``model`` in f32, back in x's dtype (a new
+        tensor; shapes alone on ``meta``)."""
+        self._note(x.numel() * 4)
+        if x.is_meta:
+            return torch.empty_like(x)
+        return all_reduce(x.float(), self.mesh, "model", op=op).to(x.dtype)
+
+    def sum_buckets(self, tensors: list) -> list:
+        """:func:`reduce_f32_buckets` over ``model``, counted."""
+        for t in tensors:
+            self._note(t.numel() * 4)
+        return reduce_f32_buckets(tensors, self.mesh, "model")
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        ctx.mp = mp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mp.all_reduce(g), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp):
+        return mp.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """``x`` (replicated over ``model``) entering a column-parallel
+    region: the identity, whose gradient is summed over ``model`` (each
+    rank's products give a part of it)."""
+    return _CopyToModel.apply(x, mp)
+
+
+def reduce_from_model(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
+    """A row-parallel region's partial output summed over ``model`` (in
+    f32, rounded once to x's dtype); its gradient passes through."""
+    return _ReduceFromModel.apply(x, mp)
+
+
+def vocab_embed(table: torch.Tensor, ids: torch.Tensor,
+                mp: ModelParallel) -> torch.Tensor:
+    """The embedding of ``ids`` from this rank's rows ``table`` [V/M, d]
+    of a vocab-split table: ids outside its rows give zeros, the ranks'
+    lookups summed over ``model`` (exact: one rank holds each id)."""
+    rows = table.shape[0]
+    local = ids.long() - mp.index * rows
+    own = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)]
+    x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return reduce_from_model(x, mp)
+
+
+class _VocabCrossEntropy(torch.autograd.Function):
+    """Summed cross-entropy of f32 logits split over ``model`` on the
+    vocab dim: [..., V/M] this rank's columns, labels global ids."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mp):
+        cols = logits.shape[-1]
+        local = labels.long() - mp.index * cols
+        own = (local >= 0) & (local < cols)
+        top = mp.all_reduce(logits.amax(dim=-1), op=dist.ReduceOp.MAX)
+        e = torch.exp(logits - top[..., None])
+        total = mp.all_reduce(e.sum(dim=-1))
+        gold = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])
+        gold = torch.where(own, gold[..., 0], torch.zeros(
+            (), dtype=logits.dtype, device=logits.device))
+        gold = mp.all_reduce(gold)
+        ctx.save_for_backward(e, total, local, own)
+        return (top + torch.log(total) - gold).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        e, total, local, own = ctx.saved_tensors
+        d = e / total[..., None]
+        d.scatter_add_(-1, local.clamp(0, d.shape[-1] - 1)[..., None],
+                       -own[..., None].to(d.dtype))
+        return d * g, None, None
+
+
+def vocab_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                        mp: ModelParallel) -> torch.Tensor:
+    """``sum(logsumexp(logits) - logits[label])`` over every row, the
+    logits ``[..., V/M]`` this rank's columns: a MAX all-reduce of the
+    row maxima (no gradient), a summed one of ``sum exp``, and the gold
+    logit from the rank that holds it.  Its gradient is ``softmax -
+    onehot`` on the local columns."""
+    return _VocabCrossEntropy.apply(logits, labels, mp)

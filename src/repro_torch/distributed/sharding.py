@@ -20,7 +20,12 @@ this thread; the serving wrappers read :func:`current_mesh` (the serve
 engine passes :data:`SERVE_TP_RULES` and ``fsdp=False``, as the
 reference's does).  :class:`Placement` is where a tree's leaves lie on a
 mesh of processes: :meth:`Placement.local` cuts a full tree to this
-rank's slices, :meth:`Placement.gather` puts the slices back together.
+rank's slices, :meth:`Placement.gather` puts the slices back together
+(over all axes, or over ``data`` alone for the tensor-parallel step).
+:func:`model_split` reads which logical families a placement splits
+over ``model`` and :func:`partial_leaves` which replicated leaves a
+rank then uses only in part: what the tensor-parallel training step
+(``train_step.make_mesh_train_step``) builds its forms from.
 
 Not ported: ``shard`` and ``named_sharding`` (hints to a compiler about
 an activation's placement: a rank of the port already holds only its own
@@ -36,7 +41,8 @@ import threading
 
 __all__ = ["AxisRules", "DEFAULT_RULES", "SERVE_TP_RULES", "use_mesh",
            "current_mesh", "logical_spec", "params_pspecs",
-           "FSDP_THRESHOLD", "Axes", "A", "Placement", "keyed_specs"]
+           "FSDP_THRESHOLD", "Axes", "A", "Placement", "keyed_specs",
+           "model_split", "partial_leaves", "TP_FAMILIES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,11 +242,18 @@ class Placement:
     the tree (one spec a leaf, ``()`` for a 0-d leaf) and ``mesh`` is this
     rank's view of the mesh.  A leaf whose spec names axes on dim ``i`` is
     held as this rank's contiguous share of dim ``i``, its index along
-    those axes taken row-major (``jax.sharding`` lays shards out so)."""
+    those axes taken row-major (``jax.sharding`` lays shards out so).
 
-    def __init__(self, mesh, specs) -> None:
+    ``partial`` holds the keys (``bridge.keyed_leaves``') of leaves that
+    are replicated over ``model`` yet used only in part on a rank, so
+    that a rank's gradient of one is a part of the whole, summed over
+    ``model`` by the step: ``wk``/``wv`` when the query heads are split
+    over ``model`` and the KV heads are not (``partial_leaves``)."""
+
+    def __init__(self, mesh, specs, partial=()) -> None:
         self.mesh = mesh
         self.specs = specs
+        self.partial = frozenset(partial)
 
     def _coord(self, axes) -> tuple[int, int]:
         """(this rank's index along ``axes``, their size)."""
@@ -251,13 +264,20 @@ class Placement:
             n *= self.mesh.shape[ax]
         return i, n
 
-    def leaf_local(self, x, spec):
-        """This rank's slice of the full leaf ``x`` (a view)."""
-        for dim, part in enumerate(spec):
-            i, n = self._coord(_spec_axes(part))
-            if n > 1:
-                size = x.shape[dim] // n
-                x = x.narrow(dim, i * size, size)
+    def leaf_local(self, x, spec, axes=None):
+        """This rank's slice of ``x`` (a view), cut on every dim split
+        over mesh axes within ``axes`` (all axes when None): with
+        ``axes=("data",)`` a leaf already cut to its ``model`` slice
+        gives this rank's slice of it."""
+        for dim, group in self.sharded_dims(spec):
+            if axes is not None and not set(group) <= set(axes):
+                if set(group) & set(axes):
+                    raise ValueError(f"dim {dim} is split over {group}, "
+                                     f"cut over {axes}")
+                continue
+            i, n = self._coord(group)
+            size = x.shape[dim] // n
+            x = x.narrow(dim, i * size, size)
         return x
 
     def local(self, tree):
@@ -274,12 +294,68 @@ class Placement:
         return [(d, _spec_axes(p)) for d, p in enumerate(spec)
                 if self._coord(_spec_axes(p))[1] > 1]
 
-    def gather(self, tree):
-        """The full tree from this rank's slices: every sharded leaf
-        all-gathered over its axes (a collective: every rank calls it)."""
+    def splits_model(self, spec) -> bool:
+        """Whether ``spec`` splits a dim over ``model`` (more than one
+        rank)."""
+        return any("model" in axes for _, axes in self.sharded_dims(spec))
+
+    def gather(self, tree, axes=None):
+        """The tree gathered over ``axes`` (every axis when None) from
+        this rank's slices (a collective: every rank calls it)."""
         from .collectives import gather_leaves
-        return gather_leaves(tree, self)
+        return gather_leaves(tree, self, axes)
 
     def map(self, fn, tree):
         """``fn(leaf, spec)`` over ``tree`` and the specs."""
         return _map_spec(fn, tree, self.specs)
+
+
+# the logical families tensor-parallel training splits over ``model``
+TP_FAMILIES = ("heads", "kv_heads", "ff", "vocab")
+
+
+def model_split(axes_tree, specs, mesh) -> dict[str, bool]:
+    """Which logical families (``heads``, ``kv_heads``, ``ff``,
+    ``vocab``) the parameter specs split over ``model``, read from every
+    leaf that names one: a family is split when its leaves' dim carries
+    ``model`` (``_resolve`` leaves it out when ``model`` does not divide
+    the dim).  Raises ``ValueError`` if two leaves of one family
+    disagree."""
+    pl = Placement(mesh, specs)
+    seen: dict[str, bool] = {}
+    where: dict[str, str] = {}
+    axes_of = dict(_keyed_axes(axes_tree))
+    for key, spec in keyed_specs(specs):
+        for dim, name in enumerate(axes_of[key]):
+            if name not in TP_FAMILIES:
+                continue
+            split = any(d == dim and "model" in a
+                        for d, a in pl.sharded_dims(spec))
+            if seen.setdefault(name, split) != split:
+                raise ValueError(f"{key} and {where[name]} place the "
+                                 f"{name!r} dim differently over model")
+            where.setdefault(name, key)
+    return seen
+
+
+def partial_leaves(axes_tree, specs, mesh) -> list[str]:
+    """Keys of the ``kv_heads`` leaves a rank uses only in part: those
+    left replicated over ``model`` while the query heads are split (each
+    rank's query chunk reads only its span of the KV heads)."""
+    split = model_split(axes_tree, specs, mesh)
+    if not split.get("heads") or split.get("kv_heads", True):
+        return []
+    return [k for k, names in _keyed_axes(axes_tree) if "kv_heads" in names]
+
+
+def _keyed_axes(axes_tree, prefix: str = ""):
+    """(key, logical names) of every leaf of an axes tree, with
+    ``bridge.keyed_leaves``' keys."""
+    if isinstance(axes_tree, Axes):
+        yield prefix, tuple(axes_tree.names)
+    elif isinstance(axes_tree, dict):
+        for k in sorted(axes_tree):
+            yield from _keyed_axes(axes_tree[k], f"{prefix}[{k!r}]")
+    else:
+        for i, v in enumerate(axes_tree):
+            yield from _keyed_axes(v, f"{prefix}[{i}]")

@@ -10,28 +10,33 @@ per cell it
     ``fsdp="residual"`` for serving) on a shape-only mesh
     (:func:`~repro_torch.launch.mesh.make_production_mesh`), and from them
     the bytes of one rank's arguments, exactly.  A train cell takes the
-    specs of the mesh the port trains it on, :func:`train_mesh`: ``(D,
-    1)`` over the cell's data ranks, since the port's training splits no
-    ``model`` axis yet (ROADMAP Queue 1 item 11e; the record's
-    ``train_mesh``);
+    specs of the mesh the port trains it on, :func:`train_mesh` (the
+    record's ``train_mesh``): ``(D, M)``, the cell's data ranks by its
+    ``model`` ranks, for the archs the port trains tensor-parallel, and
+    ``(D, 1)`` for the recurrent and MoE archs, whose tensor-parallel
+    training is ROADMAP Queue 1 items 11f and 11g;
   * runs the step itself on ``meta`` tensors at one rank's rows under
     :class:`~repro_torch.roofline.op_cost.OpCost`: the port's train step
     with AdamW's update (``make_train_step`` on one rank,
-    ``make_mesh_train_step`` on rank 0's slices of a ``(D, 1)`` mesh,
-    its gather and gradient sum carrying nothing on ``meta``), the
-    one-shot prefill, or one decode step on dense caches.  The kernels
-    charge their own counts there (:mod:`repro_torch.kernels`).  That
-    gives the step's FLOPs and bytes, divided over ``model`` as an ideal
-    split (the record says ``"split": "ideal over model"``), and its
+    ``make_mesh_train_step`` on rank 0's slices of the train mesh, its
+    gather, gradient sums and sums over ``model`` carrying nothing on
+    ``meta``), the one-shot prefill, or one decode step on dense caches.
+    The kernels charge their own counts there
+    (:mod:`repro_torch.kernels`).  That gives the step's FLOPs and
+    bytes: a tensor-parallel rank's own
+    (the record says ``"split": "tensor-parallel rank"``), else divided
+    over ``model`` as an ideal split (``"ideal over model"``); and its
     temporaries: the peak of live bytes less the arguments.  A training
-    rank's peak is what that rank of the port holds: the gathered
-    parameters, the f32 gradient sum and the update on its slice.  A
-    serving cell's temporaries are the one-device step's at the rank's
-    rows, not cut to the rank's heads;
+    rank's peak is what that rank of the port holds: the parameters
+    gathered over ``data`` (its ``model`` slices), the f32 gradient sum
+    and the update on its slice.  A serving cell's temporaries are the
+    one-device step's at the rank's rows, not cut to the rank's heads;
   * reckons the collectives from the specs, as the port's mesh steps run
-    them: FSDP's all-gather of each sliced leaf, the f32 gradient sum over
-    the data axes, and on serving cells the head-parallel all-gather of
-    each attention layer's output over ``model``;
+    them: FSDP's all-gather of each sliced leaf over ``data`` (its
+    ``model`` slice), the f32 gradient sum over the data axes, the
+    tensor-parallel step's all-reduces over ``model`` (as its
+    ``ModelParallel`` counts them on ``meta``), and on serving cells the head-parallel all-gather
+    of each attention layer's output over ``model``;
   * and from those the roofline terms at the H100's
     :data:`~repro_torch.roofline.analysis.HW`, ``model_flops`` and the
     useful-FLOPs ratio.
@@ -64,7 +69,6 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
 from repro_torch.models import zoo
-from repro_torch.models.bridge import tree_leaves
 from repro_torch.optim import adamw
 from repro_torch.roofline import analysis as roof
 from repro_torch.roofline import op_cost
@@ -130,18 +134,22 @@ def _tree_local_bytes(tree, specs, mesh) -> int:
     return sum(_tree_local_bytes(t, s, mesh) for t, s in zip(tree, specs))
 
 
-def _sliced_leaves(tree, specs, axes=("pod", "data")):
-    """(leaf, spec) pairs whose spec names one of ``axes``."""
+def _sliced_leaves(tree, specs, mesh, axes=("pod", "data")):
+    """(leaf, spec) pairs whose spec splits a dim over one of ``axes``
+    (of more than one rank on ``mesh``)."""
+    return [(t, s) for t, s in _leaves_specs(tree, specs)
+            if any(_axes_size(e, mesh) > 1 and set(
+                (e,) if isinstance(e, str) else e) & set(axes)
+                for e in s if e is not None)]
+
+
+def _leaves_specs(tree, specs):
+    """(leaf, spec) pairs of a tree and its spec tree."""
     if isinstance(tree, torch.Tensor):
-        named = set()
-        for e in specs:
-            named |= {e} if isinstance(e, str) else set(e or ())
-        return [(tree, specs)] if named & set(axes) else []
+        return [(tree, specs)]
     if isinstance(tree, dict):
-        return [x for k in tree for x in _sliced_leaves(tree[k], specs[k],
-                                                         axes)]
-    return [x for t, s in zip(tree, specs)
-            for x in _sliced_leaves(t, s, axes)]
+        return [x for k in tree for x in _leaves_specs(tree[k], specs[k])]
+    return [x for t, s in zip(tree, specs) for x in _leaves_specs(t, s)]
 
 
 def _rows(shape: ShapeConfig, bspecs: dict, mesh) -> int:
@@ -171,13 +179,17 @@ def _head_gather_bytes(cfg, mesh, tokens: int) -> int:
 
 
 def train_mesh(cfg, shape: ShapeConfig, mesh) -> ShapeMesh:
-    """The mesh the port trains a train cell on: ``(D, 1)``, ``D`` the
-    ranks the cell's batch rows are split over (pod x data).  Training
-    splits no ``model`` axis (ROADMAP Queue 1 item 11e), so each rank
-    holds the whole model width."""
+    """The mesh the port trains a train cell on: ``(D, M)``, ``D`` the
+    ranks the cell's batch rows are split over (pod x data) and ``M`` the
+    mesh's ``model`` ranks, each holding its tensor-parallel slices.  A
+    recurrent or MoE arch takes ``(D, 1)``: the port does not train it
+    tensor-parallel yet (ROADMAP Queue 1 items 11f and 11g;
+    ``train_step.tp_pending``), so each of its ranks holds
+    the whole model width."""
     with shd.use_mesh(mesh):
         d = _axes_size(ts.batch_pspecs(cfg, shape, mesh)["tokens"][0], mesh)
-    return ShapeMesh((d, 1), ("data", "model"))
+    m = mesh.shape.get("model", 1) if ts.tp_pending(cfg) is None else 1
+    return ShapeMesh((d, m), ("data", "model"))
 
 
 def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
@@ -187,6 +199,8 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
     m = mesh.shape.get("model", 1)
     if is_train:
         mesh = train_mesh(cfg, shape, mesh)
+        if mesh.shape["model"] > 1:
+            m = 1       # the step runs on the rank's own slices
     fsdp = True if is_train else "residual"
     with shd.use_mesh(mesh, fsdp=fsdp):
         aparams, pspecs, aopt, ospecs = ts.state_shardings(
@@ -220,17 +234,27 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
     temp = cost["peak_live_bytes"] - cost["argument_bytes"]
     coll = dict.fromkeys(op_cost.COLLECTIVES, 0.0)
     coll["count"] = 0
-    sliced = _sliced_leaves(aparams, pspecs)
+    sliced = _sliced_leaves(aparams, pspecs, mesh)
+    # a leaf's slice over model alone: what the gathers and the data sum
+    # of a tensor-parallel rank carry
+    model_only = ShapeMesh((1, mesh.shape.get("model", 1)),
+                           ("data", "model")) if is_train else None
     if sliced:
-        coll["all-gather"] += sum(t.numel() * t.element_size()
-                                  for t, _ in sliced)
+        coll["all-gather"] += sum(
+            local_bytes(t, s, model_only) if is_train
+            else t.numel() * t.element_size() for t, s in sliced)
         coll["count"] += len(sliced)
     data = _axes_size(bspecs["tokens" if shape.kind != "decode"
                              else "token"][0], mesh)
     if is_train and data > 1:
-        coll["all-reduce"] += 4.0 * sum(t.numel() for t in
-                                        tree_leaves(aparams))
+        coll["all-reduce"] += 4.0 * sum(
+            local_bytes(t, s, model_only) // t.element_size()
+            for t, s in _leaves_specs(aparams, pspecs))
         coll["count"] += 1
+    tp = getattr(step, "tp", None)
+    if tp is not None:                     # the sums over model, counted
+        coll["all-reduce"] += tp.bytes
+        coll["count"] += tp.calls
     if not is_train:
         tokens = rows * (shape.seq_len if shape.kind == "prefill" else 1)
         g = _head_gather_bytes(cfg, mesh, tokens)
@@ -238,6 +262,8 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
             coll["all-gather"] += g
             coll["count"] += 1
     return {"cost": cost, "counter": counter, "rows": rows, "model": m,
+            "split": ("tensor-parallel rank" if is_train
+                      and mesh.shape["model"] > 1 else "ideal over model"),
             "train_mesh": _mesh_name(mesh) if is_train else None,
             "argument_bytes": int(arg_bytes), "temp_bytes": int(temp),
             "peak_bytes": int(arg_bytes + temp), "collectives": coll,
@@ -287,7 +313,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
             ok=True,
             n_chips=n_chips,
             rows_per_chip=r["rows"],
-            split="ideal over model",
+            split=r["split"],
             train_mesh=r["train_mesh"],
             flops_per_chip=flops,
             bytes_per_chip=nbytes,

@@ -14,12 +14,15 @@ does not yield, as the reference's does not: the Trainer raises a
 ``ValueError`` naming the input; ``train_step.make_train_step`` on
 ``zoo.make_batch`` trains them.
 
-``--mesh Dx1`` trains data-parallel on ``D`` ranks on this host
+``--mesh DxM`` trains on ``D x M`` ranks on this host
 (``launch.mesh.spawn_mesh``; gloo, CUDA tensors staged through the
 host): each rank takes ``--batch / D`` rows of the host-sharded stream,
-FSDP slices the large parameters and their moments over the ranks, and
-rank 0's summary is printed.  A mesh with a model axis above 1 raises:
-tensor-parallel training is not ported.
+FSDP slices the large parameters and their moments over ``data``, with
+``M > 1`` a rank also holds its ``1/M`` of the heads, ``ff`` columns and
+vocab rows that ``M`` divides (tensor-parallel, as the reference's
+``DEFAULT_RULES`` lay it out), and rank 0's summary is printed.  A model
+axis above 1 raises ``ValueError`` for the recurrent archs (ROADMAP
+Queue 1 item 11f) and the MoE ones (11g).
 """
 
 from __future__ import annotations
@@ -56,16 +59,16 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device; "
                          "cpu runs the plain versions)")
-    ap.add_argument("--mesh", default=None, metavar="Dx1",
-                    help="train data-parallel on D ranks on this host, "
-                         "e.g. 2x1 (FSDP over them); prints rank 0's "
-                         "output")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="train on D x M ranks on this host, e.g. 2x1 "
+                         "(data-parallel, FSDP over D) or 1x2 (heads, ff "
+                         "and vocab split over M); prints rank 0's output")
     args = ap.parse_args(argv)
     if args.mesh is None:
         run(args)
         return
     data, model = parse_mesh_spec(args.mesh)
-    check_train_mesh({"data": data, "model": model})
+    check_train_mesh(get_config(args.arch), {"data": data, "model": model})
     # by module name: under `python -m` this module is __main__, which a
     # spawned rank cannot import by that name
     rank_fn = importlib.import_module("repro_torch.launch.train")._mesh_rank
@@ -94,7 +97,10 @@ def run(args, mesh=None) -> None:
           f"{args.steps} steps @ batch {args.batch}x{args.seq}"
           + ("" if mesh is None else
              f" on mesh {args.mesh} ({args.batch // mesh.shape['data']} "
-             "rows a rank, FSDP)"))
+             "rows a rank, FSDP"
+             + ("" if mesh.shape["model"] == 1 else
+                f", tensor-parallel over {mesh.shape['model']}")
+             + ")"))
     tc = TrainerConfig(workdir=args.workdir, total_steps=args.steps,
                        ckpt_interval=max(args.steps // 5, 1),
                        batch_size=args.batch, seq_len=args.seq,

@@ -33,13 +33,22 @@ decode paths' attention goes through the head-parallel wrappers of
 heads (and only that chunk of each new K/V is written), and the MoE
 layer goes through its expert-parallel entry points, as the reference
 routes them.
+
+A tensor-parallel training step passes its
+``collectives.ModelParallel`` as ``tp`` to :func:`block_apply_seq`
+(never through ``use_mesh``): the attention kinds then run the forms of
+:func:`seq_attention` on this rank's heads and the dense FFN its
+column- and row-parallel form (``layers.mlp``), each summed over
+``model``.  The recurrent kinds and the MoE layer have no such form yet
+(ROADMAP Queue 1 items 11f and 11g) and raise under ``tp``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.collectives import (own_heads,
+from repro_torch.distributed.collectives import (copy_to_model, own_heads,
+                                                 reduce_from_model,
                                                  tp_paged_decode_attention,
                                                  tp_paged_segment_attention)
 
@@ -47,7 +56,7 @@ from . import layers
 from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import rwkv6 as rwkv6_lib
-from .layers import apply_norm, norm_init, project, rope
+from .layers import apply_norm, attn_output, norm_init, project, rope
 
 ATTN_KINDS = ("full", "swa", "local", "global", "bidir")
 RECURRENT_KINDS = ("rwkv6", "rglru")
@@ -287,15 +296,70 @@ def _attn_qkv(cfg, base, params, x, pos):
     return q, k, v
 
 
-def _ffn(cfg, params, x, valid=None, aux=False, step=False):
+def seq_attention(cfg, attn: dict, h, kv_in, *, positions, theta, causal,
+                  window, tp=None, cache=None):
+    """One full-sequence attention's output projection (before the
+    residual): q from ``h``, k and v from ``kv_in`` (``h`` itself for
+    self-attention, the encoder's output for cross-attention), rope'd at
+    ``positions`` unless ``theta`` is None.  With ``cache`` (the one-shot
+    prefill, one device) k and v are written into its dense ring
+    (:func:`_write_cache`).  Under a tensor-parallel step (``tp``, no
+    cache) the form follows ``tp.split``, the step's placement:
+
+    * heads split: ``h`` (and ``kv_in``) enter through ``copy_to_model``;
+      q on this rank's ``H/M`` heads (``wq`` its slice); k and v on its
+      ``Kv/M`` (``wk``/``wv`` split too), or, with the KV heads
+      replicated, on the span of KV heads its query chunk reads
+      (``tp.kv_span``: ``wk``/``wv`` narrowed to it, their gradients a
+      part of the whole); ``layers.attention`` on those heads, the local
+      ``wo``, ``reduce_from_model``;
+    * heads replicated (``model`` does not divide them): the whole
+      attention on every rank, as one device runs it, no collective,
+      complete gradients."""
+    a = attn
+    split = tp is not None and tp.split["heads"]
+    if not split:
+        if tp is not None and tp.split["kv_heads"]:
+            raise ValueError("KV heads split over model with the query "
+                             "heads replicated")
+    else:
+        if a["wq"].shape[-2] * tp.size != cfg.num_heads:
+            raise ValueError(f"wq holds {a['wq'].shape[-2]} heads, not "
+                             f"{cfg.num_heads} / {tp.size}")
+        h_in = h
+        h = copy_to_model(h, tp)
+        kv_in = h if kv_in is h_in else copy_to_model(kv_in, tp)
+        if not tp.split["kv_heads"]:
+            lo, n = tp.kv_span(cfg.num_heads, cfg.num_kv_heads)
+            a = dict(a, wk=a["wk"].narrow(-2, lo, n),
+                     wv=a["wv"].narrow(-2, lo, n))
+    q = project(h, a["wq"])
+    k = project(kv_in, a["wk"])
+    v = project(kv_in, a["wv"])
+    if theta is not None:
+        q, k = rope(q, positions, theta), rope(k, positions, theta)
+    if cache is not None:
+        _write_cache(cache, k, v, positions)
+    o = layers.attention(q, k, v, q_pos=positions, k_pos=positions,
+                         causal=causal, window=window)
+    out = attn_output(a, o)
+    return reduce_from_model(out, tp) if split else out
+
+
+def _ffn(cfg, params, x, valid=None, aux=False, step=False, tp=None):
     """ln2, then the dense FFN or the MoE layer, and the residual.  The
     MoE layer routes with ``valid`` ([B, S] bool: real tokens, or None for
     all), through the reference's expert-parallel entry points, which run
     ``moe_apply`` without a serving mesh: ``moe_apply_ep_serve`` on the
     decode ``step``, ``moe_apply_ep`` elsewhere.  With ``aux`` returns
-    ``(x, its load-balancing loss)``, the loss 0 for a dense FFN."""
+    ``(x, its load-balancing loss)``, the loss 0 for a dense FFN.  Under
+    ``tp`` (a tensor-parallel step) the dense FFN takes its column- and
+    row-parallel form."""
     h2 = apply_norm(cfg.norm, params["ln2"], x)
     if "moe" in params:
+        if tp is not None:
+            raise ValueError("the MoE layer has no tensor-parallel "
+                             "training form (ROADMAP Queue 1 item 11g)")
         if step:
             return x + moe_lib.moe_apply_ep_serve(params["moe"], h2, cfg,
                                                   valid=valid)
@@ -304,7 +368,7 @@ def _ffn(cfg, params, x, valid=None, aux=False, step=False):
         if aux:
             return x + y[0], y[1]
         return x + y
-    x = x + layers.mlp(params["mlp"], h2, cfg.mlp)
+    x = x + layers.mlp(params["mlp"], h2, cfg.mlp, tp)
     if aux:
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
     return x
@@ -315,17 +379,24 @@ def _ffn(cfg, params, x, valid=None, aux=False, step=False):
 # ---------------------------------------------------------------------------
 
 
-def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None):
+def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None,
+                    tp=None):
     """x: [B,S,d]; positions: [S] absolute (``arange(S)``).  With ``cache``
     (the one-shot prefill) this layer's cache is written in place: the
     computed K/V into its dense ring (:func:`_write_cache`), or the
     recurrent state after the last position into its state leaves.
     Without (training) the recurrent kinds start from zero state.  The
     recurrent kinds run their one-shot forms (``rglru_block``,
-    ``time_mix_chunked``).  Returns ``(x, aux)`` with ``aux`` the f32
-    load-balancing loss (0 for a dense FFN)."""
+    ``time_mix_chunked``).  ``tp``: a tensor-parallel training step's
+    ``ModelParallel`` (attention kinds only, no cache).  Returns ``(x,
+    aux)`` with ``aux`` the f32 load-balancing loss (0 for a dense
+    FFN)."""
     base = _check_ported(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if tp is not None and (base in RECURRENT_KINDS or cache is not None):
+        raise ValueError(f"{kind}: no tensor-parallel form "
+                         + ("with a cache" if cache is not None else
+                            "(ROADMAP Queue 1 item 11f)"))
     if base in RECURRENT_KINDS:
         lib = rglru_lib if base == "rglru" else rwkv6_lib
         st = (cache if cache is not None
@@ -346,13 +417,11 @@ def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None):
         if cache is not None:
             _store_state(cache, new)
         return x, aux
-    q, k, v = _attn_qkv(cfg, base, params, x, positions)
-    o = layers.attention(q, k, v, q_pos=positions, k_pos=positions,
-                         causal=base != "bidir", window=_window(cfg, base))
-    x = x + layers.attn_output(params["attn"], o)
-    if cache is not None:
-        _write_cache(cache, k, v, positions)
-    return _ffn(cfg, params, x, aux=True)
+    h = apply_norm(cfg.norm, params["ln1"], x)
+    x = x + seq_attention(cfg, params["attn"], h, h, positions=positions,
+                          theta=_theta(cfg, base), causal=base != "bidir",
+                          window=_window(cfg, base), tp=tp, cache=cache)
+    return _ffn(cfg, params, x, aux=True, tp=tp)
 
 
 def _write_cache(cache: dict, k, v, positions) -> None:

@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (copy_to_model,
+                                                 reduce_from_model)
 from repro_torch.distributed.sharding import A
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -267,7 +269,15 @@ def segment_attention(q, k, v, *, q_pos, k_pos, q_seg, k_seg,
 # ---------------------------------------------------------------------------
 
 
-def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, kind: str, tp=None) -> torch.Tensor:
+    """The dense MLP.  Under ``tp`` (a tensor-parallel training step's
+    ``collectives.ModelParallel``) whose placement splits ``ff`` over
+    ``model``: ``x`` enters through ``copy_to_model``, the gate and up
+    products run on this rank's ``ff`` columns, the down product on its
+    rows, and ``reduce_from_model`` sums the partial outputs."""
+    split = tp is not None and tp.split["ff"]
+    if split:
+        x = copy_to_model(x, tp)
     # the reference's gelu is the tanh approximation
     if kind == "swiglu":
         h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
@@ -276,4 +286,7 @@ def mlp(params: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
             * (x @ params["w_up"])
     else:
         h = F.gelu(x @ params["w_up"], approximate="tanh")
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    if split:
+        y = reduce_from_model(y, tp)
+    return y

@@ -49,11 +49,24 @@ Public entry points:
     prefill(cfg, params, batch, cache_len=) -> (logits [B, V], caches)
                                         [one-shot, fresh dense caches]
     merge_slot(caches, one, slot)       [a one-row cache into a slot]
-    forward(cfg, params, batch, remat="none") -> (hidden [B, S, d], aux)
-    loss_fn(cfg, params, batch, remat="dots") -> (loss, {"ce", "aux"})
+    forward(cfg, params, batch, remat="none", tp=None)
+                                        -> (hidden [B, S, d], aux)
+    loss_fn(cfg, params, batch, remat="dots", tp=None)
+                                        -> (loss, {"ce", "aux"})
                                         [chunked cross-entropy; training]
 With ``block_tables`` the attention caches are the paged block store;
 without, the dense per-slot rings of :func:`init_cache`.
+
+``tp`` is a tensor-parallel training step's
+``distributed.collectives.ModelParallel``: ``params`` are then this
+rank's ``model`` slices, and the forward takes the Megatron forms its
+placement names (``tp.split``): the vocab-parallel embedding
+(``vocab_embed``) and cross-entropy (``vocab_cross_entropy``) when the
+vocab is split, the attention forms of ``blocks.seq_attention`` (the
+encoder's ``bidir`` blocks and the cross-attention too, ``enc_out``
+entering each cross layer through ``copy_to_model``) and the column-
+and row-parallel MLP.  The connector and ``pos_emb`` stay replicated; a
+replicated head computes the full logits on every rank.
 """
 
 from __future__ import annotations
@@ -63,6 +76,9 @@ from torch.utils.checkpoint import checkpoint
 
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (copy_to_model,
+                                                 vocab_cross_entropy,
+                                                 vocab_embed)
 from repro_torch.distributed.sharding import A
 
 from . import blocks as B
@@ -579,10 +595,14 @@ def _grad_checkpoint(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def _inputs_embeds(cfg, params, batch):
+def _inputs_embeds(cfg, params, batch, tp=None):
     """Token embeddings, after the connector's patch embeddings for the
-    vision prefix -> (x [B,P+S,d], positions [P+S] int32)."""
-    x = params["embed"][batch["tokens"]]
+    vision prefix -> (x [B,P+S,d], positions [P+S] int32); vocab-parallel
+    under a ``tp`` whose placement splits the vocab."""
+    if tp is not None and tp.split["vocab"]:
+        x = vocab_embed(params["embed"], batch["tokens"], tp)
+    else:
+        x = params["embed"][batch["tokens"]]
     if cfg.frontend == "vision":
         c = params["connector"]
         pe = F.gelu(batch["patches"].to(c["w1"].dtype) @ c["w1"],
@@ -592,7 +612,7 @@ def _inputs_embeds(cfg, params, batch):
     return x, positions
 
 
-def _run_encoder(cfg, params, frames):
+def _run_encoder(cfg, params, frames, tp=None):
     """The encoder over precomputed frame embeddings [B,Se,d]: plus
     ``pos_emb[arange(Se)]``, the stacked ``bidir`` blocks, then
     ``ln_enc``."""
@@ -601,45 +621,47 @@ def _run_encoder(cfg, params, frames):
     x = x + params["pos_emb"][positions]
     for i in range(cfg.enc_layers):
         x, _ = B.block_apply_seq(cfg, "bidir", _index(params["encoder"], i),
-                                 x, positions)
+                                 x, positions, tp=tp)
     return apply_norm(cfg.norm, params["ln_enc"], x)
 
 
-def _decoder_inputs(cfg, params, batch):
+def _decoder_inputs(cfg, params, batch, tp=None):
     """(x [B,S',d], positions [S'], the encoder's output or None): the
     embeddings of :func:`_inputs_embeds`, for the encoder-decoder plus
     ``pos_emb[positions]``, and its encoder run over the frames."""
     enc_out = None
     if cfg.encoder_decoder:
-        enc_out = _run_encoder(cfg, params, batch["frames"])
-    x, positions = _inputs_embeds(cfg, params, batch)
+        enc_out = _run_encoder(cfg, params, batch["frames"], tp)
+    x, positions = _inputs_embeds(cfg, params, batch, tp)
     if cfg.encoder_decoder:
         x = x + params["pos_emb"][positions]
     return x, positions, enc_out
 
 
-def cross_attend(cfg, cp, x, enc_out, *, step: bool = False):
+def cross_attend(cfg, cp, x, enc_out, *, step: bool = False, tp=None):
     """One decoder layer's cross-attention and its residual: ``x +
     attn_output(attention(q(norm(x)), k(enc_out), v(enc_out)))`` with
     every frame admitted.  ``cp``: the layer's ``{"attn", "ln"}``;
     x [B,S,d]; enc_out [B,Se,d].  A sequence takes the flash kernels at
     Sq = S and Sk = Se (:func:`layers.attention`, causal off, no window);
     a decode step (``step``, S = 1) the dense decode kernel over the
-    frames (:func:`layers.cross_decode_attention`)."""
+    frames (:func:`layers.cross_decode_attention`).  A sequence goes
+    through ``blocks.seq_attention``, under ``tp`` in its tensor-parallel
+    forms, ``enc_out`` entering through ``copy_to_model``."""
     h = apply_norm(cfg.norm, cp["ln"], x)
+    if not step:
+        return x + B.seq_attention(cfg, cp["attn"], h, enc_out,
+                                   positions=None, theta=None, causal=False,
+                                   window=0, tp=tp)
     q = project(h, cp["attn"]["wq"])
     k = project(enc_out, cp["attn"]["wk"])
     v = project(enc_out, cp["attn"]["wv"])
-    if step:
-        o = layers.cross_decode_attention(q, k, v)
-    else:
-        o = layers.attention(q, k, v, q_pos=None, k_pos=None, causal=False,
-                             window=0)
+    o = layers.cross_decode_attention(q, k, v)
     return x + attn_output(cp["attn"], o)
 
 
 def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
-                    caches=None, enc_out=None):
+                    caches=None, enc_out=None, tp=None):
     """prefix -> groups -> remainder over the whole sequence, each layer
     followed by its cross-attention to ``enc_out`` when one is given (the
     encoder-decoder).  ``caches`` is None in training; in the one-shot
@@ -649,7 +671,9 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
     in the backward pass; the reference rematerialises the scanned group
     body under its ``remat`` policy, and the flash kernels' outputs are
     not among what ``"dots"`` saves, so there too the attention forward
-    runs again in the backward pass.  Returns ``(x, aux_total)``."""
+    runs again in the backward pass, its collectives over ``model``
+    under ``tp`` among it (the same on every rank).  Returns ``(x,
+    aux_total)``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix, pattern, n_groups, rem = _plan(cfg)
     layer_caches = (_layers(cfg, params, caches) if caches is not None
@@ -662,9 +686,10 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
         cp = None if enc_out is None else _index(params["cross"], li)
 
         def fn(p, cp, x, enc_out):
-            x, aux = B.block_apply_seq(cfg, kind, p, x, positions, cache)
+            x, aux = B.block_apply_seq(cfg, kind, p, x, positions, cache,
+                                       tp=tp)
             if cp is not None:
-                x = cross_attend(cfg, cp, x, enc_out)
+                x = cross_attend(cfg, cp, x, enc_out, tp=tp)
             return x, aux
         if grouped and remat != "none":
             return _grad_checkpoint(fn, p, cp, x, enc_out)
@@ -683,14 +708,15 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
     return x, aux_total
 
 
-def forward(cfg, params, batch, *, remat: str = "none"):
+def forward(cfg, params, batch, *, remat: str = "none", tp=None):
     """batch: ``{"tokens": [B,S] int}``, with ``"patches" [B,P,
     frontend_dim]`` for the vision prefix or ``"frames" [B,Se,d]`` for the
-    encoder-decoder -> (final-norm hidden states [B,P+S,d], aux)."""
+    encoder-decoder -> (final-norm hidden states [B,P+S,d], aux).  ``tp``:
+    see the module docstring."""
     _check_supported(cfg)
-    x, positions, enc_out = _decoder_inputs(cfg, params, batch)
+    x, positions, enc_out = _decoder_inputs(cfg, params, batch, tp)
     x, aux = _run_blocks_seq(cfg, params, x, positions, remat=remat,
-                             enc_out=enc_out)
+                             enc_out=enc_out, tp=tp)
     return apply_norm(cfg.norm, params["ln_f"], x), aux
 
 
@@ -722,15 +748,24 @@ def _chunk_loss(x_i, labels_i, head):
     return (torch.logsumexp(logits, dim=-1) - gold).sum()
 
 
+def _chunk_loss_tp(x_i, labels_i, head, tp):
+    """:func:`_chunk_loss` with ``head`` this rank's vocab columns: ``x_i``
+    enters through ``copy_to_model``, the cross-entropy is
+    vocab-parallel."""
+    logits = (copy_to_model(x_i, tp) @ head).float()
+    return vocab_cross_entropy(logits, labels_i, tp)
+
+
 def loss_fn(cfg, params, batch, *, remat: str = "dots",
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, tp=None):
     """Mean next-token cross-entropy of ``batch["labels"]`` [B,S], chunked
     over the sequence in pieces of at most :data:`LOSS_CHUNK` tokens whose
     logits are recomputed in the backward pass, so the [B,S,V] logits
     never materialise; the vision prefix's positions carry no loss.
     Returns ``(loss + aux_weight * aux, {"ce", "aux"})`` as 0-d f32
-    tensors."""
-    x, aux = forward(cfg, params, batch, remat=remat)
+    tensors.  Under a ``tp`` whose placement splits the vocab each chunk's
+    cross-entropy is vocab-parallel (:func:`_chunk_loss_tp`)."""
+    x, aux = forward(cfg, params, batch, remat=remat, tp=tp)
     labels = batch["labels"].long()
     if cfg.frontend == "vision":
         x = x[:, -labels.shape[1]:]
@@ -740,7 +775,13 @@ def loss_fn(cfg, params, batch, *, remat: str = "dots",
     while s % chunk:
         chunk -= 1
     total = torch.zeros((), dtype=torch.float32, device=x.device)
+    vocab_split = tp is not None and tp.split["vocab"]
     for c0 in range(0, s, chunk):
+        if vocab_split:
+            total = total + _grad_checkpoint(
+                _chunk_loss_tp, x[:, c0:c0 + chunk],
+                labels[:, c0:c0 + chunk], head, tp)
+            continue
         total = total + _grad_checkpoint(_chunk_loss, x[:, c0:c0 + chunk],
                                          labels[:, c0:c0 + chunk], head)
     loss = total / (b * s)

@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.distributed.sharding import keyed_specs
 from repro_torch.models.bridge import keyed_leaves, tree_leaves, tree_map
 
 
@@ -67,10 +68,25 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    sq = [x.float().square().sum() for x in tree_leaves(tree)]
-    return torch.stack(sq).sum().sqrt()
+def global_norm(tree, placement=None, mp=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.  With
+    ``placement`` (a ``distributed.sharding.Placement`` mirroring
+    ``tree``) and ``mp`` (the step's ``collectives.ModelParallel``) the
+    tree holds this rank's ``model`` slices: the squares of the leaves
+    split over ``model`` are summed over it (one all-reduce), each
+    replicated leaf, whole on every rank, is counted once."""
+    if placement is None:
+        sq = [x.float().square().sum() for x in tree_leaves(tree)]
+        return torch.stack(sq).sum().sqrt()
+    specs = dict(keyed_specs(placement.specs))
+    leaves = list(keyed_leaves(tree))
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0][1].device)
+    parts: dict[bool, list] = {True: [zero], False: [zero]}
+    for key, x in leaves:
+        parts[placement.splits_model(specs[key])].append(
+            x.float().square().sum())
+    split = mp.all_reduce(torch.stack(parts[True]).sum())
+    return (split + torch.stack(parts[False]).sum()).sqrt()
 
 
 @torch.no_grad()

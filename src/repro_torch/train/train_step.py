@@ -10,13 +10,20 @@ specs (plain tuples for ``PartitionSpec``s; shapes as meta tensors, not
 ``{"params", "opt"}`` tree.
 
 :func:`make_mesh_train_step` is the counterpart of the reference's step
-jitted under those shardings, for a ``(data, 1)`` mesh of processes
+jitted under those shardings, for a ``(data, model)`` mesh of processes
 (:mod:`repro_torch.launch.mesh`): each rank holds its ``global_batch /
 D`` rows and, for a leaf whose spec names ``data`` on a dim, its ``1/D``
 slice of that dim (FSDP; the MoE experts' ``moe_ff`` under the default
-rules), its AdamW moments the same slice.  Tensor-parallel training over
-``model`` is not ported (ROADMAP Queue 1 item 11e): a mesh with
-``model > 1`` raises ``ValueError``.
+rules), its AdamW moments the same slice.  With ``model > 1`` the step is
+tensor-parallel, as the reference's ``DEFAULT_RULES`` lay it out: a
+rank also holds its ``1/M`` of every ``heads``, ``kv_heads``, ``ff`` and
+``vocab`` dim that ``model`` divides, and runs the forward and the
+backward on those heads, ``ff`` columns and vocab rows, with the sums
+over ``model`` that GSPMD inserts in the reference
+(``collectives.ModelParallel``, passed down the forward as ``tp``).  The
+four attention text archs and the two frontends take it; the recurrent
+archs (ROADMAP Queue 1 item 11f) and the MoE ones (11g) raise
+``ValueError`` on a mesh with ``model > 1`` (:func:`check_train_mesh`).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import zoo
-from repro_torch.models.bridge import tree_leaves, tree_map
+from repro_torch.models.blocks import RECURRENT_KINDS, split_kind
+from repro_torch.models.bridge import keyed_map, tree_leaves, tree_map
 from repro_torch.optim import accum, adamw
 
 __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
@@ -156,24 +164,54 @@ def state_shardings(cfg: ArchConfig, mesh, *, fsdp, with_opt: bool):
     return aparams, pspecs, adamw.init(aparams), adamw.state_pspecs(pspecs)
 
 
-def check_train_mesh(shape: dict) -> None:
-    """Training shards over ``data`` only: a mesh ``shape`` with another
-    axis above 1 raises ``ValueError``."""
-    if any(n > 1 for ax, n in shape.items() if ax != "data"):
+def tp_pending(cfg: ArchConfig) -> str | None:
+    """The ROADMAP Queue 1 item that still lacks ``cfg``'s
+    tensor-parallel training: ``"11f"`` for a recurrent arch, ``"11g"``
+    for an MoE one, None for the attention archs and the frontends,
+    which the port trains over ``model``."""
+    kinds = {split_kind(k) for k in cfg.block_pattern}
+    if any(base in RECURRENT_KINDS for base, _ in kinds):
+        return "11f"
+    if cfg.moe or any(moe for _, moe in kinds):
+        return "11g"
+    return None
+
+
+def check_train_mesh(cfg: ArchConfig, shape: dict) -> None:
+    """Training shards over ``data`` and, for the attention archs and the
+    frontends, over ``model``: a mesh ``shape`` with ``model > 1``
+    raises ``ValueError`` for a recurrent arch (ROADMAP Queue 1 item 11f)
+    or an MoE one (11g), and any other axis above 1 raises too."""
+    if any(n > 1 for ax, n in shape.items() if ax not in ("data", "model")):
+        raise ValueError(f"training on mesh {dict(shape)}: a process mesh "
+                         "has the axes data and model only")
+    if shape.get("model", 1) <= 1:
+        return
+    item = tp_pending(cfg)
+    if item == "11f":
         raise ValueError(
-            f"training on mesh {dict(shape)}: only the data axis is ported "
-            "(one process a data position, FSDP over data); "
-            "tensor-parallel training over model is ROADMAP Queue 1 item "
-            "11e")
+            f"{cfg.name}: tensor-parallel training over model (mesh "
+            f"{dict(shape)}) of the recurrent blocks is ROADMAP Queue 1 "
+            "item 11f; train it on a (D, 1) mesh")
+    if item == "11g":
+        raise ValueError(
+            f"{cfg.name}: tensor-parallel training over model (mesh "
+            f"{dict(shape)}) with the MoE layer's expert parallelism in "
+            "the backward pass is ROADMAP Queue 1 item 11g; train it on a "
+            "(D, 1) mesh")
 
 
 def state_placement(cfg: ArchConfig, mesh, *, fsdp=True) -> shd.Placement:
     """The placement of the trainer's ``{"params", "opt"}`` tree on
-    ``mesh``, a ``(data, 1)`` mesh of processes."""
-    check_train_mesh(mesh.shape)
+    ``mesh``, a ``(data, model)`` mesh of processes; its ``partial``
+    names the parameters (and nothing of the moments) a rank uses only
+    in part (``sharding.partial_leaves``)."""
+    check_train_mesh(cfg, mesh.shape)
     _, pspecs, _, ospecs = state_shardings(cfg, mesh, fsdp=fsdp,
                                            with_opt=True)
-    return shd.Placement(mesh, {"params": pspecs, "opt": ospecs})
+    partial = shd.partial_leaves(zoo.init_axes(cfg), pspecs, mesh)
+    return shd.Placement(mesh, {"params": pspecs, "opt": ospecs},
+                         ["['params']" + k for k in partial])
 
 
 def local_rows(batch: dict, mesh) -> dict:
@@ -189,24 +227,42 @@ def make_mesh_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, mesh,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` on this rank of ``mesh``: ``params`` and ``opt_state`` are
     its slices (``state_placement(...).local`` of a full tree), ``batch``
-    its rows.  In order: gather the sliced parameters; accumulate the
-    gradients over ``n_micro`` microbatches of the local rows; cast each
-    to f32 and all-reduce the sum over ``data`` in a few flat buckets
-    (loss and aux with them); scale by ``1/D``; take the global norm of
-    the full gradients; run AdamW on this rank's slice with that norm.
-    Every rank returns the same metrics.  With ``D = 2`` and ``n_micro =
-    1`` the step equals one process's at ``n_micro = 2`` bit for bit:
-    both cast each microbatch's gradient to f32, add the two and scale by
-    0.5."""
+    its rows.  In order: gather the sliced parameters over ``data`` (a
+    rank keeps its ``model`` slices); accumulate the gradients over
+    ``n_micro`` microbatches of the local rows, under the tensor-parallel
+    forms when ``model > 1``; cast each to f32 and all-reduce the sum
+    over ``data`` in a few flat buckets (loss and aux with them; every
+    rank of a ``model`` column holds the same rows); sum over ``model``
+    the gradients of the leaves a rank uses only in part
+    (``placement.partial``); scale by ``1/D``; take the global norm over
+    the mesh (``adamw.global_norm`` over the placement); run AdamW on
+    this rank's slice with that norm.  Every rank returns the same
+    metrics.  With ``D = 2``, ``M = 1`` and ``n_micro = 1`` the step
+    equals one process's at ``n_micro = 2`` bit for bit: both cast each
+    microbatch's gradient to f32, add the two and scale by 0.5.  With
+    ``M > 1`` the sums over ``model`` add the ranks' partial products in
+    another order than one device's matrix products, so the step is one
+    device's within f32 rounding."""
     placement = state_placement(cfg, mesh, fsdp=fsdp)
-    on_params = shd.Placement(mesh, placement.specs["params"])
+    pspecs = placement.specs["params"]
+    prefix = len("['params']")
+    partial = {k[prefix:] for k in placement.partial}
+    on_params = shd.Placement(mesh, pspecs, partial)
+    tp = None
+    if mesh.shape["model"] > 1:
+        tp = collectives.ModelParallel(
+            mesh, shd.model_split(zoo.init_axes(cfg), pspecs, mesh))
+        if tp.split["heads"] and not tp.split["kv_heads"]:
+            # a chunk of query heads straddling two GQA groups raises
+            # here, before any step runs
+            tp.kv_span(cfg.num_heads, cfg.num_kv_heads)
     inv = 1.0 / mesh.shape["data"]
 
     def train_step(params, opt_state, batch):
-        full = on_params.gather(params)
+        full = on_params.gather(params, axes=("data",))
 
         def loss_f(p, b):
-            return zoo.loss_fn(cfg, p, b, remat=remat)
+            return zoo.loss_fn(cfg, p, b, remat=remat, tp=tp)
         loss, aux, grads = accum.accumulate_grads(loss_f, full, batch,
                                                   n_micro)
         del full
@@ -215,17 +271,26 @@ def make_mesh_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, mesh,
         summed = collectives.reduce_f32_buckets(
             leaves + [loss] + [aux[k] for k in names], mesh, "data")
         del leaves
+        if partial:
+            keys: list[str] = []
+            keyed_map(lambda k, _: keys.append(k), grads)
+            idx = [i for i, k in enumerate(keys) if k in partial]
+            for i, t in zip(idx, tp.sum_buckets([summed[i] for i in idx])):
+                summed[i] = t
         it = iter(summed)
         grads = tree_map(lambda _: next(it), grads)
         loss = next(it) * inv
         aux = {k: next(it) * inv for k in names}
         for g in tree_leaves(grads):
             g.mul_(inv)
-        gnorm = adamw.global_norm(grads)
-        mine = on_params.map(on_params.leaf_local, grads)
+        gnorm = (adamw.global_norm(grads) if tp is None else
+                 adamw.global_norm(grads, on_params, tp))
+        mine = on_params.map(
+            lambda g, spec: on_params.leaf_local(g, spec, ("data",)), grads)
         params, opt_state, metrics = adamw.update(mine, opt_state, params,
                                                   opt_cfg, gnorm=gnorm)
         return params, opt_state, dict(metrics, loss=loss, **aux)
 
     train_step.placement = placement
+    train_step.tp = tp
     return train_step

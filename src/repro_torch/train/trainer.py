@@ -20,16 +20,20 @@ its prefetch thread before restoring, so the first batches after a
 restart are the stream's first batches, and it records the producer's
 look-ahead position instead of the consumed one.)
 
-On a mesh of processes (``mesh=``, this rank's ``(data, 1)``
+On a mesh of processes (``mesh=``, this rank's ``(data, model)``
 ``launch.mesh.make_host_mesh``) the loop runs ``train_step
 .make_mesh_train_step`` on every rank: each holds its slices of the
-parameters and moments (``fsdp``) and draws its rows from the
-host-sharded stream (``host_id`` its data index).  Every rank must take
+parameters and moments (FSDP over ``data`` with ``fsdp``, and with
+``model > 1`` its tensor-parallel share of the heads, ``ff`` columns and
+vocab rows) and draws its rows from the host-sharded stream (``host_id``
+its data index: the ranks of one ``model`` column draw the same rows).  Every rank must take
 the same host decisions or the group deadlocks: the step timer and the
 checkpoint write seconds read ``collectives.agreed_clock`` (so
 ``train.ckpt_interval_steps`` moves alike and every rank saves on the
 same steps), the preemption flag is agreed by a MAX before the forced
-save, and a save gathers the full tree, which rank 0 writes.
+save, and a save gathers the full tree over both axes (a leaf split on
+two dims among it), which rank 0 writes; a restore cuts each rank's
+slices from it.
 ``data.prefetch_depth`` stays per host: it meets no collective.
 
 The data stream yields tokens and labels only, as the reference's does,

@@ -15,6 +15,10 @@
   in ROADMAP Queue 3.
 * The production meshes' shapes, the CLI's record path, and a cell that
   cannot run on ``meta`` recorded ``ok: false`` with its op.
+* The tensor-parallel train cells: yi-6b, starcoder2-15b, gemma3-4b and
+  internvl2-1b ``train_4k`` on ``pod16x16`` reckoned as ``(16, 16)``
+  ranks, their argument bytes their placements' slices; the recurrent
+  and MoE archs on ``(16, 1)``.
 """
 
 import json
@@ -29,6 +33,8 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import dryrun as dr
 from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
+from repro_torch.models import transformer as tf
+from repro_torch.models import zoo
 from repro_torch.roofline import op_cost
 from repro_torch.train import train_step as ts
 
@@ -64,6 +70,23 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+def model_sums(cfg, rows: int, seq: int) -> tuple[int, int]:
+    """The f32 bytes and calls of one rank's all-reduces over ``model`` in
+    a tensor-parallel train step of ``cfg`` (heads, ``ff`` and vocab all
+    split, no partial leaves, one microbatch, remat on) at ``rows x seq``
+    tokens ``t``: the embedding's lookup (``t x d``); per layer the
+    attention's and the MLP's row-parallel outputs, the gradients of
+    their inputs (``copy_to_model``), and the attention's output again in
+    the recomputed forward (the checkpoint stops recomputing after the
+    MLP's last product, before its sum); per loss chunk the head input's
+    gradient and the row maxima, ``sum exp`` and gold logits of its
+    ``rows x chunk`` tokens, in the forward and in its recompute; the
+    norm's one scalar."""
+    t, n_chunks = rows * seq, seq // min(tf.LOSS_CHUNK, seq)
+    floats = t * cfg.d_model * (2 + 5 * cfg.num_layers) + 6 * t + 1
+    return 4 * floats, 2 + 5 * cfg.num_layers + 7 * n_chunks
+
+
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("cell", list(CELLS))
 def test_cell_record_and_argument_bytes(cfg, cell, mesh_name, tmp_path):
@@ -73,19 +96,20 @@ def test_cell_record_and_argument_bytes(cfg, cell, mesh_name, tmp_path):
                       out_dir=str(tmp_path))
     assert rec["ok"], rec.get("traceback")
     assert rec["mesh"] == mesh_name and rec["n_chips"] == mesh.size
-    assert rec["split"] == "ideal over model"
+    train = shape.kind == "train"
+    tp = train and mesh.shape["model"] > 1
+    assert rec["split"] == ("tensor-parallel rank" if tp
+                            else "ideal over model")
     for key in ("flops_per_chip", "bytes_per_chip", "bytes_raw_per_chip",
                 "collectives", "collective_bytes_per_chip", "memory",
                 "roofline", "model_flops_global", "useful_flops_ratio"):
         assert key in rec
     assert (tmp_path / f"{mesh_name}__yi-6b__{cell}.json").exists()
     # argument bytes a rank, against the leaves cut at rank 0 (a train
-    # cell's on the mesh the port trains it on: data ranks only)
-    train = shape.kind == "train"
+    # cell's on the mesh the port trains it on: yi-6b tensor-parallel)
     fsdp = True if train else "residual"
     if train:
-        mesh = ShapeMesh((mesh.shape["data"], 1), ("data", "model"))
-        assert rec["train_mesh"] == f"{mesh.shape['data']}x1"
+        assert rec["train_mesh"] == mesh_name
     with shd.use_mesh(mesh, fsdp=fsdp):
         aparams, pspecs, aopt, ospecs = ts.state_shardings(
             cfg, mesh, fsdp=fsdp, with_opt=train)
@@ -101,11 +125,15 @@ def test_cell_record_and_argument_bytes(cfg, cell, mesh_name, tmp_path):
     assert mem["temp_bytes"] > 0
     if mesh.shape["data"] > 1:
         assert rec["rows_per_chip"] == shape.global_batch // 2
-    # the f32 gradient sum over data and FSDP's gathers on the train cell
+    # the f32 gradient sum over data of a rank's model slices (one call)
+    # and the sums over model, counted by hand
     coll = rec["collectives"]
     if train and mesh.size > 1:
-        n_par = sum(t.numel() for t in _leaves(aparams))
-        assert coll["all-reduce"] == 4 * n_par
+        model_only = ShapeMesh((1, mesh.shape["model"]), ("data", "model"))
+        n_local = sliced_bytes(aparams, pspecs, model_only) // 4
+        nbytes, calls = model_sums(cfg, rec["rows_per_chip"], shape.seq_len)
+        assert coll["all-reduce"] == 4 * n_local + nbytes
+        assert coll["count"] == 1 + calls
     elif mesh.size == 1:
         assert rec["collective_bytes_per_chip"] == 0
 
@@ -126,7 +154,8 @@ def test_mesh_train_peak_holds_the_gather_and_the_f32_sum(cfg,
     with shd.use_mesh(ShapeMesh((2, 1), ("data", "model"))):
         aparams, pspecs, _, _ = ts.state_shardings(cfg, ShapeMesh(
             (2, 1), ("data", "model")), fsdp=True, with_opt=False)
-    sliced = [t for t, _ in dr._sliced_leaves(aparams, pspecs)]
+    sliced = [t for t, _ in dr._sliced_leaves(aparams, pspecs, ShapeMesh(
+        (2, 1), ("data", "model")))]
     assert sliced and r["collectives"]["count"] == len(sliced) + 1
     n_par = sum(t.numel() for t in _leaves(aparams))
     full = sum(t.numel() * t.element_size() for t in sliced)
@@ -174,24 +203,73 @@ def test_production_meshes():
 
 def test_full_size_train_cell_on_meta(tmp_path):
     """yi-6b ``train_4k`` on ``pod16x16`` at full size: one rank's 16 rows
-    on meta in seconds, trained as the port trains it, on ``16x1``: its
-    arguments a little over 1/16 of the state (FSDP over data; the norms
-    stay whole), its peak over them by at least the gathered bf16
-    parameters and the f32 gradient sum."""
+    on meta in seconds, trained as the port trains it, tensor-parallel on
+    ``16x16``: its arguments 1/256 of the state (FSDP over data, heads,
+    ff and vocab over model) but for wk and wv, whose 4 KV heads stay
+    whole over model, and the norms."""
     rec = dr.run_cell("yi-6b", "train_4k", out_dir=str(tmp_path))
     assert rec["ok"], rec.get("traceback")
     assert rec["rows_per_chip"] == 16
     cfg = get_config("yi-6b")
     state = cfg.param_count() * (2 + 8)          # bf16 params, f32 moments
     mem = rec["memory"]
-    assert rec["train_mesh"] == "16x1"
-    assert state / 16 < mem["argument_bytes"] < 1.001 * state / 16
-    assert mem["temp_bytes"] > cfg.param_count() * (2 + 4)
+    assert rec["train_mesh"] == "pod16x16"
+    assert rec["split"] == "tensor-parallel rank"
+    # wk and wv (4 KV heads) stay whole over model, the norms whole; the
+    # batch's tokens and labels
+    kv = cfg.num_layers * 2 * cfg.d_model * cfg.num_kv_heads * 128 * 10
+    norms = (2 * cfg.num_layers + 1) * cfg.d_model * 10
+    batch = 2 * 16 * 4096 * 4
+    assert mem["argument_bytes"] == pytest.approx(
+        (state - kv - norms) / 256 + kv / 16 + norms + batch, rel=1e-4)
+    assert mem["temp_bytes"] > cfg.param_count() * (2 + 4) / 16
     assert 0.5 < rec["useful_flops_ratio"] <= 1.0
-    assert rec["roofline"]["dominant"] == "compute_s"
+    assert rec["collectives"]["all-reduce"] > 0
     again = json.loads((tmp_path / "pod16x16__yi-6b__train_4k.json")
                        .read_text())
     assert again == rec
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "starcoder2-15b", "gemma3-4b",
+                                  "internvl2-1b"])
+def test_tp_train_cells_on_pod16x16(arch, tmp_path):
+    """``train_4k`` on ``pod16x16`` at full size as ``(16, 16)`` ranks:
+    the replicated KV heads (yi-6b's 4, starcoder2-15b's 4), the
+    replicated attention (gemma3-4b's 8 heads, internvl2-1b's 14) and
+    the replicated vocab (internvl2-1b's 151655) at M = 16; each rank's
+    argument bytes equal its placement's slices."""
+    rec = dr.run_cell(arch, "train_4k", out_dir=str(tmp_path))
+    assert rec["ok"], rec.get("traceback")
+    assert rec["train_mesh"] == "pod16x16"
+    cfg = get_config(arch)
+    mesh = make_production_mesh()
+    shape = dr.SHAPES["train_4k"]
+    with shd.use_mesh(mesh, fsdp=True):
+        aparams, pspecs, aopt, ospecs = ts.state_shardings(
+            cfg, mesh, fsdp=True, with_opt=True)
+        bspecs = ts.batch_pspecs(cfg, shape, mesh)
+    want = (sliced_bytes(aparams, pspecs, mesh)
+            + sliced_bytes(dr.input_specs(cfg, shape), bspecs, mesh)
+            + sliced_bytes(aopt.m, ospecs.m, mesh)
+            + sliced_bytes(aopt.v, ospecs.v, mesh))
+    assert rec["memory"]["argument_bytes"] == want
+    split = shd.model_split(zoo.init_axes(cfg), pspecs, mesh)
+    assert split["heads"] == (cfg.num_heads % 16 == 0)
+    assert split["vocab"] == (cfg.vocab_size % 16 == 0)
+    assert not split["kv_heads"]
+
+
+def test_recurrent_and_moe_train_cells_stay_data_parallel():
+    """The archs whose tensor-parallel training is ROADMAP items 11f and
+    11g keep the ``(D, 1)`` train mesh."""
+    mesh = make_production_mesh()
+    for arch in ("recurrentgemma-9b", "rwkv6-7b", "deepseek-moe-16b",
+                 "llama4-maverick-400b-a17b"):
+        got = dr.train_mesh(get_config(arch), dr.SHAPES["train_4k"], mesh)
+        assert got.shape == {"data": 16, "model": 1}, arch
+    got = dr.train_mesh(get_config("whisper-tiny"), dr.SHAPES["train_4k"],
+                        mesh)
+    assert got.shape == {"data": 16, "model": 16}
 
 
 def test_data_dependent_cell_is_recorded_with_its_op(cfg, tmp_path,

@@ -56,6 +56,40 @@ DP_OPT = dict(warmup_steps=1, total_steps=10, eps=1.0)
 COMPRESSED_RANKS = 4
 
 
+# ---- tensor-parallel training ------------------------------------------------
+TP_ARCHS = ["yi-6b", "h2o-danube-3-4b", "gemma3-4b", "starcoder2-15b",
+            "internvl2-1b", "whisper-tiny"]
+# case -> (arch, reduced() overrides): the six archs as reduced() gives
+# them; yi-6b with embed and head past FSDP_THRESHOLD (2x2, FSDP on and
+# off); the three replicated forms: one KV head (wk/wv replicated,
+# partial on each rank), an odd vocab (embed and head replicated), and
+# whisper-tiny with 3/3 heads (the whole attention replicated, the MLP
+# split)
+TP_CASES = {**{a: (a, {}) for a in TP_ARCHS},
+            "yi-6b/v16384": ("yi-6b", {"vocab_size": 16384}),
+            "yi-6b/kv1": ("yi-6b", {"num_kv_heads": 1}),
+            "yi-6b/v511": ("yi-6b", {"vocab_size": 511}),
+            "whisper-tiny/h3": ("whisper-tiny", {"num_heads": 3,
+                                                 "num_kv_heads": 3})}
+TP_ROWS, TP_SEQ = 4, 16
+
+
+def tp_batch(cfg, rows: int = TP_ROWS, seed: int = 0) -> dict:
+    """Tokens and labels [rows, TP_SEQ] int32, and a frontend's f32
+    ``patches`` or ``frames``, drawn in that order."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = {k: rng.integers(0, cfg.vocab_size, (rows, TP_SEQ)).astype(
+        np.int32) for k in ("tokens", "labels")}
+    if cfg.frontend == "vision":
+        out["patches"] = rng.standard_normal(
+            (rows, cfg.num_patches, cfg.frontend_dim)).astype(np.float32)
+    if cfg.encoder_decoder:
+        out["frames"] = rng.standard_normal(
+            (rows, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
 def dp_batch(vocab: int, rows: int = DP_ROWS, seed: int = 0) -> dict:
     import numpy as np
     rng = np.random.default_rng(seed)
@@ -262,6 +296,39 @@ def job_dp_train() -> dict:
     return out
 
 
+def job_tp_train() -> dict:
+    """For every ``TP_CASES`` case: the seed-0 weights and the state and
+    metrics after one jitted single-device ``make_train_step`` (one
+    microbatch) on ``tp_batch``."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs import get_config, reduced
+    from repro.models import zoo
+    from repro.optim import adamw
+    from repro.train.train_step import make_train_step
+
+    out = {}
+    opt_cfg = adamw.AdamWConfig(**DP_OPT)
+    for case, (arch, over) in TP_CASES.items():
+        cfg = reduced(get_config(arch), **over)
+        params, _ = zoo.init(cfg, jax.random.key(0))
+        weights = jax.tree.map(np.asarray, params)
+        batch = tp_batch(cfg)
+        step = jax.jit(make_train_step(cfg, opt_cfg))
+        new_p, new_o, metrics = step(params, adamw.init(params),
+                                     {k: jnp.asarray(v)
+                                      for k, v in batch.items()})
+        out[case] = {
+            "weights": weights,
+            "state": {k: np.asarray(v) for k, v in _keyed(
+                {"params": new_p, "opt": new_o}).items()},
+            "metrics": {k: float(np.asarray(v)) for k, v in metrics.items()},
+        }
+    return out
+
+
 def job_controller() -> dict:
     import jax
     import jax.numpy as jnp
@@ -322,7 +389,7 @@ def job_controller() -> dict:
 
 
 JOBS = {"sharding": job_sharding, "dp_train": job_dp_train,
-        "controller": job_controller}
+        "controller": job_controller, "tp_train": job_tp_train}
 
 
 def run(job: str, tmp_dir) -> dict:

@@ -9,6 +9,7 @@ first ranks; the others return None.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import restore, save
@@ -92,11 +93,11 @@ def dp_step(arch, overrides, weights, batch, data, fsdp, opt, n_micro=1,
             shapes)
 
 
-def restore_on(ckpt_dir, arch, overrides, data, fsdp):
-    """The elastic restore of ``ckpt_dir``'s latest step on a ``data x 1``
-    mesh: every rank's slices, gathered; rank 0 returns the full tree,
-    every rank the shapes of its slices."""
-    mesh = _mesh(data)
+def restore_on(ckpt_dir, arch, overrides, data, fsdp, model=1):
+    """The elastic restore of ``ckpt_dir``'s latest step on a ``data x
+    model`` mesh: every rank's slices, gathered; rank 0 returns the full
+    tree, every rank the shapes of its slices."""
+    mesh = _mesh(data, model)
     if mesh is None:
         return None
     cfg = config(arch, overrides)
@@ -179,3 +180,179 @@ def sharded_controllers(cases, initial, measurements, data, model, axis):
     _, confs = step(specs, states, torch.tensor(measurements[mine],
                                                 dtype=torch.float32))
     return i, confs.numpy()
+
+
+def tp_step(arch, overrides, weights, batch, data, model, fsdp, opt,
+            n_micro=1, ckpt_dir=None):
+    """One ``make_mesh_train_step`` step on a ``data x model`` mesh, this
+    rank holding its slices and rows: rank 0 returns the gathered full
+    state (and with ``ckpt_dir`` writes it there as step 1), every rank
+    its metrics, the shapes of the leaves it holds, and the calls and
+    bytes of its all-reduces over ``model``."""
+    mesh = _mesh(data, model)
+    if mesh is None:
+        return None
+    cfg = config(arch, overrides)
+    step = ts.make_mesh_train_step(cfg, adamw.AdamWConfig(**opt), mesh,
+                                   fsdp=fsdp, n_micro=n_micro)
+    pl = step.placement
+    params = pl.local({"params": params_from_numpy(weights, "cpu")})["params"]
+    state = adamw.init(params)
+    params, state, m = step(params, state, ts.local_rows(_batch(batch),
+                                                         mesh))
+    mine = {"params": params, "opt": state}
+    shapes = {k: tuple(v.shape) for k, v in keyed_leaves(mine)}
+    full = pl.gather(mine)
+    if ckpt_dir is not None and mesh.rank == 0:
+        save(ckpt_dir, 1, full)
+    tp = step.tp
+    return (keyed_numpy(full) if mesh.rank == 0 else None, _metrics(m),
+            shapes, (tp.calls, tp.bytes) if tp is not None else (0, 0))
+
+
+def tp_collectives(arch, overrides, weights, batch, opt):
+    """A ``1x2`` step with every ``torch.distributed`` call of the rank
+    recorded: (the call, the group's ranks) in order, the bytes of the
+    tensors handed to them, and the step's ``ModelParallel`` count of
+    all-reduces over ``model`` and of their bytes."""
+    import torch.distributed as dist
+    mesh = _mesh(1, 2)
+    if mesh is None:
+        return None
+    cfg = config(arch, overrides)
+    step = ts.make_mesh_train_step(cfg, adamw.AdamWConfig(**opt), mesh)
+    params = step.placement.local(
+        {"params": params_from_numpy(weights, "cpu")})["params"]
+    state = adamw.init(params)
+    calls = []
+    sent = [0]
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                          "broadcast", "reduce_scatter")}
+
+    def recording(name):
+        def call(*a, group=None, **kw):
+            calls.append((name, tuple(dist.get_process_group_ranks(group))
+                          if group is not None else None))
+            sent[0] += a[0].numel() * a[0].element_size()
+            return real[name](*a, group=group, **kw)
+        return call
+
+    for n in real:
+        setattr(dist, n, recording(n))
+    try:
+        step(params, state, ts.local_rows(_batch(batch), mesh))
+    finally:
+        for n, f in real.items():
+            setattr(dist, n, f)
+    return calls, step.tp.calls, sent[0], step.tp.bytes
+
+
+def tp_pair(x, w1, w2, logits, labels, table, ids):
+    """The autograd pair, the vocab-parallel embedding and the
+    vocab-parallel cross-entropy on a ``1x2`` mesh, each rank holding its
+    half of ``w1``'s columns, ``w2``'s rows, ``logits``' and ``table``'s
+    vocab: the outputs and this rank's gradients as numpy."""
+    mesh = _mesh(1, 2)
+    if mesh is None:
+        return None
+    mp = collectives.ModelParallel(mesh, {})
+    r = mesh.model_index
+    t = {k: torch.from_numpy(v).requires_grad_()
+         for k, v in dict(x=x, w1=np.split(w1, 2, axis=1)[r],
+                          w2=np.split(w2, 2, axis=0)[r],
+                          logits=np.split(logits, 2, axis=1)[r],
+                          table=np.split(table, 2, axis=0)[r]).items()}
+    h = torch.tanh(collectives.copy_to_model(t["x"], mp) @ t["w1"])
+    y = collectives.reduce_from_model(h @ t["w2"], mp)
+    ce = collectives.vocab_cross_entropy(t["logits"],
+                                         torch.from_numpy(labels), mp)
+    emb = collectives.vocab_embed(t["table"], torch.from_numpy(ids), mp)
+    ((y.square().sum() + ce + (emb * emb).sum()).backward())
+    out = {"y": y, "ce": ce, "emb": emb}
+    out.update({"d_" + k: v.grad for k, v in t.items()})
+    return {k: v.detach().numpy() for k, v in out.items()}
+
+
+def gather_case(leaves, specs):
+    """On a ``2x2`` mesh: this rank's slices of ``leaves`` under ``specs``
+    gathered over ``data`` alone and over both axes."""
+    mesh = _mesh(2, 2)
+    if mesh is None:
+        return None
+    from repro_torch.distributed.sharding import Placement
+    pl = Placement(mesh, {k: tuple(v) for k, v in specs.items()})
+    mine = pl.local({k: torch.from_numpy(v) for k, v in leaves.items()})
+    data = pl.gather(mine, axes=("data",))
+    both = pl.gather(mine)
+    return ({k: v.numpy() for k, v in data.items()},
+            {k: v.numpy() for k, v in both.items()},
+            (mesh.data_index, mesh.model_index))
+
+
+def tp_trainer(workdir, arch, overrides, data, model, steps):
+    """A ``Trainer`` run of ``steps`` on a ``data x model`` mesh (or in one
+    process on rank 0 when ``data * model == 1``): its losses."""
+    if data * model == 1:
+        if world()[1] != 0:
+            return None
+        mesh = None
+    else:
+        mesh = _mesh(data, model)
+        if mesh is None:
+            return None
+    cfg = config(arch, overrides)
+    tr = Trainer(cfg, adamw.AdamWConfig(warmup_steps=1), TrainerConfig(
+        workdir=workdir, total_steps=steps, ckpt_interval=100, batch_size=4,
+        seq_len=16, enable_smartconf=False), device="cpu", mesh=mesh)
+    log = tr.run(steps)
+    tr.close()
+    return [r["loss"] for r in log]
+
+
+def tp_grads_f64(arch, overrides, weights, batch, data, model):
+    """The gradients AdamW receives, gathered whole, with every float the
+    model computes in f64 (the configs' f32 read as f64 and ``.float()``
+    keeping f64), on a ``data x model`` mesh, or in one process on rank
+    0 at ``data`` microbatches when ``model`` is 1: the decomposition's
+    own error, without f32's.  The data sums still cast to f32."""
+    from repro_torch.models import layers
+    from repro_torch.models.bridge import tree_map
+    from repro_torch.distributed.sharding import Placement
+    one = model == 1
+    mesh = None if one else _mesh(data, model)
+    if (one and world()[1] != 0) or (not one and mesh is None):
+        return None
+    got = {}
+    update, to32, dtypes = adamw.update, torch.Tensor.float, dict(
+        layers.DTYPES)
+
+    def capture(grads, *a, **kw):
+        got["grads"] = grads
+        return update(grads, *a, **kw)
+
+    layers.DTYPES["float32"] = torch.float64
+    torch.Tensor.float = (lambda self, *a, **kw: self
+                          if self.dtype == torch.float64 else to32(self))
+    adamw.update = capture
+    try:
+        cfg = config(arch, overrides)
+        params = tree_map(torch.Tensor.double,
+                          params_from_numpy(weights, "cpu"))
+        opt = adamw.AdamWConfig()
+        if one:
+            ts.make_train_step(cfg, opt, n_micro=data)(
+                params, adamw.init(params), _batch(batch))
+            grads = got["grads"]
+        else:
+            step = ts.make_mesh_train_step(cfg, opt, mesh)
+            pl = step.placement
+            params = pl.local({"params": params})["params"]
+            step(params, adamw.init(params), ts.local_rows(_batch(batch),
+                                                           mesh))
+            grads = Placement(mesh, pl.specs["params"]).gather(got["grads"])
+    finally:
+        adamw.update, torch.Tensor.float = update, to32
+        layers.DTYPES.update(dtypes)
+    if mesh is not None and mesh.rank != 0:
+        return None
+    return {k: v.double().numpy() for k, v in keyed_leaves(grads)}
