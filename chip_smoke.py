@@ -372,8 +372,10 @@ caught:
                 32 layers, f32 at 2 x 1024 under ``1x2`` and ``2x2``
                 (AdamW at eps 1, the CPU test's), every rank's loss, grad
                 norm and every leaf of its params and moments after one
-                step against one process's step on the whole batch (each
-                rank runs it in turn and keeps its slices): the loss
+                step against one process's step on the whole batch (the
+                ranks run it in turn before any holds its state, each
+                keeping its slices, on the card through its turn and on
+                the host after): the loss
                 within 1e-5; the grad norm and each leaf within 1e-5, or
                 within 6x (the norm) and 3x (each leaf) its own reading
                 of two one-process steps on weights nudged at f32
@@ -389,7 +391,25 @@ caught:
                 (c) the dry-run's reckoning of the bf16 ``1x2`` step
                 against rank 0's ``max_memory_allocated`` (within 20%,
                 asserted); (d) the bf16 ranks' gathered state, written by
-                rank 0, restored in one process bit for bit.
+                rank 0, restored in one process bit for bit; (e) the
+                recurrent archs at full width in f32, recurrentgemma-9b
+                cut to 3 of its 38 layers (rglru, rglru, swa) under
+                ``1x2`` and rwkv6-7b cut to 2 of its 32 under ``1x2`` and
+                ``2x2``, 2 x 512 tokens, held to one process as in (b)
+                (under ``2x2`` each leaf instead against one process's
+                step in f64: the ranks' step in f64 within 1e-7 of it,
+                their f32 step no further from it than 5x one process's
+                plain and nudged f32 steps are, or 1e-5),
+                recurrentgemma-9b's reference needing 61 GB of the card
+                before any rank holds its state, each run of (b) and (e)
+                reckoned by the dry-run before it starts (the ranks'
+                peaks, and one process's, in f64 too, beside a rank's
+                slices, within the card's free memory), the RG-LRU and
+                RWKV-6 blocks on each rank's channels with their
+                all-reduces and all-gathers over ``model`` printed, the
+                swa layer's flash kernels launched as in (b); the first
+                run's rank 0 peak against the dry-run's (within 20%,
+                asserted).
 
 Before the last line it prints a JSON object with every kernel's numbers
 (launches summed over the serving and training phases, 13, 14, 15's,
@@ -397,7 +417,7 @@ Before the last line it prints a JSON object with every kernel's numbers
 sets the counts it reads to 0 before it drives its path; for the flash
 forwards, dQ, dK/dV and dense decode also ``cross_launches``, those of
 phase 14's cross-attention; for the three flash training kernels also
-``tp_rank``, phase 18's bf16 ``1x2`` rank 0: its step ms, its
+``tp_rank``, phase 18b's bf16 ``1x2`` rank 0: its step ms, its
 all-reduces over ``model`` and the kernel's launches by route), then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
@@ -6498,6 +6518,27 @@ TP_LEAF_TIMES = 3
 # the warm-up step's tokens (a fresh rank's first products load cuBLAS
 # and the kernels)
 TP_WARM_SEQ = 128
+# 18e: the recurrent archs at full width, f32, cut to these layers (and
+# run on these meshes): recurrentgemma-9b's first three (rglru, rglru,
+# swa), rwkv6-7b's first two; TP_REC_ROWS x TP_REC_SEQ tokens, held to
+# one process with 18b's bounds, but for the runs of TP_EXACT, whose
+# leaves are held to one process's step in f64 instead: the ranks' step
+# in f64 within TP_F64_REL of it (the forms compute one process's
+# function), and their f32 step no further from it than TP_EXACT_TIMES x
+# one process's f32 steps are (the plain and the nudged one's largest
+# distance), or TP_REL.  Under 2x2 a second order of sums moves rwkv6's
+# time-mix moments past 3x their nudged floors (4.36x), and the f32
+# step lands 4.67x as far from the f64 step as one process's steps
+# there (the reading, rounded up).  Untied recurrentgemma-9b's embed and
+# head are 1.05 B entries each: one process's f32 step needs 61 GB
+# (dryrun.reckon), so every rank runs the references before any rank
+# holds its state and keeps its slices on the host (tp_refs)
+TP_RECURRENT = (("recurrentgemma-9b", 3, ((1, 2),)),
+                ("rwkv6-7b", 2, ((1, 2), (2, 2))))
+TP_EXACT = {("rwkv6-7b", 2, 2)}
+TP_F64_REL = 1e-7
+TP_EXACT_TIMES = 5
+TP_REC_ROWS, TP_REC_SEQ = 2, 512
 
 
 def tp_kernel_case(dev, b, h, kv, s, d, window=0):
@@ -6586,58 +6627,164 @@ def tp_opt() -> adamw.AdamWConfig:
     return adamw.AdamWConfig(warmup_steps=1, total_steps=10, eps=1.0)
 
 
-def one_step(dev, cfg, batch, n_micro: int, nudge=None):
+def one_step(dev, cfg, batch, n_micro: int, nudge=None, wide=False):
     """One ``make_train_step`` step in this process on the whole batch,
     seed-0 weights drawn on the card (nudged at f32 rounding from the
-    seed ``nudge``): its ``{"params", "opt"}`` state and metrics."""
+    seed ``nudge``; with ``wide`` the same weights and every float the
+    step computes in f64, :func:`in_f64`): its ``{"params", "opt"}``
+    state and metrics."""
     params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     if nudge is not None:
         params = nudged(dev, params, nudge)
-    state = adamw.init(params)
-    params, state, m = train_step.make_train_step(
-        cfg, tp_opt(), n_micro=n_micro)(params, state, {
-            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+    with in_f64() if wide else contextlib.nullcontext():
+        if wide:
+            params = tree_map(torch.Tensor.double, params)
+        state = adamw.init(params)
+        params, state, m = train_step.make_train_step(
+            cfg, tp_opt(), n_micro=n_micro)(params, state, {
+                k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
     return {"params": params, "opt": state}, {k: float(v)
                                               for k, v in m.items()}
 
 
-def tp_gaps(mine: dict, ref: dict, group) -> dict:
-    """Each leaf's max |mine - ref| over max |ref|, both maxima taken over
-    the whole leaf (a MAX all-reduce of every rank's slice's)."""
+def gap_parts(mine: dict, ref: dict) -> torch.Tensor:
+    """``[2, leaves]`` on the host, leaves in sorted key order: each
+    leaf's max |mine - ref| and max |ref| over this rank's slice, on
+    ``mine``'s device, in f32 or the wider of the two (``ref`` may lie on
+    the host; the AdamW step counter does)."""
     keys = sorted(mine)
+    num, den = [], []
     with torch.no_grad():
-        # (the AdamW step counter lives on the host)
-        num = torch.stack([(mine[k].float() - ref[k].float()).abs().max()
-                           .cpu() for k in keys])
-        den = torch.stack([ref[k].float().abs().max().cpu() for k in keys])
-    both = torch.stack([num, den])
-    torch.distributed.all_reduce(both, op=torch.distributed.ReduceOp.MAX,
+        for k in keys:
+            dt = torch.promote_types(torch.promote_types(
+                mine[k].dtype, ref[k].dtype), torch.float32)
+            r = ref[k].to(mine[k].device, dt)
+            num.append((mine[k].to(dt) - r).abs().max().cpu())
+            den.append(r.abs().max().cpu())
+            del r
+    return torch.stack([torch.stack(num), torch.stack(den)])
+
+
+def gaps_over(parts: torch.Tensor, keys, group) -> dict:
+    """Each leaf's max |mine - ref| over max |ref|, both maxima taken over
+    the whole leaf (a MAX all-reduce of every rank's :func:`gap_parts`)."""
+    torch.distributed.all_reduce(parts, op=torch.distributed.ReduceOp.MAX,
                                  group=group)
-    return {k: float(both[0, i] / both[1, i].clamp_min(1e-30))
-            for i, k in enumerate(keys)}
+    return {k: float(parts[0, i] / parts[1, i].clamp_min(1e-30))
+            for i, k in enumerate(sorted(keys))}
+
+
+def tp_gaps(mine: dict, ref: dict, group) -> dict:
+    """:func:`gaps_over` of :func:`gap_parts`."""
+    return gaps_over(gap_parts(mine, ref), mine, group)
+
+
+def free_card() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def card_slices(pl, full: dict) -> dict:
+    """This rank's slices of a ``{"params", "opt"}`` state by key,
+    detached copies on the card (a step marks its leaves as requiring
+    grad, and a view's graph would hold the whole state there)."""
+    return {k: v.detach().clone()
+            for k, v in keyed_leaves(pl.map(pl.leaf_local, full))}
+
+
+def tp_refs(dev, cfg, batch, data: int, pl, mesh, group, floor: bool,
+            exact: bool) -> dict:
+    """One process's steps on the whole batch at ``data`` microbatches,
+    run by the ranks one after another before any holds its state, each
+    rank cutting its slices: the step (``ref``, its ``one_metrics``);
+    with ``exact`` the step in f64 (``exact``, :func:`in_f64`;
+    ``exact_metrics``); with ``floor`` the two nudged steps, read against
+    them on the card: each leaf's f32 noise floor, its largest gap of the
+    nudged steps from the step (``floor``), the metrics'
+    (``floor_metrics``), and with ``exact`` each leaf's largest distance
+    of the step and the nudged steps from the f64 step (``f32_exact``),
+    every leaf's over the whole leaf.  The slices then go to the host
+    until the rank's own step is done.  ``memory``: this rank's GB
+    allocated and free before its first step, and that step's peak.
+    (Each rank runs the steps itself: carrying one process's state to
+    the ranks over gloo takes longer than the steps.)"""
+    out = dict(floor=None, floor_metrics=None, f32_exact=None)
+    parts: dict = {"floor": [], "f32_exact": []}
+    floor_m = {"loss": 0.0, "grad_norm": 0.0}
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = (torch.cuda.memory_allocated(dev) / 1e9,
+                      torch.cuda.mem_get_info(dev)[0] / 1e9)
+            full, out["one_metrics"] = one_step(dev, cfg, batch, data)
+            out["memory"] = before + (
+                torch.cuda.max_memory_allocated(dev) / 1e9,)
+            ref = card_slices(pl, full)
+            del full
+            free_card()
+            kept = {"ref": ref}
+            if exact:
+                full, out["exact_metrics"] = one_step(dev, cfg, batch, data,
+                                                      wide=True)
+                kept["exact"] = card_slices(pl, full)
+                del full
+                free_card()
+                parts["f32_exact"].append(gap_parts(ref, kept["exact"]))
+            for seed in TP_NUDGE_SEEDS if floor else ():
+                full, m = one_step(dev, cfg, batch, data, seed)
+                got = dict(keyed_leaves(pl.map(pl.leaf_local, full)))
+                parts["floor"].append(gap_parts(got, ref))
+                if exact:
+                    parts["f32_exact"].append(gap_parts(got, kept["exact"]))
+                # every rank runs the same nudged step: its metrics are
+                # local
+                for k in floor_m:
+                    floor_m[k] = max(floor_m[k], abs(
+                        m[k] - out["one_metrics"][k])
+                        / abs(out["one_metrics"][k]))
+                del full, got
+                free_card()
+            for name, slices in kept.items():
+                out[name] = {k: v.cpu() for k, v in slices.items()}
+            del ref, kept, slices
+            free_card()
+        torch.distributed.barrier(group=group)
+    for name, found in parts.items():
+        if found:
+            out[name] = {}
+            for p in found:
+                for k, v in gaps_over(p, out["ref"], group).items():
+                    out[name][k] = max(out[name].get(k, 0.0), v)
+    if floor:
+        out["floor_metrics"] = floor_m
+    return out
 
 
 def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
-            ckpt_dir=None, device: str = "cuda") -> dict | None:
-    """One rank of 18b: this rank's slices of seed-0 weights drawn on the
-    card under ``make_mesh_train_step``'s placement, its rows of
-    ``batch``; one step, timed with its all-reduces over ``model`` (ms,
-    bytes, calls) and over ``data``, its peak and flash launches by route
+            ckpt_dir=None, device: str = "cuda",
+            exact: bool = False) -> dict | None:
+    """One rank of 18b and 18e.  First, one rank after another, one
+    process's steps on the whole batch at ``data`` microbatches, cut to
+    this rank's slices and kept on the host (:func:`tp_refs`).  Then this
+    rank's slices of seed-0 weights drawn on the card under
+    ``make_mesh_train_step``'s placement, its rows of ``batch``, and one
+    step, timed with its collectives over ``model`` (ms, bytes and calls
+    by kind) and over ``data``, its peak and flash launches by route
     (counts set to 0 just before it; a forward and backward of
-    TP_WARM_SEQ tokens before it warms the rank).  With ``ckpt_dir`` the gathered
-    state is written there by rank 0 (18d; its fingerprints returned).
-    Then, one rank after another, one process's step on the whole batch
-    at ``data`` microbatches, cut to this rank's slices: every leaf's gap
-    (over the whole leaf), and with ``floor`` each leaf's largest gap of
-    two nudged one-process steps (its f32 noise floor)."""
+    TP_WARM_SEQ tokens before it warms the rank), and every leaf's gap
+    from one process's (over the whole leaf); with ``exact`` also from
+    one process's f64 step, and the same step in f64 (``f64_gaps``).
+    With ``ckpt_dir`` the gathered state is written there by rank 0
+    (18d; its fingerprints returned)."""
     dev = torch.device(device)
     mesh = tp_mesh(data, model)
     if mesh is None:
         return None
     group = mesh.group(("data", "model"))
-    held = torch.cuda.memory_allocated(dev)
     step = train_step.make_mesh_train_step(cfg, tp_opt(), mesh)
     pl = step.placement
+    refs = tp_refs(dev, cfg, batch, data, pl, mesh, group, floor, exact)
+    held = torch.cuda.memory_allocated(dev)
     params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     mine = pl.local({"params": params})["params"]
     del params
@@ -6649,11 +6796,11 @@ def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
                          pl.gather({"params": mine}, axes=("data",))[
                              "params"], warm)
     del warm
-    step.tp.calls = step.tp.bytes = 0
-    gc.collect()
-    torch.cuda.empty_cache()
+    step.tp.reset()
+    free_card()
     spent = {"model": 0.0, "data": 0.0, "gather": 0.0}
     real = (collectives.ModelParallel.all_reduce,
+            collectives.ModelParallel.all_gather,
             collectives.reduce_f32_buckets, collectives.gather_leaves)
 
     def timed(name, fn):
@@ -6667,8 +6814,9 @@ def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
         return run
 
     collectives.ModelParallel.all_reduce = timed("model", real[0])
-    collectives.reduce_f32_buckets = timed("data", real[1])
-    collectives.gather_leaves = timed("gather", real[2])
+    collectives.ModelParallel.all_gather = timed("model", real[1])
+    collectives.reduce_f32_buckets = timed("data", real[2])
+    collectives.gather_leaves = timed("gather", real[3])
     try:
         reset_counts(DP_KERNELS)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -6678,18 +6826,21 @@ def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
         metrics = {k: float(v) for k, v in m.items()}     # waits
         step_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        collectives.ModelParallel.all_reduce = real[0]
-        collectives.reduce_f32_buckets = real[1]
-        collectives.gather_leaves = real[2]
+        (collectives.ModelParallel.all_reduce,
+         collectives.ModelParallel.all_gather,
+         collectives.reduce_f32_buckets, collectives.gather_leaves) = real
     out = dict(rank=mesh.rank, metrics=metrics, step_ms=step_ms,
                model_ms=spent["model"] * 1e3, data_ms=spent["data"] * 1e3,
                gather_ms=spent["gather"] * 1e3,
                model_bytes=step.tp.bytes, model_calls=step.tp.calls,
+               model_counts={k: list(v) for k, v in step.tp.counts.items()},
                peak_gb=(torch.cuda.max_memory_allocated(dev) - held) / 1e9,
                launches={k.__name__: k.launches for k in DP_KERNELS},
                routes={k.__name__: dict(k.route_launches)
                        for k in DP_KERNELS},
-               partial=sorted(pl.partial), split=step.tp.split)
+               partial=sorted(pl.partial), split=step.tp.split,
+               **{k: v for k, v in refs.items() if k not in ("ref",
+                                                             "exact")})
     tree = {"params": mine, "opt": state}
     if ckpt_dir is not None:
         full = pl.gather(tree)
@@ -6699,96 +6850,104 @@ def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
             out["write_s"] = time.perf_counter() - t1
             out["gathered"] = fingerprints(full)
         del full
-        gc.collect()
-        torch.cuda.empty_cache()
+        free_card()
     mine_k = dict(keyed_leaves(tree))
-    # the step's cached blocks back to the card: the ranks take turns at
-    # a one-process step of their own below
-    gc.collect()
-    torch.cuda.empty_cache()
-    refs = [None] + (list(TP_NUDGE_SEEDS) if floor else [])
-    leaf_floor: dict = {}
-    floor_m = {"loss": 0.0, "grad_norm": 0.0}
-    ref = None
-    for nudge in refs:
-        got = None
-        for r in range(mesh.size):
-            if r == mesh.rank:
-                full, ref_m = one_step(dev, cfg, batch, data, nudge)
-                got = {k: v.clone() for k, v in keyed_leaves(
-                    pl.map(pl.leaf_local, full))}
-                del full
-                gc.collect()
-                torch.cuda.empty_cache()
-            torch.distributed.barrier(group=group)
-        if nudge is None:
-            ref, out["one_metrics"] = got, ref_m
-            out["gaps"] = tp_gaps(mine_k, ref, group)
-        else:
-            for k, v in tp_gaps(got, ref, group).items():
-                leaf_floor[k] = max(leaf_floor.get(k, 0.0), v)
-            # every rank ran the same nudged step: its metrics are local
-            for k in floor_m:
-                one_k = out["one_metrics"][k]
-                floor_m[k] = max(floor_m[k], abs(ref_m[k] - one_k)
-                                 / abs(one_k))
-        del got
-    out["floor"] = leaf_floor if floor else None
-    out["floor_metrics"] = floor_m if floor else None
-    del mine, state, rows, step, tree, mine_k, ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    out["gaps"] = tp_gaps(mine_k, refs["ref"], group)
+    if exact:
+        out["exact_gaps"] = tp_gaps(mine_k, refs["exact"], group)
+    del mine, state, rows, step, tree, mine_k
+    free_card()
+    if exact:
+        with in_f64():
+            step = train_step.make_mesh_train_step(cfg, tp_opt(), mesh)
+            wide = {"params": tree_map(torch.Tensor.double, zoo.init(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev))}
+            mine = step.placement.local(wide)["params"]
+            del wide
+            state = adamw.init(mine)
+            rows = train_step.local_rows({
+                k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                mesh)
+            mine, state, m = step(mine, state, rows)
+            out["f64_metrics"] = {k: float(v) for k, v in m.items()}
+            out["f64_gaps"] = tp_gaps(dict(keyed_leaves(
+                {"params": mine, "opt": state})), refs["exact"], group)
+        del mine, state, rows, step
+        free_card()
+    del refs
     return out
 
 
 def tp_run(pool, dev, card, tag: str, cfg, rows: int, seq: int, data: int,
-           model: int, f32: bool, ckpt_dir=None) -> dict:
-    """One 18b run; returns rank 0's numbers and the ranks' launches."""
+           model: int, f32: bool, ckpt_dir=None,
+           exact: bool = False) -> dict | None:
+    """One run of 18b or 18e (``tag`` opens its lines), reckoned first
+    (:func:`tp_reckon`; None when it would not fit the card); in f32 the
+    loss, the grad norm and each leaf held to one process (with
+    ``exact`` each leaf to one process's f64 step instead), else
+    printed.  Returns rank 0's numbers, the ranks' launches and the
+    reckoning."""
+    rec = tp_reckon(dev, card, tag, cfg, rows, seq, data, model, exact)
+    if rec is None:
+        return None
     batch = tp_batch(cfg.vocab_size, rows, seq)
     t0 = time.perf_counter()
     ranks = [r for r in pool.run(tp_rank, cfg, batch, data, model, f32,
-                                 ckpt_dir, dev.type) if r is not None]
+                                 ckpt_dir, dev.type, exact)
+             if r is not None]
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     one_m = r0["one_metrics"]
+    # the attention layers: a forward (and its recomputation) and a
+    # backward launch each
+    n_attn = sum(blocks.split_kind(cfg.block_pattern[
+        i % len(cfg.block_pattern)])[0] in blocks.ATTN_KINDS
+        for i in range(cfg.num_layers))
     gaps, floors = r0["gaps"], r0["floor"]
     worst = max(gaps, key=gaps.get)
     wide = {k: v for k, v in gaps.items() if v > TP_REL}
-    say(f"[tp] 18b {tag} {data}x{model} on {card}: {len(ranks)} ranks, "
+    say(f"[tp] {tag} {data}x{model} on {card}: {len(ranks)} ranks, "
         f"{wall:.1f} s; split over model {r0['split']}, partial leaves "
-        f"{len(r0['partial'])}")
+        f"{len(r0['partial'])}; one process's step on each rank's turn "
+        "(GB allocated before, free before, its peak): " + ", ".join(
+            f"rank {r['rank']} " + "/".join(f"{x:.3f}" for x in
+                                            r["memory"])
+            for r in ranks) + "; its slices kept on the host")
     loss_gap = abs(r0["metrics"]["loss"] - one_m["loss"]) / one_m["loss"]
     norm_gap = (abs(r0["metrics"]["grad_norm"] - one_m["grad_norm"])
                 / one_m["grad_norm"])
-    say(f"[tp] 18b {tag} {data}x{model}: loss {r0['metrics']['loss']:.6f} "
+    say(f"[tp] {tag} {data}x{model}: loss {r0['metrics']['loss']:.6f} "
         f"against one process's {one_m['loss']:.6f} (gap {loss_gap:.3e}), "
         f"grad norm {r0['metrics']['grad_norm']:.6f} against "
         f"{one_m['grad_norm']:.6f} (gap {norm_gap:.3e}); worst leaf {worst}"
         f" {gaps[worst]:.3e} of its largest |value|, {len(wide)} of "
         f"{len(gaps)} leaves past {TP_REL}")
     for r in ranks:
-        say(f"[tp] 18b {tag} {data}x{model} rank {r['rank']}: step "
-            f"{r['step_ms']:.1f} ms (all-reduces over model "
+        say(f"[tp] {tag} {data}x{model} rank {r['rank']}: step "
+            f"{r['step_ms']:.1f} ms (collectives over model "
             f"{r['model_ms']:.1f} ms, {r['model_calls']} calls, "
-            f"{r['model_bytes'] / 1e6:.1f} MB; gradient sum over data "
+            f"{r['model_bytes'] / 1e6:.1f} MB: " + ", ".join(
+                f"{k} {c} calls {b / 1e6:.1f} MB"
+                for k, (c, b) in r["model_counts"].items()) + "; "
+            f"gradient sum over data "
             f"{r['data_ms']:.1f} ms, gather over data {r['gather_ms']:.1f} "
             f"ms); max_memory_allocated "
             f"{r['peak_gb']:.3f} GB; flash launches {r['launches']}, by "
             f"route {r['routes']}")
-        want = {"flash_attention_fwd_lse": 2 * cfg.num_layers,
-                "flash_attention_dq": cfg.num_layers,
-                "flash_attention_dkv": cfg.num_layers}
+        want = {"flash_attention_fwd_lse": 2 * n_attn,
+                "flash_attention_dq": n_attn,
+                "flash_attention_dkv": n_attn}
         if r["launches"] != want:
-            fail(f"18b {tag}: rank {r['rank']} launched {r['launches']}, "
+            fail(f"{tag}: rank {r['rank']} launched {r['launches']}, "
                  f"expected {want}")
         if r["metrics"] != r0["metrics"]:
-            fail(f"18b {tag}: rank {r['rank']}'s metrics differ from rank "
+            fail(f"{tag}: rank {r['rank']}'s metrics differ from rank "
                  "0's")
     if f32:
         fm = r0["floor_metrics"]
         ratio = {k: gaps[k] / max(floors[k], 1e-30) for k in wide}
         top = sorted(ratio, key=ratio.get, reverse=True)[:3]
-        say(f"[tp] 18b {tag} {data}x{model}: the nudged steps move the loss"
+        say(f"[tp] {tag} {data}x{model}: the nudged steps move the loss"
             f" by {fm['loss']:.3e} and the grad norm by "
             f"{fm['grad_norm']:.3e} of one process's (the grad norm's gap "
             f"{norm_gap / fm['grad_norm']:.2f}x that); the leaves past "
@@ -6796,28 +6955,149 @@ def tp_run(pool, dev, card, tag: str, cfg, rows: int, seq: int, data: int,
                 f"{k} {gaps[k]:.3e} / {floors[k]:.3e} = {ratio[k]:.2f}x"
                 for k in top))
         if loss_gap > TP_REL:
-            fail(f"18b {tag} {data}x{model}: the loss is {loss_gap:.3e} "
+            fail(f"{tag} {data}x{model}: the loss is {loss_gap:.3e} "
                  f"from one process's, past {TP_REL}")
         if norm_gap > max(TP_REL, TP_NORM_TIMES * fm["grad_norm"]):
-            fail(f"18b {tag} {data}x{model}: the grad norm is "
+            fail(f"{tag} {data}x{model}: the grad norm is "
                  f"{norm_gap:.3e} from one process's, past {TP_REL} and "
                  f"{TP_NORM_TIMES} x its f32 noise floor "
                  f"{fm['grad_norm']:.3e}")
-        for k in wide:
-            if gaps[k] > TP_LEAF_TIMES * floors[k]:
-                fail(f"18b {tag} {data}x{model}: {k} is {gaps[k]:.3e} from "
-                     f"one process's, past {TP_REL} and {TP_LEAF_TIMES} x "
-                     f"its own f32 noise floor {floors[k]:.3e}")
+        if exact:
+            tp_hold_exact(tag, data, model, r0)
+        else:
+            for k in wide:
+                if gaps[k] > TP_LEAF_TIMES * floors[k]:
+                    fail(f"{tag} {data}x{model}: {k} is {gaps[k]:.3e} from"
+                         f" one process's, past {TP_REL} and "
+                         f"{TP_LEAF_TIMES} x its own f32 noise floor "
+                         f"{floors[k]:.3e}")
     launches: dict = {}
     for r in ranks:
         for k, n in r["launches"].items():
             launches[k] = launches.get(k, 0) + n
-    return dict(r0=r0, launches=launches)
+    return dict(r0=r0, launches=launches, rec=rec)
+
+
+def tp_hold_exact(tag: str, data: int, model: int, r0: dict) -> None:
+    """A run of TP_EXACT, against one process's f64 step: the ranks' step
+    in f64 within TP_F64_REL of it, every leaf; their f32 step each leaf
+    no further from it than TP_EXACT_TIMES x one process's f32 steps are
+    (the plain and the nudged one's largest distance), or TP_REL."""
+    tp, f32, f64 = r0["exact_gaps"], r0["f32_exact"], r0["f64_gaps"]
+    em = r0["exact_metrics"]
+    ratio = {k: tp[k] / max(TP_REL, f32[k]) for k in tp}
+    top = sorted(ratio, key=ratio.get, reverse=True)[:3]
+    worst64 = max(f64, key=f64.get)
+
+    def off(m):
+        return abs(m["grad_norm"] - em["grad_norm"]) / em["grad_norm"]
+    say(f"[tp] {tag} {data}x{model} against one process's f64 step: the "
+        f"ranks' step in f64 worst leaf {worst64} {f64[worst64]:.3e}, grad"
+        f" norm {off(r0['f64_metrics']):.3e}; in f32 grad norm "
+        f"{off(r0['metrics']):.3e} (one process's {off(r0['one_metrics']):.3e}"
+        f"), worst leaf {max(tp.values()):.3e} (one process's f32 steps "
+        f"{max(f32.values()):.3e}), {sum(tp[k] <= f32[k] for k in tp)} of "
+        f"{len(tp)} leaves as near as theirs; the leaves against TP_REL or"
+        " theirs, the worst: " + ", ".join(
+            f"{k} {tp[k]:.3e} / {f32[k]:.3e} = {ratio[k]:.2f}x"
+            for k in top))
+    if f64[worst64] > TP_F64_REL:
+        fail(f"{tag} {data}x{model}: in f64 {worst64} is {f64[worst64]:.3e}"
+             f" from one process's f64 step, past {TP_F64_REL}")
+    for k in tp:
+        if tp[k] > max(TP_REL, TP_EXACT_TIMES * f32[k]):
+            fail(f"{tag} {data}x{model}: {k} is {tp[k]:.3e} from one "
+                 f"process's f64 step, past {TP_REL} and {TP_EXACT_TIMES}"
+                 f" x one process's f32 steps' {f32[k]:.3e}")
+
+
+def tp_reckon(dev, card, tag: str, cfg, rows: int, seq: int, data: int,
+              model: int, exact: bool = False) -> dict | None:
+    """The dry-run's reckoning of a ``data x model`` rank's step and of
+    one process's (at ``data`` microbatches, and with ``exact`` in f64)
+    on ``rows x seq`` tokens, before either runs.  The ranks' peaks
+    together, and one process's beside a rank's slices of its state (the
+    ranks run it in turn first and keep their slices on the card through
+    the turn, :func:`tp_refs`; with ``exact`` the f64 step's slices too,
+    at most twice the f32's), must each fit the card's free memory, else
+    the run is failed and skipped (None).  Returns the rank's record."""
+    shape = ShapeConfig("tp", seq, rows, "train")
+    rank = dryrun.reckon(cfg, shape, ShapeMesh((data, model),
+                                               ("data", "model")))
+    one = [dryrun.reckon(cfg, shape, ShapeMesh((1, 1), ("data", "model")),
+                         n_micro=data)["peak_bytes"] / 1e9]
+    if exact:
+        with in_f64():
+            one.append(dryrun.reckon(cfg, shape, ShapeMesh(
+                (1, 1), ("data", "model")), n_micro=data)["peak_bytes"]
+                / 1e9)
+    free = torch.cuda.mem_get_info(dev)[0] / 1e9
+    n = data * model
+    rank_gb = rank["peak_bytes"] / 1e9
+    turn_gb = max(one) + (3 if exact else 1) * rank["argument_bytes"] / 1e9
+    say(f"[tp] {tag} {data}x{model} on {card}: the dry-run reckons a rank's "
+        f"peak at {rank_gb:.3f} GB ({n * rank_gb:.3f} GB for the {n} "
+        f"ranks) and one process's at " + " and ".join(
+            f"{g:.3f} GB" for g in one) + (" (f32, f64)" if exact else "")
+        + f", run first ({turn_gb:.3f} GB with a rank's slices), against "
+        f"{free:.3f} GB free; a rank's "
+        f"collectives over model "
+        f"{rank['collectives']['all-reduce'] / 1e6:.1f} MB reduced, "
+        f"{rank['collectives']['all-gather'] / 1e6:.1f} MB gathered")
+    if max(n * rank_gb, turn_gb) > free:
+        fail(f"{tag} {data}x{model}: the reckoned peaks do not fit the "
+             f"card's {free:.3f} GB free")
+        return None
+    return rank
+
+
+def phase_tp_recurrent(dev, card) -> dict:
+    """18e: each TP_RECURRENT cut in f32 under each of its meshes, held to
+    one process with 18b's bounds, or for TP_EXACT's runs each leaf to
+    one process's f64 step (:func:`tp_run`), on a pool of its own
+    (fresh ranks: recurrentgemma-9b's one-process step needs most of the
+    card); the first run's rank 0 peak against the dry-run's.  Returns
+    the ranks' flash launches and the seconds of each run."""
+    launches: dict = {}
+    times: dict = {}
+    checked = False
+    with MeshPool(*TP_POOL, device="cuda", timeout_s=300.0) as pool:
+        for arch, layers, meshes in TP_RECURRENT:
+            cfg = mesh_cfg(arch, layers, "float32")
+            for data, model in meshes:
+                t1 = time.perf_counter()
+                got = tp_run(pool, dev, card, f"18e {arch} f32", cfg,
+                             TP_REC_ROWS, TP_REC_SEQ, data, model, True,
+                             exact=(arch, data, model) in TP_EXACT)
+                if got is None:
+                    continue
+                times[f"18e {arch} {data}x{model}"] = (time.perf_counter()
+                                                       - t1)
+                for k, v in got["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+                if checked:
+                    continue
+                checked = True
+                r0, rec = got["r0"], got["rec"]
+                gb = rec["peak_bytes"] / 1e9
+                gap = (gb - r0["peak_gb"]) / r0["peak_gb"]
+                say(f"[tp] 18e {arch} {data}x{model} on {card}: the dry-run "
+                    f"reckons a rank's peak at {gb:.3f} GB against rank 0's"
+                    f" max_memory_allocated {r0['peak_gb']:.3f} GB: "
+                    f"{gap:+.2%}; its collectives over model "
+                    f"{rec['collectives']['all-reduce'] / 1e6:.1f} MB "
+                    f"reduced and {rec['collectives']['all-gather'] / 1e6:.1f}"
+                    f" MB gathered against the rank's "
+                    f"{r0['model_bytes'] / 1e6:.1f} MB")
+                if abs(gap) > RECKON_LIMIT:
+                    fail(f"18e: the dry-run's reckoning misses rank 0's peak"
+                         f" by {gap:+.2%} (limit {RECKON_LIMIT:.0%})")
+    return dict(launches=launches, times=times)
 
 
 def phase_tp(dev, card) -> dict:
-    """Phase 18; returns the flash launches of the ranks and rank 0's
-    numbers of the bf16 run."""
+    """Phase 18 (18a-18e); returns the flash launches of the ranks and
+    rank 0's numbers of 18b's bf16 run."""
     t0 = time.perf_counter()
     phase_tp_kernels(dev, card)
     t_a = time.perf_counter() - t0
@@ -6830,22 +7110,19 @@ def phase_tp(dev, card) -> dict:
     with MeshPool(*TP_POOL, device="cuda", timeout_s=300.0) as pool:
         for data, model in TP_F32_MESHES:
             t1 = time.perf_counter()
-            got = tp_run(pool, dev, card, "f32", f32, TP_F32_ROWS,
+            got = tp_run(pool, dev, card, "18b f32", f32, TP_F32_ROWS,
                          TP_F32_SEQ, data, model, True)
             times[f"f32 {data}x{model}"] = time.perf_counter() - t1
             for k, v in got["launches"].items():
                 launches[k] = launches.get(k, 0) + v
         t1 = time.perf_counter()
-        got = tp_run(pool, dev, card, "bf16", bf16, TP_BF16_ROWS,
+        got = tp_run(pool, dev, card, "18b bf16", bf16, TP_BF16_ROWS,
                      TP_BF16_SEQ, 1, 2, False, ckpt_dir)
         times["bf16 1x2, 18d's write"] = time.perf_counter() - t1
         for k, v in got["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    r0 = got["r0"]
+    r0, dry = got["r0"], got["rec"]
     t1 = time.perf_counter()
-    dry = dryrun.reckon(bf16, ShapeConfig("tp", TP_BF16_SEQ, TP_BF16_ROWS,
-                                          "train"),
-                        ShapeMesh((1, 2), ("data", "model")))
     gb = dry["peak_bytes"] / 1e9
     gap = (gb - r0["peak_gb"]) / r0["peak_gb"]
     say(f"[tp] 18c bf16 1x2 on {card}: the dry-run reckons a rank's peak "
@@ -6876,6 +7153,10 @@ def phase_tp(dev, card) -> dict:
     times["18d's restore"] = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
+    rec = phase_tp_recurrent(dev, card)
+    times.update(rec["times"])
+    for k, v in rec["launches"].items():
+        launches[k] = launches.get(k, 0) + v
     say(f"[times] phase 18: 18a {t_a:.1f} s, "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
         + f", all {time.perf_counter() - t0:.1f} s")
@@ -7050,18 +7331,36 @@ def tp_trace_rank(cfg, batch: dict, device: str = "cuda") -> dict | None:
 @contextlib.contextmanager
 def in_f64():
     """Every float the model computes in f64: the configs' f32 read as
-    f64 and ``.float()`` keeping f64 (the switch of
-    ``tests/torch_train_ranks.py::tp_grads_f64``)."""
+    f64, ``.float()`` keeping f64, the recurrent blocks' zero states and
+    the gradient sums over ``data`` in f64 (the switch of
+    ``tests/torch_train_ranks.py::in_f64``)."""
     from repro_torch.models import layers
     dtypes, to32 = dict(layers.DTYPES), torch.Tensor.float
+    states = {lib: lib.init_state for lib in (rglru_model, rwkv6_model)}
+    buckets = collectives.reduce_f32_buckets
+
+    def wide_sums(tensors, mesh, axes):
+        return [collectives.all_reduce(t.double().clone(), mesh, axes)
+                for t in tensors]
+
+    def wide_state(init):
+        return lambda *a, **kw: {k: v.double() if v.dtype == torch.float32
+                                 else v for k, v in init(*a, **kw).items()}
+
     layers.DTYPES["float32"] = torch.float64
     torch.Tensor.float = (lambda self, *a, **kw: self
                           if self.dtype == torch.float64 else to32(self))
+    collectives.reduce_f32_buckets = wide_sums
+    for lib, init in states.items():
+        lib.init_state = wide_state(init)
     try:
         yield
     finally:
         torch.Tensor.float = to32
         layers.DTYPES.update(dtypes)
+        collectives.reduce_f32_buckets = buckets
+        for lib, init in states.items():
+            lib.init_state = init
 
 
 def tp_truth(cfg, full, mine, batch, kept, order, runs, tp, on_params,

@@ -33,7 +33,10 @@ mesh under ``shard_map``:
   under ``DEFAULT_RULES``): the conjugate pair :func:`copy_to_model`
   (identity forward, gradient summed over ``model``) and
   :func:`reduce_from_model` (forward summed, gradient passed through),
-  the vocab-parallel :func:`vocab_embed` and
+  the second pair :func:`sum_to_slice` (forward summed and cut to this
+  rank's slice, gradient all-gathered) and :func:`gather_from_slice`
+  (forward all-gathered, gradient summed and cut), which the recurrent
+  blocks' forms take, the vocab-parallel :func:`vocab_embed` and
   :func:`vocab_cross_entropy`, and :meth:`ModelParallel.sum_buckets`
   for the gradients of leaves a rank uses only in part.  Each keeps
   shapes and carries nothing on ``meta`` (the dry-run), where
@@ -77,7 +80,8 @@ __all__ = ["tp_segment_attention", "tp_paged_segment_attention",
            "agreed_flag", "reduce_f32_buckets", "gather_leaves",
            "quantize_int8", "dequantize_int8", "compressed_psum_grads",
            "BUCKET_BYTES", "ModelParallel", "copy_to_model",
-           "reduce_from_model", "vocab_embed", "vocab_cross_entropy"]
+           "reduce_from_model", "sum_to_slice", "gather_from_slice",
+           "vocab_embed", "vocab_cross_entropy"]
 
 _BLOCK = 128
 # host bytes a training collective stages at a time
@@ -392,17 +396,30 @@ class ModelParallel:
     model position) and ``split``, which of the logical families
     ``heads``, ``kv_heads``, ``ff`` and ``vocab`` the step's placement
     splits over ``model`` (``sharding.model_split``: a family whose
-    dim ``model`` does not divide stays replicated).  ``calls`` and
-    ``bytes`` count the all-reduces over ``model`` this rank has run,
-    on ``meta`` too (where they carry nothing)."""
+    dim ``model`` does not divide stays replicated).  ``counts`` holds
+    the calls and bytes of the collectives over ``model`` this rank has
+    run, by kind (``"all-reduce"``, ``"all-gather"``: the bytes a rank
+    hands the call), on ``meta`` too (where they carry nothing);
+    ``calls`` and ``bytes`` are their totals."""
 
     def __init__(self, mesh, split: dict) -> None:
         self.mesh = mesh
         self.size = mesh.shape["model"]
         self.index = mesh.model_index
         self.split = {f: bool(split.get(f, False)) for f in TP_FAMILIES}
-        self.calls = 0
-        self.bytes = 0
+        self.reset()
+
+    def reset(self) -> None:
+        """Set the counts to 0."""
+        self.counts = {"all-reduce": [0, 0], "all-gather": [0, 0]}
+
+    @property
+    def calls(self) -> int:
+        return sum(c for c, _ in self.counts.values())
+
+    @property
+    def bytes(self) -> int:
+        return sum(b for _, b in self.counts.values())
 
     def kv_span(self, heads: int, kv_heads: int) -> tuple[int, int]:
         """``(first, count)`` of the KV heads this rank's chunk of
@@ -417,22 +434,38 @@ class ModelParallel:
                 f"{group} (KV heads {kv_heads}, replicated over model)")
         return self.index * local // group, max(local // group, 1)
 
-    def _note(self, nbytes: int) -> None:
-        self.calls += 1
-        self.bytes += nbytes
+    def own(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's contiguous ``1/M`` of ``x`` along ``dim`` (a view)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * n, n)
+
+    def _note(self, op: str, nbytes: int) -> None:
+        c = self.counts[op]
+        c[0] += 1
+        c[1] += nbytes
 
     def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM):
         """``x`` reduced over ``model`` in f32, back in x's dtype (a new
         tensor; shapes alone on ``meta``)."""
-        self._note(x.numel() * 4)
+        self._note("all-reduce", x.numel() * 4)
         if x.is_meta:
             return torch.empty_like(x)
         return all_reduce(x.float(), self.mesh, "model", op=op).to(x.dtype)
 
+    def all_gather(self, x: torch.Tensor, dim: int = -1):
+        """The ranks' ``x`` concatenated along ``dim`` in ``model`` order
+        (shapes alone on ``meta``)."""
+        self._note("all-gather", x.numel() * x.element_size())
+        if x.is_meta:
+            return torch.cat([x] * self.size, dim=dim)
+        return all_gather(x, self.mesh, "model", dim)
+
     def sum_buckets(self, tensors: list) -> list:
-        """:func:`reduce_f32_buckets` over ``model``, counted."""
-        for t in tensors:
-            self._note(t.numel() * 4)
+        """:func:`reduce_f32_buckets` over ``model``, counted a call a
+        bucket."""
+        sizes = [t.numel() * 4 for t in tensors]
+        for run in _buckets(sizes, BUCKET_BYTES):
+            self._note("all-reduce", sum(sizes[i] for i in run))
         return reduce_f32_buckets(tensors, self.mesh, "model")
 
 
@@ -457,6 +490,29 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumToSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp, dim):
+        ctx.mp, ctx.dim = mp, dim
+        return mp.own(mp.all_reduce(x), dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mp.all_gather(g, ctx.dim), None, None
+
+
+class _GatherFromSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mp, dim):
+        ctx.mp, ctx.dim = mp, dim
+        return mp.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mp.own(ctx.mp.all_reduce(g), ctx.dim).contiguous(), \
+            None, None
+
+
 def copy_to_model(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
     """``x`` (replicated over ``model``) entering a column-parallel
     region: the identity, whose gradient is summed over ``model`` (each
@@ -468,6 +524,28 @@ def reduce_from_model(x: torch.Tensor, mp: ModelParallel) -> torch.Tensor:
     """A row-parallel region's partial output summed over ``model`` (in
     f32, rounded once to x's dtype); its gradient passes through."""
     return _ReduceFromModel.apply(x, mp)
+
+
+def sum_to_slice(x: torch.Tensor, mp: ModelParallel,
+                 dim: int = -1) -> torch.Tensor:
+    """This rank's ``1/M`` along ``dim`` of the sum over ``model`` of the
+    ranks' partial products ``x`` (in f32, rounded once to x's dtype):
+    an all-reduce, then this rank's slice.  Each rank goes on with a
+    different slice, so the gradient of its ``x`` is every rank's slice
+    gradient put together: an all-gather along ``dim``
+    (:func:`reduce_from_model`'s passed-through gradient holds only when
+    every rank goes on with the whole sum)."""
+    return _SumToSlice.apply(x, mp, dim)
+
+
+def gather_from_slice(x: torch.Tensor, mp: ModelParallel,
+                      dim: int = -1) -> torch.Tensor:
+    """The ranks' slices ``x`` put together along ``dim`` (an all-gather),
+    for a computation every rank repeats whole and then uses in part: the
+    gradient of the whole is a part on each rank, so this rank's slice
+    of its sum over ``model`` is ``x``'s (the conjugate of
+    :func:`sum_to_slice`)."""
+    return _GatherFromSlice.apply(x, mp, dim)
 
 
 def vocab_embed(table: torch.Tensor, ids: torch.Tensor,

@@ -248,7 +248,9 @@ class Placement:
     are replicated over ``model`` yet used only in part on a rank, so
     that a rank's gradient of one is a part of the whole, summed over
     ``model`` by the step: ``wk``/``wv`` when the query heads are split
-    over ``model`` and the KV heads are not (``partial_leaves``)."""
+    over ``model`` and the KV heads are not, the recurrent blocks'
+    gate biases, token-shift mixes and decay when ``ff`` is
+    (``partial_leaves``)."""
 
     def __init__(self, mesh, specs, partial=()) -> None:
         self.mesh = mesh
@@ -338,14 +340,20 @@ def model_split(axes_tree, specs, mesh) -> dict[str, bool]:
     return seen
 
 
-def partial_leaves(axes_tree, specs, mesh) -> list[str]:
-    """Keys of the ``kv_heads`` leaves a rank uses only in part: those
-    left replicated over ``model`` while the query heads are split (each
-    rank's query chunk reads only its span of the KV heads)."""
+def partial_leaves(axes_tree, specs, mesh, in_part) -> list[str]:
+    """Keys of the leaves a rank uses only in part: the ``kv_heads``
+    leaves left replicated over ``model`` while the query heads are
+    split (each rank's query chunk reads only its span of the KV heads),
+    and every leaf whose key ends with one of the suffixes ``in_part``
+    gives for :func:`model_split`'s result (``models.blocks.tp_partial``:
+    the recurrent blocks' leaves)."""
     split = model_split(axes_tree, specs, mesh)
-    if not split.get("heads") or split.get("kv_heads", True):
-        return []
-    return [k for k, names in _keyed_axes(axes_tree) if "kv_heads" in names]
+    keyed = list(_keyed_axes(axes_tree))
+    out = []
+    if split.get("heads") and not split.get("kv_heads", True):
+        out = [k for k, names in keyed if "kv_heads" in names]
+    ends = tuple(in_part(split))
+    return out + [k for k, _ in keyed if ends and k.endswith(ends)]
 
 
 def _keyed_axes(axes_tree, prefix: str = ""):

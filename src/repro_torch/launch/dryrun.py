@@ -13,8 +13,8 @@ per cell it
     specs of the mesh the port trains it on, :func:`train_mesh` (the
     record's ``train_mesh``): ``(D, M)``, the cell's data ranks by its
     ``model`` ranks, for the archs the port trains tensor-parallel, and
-    ``(D, 1)`` for the recurrent and MoE archs, whose tensor-parallel
-    training is ROADMAP Queue 1 items 11f and 11g;
+    ``(D, 1)`` for the MoE archs, whose tensor-parallel training is
+    ROADMAP Queue 1 item 11g;
   * runs the step itself on ``meta`` tensors at one rank's rows under
     :class:`~repro_torch.roofline.op_cost.OpCost`: the port's train step
     with AdamW's update (``make_train_step`` on one rank,
@@ -34,8 +34,10 @@ per cell it
   * reckons the collectives from the specs, as the port's mesh steps run
     them: FSDP's all-gather of each sliced leaf over ``data`` (its
     ``model`` slice), the f32 gradient sum over the data axes, the
-    tensor-parallel step's all-reduces over ``model`` (as its
-    ``ModelParallel`` counts them on ``meta``), and on serving cells the head-parallel all-gather
+    tensor-parallel step's all-reduces and all-gathers over ``model`` (as
+    its ``ModelParallel`` counts them on ``meta``; the record keeps them
+    apart too, ``collectives_over_model``), and on serving cells
+    the head-parallel all-gather
     of each attention layer's output over ``model``;
   * and from those the roofline terms at the H100's
     :data:`~repro_torch.roofline.analysis.HW`, ``model_flops`` and the
@@ -181,9 +183,9 @@ def _head_gather_bytes(cfg, mesh, tokens: int) -> int:
 def train_mesh(cfg, shape: ShapeConfig, mesh) -> ShapeMesh:
     """The mesh the port trains a train cell on: ``(D, M)``, ``D`` the
     ranks the cell's batch rows are split over (pod x data) and ``M`` the
-    mesh's ``model`` ranks, each holding its tensor-parallel slices.  A
-    recurrent or MoE arch takes ``(D, 1)``: the port does not train it
-    tensor-parallel yet (ROADMAP Queue 1 items 11f and 11g;
+    mesh's ``model`` ranks, each holding its tensor-parallel slices.  An
+    MoE arch takes ``(D, 1)``: the port does not train it
+    tensor-parallel yet (ROADMAP Queue 1 item 11g;
     ``train_step.tp_pending``), so each of its ranks holds
     the whole model width."""
     with shd.use_mesh(mesh):
@@ -252,9 +254,12 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
             for t, s in _leaves_specs(aparams, pspecs))
         coll["count"] += 1
     tp = getattr(step, "tp", None)
-    if tp is not None:                     # the sums over model, counted
-        coll["all-reduce"] += tp.bytes
-        coll["count"] += tp.calls
+    over_model = {}
+    if tp is not None:            # the collectives over model, counted
+        for kind, (calls, nbytes) in tp.counts.items():
+            coll[kind] += nbytes
+            coll["count"] += calls
+            over_model[kind] = {"count": calls, "bytes": nbytes}
     if not is_train:
         tokens = rows * (shape.seq_len if shape.kind == "prefill" else 1)
         g = _head_gather_bytes(cfg, mesh, tokens)
@@ -267,6 +272,7 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
             "train_mesh": _mesh_name(mesh) if is_train else None,
             "argument_bytes": int(arg_bytes), "temp_bytes": int(temp),
             "peak_bytes": int(arg_bytes + temp), "collectives": coll,
+            "collectives_over_model": over_model,
             "collective_bytes": sum(coll[k] for k in op_cost.COLLECTIVES)}
 
 
@@ -319,6 +325,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
             bytes_per_chip=nbytes,
             bytes_raw_per_chip=cost["bytes_raw"] / m,
             collectives=r["collectives"],
+            collectives_over_model=r["collectives_over_model"],
             collective_bytes_per_chip=r["collective_bytes"],
             memory={"argument_bytes": r["argument_bytes"],
                     "temp_bytes": r["temp_bytes"],

@@ -20,9 +20,10 @@ host): each rank takes ``--batch / D`` rows of the host-sharded stream,
 FSDP slices the large parameters and their moments over ``data``, with
 ``M > 1`` a rank also holds its ``1/M`` of the heads, ``ff`` columns and
 vocab rows that ``M`` divides (tensor-parallel, as the reference's
-``DEFAULT_RULES`` lay it out), and rank 0's summary is printed.  A model
-axis above 1 raises ``ValueError`` for the recurrent archs (ROADMAP
-Queue 1 item 11f) and the MoE ones (11g).
+``DEFAULT_RULES`` lay it out: the attention archs' heads, the recurrent
+archs' RG-LRU and RWKV-6 channels), and rank 0's summary is printed.  A
+model axis above 1 raises ``ValueError`` for the MoE archs (ROADMAP
+Queue 1 item 11g).
 """
 
 from __future__ import annotations

@@ -39,8 +39,11 @@ A tensor-parallel training step passes its
 (never through ``use_mesh``): the attention kinds then run the forms of
 :func:`seq_attention` on this rank's heads and the dense FFN its
 column- and row-parallel form (``layers.mlp``), each summed over
-``model``.  The recurrent kinds and the MoE layer have no such form yet
-(ROADMAP Queue 1 items 11f and 11g) and raise under ``tp``.
+``model``; the recurrent kinds run their forms on this rank's channels
+(``rglru.rglru_block``, ``rwkv6.time_mix_chunked`` and
+``rwkv6.channel_mix`` with ``tp``), the leaves they use only in part
+named by :func:`tp_partial`.  The MoE layer has no such form yet
+(ROADMAP Queue 1 item 11g) and raises under ``tp``.
 """
 
 from __future__ import annotations
@@ -117,6 +120,18 @@ def block_init(cfg, kind: str, dtype, device, generator,
         params["mlp"] = {"w_up": dense((d, cfg.d_ff)),
                          "w_down": dense((cfg.d_ff, d))}
     return params
+
+
+def tp_partial(split: dict) -> tuple[str, ...]:
+    """Key suffixes (``bridge.keyed_leaves``') of the recurrent blocks'
+    leaves a tensor-parallel rank uses only in part under a placement
+    that splits the families ``split`` (``sharding.model_split``'s):
+    ``rglru.TP_PARTIAL`` and ``rwkv6.tp_partial``, when ``ff`` is
+    split."""
+    if not split.get("ff"):
+        return ()
+    return (tuple(f"['rglru'][{n!r}]" for n in rglru_lib.TP_PARTIAL)
+            + tuple(f"['tm_cm'][{n!r}]" for n in rwkv6_lib.tp_partial(split)))
 
 
 def block_axes(cfg, kind: str) -> dict:
@@ -388,30 +403,29 @@ def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None,
     Without (training) the recurrent kinds start from zero state.  The
     recurrent kinds run their one-shot forms (``rglru_block``,
     ``time_mix_chunked``).  ``tp``: a tensor-parallel training step's
-    ``ModelParallel`` (attention kinds only, no cache).  Returns ``(x,
+    ``ModelParallel`` (no cache; the MoE layer raises).  Returns ``(x,
     aux)`` with ``aux`` the f32 load-balancing loss (0 for a dense
     FFN)."""
     base = _check_ported(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if tp is not None and (base in RECURRENT_KINDS or cache is not None):
-        raise ValueError(f"{kind}: no tensor-parallel form "
-                         + ("with a cache" if cache is not None else
-                            "(ROADMAP Queue 1 item 11f)"))
+    if tp is not None and cache is not None:
+        raise ValueError(f"{kind}: no tensor-parallel form with a cache")
     if base in RECURRENT_KINDS:
         lib = rglru_lib if base == "rglru" else rwkv6_lib
         st = (cache if cache is not None
-              else lib.init_state(cfg, x.shape[0], x.device))
+              else lib.init_state(cfg, x.shape[0], x.device, tp))
         h = apply_norm(cfg.norm, params["ln1"], x)
         if base == "rglru":
-            y, new = rglru_lib.rglru_block(params["rglru"], h, st)
-            x, aux = _ffn(cfg, params, x + y, aux=True)
+            y, new = rglru_lib.rglru_block(params["rglru"], h, st, tp)
+            x, aux = _ffn(cfg, params, x + y, aux=True, tp=tp)
         else:
             p = params["tm_cm"]
-            y, s_new, tm_last = rwkv6_lib.time_mix_chunked(p, h, st["S"],
-                                                           st["tm_last"])
+            y, s_new, tm_last = rwkv6_lib.time_mix_chunked(
+                p, h, st["S"], st["tm_last"], tp)
             x = x + y
             h2 = apply_norm(cfg.norm, params["ln2"], x)
-            cm_out, cm_last = rwkv6_lib.channel_mix(p, h2, st["cm_last"])
+            cm_out, cm_last = rwkv6_lib.channel_mix(p, h2, st["cm_last"],
+                                                    tp)
             x = x + cm_out
             new = {"S": s_new, "tm_last": tm_last, "cm_last": cm_last}
         if cache is not None:

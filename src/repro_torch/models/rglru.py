@@ -16,6 +16,16 @@ per-slot rows) advance the recurrence through
 chunk boundaries; decode is the one-token step.  Rounding follows the
 reference: matrix products in the model's dtype, gates and the recurrence
 in f32, the conv as a left-to-right sum over its taps in the model's dtype.
+
+A tensor-parallel training step (``tp``, its placement splitting ``ff``
+over ``model``) runs :func:`rglru_block` on this rank's ``dr / M``
+channels: ``w_in``, ``w_gate_branch`` and ``conv_w`` hold its columns,
+``wa``, ``wx`` and ``w_out`` its rows.  The gates' products ``u @ wa``
+and ``u @ wx`` contract over ``dr``, so each rank's is a part of the
+whole gate input; one :func:`~repro_torch.distributed.collectives
+.sum_to_slice` of both sums them over ``model`` and keeps this rank's
+channels.  ``ba``, ``bx`` and ``lam`` stay whole and are used in part
+(:data:`TP_PARTIAL`).
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import (copy_to_model,
+                                                 reduce_from_model,
+                                                 sum_to_slice)
 from repro_torch.distributed.sharding import A
 
 from .layers import dense_init
@@ -60,17 +73,32 @@ def rglru_axes() -> dict:
             "w_out": A("ff", "embed")}
 
 
-def init_state(cfg, batch: int, device) -> dict:
+# the leaves a tensor-parallel rank uses only in part when ``ff`` is split:
+# whole on every rank, narrowed to its channels
+TP_PARTIAL = ("ba", "bx", "lam")
+
+
+def _split(tp) -> bool:
+    return tp is not None and tp.split["ff"]
+
+
+def init_state(cfg, batch: int, device, tp=None) -> dict:
+    """Zero state ``{h: [B, dr], conv: [B, W-1, dr]}`` (f32); under a
+    ``tp`` that splits ``ff``, of this rank's ``dr / M`` channels."""
     dr = cfg.num_heads * cfg.resolved_head_dim
+    if _split(tp):
+        dr //= tp.size
     return {"h": torch.zeros(batch, dr, dtype=torch.float32, device=device),
             "conv": torch.zeros(batch, CONV_WIDTH - 1, dr,
                                 dtype=torch.float32, device=device)}
 
 
-def _gates(params, u):
-    """u: [..., dr] -> (log_a, gated input), both f32."""
-    r = torch.sigmoid((u @ params["wa"]).float() + params["ba"])
-    i = torch.sigmoid((u @ params["wx"]).float() + params["bx"])
+def _gates(params, u, pre=None):
+    """u: [..., dr] -> (log_a, gated input), both f32.  ``pre``: the gate
+    inputs ``(u @ wa, u @ wx)`` when the caller has them."""
+    ga, gx = pre if pre is not None else (u @ params["wa"], u @ params["wx"])
+    r = torch.sigmoid(ga.float() + params["ba"])
+    i = torch.sigmoid(gx.float() + params["bx"])
     # jax.nn.softplus is exact: logaddexp, not torch's thresholded one
     softplus = torch.logaddexp(params["lam"], torch.zeros_like(params["lam"]))
     log_a = -C_FACTOR * softplus * r                 # log a_t < 0
@@ -112,7 +140,7 @@ def _doubling_scan(log_a, b):
     return b
 
 
-def rglru_block(params, x, state):
+def rglru_block(params, x, state, tp=None):
     """The one-shot form over a whole sequence (training, the one-shot
     prefill).  x: [B,S,d]; state {h: [B,dr] f32, conv: [B,W-1,dr]}
     carried in.  The recurrence is seeded with ``(0, h)`` at t = -1, as
@@ -120,16 +148,41 @@ def rglru_block(params, x, state):
     combines in another tree, so results agree with it to f32 rounding.
     Returns (y [B,S,d], {h: h at the last step (f32), conv: the last W-1
     entries of [conv ++ u] in u's dtype}); the caller's state is not
-    modified."""
+    modified.
+
+    Under ``tp`` (a tensor-parallel training step's ``ModelParallel``)
+    whose placement splits ``ff``: ``x`` enters through
+    ``copy_to_model``; ``u``, the conv, the gates and the scan run on
+    this rank's channels, from ``state`` of that width
+    (:func:`init_state` with ``tp``); the two gate products, stacked
+    ``[B, S, 2, dr]``, pass one ``sum_to_slice``; ``w_out``'s partial
+    output is summed by ``reduce_from_model``.  With ``ff`` replicated
+    the block runs whole, as on one device."""
+    split = _split(tp)
+    p = params
+    if split:
+        dr = params["ba"].shape[-1]
+        if params["w_in"].shape[-1] * tp.size != dr:
+            raise ValueError(f"w_in holds {params['w_in'].shape[-1]} "
+                             f"channels, not {dr} / {tp.size}")
+        x = copy_to_model(x, tp)
+        p = dict(params, **{k: tp.own(params[k]) for k in TP_PARTIAL})
     s = x.shape[1]
     u = x @ params["w_in"]
     ext = torch.cat([state["conv"].to(u.dtype), u], dim=1)
-    log_a, inp = _gates(params, _conv_taps(ext, params["conv_w"], s))
+    u_conv = _conv_taps(ext, params["conv_w"], s)
+    pre = None
+    if split:
+        pre = sum_to_slice(torch.stack([u_conv @ params["wa"],
+                                        u_conv @ params["wx"]], dim=-2),
+                           tp).unbind(-2)
+    log_a, inp = _gates(p, u_conv, pre)
     h = _doubling_scan(
         torch.cat([torch.zeros_like(log_a[:, :1]), log_a], dim=1),
         torch.cat([state["h"].float()[:, None, :], inp], dim=1))[:, 1:]
     new_state = {"h": h[:, -1], "conv": ext[:, -(CONV_WIDTH - 1):]}
-    return _gate_out(params, x, h), new_state
+    y = _gate_out(params, x, h)
+    return (reduce_from_model(y, tp) if split else y), new_state
 
 
 def rglru_chunk(params, x, state, valid):

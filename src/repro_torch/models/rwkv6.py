@@ -17,12 +17,26 @@ across chunk boundaries; decode is the one-token step in plain
 torch, as in the reference.  Rounding follows the reference: projections
 in the model's dtype, the decay, the recurrence and the group norm in f32,
 the gate's SiLU in the model's dtype.
+
+A tensor-parallel training step (``tp``, its placement splitting ``ff``
+over ``model``) gives a rank its columns of ``wr``, ``wk``, ``wv``,
+``wg`` and ``cm_k`` and its rows of ``wo`` and ``cm_v``.  Where the
+placement splits ``heads`` too (``u``), :func:`time_mix_chunked` runs
+head-parallel on the rank's whole heads.  Where it does not (a head
+straddles two ranks: ``model`` divides ``d`` but not ``d / 64``), the
+rank's columns of r, k and v are gathered to whole heads, every rank runs
+the whole time mix, and each keeps its columns before ``wo``.
+:func:`channel_mix` is column- then row-parallel.  The leaves a rank then
+uses only in part are :func:`tp_partial`'s.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.collectives import (copy_to_model,
+                                                 gather_from_slice,
+                                                 reduce_from_model)
 from repro_torch.distributed.sharding import A
 
 from .layers import dense_init, torch_dtype
@@ -79,10 +93,35 @@ def rwkv6_axes() -> dict:
     }
 
 
-def init_state(cfg, batch: int, device) -> dict:
+def tp_partial(split: dict) -> tuple[str, ...]:
+    """The leaves a tensor-parallel rank uses only in part under a
+    placement that splits the families ``split`` (``model_split``'s):
+    with ``ff`` split, the token-shift mixes of the time mix (each
+    feeds this rank's columns), the decay's ``w0`` and LoRA (computed
+    whole, used on its columns), ``ln_scale``, and ``u`` where the
+    heads are not split (the whole time mix runs on every rank, its
+    output used on the rank's columns).  ``cm_mu`` is whole: the channel
+    mix's input enters ``copy_to_model`` after its token shift."""
+    if not split.get("ff"):
+        return ()
+    names = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w0", "w_lora_a",
+             "w_lora_b", "ln_scale")
+    return names if split.get("heads") else names + ("u",)
+
+
+def _split(tp) -> bool:
+    """Whether ``tp`` splits the block: its ``ff`` columns (a placement
+    that splits the heads splits ``d = 64 H`` too)."""
+    return tp is not None and tp.split["ff"]
+
+
+def init_state(cfg, batch: int, device, tp=None) -> dict:
     """``S [B, H, N, N]`` f32 and the two token shifts ``[B, d]`` in the
-    model's dtype."""
+    model's dtype; under a ``tp`` that splits the heads, ``S`` of this
+    rank's ``H / M``."""
     h = cfg.d_model // HEAD_DIM
+    if _split(tp) and tp.split["heads"]:
+        h //= tp.size
     dt = torch_dtype(cfg.dtype)
     return {"S": torch.zeros(batch, h, HEAD_DIM, HEAD_DIM,
                              dtype=torch.float32, device=device),
@@ -103,16 +142,22 @@ def _shifted(x, x_last):
     return torch.cat([x_last[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _projections(params, x, x_prev):
+def _projections(params, x, x_prev, tp=None):
     """r, k, v, g in the model's dtype and logw (f32) from the shifted
-    inputs.  x, x_prev: [..., d]."""
+    inputs.  x, x_prev: [..., d].  Under ``tp`` r, k, v and g are this
+    rank's columns, as ``wr`` .. ``wg`` hold them; logw too where the
+    heads are split (the LoRA computed whole, then cut with ``w0``), and
+    whole where they are not."""
     r = _mix(x, x_prev, params["mu_r"]) @ params["wr"]
     k = _mix(x, x_prev, params["mu_k"]) @ params["wk"]
     v = _mix(x, x_prev, params["mu_v"]) @ params["wv"]
     g = _mix(x, x_prev, params["mu_g"]) @ params["wg"]
     xw = _mix(x, x_prev, params["mu_w"])
     lora = torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"]
-    logw = -torch.exp(params["w0"] + lora.float())          # log(w) < 0
+    w0 = params["w0"]
+    if tp is not None and tp.split["heads"]:
+        lora, w0 = tp.own(lora), tp.own(w0)
+    logw = -torch.exp(w0 + lora.float())                    # log(w) < 0
     return r, k, v, g, logw
 
 
@@ -130,11 +175,20 @@ def _groupnorm(y, scale):
     return (flat * scale.float()).to(dt)
 
 
-def _out(params, y, g, dtype):
+def _out(params, y, g, dtype, tp=None):
     """The gated output: group norm, times SiLU(g) (each op rounded in g's
-    dtype, as ``jax.nn.silu`` does), then ``wo``."""
-    y = _groupnorm(y, params["ln_scale"])
-    return (y * (g * torch.sigmoid(g))).to(dtype) @ params["wo"]
+    dtype, as ``jax.nn.silu`` does), then ``wo``.  Under ``tp`` g is this
+    rank's columns and ``wo`` its rows: y is its heads (``ln_scale`` cut
+    to them), or, with the heads whole, normalised whole and then cut;
+    the partial output is summed by ``reduce_from_model``."""
+    if tp is None:
+        y = _groupnorm(y, params["ln_scale"])
+    elif tp.split["heads"]:
+        y = _groupnorm(y, tp.own(params["ln_scale"]))
+    else:
+        y = tp.own(_groupnorm(y, params["ln_scale"]))
+    out = (y * (g * torch.sigmoid(g))).to(dtype) @ params["wo"]
+    return out if tp is None else reduce_from_model(out, tp)
 
 
 def chunk_lengths(s: int) -> list[int]:
@@ -177,15 +231,35 @@ def _chunk_closed_form(state, r, k, v, logw, u):
     return state, y_intra + y_diag + y_cross
 
 
-def time_mix_chunked(params, x, state, x_last):
+def time_mix_chunked(params, x, state, x_last, tp=None):
     """The one-shot time mix over a whole sequence (training, the one-shot
     prefill).  x: [B,S,d] ln1-normalised; state: S [B,H,N,N]; x_last:
     [B,d], the token before x.  A Python loop over :func:`chunk_lengths`
     carries S through :func:`_chunk_closed_form` (the reference's
     ``lax.scan``).  Returns (y [B,S,d], S' [B,H,N,N] f32, x_last' [B,d]);
-    the caller's state is not modified."""
-    h = x.shape[-1] // HEAD_DIM
-    r, k, v, g, logw = _projections(params, x, _shifted(x, x_last))
+    the caller's state is not modified.
+
+    Under ``tp`` (a tensor-parallel training step's ``ModelParallel``)
+    whose placement splits ``ff``: ``x`` enters through
+    ``copy_to_model``; with the heads split the chunk loop runs on this
+    rank's ``H / M`` heads (``state`` of that many, :func:`init_state`
+    with ``tp``; ``u`` its rows); with the heads whole, r, k and v
+    (stacked) pass one ``gather_from_slice`` and the loop runs on every
+    head.  :func:`_out` then takes the rank's columns through ``wo``.
+    With ``ff`` replicated the block runs whole, as on one device."""
+    if not _split(tp):
+        tp = None
+    else:
+        d = x.shape[-1]
+        if params["wr"].shape[-1] * tp.size != d:
+            raise ValueError(f"wr holds {params['wr'].shape[-1]} columns,"
+                             f" not {d} / {tp.size}")
+        x = copy_to_model(x, tp)
+    r, k, v, g, logw = _projections(params, x, _shifted(x, x_last), tp)
+    if tp is not None and not tp.split["heads"]:
+        r, k, v = gather_from_slice(torch.stack([r, k, v], dim=-2),
+                                    tp).unbind(-2)
+    h = r.shape[-1] // HEAD_DIM
     r, k, v, logw = (_heads(t, h).float() for t in (r, k, v, logw))
     u = params["u"].float()
     state, ys, t0 = state.float(), [], 0
@@ -195,7 +269,8 @@ def time_mix_chunked(params, x, state, x_last):
                                       logw[:, sl], u)
         ys.append(y)
         t0 += length
-    return _out(params, torch.cat(ys, dim=1), g, x.dtype), state, x[:, -1]
+    return (_out(params, torch.cat(ys, dim=1), g, x.dtype, tp), state,
+            x[:, -1])
 
 
 def _last_valid(seq, prev, lengths):
@@ -263,13 +338,18 @@ def time_mix_step(params, x_t, state, x_last):
     return _out(params, y, g, x_t.dtype), state, x_t
 
 
-def channel_mix(params, x, x_last):
+def channel_mix(params, x, x_last, tp=None):
     """RWKV channel mix (the FFN analogue) over [B,S,d] or [B,d]; returns
-    (out, the new token shift: the last position)."""
+    (out, the new token shift: the last position).  Under ``tp`` whose
+    placement splits ``ff``: the shifted mix enters ``copy_to_model``,
+    ``cm_k`` its columns, ``cm_v`` its rows, ``reduce_from_model``."""
     if x.dim() == 3:
         x_prev, new_last = _shifted(x, x_last), x[:, -1, :]
     else:
         x_prev, new_last = x_last, x
     xk = _mix(x, x_prev, params["cm_mu"])
-    hidden = torch.relu(xk @ params["cm_k"]).square()
-    return hidden @ params["cm_v"], new_last
+    split = _split(tp)
+    if split:
+        xk = copy_to_model(xk, tp)
+    out = torch.relu(xk @ params["cm_k"]).square() @ params["cm_v"]
+    return (reduce_from_model(out, tp) if split else out), new_last

@@ -21,9 +21,10 @@ rank also holds its ``1/M`` of every ``heads``, ``kv_heads``, ``ff`` and
 backward on those heads, ``ff`` columns and vocab rows, with the sums
 over ``model`` that GSPMD inserts in the reference
 (``collectives.ModelParallel``, passed down the forward as ``tp``).  The
-four attention text archs and the two frontends take it; the recurrent
-archs (ROADMAP Queue 1 item 11f) and the MoE ones (11g) raise
-``ValueError`` on a mesh with ``model > 1`` (:func:`check_train_mesh`).
+four attention text archs, the two recurrent ones (their RG-LRU and
+RWKV-6 blocks on the rank's channels) and the two frontends take it; the
+MoE ones (ROADMAP Queue 1 item 11g) raise ``ValueError`` on a mesh with
+``model > 1`` (:func:`check_train_mesh`).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import zoo
-from repro_torch.models.blocks import RECURRENT_KINDS, split_kind
+from repro_torch.models.blocks import split_kind, tp_partial
 from repro_torch.models.bridge import keyed_map, tree_leaves, tree_map
 from repro_torch.optim import accum, adamw
 
@@ -166,34 +167,23 @@ def state_shardings(cfg: ArchConfig, mesh, *, fsdp, with_opt: bool):
 
 def tp_pending(cfg: ArchConfig) -> str | None:
     """The ROADMAP Queue 1 item that still lacks ``cfg``'s
-    tensor-parallel training: ``"11f"`` for a recurrent arch, ``"11g"``
-    for an MoE one, None for the attention archs and the frontends,
-    which the port trains over ``model``."""
-    kinds = {split_kind(k) for k in cfg.block_pattern}
-    if any(base in RECURRENT_KINDS for base, _ in kinds):
-        return "11f"
-    if cfg.moe or any(moe for _, moe in kinds):
+    tensor-parallel training: ``"11g"`` for an MoE arch, None for the
+    attention and recurrent archs and the frontends, which the port
+    trains over ``model``."""
+    if cfg.moe or any(moe for _, moe in map(split_kind, cfg.block_pattern)):
         return "11g"
     return None
 
 
 def check_train_mesh(cfg: ArchConfig, shape: dict) -> None:
-    """Training shards over ``data`` and, for the attention archs and the
-    frontends, over ``model``: a mesh ``shape`` with ``model > 1``
-    raises ``ValueError`` for a recurrent arch (ROADMAP Queue 1 item 11f)
-    or an MoE one (11g), and any other axis above 1 raises too."""
+    """Training shards over ``data`` and, but for the MoE archs, over
+    ``model``: a mesh ``shape`` with ``model > 1`` raises ``ValueError``
+    for an MoE arch (ROADMAP Queue 1 item 11g), and any other axis above
+    1 raises too."""
     if any(n > 1 for ax, n in shape.items() if ax not in ("data", "model")):
         raise ValueError(f"training on mesh {dict(shape)}: a process mesh "
                          "has the axes data and model only")
-    if shape.get("model", 1) <= 1:
-        return
-    item = tp_pending(cfg)
-    if item == "11f":
-        raise ValueError(
-            f"{cfg.name}: tensor-parallel training over model (mesh "
-            f"{dict(shape)}) of the recurrent blocks is ROADMAP Queue 1 "
-            "item 11f; train it on a (D, 1) mesh")
-    if item == "11g":
+    if shape.get("model", 1) > 1 and tp_pending(cfg) == "11g":
         raise ValueError(
             f"{cfg.name}: tensor-parallel training over model (mesh "
             f"{dict(shape)}) with the MoE layer's expert parallelism in "
@@ -209,7 +199,8 @@ def state_placement(cfg: ArchConfig, mesh, *, fsdp=True) -> shd.Placement:
     check_train_mesh(cfg, mesh.shape)
     _, pspecs, _, ospecs = state_shardings(cfg, mesh, fsdp=fsdp,
                                            with_opt=True)
-    partial = shd.partial_leaves(zoo.init_axes(cfg), pspecs, mesh)
+    partial = shd.partial_leaves(zoo.init_axes(cfg), pspecs, mesh,
+                                 tp_partial)
     return shd.Placement(mesh, {"params": pspecs, "opt": ospecs},
                          ["['params']" + k for k in partial])
 
@@ -250,9 +241,9 @@ def make_mesh_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, mesh,
     on_params = shd.Placement(mesh, pspecs, partial)
     tp = None
     if mesh.shape["model"] > 1:
-        tp = collectives.ModelParallel(
-            mesh, shd.model_split(zoo.init_axes(cfg), pspecs, mesh))
-        if tp.split["heads"] and not tp.split["kv_heads"]:
+        split = shd.model_split(zoo.init_axes(cfg), pspecs, mesh)
+        tp = collectives.ModelParallel(mesh, split)
+        if split.get("heads") and split.get("kv_heads") is False:
             # a chunk of query heads straddling two GQA groups raises
             # here, before any step runs
             tp.kv_span(cfg.num_heads, cfg.num_kv_heads)

@@ -29,9 +29,9 @@ data at any size).
 * ``Trainer(mesh=)``'s ranks take every checkpoint on the same step, and
   a fresh Trainer resumes from the gathered checkpoint;
 * ``launch/train.py --mesh 2x1 --device cpu`` runs;
-* a mesh with ``model > 1`` raises ``ValueError`` for the recurrent
-  (ROADMAP item 11f) and MoE (11g) archs, and where a chunk of query
-  heads would straddle two GQA groups.
+* a mesh with ``model > 1`` raises ``ValueError`` for the MoE archs
+  (ROADMAP item 11g), and where a chunk of query heads would straddle
+  two GQA groups; the recurrent archs take it.
 """
 
 import io
@@ -230,23 +230,28 @@ def test_rank_module_imports_no_jax():
 
 
 def test_model_axis_raises():
-    """Tensor-parallel training takes the attention archs and the
-    frontends (``tests/test_torch_tp_train.py``); on a mesh with ``model
-    > 1`` the recurrent archs raise naming ROADMAP item 11f, the MoE ones
-    11g, and so do the step, the placement and the launcher; a mesh whose
-    chunks of query heads straddle two GQA groups raises too."""
+    """Tensor-parallel training takes the attention and recurrent archs
+    and the frontends (``tests/test_torch_tp_train.py``,
+    ``tests/test_torch_tp_train_recurrent.py``): on a mesh with ``model >
+    1`` the recurrent archs build the placement and the step, the MoE
+    ones raise naming ROADMAP item 11g, and so do their step, placement
+    and launcher; a mesh whose chunks of query heads straddle two GQA
+    groups raises too."""
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  shape={"data": 1, "model": 2},
                                  data_index=0, model_index=0, rank=0)
-    for arch, item in (("recurrentgemma-9b", "11f"), ("rwkv6-7b", "11f"),
-                       ("deepseek-moe-16b", "11g"),
-                       ("llama4-maverick-400b-a17b", "11g")):
+    for arch in ("recurrentgemma-9b", "rwkv6-7b"):
         cfg = reduced(get_config(arch))
-        with pytest.raises(ValueError, match=item):
+        assert ts.state_placement(cfg, mesh).partial
+        assert ts.make_mesh_train_step(cfg, adamw.AdamWConfig(),
+                                       mesh).tp.split["ff"]
+    for arch in ("deepseek-moe-16b", "llama4-maverick-400b-a17b"):
+        cfg = reduced(get_config(arch))
+        with pytest.raises(ValueError, match="11g"):
             ts.state_placement(cfg, mesh)
-        with pytest.raises(ValueError, match=item):
+        with pytest.raises(ValueError, match="11g"):
             ts.make_mesh_train_step(cfg, adamw.AdamWConfig(), mesh)
-        with pytest.raises(ValueError, match=item):
+        with pytest.raises(ValueError, match="11g"):
             launch_train.main(["--arch", arch, "--device", "cpu", "--mesh",
                                "1x2"])
         ts.state_placement(cfg, types.SimpleNamespace(

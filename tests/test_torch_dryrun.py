@@ -18,7 +18,7 @@
 * The tensor-parallel train cells: yi-6b, starcoder2-15b, gemma3-4b and
   internvl2-1b ``train_4k`` on ``pod16x16`` reckoned as ``(16, 16)``
   ranks, their argument bytes their placements' slices; the recurrent
-  and MoE archs on ``(16, 1)``.
+  archs on ``(16, 16)`` and the MoE archs on ``(16, 1)``.
 """
 
 import json
@@ -260,13 +260,15 @@ def test_tp_train_cells_on_pod16x16(arch, tmp_path):
 
 
 def test_recurrent_and_moe_train_cells_stay_data_parallel():
-    """The archs whose tensor-parallel training is ROADMAP items 11f and
-    11g keep the ``(D, 1)`` train mesh."""
+    """The recurrent archs, trained tensor-parallel since ROADMAP item
+    11f, take the ``(16, 16)`` train mesh; the MoE archs, whose
+    tensor-parallel training is item 11g, keep ``(D, 1)``."""
     mesh = make_production_mesh()
-    for arch in ("recurrentgemma-9b", "rwkv6-7b", "deepseek-moe-16b",
-                 "llama4-maverick-400b-a17b"):
+    for arch, model in (("recurrentgemma-9b", 16), ("rwkv6-7b", 16),
+                        ("deepseek-moe-16b", 1),
+                        ("llama4-maverick-400b-a17b", 1)):
         got = dr.train_mesh(get_config(arch), dr.SHAPES["train_4k"], mesh)
-        assert got.shape == {"data": 16, "model": 1}, arch
+        assert got.shape == {"data": 16, "model": model}, arch
     got = dr.train_mesh(get_config("whisper-tiny"), dr.SHAPES["train_4k"],
                         mesh)
     assert got.shape == {"data": 16, "model": 16}

@@ -77,16 +77,16 @@ ONE_BY_TWO = side.TP_ARCHS + ["yi-6b/kv1", "yi-6b/v511", "whisper-tiny/h3"]
 class _JaxSide:
     """The ``tp_train`` job, started at once, read when first asked."""
 
-    def __init__(self, tmp):
+    def __init__(self, tmp, job: str = "tp_train"):
         import os
         import subprocess
         import sys
-        self.out = tmp / "tp_train.pkl"
+        self.out = tmp / f"{job}.pkl"
         env = dict(os.environ, JAX_PLATFORMS="cpu",
                    XLA_FLAGS="--xla_force_host_platform_device_count=8",
                    PYTHONPATH=str(side.ROOT / "src"))
         self.proc = subprocess.Popen(
-            [sys.executable, side.__file__, "tp_train", str(self.out)],
+            [sys.executable, side.__file__, job, str(self.out)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=env)
         self._got = None
@@ -123,7 +123,7 @@ def pool(jax_side):
 
 
 def case_cfg(case: str):
-    arch, over = side.TP_CASES[case]
+    arch, over = side.tp_case(case)
     return arch, over, reduced(get_config(arch), **over)
 
 

@@ -13,6 +13,7 @@ job agree on them without importing JAX here.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import subprocess
@@ -71,7 +72,27 @@ TP_CASES = {**{a: (a, {}) for a in TP_ARCHS},
             "yi-6b/v511": ("yi-6b", {"vocab_size": 511}),
             "whisper-tiny/h3": ("whisper-tiny", {"num_heads": 3,
                                                  "num_kv_heads": 3})}
+# the recurrent archs (their own job, ``tp_train_recurrent``): both as
+# reduced() gives them (rwkv6 at d 64 is one head, which a 1x2 mesh
+# straddles), rwkv6 at d 256 (four heads, split under 1x2 and 1x4), and
+# with embed and head past FSDP_THRESHOLD for 2x2 (rwkv6 at d 128: two
+# heads)
+TP_RECURRENT_CASES = {
+    "recurrentgemma-9b": ("recurrentgemma-9b", {}),
+    "recurrentgemma-9b/v16384": ("recurrentgemma-9b", {"vocab_size": 16384}),
+    "rwkv6-7b": ("rwkv6-7b", {}),
+    "rwkv6-7b/d256": ("rwkv6-7b", {"d_model": 256}),
+    "rwkv6-7b/d128v16384": ("rwkv6-7b", {"d_model": 128,
+                                         "vocab_size": 16384})}
+# the 2x2 cases' steps run two microbatches, as one process at n_micro 2
+TP_MICRO = {"recurrentgemma-9b/v16384": 2, "rwkv6-7b/d128v16384": 2}
 TP_ROWS, TP_SEQ = 4, 16
+
+
+def tp_case(case: str):
+    """``(arch, reduced() overrides)`` of a ``TP_CASES`` or
+    ``TP_RECURRENT_CASES`` case."""
+    return {**TP_CASES, **TP_RECURRENT_CASES}[case]
 
 
 def tp_batch(cfg, rows: int = TP_ROWS, seed: int = 0) -> dict:
@@ -296,10 +317,12 @@ def job_dp_train() -> dict:
     return out
 
 
-def job_tp_train() -> dict:
-    """For every ``TP_CASES`` case: the seed-0 weights and the state and
-    metrics after one jitted single-device ``make_train_step`` (one
-    microbatch) on ``tp_batch``."""
+def job_tp_train(cases: dict | None = None, f64: bool = False) -> dict:
+    """For every case of ``cases`` (``TP_CASES`` when None): the seed-0
+    weights and the state and metrics after one jitted single-device
+    ``make_train_step`` (one microbatch, ``TP_MICRO``'s where it names
+    the case) on ``tp_batch``; with ``f64`` the same step with every
+    float in f64 (:func:`_in_f64`) from the same weights."""
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -311,15 +334,22 @@ def job_tp_train() -> dict:
 
     out = {}
     opt_cfg = adamw.AdamWConfig(**DP_OPT)
-    for case, (arch, over) in TP_CASES.items():
+    for case, (arch, over) in (TP_CASES if cases is None
+                               else cases).items():
         cfg = reduced(get_config(arch), **over)
         params, _ = zoo.init(cfg, jax.random.key(0))
         weights = jax.tree.map(np.asarray, params)
         batch = tp_batch(cfg)
-        step = jax.jit(make_train_step(cfg, opt_cfg))
-        new_p, new_o, metrics = step(params, adamw.init(params),
-                                     {k: jnp.asarray(v)
-                                      for k, v in batch.items()})
+        with _in_f64() if f64 else contextlib.nullcontext():
+            if f64:
+                cfg = reduced(get_config(arch), **over, dtype="float64")
+                params = jax.tree.map(
+                    lambda a: jnp.asarray(a).astype(jnp.float64), weights)
+            step = jax.jit(make_train_step(cfg, opt_cfg,
+                                           n_micro=TP_MICRO.get(case, 1)))
+            new_p, new_o, metrics = step(params, adamw.init(params),
+                                         {k: jnp.asarray(v)
+                                          for k, v in batch.items()})
         out[case] = {
             "weights": weights,
             "state": {k: np.asarray(v) for k, v in _keyed(
@@ -327,6 +357,23 @@ def job_tp_train() -> dict:
             "metrics": {k: float(np.asarray(v)) for k, v in metrics.items()},
         }
     return out
+
+
+@contextlib.contextmanager
+def _in_f64():
+    """x64 on, and ``jnp.float32`` read as f64 where the reference names
+    it (its casts, its f32 leaves and states): every float its step
+    computes in f64.  The weights stay those drawn in f32."""
+    import jax
+    import jax.numpy as jnp
+    f32 = jnp.float32
+    jax.config.update("jax_enable_x64", True)
+    jnp.float32 = jnp.float64
+    try:
+        yield
+    finally:
+        jnp.float32 = f32
+        jax.config.update("jax_enable_x64", False)
 
 
 def job_controller() -> dict:
@@ -389,7 +436,10 @@ def job_controller() -> dict:
 
 
 JOBS = {"sharding": job_sharding, "dp_train": job_dp_train,
-        "controller": job_controller, "tp_train": job_tp_train}
+        "controller": job_controller, "tp_train": job_tp_train,
+        "tp_train_recurrent": lambda: job_tp_train(TP_RECURRENT_CASES),
+        "tp_train_recurrent_f64": lambda: job_tp_train(TP_RECURRENT_CASES,
+                                                        f64=True)}
 
 
 def run(job: str, tmp_dir) -> dict:

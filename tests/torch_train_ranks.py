@@ -9,6 +9,9 @@ first ranks; the others return None.
 
 from __future__ import annotations
 
+import contextlib
+import types
+
 import numpy as np
 import torch
 
@@ -233,7 +236,8 @@ def tp_collectives(arch, overrides, weights, batch, opt):
         def call(*a, group=None, **kw):
             calls.append((name, tuple(dist.get_process_group_ranks(group))
                           if group is not None else None))
-            sent[0] += a[0].numel() * a[0].element_size()
+            t = a[1] if name == "all_gather" else a[0]
+            sent[0] += t.numel() * t.element_size()
             return real[name](*a, group=group, **kw)
         return call
 
@@ -309,13 +313,55 @@ def tp_trainer(workdir, arch, overrides, data, model, steps):
     return [r["loss"] for r in log]
 
 
+@contextlib.contextmanager
+def in_f64(capture=None):
+    """Every float the model computes in f64 inside: the configs' f32 read
+    as f64, ``.float()`` keeping f64, the recurrent blocks' zero states
+    and the gradient sums over ``data`` and ``model`` in f64 (a call a
+    tensor).  ``capture(grads)``, when given, sees the gradients AdamW
+    receives."""
+    from repro_torch.models import layers, rglru, rwkv6
+    update, to32, dtypes = adamw.update, torch.Tensor.float, dict(
+        layers.DTYPES)
+    states = {lib: lib.init_state for lib in (rglru, rwkv6)}
+    buckets = collectives.reduce_f32_buckets
+
+    def wide_sums(tensors, mesh, axes):
+        return [collectives.all_reduce(t.double().clone(), mesh, axes)
+                for t in tensors]
+
+    def wide_state(init):
+        # the recurrent states are f32 by construction
+        return lambda *a, **kw: {k: v.double() if v.dtype == torch.float32
+                                 else v for k, v in init(*a, **kw).items()}
+
+    def seen(grads, *a, **kw):
+        capture(grads)
+        return update(grads, *a, **kw)
+
+    layers.DTYPES["float32"] = torch.float64
+    torch.Tensor.float = (lambda self, *a, **kw: self
+                          if self.dtype == torch.float64 else to32(self))
+    if capture is not None:
+        adamw.update = seen
+    collectives.reduce_f32_buckets = wide_sums
+    for lib, init in states.items():
+        lib.init_state = wide_state(init)
+    try:
+        yield
+    finally:
+        adamw.update, torch.Tensor.float = update, to32
+        layers.DTYPES.update(dtypes)
+        collectives.reduce_f32_buckets = buckets
+        for lib, init in states.items():
+            lib.init_state = init
+
+
 def tp_grads_f64(arch, overrides, weights, batch, data, model):
     """The gradients AdamW receives, gathered whole, with every float the
-    model computes in f64 (the configs' f32 read as f64 and ``.float()``
-    keeping f64), on a ``data x model`` mesh, or in one process on rank
-    0 at ``data`` microbatches when ``model`` is 1: the decomposition's
-    own error, without f32's.  The data sums still cast to f32."""
-    from repro_torch.models import layers
+    model computes in f64 (:func:`in_f64`), on a ``data x model`` mesh,
+    or in one process on rank 0 at ``data`` microbatches when ``model``
+    is 1: the decomposition's own error, without f32's."""
     from repro_torch.models.bridge import tree_map
     from repro_torch.distributed.sharding import Placement
     one = model == 1
@@ -323,18 +369,7 @@ def tp_grads_f64(arch, overrides, weights, batch, data, model):
     if (one and world()[1] != 0) or (not one and mesh is None):
         return None
     got = {}
-    update, to32, dtypes = adamw.update, torch.Tensor.float, dict(
-        layers.DTYPES)
-
-    def capture(grads, *a, **kw):
-        got["grads"] = grads
-        return update(grads, *a, **kw)
-
-    layers.DTYPES["float32"] = torch.float64
-    torch.Tensor.float = (lambda self, *a, **kw: self
-                          if self.dtype == torch.float64 else to32(self))
-    adamw.update = capture
-    try:
+    with in_f64(lambda g: got.setdefault("grads", g)):
         cfg = config(arch, overrides)
         params = tree_map(torch.Tensor.double,
                           params_from_numpy(weights, "cpu"))
@@ -350,9 +385,137 @@ def tp_grads_f64(arch, overrides, weights, batch, data, model):
             step(params, adamw.init(params), ts.local_rows(_batch(batch),
                                                            mesh))
             grads = Placement(mesh, pl.specs["params"]).gather(got["grads"])
-    finally:
-        adamw.update, torch.Tensor.float = update, to32
-        layers.DTYPES.update(dtypes)
     if mesh is not None and mesh.rank != 0:
         return None
     return {k: v.double().numpy() for k, v in keyed_leaves(grads)}
+
+
+def one_process_f64(arch, overrides, weights, batch, n_micro, opt):
+    """:func:`one_process` with every float in f64 (:func:`in_f64`; the
+    moments stay f32): the step f32 rounding would have to reach."""
+    from repro_torch.models.bridge import tree_map
+    if world()[1] != 0:
+        return None
+    with in_f64():
+        cfg = config(arch, overrides)
+        params = tree_map(torch.Tensor.double,
+                          params_from_numpy(weights, "cpu"))
+        state = adamw.init(params)
+        params, state, m = ts.make_train_step(
+            cfg, adamw.AdamWConfig(**opt), n_micro=n_micro)(
+                params, state, _batch(batch))
+    return keyed_numpy({"params": params, "opt": state}), _metrics(m)
+
+
+def tp_slice_pair(x, w1, w2, c):
+    """The second conjugate pair on a ``1x2`` mesh, each rank holding its
+    half of ``w1``'s columns and ``w2``'s rows: ``s = sum_to_slice(tanh(x
+    w1) w2)``, ``a = tanh(s)``, ``z = gather_from_slice(a)``, and the
+    rank's part of ``sum(softmax(z) c) + sum(a^2)`` summed by
+    ``reduce_from_model``: s, z, the loss and this rank's gradients."""
+    mesh = _mesh(1, 2)
+    if mesh is None:
+        return None
+    mp = collectives.ModelParallel(mesh, {})
+    r = mesh.model_index
+    t = {k: torch.from_numpy(v).requires_grad_()
+         for k, v in dict(x=x, w1=np.split(w1, 2, axis=1)[r],
+                          w2=np.split(w2, 2, axis=0)[r]).items()}
+    h = torch.tanh(collectives.copy_to_model(t["x"], mp) @ t["w1"])
+    s = collectives.sum_to_slice(h @ t["w2"], mp)
+    a = torch.tanh(s)
+    z = collectives.gather_from_slice(a, mp)
+    part = (mp.own(torch.softmax(z, -1)) * mp.own(torch.from_numpy(c))).sum()
+    loss = collectives.reduce_from_model(part + a.square().sum(), mp)
+    loss.backward()
+    out = {"s": s, "z": z, "loss": loss}
+    out.update({"d_" + k: v.grad for k, v in t.items()})
+    return {k: v.detach().numpy() for k, v in out.items()}, mp.counts
+
+
+def tp_block_trace(kind, d, width, heads_split, seed=0):
+    """One RG-LRU block (``kind`` "rglru", ``width`` its ``dr``) or RWKV-6
+    time mix ("rwkv6", ``width`` its ``d_ff``) at model width ``d`` in
+    f32, on 2 rows of 40 tokens, in one process and on a ``1x2`` mesh
+    (the leaves cut as the placement cuts them): each traced tensor of
+    the forward, in order, as rank r holds it and as one process's slice
+    of it (``own``: cut to the rank's channels), and the output."""
+    from repro_torch.models import rglru, rwkv6
+    mesh = _mesh(1, 2)
+    if mesh is None:
+        return None
+    split = {"ff": True, "heads": heads_split}
+    tp = collectives.ModelParallel(mesh, split)
+    gen = torch.Generator().manual_seed(seed)
+    cfg = types.SimpleNamespace(d_model=d, num_heads=1, resolved_head_dim=width,
+                                d_ff=width, dtype="float32")
+    lib = rglru if kind == "rglru" else rwkv6
+    init = rglru.rglru_init if kind == "rglru" else rwkv6.rwkv6_init
+    params = init(cfg, torch.float32, "cpu", gen)
+    for k, v in params.items():
+        if v.dtype == torch.float32 and v.dim() == 1:
+            params[k] = v + 0.1 * torch.randn(v.shape, generator=gen)
+    x = torch.randn(2, 40, d, generator=gen)
+    cols = {"rglru": ("w_in", "w_gate_branch", "conv_w"),
+            "rwkv6": ("wr", "wk", "wv", "wg")}[kind]
+    rows = {"rglru": ("wa", "wx", "w_out"), "rwkv6": ("wo",)}[kind]
+    mine = dict(params)
+    for k in cols:
+        mine[k] = tp.own(params[k], -1)
+    for k in rows:
+        mine[k] = tp.own(params[k], 0)
+    if kind == "rwkv6" and heads_split:
+        mine["u"] = tp.own(params["u"], 0)
+    seen = []
+    record = {"rglru": ("_gates", "_doubling_scan"),
+              "rwkv6": ("_projections", "_chunk_closed_form")}[kind]
+    real = {n: getattr(lib, n) for n in record}
+
+    def traced(name):
+        def call(*a, **kw):
+            out = real[name](*a, **kw)
+            seen.append((name, a, out))
+            return out
+        return call
+    for n in record:
+        setattr(lib, n, traced(n))
+    try:
+        runs = {}
+        for which, p, t in (("one", params, None), ("tp", mine, tp)):
+            seen.clear()
+            if kind == "rglru":
+                st = rglru.init_state(cfg, 2, "cpu", t)
+                y, _ = rglru.rglru_block(p, x, st, t)
+            else:
+                st = rwkv6.init_state(cfg, 2, "cpu", t)
+                y, _, _ = rwkv6.time_mix_chunked(p, x, st["S"],
+                                                 st["tm_last"], t)
+            runs[which] = (list(seen), y)
+    finally:
+        for n, f in real.items():
+            setattr(lib, n, f)
+    out = []
+
+    def add(name, got, want, cut=True):
+        want = tp.own(want, -1) if cut and want.shape != got.shape else want
+        out.append((name, got.detach().numpy(), want.detach().numpy()))
+    (one, y1), (mine_seen, y2) = runs["one"], runs["tp"]
+    if kind == "rglru":
+        (_, a1, g1), (_, a2, g2) = one[0], mine_seen[0]
+        add("u (conv output)", a2[1], a1[1])
+        add("u @ wa (gate input)", a2[2][0], a1[1] @ params["wa"])
+        add("u @ wx (gate input)", a2[2][1], a1[1] @ params["wx"])
+        add("log_a", g2[0], g1[0])
+        add("gated input", g2[1], g1[1])
+        add("h (scan)", mine_seen[1][2], one[1][2])
+    else:
+        names = ("r", "k", "v", "g", "logw")
+        for i, n in enumerate(names):
+            got = mine_seen[0][2][i]
+            want = one[0][2][i]
+            add(n, got, want, cut=got.shape != want.shape)
+        ys1, ys2 = (torch.cat([o[2][1] for o in run[1:]], 1).flatten(-2)
+                    for run in (one, mine_seen))
+        add("y (chunk loop)", ys2, ys1)
+    add("output (summed over model)", y2, y1, cut=False)
+    return out
