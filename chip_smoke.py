@@ -384,7 +384,9 @@ caught:
                 sums lands further); then bf16 at 1 x 4096 under
                 ``1x2``, its gaps
                 printed; each rank must launch the flash forward with LSE
-                2 x layers times and dQ and dK/dV layers times; the
+                twice a group layer (its forward and its recomputation in
+                the backward pass) and once a dense prefix layer, and dQ
+                and dK/dV once a layer; the
                 step's ms with its all-reduces over ``model`` (ms, calls,
                 bytes), its gradient sum and gather over ``data``, its
                 peak, its launches by route (after a short warm-up step);
@@ -409,7 +411,19 @@ caught:
                 all-reduces and all-gathers over ``model`` printed, the
                 swa layer's flash kernels launched as in (b); the first
                 run's rank 0 peak against the dry-run's (within 20%,
-                asserted).
+                asserted); (f) deepseek-moe-16b at full width cut to 2 of
+                its 28 layers (a dense layer, then an MoE layer of 64
+                experts, top-6, 2 shared) in f32 at 2 x 512 tokens under
+                ``1x2``, the MoE layer expert-parallel on each rank's 32
+                experts (``moe.moe_apply_tp``) at capacity 8.0, where
+                neither one process's 512-token groups nor a rank's whole
+                1024 tokens drop an assignment, held to one process as in
+                (b), reckoned first, its rank 0 peak against the
+                dry-run's (within 20%, asserted), its step's ms with the
+                collectives over ``model``, the flash kernels launched as
+                in (b) (CUDA-core, 8 of 16 heads), and at the arch's own
+                capacity 1.25 both paths' dropped assignments printed
+                (one process's groups, a rank's whole stream).
 
 Before the last line it prints a JSON object with every kernel's numbers
 (launches summed over the serving and training phases, 13, 14, 15's,
@@ -418,7 +432,8 @@ sets the counts it reads to 0 before it drives its path; for the flash
 forwards, dQ, dK/dV and dense decode also ``cross_launches``, those of
 phase 14's cross-attention; for the three flash training kernels also
 ``tp_rank``, phase 18b's bf16 ``1x2`` rank 0: its step ms, its
-all-reduces over ``model`` and the kernel's launches by route), then the
+all-reduces over ``model`` and the kernel's launches by route, and
+``tp_moe_launches``, phase 18f's ranks' launches), then the
 card's name and power limit; the last line is ``{"ok": true, "device":
 {...}}``.
 
@@ -6539,6 +6554,16 @@ TP_EXACT = {("rwkv6-7b", 2, 2)}
 TP_F64_REL = 1e-7
 TP_EXACT_TIMES = 5
 TP_REC_ROWS, TP_REC_SEQ = 2, 512
+# 18f: deepseek-moe-16b at full width cut to its first TP_MOE_LAYERS (the
+# dense layer, then an MoE layer), f32, TP_REC_ROWS x TP_REC_SEQ tokens
+# under TP_MOE_MESH, held to one process with 18b's bounds at capacity
+# TP_MOE_CAPACITY: one process caps each 512-token group, a rank of the
+# expert-parallel form all of its tokens, and at 8.0 neither drops, so
+# both compute one function; at the arch's own capacity both paths'
+# drops are printed
+TP_MOE_LAYERS = 2
+TP_MOE_MESH = (1, 2)
+TP_MOE_CAPACITY = 8.0
 
 
 def tp_kernel_case(dev, b, h, kv, s, d, window=0):
@@ -6898,11 +6923,16 @@ def tp_run(pool, dev, card, tag: str, cfg, rows: int, seq: int, data: int,
     wall = time.perf_counter() - t0
     r0 = ranks[0]
     one_m = r0["one_metrics"]
-    # the attention layers: a forward (and its recomputation) and a
-    # backward launch each
-    n_attn = sum(blocks.split_kind(cfg.block_pattern[
-        i % len(cfg.block_pattern)])[0] in blocks.ATTN_KINDS
-        for i in range(cfg.num_layers))
+    # the attention layers: a forward and a backward launch each, and a
+    # second forward where the layer recomputes its activations in the
+    # backward pass (the group layers; not a dense prefix layer)
+    prefix, pattern, n_groups, rem = transformer._plan(cfg)
+
+    def n_attn_of(kinds) -> int:
+        return sum(blocks.split_kind(k)[0] in blocks.ATTN_KINDS
+                   for k in kinds)
+    n_remat = n_groups * n_attn_of(pattern)
+    n_attn = n_attn_of(prefix) + n_remat + n_attn_of(rem)
     gaps, floors = r0["gaps"], r0["floor"]
     worst = max(gaps, key=gaps.get)
     wide = {k: v for k, v in gaps.items() if v > TP_REL}
@@ -6934,7 +6964,7 @@ def tp_run(pool, dev, card, tag: str, cfg, rows: int, seq: int, data: int,
             f"ms); max_memory_allocated "
             f"{r['peak_gb']:.3f} GB; flash launches {r['launches']}, by "
             f"route {r['routes']}")
-        want = {"flash_attention_fwd_lse": 2 * n_attn,
+        want = {"flash_attention_fwd_lse": n_attn + n_remat,
                 "flash_attention_dq": n_attn,
                 "flash_attention_dkv": n_attn}
         if r["launches"] != want:
@@ -7095,9 +7125,82 @@ def phase_tp_recurrent(dev, card) -> dict:
     return dict(launches=launches, times=times)
 
 
+def moe_drops(dev, cfg, rows: int, seq: int, data: int) -> list:
+    """The assignments the MoE layers of ``cfg`` (seed-0 weights drawn on
+    the card) drop on 18f's batch at ``cfg``'s capacity: one process's
+    ``moe_apply`` over its groups, and the expert-parallel form over a
+    rank's rows (``rows / data``) at once; ``[grouped, a rank's]``,
+    summed over the layers (and the ranks)."""
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in tp_batch(cfg.vocab_size, rows, seq).items()}
+    params = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    seen = []
+    real = moe_model.moe_apply_ep
+
+    def record(p, x, *a, **kw):
+        seen.append((p["router"], x))
+        return real(p, x, *a, **kw)
+    moe_model.moe_apply_ep = record
+    try:
+        with torch.no_grad():
+            zoo.loss_fn(cfg, params, batch)
+    finally:
+        moe_model.moe_apply_ep = real
+    drops = [sum(moe_model.dropped_assignments(r, x, cfg) for r, x in seen),
+             sum(moe_model.dropped_assignments(r, part, cfg, grouped=False)
+                 for r, x in seen for part in x.chunk(data))]
+    del params, seen, batch
+    free_card()
+    return drops
+
+
+def phase_tp_moe(dev, card) -> dict:
+    """18f: deepseek-moe-16b's TP_MOE_LAYERS cut in f32 under TP_MOE_MESH
+    at TP_MOE_CAPACITY, held to one process with 18b's bounds
+    (:func:`tp_run`) on a pool of its own; rank 0's peak against the
+    dry-run's; both paths' drops at the arch's own capacity.  Returns the
+    ranks' flash launches and the run's seconds."""
+    cfg = mesh_cfg(MOE_ARCH, TP_MOE_LAYERS, "float32", TP_MOE_CAPACITY)
+    data, model = TP_MOE_MESH
+    t0 = time.perf_counter()
+    with MeshPool(*TP_POOL, device="cuda", timeout_s=300.0) as pool:
+        got = tp_run(pool, dev, card, f"18f {MOE_ARCH} f32", cfg,
+                     TP_REC_ROWS, TP_REC_SEQ, data, model, True)
+    if got is None:
+        return dict(launches={}, seconds=time.perf_counter() - t0)
+    r0, rec = got["r0"], got["rec"]
+    gb = rec["peak_bytes"] / 1e9
+    gap = (gb - r0["peak_gb"]) / r0["peak_gb"]
+    say(f"[tp] 18f {MOE_ARCH} {data}x{model} on {card}: the dry-run reckons"
+        f" a rank's peak at {gb:.3f} GB against rank 0's "
+        f"max_memory_allocated {r0['peak_gb']:.3f} GB: {gap:+.2%}; its "
+        f"collectives over model {rec['collectives']['all-reduce'] / 1e6:.1f}"
+        f" MB reduced and {rec['collectives']['all-gather'] / 1e6:.1f} MB "
+        f"gathered against the rank's {r0['model_bytes'] / 1e6:.1f} MB")
+    if abs(gap) > RECKON_LIMIT:
+        fail(f"18f: the dry-run's reckoning misses rank 0's peak by "
+             f"{gap:+.2%} (limit {RECKON_LIMIT:.0%})")
+    seconds = time.perf_counter() - t0
+    for capacity in (TP_MOE_CAPACITY, get_config(MOE_ARCH).capacity_factor):
+        grouped, ranks = moe_drops(dev, dataclasses.replace(
+            cfg, capacity_factor=capacity), TP_REC_ROWS, TP_REC_SEQ, data)
+        n = TP_REC_ROWS * TP_REC_SEQ * cfg.top_k * (cfg.num_layers
+                                                    - cfg.first_k_dense)
+        say(f"[tp] 18f {MOE_ARCH} on {card}: at capacity {capacity} of {n} "
+            f"assignments one process's moe_apply drops {grouped} (groups "
+            f"of {moe_model.GROUP_TOKENS} tokens), the {data}x{model} "
+            f"ranks' expert-parallel form {ranks} (each rank's "
+            f"{TP_REC_ROWS // data * TP_REC_SEQ} tokens at once)")
+        if capacity == TP_MOE_CAPACITY and grouped + ranks:
+            fail(f"18f: at capacity {capacity} the paths drop {grouped} and "
+                 f"{ranks} assignments: the mesh step is not one "
+                 "process's function")
+    return dict(launches=got["launches"], seconds=seconds)
+
+
 def phase_tp(dev, card) -> dict:
-    """Phase 18 (18a-18e); returns the flash launches of the ranks and
-    rank 0's numbers of 18b's bf16 run."""
+    """Phase 18 (18a-18f); returns the flash launches of the ranks, 18f's
+    apart too, and rank 0's numbers of 18b's bf16 run."""
     t0 = time.perf_counter()
     phase_tp_kernels(dev, card)
     t_a = time.perf_counter() - t0
@@ -7157,6 +7260,10 @@ def phase_tp(dev, card) -> dict:
     times.update(rec["times"])
     for k, v in rec["launches"].items():
         launches[k] = launches.get(k, 0) + v
+    moe = phase_tp_moe(dev, card)
+    times[f"18f {MOE_ARCH}"] = moe["seconds"]
+    for k, v in moe["launches"].items():
+        launches[k] = launches.get(k, 0) + v
     say(f"[times] phase 18: 18a {t_a:.1f} s, "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items())
         + f", all {time.perf_counter() - t0:.1f} s")
@@ -7166,7 +7273,7 @@ def phase_tp(dev, card) -> dict:
                "launches_by_route": r0["routes"],
                "mesh": "1x2", "dtype": "bfloat16",
                "batch": [TP_BF16_ROWS, TP_BF16_SEQ], "layers": TP_LAYERS}
-    return dict(launches=launches, line=tp_line)
+    return dict(launches=launches, line=tp_line, moe=moe["launches"])
 
 
 # ---- phase 18's trace: python3 chip_smoke.py --tp-trace ------------------
@@ -7933,6 +8040,8 @@ def main() -> None:
             kernels[-1]["tp_rank"] = dict(
                 tp["line"], launches_by_route=tp["line"][
                     "launches_by_route"][name])
+            # of the launches, those of phase 18f's ranks
+            kernels[-1]["tp_moe_launches"] = tp["moe"].get(name, 0)
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             if key == "library_ms" and r[key] is None:
                 continue     # no PyTorch call computes this function

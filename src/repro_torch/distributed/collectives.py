@@ -72,7 +72,7 @@ import torch.distributed as dist
 
 from repro_torch.models.bridge import keyed_leaves, keyed_map, tree_map
 
-from .sharding import TP_FAMILIES, current_mesh, keyed_specs
+from .sharding import TP_SPLITS, current_mesh, keyed_specs
 
 __all__ = ["tp_segment_attention", "tp_paged_segment_attention",
            "tp_paged_decode_attention", "tp_decode_attention",
@@ -394,9 +394,11 @@ class ModelParallel:
     """The ``model`` axis of a training step's mesh, as its forward and
     backward read it: ``mesh``, ``size`` (M), ``index`` (this rank's
     model position) and ``split``, which of the logical families
-    ``heads``, ``kv_heads``, ``ff`` and ``vocab`` the step's placement
-    splits over ``model`` (``sharding.model_split``: a family whose
-    dim ``model`` does not divide stays replicated).  ``counts`` holds
+    (``heads``, ``kv_heads``, ``vocab``, ``experts``) and which blocks'
+    ``ff`` dims (``mlp``, ``rglru``, ``tm_cm``, ``shared``) the step's
+    placement splits over ``model`` (``sharding.model_split``: an entry
+    whose dim ``model`` does not divide stays replicated, and the form
+    that reads it runs whole).  ``counts`` holds
     the calls and bytes of the collectives over ``model`` this rank has
     run, by kind (``"all-reduce"``, ``"all-gather"``: the bytes a rank
     hands the call), on ``meta`` too (where they carry nothing);
@@ -406,7 +408,7 @@ class ModelParallel:
         self.mesh = mesh
         self.size = mesh.shape["model"]
         self.index = mesh.model_index
-        self.split = {f: bool(split.get(f, False)) for f in TP_FAMILIES}
+        self.split = {f: bool(split.get(f, False)) for f in TP_SPLITS}
         self.reset()
 
     def reset(self) -> None:

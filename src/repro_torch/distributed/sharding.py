@@ -22,9 +22,10 @@ reference's does).  :class:`Placement` is where a tree's leaves lie on a
 mesh of processes: :meth:`Placement.local` cuts a full tree to this
 rank's slices, :meth:`Placement.gather` puts the slices back together
 (over all axes, or over ``data`` alone for the tensor-parallel step).
-:func:`model_split` reads which logical families a placement splits
-over ``model`` and :func:`partial_leaves` which replicated leaves a
-rank then uses only in part: what the tensor-parallel training step
+:func:`model_split` reads which logical families, and which blocks'
+``ff`` dims, a placement splits over ``model``, and
+:func:`partial_leaves` which replicated leaves a rank then uses only in
+part: what the tensor-parallel training step
 (``train_step.make_mesh_train_step``) builds its forms from.
 
 Not ported: ``shard`` and ``named_sharding`` (hints to a compiler about
@@ -37,12 +38,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import re
 import threading
 
 __all__ = ["AxisRules", "DEFAULT_RULES", "SERVE_TP_RULES", "use_mesh",
            "current_mesh", "logical_spec", "params_pspecs",
            "FSDP_THRESHOLD", "Axes", "A", "Placement", "keyed_specs",
-           "model_split", "partial_leaves", "TP_FAMILIES"]
+           "model_split", "partial_leaves", "TP_FAMILIES", "FF_OWNERS",
+           "TP_SPLITS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -313,30 +316,57 @@ class Placement:
 
 
 # the logical families tensor-parallel training splits over ``model``
-TP_FAMILIES = ("heads", "kv_heads", "ff", "vocab")
+TP_FAMILIES = ("heads", "kv_heads", "vocab", "experts")
+# the blocks whose ``ff`` leaves tensor-parallel training splits over
+# ``model``, each on its own (the subtree a leaf sits in): the dense MLP,
+# the RG-LRU, the RWKV-6 block, the MoE layer's shared experts
+FF_OWNERS = ("mlp", "rglru", "tm_cm", "shared")
+# the entries of :func:`model_split`'s result
+TP_SPLITS = TP_FAMILIES + FF_OWNERS
+
+
+def _ff_owner(key: str) -> str:
+    """The block (one of :data:`FF_OWNERS`) whose ``ff`` dim the leaf
+    ``key`` (``bridge.keyed_leaves``') carries: the innermost subtree of
+    its path that names one."""
+    names = [n for n in re.findall(r"\['([^']*)'\]", key)
+             if n in FF_OWNERS]
+    if not names:
+        raise ValueError(f"{key}: an 'ff' dim outside the blocks "
+                         f"{FF_OWNERS}")
+    return names[-1]
 
 
 def model_split(axes_tree, specs, mesh) -> dict[str, bool]:
-    """Which logical families (``heads``, ``kv_heads``, ``ff``,
-    ``vocab``) the parameter specs split over ``model``, read from every
-    leaf that names one: a family is split when its leaves' dim carries
-    ``model`` (``_resolve`` leaves it out when ``model`` does not divide
-    the dim).  Raises ``ValueError`` if two leaves of one family
-    disagree."""
+    """Which logical families (``heads``, ``kv_heads``, ``vocab``,
+    ``experts``) and which blocks' ``ff`` dims (:data:`FF_OWNERS`, keyed
+    by the block: :func:`_ff_owner`) the parameter specs split over
+    ``model``, read from every leaf that names one: an entry is split
+    when its leaves' dim carries ``model`` (``_resolve`` leaves it out
+    when ``model`` does not divide the dim).  Two blocks may differ, as
+    the reference's ``_resolve`` lets them (recurrentgemma-9b at ``M =
+    3``: the MLP's ``d_ff`` split, the RG-LRU's ``dr`` whole).  Raises
+    ``ValueError`` if two leaves of one family, or two ``ff`` leaves of
+    one block, disagree."""
     pl = Placement(mesh, specs)
     seen: dict[str, bool] = {}
     where: dict[str, str] = {}
     axes_of = dict(_keyed_axes(axes_tree))
     for key, spec in keyed_specs(specs):
         for dim, name in enumerate(axes_of[key]):
-            if name not in TP_FAMILIES:
+            if name == "ff":
+                entry = _ff_owner(key)
+            elif name in TP_FAMILIES:
+                entry = name
+            else:
                 continue
             split = any(d == dim and "model" in a
                         for d, a in pl.sharded_dims(spec))
-            if seen.setdefault(name, split) != split:
-                raise ValueError(f"{key} and {where[name]} place the "
-                                 f"{name!r} dim differently over model")
-            where.setdefault(name, key)
+            if seen.setdefault(entry, split) != split:
+                what = f"{entry}'s 'ff'" if name == "ff" else repr(name)
+                raise ValueError(f"{key} and {where[entry]} place the "
+                                 f"{what} dim differently over model")
+            where.setdefault(entry, key)
     return seen
 
 

@@ -12,9 +12,7 @@ per cell it
     the bytes of one rank's arguments, exactly.  A train cell takes the
     specs of the mesh the port trains it on, :func:`train_mesh` (the
     record's ``train_mesh``): ``(D, M)``, the cell's data ranks by its
-    ``model`` ranks, for the archs the port trains tensor-parallel, and
-    ``(D, 1)`` for the MoE archs, whose tensor-parallel training is
-    ROADMAP Queue 1 item 11g;
+    ``model`` ranks, for every arch;
   * runs the step itself on ``meta`` tensors at one rank's rows under
     :class:`~repro_torch.roofline.op_cost.OpCost`: the port's train step
     with AdamW's update (``make_train_step`` on one rank,
@@ -183,15 +181,10 @@ def _head_gather_bytes(cfg, mesh, tokens: int) -> int:
 def train_mesh(cfg, shape: ShapeConfig, mesh) -> ShapeMesh:
     """The mesh the port trains a train cell on: ``(D, M)``, ``D`` the
     ranks the cell's batch rows are split over (pod x data) and ``M`` the
-    mesh's ``model`` ranks, each holding its tensor-parallel slices.  An
-    MoE arch takes ``(D, 1)``: the port does not train it
-    tensor-parallel yet (ROADMAP Queue 1 item 11g;
-    ``train_step.tp_pending``), so each of its ranks holds
-    the whole model width."""
+    mesh's ``model`` ranks, each holding its tensor-parallel slices."""
     with shd.use_mesh(mesh):
         d = _axes_size(ts.batch_pspecs(cfg, shape, mesh)["tokens"][0], mesh)
-    m = mesh.shape.get("model", 1) if ts.tp_pending(cfg) is None else 1
-    return ShapeMesh((d, m), ("data", "model"))
+    return ShapeMesh((d, mesh.shape.get("model", 1)), ("data", "model"))
 
 
 def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:

@@ -18,12 +18,11 @@ does not yield, as the reference's does not: the Trainer raises a
 (``launch.mesh.spawn_mesh``; gloo, CUDA tensors staged through the
 host): each rank takes ``--batch / D`` rows of the host-sharded stream,
 FSDP slices the large parameters and their moments over ``data``, with
-``M > 1`` a rank also holds its ``1/M`` of the heads, ``ff`` columns and
-vocab rows that ``M`` divides (tensor-parallel, as the reference's
-``DEFAULT_RULES`` lay it out: the attention archs' heads, the recurrent
-archs' RG-LRU and RWKV-6 channels), and rank 0's summary is printed.  A
-model axis above 1 raises ``ValueError`` for the MoE archs (ROADMAP
-Queue 1 item 11g).
+``M > 1`` a rank also holds its ``1/M`` of the heads, ``ff`` columns,
+vocab rows and experts that ``M`` divides (tensor-parallel, as the
+reference's ``DEFAULT_RULES`` lay it out: the attention archs' heads, the
+recurrent archs' RG-LRU and RWKV-6 channels, the MoE archs' experts),
+and rank 0's summary is printed.
 """
 
 from __future__ import annotations
@@ -40,7 +39,6 @@ from repro_torch.configs.base import reduced
 from repro_torch.launch.mesh import make_host_mesh, spawn_mesh, world
 from repro_torch.optim import adamw
 from repro_torch.serve.block_store import parse_mesh_spec
-from repro_torch.train.train_step import check_train_mesh
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
 
@@ -62,14 +60,14 @@ def main(argv=None) -> None:
                          "cpu runs the plain versions)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
                     help="train on D x M ranks on this host, e.g. 2x1 "
-                         "(data-parallel, FSDP over D) or 1x2 (heads, ff "
-                         "and vocab split over M); prints rank 0's output")
+                         "(data-parallel, FSDP over D) or 1x2 (heads, ff, "
+                         "vocab and experts split over M); prints rank 0's "
+                         "output")
     args = ap.parse_args(argv)
     if args.mesh is None:
         run(args)
         return
     data, model = parse_mesh_spec(args.mesh)
-    check_train_mesh(get_config(args.arch), {"data": data, "model": model})
     # by module name: under `python -m` this module is __main__, which a
     # spawned rank cannot import by that name
     rank_fn = importlib.import_module("repro_torch.launch.train")._mesh_rank

@@ -42,8 +42,9 @@ column- and row-parallel form (``layers.mlp``), each summed over
 ``model``; the recurrent kinds run their forms on this rank's channels
 (``rglru.rglru_block``, ``rwkv6.time_mix_chunked`` and
 ``rwkv6.channel_mix`` with ``tp``), the leaves they use only in part
-named by :func:`tp_partial`.  The MoE layer has no such form yet
-(ROADMAP Queue 1 item 11g) and raises under ``tp``.
+named by :func:`tp_partial`; the MoE layer runs expert-parallel on this
+rank's experts (``moe.moe_apply_tp``).  Each form reads its own entry of
+``tp.split``: a block whose dim ``model`` does not divide runs whole.
 """
 
 from __future__ import annotations
@@ -125,12 +126,13 @@ def block_init(cfg, kind: str, dtype, device, generator,
 def tp_partial(split: dict) -> tuple[str, ...]:
     """Key suffixes (``bridge.keyed_leaves``') of the recurrent blocks'
     leaves a tensor-parallel rank uses only in part under a placement
-    that splits the families ``split`` (``sharding.model_split``'s):
-    ``rglru.TP_PARTIAL`` and ``rwkv6.tp_partial``, when ``ff`` is
-    split."""
-    if not split.get("ff"):
-        return ()
-    return (tuple(f"['rglru'][{n!r}]" for n in rglru_lib.TP_PARTIAL)
+    that splits ``split`` (``sharding.model_split``'s): ``rglru.TP_PARTIAL``
+    when the RG-LRU's ``ff`` dim is split, ``rwkv6.tp_partial`` when the
+    RWKV-6 block's is.  The MoE layer has none: its router is split with
+    the experts and made whole by a gather, and a block left whole runs
+    replicated."""
+    rg = rglru_lib.TP_PARTIAL if split.get("rglru") else ()
+    return (tuple(f"['rglru'][{n!r}]" for n in rg)
             + tuple(f"['tm_cm'][{n!r}]" for n in rwkv6_lib.tp_partial(split)))
 
 
@@ -369,17 +371,19 @@ def _ffn(cfg, params, x, valid=None, aux=False, step=False, tp=None):
     decode ``step``, ``moe_apply_ep`` elsewhere.  With ``aux`` returns
     ``(x, its load-balancing loss)``, the loss 0 for a dense FFN.  Under
     ``tp`` (a tensor-parallel step) the dense FFN takes its column- and
-    row-parallel form."""
+    row-parallel form and the MoE layer its expert-parallel one
+    (``moe.moe_apply_tp``)."""
     h2 = apply_norm(cfg.norm, params["ln2"], x)
     if "moe" in params:
         if tp is not None:
-            raise ValueError("the MoE layer has no tensor-parallel "
-                             "training form (ROADMAP Queue 1 item 11g)")
-        if step:
+            y = moe_lib.moe_apply_tp(params["moe"], h2, cfg, tp,
+                                     return_aux=aux)
+        elif step:
             return x + moe_lib.moe_apply_ep_serve(params["moe"], h2, cfg,
                                                   valid=valid)
-        y = moe_lib.moe_apply_ep(params["moe"], h2, cfg, return_aux=aux,
-                                 valid=valid)
+        else:
+            y = moe_lib.moe_apply_ep(params["moe"], h2, cfg,
+                                     return_aux=aux, valid=valid)
         if aux:
             return x + y[0], y[1]
         return x + y
@@ -403,7 +407,7 @@ def block_apply_seq(cfg, kind: str, params: dict, x, positions, cache=None,
     Without (training) the recurrent kinds start from zero state.  The
     recurrent kinds run their one-shot forms (``rglru_block``,
     ``time_mix_chunked``).  ``tp``: a tensor-parallel training step's
-    ``ModelParallel`` (no cache; the MoE layer raises).  Returns ``(x,
+    ``ModelParallel`` (no cache).  Returns ``(x,
     aux)`` with ``aux`` the f32 load-balancing loss (0 for a dense
     FFN)."""
     base = _check_ported(kind)

@@ -269,13 +269,16 @@ def segment_attention(q, k, v, *, q_pos, k_pos, q_seg, k_seg,
 # ---------------------------------------------------------------------------
 
 
-def mlp(params: dict, x: torch.Tensor, kind: str, tp=None) -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, kind: str, tp=None,
+        owner: str = "mlp") -> torch.Tensor:
     """The dense MLP.  Under ``tp`` (a tensor-parallel training step's
-    ``collectives.ModelParallel``) whose placement splits ``ff`` over
-    ``model``: ``x`` enters through ``copy_to_model``, the gate and up
-    products run on this rank's ``ff`` columns, the down product on its
-    rows, and ``reduce_from_model`` sums the partial outputs."""
-    split = tp is not None and tp.split["ff"]
+    ``collectives.ModelParallel``) whose placement splits the ``ff`` dim
+    of ``owner`` (the block the leaves sit in: ``mlp``, or the MoE
+    layer's ``shared`` experts) over ``model``: ``x`` enters through
+    ``copy_to_model``, the gate and up products run on this rank's
+    ``ff`` columns, the down product on its rows, and
+    ``reduce_from_model`` sums the partial outputs; else it runs whole."""
+    split = tp is not None and tp.split[owner]
     if split:
         x = copy_to_model(x, tp)
     # the reference's gelu is the tanh approximation

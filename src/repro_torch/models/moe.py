@@ -30,6 +30,11 @@ full router, runs only the assignments its experts take, and one sum
 over the mesh (``dist.all_reduce``) combines the ranks' contributions.
 That sum adds the experts' outputs in another order than one device, so
 the result agrees with :func:`moe_apply` to rounding, not bit for bit.
+
+A tensor-parallel training step runs :func:`moe_apply_tp`, the same body
+with gradients: the sum is ``collectives.reduce_from_model``, the router
+is made whole by ``collectives.gather_from_slice``, and the aux loss is
+counted once.
 """
 
 from __future__ import annotations
@@ -39,10 +44,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.collectives import all_reduce
+from repro_torch.distributed.collectives import (all_reduce, copy_to_model,
+                                                 gather_from_slice,
+                                                 reduce_from_model)
 from repro_torch.distributed.sharding import A, current_mesh
 
-from .layers import dense_init
+from .layers import dense_init, mlp
 
 GROUP_TOKENS = 512
 
@@ -199,9 +206,7 @@ def moe_apply(params: dict, x, cfg, *, return_aux: bool = False,
     out = (picked * w).sum(dim=2)                                 # [G,T,d]
 
     if "shared" in params:
-        sh = params["shared"]
-        hs = F.silu(xg @ sh["w_gate"]) * (xg @ sh["w_up"])
-        out = out + hs @ sh["w_down"]
+        out = out + mlp(params["shared"], xg, "swiglu")
 
     out = out.reshape(b, s, d)
     if not return_aux:
@@ -391,19 +396,76 @@ def moe_apply_ep(params: dict, x, cfg, *, return_aux: bool = False,
     out = all_reduce(out, mesh, "model")
 
     if "shared" in params:
-        sh = params["shared"]
-        hs = F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])
-        out = out + hs @ sh["w_down"]
+        out = out + mlp(params["shared"], x, "swiglu")
     if not return_aux:
         return out
-    # aux load-balance loss computed on the (cheap, replicated) router pass
-    probs = torch.softmax(x.float() @ params["router"], dim=-1)
+    return out, _router_aux(params["router"], x, cfg)
+
+
+def _router_aux(router, x, cfg):
+    """The load-balancing aux loss of the expert-parallel bodies, computed
+    on the (cheap, replicated) router pass over x [B, S, d]: ``E * sum_e
+    f_e * p_e``, ``f_e`` the share of tokens whose top pick is ``e``,
+    ``p_e`` its mean probability."""
+    probs = torch.softmax(x.float() @ router, dim=-1)
     top1 = probs.argmax(dim=-1)
     frac = (top1[..., None] == torch.arange(cfg.num_experts,
                                             device=x.device)).float() \
         .mean(dim=(0, 1))
-    aux = cfg.num_experts * (frac * probs.mean(dim=(0, 1))).sum()
-    return out, aux
+    return cfg.num_experts * (frac * probs.mean(dim=(0, 1))).sum()
+
+
+def moe_apply_tp(params: dict, x, cfg, tp, *, return_aux: bool = False):
+    """The MoE layer in a tensor-parallel training step: the training
+    counterpart of :func:`moe_apply_ep`, as the reference's mesh training
+    runs that body under ``shard_map``.  x: [B, S, d], this rank's rows,
+    replicated over ``model``; ``tp`` the step's
+    ``collectives.ModelParallel``.
+
+    Where the placement splits ``experts`` over ``model``
+    (``tp.split``), a rank holds its ``E / M`` experts and its ``E / M``
+    columns of the router: x enters through ``copy_to_model``; the
+    router is made whole by ``gather_from_slice`` (its gradient summed
+    over ``model``, then cut back to the rank's columns);
+    :func:`_moe_local` runs the rank's experts over all of its tokens,
+    the capacity over them all (no groups of :data:`GROUP_TOKENS`, as the
+    reference's body); ``reduce_from_model`` sums the ranks' routed
+    partial outputs.  Where ``model`` does not divide the experts,
+    :func:`moe_apply` runs whole on every rank, as the reference falls
+    back.  The shared experts go through ``layers.mlp`` under their own
+    entry, ``shared``: split, or whole.
+
+    The aux loss (``return_aux``) is the replicated router pass's
+    (:func:`_router_aux`), alike on every rank.  Its gradient is each
+    rank's whole, so it must not be summed over ``model``: it reads x
+    itself, not the copy, and a router whose other ranks' columns are
+    the gathered values without gradient, so a rank's router gradient
+    from it is its own columns'.  It counts once."""
+    routed = {k: v for k, v in params.items() if k != "shared"}
+    if not tp.split["experts"]:
+        out, aux = moe_apply(_full_experts(routed, cfg), x, cfg,
+                             return_aux=True)
+    else:
+        e_local = cfg.num_experts // tp.size
+        if routed["w_gate"].shape[0] != e_local:
+            raise ValueError(f"{routed['w_gate'].shape[0]} experts held, "
+                             f"not {cfg.num_experts} / {tp.size}")
+        mine = routed["router"]
+        router = gather_from_slice(mine, tp)
+        valid = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+        out = reduce_from_model(_moe_local(
+            router, routed["w_gate"], routed["w_up"], routed["w_down"],
+            copy_to_model(x, tp), valid, cfg=cfg, e_local=e_local,
+            shard=tp.index), tp)
+        aux = None
+        if return_aux:
+            lo, n = tp.index * mine.shape[-1], mine.shape[-1]
+            aux = _router_aux(torch.cat([router[..., :lo].detach(), mine,
+                                         router[..., lo + n:].detach()],
+                                        -1), x, cfg)
+    if "shared" in params:
+        out = out + mlp(params["shared"], x, "swiglu", tp, owner="shared")
+    return (out, aux) if return_aux else out
 
 
 def _moe_local_serve(router, w_gate, w_up, w_down, x, valid, *, cfg,
@@ -439,7 +501,5 @@ def moe_apply_ep_serve(params: dict, x, cfg, valid=None):
                            *_own_experts(params, cfg, mesh), x, valid,
                            cfg=cfg, e_local=e_local, mesh=mesh)
     if "shared" in params:
-        sh = params["shared"]
-        hs = F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])
-        out = out + hs @ sh["w_down"]
+        out = out + mlp(params["shared"], x, "swiglu")
     return out

@@ -17,15 +17,17 @@ chunk boundaries; decode is the one-token step.  Rounding follows the
 reference: matrix products in the model's dtype, gates and the recurrence
 in f32, the conv as a left-to-right sum over its taps in the model's dtype.
 
-A tensor-parallel training step (``tp``, its placement splitting ``ff``
-over ``model``) runs :func:`rglru_block` on this rank's ``dr / M``
+A tensor-parallel training step (``tp``, its placement splitting the
+RG-LRU's ``ff`` dim, ``dr``, over ``model``: ``tp.split["rglru"]``)
+runs :func:`rglru_block` on this rank's ``dr / M``
 channels: ``w_in``, ``w_gate_branch`` and ``conv_w`` hold its columns,
 ``wa``, ``wx`` and ``w_out`` its rows.  The gates' products ``u @ wa``
 and ``u @ wx`` contract over ``dr``, so each rank's is a part of the
 whole gate input; one :func:`~repro_torch.distributed.collectives
 .sum_to_slice` of both sums them over ``model`` and keeps this rank's
 channels.  ``ba``, ``bx`` and ``lam`` stay whole and are used in part
-(:data:`TP_PARTIAL`).
+(:data:`TP_PARTIAL`).  Where ``model`` does not divide ``dr`` the block
+runs whole on every rank, as one process runs it.
 """
 
 from __future__ import annotations
@@ -73,18 +75,18 @@ def rglru_axes() -> dict:
             "w_out": A("ff", "embed")}
 
 
-# the leaves a tensor-parallel rank uses only in part when ``ff`` is split:
+# the leaves a tensor-parallel rank uses only in part when ``dr`` is split:
 # whole on every rank, narrowed to its channels
 TP_PARTIAL = ("ba", "bx", "lam")
 
 
 def _split(tp) -> bool:
-    return tp is not None and tp.split["ff"]
+    return tp is not None and tp.split["rglru"]
 
 
 def init_state(cfg, batch: int, device, tp=None) -> dict:
     """Zero state ``{h: [B, dr], conv: [B, W-1, dr]}`` (f32); under a
-    ``tp`` that splits ``ff``, of this rank's ``dr / M`` channels."""
+    ``tp`` that splits ``dr``, of this rank's ``dr / M`` channels."""
     dr = cfg.num_heads * cfg.resolved_head_dim
     if _split(tp):
         dr //= tp.size
@@ -151,12 +153,12 @@ def rglru_block(params, x, state, tp=None):
     modified.
 
     Under ``tp`` (a tensor-parallel training step's ``ModelParallel``)
-    whose placement splits ``ff``: ``x`` enters through
+    whose placement splits ``dr``: ``x`` enters through
     ``copy_to_model``; ``u``, the conv, the gates and the scan run on
     this rank's channels, from ``state`` of that width
     (:func:`init_state` with ``tp``); the two gate products, stacked
     ``[B, S, 2, dr]``, pass one ``sum_to_slice``; ``w_out``'s partial
-    output is summed by ``reduce_from_model``.  With ``ff`` replicated
+    output is summed by ``reduce_from_model``.  With ``dr`` replicated
     the block runs whole, as on one device."""
     split = _split(tp)
     p = params

@@ -18,8 +18,8 @@ torch, as in the reference.  Rounding follows the reference: projections
 in the model's dtype, the decay, the recurrence and the group norm in f32,
 the gate's SiLU in the model's dtype.
 
-A tensor-parallel training step (``tp``, its placement splitting ``ff``
-over ``model``) gives a rank its columns of ``wr``, ``wk``, ``wv``,
+A tensor-parallel training step (``tp``, its placement splitting the
+block's ``ff`` dims over ``model``: ``tp.split["tm_cm"]``) gives a rank its columns of ``wr``, ``wk``, ``wv``,
 ``wg`` and ``cm_k`` and its rows of ``wo`` and ``cm_v``.  Where the
 placement splits ``heads`` too (``u``), :func:`time_mix_chunked` runs
 head-parallel on the rank's whole heads.  Where it does not (a head
@@ -95,14 +95,14 @@ def rwkv6_axes() -> dict:
 
 def tp_partial(split: dict) -> tuple[str, ...]:
     """The leaves a tensor-parallel rank uses only in part under a
-    placement that splits the families ``split`` (``model_split``'s):
-    with ``ff`` split, the token-shift mixes of the time mix (each
-    feeds this rank's columns), the decay's ``w0`` and LoRA (computed
+    placement that splits ``split`` (``model_split``'s): with the
+    block's ``ff`` split (``tm_cm``), the token-shift mixes of the time
+    mix (each feeds this rank's columns), the decay's ``w0`` and LoRA (computed
     whole, used on its columns), ``ln_scale``, and ``u`` where the
     heads are not split (the whole time mix runs on every rank, its
     output used on the rank's columns).  ``cm_mu`` is whole: the channel
     mix's input enters ``copy_to_model`` after its token shift."""
-    if not split.get("ff"):
+    if not split.get("tm_cm"):
         return ()
     names = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "w0", "w_lora_a",
              "w_lora_b", "ln_scale")
@@ -112,7 +112,7 @@ def tp_partial(split: dict) -> tuple[str, ...]:
 def _split(tp) -> bool:
     """Whether ``tp`` splits the block: its ``ff`` columns (a placement
     that splits the heads splits ``d = 64 H`` too)."""
-    return tp is not None and tp.split["ff"]
+    return tp is not None and tp.split["tm_cm"]
 
 
 def init_state(cfg, batch: int, device, tp=None) -> dict:

@@ -64,8 +64,10 @@ placement names (``tp.split``): the vocab-parallel embedding
 (``vocab_embed``) and cross-entropy (``vocab_cross_entropy``) when the
 vocab is split, the attention forms of ``blocks.seq_attention`` (the
 encoder's ``bidir`` blocks and the cross-attention too, ``enc_out``
-entering each cross layer through ``copy_to_model``) and the column-
-and row-parallel MLP.  The connector and ``pos_emb`` stay replicated; a
+entering each cross layer through ``copy_to_model``), the column-
+and row-parallel MLP, the recurrent blocks on the rank's channels and
+the expert-parallel MoE layer (``blocks.block_apply_seq``).  The
+connector and ``pos_emb`` stay replicated; a
 replicated head computes the full logits on every rank.
 """
 

@@ -16,15 +16,16 @@ D`` rows and, for a leaf whose spec names ``data`` on a dim, its ``1/D``
 slice of that dim (FSDP; the MoE experts' ``moe_ff`` under the default
 rules), its AdamW moments the same slice.  With ``model > 1`` the step is
 tensor-parallel, as the reference's ``DEFAULT_RULES`` lay it out: a
-rank also holds its ``1/M`` of every ``heads``, ``kv_heads``, ``ff`` and
-``vocab`` dim that ``model`` divides, and runs the forward and the
-backward on those heads, ``ff`` columns and vocab rows, with the sums
-over ``model`` that GSPMD inserts in the reference
-(``collectives.ModelParallel``, passed down the forward as ``tp``).  The
-four attention text archs, the two recurrent ones (their RG-LRU and
-RWKV-6 blocks on the rank's channels) and the two frontends take it; the
-MoE ones (ROADMAP Queue 1 item 11g) raise ``ValueError`` on a mesh with
-``model > 1`` (:func:`check_train_mesh`).
+rank also holds its ``1/M`` of every ``heads``, ``kv_heads``, ``ff``,
+``vocab`` and ``experts`` dim that ``model`` divides, and runs the
+forward and the backward on those heads, ``ff`` columns, vocab rows and
+experts, with the sums over ``model`` that GSPMD and the reference's
+expert-parallel ``shard_map`` insert (``collectives.ModelParallel``,
+passed down the forward as ``tp``).  Every arch takes it: the attention
+text archs, the recurrent ones (their RG-LRU and RWKV-6 blocks on the
+rank's channels), the MoE ones (the rank's experts) and the two
+frontends.  A block whose dim ``model`` does not divide runs whole on
+every rank (``sharding.model_split``, block by block).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import zoo
-from repro_torch.models.blocks import split_kind, tp_partial
+from repro_torch.models.blocks import tp_partial
 from repro_torch.models.bridge import keyed_map, tree_leaves, tree_map
 from repro_torch.optim import accum, adamw
 
@@ -165,30 +166,12 @@ def state_shardings(cfg: ArchConfig, mesh, *, fsdp, with_opt: bool):
     return aparams, pspecs, adamw.init(aparams), adamw.state_pspecs(pspecs)
 
 
-def tp_pending(cfg: ArchConfig) -> str | None:
-    """The ROADMAP Queue 1 item that still lacks ``cfg``'s
-    tensor-parallel training: ``"11g"`` for an MoE arch, None for the
-    attention and recurrent archs and the frontends, which the port
-    trains over ``model``."""
-    if cfg.moe or any(moe for _, moe in map(split_kind, cfg.block_pattern)):
-        return "11g"
-    return None
-
-
-def check_train_mesh(cfg: ArchConfig, shape: dict) -> None:
-    """Training shards over ``data`` and, but for the MoE archs, over
-    ``model``: a mesh ``shape`` with ``model > 1`` raises ``ValueError``
-    for an MoE arch (ROADMAP Queue 1 item 11g), and any other axis above
-    1 raises too."""
+def check_train_mesh(shape: dict) -> None:
+    """Training shards over ``data`` and ``model``: a mesh ``shape`` with
+    any other axis above 1 raises ``ValueError``."""
     if any(n > 1 for ax, n in shape.items() if ax not in ("data", "model")):
         raise ValueError(f"training on mesh {dict(shape)}: a process mesh "
                          "has the axes data and model only")
-    if shape.get("model", 1) > 1 and tp_pending(cfg) == "11g":
-        raise ValueError(
-            f"{cfg.name}: tensor-parallel training over model (mesh "
-            f"{dict(shape)}) with the MoE layer's expert parallelism in "
-            "the backward pass is ROADMAP Queue 1 item 11g; train it on a "
-            "(D, 1) mesh")
 
 
 def state_placement(cfg: ArchConfig, mesh, *, fsdp=True) -> shd.Placement:
@@ -196,7 +179,7 @@ def state_placement(cfg: ArchConfig, mesh, *, fsdp=True) -> shd.Placement:
     ``mesh``, a ``(data, model)`` mesh of processes; its ``partial``
     names the parameters (and nothing of the moments) a rank uses only
     in part (``sharding.partial_leaves``)."""
-    check_train_mesh(cfg, mesh.shape)
+    check_train_mesh(mesh.shape)
     _, pspecs, _, ospecs = state_shardings(cfg, mesh, fsdp=fsdp,
                                            with_opt=True)
     partial = shd.partial_leaves(zoo.init_axes(cfg), pspecs, mesh,

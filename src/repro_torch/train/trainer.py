@@ -24,8 +24,8 @@ On a mesh of processes (``mesh=``, this rank's ``(data, model)``
 ``launch.mesh.make_host_mesh``) the loop runs ``train_step
 .make_mesh_train_step`` on every rank: each holds its slices of the
 parameters and moments (FSDP over ``data`` with ``fsdp``, and with
-``model > 1`` its tensor-parallel share of the heads, ``ff`` columns and
-vocab rows) and draws its rows from the host-sharded stream (``host_id``
+``model > 1`` its tensor-parallel share of the heads, ``ff`` columns,
+vocab rows and experts) and draws its rows from the host-sharded stream (``host_id``
 its data index: the ranks of one ``model`` column draw the same rows).  Every rank must take
 the same host decisions or the group deadlocks: the step timer and the
 checkpoint write seconds read ``collectives.agreed_clock`` (so

@@ -29,9 +29,10 @@ data at any size).
 * ``Trainer(mesh=)``'s ranks take every checkpoint on the same step, and
   a fresh Trainer resumes from the gathered checkpoint;
 * ``launch/train.py --mesh 2x1 --device cpu`` runs;
-* a mesh with ``model > 1`` raises ``ValueError`` for the MoE archs
-  (ROADMAP item 11g), and where a chunk of query heads would straddle
-  two GQA groups; the recurrent archs take it.
+* a mesh with ``model > 1`` takes the recurrent and the MoE archs (the
+  MoE ones through the launcher too); it raises ``ValueError`` where a
+  chunk of query heads would straddle two GQA groups, and so does a
+  mesh with an axis other than ``data`` and ``model``.
 """
 
 import io
@@ -229,31 +230,38 @@ def test_rank_module_imports_no_jax():
             ("jax", "jaxlib", "repro", "benchmarks")] == []
 
 
-def test_model_axis_raises():
-    """Tensor-parallel training takes the attention and recurrent archs
-    and the frontends (``tests/test_torch_tp_train.py``,
-    ``tests/test_torch_tp_train_recurrent.py``): on a mesh with ``model >
-    1`` the recurrent archs build the placement and the step, the MoE
-    ones raise naming ROADMAP item 11g, and so do their step, placement
-    and launcher; a mesh whose chunks of query heads straddle two GQA
-    groups raises too."""
+def test_model_axis_raises(tmp_path):
+    """Tensor-parallel training takes every arch
+    (``tests/test_torch_tp_train.py``,
+    ``tests/test_torch_tp_train_recurrent.py``,
+    ``tests/test_torch_tp_train_moe.py``): on a mesh with ``model > 1``
+    the recurrent archs build the placement and the step, with leaves
+    used in part, and so do the MoE ones, with none (the router is split
+    with the experts), and the launcher trains them; a mesh whose chunks
+    of query heads straddle two GQA groups raises, and so does an axis
+    other than ``data`` and ``model``."""
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  shape={"data": 1, "model": 2},
                                  data_index=0, model_index=0, rank=0)
-    for arch in ("recurrentgemma-9b", "rwkv6-7b"):
+    for arch, owner in (("recurrentgemma-9b", "rglru"),
+                        ("rwkv6-7b", "tm_cm")):
         cfg = reduced(get_config(arch))
         assert ts.state_placement(cfg, mesh).partial
         assert ts.make_mesh_train_step(cfg, adamw.AdamWConfig(),
-                                       mesh).tp.split["ff"]
+                                       mesh).tp.split[owner]
     for arch in ("deepseek-moe-16b", "llama4-maverick-400b-a17b"):
         cfg = reduced(get_config(arch))
-        with pytest.raises(ValueError, match="11g"):
-            ts.state_placement(cfg, mesh)
-        with pytest.raises(ValueError, match="11g"):
-            ts.make_mesh_train_step(cfg, adamw.AdamWConfig(), mesh)
-        with pytest.raises(ValueError, match="11g"):
+        assert not ts.state_placement(cfg, mesh).partial
+        split = ts.make_mesh_train_step(cfg, adamw.AdamWConfig(),
+                                        mesh).tp.split
+        assert split["experts"] and split["shared"] and split["mlp"]
+        out = io.StringIO()
+        with redirect_stdout(out):
             launch_train.main(["--arch", arch, "--device", "cpu", "--mesh",
-                               "1x2"])
+                               "1x2", "--steps", "1", "--batch", "2",
+                               "--seq", "16", "--workdir",
+                               str(tmp_path / arch)])
+        assert "tensor-parallel over 2" in out.getvalue()
         ts.state_placement(cfg, types.SimpleNamespace(
             axis_names=("data", "model"), shape={"data": 2, "model": 1},
             data_index=0, model_index=0, rank=0))
@@ -261,3 +269,5 @@ def test_model_axis_raises():
     with pytest.raises(ValueError, match="straddle"):
         ts.make_mesh_train_step(straddle, adamw.AdamWConfig(), mesh)
     ts.state_placement(reduced(get_config("yi-6b")), mesh)
+    with pytest.raises(ValueError, match="data and model only"):
+        ts.check_train_mesh({"pod": 2, "data": 1, "model": 2})

@@ -261,12 +261,12 @@ def test_tp_train_cells_on_pod16x16(arch, tmp_path):
 
 def test_recurrent_and_moe_train_cells_stay_data_parallel():
     """The recurrent archs, trained tensor-parallel since ROADMAP item
-    11f, take the ``(16, 16)`` train mesh; the MoE archs, whose
-    tensor-parallel training is item 11g, keep ``(D, 1)``."""
+    11f, and the MoE archs, since item 11g, take the ``(16, 16)`` train
+    mesh, as every arch does."""
     mesh = make_production_mesh()
     for arch, model in (("recurrentgemma-9b", 16), ("rwkv6-7b", 16),
-                        ("deepseek-moe-16b", 1),
-                        ("llama4-maverick-400b-a17b", 1)):
+                        ("deepseek-moe-16b", 16),
+                        ("llama4-maverick-400b-a17b", 16)):
         got = dr.train_mesh(get_config(arch), dr.SHAPES["train_4k"], mesh)
         assert got.shape == {"data": 16, "model": model}, arch
     got = dr.train_mesh(get_config("whisper-tiny"), dr.SHAPES["train_4k"],

@@ -286,7 +286,7 @@ def test_straddling_gqa_chunk_raises():
         ts.make_mesh_train_step(cfg, adamw.AdamWConfig(), mesh)
     assert shd.model_split(zoo.init_axes(cfg), ts.state_placement(
         cfg, mesh).specs["params"], mesh) == {
-        "vocab": True, "heads": True, "kv_heads": False, "ff": True}
+        "vocab": True, "heads": True, "kv_heads": False, "mlp": True}
 
 
 @pytest.mark.parametrize("case", ONE_BY_TWO)

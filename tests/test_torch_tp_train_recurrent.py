@@ -41,9 +41,14 @@ at ``eps = 1``, 4 rows of 16 tokens.
   part are the ones its step sums over ``model``, and a ``1x2`` step runs
   exactly the all-reduces and all-gathers over ``model`` its
   ``ModelParallel`` counts, the dry-run reckoning the same;
-* recurrentgemma-9b at ``M = 3``: its RG-LRU's ``dr`` (4096) is not
-  divisible, its MLP's ``d_ff`` (12288) is, and the placement raises
-  naming both leaves;
+* recurrentgemma-9b at ``M = 3`` (``d_ff`` 96, ``recurrentgemma-9b/ff96``):
+  three ranks split the MLP and leave the RG-LRU's ``dr`` of 64 whole,
+  as the reference's ``_resolve`` does; the RG-LRU runs replicated and
+  the step equals one process (f64 within 1e-7, f32 within the bounds
+  above) and the JAX step.  At full size (``dr`` 4096, ``d_ff`` 12288)
+  the placement and the step build; two ``ff`` leaves of one block that
+  ``model`` splits differently still raise (rwkv6-7b at ``M = 7``:
+  ``d`` 4096 whole, ``d_ff`` 14336 split);
 * ``launch/train.py --arch rwkv6-7b --mesh 1x2 --device cpu``.
 """
 
@@ -235,10 +240,25 @@ def test_1x4_heads_split_matches_one_process_and_jax(pool, jx, jx64):
     assert_near_jax(pool, jx, jx64, case, 1, 4)
 
 
+def test_1x3_mlp_split_rglru_whole_matches_one_process_and_jax(pool, jx,
+                                                               jx64):
+    """recurrentgemma-9b at ``d_ff`` 96 on three model ranks: the MLP's
+    ``d_ff`` splits, the RG-LRU's ``dr`` (64) and the heads (4) do not,
+    so the RG-LRU and the attention run whole on every rank and nothing
+    is used in part; the step equals one process's and the JAX step."""
+    case = "recurrentgemma-9b/ff96"
+    _, _, cfg = base.case_cfg(case)
+    step = ts.make_mesh_train_step(cfg, adamw.AdamWConfig(), _mesh(1, 3))
+    assert step.tp.split["mlp"] and not step.tp.split["rglru"]
+    assert not step.tp.split["heads"] and step.placement.partial == set()
+    assert_near_one_process(pool, jx, case, 1, 3)
+    assert_near_jax(pool, jx, jx64, case, 1, 3)
+
+
 @pytest.mark.parametrize("case,data,model", [
     ("recurrentgemma-9b", 1, 2), ("rwkv6-7b", 1, 2), ("rwkv6-7b/d256", 1, 2),
     ("rwkv6-7b/d256", 1, 4), ("recurrentgemma-9b/v16384", 2, 2),
-    ("rwkv6-7b/d128v16384", 2, 2)])
+    ("rwkv6-7b/d128v16384", 2, 2), ("recurrentgemma-9b/ff96", 1, 3)])
 def test_gradients_in_f64_equal_one_process(pool, jx, case, data, model):
     """With every float of the model and the gradient sums in f64, the
     gradients AdamW receives equal one process's within 1e-7 of each
@@ -382,21 +402,31 @@ def test_1x2_step_runs_the_collectives_it_counts(pool, jx, case):
 def test_ff_family_disagreement_raises():
     """recurrentgemma-9b at ``M = 3``: ``model`` divides the MLP's
     ``d_ff`` (12288) but not the RG-LRU's ``dr`` (4096), both of the
-    ``ff`` family.  The placement and the step raise naming an RG-LRU
-    leaf and an MLP leaf (the form is keyed on the family, not run
-    replicated); at ``M = 2`` and ``4`` both split."""
+    ``ff`` family.  The split is decided block by block, as the
+    reference's ``_resolve`` decides it dim by dim: the placement and the
+    step build, the MLP split and the RG-LRU whole (no leaf used in
+    part); at ``M = 2`` and ``4`` both split.  Two ``ff`` leaves of one
+    block still raise when ``model`` places them differently: rwkv6-7b at
+    ``M = 7`` divides its channel mix's ``d_ff`` (14336), not ``d``
+    (4096)."""
     cfg = get_config("recurrentgemma-9b")
-    for call in (lambda m: ts.state_placement(cfg, m),
-                 lambda m: ts.make_mesh_train_step(cfg, adamw.AdamWConfig(),
-                                                   m)):
-        with pytest.raises(ValueError, match=r"(?s)(rglru.*mlp|mlp.*rglru)"
-                           r".*'ff' dim differently"):
-            call(_mesh(1, 3))
+    pl = ts.state_placement(cfg, _mesh(1, 3))
+    assert pl.partial == set()
+    split = ts.make_mesh_train_step(cfg, adamw.AdamWConfig(),
+                                    _mesh(1, 3)).tp.split
+    assert split["mlp"] and not split["rglru"] and not split["heads"]
     for m in (2, 4):
         # ba, bx and lam of the two stacked RG-LRU groups and the two
         # remainder layers; the swa layers' wk and wv (one KV head)
         pl = ts.state_placement(cfg, _mesh(1, m))
         assert len(pl.partial) == 3 * 2 + 3 * 2 + 2
+    rwkv = get_config("rwkv6-7b")
+    for call in (lambda m: ts.state_placement(rwkv, m),
+                 lambda m: ts.make_mesh_train_step(rwkv, adamw.AdamWConfig(),
+                                                   m)):
+        with pytest.raises(ValueError, match=r"(?s)tm_cm.*tm_cm.*tm_cm's "
+                           r"'ff' dim differently"):
+            call(_mesh(1, 7))
 
 
 def test_launcher_mesh_1x2_rwkv6(tmp_path):

@@ -83,16 +83,37 @@ TP_RECURRENT_CASES = {
     "rwkv6-7b": ("rwkv6-7b", {}),
     "rwkv6-7b/d256": ("rwkv6-7b", {"d_model": 256}),
     "rwkv6-7b/d128v16384": ("rwkv6-7b", {"d_model": 128,
-                                         "vocab_size": 16384})}
+                                         "vocab_size": 16384}),
+    # d_ff 96: three model ranks split the MLP, not the RG-LRU's dr of 64
+    "recurrentgemma-9b/ff96": ("recurrentgemma-9b", {"d_ff": 96})}
+# the MoE archs (their own job, ``tp_train_moe``): reduced()
+# deepseek-moe-16b (a dense layer, then 8 experts top-2 and a shared one)
+# and maverick (a dense layer, then 8 experts top-1 and a shared one) at
+# capacity 8.0, where neither moe_apply's groups nor the expert-parallel
+# body's capacity over a rank's tokens drops an assignment; with embed and
+# head past FSDP_THRESHOLD for 2x2; deepseek with 6 experts, which four
+# model ranks leave whole
+TP_MOE_CASES = {
+    "deepseek-moe-16b/c8": ("deepseek-moe-16b", {"capacity_factor": 8.0}),
+    "llama4-maverick-400b-a17b/c8": ("llama4-maverick-400b-a17b",
+                                     {"capacity_factor": 8.0}),
+    "deepseek-moe-16b/c8v16384": ("deepseek-moe-16b", {
+        "capacity_factor": 8.0, "vocab_size": 16384}),
+    "llama4-maverick-400b-a17b/c8v16384": ("llama4-maverick-400b-a17b", {
+        "capacity_factor": 8.0, "vocab_size": 16384}),
+    "deepseek-moe-16b/c8e6": ("deepseek-moe-16b", {"capacity_factor": 8.0,
+                                                   "num_experts": 6})}
 # the 2x2 cases' steps run two microbatches, as one process at n_micro 2
-TP_MICRO = {"recurrentgemma-9b/v16384": 2, "rwkv6-7b/d128v16384": 2}
+TP_MICRO = {"recurrentgemma-9b/v16384": 2, "rwkv6-7b/d128v16384": 2,
+            "deepseek-moe-16b/c8v16384": 2,
+            "llama4-maverick-400b-a17b/c8v16384": 2}
 TP_ROWS, TP_SEQ = 4, 16
 
 
 def tp_case(case: str):
-    """``(arch, reduced() overrides)`` of a ``TP_CASES`` or
-    ``TP_RECURRENT_CASES`` case."""
-    return {**TP_CASES, **TP_RECURRENT_CASES}[case]
+    """``(arch, reduced() overrides)`` of a ``TP_CASES``,
+    ``TP_RECURRENT_CASES`` or ``TP_MOE_CASES`` case."""
+    return {**TP_CASES, **TP_RECURRENT_CASES, **TP_MOE_CASES}[case]
 
 
 def tp_batch(cfg, rows: int = TP_ROWS, seed: int = 0) -> dict:
@@ -439,7 +460,8 @@ JOBS = {"sharding": job_sharding, "dp_train": job_dp_train,
         "controller": job_controller, "tp_train": job_tp_train,
         "tp_train_recurrent": lambda: job_tp_train(TP_RECURRENT_CASES),
         "tp_train_recurrent_f64": lambda: job_tp_train(TP_RECURRENT_CASES,
-                                                        f64=True)}
+                                                        f64=True),
+        "tp_train_moe": lambda: job_tp_train(TP_MOE_CASES)}
 
 
 def run(job: str, tmp_dir) -> dict:

@@ -444,7 +444,8 @@ def tp_block_trace(kind, d, width, heads_split, seed=0):
     mesh = _mesh(1, 2)
     if mesh is None:
         return None
-    split = {"ff": True, "heads": heads_split}
+    split = {kind if kind == "rglru" else "tm_cm": True,
+             "heads": heads_split}
     tp = collectives.ModelParallel(mesh, split)
     gen = torch.Generator().manual_seed(seed)
     cfg = types.SimpleNamespace(d_model=d, num_heads=1, resolved_head_dim=width,
@@ -519,3 +520,63 @@ def tp_block_trace(kind, d, width, heads_split, seed=0):
         add("y (chunk loop)", ys2, ys1)
     add("output (summed over model)", y2, y1, cut=False)
     return out
+
+
+def tp_moe_aux(arch, overrides, model, seed=0):
+    """One MoE layer of ``arch``'s reduced config in f64 on 2 rows of 16
+    tokens, in one process (``moe_apply``) and on a ``1 x model`` mesh
+    (``moe_apply_tp`` on the rank's router columns, experts and shared
+    experts' slices): the gaps, relative to each tensor's largest
+    magnitude, of the aux loss, of its gradients alone to the router
+    and the input, and of the gradients of a fixed projection of the
+    output to the router, the input and the experts (the rank's router
+    columns and experts against one process's same slices); and the
+    rank's ``ModelParallel`` counts."""
+    from repro_torch.models import moe
+    from repro_torch.models.bridge import tree_map
+    mesh = _mesh(1, model)
+    if mesh is None:
+        return None
+    cfg = config(arch, overrides)
+    gen = torch.Generator().manual_seed(seed)
+    full = tree_map(torch.Tensor.double,
+                    moe.moe_init(cfg, torch.float32, "cpu", gen))
+    x = torch.randn(2, 16, cfg.d_model, generator=gen,
+                    dtype=torch.float64)
+    c = torch.randn(2, 16, cfg.d_model, generator=gen,
+                    dtype=torch.float64)
+    tp = collectives.ModelParallel(mesh, {"experts": True, "shared": True})
+    mine = dict(full, router=tp.own(full["router"]),
+                **{n: tp.own(full[n], 0) for n in ("w_gate", "w_up",
+                                                   "w_down")})
+    mine["shared"] = {"w_gate": tp.own(full["shared"]["w_gate"]),
+                      "w_up": tp.own(full["shared"]["w_up"]),
+                      "w_down": tp.own(full["shared"]["w_down"], 0)}
+    gaps = {}
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    runs = {}
+    forms = {"one": (full, lambda p, x: moe.moe_apply(p, x, cfg,
+                                                      return_aux=True)),
+             "tp": (mine, lambda p, x: moe.moe_apply_tp(p, x, cfg, tp,
+                                                        return_aux=True))}
+    for name, (p, fn) in forms.items():
+        p = tree_map(lambda t: t.clone().requires_grad_(), p)
+        xi = x.clone().requires_grad_()
+        with in_f64():
+            out, aux = fn(p, xi)
+            d_aux = torch.autograd.grad(aux, (p["router"], xi),
+                                        retain_graph=True)
+            d_out = torch.autograd.grad((out * c).sum(), (p["router"], xi,
+                                                          p["w_gate"]))
+        runs[name] = (aux.detach(), d_aux, d_out)
+    (aux1, da1, do1), (aux2, da2, do2) = runs["one"], runs["tp"]
+    gaps["aux"] = rel(aux2, aux1)
+    gaps["d aux / d router"] = rel(da2[0], tp.own(da1[0]))
+    gaps["d aux / d x"] = rel(da2[1], da1[1])
+    gaps["d out / d router"] = rel(do2[0], tp.own(do1[0]))
+    gaps["d out / d x"] = rel(do2[1], do1[1])
+    gaps["d out / d w_gate"] = rel(do2[2], tp.own(do1[2], 0))
+    return gaps, {k: list(v) for k, v in tp.counts.items()}
