@@ -12,8 +12,11 @@ caught:
                 CUDA-core route must not spill at D = 256; every RG-LRU
                 scan, RWKV-6 scan and dense decode instance, with their
                 registers printed, the tensor-core flash forward and
-                backward kernels and the tensor-core flat and paged segment
-                kernels, D 256 included, not at all), the build's seconds,
+                backward kernels (the backward's D 256 dQ and two-warpgroup
+                dK/dV too, their dynamic and static shared memory printed
+                and held within 227 KB) and the tensor-core flat and paged
+                segment kernels, D 256 included, not at all), the build's
+                seconds,
                 and the dense decode, RWKV-6 and RG-LRU libraries'
                 shared-memory sums held equal to their wrappers';
   3. kernels  — each CUDA kernel against its plain PyTorch version on the
@@ -45,10 +48,13 @@ caught:
                 dK/dV kernels, causal, windowed (2048, 1024, 32) and
                 non-causal, MHA/GQA/MQA, S = 1, 63, 130 and 4096 (at both
                 main paths' shapes: yi-6b's training and recurrentgemma's,
-                16/1 heads, D 256, window 2048), every head dim
+                16/1 heads, D 256, window 2048, at B 2 and at phase 9's
+                microbatch of B 1, where the bf16 dK/dV kernel splits
+                each group over two CTAs a key tile), every head dim
                 (120 too), f32 and bf16, the gradients from a random dO,
                 both forward and both backward routes (tensor cores: bf16
-                at D 64, 120 and 128; CUDA cores: the rest), the CUDA
+                at D 64, 120 and 128, the backward also at 256; CUDA
+                cores: the rest), the CUDA
                 libraries' route rules held to the wrappers'; paged decode
                 also on rows whose live blocks span several of its key
                 splits or sit in one, and a stale table entry in a later
@@ -89,8 +95,12 @@ caught:
   4. timing   — kernel, plain version, one PyTorch library call where one
                 exists, and the card's bound, at each main path's shapes
                 (the flash rows also at recurrentgemma-9b's training shape:
-                bf16 B 2, H 16, Kv 1, D 256, S 4096, window 2048, the
-                CUDA-core route, beside SDPA with the window as a mask)
+                bf16 B 2, H 16, Kv 1, D 256, S 4096, window 2048, and at
+                phase 9's microbatch of B 1: the
+                forward on the CUDA-core route, dQ and dK/dV on the tensor
+                cores with the dK/dV split and CTAs printed, the pair
+                beside SDPA's backward and its bound with the share of the
+                bound, SDPA taking the window as a mask)
                 (the dense decode kernel at yi-6b's legacy decode and at
                 recurrentgemma's swa rings, with its split plan; the RWKV-6
                 and RG-LRU scans with the profiler's device time and their
@@ -178,8 +188,9 @@ caught:
                 then full-width cuts of recurrentgemma-9b (3 layers: rglru,
                 rglru, swa) and rwkv6-7b (2 layers) take 6 steps each the
                 same way (no checkpoint), with the reckoned peak memory
-                beside max_memory_allocated, every flash launch (D 256) on
-                the CUDA-core route (asserted);
+                beside max_memory_allocated, every flash forward launch
+                (D 256) on the CUDA-core route and every dQ and dK/dV
+                launch on the tensor cores (asserted);
  10. split    — full yi-6b again (phase 6's weights kept), the same 8
                 requests through the launcher's functions with
                 ``prefill_mode="legacy"`` (one-shot prefill per admitted
@@ -320,8 +331,8 @@ caught:
                 (a) yi-6b at full width cut to 2 layers (phase 9 trains 4:
                 gloo's host-staged f32 sum takes ~10 s a step there), bf16,
                 batch 2 x 4096, in one process at 2 microbatches, then on
-                the two ranks at one each (its row), FSDP off and on (the
-                f32 cut below FSDP on only): every rank's
+                the two ranks at one each (its row), FSDP off and on:
+                every rank's
                 loss, grad norm and every leaf of its params and moments
                 after the first step must equal one process's slices bit
                 for bit (64-bit fingerprints of the bits; where a leaf
@@ -331,8 +342,7 @@ caught:
                 layers times; the step's ms, its all-reduce and all-gather
                 ms, each rank's peak beside a reckoning by hand and, FSDP
                 on, the dry-run's (``launch.dryrun.reckon`` of the same
-                mesh step on ``meta``, within 20% asserted); the same on the cut in f32 at
-                2 x 1024; (b) on the bf16
+                mesh step on ``meta``, within 20% asserted); (b) on the bf16
                 ranks with FSDP off, ``compressed_psum_grads`` of their
                 gradients against the exact f32 mean, each leaf's error
                 under 0.02 of its largest |mean|, bytes and ms; (c) the
@@ -368,8 +378,10 @@ caught:
                 (a rank's query heads and the KV heads they read) equal
                 the full launch's slices bit for bit, at yi-6b's bf16
                 shape (the wgmma routes) and gemma3-4b's D 256 (the
-                CUDA-core routes); (b) yi-6b at full width cut to 2 of its
-                32 layers, f32 at 2 x 1024 under ``1x2`` and ``2x2``
+                forward on the CUDA cores, dQ and dK/dV on the tensor
+                cores, each rank's dK/dV split as the full launch's); (b)
+                yi-6b at full width cut to 2 of its
+                32 layers, f32 at 2 x 1024 under ``1x2``
                 (AdamW at eps 1, the CPU test's), every rank's loss, grad
                 norm and every leaf of its params and moments after one
                 step against one process's step on the whole batch (the
@@ -392,12 +404,15 @@ caught:
                 peak, its launches by route (after a short warm-up step);
                 (c) the dry-run's reckoning of the bf16 ``1x2`` step
                 against rank 0's ``max_memory_allocated`` (within 20%,
-                asserted); (d) the bf16 ranks' gathered state, written by
-                rank 0, restored in one process bit for bit; (e) the
+                asserted); (d) is left to 16c, which restores a mesh
+                checkpoint on the card, and to ``tests/test_torch_tp_train
+                .py``, which restores a ``1x2`` one in one process; (e) the
                 recurrent archs at full width in f32, recurrentgemma-9b
                 cut to 3 of its 38 layers (rglru, rglru, swa) under
-                ``1x2`` and rwkv6-7b cut to 2 of its 32 under ``1x2`` and
-                ``2x2``, 2 x 512 tokens, held to one process as in (b)
+                ``1x2`` and rwkv6-7b cut to 2 of its 32 under ``2x2``
+                (its ``1x2`` step held on the CPU by
+                ``tests/test_torch_tp_train_recurrent.py``), 2 x 512
+                tokens, held to one process as in (b)
                 (under ``2x2`` each leaf instead against one process's
                 step in f64: the ranks' step in f64 within 1e-7 of it,
                 their f32 step no further from it than 5x one process's
@@ -489,7 +504,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_plain, decode_mask)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, attention_lse_ref, attention_ref, bwd_route,
-    flash_attention, flash_attention_dkv, flash_attention_dq,
+    dkv_split, flash_attention, flash_attention_dkv, flash_attention_dq,
     flash_attention_fwd_lse, fwd_route, library_bwd_route,
     library_fwd_route)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
@@ -720,10 +735,10 @@ MESH_KERNELS = (paged_segment_attention, paged_decode_attention,
 # stages the f32 gradient sum through the host at ~0.5 GB/s, 10.6 s a
 # step at 4 layers, so phase 16 cuts the depth, never the width), bf16,
 # batch TRAIN_BATCH x TRAIN_SEQ, one process at TRAIN_BATCH microbatches
-# against each rank at one (its row), FSDP off and on; then the same cut
-# in f32 at DP_F32_SEQ tokens a row, FSDP on.  One step each, held to one
-# process's bit for bit and timed
-DP_DATA, DP_LAYERS, DP_F32_SEQ = 2, 2, 1024
+# against each rank at one (its row), FSDP off and on (f32 ranks are held
+# bit for bit on the CPU, tests/test_torch_dp_train.py).  One step each,
+# held to one process's bit for bit and timed
+DP_DATA, DP_LAYERS = 2, 2
 # where a bit moves, the leaf's gap may be this many times the gap the
 # same step shows with the weights nudged at f32 rounding (phase 5's rule)
 DP_FLOOR_TIMES = 10
@@ -1053,8 +1068,9 @@ def phase_build():
             fail(f"{lib} spills or is missing: {spilled or inst}")
     smem_parity()
     # the tensor-core kernels: registers, shared memory and spills by
-    # instance (the flash forward and backward at three head dims each, the
-    # flat and paged segment kernels at four)
+    # instance (the flash forward at three head dims, dQ at four, dK/dV at
+    # three and its two-warpgroup D 256 kernel, the flat and paged segment
+    # kernels at four)
     tc = {}
     for lib in ("flash_attention", "flash_attention_bwd", "segment_attention",
                 "paged_segment_attention"):
@@ -1073,10 +1089,24 @@ def phase_build():
     for name, lines in tc.items():
         say(f"[build] tensor-core {name}: {'; '.join(lines)}")
     segs = [n for n in tc if n.startswith("segment")]
-    if len(tc) != 17 or len(segs) != 8 or any(
+    if len(tc) != 19 or len(segs) != 8 or any(
             "0 bytes spill stores, 0 bytes spill loads" not in " ".join(v)
             for v in tc.values()):
         fail(f"the tensor-core kernels spill or are missing: {tc}")
+    # the backward's D 256 instances: their launches' dynamic shared
+    # memory beside the static, within the 227 KB a block may use
+    smem = _build.library("flash_attention_bwd").flash_attention_bwd_tc_smem
+    smem.restype = ctypes.c_longlong
+    for kernel, name in ((0, "flash_dq_kernel_wgmma<256>"),
+                         (1, "flash_dkv2_kernel_wgmma<256>")):
+        lines = next((v for n, v in tc.items() if n.endswith(name)), [])
+        static = re.search(r"(\d+) bytes smem", " ".join(lines))
+        total = smem(256, kernel) + (int(static.group(1)) if static else 0)
+        say(f"[build] {name}: {smem(256, kernel)} bytes of dynamic shared "
+            f"memory + {static.group(1) if static else '?'} static = "
+            f"{total} of 232448")
+        if static is None or total > 232448:
+            fail(f"{name}'s shared memory is unread or past the limit")
 
 
 def smem_parity() -> None:
@@ -1755,14 +1785,16 @@ def flash_case(gen, b, h, kv, s, d, sk=None):
 
 
 # flash_cases() entries at the shapes the main paths give the kernels
-MAIN_FLASH = ("main", "rg", "whisper-cross-77", "whisper-cross-448",
-              "whisper-encoder", "internvl2-self")
+MAIN_FLASH = ("main", "rg", "rg-micro", "whisper-cross-77",
+              "whisper-cross-448", "whisper-encoder", "internvl2-self")
 
 
 def flash_cases() -> dict:
     """name -> (B, H, Kv, Sq, Sk, D, causal, window): the main paths'
     shapes (yi-6b's training; recurrentgemma-9b's training and legacy
-    prefill: 16 query heads on one KV head, D 256, window 2048; phase
+    prefill: 16 query heads on one KV head, D 256, window 2048, at batch
+    FA_B and at phase 9's microbatch of one row, where the bf16 dK/dV
+    kernel splits each group over two CTAs a key tile; phase
     14's frontends: whisper-tiny's cross-attention, 6 heads of 64 over
     its 1500 frames from 77 and 448 queries, its encoder's non-causal
     1500 frames, internvl2-1b's 14/2 heads over 256 patches and 200
@@ -1771,6 +1803,8 @@ def flash_cases() -> dict:
     windowed (32) and non-causal masks (with and without a window)."""
     cases = {"main": (FA_B, H, KV, FA_S, FA_S, D, True, 0),
              "rg": (FA_B, RG_H, RG_KV, FA_S, FA_S, RG_D, True, RG_WINDOW),
+             "rg-micro": (TRAIN_BATCH // TRAIN_MICRO, RG_H, RG_KV, FA_S,
+                          FA_S, RG_D, True, RG_WINDOW),
              "gemma3-local": (1, 8, 4, FA_S, FA_S, 256, True, 1024)}
     for sq in (77, 448):
         cases[f"whisper-cross-{sq}"] = (2, WH_H, WH_H, sq, WH_ENC, WH_D,
@@ -1813,6 +1847,7 @@ def phase_kernels_flash(dev) -> dict:
             fail(f"the CUDA library's {what} route differs from "
                  f"{rule.__name__}")
     errs = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (b, h, kv, s, sk, d, causal, window) in flash_cases().items():
         case = flash_case(gen, b, h, kv, s, d, sk)
         for dtype in (torch.float32, torch.bfloat16):
@@ -1837,6 +1872,8 @@ def phase_kernels_flash(dev) -> dict:
             del want_o, want_lse
             want = attention_bwd_ref(*f32[:4], lse, f32[4], **mask)
             tag = f"{tag} {bwd_route(dtype, d)}"
+            if d == 256 and bwd_route(dtype, d) == "tensor_core":
+                tag += f", n_split {dkv_split(b, sk, h // kv, sms)}"
             e["flash_attention_dq"] = compare(f"{tag} dq", dq, want[0], dtype)
             e["flash_attention_dkv"] = max(
                 compare(f"{tag} dk", dk, want[1], dtype),
@@ -2035,10 +2072,16 @@ def phase_timing(dev, card) -> dict:
     torch.cuda.empty_cache()
     out.update(timing_flash(dev))
     torch.cuda.empty_cache()
-    # recurrentgemma-9b's swa layers in training: D 256 takes the
-    # CUDA-core kernels
+    # recurrentgemma-9b's swa layers in training: at D 256 the forward takes
+    # the CUDA-core kernel, dQ and dK/dV the tensor cores
     out.update(timing_flash(dev, (FA_B, RG_H, RG_KV, FA_S, RG_D, RG_WINDOW),
                             "recurrentgemma-9b training"))
+    torch.cuda.empty_cache()
+    # and at phase 9's microbatch of one row, the shape its training cut
+    # launches: there the dK/dV kernel splits each group over two CTAs
+    out.update(timing_flash(
+        dev, (TRAIN_BATCH // TRAIN_MICRO, RG_H, RG_KV, FA_S, RG_D,
+              RG_WINDOW), "recurrentgemma-9b training microbatch"))
     torch.cuda.empty_cache()
     # phase 14's frontends at their training shapes (batch 2): whisper-
     # tiny's cross-attention (128 decoder tokens against 1500 frames) and
@@ -2317,7 +2360,22 @@ def timing_flash(dev, shape=None, what="yi-6b training", sk=None,
     route = bwd_route(torch.bfloat16, d)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_kt, n_qt = -(-sk // 64), -(-s // 64)
-    if route == "tensor_core":
+    if d == 256:
+        split, micro = (dkv_split(n, sk, h // kv, sms) for n in (b, 1))
+        say(f"[timing] flash at bf16 D 256 ({what}): forward route "
+            f"{fwd_route(torch.bfloat16, d)}; backward route {route}: dK/dV "
+            "one CTA (two consumer warpgroups, S^T/P^T/dV and dP^T/dS^T/dK, "
+            "P^T exchanged through shared memory, and a producer "
+            "warpgroup) per 64 keys x KV head x batch x split, n_split "
+            f"{split} (the group's {h // kv} query heads over that many "
+            f"CTAs a key tile): {n_kt * kv * b * split} CTAs here for {sms} "
+            f"SMs, one CTA per SM; at a training microbatch (batch 1) "
+            f"n_split {micro}, {n_kt * kv * micro} CTAs; dQ one CTA (one "
+            "consumer warpgroup, a producer warp) per 64 q rows x query "
+            f"head x batch, the longest first: {n_qt * h * b} CTAs, one per "
+            "SM; 64-key (dQ) and 64-row (dK/dV) steps in a two-stage TMA "
+            "ring")
+    elif route == "tensor_core":
         say(f"[timing] flash forward at bf16 D {d}: route "
             f"{fwd_route(torch.bfloat16, d)}; one CTA (a consumer warpgroup "
             f"and a producer warp) per 64 q rows x query head x batch, the "
@@ -2353,11 +2411,15 @@ def timing_flash(dev, shape=None, what="yi-6b training", sk=None,
                           torch.bfloat16, sk).flops
     dq, dkv = (out[n + suffix] for n in ("flash_attention_dq",
                                          "flash_attention_dkv"))
-    say(f"[timing] flash backward ({route}, {what}): dQ + dK/dV kernels "
-        f"{dq['ms'] + dkv['ms']:.4f} ms against sdpa's backward "
-        f"{sdpa_bwd:.4f} ms; bound of the two kernels' products (3.5x the "
-        f"forward's) {dq['bound_ms'] + dkv['bound_ms']:.4f} ms, FA2 joint "
-        f"minimum (2.5x) {2.5 * fwd_ops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
+    pair, pair_bound = dq["ms"] + dkv["ms"], dq["bound_ms"] + dkv["bound_ms"]
+    say(f"[timing] flash backward ({route}, {what}) on {card_line()}: dQ "
+        f"{dq['ms']:.4f} ms ({dq['bound_ms'] / dq['ms']:.1%} of its bound), "
+        f"dK/dV {dkv['ms']:.4f} ms ({dkv['bound_ms'] / dkv['ms']:.1%}); "
+        f"the pair {pair:.4f} ms against sdpa's backward {sdpa_bwd:.4f} ms "
+        f"({sdpa_bwd / pair:.2f}x); bound of the two kernels' products "
+        f"(3.5x the forward's) {pair_bound:.4f} ms ({pair_bound / pair:.1%} "
+        f"of it), FA2 joint minimum (2.5x) "
+        f"{2.5 * fwd_ops / PEAK_BF16_FLOPS * 1e3:.4f} ms")
     del qg, kg, vg, lib_o
     return out
 
@@ -3790,8 +3852,9 @@ def phase_train_cut(dev, card, arch: str, layers: int) -> dict:
     weights, through the Trainer as phase 9 runs yi-6b: TRAIN_STEPS AdamW
     steps at batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches,
     remat, no checkpoint.  The recurrent layers train through their
-    one-shot forms; every flash launch (recurrentgemma's swa layer, D
-    256) must take the CUDA-core route.  Returns the flash launches."""
+    one-shot forms; recurrentgemma's swa layer (D 256) must launch its
+    flash forwards on the CUDA-core route and dQ and dK/dV on the tensor
+    cores.  Returns the flash launches."""
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     workdir = ROOT / "build" / f"chip_smoke_train_{arch}"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -3861,11 +3924,15 @@ def phase_train_cut(dev, card, arch: str, layers: int) -> dict:
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     if launches != want:
         fail(f"flash kernel launches {launches}, expected {want}")
-    for k, r in routes.items():
-        if r != {"tensor_core": 0, "cuda_core": launches[k]}:
-            fail(f"{k} launches by route {r}: the D "
-                 f"{cfg.resolved_head_dim} launches must take the CUDA-core "
-                 "route")
+    d = cfg.resolved_head_dim
+    for fn in counted:
+        k, r = fn.__name__, routes[fn.__name__]
+        rule = bwd_route if fn in (flash_attention_dq,
+                                   flash_attention_dkv) else fwd_route
+        want_route = rule(torch.bfloat16, d)
+        if r != {**dict.fromkeys(r, 0), want_route: launches[k]}:
+            fail(f"{k} launches by route {r}: the D {d} launches must take "
+                 f"the {want_route} route")
     return launches
 
 
@@ -6286,10 +6353,9 @@ def dp_gap(dev, cfg, batch, key: str, rank: int, fsdp: bool, got, want):
 
 
 def dp_run(pool, dev, card, tag: str, arch: str, layers: int, dtype: str,
-           seq: int, modes=(False, True), ckpt_dir=None) -> dict:
-    """16a at one width: one process, then the ranks with each FSDP mode
-    of ``modes`` (16b on FSDP off in bf16, the checkpoint of 16c on FSDP
-    on); every
+           seq: int, ckpt_dir=None) -> dict:
+    """16a at one width: one process, then the ranks with FSDP off and on
+    (16b on FSDP off in bf16, the checkpoint of 16c on FSDP on); every
     rank's first step must equal one process's bit for bit (or, where a
     bit moves, within DP_FLOOR_TIMES its noise floor: printed with the
     leaf) and launch the three flash kernels of training.  Returns the
@@ -6303,7 +6369,7 @@ def dp_run(pool, dev, card, tag: str, arch: str, layers: int, dtype: str,
     torch.cuda.empty_cache()
     launches: dict = {}
     extra = {}
-    for fsdp in modes:
+    for fsdp in (False, True):
         expect = dp_expect(cfg, one, fsdp)
         t0 = time.perf_counter()
         ranks = pool.run(mesh_train, arch, layers, dtype, batch, fsdp,
@@ -6487,17 +6553,10 @@ def phase_dp(dev, card) -> dict:
         t1 = time.perf_counter()
         phase_elastic(dev, card, ckpt_dir, got)
         t_c = time.perf_counter() - t1
-        t1 = time.perf_counter()
-        f32 = dp_run(pool, dev, card, "16a f32", "yi-6b", DP_LAYERS,
-                     "float32", DP_F32_SEQ, modes=(True,))
-        for k, v in f32["launches"].items():
-            launches[k] = launches.get(k, 0) + v
-        t_f = time.perf_counter() - t1
     t1 = time.perf_counter()
     phase_controller_twin(dev, card)
     say(f"[times] phase 16: bf16 {t_a:.1f} s (16b inside), 16c "
-        f"{t_c:.1f} s, f32 cut {t_f:.1f} s, 16d "
-        f"{time.perf_counter() - t1:.1f} s")
+        f"{t_c:.1f} s, 16d {time.perf_counter() - t1:.1f} s")
     say(f"[dp] kernel launches of the ranks {launches}")
     return launches
 
@@ -6506,14 +6565,17 @@ def phase_dp(dev, card) -> dict:
 # yi-6b at full width cut to TP_LAYERS of its 32 layers (phase 16's cut:
 # gloo stages every sum through the host), ranks of one MeshPool of
 # TP_POOL sharing the card.  18b: f32 at TP_F32_ROWS x TP_F32_SEQ under
-# each of TP_F32_MESHES, held to one process with the CPU test's bounds
+# each of TP_F32_MESHES (1x2: 18e's rwkv6-7b run holds a 2x2 step, and
+# tests/test_torch_tp_train.py holds yi-6b's on the CPU), held to one
+# process with the CPU test's bounds
 # (tests/test_torch_tp_train.py); bf16 at TP_BF16_ROWS x TP_BF16_SEQ
 # under 1x2, its gaps printed.  18a: the three flash training kernels
 # on each of TP_KERNEL_M head chunks at yi-6b's bf16 shape (the wgmma
-# routes) and gemma3-4b's D 256 (the CUDA-core routes)
+# routes) and gemma3-4b's D 256 (the forward's CUDA-core route, the
+# backward's wgmma one)
 TP_POOL = (2, 2)
 TP_LAYERS = 2
-TP_F32_ROWS, TP_F32_SEQ, TP_F32_MESHES = 2, 1024, ((1, 2), (2, 2))
+TP_F32_ROWS, TP_F32_SEQ, TP_F32_MESHES = 2, 1024, ((1, 2),)
 TP_BF16_ROWS, TP_BF16_SEQ = 1, 4096
 TP_KERNEL_M = 2
 TP_REL = 1e-5           # loss, grad norm and each leaf, relative
@@ -6549,7 +6611,7 @@ TP_WARM_SEQ = 128
 # (dryrun.reckon), so every rank runs the references before any rank
 # holds its state and keeps its slices on the host (tp_refs)
 TP_RECURRENT = (("recurrentgemma-9b", 3, ((1, 2),)),
-                ("rwkv6-7b", 2, ((1, 2), (2, 2))))
+                ("rwkv6-7b", 2, ((2, 2),)))
 TP_EXACT = {("rwkv6-7b", 2, 2)}
 TP_F64_REL = 1e-7
 TP_EXACT_TIMES = 5
@@ -6786,8 +6848,7 @@ def tp_refs(dev, cfg, batch, data: int, pl, mesh, group, floor: bool,
 
 
 def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
-            ckpt_dir=None, device: str = "cuda",
-            exact: bool = False) -> dict | None:
+            device: str = "cuda", exact: bool = False) -> dict | None:
     """One rank of 18b and 18e.  First, one rank after another, one
     process's steps on the whole batch at ``data`` microbatches, cut to
     this rank's slices and kept on the host (:func:`tp_refs`).  Then this
@@ -6798,9 +6859,7 @@ def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
     (counts set to 0 just before it; a forward and backward of
     TP_WARM_SEQ tokens before it warms the rank), and every leaf's gap
     from one process's (over the whole leaf); with ``exact`` also from
-    one process's f64 step, and the same step in f64 (``f64_gaps``).
-    With ``ckpt_dir`` the gathered state is written there by rank 0
-    (18d; its fingerprints returned)."""
+    one process's f64 step, and the same step in f64 (``f64_gaps``)."""
     dev = torch.device(device)
     mesh = tp_mesh(data, model)
     if mesh is None:
@@ -6867,15 +6926,6 @@ def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
                **{k: v for k, v in refs.items() if k not in ("ref",
                                                              "exact")})
     tree = {"params": mine, "opt": state}
-    if ckpt_dir is not None:
-        full = pl.gather(tree)
-        if mesh.rank == 0:
-            t1 = time.perf_counter()
-            checkpoint_save(ckpt_dir, 1, full)
-            out["write_s"] = time.perf_counter() - t1
-            out["gathered"] = fingerprints(full)
-        del full
-        free_card()
     mine_k = dict(keyed_leaves(tree))
     out["gaps"] = tp_gaps(mine_k, refs["ref"], group)
     if exact:
@@ -6904,8 +6954,7 @@ def tp_rank(cfg, batch: dict, data: int, model: int, floor: bool,
 
 
 def tp_run(pool, dev, card, tag: str, cfg, rows: int, seq: int, data: int,
-           model: int, f32: bool, ckpt_dir=None,
-           exact: bool = False) -> dict | None:
+           model: int, f32: bool, exact: bool = False) -> dict | None:
     """One run of 18b or 18e (``tag`` opens its lines), reckoned first
     (:func:`tp_reckon`; None when it would not fit the card); in f32 the
     loss, the grad norm and each leaf held to one process (with
@@ -6918,7 +6967,7 @@ def tp_run(pool, dev, card, tag: str, cfg, rows: int, seq: int, data: int,
     batch = tp_batch(cfg.vocab_size, rows, seq)
     t0 = time.perf_counter()
     ranks = [r for r in pool.run(tp_rank, cfg, batch, data, model, f32,
-                                 ckpt_dir, dev.type, exact)
+                                 dev.type, exact)
              if r is not None]
     wall = time.perf_counter() - t0
     r0 = ranks[0]
@@ -7205,8 +7254,6 @@ def phase_tp(dev, card) -> dict:
     phase_tp_kernels(dev, card)
     t_a = time.perf_counter() - t0
     launches: dict = {}
-    ckpt_dir = str(ROOT / "build" / "chip_smoke_tp")
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
     f32 = mesh_cfg("yi-6b", TP_LAYERS, "float32")
     bf16 = mesh_cfg("yi-6b", TP_LAYERS, "bfloat16")
     times = {}
@@ -7220,8 +7267,8 @@ def phase_tp(dev, card) -> dict:
                 launches[k] = launches.get(k, 0) + v
         t1 = time.perf_counter()
         got = tp_run(pool, dev, card, "18b bf16", bf16, TP_BF16_ROWS,
-                     TP_BF16_SEQ, 1, 2, False, ckpt_dir)
-        times["bf16 1x2, 18d's write"] = time.perf_counter() - t1
+                     TP_BF16_SEQ, 1, 2, False)
+        times["bf16 1x2"] = time.perf_counter() - t1
         for k, v in got["launches"].items():
             launches[k] = launches.get(k, 0) + v
     r0, dry = got["r0"], got["rec"]
@@ -7239,21 +7286,6 @@ def phase_tp(dev, card) -> dict:
         fail(f"18c: the dry-run's reckoning misses rank 0's peak by "
              f"{gap:+.2%} (limit {RECKON_LIMIT:.0%})")
     times["18c"] = time.perf_counter() - t1
-    t1 = time.perf_counter()
-    like = adamw_tree(bf16, dev)
-    tree, _, step = checkpoint_restore(ckpt_dir, None, like)
-    back = fingerprints(tree)
-    same = [k for k, v in r0["gathered"].items() if back.get(k) == v]
-    say(f"[tp] 18d on {card}: the 1x2 ranks' checkpoint (written in "
-        f"{r0['write_s']:.1f} s by rank 0) restored in one process: "
-        f"{len(same)}/{len(back)} leaves of params and moments equal the "
-        "ranks' gathered state bit for bit")
-    del tree, like
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
-    if step != 1 or len(same) != len(back) or set(back) != set(
-            r0["gathered"]):
-        fail("18d: the restored state differs from the ranks'")
-    times["18d's restore"] = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
     rec = phase_tp_recurrent(dev, card)
@@ -7645,15 +7677,6 @@ def tp_trace(dev, card) -> None:
             loss = r["loss"].get(run)
             say(f"[tp-trace] {case}: {run}: grad norm {parts}"
                 + ("" if loss is None else f"; loss {loss:.7f}"))
-
-
-def adamw_tree(cfg, dev) -> dict:
-    """``{"params", "opt"}`` of ``cfg`` as meta-shaped empty tensors on
-    ``dev``: what a restore fills."""
-    aparams = zoo.abstract_params(cfg)[0]
-    params = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
-                                            device=dev), aparams)
-    return {"params": params, "opt": adamw.init(params)}
 
 
 # ---- phase 17: the tooling ------------------------------------------------

@@ -24,10 +24,12 @@ that dispatches.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["HEAD_DIMS", "KERNEL_DTYPES", "check_operand", "on_meta",
-           "use_plain"]
+           "sm_count", "use_plain"]
 
 # head dims the kernels are instantiated for: 16 = reduced() configs,
 # 64 = rwkv6, 120 = h2o-danube-3-4b, 128 = yi-6b and most GQA archs,
@@ -35,6 +37,12 @@ __all__ = ["HEAD_DIMS", "KERNEL_DTYPES", "check_operand", "on_meta",
 HEAD_DIMS = (16, 64, 120, 128, 256)
 # dtype code passed across the C interface
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_operand(name: str, t: torch.Tensor, *, dtype: torch.dtype,

@@ -17,9 +17,10 @@ constexpr int kConsumers = 128;  // one warpgroup
 constexpr int kThreadsTC = kConsumers + 32;  // and one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The route rule: bf16 at D 64, 120 and 128 takes the tensor cores, every
-// other supported call (f32 at every D, bf16 at D 16 and 256) the CUDA
-// cores.  dtype: 0 = float32, 1 = bfloat16.
+// The forward's route rule: bf16 at D 64, 120 and 128 takes the tensor
+// cores, every other supported call (f32 at every D, bf16 at D 16 and 256)
+// the CUDA cores.  dtype: 0 = float32, 1 = bfloat16.  (The backward's rule,
+// in flash_attention_bwd.cu, adds bf16 at D 256.)
 inline bool tensor_core_route(int D, int dtype) {
   return dtype == 1 && (D == 64 || D == 120 || D == 128);
 }

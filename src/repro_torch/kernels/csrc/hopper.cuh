@@ -70,6 +70,26 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// wait at named barrier `id` (1-15; 0 is __syncthreads') until `threads`
+// threads (a multiple of 32) have reached it; orders their shared-memory
+// accesses across it
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// hand registers back to the SM's pool (dec) or take more from it (inc),
+// for every thread of this warpgroup, all four warps of which must run it:
+// the code that follows is compiled to the new limit (24-256, a multiple of
+// 8), so a producer warpgroup's registers can go to its consumers
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // ---------------------------------------------------------------- cp.async
 // A copy of 16 bytes (8 or 4: .ca, the only form that takes fewer) from
 // device memory into shared memory, in flight until its group is waited

@@ -37,7 +37,7 @@ import torch
 from repro_torch.roofline import op_cost
 from repro_torch.roofline.analysis import HW
 from repro_torch.kernels import (HEAD_DIMS, KERNEL_DTYPES, _build,
-                                 check_operand)
+                                 check_operand, sm_count)
 
 DEFAULT_BLOCK_KV = 512
 KEY_TILES = (64, 32, 16)    # keys a ring stage holds: the largest that fits
@@ -142,12 +142,6 @@ def launch_plan(b: int, h: int, kv: int, s: int, d: int, esz: int,
     return dict(tile=tile, per_sm=per_sm, head_chunks=chunks, split=n,
                 n_split=n_split, ctas=n_split * b * kv * chunks,
                 stages=STAGES, smem=smem_bytes(esz, d, g, tile, n))
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index`` (read once)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache

@@ -19,44 +19,71 @@
 // out) take ~0.08 ms at 3.35 TB/s.
 //
 // Two routes, a fixed dispatch on dtype and head dim in the extern "C"
-// entry points (flash_attention_bwd.py's `bwd_route` states the same rule;
-// it is no fallback, and a launch that fails returns its error):
+// entry points (`bwd_tensor_core_route`; flash_attention_bwd.py's
+// `bwd_route` states the same rule; it is no fallback, and a launch that
+// fails returns its error).  The rule is the backward's own: the forward
+// (flash_tc.cuh's `tensor_core_route`) keeps bf16 D 256 on the CUDA cores.
 //
-// * Tensor cores: bf16 at D 64, 120 and 128 (`flash_dq_kernel_wgmma`,
-//   `flash_dkv_kernel_wgmma`).  A CTA is one consumer warpgroup and one
-//   producer warp.  The producer issues TMA loads (3-D tensor maps over
-//   [B*H or B*Kv, S, D], 64-column boxes in the 128-byte swizzle, so the
-//   hardware zero-fills the ragged S tail and D = 120's columns 120-127
-//   without crossing into the next head) into a ring of two stages with
-//   full/empty mbarriers, so the next tile arrives during the current
-//   tile's products.  Every product is wgmma m64nNk16 with bf16 operands
-//   and f32 accumulators: the first two (S = Q K^T, dP = dO V^T, or their
-//   transposes) read both operands from shared memory K-major; P and dS
-//   are formed in registers, rounded to bf16 and fed back as the A operand
-//   in registers of the second products (dV += P^T dO, dK += dS^T Q,
-//   dQ += dS K), whose B operand is the same shared tile read MN-major.
-//   Rounding P and dS to bf16 is what FlashAttention-2/3 and SDPA do; the
-//   reference keeps them in f32 (ROADMAP Queue 3 logs the difference).
-//    - dK/dV: one CTA per (64 keys, KV head, batch), key tile 0 first
-//      (under the causal mask it has the most work).  K and V stay in
-//      shared memory; the CTA walks the group's G query heads and, for
-//      each, the 64-row q tiles that admit its keys, forming
-//      S^T = K Q^T, dP^T = V dO^T, P^T = exp(scale S^T - lse) under the
-//      mask and dS^T = P^T (dP^T - Dsum); dK and dV accumulate in f32
-//      registers across the whole group and are written once (no
-//      atomics, deterministic).  The producer also stages each q tile's
-//      lse and Dsum.  64 keys give 256 CTAs at one microbatch of yi-6b
-//      (B 1, Kv 4, S 4096) for 132 SMs, one CTA per SM (about 230
-//      registers a thread at D 128: dK, dV, S^T and dP^T in f32; two
-//      CTAs per SM would cap a thread at 200).
-//    - dQ: one CTA per (64 q rows, query head, batch), longest tiles
-//      first, walking the admitted 64-key tiles: S = Q K^T, dP = dO V^T,
-//      dS, then dQ += dS K; two CTAs per SM (about 155 registers at
-//      D 128).
+// * Tensor cores: bf16 at D 64, 120, 128 and 256.  The producer warp
+//   issues TMA loads (3-D tensor maps over [B*H or B*Kv, S, D], 64-column
+//   boxes in the 128-byte swizzle, so the hardware zero-fills the ragged S
+//   tail and D = 120's columns 120-127 without crossing into the next
+//   head) into a ring of two stages with full/empty mbarriers, so the next
+//   tile arrives during the current tile's products.  Every product is
+//   wgmma with bf16 operands and f32 accumulators: the first two (S =
+//   Q K^T, dP = dO V^T, or their transposes) m64n64k16 with both operands
+//   K-major from shared memory; P and dS are formed in registers, rounded
+//   to bf16 and fed back as the A operand in registers of the second
+//   products (dV += P^T dO, dK += dS^T Q, dQ += dS K, m64nDk16), whose B
+//   operand is the same shared tile read MN-major.  Rounding P and dS to
+//   bf16 is what FlashAttention-2/3 and SDPA do; the reference keeps them
+//   in f32 (ROADMAP Queue 3 logs the difference).
+//    - dQ (`flash_dq_kernel_wgmma`): one CTA per (64 q rows, query head,
+//      batch), longest tiles first, one consumer warpgroup and one
+//      producer warp: Q and dO resident, the admitted 64-key K and V tiles
+//      through the ring; S, dP, dS, then dQ += dS K.  Two CTAs per SM at
+//      D <= 128 (about 155 registers at D 128); at D 256 the 64 x 256 f32
+//      dQ accumulator is 128 registers a thread beside S and dP, so one
+//      CTA per SM with the limit at 255, and Q, dO and the two K/V stages
+//      take 192 KB of shared memory.
+//    - dK/dV at D <= 128 (`flash_dkv_kernel_wgmma`): one CTA per (64 keys,
+//      KV head, batch), key tile 0 first (under the causal mask it has the
+//      most work), one consumer warpgroup and one producer warp.  K and V
+//      stay in shared memory; the CTA walks the group's G query heads and,
+//      for each, the 64-row q tiles that admit its keys (Q, dO, lse and
+//      Dsum through the ring), forming S^T = K Q^T, dP^T = V dO^T,
+//      P^T = exp(scale S^T - lse) under the mask and dS^T = P^T (dP^T -
+//      Dsum); dK and dV accumulate in f32 registers across the whole group
+//      and are written once (no atomics, deterministic).  One CTA per SM
+//      (about 230 registers a thread at D 128).
+//    - dK/dV at D 256 (`flash_dkv2_kernel_wgmma`): one warpgroup cannot
+//      hold two 64 x 256 f32 accumulators (256 registers a thread), so two
+//      consumer warpgroups split the products, one accumulator each (128
+//      registers beside a 32-register tile), and a producer warpgroup
+//      issues the loads from one warp; 384 threads leave 168 registers a
+//      thread, so the producer warpgroup gives back all but 40 and the
+//      consumers take 232 (`setmaxnreg`; at 168 they spill).  Warpgroup 0 forms S^T and P^T,
+//      writes P^T (f32) to an exchange tile in shared memory and
+//      accumulates dV += P^T dO; warpgroup 1 forms dP^T, reads P^T after
+//      one named barrier a step, forms dS^T and accumulates dK += dS^T Q.
+//      The exchange has two
+//      buffers, so warpgroup 0 writes step i + 1's while warpgroup 1 still
+//      reads step i's (the ring's empty barrier, which both arrive on,
+//      keeps it from reaching step i + 2 first).  K and V (64 KB), two
+//      Q/dO stages (128 KB) and the exchange (32 KB): 225 KB of shared
+//      memory.  recurrentgemma-9b's training microbatch (B 1, Kv 1, S
+//      4096) has 64 key tiles for 132 SMs, so the group's query heads
+//      split over n_split CTAs a key tile (`dkv_split` in the wrapper:
+//      min(G, SMs / (B key tiles)), 1 where the key tiles fill the card;
+//      not from Kv, so a tensor-parallel rank's launch on its KV heads sums
+//      each head's dK and dV as the whole launch does).  With n_split > 1
+//      each CTA writes its f32 partial dK and dV to a workspace [2,
+//      n_split, B, Kv, Sk, D] that the wrapper allocates, and
+//      `flash_dkv_sum_kernel` adds the partials in split order and rounds
+//      once: no atomics, two launches give the same bits.
 //   Tiles wholly inside the mask skip the mask test.
 // * CUDA cores: f32 at every D (the route phase 5's card-against-CPU
-//   training parity measures) and bf16 at D 16 and 256 (D 256's 64 x 256
-//   f32 dK and dV accumulators exceed one warpgroup's registers).
+//   training parity measures) and bf16 at D 16.
 //    - dQ: one CTA per (q tile of 64 rows, 32 at D = 256; query head;
 //      batch), longest tiles first, looping over the admitted 32-key tiles
 //      as the forward does.  Per tile a thread computes 4 (2) rows x 4
@@ -76,6 +103,7 @@
 // refuse a causal or windowed call at Sk != Sq): dQ's CTAs and its valid
 // rows, lse and Dsum follow Sq and its key loop Sk; dK/dV's CTAs follow Sk
 // and its loop over q tiles Sq.
+#include <algorithm>
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -386,9 +414,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }
 
 // ------------------------------------------------------------------------
-// Tensor-core route: bf16 at D 64, 120 and 128.
+// Tensor-core route: bf16 at D 64, 120, 128 and 256.
 namespace tc {
 
+using hopper::bar_sync;
 using hopper::desc_k;
 using hopper::desc_mn;
 using hopper::fence_regs;
@@ -587,7 +616,7 @@ flash_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreadsTC, 2)
+__global__ void __launch_bounds__(kThreadsTC, D == 256 ? 1 : 2)
 flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
@@ -726,6 +755,263 @@ flash_dq_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// the dynamic shared memory of a launch: 1024 bytes of alignment slack
+// and the tiles (K/V resident and the Q/dO ring, or the reverse)
+template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + 2 * tile_bytes<padded<D>()>(kRows) +
+         2 * kStages * tile_bytes<padded<D>()>(kKeys);
+}
+template <int D>
+constexpr size_t dkv_smem() {
+  return 1024 + 2 * tile_bytes<padded<D>()>(kKeys) +
+         2 * kStages * tile_bytes<padded<D>()>(kRows);
+}
+
+// dK/dV at D 256: two consumer warpgroups and a producer warpgroup, one
+// warp of which issues the loads (see the header); `n_split` CTAs a (key
+// tile, KV head, batch), each over its share of the group's query heads.
+// 384 threads leave 168 registers a thread; the producer warpgroup hands
+// 128 of its own back and each consumer thread takes 64 more.
+constexpr int kPairConsumers = 2 * kConsumers;
+constexpr int kThreadsPair = kPairConsumers + kConsumers;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kExBar = 1;                     // the exchange's named barrier
+constexpr int kExFloats = 32 * kConsumers;    // one 64 x 64 f32 exchange
+
+template <int D>
+constexpr size_t dkv_pair_smem() {
+  return 1024 + 2 * tile_bytes<padded<D>()>(kKeys) +
+         2 * kStages * tile_bytes<padded<D>()>(kRows) +
+         2 * kExFloats * sizeof(float);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreadsPair, 1)
+flash_dkv2_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        const __grid_constant__ CUtensorMap tm_do,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ dsum,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv,
+                        float* __restrict__ work, int H, int Kv, int Sq,
+                        int Sk, int causal, int window, float scale,
+                        int n_split) {
+  constexpr int DP = padded<D>();
+  constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
+  constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
+  constexpr int Q_BYTES = tile_bytes<DP>(kRows);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = align1024(smem_raw);
+  uint8_t* v_s = k_s + KV_BYTES;
+  uint8_t* q_s = v_s + KV_BYTES;            // [kStages][Q_BYTES]
+  uint8_t* do_s = q_s + kStages * Q_BYTES;  // [kStages][Q_BYTES]
+  // P^T of a step, [2 buffers][32 elements][128 threads]
+  float* ex = reinterpret_cast<float*>(do_s + kStages * Q_BYTES);
+  __shared__ float lse_s[kStages][kRows];   // lse * log2(e)
+  __shared__ float dsum_s[kStages][kRows];
+  __shared__ __align__(8) uint64_t kv_full, full[kStages], empty[kStages];
+
+  const int G = H / Kv;
+  const int k0 = blockIdx.x * kKeys;
+  const int kvh = blockIdx.y / n_split, split = blockIdx.y % n_split;
+  const int b = blockIdx.z;
+  const int g_lo = split * G / n_split;  // this CTA's query heads of the group
+  const int n_g = (split + 1) * G / n_split - g_lo;
+  const int valid_k = min(kKeys, Sk - k0);
+  // q rows that admit a key of this tile: [q_lo, q_hi]
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(Sq - 1, k0 + valid_k - 1 + window - 1)
+                              : Sq - 1;
+  const int qt_lo = q_lo / kRows;
+  const int n_qt = q_hi / kRows - qt_lo + 1;
+  const int n_it = n_g * n_qt;  // (query head, q tile) steps
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], kPairConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // 0: S^T, P^T and dV; 1: dP^T, dS^T and dK; 2: the producer warpgroup,
+  // whose first warp issues the loads
+  const int wg = role();
+  if (wg == 2) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x - kPairConsumers;
+    if (lane >= 32) return;
+    if (lane == 0) {
+      const int bkv = b * Kv + kvh;
+      mbar_arrive_expect_tx(&kv_full, 2 * KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c) {
+        tma_load_3d(k_s + c * KV_CHUNK, &tm_k, &kv_full, c * 64, k0, bkv);
+        tma_load_3d(v_s + c * KV_CHUNK, &tm_v, &kv_full, c * 64, k0, bkv);
+      }
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % kStages;
+      const int q0 = (qt_lo + it % n_qt) * kRows;
+      const int bh = b * H + kvh * G + g_lo + it / n_qt;
+      mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      const size_t row0 = (size_t)bh * Sq;
+      for (int r = lane; r < kRows; r += 32) {
+        const int qi = q0 + r;
+        lse_s[s][r] = qi < Sq ? lse[row0 + qi] * kLog2e : 0.f;
+        dsum_s[s][r] = qi < Sq ? dsum[row0 + qi] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[s], 2 * Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load_3d(q_s + s * Q_BYTES + c * Q_CHUNK, &tm_q, &full[s],
+                      c * 64, q0, bh);
+          tma_load_3d(do_s + s * Q_BYTES + c * Q_CHUNK, &tm_do, &full[s],
+                      c * 64, q0, bh);
+        }
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // a consumer warpgroup: accumulator rows `row` and `row + 8` (keys),
+  // columns `col + 8j` and `col + 8j + 1` (q rows of the step); element i
+  // of a thread's tile is the same (key, q row) in both warpgroups
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int tid = threadIdx.x - wg * kConsumers;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  float acc[DP / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  const uint32_t kv_addr = smem_u32(wg == 0 ? k_s : v_s);
+  mbar_wait(&kv_full, 0);
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    const int q0 = (qt_lo + it % n_qt) * kRows;
+    const uint32_t q_addr = smem_u32(q_s + s * Q_BYTES);
+    const uint32_t do_addr = smem_u32(do_s + s * Q_BYTES);
+    float* xs = ex + (it % 2) * kExFloats;
+    mbar_wait(&full[s], (it / kStages) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+    float t[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) t[i] = 0.f;
+    const uint32_t rows_addr = wg == 0 ? q_addr : do_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss_n64(t, desc_k(kv_addr, KV_CHUNK, kk),
+                   desc_k(rows_addr, Q_CHUNK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(t);
+
+    if (wg == 0) {
+      // P^T; keys past Sk and q rows past Sq (TMA reads both as zeros)
+      // give p = 0
+      const bool whole = whole_tile(q0, k0, Sq, Sk, causal, window);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = col + 8 * (i / 4) + (i % 2);
+        float p = hopper::exp2_approx(t[i] * scale_log2 - lse_s[s][c]);
+        if (!whole) {
+          const int qi = q0 + c, kj = k0 + row + 8 * ((i / 2) % 2);
+          if (!(qi < Sq && flash::admits(qi, kj, Sk, causal, window)))
+            p = 0.f;
+        }
+        t[i] = p;
+        xs[i * kConsumers + tid] = p;
+      }
+      bar_sync(kExBar, kPairConsumers);
+    } else {
+      // dS^T = P^T (dP^T - Dsum), P^T unrounded from the exchange
+      bar_sync(kExBar, kPairConsumers);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = col + 8 * (i / 4) + (i % 2);
+        t[i] = xs[i * kConsumers + tid] * (t[i] - dsum_s[s][c]);
+      }
+    }
+    // P^T or dS^T rounded to bf16 as the A operand of dV += P^T dO or
+    // dK += dS^T Q: B read MN-major from the stage's dO or Q tile
+    uint32_t a[kRows / 16][4];
+    flash_tc::pack_p<kRows>(t, a);
+    const uint32_t b_addr = wg == 0 ? do_addr : q_addr;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk)
+      wgmma_rs<DP>(acc, a[kk], desc_mn(b_addr, Q_CHUNK, 16 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);  // this stage's tiles, lse and Dsum are read
+  }
+
+  // dK carries D^-0.5; one split writes bf16, several their f32 partials
+  const size_t krow0 = (size_t)(b * Kv + kvh) * Sk + k0;
+  if (n_split == 1) {
+    __nv_bfloat16* out = wg == 0 ? dv : dk;
+    const float m = wg == 0 ? 1.f : scale;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int r = row + 8 * ((i / 2) % 2), c = col + 8 * (i / 4);
+      if (r < valid_k)
+        *reinterpret_cast<uint32_t*>(out + (krow0 + r) * D + c) =
+            pack_bf16(acc[i] * m, acc[i + 1] * m);
+    }
+  } else {
+    // work [2][n_split][B * Kv * Sk * D]: dK's partials, then dV's
+    const size_t n_elem = (size_t)gridDim.z * Kv * Sk * D;
+    float* out = work + ((size_t)(wg == 0 ? n_split : 0) + split) * n_elem;
+#pragma unroll
+    for (int i = 0; i < DP / 2; i += 2) {
+      const int r = row + 8 * ((i / 2) % 2), c = col + 8 * (i / 4);
+      if (r < valid_k)
+        *reinterpret_cast<float2*>(out + (krow0 + r) * D + c) =
+            make_float2(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// dK and dV from the D 256 kernel's n_split partials (`work`, n4 float4s
+// each): added in split order, dK times D^-0.5, rounded once to bf16.
+__global__ void __launch_bounds__(256)
+flash_dkv_sum_kernel(const float4* __restrict__ work, int n_split,
+                     long long n4, __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, float scale) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < 2 * n4; i += (long long)gridDim.x * blockDim.x) {
+    const int which = i >= n4;  // 0: dK, 1: dV
+    const long long j = i - which * n4;
+    const float4* p = work + which * n_split * n4 + j;
+    float4 a = p[0];
+    for (int s = 1; s < n_split; ++s) {
+      const float4 x = p[s * n4];
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    const float m = which ? 1.f : scale;
+    uint2 o;
+    o.x = pack_bf16(a.x * m, a.y * m);
+    o.y = pack_bf16(a.z * m, a.w * m);
+    reinterpret_cast<uint2*>(which ? dv : dk)[j] = o;
+  }
+}
+
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* dsum,
@@ -738,9 +1024,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       !hopper::make_map(&mk, k, B * Kv, Sk, D, kKeys) ||
       !hopper::make_map(&mv, v, B * Kv, Sk, D, kKeys))
     return cudaErrorNotSupported;
-  constexpr int DP = padded<D>();
-  const size_t smem =
-      1024 + 2 * tile_bytes<DP>(kRows) + 2 * kStages * tile_bytes<DP>(kKeys);
+  const size_t smem = dq_smem<D>();
   auto kern = flash_dq_kernel_wgmma<D>;
   cudaError_t e = flash::allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
@@ -754,26 +1038,59 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* dsum,
-                       void* dk, void* dv, int B, int H, int Kv, int Sq,
-                       int Sk, int causal, int window, float scale,
-                       cudaStream_t stream) {
+                       void* dk, void* dv, void* work, int n_split, int B,
+                       int H, int Kv, int Sq, int Sk, int causal, int window,
+                       float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
   if (!hopper::make_map(&mq, q, B * H, Sq, D, kRows) ||
       !hopper::make_map(&mdo, dout, B * H, Sq, D, kRows) ||
       !hopper::make_map(&mk, k, B * Kv, Sk, D, kKeys) ||
       !hopper::make_map(&mv, v, B * Kv, Sk, D, kKeys))
     return cudaErrorNotSupported;
-  constexpr int DP = padded<D>();
-  const size_t smem =
-      1024 + 2 * tile_bytes<DP>(kKeys) + 2 * kStages * tile_bytes<DP>(kRows);
-  auto kern = flash_dkv_kernel_wgmma<D>;
-  cudaError_t e = flash::allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3((Sk + kKeys - 1) / kKeys, Kv, B), kThreadsTC, smem, stream>>>(
-      mq, mk, mv, mdo, static_cast<const float*>(lse),
-      static_cast<const float*>(dsum), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), H, Kv, Sq, Sk, causal, window, scale);
-  return cudaGetLastError();
+  if constexpr (D == 256) {
+    if (n_split < 1 || n_split > H / Kv || Kv * n_split > 65535 ||
+        (n_split > 1 && work == nullptr))
+      return cudaErrorInvalidValue;
+    const size_t smem = dkv_pair_smem<D>();
+    auto kern = flash_dkv2_kernel_wgmma<D>;
+    cudaError_t e = flash::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3((Sk + kKeys - 1) / kKeys, Kv * n_split, B), kThreadsPair,
+           smem, stream>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
+                           static_cast<const float*>(dsum),
+                           static_cast<__nv_bfloat16*>(dk),
+                           static_cast<__nv_bfloat16*>(dv),
+                           static_cast<float*>(work), H, Kv, Sq, Sk, causal,
+                           window, scale, n_split);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || n_split == 1) return e;
+    const long long n4 = (long long)B * Kv * Sk * D / 4;
+    int dev = 0, sms = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    // eight 256-thread blocks an SM, each striding over the float4s
+    const int blocks =
+        (int)std::min<long long>((2 * n4 + 255) / 256, 8LL * sms);
+    flash_dkv_sum_kernel<<<blocks, 256, 0, stream>>>(
+        static_cast<const float4*>(work), n_split, n4,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+        scale);
+    return cudaGetLastError();
+  } else {
+    const size_t smem = dkv_smem<D>();
+    auto kern = flash_dkv_kernel_wgmma<D>;
+    cudaError_t e = flash::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3((Sk + kKeys - 1) / kKeys, Kv, B), kThreadsTC, smem,
+           stream>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
+                     static_cast<const float*>(dsum),
+                     static_cast<__nv_bfloat16*>(dk),
+                     static_cast<__nv_bfloat16*>(dv), H, Kv, Sq, Sk, causal,
+                     window, scale);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace tc
@@ -794,27 +1111,33 @@ cudaError_t dispatch_dq_tc(int D, const void* q, const void* k,
                    Kv, Sq, Sk, causal, window, scale, s)
     FLASH_BWD_CASE(tc::launch_dq, 128, q, k, v, dout, lse, dsum, dq, B, H,
                    Kv, Sq, Sk, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dq, 256, q, k, v, dout, lse, dsum, dq, B, H,
+                   Kv, Sq, Sk, causal, window, scale, s)
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_dkv_tc(int D, const void* q, const void* k,
                             const void* v, const void* dout, const void* lse,
-                            const void* dsum, void* dk, void* dv, int B,
-                            int H, int Kv, int Sq, int Sk, int causal,
-                            int window, float scale, cudaStream_t s) {
+                            const void* dsum, void* dk, void* dv, void* work,
+                            int n_split, int B, int H, int Kv, int Sq,
+                            int Sk, int causal, int window, float scale,
+                            cudaStream_t s) {
+  if (D != 256 && n_split != 1) return cudaErrorInvalidValue;
   switch (D) {
-    FLASH_BWD_CASE(tc::launch_dkv, 64, q, k, v, dout, lse, dsum, dk, dv, B,
-                   H, Kv, Sq, Sk, causal, window, scale, s)
-    FLASH_BWD_CASE(tc::launch_dkv, 120, q, k, v, dout, lse, dsum, dk, dv, B,
-                   H, Kv, Sq, Sk, causal, window, scale, s)
-    FLASH_BWD_CASE(tc::launch_dkv, 128, q, k, v, dout, lse, dsum, dk, dv, B,
-                   H, Kv, Sq, Sk, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dkv, 64, q, k, v, dout, lse, dsum, dk, dv,
+                   work, n_split, B, H, Kv, Sq, Sk, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dkv, 120, q, k, v, dout, lse, dsum, dk, dv,
+                   work, n_split, B, H, Kv, Sq, Sk, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dkv, 128, q, k, v, dout, lse, dsum, dk, dv,
+                   work, n_split, B, H, Kv, Sq, Sk, causal, window, scale, s)
+    FLASH_BWD_CASE(tc::launch_dkv, 256, q, k, v, dout, lse, dsum, dk, dv,
+                   work, n_split, B, H, Kv, Sq, Sk, causal, window, scale, s)
     default: return cudaErrorInvalidValue;
   }
 }
 
-// the CUDA-core kernels: f32 at every head dim, bf16 at D 16 and 256
+// the CUDA-core kernels: f32 at every head dim, bf16 at D 16
 template <typename T>
 cudaError_t dispatch_dq(int D, const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* dsum,
@@ -825,10 +1148,10 @@ cudaError_t dispatch_dq(int D, const void* q, const void* k, const void* v,
   return launch_dq<T, DV>(q, k, v, dout, lse, dsum, dq, B, H, Kv, Sq, Sk, causal, window, scale, s)
   switch (D) {
     case 16: FLASH_DQ(16);
-    case 256: FLASH_DQ(256);
     case 64: if constexpr (f32) FLASH_DQ(64); break;
     case 120: if constexpr (f32) FLASH_DQ(120); break;
     case 128: if constexpr (f32) FLASH_DQ(128); break;
+    case 256: if constexpr (f32) FLASH_DQ(256); break;
   }
 #undef FLASH_DQ
   return cudaErrorInvalidValue;
@@ -845,10 +1168,10 @@ cudaError_t dispatch_dkv(int D, const void* q, const void* k, const void* v,
   return launch_dkv<T, DV>(q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, Sq, Sk, causal, window, scale, s)
   switch (D) {
     case 16: FLASH_DKV(16);
-    case 256: FLASH_DKV(256);
     case 64: if constexpr (f32) FLASH_DKV(64); break;
     case 120: if constexpr (f32) FLASH_DKV(120); break;
     case 128: if constexpr (f32) FLASH_DKV(128); break;
+    case 256: if constexpr (f32) FLASH_DKV(256); break;
   }
 #undef FLASH_DKV
   return cudaErrorInvalidValue;
@@ -860,12 +1183,31 @@ bool bad_shape(int B, int H, int Kv, int Sq, int Sk, int causal,
          Sq <= 0 || Sk <= 0 || (Sk != Sq && (causal || window > 0));
 }
 
+// The backward's route rule: bf16 at D 64, 120, 128 and 256 takes the
+// tensor cores, f32 at every D and bf16 at D 16 the CUDA cores.  dtype:
+// 0 = float32, 1 = bfloat16.
+bool bwd_tensor_core_route(int D, int dtype) {
+  return dtype == 1 && (D == 64 || D == 120 || D == 128 || D == 256);
+}
+
 }  // namespace
 
 // 1 when a call of this head dim and dtype (0 = float32, 1 = bfloat16)
 // takes the tensor-core kernels, 0 when it takes the CUDA-core ones.
 extern "C" int flash_attention_bwd_route(int D, int dtype) {
-  return flash_tc::tensor_core_route(D, dtype) ? 1 : 0;
+  return bwd_tensor_core_route(D, dtype) ? 1 : 0;
+}
+
+// The dynamic shared memory a tensor-core launch sets: `kernel` 0 dQ, 1
+// dK/dV; 0 off the tensor-core head dims.
+extern "C" long long flash_attention_bwd_tc_smem(int D, int kernel) {
+  switch (D) {
+    case 64: return kernel ? tc::dkv_smem<64>() : tc::dq_smem<64>();
+    case 120: return kernel ? tc::dkv_smem<120>() : tc::dq_smem<120>();
+    case 128: return kernel ? tc::dkv_smem<128>() : tc::dq_smem<128>();
+    case 256: return kernel ? tc::dkv_pair_smem<256>() : tc::dq_smem<256>();
+  }
+  return 0;
 }
 
 // q, dout [B,H,Sq,D]; k, v [B,Kv,Sk,D]; lse, dsum [B,H,Sq] f32; dq
@@ -882,7 +1224,7 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, Sq, Sk, causal, window))
     return cudaErrorInvalidValue;
-  if (flash_tc::tensor_core_route(D, dtype))
+  if (bwd_tensor_core_route(D, dtype))
     return dispatch_dq_tc(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, Sq, Sk,
                           causal, window, scale, s);
   if (dtype == 0)
@@ -895,19 +1237,24 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k,
 }
 
 // As above; dk, dv [B,Kv,Sk,D], each group of H / Kv query heads summed.
+// n_split: CTAs a (key tile, KV head, batch), 1 but on the bf16 D 256
+// route, where n_split > 1 needs `work`, f32 [2, n_split, B, Kv, Sk, D].
 extern "C" int flash_attention_dkv_launch(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const void* lse, const void* dsum,
-                                          void* dk, void* dv, int B, int H,
-                                          int Kv, int Sq, int Sk, int D,
-                                          int causal, int window, float scale,
-                                          int dtype, void* stream) {
+                                          void* dk, void* dv, void* work,
+                                          int B, int H, int Kv, int Sq,
+                                          int Sk, int D, int causal,
+                                          int window, float scale, int dtype,
+                                          int n_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, Sq, Sk, causal, window))
     return cudaErrorInvalidValue;
-  if (flash_tc::tensor_core_route(D, dtype))
-    return dispatch_dkv_tc(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv, Sq,
-                           Sk, causal, window, scale, s);
+  if (bwd_tensor_core_route(D, dtype))
+    return dispatch_dkv_tc(D, q, k, v, dout, lse, dsum, dk, dv, work,
+                           n_split, B, H, Kv, Sq, Sk, causal, window, scale,
+                           s);
+  if (n_split != 1) return cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch_dkv<float>(D, q, k, v, dout, lse, dsum, dk, dv, B, H, Kv,
                                Sq, Sk, causal, window, scale, s);

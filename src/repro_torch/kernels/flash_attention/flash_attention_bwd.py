@@ -12,10 +12,15 @@ length than the queries are taken as the forward takes them: without a
 mask only.
 
 Two routes, by dtype and head dim alone (:func:`bwd_route`; the CUDA
-source's entry points apply the same rule): bf16 at D 64, 120 and 128
-runs the tensor-core kernels (wgmma fed by TMA), f32 at every head dim and
-bf16 at D 16 and 256 the CUDA-core kernels.  Neither falls back to the
-other.
+source's entry points apply the same rule): bf16 at D 64, 120, 128 and
+256 runs the tensor-core kernels (wgmma fed by TMA), f32 at every head dim
+and bf16 at D 16 the CUDA-core kernels.  Neither falls back to the other.
+The rule is the backward's own: the forward keeps bf16 D 256 on the CUDA
+cores (:func:`~.flash_attention.fwd_route`).  At bf16 D 256 the dK/dV
+kernel splits each GQA group's query heads over :func:`dkv_split` CTAs a
+key tile where the key tiles alone would leave SMs idle; the wrapper then
+allocates the kernel's f32 workspace of partial sums, which a second
+kernel adds in a fixed order (the same bits every launch).
 
 Each kernel wrapper checks its operands, launches on the current stream,
 raises if the launch failed, and counts its launches in
@@ -33,20 +38,36 @@ import functools
 
 import torch
 
-from repro_torch.kernels import KERNEL_DTYPES, _build, check_operand
+from repro_torch.kernels import KERNEL_DTYPES, _build, check_operand, sm_count
+from repro_torch.roofline.analysis import HW
 
-from .flash_attention import (ROUTES, TENSOR_CORE_HEAD_DIMS, charge_meta,
-                              check_qkv, library_route)
+from .flash_attention import ROUTES, charge_meta, check_qkv, library_route
+
+# head dims whose bf16 backward kernels run on the tensor cores (the
+# forward's TENSOR_CORE_HEAD_DIMS and D 256)
+BWD_TENSOR_CORE_HEAD_DIMS = (64, 120, 128, 256)
+# keys per dK/dV CTA on the tensor-core route (flash_tc.cuh's kKeys)
+KEY_TILE = 64
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernels a call of this dtype and head dim takes:
-    ``"tensor_core"`` for bf16 at D 64, 120 and 128, ``"cuda_core"`` for
-    f32 at every head dim and bf16 at D 16 and 256 (whose 64 x 256 f32 dK
-    and dV accumulators exceed one warpgroup's registers)."""
-    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
+    ``"tensor_core"`` for bf16 at D 64, 120, 128 and 256, ``"cuda_core"``
+    for f32 at every head dim and bf16 at D 16."""
+    if dtype == torch.bfloat16 and head_dim in BWD_TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
+
+
+def dkv_split(b: int, sk: int, group: int, sms: int) -> int:
+    """CTAs a (key tile, KV head, batch) of the bf16 D 256 dK/dV kernel,
+    each over its share of the ``group`` query heads: as many as the SMs
+    hold beside ``b`` x the key tiles (``sms // (b * tiles)``), at least
+    1, at most ``group``.  The KV heads do not enter, so a tensor-parallel
+    rank's launch on its KV heads splits each head's group as the whole
+    launch does, and sums its dK and dV in the same order."""
+    tiles = b * -(-sk // KEY_TILE)
+    return max(1, min(group, sms // tiles))
 
 
 @functools.cache
@@ -55,8 +76,9 @@ def _launchers():
     dq, dkv = lib.flash_attention_dq_launch, lib.flash_attention_dkv_launch
     dq.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    dkv.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    dkv.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
     dq.restype = dkv.restype = ctypes.c_int
     return dq, dkv
 
@@ -85,9 +107,11 @@ def _check_bwd(q, k, v, do, lse, dsum, causal, window) -> None:
 def _args(q, k, causal, window):
     b, h, s, d = q.shape
     return (b, h, k.shape[1], s, k.shape[2], d, int(bool(causal)),
-            int(window),
-            float(d) ** -0.5, KERNEL_DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            int(window), float(d) ** -0.5, KERNEL_DTYPES[q.dtype])
+
+
+def _stream(q):
+    return torch.cuda.current_stream(q.device).cuda_stream
 
 
 def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
@@ -103,7 +127,8 @@ def flash_attention_dq(q, k, v, do, lse, dsum, *, causal: bool = True,
         return dq
     err = _launchers()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
-                          dq.data_ptr(), *_args(q, k, causal, window))
+                          dq.data_ptr(), *_args(q, k, causal, window),
+                          _stream(q))
     if err:
         raise RuntimeError(f"flash attention dQ: CUDA error {err} at launch")
     flash_attention_dq.launches += 1
@@ -119,19 +144,31 @@ def flash_attention_dkv(q, k, v, do, lse, dsum, *, causal: bool = True,
                         window: int = 0
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """As :func:`flash_attention_dq` -> (dk, dv [B,Kv,Sk,D]) in k's dtype,
-    each summed over its group of query heads.  CUDA (or meta) tensors
-    only."""
+    each summed over its group of query heads (at bf16 D 256 over
+    :func:`dkv_split`'s CTAs a key tile, whose f32 partials go through a
+    workspace allocated here, on ``meta`` too, so that a dry run holds it
+    live for the call, split for the roofline's H100).  CUDA (or meta)
+    tensors only."""
     _check_bwd(q, k, v, do, lse, dsum, causal, window)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    if q.device.type == "meta":
+    meta = q.device.type == "meta"
+    b, h, _, d = q.shape
+    n_split = 1
+    if d == 256 and bwd_route(q.dtype, d) == "tensor_core":
+        n_split = dkv_split(b, k.shape[2], h // k.shape[1],
+                            HW["sms"] if meta else sm_count(q.device.index))
+    work = (torch.empty((2, n_split) + tuple(k.shape), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
+    if meta:
         charge_meta("flash_attention_dkv", q, k, causal, window)
         return dk, dv
     err = _launchers()[1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           do.data_ptr(), lse.data_ptr(), dsum.data_ptr(),
                           dk.data_ptr(), dv.data_ptr(),
-                          *_args(q, k, causal, window))
+                          None if work is None else work.data_ptr(),
+                          *_args(q, k, causal, window), n_split, _stream(q))
     if err:
         raise RuntimeError(f"flash attention dK/dV: CUDA error {err} at "
                            "launch")

@@ -248,7 +248,7 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
         coll["count"] += 1
     tp = getattr(step, "tp", None)
     over_model = {}
-    if tp is not None:            # the collectives over model, counted
+    if tp is not None and tp.size > 1:  # the collectives over model
         for kind, (calls, nbytes) in tp.counts.items():
             coll[kind] += nbytes
             coll["count"] += calls

@@ -370,9 +370,9 @@ def _ffn(cfg, params, x, valid=None, aux=False, step=False, tp=None):
     ``moe_apply`` without a serving mesh: ``moe_apply_ep_serve`` on the
     decode ``step``, ``moe_apply_ep`` elsewhere.  With ``aux`` returns
     ``(x, its load-balancing loss)``, the loss 0 for a dense FFN.  Under
-    ``tp`` (a tensor-parallel step) the dense FFN takes its column- and
-    row-parallel form and the MoE layer its expert-parallel one
-    (``moe.moe_apply_tp``)."""
+    ``tp`` (a mesh training step) the dense FFN takes its column- and
+    row-parallel form where ``tp.split`` says so, and the MoE layer its
+    expert-parallel one (``moe.moe_apply_tp``), at ``M = 1`` too."""
     h2 = apply_norm(cfg.norm, params["ln2"], x)
     if "moe" in params:
         if tp is not None:

@@ -154,7 +154,7 @@ def capacity(cfg, group_tokens: int) -> int:
 
 
 def moe_apply(params: dict, x, cfg, *, return_aux: bool = False,
-              valid=None):
+              valid=None, one_group: bool = False):
     """x: [B, S, d] -> [B, S, d] (and the Switch-style load-balancing aux
     loss, an f32 scalar, with ``return_aux``).
 
@@ -163,10 +163,12 @@ def moe_apply(params: dict, x, cfg, *, return_aux: bool = False,
     position-in-expert count and never kept, and each group's capacity is
     clamped to ``ceil(n_valid * k / E * capacity_factor)``.  The drop
     pattern depends on the grouping (:func:`_group_shape` of ``(B, S)``),
-    as in the reference."""
+    as in the reference; ``one_group`` takes all of x's tokens as one
+    group, the capacity over them all, as the expert-parallel body over
+    all ``E`` experts counts it."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.top_k
-    g, gt = _group_shape(b, s)
+    g, gt = (1, b * s) if one_group else _group_shape(b, s)
     cap = capacity(cfg, gt)
     dev = x.device
 
@@ -433,7 +435,12 @@ def moe_apply_tp(params: dict, x, cfg, tp, *, return_aux: bool = False):
     partial outputs.  Where ``model`` does not divide the experts,
     :func:`moe_apply` runs whole on every rank, as the reference falls
     back.  The shared experts go through ``layers.mlp`` under their own
-    entry, ``shared``: split, or whole.
+    entry, ``shared``: split, or whole.  At ``M = 1`` the one rank holds
+    every expert, and the shard body is :func:`moe_apply` over one group
+    of all its tokens (``one_group``): the reference's capacity over the
+    rank's rows, and one process's step bit for bit where the rank's
+    rows are one of its groups (one row of at most
+    :data:`GROUP_TOKENS`).
 
     The aux loss (``return_aux``) is the replicated router pass's
     (:func:`_router_aux`), alike on every rank.  Its gradient is each
@@ -441,6 +448,9 @@ def moe_apply_tp(params: dict, x, cfg, tp, *, return_aux: bool = False):
     itself, not the copy, and a router whose other ranks' columns are
     the gathered values without gradient, so a rank's router gradient
     from it is its own columns'.  It counts once."""
+    if tp.size == 1:
+        return moe_apply(_full_experts(params, cfg), x, cfg,
+                         return_aux=return_aux, one_group=True)
     routed = {k: v for k, v in params.items() if k != "shared"}
     if not tp.split["experts"]:
         out, aux = moe_apply(_full_experts(routed, cfg), x, cfg,

@@ -216,7 +216,12 @@ def make_mesh_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, mesh,
     microbatch's gradient to f32, add the two and scale by 0.5.  With
     ``M > 1`` the sums over ``model`` add the ranks' partial products in
     another order than one device's matrix products, so the step is one
-    device's within f32 rounding."""
+    device's within f32 rounding.  The MoE layer takes its
+    expert-parallel form at ``M = 1`` too (``moe.moe_apply_tp``: all
+    ``E`` experts, no collective): its capacity counts all of the rank's
+    rows of a microbatch, not each
+    :data:`~repro_torch.models.moe.GROUP_TOKENS` group's, so a rank
+    drops what the reference's shard body drops."""
     placement = state_placement(cfg, mesh, fsdp=fsdp)
     pspecs = placement.specs["params"]
     prefix = len("['params']")
@@ -230,6 +235,12 @@ def make_mesh_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, mesh,
             # a chunk of query heads straddling two GQA groups raises
             # here, before any step runs
             tp.kv_span(cfg.num_heads, cfg.num_kv_heads)
+    elif cfg.num_experts:
+        # M = 1: the MoE layer alone takes its expert-parallel form, so its
+        # capacity counts all of the rank's rows, as the reference's shard
+        # body does on any mesh with a model axis; every other form reads
+        # no split and runs as one device runs it
+        tp = collectives.ModelParallel(mesh, {"experts": True})
     inv = 1.0 / mesh.shape["data"]
 
     def train_step(params, opt_state, batch):
@@ -257,8 +268,8 @@ def make_mesh_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig, mesh,
         aux = {k: next(it) * inv for k in names}
         for g in tree_leaves(grads):
             g.mul_(inv)
-        gnorm = (adamw.global_norm(grads) if tp is None else
-                 adamw.global_norm(grads, on_params, tp))
+        gnorm = (adamw.global_norm(grads) if mesh.shape["model"] == 1
+                 else adamw.global_norm(grads, on_params, tp))
         mine = on_params.map(
             lambda g, spec: on_params.leaf_local(g, spec, ("data",)), grads)
         params, opt_state, metrics = adamw.update(mine, opt_state, params,

@@ -14,7 +14,14 @@ data at any size).
 
 * ``2x1``, FSDP on and off, equals one rank at ``n_micro = 2`` (the same
   thread count) bit for bit: loss, aux, grad norm and every parameter
-  and moment after one step;
+  and moment after one step (deepseek-moe-16b on one row a rank:
+  ``torch_jax_side.DP_ONE_ROW``);
+* a ``2x1`` rank of deepseek-moe-16b holding 2 x 320 tokens at capacity
+  1.25 caps its MoE layer over all of its rows, as the reference's
+  expert-parallel body does: its step matches the reference's step under
+  a ``1x1`` mesh at two microbatches, and not one process's, whose
+  groups of a row drop other assignments; at the other cases' 2 x 24
+  tokens a rank it matches that mesh step too;
 * ``4x1`` is within 1e-6 of each leaf's largest magnitude of one rank
   at ``n_micro = 4`` (gloo sums four ranks in its own order);
 * the ``2x1`` step against JAX's: loss within ``2e-5`` relative, every
@@ -71,10 +78,10 @@ def pool():
     p.close()
 
 
-def inputs(jx, arch):
+def inputs(jx, arch, data=2):
     cfg = reduced(get_config(arch), **side.DP_OVERRIDES[arch])
     return (arch, side.DP_OVERRIDES[arch], jx["train"][arch]["weights"],
-            side.dp_batch(cfg.vocab_size))
+            side.dp_batch(cfg.vocab_size, side.dp_rows(arch, data)))
 
 
 _RUNS: dict = {}
@@ -89,12 +96,12 @@ def run_once(pool, key, fn, *args):
 
 def baseline(pool, jx, arch, n_micro):
     return run_once(pool, ("one", arch, n_micro), ranks.one_process,
-                    *inputs(jx, arch), n_micro, side.DP_OPT)[0]
+                    *inputs(jx, arch, n_micro), n_micro, side.DP_OPT)[0]
 
 
 def dp(pool, jx, arch, data, fsdp):
     return run_once(pool, ("dp", arch, data, fsdp), ranks.dp_step,
-                    *inputs(jx, arch), data, fsdp, side.DP_OPT)
+                    *inputs(jx, arch, data), data, fsdp, side.DP_OPT)
 
 
 def assert_equal_state(got: dict, want: dict):
@@ -151,6 +158,46 @@ def test_2x1_matches_jax_step(pool, jx, arch):
     full, m, _ = dp(pool, jx, arch, 2, True)[0]
     want = jx["train"][arch]
     for k in ("loss", "ce", "grad_norm", "lr"):
+        np.testing.assert_allclose(m[k], want["metrics"][k], rtol=LOSS_RTOL)
+    assert set(full) == set(want["state"])
+    for k, a in want["state"].items():
+        err = np.abs(full[k] - a).max()
+        assert err <= GRAD_REL * max(np.abs(a).max(), 1e-30), (k, err)
+
+
+def test_dx1_moe_rank_caps_over_its_rows(pool, jx):
+    arch = side.DP_MOE_ARCH
+    want = jx["moe_capacity"]
+    args = (arch, side.DP_OVERRIDES[arch], want["weights"],
+            side.dp_batch(16384, side.DP_MOE_ROWS, seq=side.DP_MOE_SEQ))
+    full, m, _ = pool.run(ranks.dp_step, *args, 2, True, side.DP_OPT)[0]
+    one_state, one = pool.run(ranks.one_process, *args, 2,
+                              side.DP_OPT)[0]
+
+    def worst(state):
+        return max(np.abs(state[k] - a).max() / max(np.abs(a).max(), 1e-30)
+                   for k, a in want["state"].items())
+    for k in ("loss", "ce", "aux", "grad_norm"):
+        np.testing.assert_allclose(m[k], want["metrics"][k], rtol=LOSS_RTOL)
+    assert worst(full) <= GRAD_REL
+    # one process's groups of 320 drop other assignments
+    print(f"worst leaf: 2x1 {worst(full):.3g}, one process "
+          f"{worst(one_state):.3g}; loss {m['loss']!r} vs one process's "
+          f"{one['loss']!r}")
+    assert worst(one_state) > 10 * GRAD_REL
+
+
+def test_dx1_moe_rank_of_two_rows_matches_jax_mesh_step(pool, jx):
+    """The data-parallel cases' input size with two rows a rank: the 2x1
+    ranks' step against the reference's step under a 1x1 mesh, whose MoE
+    layer caps over each microbatch's rows as a rank's does."""
+    arch = side.DP_MOE_ARCH
+    want = jx["moe_capacity_rows"]
+    full, m, _ = pool.run(ranks.dp_step, arch, side.DP_OVERRIDES[arch],
+                          jx["moe_capacity"]["weights"],
+                          side.dp_batch(16384, side.DP_ROWS), 2, True,
+                          side.DP_OPT)[0]
+    for k in ("loss", "ce", "aux", "grad_norm"):
         np.testing.assert_allclose(m[k], want["metrics"][k], rtol=LOSS_RTOL)
     assert set(full) == set(want["state"])
     for k, a in want["state"].items():

@@ -17,13 +17,15 @@ same bf16 inputs and rounds its outputs to bf16 once, except that the
 Pallas backward rounds each query head's dK/dV to bf16 before summing the
 GQA group, so the two differ by up to an ulp of bf16 (2^-8) per head.
 
-The forward's and the backward's route rule (bf16 at D 64, 120 and 128 on
-the tensor cores, everything else on the CUDA cores) is pinned here on the
-CPU, and so are the forward wrappers' per-route counters.
+The forward's route rule (bf16 at D 64, 120 and 128 on the tensor cores,
+everything else on the CUDA cores) and the backward's (the same and bf16
+at D 256) are pinned here on the CPU, and so are the forward wrappers'
+per-route counters and the D 256 dK/dV kernel's split of a group's query
+heads (``dkv_split``).
 
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
-the card, at D = 120, 128 and 256 too, the tensor-core forward and
-backward also at their tile edges (S = 1, 63, 64, 65, 127, 130 and 4096;
+the card, at D = 120, 128 and 256 too, the tensor-core forward (D 64-128)
+and backward (D 64-256) also at their tile edges (S = 1, 63, 64, 65, 127, 130 and 4096;
 windows 32 and 1024, causal and not; groups of 1, 4 and 8) with the route
 each call took read from the wrappers' per-route counters; they skip
 where there is no card.  The
@@ -48,7 +50,11 @@ from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_bwd, flash_attention_dkv,
     flash_attention_dq, flash_attention_fwd_lse, fwd_route,
     library_bwd_route, library_fwd_route)
+from repro_torch.kernels.flash_attention.flash_attention_bwd import (
+    BWD_TENSOR_CORE_HEAD_DIMS, dkv_split)
 from repro_torch.models import layers
+from repro_torch.roofline import op_cost
+from repro_torch.roofline.analysis import HW
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": dict(atol=5e-6, rtol=5e-5),
@@ -270,31 +276,73 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
             flash_attention_bwd(q, k, v, q, torch.zeros(2, 4, 8), do)
 
 
-# the backward's route by (dtype, head dim), written out
-ROUTES = {("float32", 16): "cuda_core", ("float32", 64): "cuda_core",
-          ("float32", 120): "cuda_core", ("float32", 128): "cuda_core",
-          ("float32", 256): "cuda_core", ("bfloat16", 16): "cuda_core",
-          ("bfloat16", 64): "tensor_core", ("bfloat16", 120): "tensor_core",
-          ("bfloat16", 128): "tensor_core", ("bfloat16", 256): "cuda_core"}
+# the forward's route by (dtype, head dim), written out
+FWD_ROUTES = {("float32", 16): "cuda_core", ("float32", 64): "cuda_core",
+              ("float32", 120): "cuda_core", ("float32", 128): "cuda_core",
+              ("float32", 256): "cuda_core", ("bfloat16", 16): "cuda_core",
+              ("bfloat16", 64): "tensor_core",
+              ("bfloat16", 120): "tensor_core",
+              ("bfloat16", 128): "tensor_core",
+              ("bfloat16", 256): "cuda_core"}
+# the backward's: the same but bf16 at D 256, whose dQ and two-warpgroup
+# dK/dV kernels run on the tensor cores
+BWD_ROUTES = {**FWD_ROUTES, ("bfloat16", 256): "tensor_core"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_backward_route_rule(d, dtype):
-    """bf16 at D 64, 120 and 128 takes the tensor-core kernels; f32 at
-    every head dim and bf16 at D 16 and 256 the CUDA-core ones.  The
-    wrappers count launches by this function, and the CUDA library's own
-    dispatch is held to it on the card."""
-    assert bwd_route(TORCH_DT[dtype], d) == ROUTES[dtype, d]
+    """bf16 at D 64, 120, 128 and 256 takes the tensor-core kernels; f32
+    at every head dim and bf16 at D 16 the CUDA-core ones.  The wrappers
+    count launches by this function, and the CUDA library's own dispatch
+    is held to it on the card."""
+    assert bwd_route(TORCH_DT[dtype], d) == BWD_ROUTES[dtype, d]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_forward_route_rule(d, dtype):
-    """The forward takes the same rule: bf16 at D 64, 120 and 128 on the
-    tensor-core kernel, f32 at every head dim and bf16 at D 16 and 256 on
-    the CUDA-core one."""
-    assert fwd_route(TORCH_DT[dtype], d) == ROUTES[dtype, d]
+    """The forward's rule: bf16 at D 64, 120 and 128 on the tensor-core
+    kernel, f32 at every head dim and bf16 at D 16 and 256 on the
+    CUDA-core one."""
+    assert fwd_route(TORCH_DT[dtype], d) == FWD_ROUTES[dtype, d]
+
+
+# (B, S, G) -> n_split on 132 SMs: recurrentgemma-9b's training microbatch
+# (64 key tiles: two CTAs a key tile), its timed batch of 2 and gemma3-4b's
+# local layers at S 4096 (the key tiles fill the card: one), a short
+# sequence (as many as the group has heads), and a tensor-parallel rank's
+# KV heads (the KV heads never enter)
+SPLITS = [((1, 4096, 16), 2), ((2, 4096, 16), 1), ((1, 4096, 2), 2),
+          ((1, 130, 16), 16), ((1, 130, 4), 4), ((4, 8192, 16), 1),
+          ((1, 8448, 8), 1), ((1, 2048, 2), 2)]
+
+
+@pytest.mark.parametrize("shape,want", SPLITS, ids=lambda x: str(x))
+def test_dkv_split_fills_the_card_from_the_key_tiles(shape, want):
+    b, sk, g = shape
+    assert dkv_split(b, sk, g, 132) == want
+
+
+@pytest.mark.parametrize("b,split", [(1, 2), (2, 1)])
+def test_dkv_meta_call_holds_its_workspace(b, split):
+    """On ``meta`` the bf16 D 256 dK/dV wrapper allocates the f32
+    workspace its launch would, [2, n_split, B, Kv, Sk, D], split for the
+    roofline's H100, so a dry run's peak holds it: recurrentgemma-9b's
+    training microbatch (B 1, 16/1, S 4096) splits in two, its batch of 2
+    not at all, and then nothing more is live than dK and dV."""
+    h, kv, s, d = 16, 1, 4096, 256
+    q, do = (torch.empty(b, h, s, d, dtype=torch.bfloat16, device="meta")
+             for _ in range(2))
+    k, v = (torch.empty(b, kv, s, d, dtype=torch.bfloat16, device="meta")
+            for _ in range(2))
+    lse, dsum = (torch.empty(b, h, s, device="meta") for _ in range(2))
+    cost, _ = op_cost.analyze(flash_attention_dkv, q, k, v, do, lse, dsum,
+                              window=2048)
+    assert dkv_split(b, s, h // kv, HW["sms"]) == split
+    grads = 2 * b * kv * s * d * 2
+    work = 2 * split * b * kv * s * d * 4 if split > 1 else 0
+    assert cost["peak_live_bytes"] - cost["argument_bytes"] == grads + work
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -427,7 +475,7 @@ TC_EDGE_CASES = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", TENSOR_CORE_HEAD_DIMS)
+@pytest.mark.parametrize("d", BWD_TENSOR_CORE_HEAD_DIMS)
 @pytest.mark.parametrize("case", TC_EDGE_CASES,
                          ids=lambda c: f"S{c[0]}-G{c[1]}-"
                                        f"{'c' if c[2] else 'nc'}-w{c[3]}")

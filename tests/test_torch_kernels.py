@@ -25,7 +25,10 @@ modality frontends' cross-attention: whisper-tiny's Sq 77 and 448 against
 its 1500 frames, ragged tile edges, GQA, both routes), with the dense
 decode kernel at the frontends' decode shapes (one token against 1500
 frames at position 0; internvl2-1b's 14 query heads on 2 KV heads, G 7);
-they skip where there is no card.  The machine with the card has
+the bf16 D 256 backward on the tensor cores at MQA 16/1 and GQA 8/4, S
+130 and 1100, causal with and without window 1024, and its dK/dV at the
+largest split launched twice, bit for bit; they skip where there is no
+card.  The machine with the card has
 no JAX, so this file imports the JAX package only inside the ``jx``
 fixture, and runs there without the repository's conftest:
 
@@ -46,7 +49,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain,
                                                   padded_cache_len)
 from repro_torch.kernels.flash_attention import (
-    attention_bwd_ref, attention_lse_ref, flash_attention,
+    attention_bwd_ref, attention_lse_ref, dkv_split, flash_attention,
     flash_attention_dkv, flash_attention_dq, flash_attention_fwd_lse,
     fwd_route)
 from repro_torch.kernels.paged_attention import (
@@ -706,6 +709,74 @@ def test_flash_kernels_take_cross_lengths_on_card(cuda, case, dtype):
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         torch.testing.assert_close(got.float(), w.to(got.dtype).float(),
                                    atol=tol, rtol=tol, msg=name)
+
+
+# the bf16 D 256 backward on the tensor cores: (H, Kv, S, window), MQA as
+# recurrentgemma-9b's 16/1 and GQA as gemma3-4b's 8/4, S off the 64-row
+# tiles, causal with and without gemma3's local window
+D256_BWD_CASES = [(h, kv, s, w) for h, kv in ((16, 1), (8, 4))
+                  for s in (130, 1100) for w in (0, 1024)]
+
+
+def _bwd256(cuda, h, kv, s, window, b=1, seed=11):
+    rng = np.random.default_rng(seed)
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                * 0.7).to(cuda, torch.bfloat16)
+    q, k, v, do = rand(b, h, s, 256), rand(b, kv, s, 256), \
+        rand(b, kv, s, 256), rand(b, h, s, 256)
+    mask = dict(causal=True, window=window)
+    o, lse = attention_lse_ref(q.float(), k.float(), v.float(), **mask)
+    dsum = (do.float() * o).sum(-1)
+    return (q, k, v, do, lse, dsum), o, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D256_BWD_CASES,
+                         ids=lambda c: f"H{c[0]}kv{c[1]}-S{c[2]}-w{c[3]}")
+def test_flash_backward_d256_on_tensor_cores_on_card(cuda, case):
+    """dQ and the two-warpgroup dK/dV at bf16 D 256 against the plain
+    backward in f32, within the bf16 tolerance the D 128 kernels meet;
+    both launches counted on the tensor-core route."""
+    h, kv, s, window = case
+    args, o, mask = _bwd256(cuda, h, kv, s, window)
+    before = [dict(f.route_launches)
+              for f in (flash_attention_dq, flash_attention_dkv)]
+    dq = flash_attention_dq(*args, **mask)
+    dk, dv = flash_attention_dkv(*args, **mask)
+    torch.cuda.synchronize()
+    for f, was in zip((flash_attention_dq, flash_attention_dkv), before):
+        assert f.route_launches["tensor_core"] == was["tensor_core"] + 1
+    q, k, v, do, lse, _ = args
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), o, lse,
+                             do.float(), **mask)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        torch.testing.assert_close(got.float(), w.to(got.dtype).float(),
+                                   atol=TOL["bfloat16"],
+                                   rtol=TOL["bfloat16"], msg=name)
+
+
+@pytest.mark.cuda
+def test_flash_dkv_d256_split_is_deterministic_on_card(cuda):
+    """The largest split these cases give (MQA 16/1 at S 130: three key
+    tiles, so each of 16 CTAs a key tile takes one query head): two
+    launches give the same bits, and so does a tensor-parallel rank's
+    launch on half the heads (GQA 8/4), its split the whole launch's."""
+    args, _, mask = _bwd256(cuda, 16, 1, 130, 0)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert dkv_split(1, 130, 16, sms) == 16
+    first = flash_attention_dkv(*args, **mask)
+    second = flash_attention_dkv(*args, **mask)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    args, _, mask = _bwd256(cuda, 8, 4, 1100, 1024)
+    full = flash_attention_dkv(*args, **mask)
+    part = flash_attention_dkv(*(_shard(t, 1, 1, 2) for t in args), **mask)
+    torch.cuda.synchronize()
+    for a, b in zip(part, full):
+        assert torch.equal(a, _shard(b, 1, 1, 2))
 
 
 @pytest.mark.cuda

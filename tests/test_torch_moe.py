@@ -7,11 +7,16 @@ and llama4-maverick-400b-a17b widths, with the weights of the JAX
 without a mask of real tokens, with drops (``capacity_factor`` 1.0) and
 without (8.0), over groups of 512 tokens, a prime stream length (groups
 of one token), decode batches ``[B, 1, d]`` (one token a group, capacity
-1) and rows of exact ties.  Tolerance: ``atol=2e-5, rtol=2e-4``, the
+1) and rows of exact ties; a ``Dx1`` training rank's expert-parallel
+form (``moe_apply_tp`` at ``M = 1``) against the reference's
+``moe_apply_ep`` on a ``1x1`` mesh, its capacity over all of the rank's
+rows.  Tolerance: ``atol=2e-5, rtol=2e-4``, the
 reference's own for ``moe_apply`` against ``moe_reference``
 (``tests/test_models.py``); gradients within ``2e-4`` of each leaf's
 largest magnitude, as ``tests/test_torch_train.py`` holds them.
 """
+
+import types
 
 import jax
 import jax.numpy as jnp
@@ -21,8 +26,10 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
+from repro.distributed.sharding import use_mesh
 from repro.models import moe as jmoe
 from repro_torch.configs import get_config, reduced
+from repro_torch.distributed.collectives import ModelParallel
 from repro_torch.models import moe
 from repro_torch.models.bridge import params_from_numpy
 
@@ -206,6 +213,82 @@ def test_moe_reference_matches_jax(rng, arch):
     # ample capacity: the dispatch equals the per-token oracle
     jcfg8, cfg8 = _cfgs(arch, capacity_factor=8.0)
     _close(moe.moe_apply(tp, torch.from_numpy(x), cfg8), got)
+
+
+def _dx1_rank():
+    """The ``model`` axis of a ``2x1`` training mesh's rank 0, as
+    ``make_mesh_train_step`` hands it to the MoE layer."""
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 1},
+                                 model_index=0)
+    return ModelParallel(mesh, {"experts": True})
+
+
+def _grads(params, x, out_aux, ct):
+    out, aux = out_aux
+    (out * torch.from_numpy(ct)).sum().add(aux).backward()
+    return [x.grad] + [t.grad for t in jax.tree.leaves(params)]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dx1_rank_caps_over_its_rows(rng, arch):
+    """A ``Dx1`` rank of 2 x 320 tokens at capacity 1.25 (past
+    ``GROUP_TOKENS`` in all, with drops) caps over all of its rows, as
+    the reference's ``moe_apply_ep`` does on a ``1x1`` mesh: outputs, aux
+    and f32 gradients; ``moe_apply``'s groups of a row drop other
+    assignments, and its output differs."""
+    jcfg, cfg = _cfgs(arch, capacity_factor=1.25)
+    jp, tp = _weights(jcfg)
+    # each row leans its own way, so each row's favourite experts overflow
+    # its group's capacity more than the rank's
+    x = (rng.standard_normal((2, 320, cfg.d_model))
+         + 2 * rng.standard_normal((2, 1, cfg.d_model))).astype(np.float32)
+    ct = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, xx):
+        out, aux = jmoe.moe_apply_ep(p, xx, jcfg, return_aux=True)
+        return jnp.sum(out * ct) + aux, (out, aux)
+
+    auto = (jax.sharding.AxisType.Auto,) * 2
+    with use_mesh(jax.make_mesh((1, 1), ("data", "model"),
+                                axis_types=auto)):
+        (_, (want, jaux)), (jg, jgx) = jax.value_and_grad(
+            jloss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+    tp = jax.tree.map(lambda t: t.requires_grad_(True), tp)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = moe.moe_apply_tp(tp, tx, cfg, _dx1_rank(), return_aux=True)
+    _close(got[0], want)
+    _close(got[1], jaux)
+    for g, w in zip(_grads(tp, tx, got, ct), [jgx] + jax.tree.leaves(jg)):
+        w = np.asarray(w)
+        assert np.abs(g.numpy() - w).max() <= GRAD_REL * np.abs(w).max()
+    grouped = moe.moe_apply(tp, tx, cfg).detach().numpy()
+    drops = [moe.dropped_assignments(tp["router"], tx, cfg, grouped=g)
+             for g in (True, False)]
+    assert 0 < drops[1] < drops[0], drops
+    assert np.abs(grouped - np.asarray(want)).max() > 100 * ATOL
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_dx1_rank_of_one_row_is_one_process_bit_for_bit(rng, arch):
+    """A ``Dx1`` rank whose rows are one of ``moe_apply``'s groups (one
+    row of 320 tokens) gives one process's outputs, aux and gradients
+    bit for bit, drops and all."""
+    _, cfg = _cfgs(arch, capacity_factor=1.25)
+    x = (rng.standard_normal((1, 320, cfg.d_model))
+         + 2 * rng.standard_normal((1, 1, cfg.d_model))).astype(np.float32)
+    ct = rng.standard_normal(x.shape).astype(np.float32)
+    runs = []
+    for rank in (_dx1_rank(), None):
+        _, tp = _weights(_cfgs(arch, capacity_factor=1.25)[0])
+        tp = jax.tree.map(lambda t: t.requires_grad_(True), tp)
+        tx = torch.from_numpy(x).requires_grad_(True)
+        out = (moe.moe_apply_tp(tp, tx, cfg, rank, return_aux=True)
+               if rank is not None else
+               moe.moe_apply(tp, tx, cfg, return_aux=True))
+        runs.append([t.detach() for t in out] + _grads(tp, tx, out, ct))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert moe.dropped_assignments(tp["router"], tx, cfg) > 0
 
 
 def test_moe_chunk_pads_cannot_steal_capacity(rng):

@@ -48,6 +48,16 @@ DP_OVERRIDES = {"yi-6b": {"vocab_size": 16384},
                 "deepseek-moe-16b": {"vocab_size": 16384},
                 "rwkv6-7b": {"vocab_size": 16384, "d_model": 128}}
 DP_ROWS, DP_SEQ = 4, 24
+# A mesh rank's MoE layer caps over all of its rows at once (the
+# expert-parallel body's one group), one process's over each row of a
+# microbatch (moe_apply's groups): the MoE archs' steps agree bit for bit
+# where a rank holds one row, so their D-rank cases take D rows.
+DP_ONE_ROW = ("deepseek-moe-16b",)
+# a Dx1 rank past GROUP_TOKENS at the configured capacity 1.25, where
+# assignments drop: 2 x 320 tokens a rank of a 2x1 mesh, against the
+# reference's step at two microbatches under a 1x1 mesh, whose MoE layer
+# is the shard body over each microbatch's rows
+DP_MOE_ARCH, DP_MOE_ROWS, DP_MOE_SEQ = "deepseek-moe-16b", 4, 320
 # the default lr, its full value at step 1, and eps 1: AdamW's first step
 # is then lr * g / (|g| + 1), close to linear in the gradient, so a
 # parameter's error reads its gradient's; at the default eps 1e-8 it is
@@ -132,10 +142,16 @@ def tp_batch(cfg, rows: int = TP_ROWS, seed: int = 0) -> dict:
     return out
 
 
-def dp_batch(vocab: int, rows: int = DP_ROWS, seed: int = 0) -> dict:
+def dp_rows(arch: str, data: int) -> int:
+    """The rows of ``arch``'s batch in a ``data``-rank case."""
+    return data if arch in DP_ONE_ROW else DP_ROWS
+
+
+def dp_batch(vocab: int, rows: int = DP_ROWS, seed: int = 0,
+             seq: int = DP_SEQ) -> dict:
     import numpy as np
     rng = np.random.default_rng(seed)
-    return {k: rng.integers(0, vocab, (rows, DP_SEQ)).astype(np.int32)
+    return {k: rng.integers(0, vocab, (rows, seq)).astype(np.int32)
             for k in ("tokens", "labels")}
 
 
@@ -306,28 +322,46 @@ def job_dp_train() -> dict:
 
     from repro.configs import get_config, reduced
     from repro.distributed.collectives import compressed_psum_grads
-    from repro.distributed.sharding import shard_map
+    from repro.distributed.sharding import shard_map, use_mesh
     from repro.models import zoo
     from repro.optim import adamw
     from repro.train.train_step import make_train_step
 
     out = {"train": {}}
     opt_cfg = adamw.AdamWConfig(**DP_OPT)
-    for arch in DP_ARCHS:
-        cfg = reduced(get_config(arch), **DP_OVERRIDES[arch])
-        params, _ = zoo.init(cfg, jax.random.key(0))
-        weights = jax.tree.map(np.asarray, params)
-        batch = dp_batch(cfg.vocab_size)
+
+    def step_of(cfg, params, batch):
         step = jax.jit(make_train_step(cfg, opt_cfg, n_micro=2))
         new_p, new_o, metrics = step(params, adamw.init(params),
                                      {k: jnp.asarray(v)
                                       for k, v in batch.items()})
-        out["train"][arch] = {
-            "weights": weights,
+        return {
             "state": {k: np.asarray(v) for k, v in _keyed(
                 {"params": new_p, "opt": new_o}).items()},
             "metrics": {k: float(np.asarray(v)) for k, v in metrics.items()},
         }
+
+    for arch in DP_ARCHS:
+        cfg = reduced(get_config(arch), **DP_OVERRIDES[arch])
+        params, _ = zoo.init(cfg, jax.random.key(0))
+        out["train"][arch] = dict(
+            step_of(cfg, params, dp_batch(cfg.vocab_size,
+                                          dp_rows(arch, 2))),
+            weights=jax.tree.map(np.asarray, params))
+    cfg = reduced(get_config(DP_MOE_ARCH), **DP_OVERRIDES[DP_MOE_ARCH])
+    params, _ = zoo.init(cfg, jax.random.key(0))
+    # Auto axes: jax 0.9 makes Explicit ones by default, which refuse
+    # the reference's sharding constraints (ROADMAP Queue 3)
+    auto = (jax.sharding.AxisType.Auto,) * 2
+    with use_mesh(jax.make_mesh((1, 1), ("data", "model"),
+                                axis_types=auto)):
+        out["moe_capacity"] = dict(
+            step_of(cfg, params, dp_batch(cfg.vocab_size, DP_MOE_ROWS,
+                                          seq=DP_MOE_SEQ)),
+            weights=jax.tree.map(np.asarray, params))
+        # and at the data-parallel cases' size, two rows a rank of 2x1
+        out["moe_capacity_rows"] = step_of(
+            cfg, params, dp_batch(cfg.vocab_size, DP_ROWS))
     mesh = jax.make_mesh((COMPRESSED_RANKS,), ("data",))
     grads = compressed_case()
     specs = {k: P("data") for k in grads}
