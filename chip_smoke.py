@@ -12,9 +12,10 @@ caught:
                 CUDA-core route must not spill at D = 256; every RG-LRU
                 scan, RWKV-6 scan and dense decode instance, with their
                 registers printed, the tensor-core flash forward and
-                backward kernels (the backward's D 256 dQ and two-warpgroup
-                dK/dV too, their dynamic and static shared memory printed
-                and held within 227 KB) and the tensor-core flat and paged
+                backward kernels (the two-warpgroup D 256 forward, the
+                backward's D 256 dQ and two-warpgroup dK/dV too, their
+                dynamic and static shared memory printed and held within
+                227 KB) and the tensor-core flat and paged
                 segment kernels, D 256 included, not at all), the build's
                 seconds,
                 and the dense decode, RWKV-6 and RG-LRU libraries'
@@ -53,7 +54,7 @@ caught:
                 each group over two CTAs a key tile), every head dim
                 (120 too), f32 and bf16, the gradients from a random dO,
                 both forward and both backward routes (tensor cores: bf16
-                at D 64, 120 and 128, the backward also at 256; CUDA
+                at D 64, 120, 128 and 256; CUDA
                 cores: the rest), the CUDA
                 libraries' route rules held to the wrappers'; paged decode
                 also on rows whose live blocks span several of its key
@@ -97,8 +98,9 @@ caught:
                 (the flash rows also at recurrentgemma-9b's training shape:
                 bf16 B 2, H 16, Kv 1, D 256, S 4096, window 2048, and at
                 phase 9's microbatch of B 1: the
-                forward on the CUDA-core route, dQ and dK/dV on the tensor
-                cores with the dK/dV split and CTAs printed, the pair
+                forward, dQ and dK/dV on the tensor cores with the
+                forward's CTAs, the dK/dV split and CTAs printed, the
+                forward's share of its bound, the pair
                 beside SDPA's backward and its bound with the share of the
                 bound, SDPA taking the window as a mask)
                 (the dense decode kernel at yi-6b's legacy decode and at
@@ -159,9 +161,9 @@ caught:
                 launches the dense decode kernel once per swa layer (12);
                 then the same weights and requests with
                 ``prefill_mode="legacy"``: one-shot prefill per admitted
-                request (rglru_block; 12 flash forwards on the CUDA-core
-                route, D 256), dense decode ticks, 1 plus the tick's
-                admissions dispatches at most, 0 HBM violations, tokens
+                request (rglru_block; 12 flash forwards on the
+                tensor-core route, D 256), dense decode ticks, 1 plus the
+                tick's admissions dispatches at most, 0 HBM violations, tokens
                 shared with the packed run, rglru_block's ms per layer at
                 the longest prompt; one prompt layer by layer through the
                 one-shot and the packed forms in bf16, each layer's and the
@@ -188,9 +190,8 @@ caught:
                 then full-width cuts of recurrentgemma-9b (3 layers: rglru,
                 rglru, swa) and rwkv6-7b (2 layers) take 6 steps each the
                 same way (no checkpoint), with the reckoned peak memory
-                beside max_memory_allocated, every flash forward launch
-                (D 256) on the CUDA-core route and every dQ and dK/dV
-                launch on the tensor cores (asserted);
+                beside max_memory_allocated, every flash forward, dQ and
+                dK/dV launch (D 256) on the tensor cores (asserted);
  10. split    — full yi-6b again (phase 6's weights kept), the same 8
                 requests through the launcher's functions with
                 ``prefill_mode="legacy"`` (one-shot prefill per admitted
@@ -377,28 +378,28 @@ caught:
                 forward with LSE, dQ and dK/dV on each of 2 head chunks
                 (a rank's query heads and the KV heads they read) equal
                 the full launch's slices bit for bit, at yi-6b's bf16
-                shape (the wgmma routes) and gemma3-4b's D 256 (the
-                forward on the CUDA cores, dQ and dK/dV on the tensor
-                cores, each rank's dK/dV split as the full launch's); (b)
-                yi-6b at full width cut to 2 of its
-                32 layers, f32 at 2 x 1024 under ``1x2``
-                (AdamW at eps 1, the CPU test's), every rank's loss, grad
-                norm and every leaf of its params and moments after one
-                step against one process's step on the whole batch (the
-                ranks run it in turn before any holds its state, each
-                keeping its slices, on the card through its turn and on
-                the host after): the loss
-                within 1e-5; the grad norm and each leaf within 1e-5, or
-                within 6x (the norm) and 3x (each leaf) its own reading
-                of two one-process steps on weights nudged at f32
-                rounding (at full width the step's own floor passes
+                shape and gemma3-4b's D 256 (all on the wgmma routes,
+                each rank's dK/dV split as the full launch's); (b)
+                yi-6b at full width cut to 2 of its 32 layers, bf16 at
+                1 x 4096 under ``1x2``, every rank's loss, grad norm and
+                leaves after one step against one process's step on the
+                whole batch (the ranks run it in turn before any holds
+                its state, each keeping its slices, on the card through
+                its turn and on the host after), its gaps printed; the
+                f32 bounds that (e) and (f) hold on the card (AdamW at
+                eps 1, the CPU test's): the loss within 1e-5; the grad
+                norm and each leaf of the params and moments within
+                1e-5, or within 6x (the norm) and 3x (each leaf) its own
+                reading of two one-process steps on weights nudged at
+                f32 rounding (at full width the step's own floor passes
                 1e-5; ``--tp-trace`` below says why a second order of
-                sums lands further); then bf16 at 1 x 4096 under
-                ``1x2``, its gaps
-                printed; each rank must launch the flash forward with LSE
-                twice a group layer (its forward and its recomputation in
-                the backward pass) and once a dense prefix layer, and dQ
-                and dK/dV once a layer; the
+                sums lands further; yi-6b's f32 ``1x2`` and ``2x2``
+                steps are held so on the CPU by
+                ``tests/test_torch_tp_train.py``); each rank must
+                launch the flash forward with LSE twice a group layer
+                (its forward and its recomputation in the backward pass)
+                and once a dense prefix layer, and dQ and dK/dV once a
+                layer; the
                 step's ms with its all-reduces over ``model`` (ms, calls,
                 bytes), its gradient sum and gather over ``data``, its
                 peak, its launches by route (after a short warm-up step);
@@ -1068,9 +1069,9 @@ def phase_build():
             fail(f"{lib} spills or is missing: {spilled or inst}")
     smem_parity()
     # the tensor-core kernels: registers, shared memory and spills by
-    # instance (the flash forward at three head dims, dQ at four, dK/dV at
-    # three and its two-warpgroup D 256 kernel, the flat and paged segment
-    # kernels at four)
+    # instance (the flash forward at three head dims and its two-warpgroup
+    # D 256 kernel, dQ at four, dK/dV at three and its two-warpgroup D 256
+    # kernel, the flat and paged segment kernels at four)
     tc = {}
     for lib in ("flash_attention", "flash_attention_bwd", "segment_attention",
                 "paged_segment_attention"):
@@ -1089,22 +1090,24 @@ def phase_build():
     for name, lines in tc.items():
         say(f"[build] tensor-core {name}: {'; '.join(lines)}")
     segs = [n for n in tc if n.startswith("segment")]
-    if len(tc) != 19 or len(segs) != 8 or any(
+    if len(tc) != 20 or len(segs) != 8 or any(
             "0 bytes spill stores, 0 bytes spill loads" not in " ".join(v)
             for v in tc.values()):
         fail(f"the tensor-core kernels spill or are missing: {tc}")
-    # the backward's D 256 instances: their launches' dynamic shared
-    # memory beside the static, within the 227 KB a block may use
-    smem = _build.library("flash_attention_bwd").flash_attention_bwd_tc_smem
-    smem.restype = ctypes.c_longlong
-    for kernel, name in ((0, "flash_dq_kernel_wgmma<256>"),
-                         (1, "flash_dkv2_kernel_wgmma<256>")):
+    # the D 256 instances: their launches' dynamic shared memory beside
+    # the static, within the 227 KB a block may use
+    fwd = _build.library("flash_attention").flash_attention_fwd_tc_smem
+    bwd = _build.library("flash_attention_bwd").flash_attention_bwd_tc_smem
+    fwd.restype = bwd.restype = ctypes.c_longlong
+    for dyn, name in ((fwd(256), "flash_fwd2_kernel_wgmma<256>"),
+                      (bwd(256, 0), "flash_dq_kernel_wgmma<256>"),
+                      (bwd(256, 1), "flash_dkv2_kernel_wgmma<256>")):
         lines = next((v for n, v in tc.items() if n.endswith(name)), [])
         static = re.search(r"(\d+) bytes smem", " ".join(lines))
-        total = smem(256, kernel) + (int(static.group(1)) if static else 0)
-        say(f"[build] {name}: {smem(256, kernel)} bytes of dynamic shared "
-            f"memory + {static.group(1) if static else '?'} static = "
-            f"{total} of 232448")
+        total = dyn + (int(static.group(1)) if static else 0)
+        say(f"[build] {name}: {dyn} bytes of dynamic shared memory + "
+            f"{static.group(1) if static else '?'} static = {total} of "
+            "232448")
         if static is None or total > 232448:
             fail(f"{name}'s shared memory is unread or past the limit")
 
@@ -1847,6 +1850,7 @@ def phase_kernels_flash(dev) -> dict:
             fail(f"the CUDA library's {what} route differs from "
                  f"{rule.__name__}")
     errs = {}
+    worst256 = (0.0, "")  # the bf16 D 256 forward's o, relative to max|ref|
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (b, h, kv, s, sk, d, causal, window) in flash_cases().items():
         case = flash_case(gen, b, h, kv, s, d, sk)
@@ -1869,6 +1873,9 @@ def phase_kernels_flash(dev) -> dict:
                  "flash_attention_fwd_lse": max(
                      compare(f"{fwd} o (with lse)", o, want_o, dtype),
                      compare(f"{fwd} lse", lse, want_lse, torch.float32))}
+            if d == 256 and dtype == torch.bfloat16:
+                top = float(want_o.abs().max())
+                worst256 = max(worst256, (e["flash_attention"] / top, name))
             del want_o, want_lse
             want = attention_bwd_ref(*f32[:4], lse, f32[4], **mask)
             tag = f"{tag} {bwd_route(dtype, d)}"
@@ -1882,6 +1889,9 @@ def phase_kernels_flash(dev) -> dict:
                 errs = {k: max(errs.get(k, 0.0), x) for k, x in e.items()}
             del want, f32, o_only, o, lse, dq, dk, dv
             torch.cuda.empty_cache()
+    say(f"[kernels] the bf16 D 256 forward ({fwd_route(torch.bfloat16, 256)}"
+        f"): worst o error {worst256[0]:.2e} of max|ref|, at "
+        f"{worst256[1]}")
     return errs
 
 
@@ -2072,8 +2082,8 @@ def phase_timing(dev, card) -> dict:
     torch.cuda.empty_cache()
     out.update(timing_flash(dev))
     torch.cuda.empty_cache()
-    # recurrentgemma-9b's swa layers in training: at D 256 the forward takes
-    # the CUDA-core kernel, dQ and dK/dV the tensor cores
+    # recurrentgemma-9b's swa layers in training: at D 256 the two-warpgroup
+    # forward and dK/dV kernels and dQ, all on the tensor cores
     out.update(timing_flash(dev, (FA_B, RG_H, RG_KV, FA_S, RG_D, RG_WINDOW),
                             "recurrentgemma-9b training"))
     torch.cuda.empty_cache()
@@ -2362,8 +2372,17 @@ def timing_flash(dev, shape=None, what="yi-6b training", sk=None,
     n_kt, n_qt = -(-sk // 64), -(-s // 64)
     if d == 256:
         split, micro = (dkv_split(n, sk, h // kv, sms) for n in (b, 1))
+        n_pt = -(-s // 128)
         say(f"[timing] flash at bf16 D 256 ({what}): forward route "
-            f"{fwd_route(torch.bfloat16, d)}; backward route {route}: dK/dV "
+            f"{fwd_route(torch.bfloat16, d)}: one CTA (two consumer "
+            "warpgroups of 64 q rows each, unsynchronised against one K/V "
+            "ring, and a producer warpgroup, setmaxnreg 232 / 40) per 128 "
+            f"q rows x query head x batch, the longest first: "
+            f"{n_pt * h * b} CTAs for {sms} SMs, one per SM; 64-key tiles "
+            "in a two-stage TMA ring, P in registers, a warpgroup's "
+            "unreachable tiles released unread")
+        say(f"[timing] flash at bf16 D 256 ({what}): backward route "
+            f"{route}: dK/dV "
             "one CTA (two consumer warpgroups, S^T/P^T/dV and dP^T/dS^T/dK, "
             "P^T exchanged through shared memory, and a producer "
             "warpgroup) per 64 keys x KV head x batch x split, n_split "
@@ -2409,6 +2428,14 @@ def timing_flash(dev, shape=None, what="yi-6b training", sk=None,
                    f"{ops / ms / 1e9:.1f} TFLOP/s")
     fwd_ops = flash_bound("flash_attention", b, h, kv, s, d, causal, window,
                           torch.bfloat16, sk).flops
+    fw, fl = (out[n + suffix] for n in ("flash_attention",
+                                        "flash_attention_fwd_lse"))
+    say(f"[timing] flash forward ({fwd_route(torch.bfloat16, d)}, {what}) "
+        f"on {card_line()}: no LSE {fw['ms']:.4f} ms "
+        f"({fw['bound_ms'] / fw['ms']:.1%} of its {fw['bound_ms']:.4f} ms "
+        f"bound), with LSE {fl['ms']:.4f} ms "
+        f"({fl['bound_ms'] / fl['ms']:.1%}), against sdpa's forward "
+        f"{sdpa_fwd:.4f} ms (sdpa / kernel {sdpa_fwd / fw['ms']:.2f})")
     dq, dkv = (out[n + suffix] for n in ("flash_attention_dq",
                                          "flash_attention_dkv"))
     pair, pair_bound = dq["ms"] + dkv["ms"], dq["bound_ms"] + dkv["bound_ms"]
@@ -2485,14 +2512,15 @@ def phase_parity(dev, card, cfg, host, dense: bool = True,
                 [caches["groups"][0][k].cpu() for k in ("k", "v")])
 
     grad = grad_run(cfg, train_batch(cfg.vocab_size, 130, rows=grad_rows))
-    runs = (run, *([run_dense] if dense else []), grad)
+    serve = (run, *([run_dense] if dense else []))
+    runs = (*serve, grad)
     if routes is not None:
         runs = (recording(run, routes.setdefault("serve", [])),
                 *runs[1:-1], recording(grad, routes.setdefault("train", [])))
-    (got, cpu, floor), *dense, train = card_cpu_floor(
-        dev, params, host, name, *runs)
+    *served, train = card_cpu_floor(dev, params, host, name, *runs)
+    (got, cpu, floor), *dense = served
     train += (card_gnorm_floors(dev, params, grad),)
-    del params, host
+    del params
     worst = 0.0
     for i, (lc, lg, ln) in enumerate(zip(cpu[0], got[0], floor[0])):
         err = rel(lc, lg)
@@ -2523,7 +2551,9 @@ def phase_parity(dev, card, cfg, host, dense: bool = True,
             f"noise floor "
             f"{max(rel(a, b) for a, b in zip(got[1], floor[1])):.3e})")
     if not worst <= LOGIT_LIMIT or not kerr <= STORE_LIMIT:
+        cpu_again(name, host, serve, served)
         fail(f"card and CPU disagree on {cfg.name} logits or KV caches")
+    del host
     if not train_parity_ok(card, cfg, *train):
         fail(f"card and CPU disagree on {cfg.name}'s training loss or "
              "gradients")
@@ -2799,6 +2829,36 @@ def card_cpu_floor(dev, params, host, name: str, *runs) -> list:
     say(f"[times] {name}: card runs and noise-floor runs {t1 - t0:.1f} s, "
         f"CPU runs {time.perf_counter() - t1:.1f} s")
     return list(zip(got, cpu, floor))
+
+
+def host_cpu() -> str:
+    """The host's CPU model (``/proc/cpuinfo``) and torch's CPU threads."""
+    model = "not read"
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), model)
+    except OSError:
+        pass
+    return f"{model}, torch.get_num_threads() {torch.get_num_threads()}"
+
+
+def cpu_again(name: str, host, runs, served) -> None:
+    """A card-against-CPU reading past its limit: the host's CPU, then
+    each of ``runs`` once more on the CPU with ``host`` and both CPU runs'
+    readings against the card's (``served``: :func:`card_cpu_floor`'s
+    (card, CPU, floor) of each), so a CPU reference that moved with the
+    host shows as two CPU readings apart."""
+    say(f"[parity] {name}: a reading past its limit on a host with "
+        f"{host_cpu()}; the CPU reference runs once more")
+    for run, (got, cpu, _) in zip(runs, served):
+        again = run(host, torch.device("cpu"))
+        for what, i in (("logits", 0), ("stores", 1)):
+            for j, (g, c1, c2) in enumerate(zip(got[i], cpu[i], again[i])):
+                say(f"[parity] {name}, {run.__name__} {what} {j + 1}: card "
+                    f"against the first CPU run {rel(c1, g):.3e}, against "
+                    f"the second {rel(c2, g):.3e}; the CPU runs apart "
+                    f"{rel(c1, c2):.3e}")
 
 
 def card_gnorm_floors(dev, params, run) -> list:
@@ -3426,7 +3486,7 @@ def legacy_slice(dev, card, cfg, params, prompts, new_tokens, packed_tokens,
     shares with the packed run (bf16 near-ties: information) and the
     one-shot forms' ms per layer at the longest prompt.  ``expect(eng,
     n_decode)`` gives the launches of ``counted`` the run must make (the
-    others none); every flash forward launch takes the CUDA-core route
+    others none); every flash forward launch takes the tensor-core route
     (D 256)."""
     weights = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     held = torch.cuda.memory_allocated(dev) - weights
@@ -3534,10 +3594,10 @@ def legacy_slice(dev, card, cfg, params, prompts, new_tokens, packed_tokens,
     want = {fn.__name__: want.get(fn.__name__, 0) for fn in counted}
     if got != want:
         fail(f"legacy kernel launches {got}, expected {want}")
-    if routes != {"tensor_core": 0, "cuda_core": got.get("flash_attention",
-                                                          0)}:
+    if routes != {"tensor_core": got.get("flash_attention", 0),
+                  "cuda_core": 0}:
         fail(f"flash forward launches by route {routes}: the D 256 launches "
-             "must take the CUDA-core route")
+             "must take the tensor-core route")
     eng.close()
     return got
 
@@ -3853,8 +3913,8 @@ def phase_train_cut(dev, card, arch: str, layers: int) -> dict:
     steps at batch TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches,
     remat, no checkpoint.  The recurrent layers train through their
     one-shot forms; recurrentgemma's swa layer (D 256) must launch its
-    flash forwards on the CUDA-core route and dQ and dK/dV on the tensor
-    cores.  Returns the flash launches."""
+    flash forwards, dQ and dK/dV on the tensor cores.  Returns the flash
+    launches."""
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     workdir = ROOT / "build" / f"chip_smoke_train_{arch}"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -6564,18 +6624,18 @@ def phase_dp(dev, card) -> dict:
 # ------------------------------ phase 18: tensor-parallel training
 # yi-6b at full width cut to TP_LAYERS of its 32 layers (phase 16's cut:
 # gloo stages every sum through the host), ranks of one MeshPool of
-# TP_POOL sharing the card.  18b: f32 at TP_F32_ROWS x TP_F32_SEQ under
-# each of TP_F32_MESHES (1x2: 18e's rwkv6-7b run holds a 2x2 step, and
-# tests/test_torch_tp_train.py holds yi-6b's on the CPU), held to one
-# process with the CPU test's bounds
-# (tests/test_torch_tp_train.py); bf16 at TP_BF16_ROWS x TP_BF16_SEQ
-# under 1x2, its gaps printed.  18a: the three flash training kernels
-# on each of TP_KERNEL_M head chunks at yi-6b's bf16 shape (the wgmma
-# routes) and gemma3-4b's D 256 (the forward's CUDA-core route, the
-# backward's wgmma one)
+# TP_POOL sharing the card.  18b: bf16 at TP_BF16_ROWS x TP_BF16_SEQ
+# under 1x2, its gaps printed (yi-6b's f32 steps are held to one process
+# on the CPU by tests/test_torch_tp_train.py, and on the card 18e and 18f
+# hold the head-, ff- and vocab-parallel forms in f32); TP_F32_ROWS x
+# TP_F32_SEQ is the f32 cut --tp-trace traces.  18a: the three flash
+# training kernels
+# on each of TP_KERNEL_M head chunks at yi-6b's bf16 shape and gemma3-4b's
+# D 256 (the two-warpgroup forward and dK/dV kernels), all on the wgmma
+# routes
 TP_POOL = (2, 2)
 TP_LAYERS = 2
-TP_F32_ROWS, TP_F32_SEQ, TP_F32_MESHES = 2, 1024, ((1, 2),)
+TP_F32_ROWS, TP_F32_SEQ = 2, 1024
 TP_BF16_ROWS, TP_BF16_SEQ = 1, 4096
 TP_KERNEL_M = 2
 TP_REL = 1e-5           # loss, grad norm and each leaf, relative
@@ -7254,17 +7314,9 @@ def phase_tp(dev, card) -> dict:
     phase_tp_kernels(dev, card)
     t_a = time.perf_counter() - t0
     launches: dict = {}
-    f32 = mesh_cfg("yi-6b", TP_LAYERS, "float32")
     bf16 = mesh_cfg("yi-6b", TP_LAYERS, "bfloat16")
     times = {}
     with MeshPool(*TP_POOL, device="cuda", timeout_s=300.0) as pool:
-        for data, model in TP_F32_MESHES:
-            t1 = time.perf_counter()
-            got = tp_run(pool, dev, card, "18b f32", f32, TP_F32_ROWS,
-                         TP_F32_SEQ, data, model, True)
-            times[f"f32 {data}x{model}"] = time.perf_counter() - t1
-            for k, v in got["launches"].items():
-                launches[k] = launches.get(k, 0) + v
         t1 = time.perf_counter()
         got = tp_run(pool, dev, card, "18b bf16", bf16, TP_BF16_ROWS,
                      TP_BF16_SEQ, 1, 2, False)

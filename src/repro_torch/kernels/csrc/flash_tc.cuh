@@ -11,18 +11,28 @@
 namespace flash_tc {
 
 constexpr int kKeys = 64;        // keys per K/V tile (and per dK/dV CTA)
-constexpr int kRows = 64;        // q rows per CTA (and per dK/dV step)
+constexpr int kRows = 64;        // q rows per warpgroup (and per dK/dV step)
 constexpr int kStages = 2;       // tiles in flight
 constexpr int kConsumers = 128;  // one warpgroup
 constexpr int kThreadsTC = kConsumers + 32;  // and one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The forward's route rule: bf16 at D 64, 120 and 128 takes the tensor
-// cores, every other supported call (f32 at every D, bf16 at D 16 and 256)
-// the CUDA cores.  dtype: 0 = float32, 1 = bfloat16.  (The backward's rule,
-// in flash_attention_bwd.cu, adds bf16 at D 256.)
+// The D 256 kernels with two consumer warpgroups (the forward's and
+// dK/dV's): one 64 x 256 f32 accumulator a warpgroup, and a producer
+// warpgroup that issues the loads from one lane.  384 threads leave ptxas
+// 168 registers a thread, where a D 256 accumulator spills, so the
+// producer warpgroup hands all but kProducerRegs back and each consumer
+// thread takes kConsumerRegs (`setmaxnreg`): 2 x 128 x 232 + 128 x 40 =
+// 64,512 of the SM's 65,536.
+constexpr int kPairConsumers = 2 * kConsumers;
+constexpr int kThreadsPair = kPairConsumers + kConsumers;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+
+// The route rule of the forward and the backward alike: bf16 at D 64,
+// 120, 128 and 256 takes the tensor cores, f32 at every D and bf16 at
+// D 16 the CUDA cores.  dtype: 0 = float32, 1 = bfloat16.
 inline bool tensor_core_route(int D, int dtype) {
-  return dtype == 1 && (D == 64 || D == 120 || D == 128);
+  return dtype == 1 && (D == 64 || D == 120 || D == 128 || D == 256);
 }
 
 // the head dim in whole 64-column chunks (D = 120 reads 128, the last 8
@@ -52,7 +62,8 @@ __device__ __forceinline__ bool whole_tile(int q0, int k0, int Sq, int Sk,
 
 // the warpgroup of this thread, warp-uniform for the compiler (which
 // otherwise serialises the wgmma of the consumers' path): 0 the consumer
-// warpgroup, 1 the producer warp
+// warpgroup, 1 the producer warp (in the two-warpgroup kernels 0 and 1
+// the consumers, 2 the producer warpgroup)
 __device__ __forceinline__ int role() {
   return __shfl_sync(0xffffffffu, (int)threadIdx.x / kConsumers, 0);
 }

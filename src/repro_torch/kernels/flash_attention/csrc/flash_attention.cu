@@ -15,7 +15,11 @@
 // Bound on this card: operations.  At yi-6b's training shapes (B 2, H 32,
 // Kv 4, S 4096, D 128, bf16, causal) the admitted pairs need 274.9 GFLOP
 // of QK^T and PV, 0.278 ms at the bf16 tensor-core peak, against ~152 MB
-// of q, k, v, o and lse, 0.045 ms at 3.35 TB/s.
+// of q, k, v, o and lse, 0.045 ms at 3.35 TB/s.  At recurrentgemma-9b's
+// (B 2, H 16, Kv 1, S 4096, D 256, causal, window 2048) 206.2 GFLOP,
+// 0.2085 ms at 989 TFLOP/s.  The tensor-core kernels keep every operand
+// of the products in shared memory or registers and run them on wgmma; at
+// D 256 a CTA owns 128 q rows, which halves the K/V fills a row needs.
 //
 // Two routes, a fixed dispatch on dtype and head dim in the extern "C"
 // entry point (flash_tc.cuh's `tensor_core_route`, which
@@ -23,43 +27,64 @@
 // `fwd_route` states again; it is no fallback, and a launch that fails
 // returns its error):
 //
-// * Tensor cores: bf16 at D 64, 120 and 128 (`flash_fwd_kernel_wgmma`).
-//   One CTA per (64 q rows, query head, batch), the tiles with the most
-//   keys launched first, two CTAs per SM.  A CTA is one consumer
-//   warpgroup and one producer warp.  The producer loads the Q tile once
-//   and streams 64-key K and V tiles, from the window's first tile to the
-//   diagonal tile only, through a two-stage full/empty mbarrier ring, by
-//   TMA (3-D tensor maps over [B*H or B*Kv, S, D], 64-column boxes in the
-//   128-byte swizzle: the hardware zero-fills the ragged S tail and
-//   D = 120's columns 120-127 without crossing into the next head).  The
-//   consumer computes S = Q K^T by wgmma from shared memory (both operands
-//   K-major) into f32 registers and keeps the online softmax there: a
-//   thread holds 2 rows x 16 keys of S, so a row's max and sum are two
-//   xor-shuffles among the 4 lanes of a quad; scores are taken in the
-//   log2 domain (D^-0.5 log2(e) folded into one scale, ex2.approx), a
-//   masked score is -inf and gives p = 0, and tiles wholly inside the
-//   mask skip the mask test.  P is rounded to bf16 and packed straight
-//   from the accumulator layout into register A operands of O += P V,
-//   whose B operand is the same V tile read MN-major: nothing goes back
-//   to shared memory.  P meets V in bf16, as FlashAttention-2/3 and SDPA
-//   do; the reference keeps P in f32 (ROADMAP Queue 3 logs the
-//   difference).  The epilogue writes o = acc / l (0 where l == 0) and,
-//   when lse is not null, lse = (m2 + log2(max(l, 1e-30))) / log2(e) in
-//   natural-log units (m2 the running max in the log2 domain).
+// * Tensor cores: bf16 at D 64, 120, 128 and 256.  At D <= 128
+//   (`flash_fwd_kernel_wgmma`) one CTA per (64 q rows, query head,
+//   batch), the tiles with the most keys launched first, two CTAs per SM.
+//   A CTA is one consumer warpgroup and one producer warp.  The producer
+//   loads the Q tile once and streams 64-key K and V tiles, from the
+//   window's first tile to the diagonal tile only, through a two-stage
+//   full/empty mbarrier ring, by TMA (3-D tensor maps over [B*H or B*Kv,
+//   S, D], 64-column boxes in the 128-byte swizzle: the hardware
+//   zero-fills the ragged S tail and D = 120's columns 120-127 without
+//   crossing into the next head).  The consumer computes S = Q K^T by
+//   wgmma from shared memory (both operands K-major) into f32 registers
+//   and keeps the online softmax there: a thread holds 2 rows x 16 keys
+//   of S, so a row's max and sum are two xor-shuffles among the 4 lanes
+//   of a quad; scores are taken in the log2 domain (D^-0.5 log2(e) folded
+//   into one scale, ex2.approx), a masked score is -inf and gives p = 0,
+//   and tiles wholly inside the mask skip the mask test.  P is rounded to
+//   bf16 and packed straight from the accumulator layout into register A
+//   operands of O += P V, whose B operand is the same V tile read
+//   MN-major: nothing goes back to shared memory.  P meets V in bf16, as
+//   FlashAttention-2/3 and SDPA do; the reference keeps P in f32 (ROADMAP
+//   Queue 3 logs the difference).  The epilogue writes o = acc / l (0
+//   where l == 0) and, when lse is not null, lse = (m2 + log2(max(l,
+//   1e-30))) / log2(e) in natural-log units (m2 the running max in the
+//   log2 domain).
+//   At D 256 (`flash_fwd2_kernel_wgmma`, FlashAttention-3's forward shape)
+//   the 64 x 256 f32 O accumulator is 128 registers a thread, so one CTA
+//   an SM, and it owns 128 q rows: two consumer warpgroups, 64 rows each,
+//   run the same step on their own accumulator, m and l, and read every
+//   stage of one K/V ring, so a stage's fill serves 128 rows; while one
+//   warpgroup runs its softmax the other's products keep the tensor cores
+//   busy (the two run unsynchronised against the ring).  A producer
+//   warpgroup loads both Q halves once (the upper one only if it holds a
+//   q row) and streams the union of the halves' admitted key tiles, from
+//   the lower half's window start to the upper half's diagonal; a
+//   warpgroup whose rows a stage's keys cannot reach (under the window
+//   the upper half's first tiles, the lower half's last) and one with no
+//   row below Sq waits for the stage and releases it without a product,
+//   so the empty barrier counts both warpgroups every stage.  A row's
+//   arithmetic, and the tiles it takes, follow from its own warpgroup's
+//   rows alone: the same bits at any H, B or other half.  384 threads
+//   leave 168 registers a thread, where the accumulator spills, so the
+//   producer warpgroup hands its registers to the consumers
+//   (`setmaxnreg`, flash_tc.cuh's kProducerRegs / kConsumerRegs); Q (2 x
+//   32 KB) and two K/V stages (2 x 64 KB) take 193 KB of shared memory.
 // * CUDA cores: f32 at every D (the route phase 5's card-against-CPU
-//   parity measures) and bf16 at D 16 and 256 (`flash_fwd_kernel`).  One
-//   CTA per (q tile of 64 rows, 32 at D = 256; query head; batch), the
-//   tiles with the most keys launched first.  The TPU kernel's sequential
-//   kv grid axis becomes a loop inside the CTA over the 32-key tiles from
-//   the window's first tile to the diagonal tile only, each staged in
-//   shared memory as f32 (padded rows, conflict-free reads).  The online
-//   softmax state lives in registers: a thread owns 4 (2) rows and 4 keys
-//   of the score tile and the same rows times D/8 columns of the output,
-//   so the row max and sum are three xor-shuffles among the 8 lanes of a
-//   row group.  Scores are scaled by D^-0.5 after the dot, as the TPU
-//   kernel does; the probabilities go through shared memory into P V.  At
-//   the end o = acc / l (0 where l == 0) and, when lse is not null,
-//   lse = m + log(max(l, 1e-30)).  Scalar FMAs.
+//   parity measures) and bf16 at D 16 (`flash_fwd_kernel`).  One CTA per
+//   (q tile of 64 rows, 32 at D = 256; query head; batch), the tiles with
+//   the most keys launched first.  The TPU kernel's sequential kv grid
+//   axis becomes a loop inside the CTA over the 32-key tiles from the
+//   window's first tile to the diagonal tile only, each staged in shared
+//   memory as f32 (padded rows, conflict-free reads).  The online softmax
+//   state lives in registers: a thread owns 4 (2) rows and 4 keys of the
+//   score tile and the same rows times D/8 columns of the output, so the
+//   row max and sum are three xor-shuffles among the 8 lanes of a row
+//   group.  Scores are scaled by D^-0.5 after the dot, as the TPU kernel
+//   does; the probabilities go through shared memory into P V.  At the
+//   end o = acc / l (0 where l == 0) and, when lse is not null, lse = m +
+//   log(max(l, 1e-30)).  Scalar FMAs.
 // Any Sq and Sk are taken without padding.
 #include <type_traits>
 
@@ -213,7 +238,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ------------------------------------------------------------------------
-// Tensor-core route: bf16 at D 64, 120 and 128.
+// Tensor-core route: bf16 at D 64, 120, 128 and 256.
 namespace tc {
 
 using hopper::desc_k;
@@ -361,6 +386,174 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// D 256: q rows per CTA, two warpgroups' 64 each
+constexpr int kPairRows = 2 * kRows;
+
+// One CTA per (128 q rows, query head, batch), the tiles with the most
+// keys first; warpgroups 0 and 1 each own 64 of the rows (q rows past Sq
+// run no products) and take every stage of one K/V ring, warpgroup 2 is
+// the producer (see the header).
+template <int D>
+__global__ void __launch_bounds__(kThreadsPair, 1)
+flash_fwd2_kernel_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ lse, int H, int Kv, int Sq,
+                        int Sk, int causal, int window, float scale) {
+  constexpr int DP = padded<D>();
+  constexpr int KV_CHUNK = kKeys * 128, Q_CHUNK = kRows * 128;
+  constexpr int KV_BYTES = tile_bytes<DP>(kKeys);
+  constexpr int Q_BYTES = tile_bytes<DP>(kRows);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);        // [2 warpgroups][Q_BYTES]
+  uint8_t* k_s = q_s + 2 * Q_BYTES;          // [kStages][KV_BYTES]
+  uint8_t* v_s = k_s + kStages * KV_BYTES;   // [kStages][KV_BYTES]
+  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+
+  const int n_qt = (Sq + kPairRows - 1) / kPairRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.x) * kPairRows;  // longest first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h, bkv = b * Kv + h / (H / Kv);
+  // admitted keys of both warpgroups' rows: [k_lo, k_hi], from the lower
+  // one's window start to the upper one's diagonal
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(Sk, q0 + kPairRows) - 1 : Sk - 1;
+  const int kt_lo = k_lo / kKeys;
+  const int n_it = k_hi / kKeys - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kPairConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = role();
+  if (wg == 2) {  // the producer warpgroup: one lane issues
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != kPairConsumers) return;
+    const int halves = Sq - q0 > kRows ? 2 : 1;  // those holding a q row
+    mbar_arrive_expect_tx(&q_full, halves * Q_BYTES);
+    for (int x = 0; x < halves; ++x)
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+        tma_load_3d(q_s + x * Q_BYTES + c * Q_CHUNK, &tm_q, &q_full, c * 64,
+                    q0 + x * kRows, bh);
+    stream_kv<DP>(k_s, v_s, &tm_k, &tm_v, full, empty, kt_lo, n_it, bkv);
+    return;
+  }
+
+  // a consumer warpgroup: accumulator rows `row` and `row + 8` of its 64
+  // q rows, columns `col + 8j` and `col + 8j + 1` (keys of the step, or
+  // columns of the output)
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int tid = threadIdx.x - wg * kConsumers;
+  const int warp = tid / 32, lane = tid % 32;
+  const int row = warp * 16 + lane / 4, col = 2 * (lane % 4);
+  const int qw = q0 + wg * kRows;            // this warpgroup's first q row
+  const int valid_q = min(kRows, Sq - qw);   // <= 0: none
+  // the steps whose key tile admits one of this warpgroup's rows:
+  // [it_lo, it_hi], empty without rows; the others it only releases
+  const int it_lo =
+      (window > 0 ? max(0, qw - window + 1) : 0) / kKeys - kt_lo;
+  const int it_hi = valid_q <= 0 ? -1
+                    : (causal ? min(Sk, qw + kRows) - 1 : Sk - 1) / kKeys -
+                          kt_lo;
+  const float scale_log2 = scale * kLog2e;
+  float m[2] = {attn::NEG_INIT, attn::NEG_INIT};  // running max, log2 units
+  float l[2] = {0.f, 0.f};                        // running sum of p
+  float o_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o_acc[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s + wg * Q_BYTES);
+  mbar_wait(&q_full, 0);
+
+  int it = 0;
+  for (; it < min(it_lo, n_it); ++it) {  // a stage before this one's keys
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    mbar_arrive(&empty[it % kStages]);
+  }
+  for (; it <= it_hi; ++it) {
+    const int s = it % kStages;
+    const int k0 = (kt_lo + it) * kKeys;
+    const uint32_t k_addr = smem_u32(k_s + s * KV_BYTES);
+    const uint32_t v_addr = smem_u32(v_s + s * KV_BYTES);
+    mbar_wait(&full[s], (it / kStages) & 1);
+
+    // S = Q K^T, [q rows, keys]
+    float st[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP; kk += 16)
+      wgmma_ss_n64(st, desc_k(q_addr, Q_CHUNK, kk),
+                   desc_k(k_addr, KV_CHUNK, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+
+    // online softmax in the log2 domain; a masked score is -inf (p = 0),
+    // keys past Sk among them (TMA reads them as zeros)
+    float alpha[2];
+    softmax_step<kKeys>(st, m, l, alpha, scale_log2,
+                        whole_tile(qw, k0, Sq, Sk, causal, window),
+                        [&](int e, int kj) {
+                          return flash::admits(qw + row + 8 * e, k0 + kj, Sk,
+                                               causal, window);
+                        });
+    scale_rows(o_acc, alpha);
+    uint32_t pa[kKeys / 16][4];
+    pack_p<kKeys>(st, pa);
+
+    // O += P V: V read MN-major from the same tile
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk)
+      wgmma_rs<DP>(o_acc, pa[kk], desc_mn(v_addr, KV_CHUNK, 16 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    mbar_arrive(&empty[s]);  // this stage's K and V are read
+  }
+  for (; it < n_it; ++it) {  // a stage past this one's keys
+    mbar_wait(&full[it % kStages], (it / kStages) & 1);
+    mbar_arrive(&empty[it % kStages]);
+  }
+
+  const size_t qrow0 = (size_t)bh * Sq + qw;
+  float inv[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) inv[e] = l[e] == 0.f ? 0.f : 1.f / l[e];
+#pragma unroll
+  for (int i = 0; i < DP / 2; i += 2) {
+    const int e = (i / 2) % 2;
+    const int r = row + 8 * e, c = col + 8 * (i / 4);
+    if (r < valid_q && c < D)
+      *reinterpret_cast<uint32_t*>(out + (qrow0 + r) * D + c) =
+          pack_bf16(o_acc[i] * inv[e], o_acc[i + 1] * inv[e]);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (row + 8 * e < valid_q)
+        lse[qrow0 + row + 8 * e] =
+            (m[e] + log2f(fmaxf(l[e], 1e-30f))) / kLog2e;
+  }
+}
+
+// the dynamic shared memory of a launch: 1024 bytes of alignment slack,
+// the Q tile (both warpgroups' halves at D 256) and the K/V ring
+template <int D>
+constexpr size_t fwd_smem() {
+  return 1024 + (D == 256 ? 2 : 1) * tile_bytes<padded<D>()>(kRows) +
+         2 * kStages * tile_bytes<padded<D>()>(kKeys);
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int H, int Kv, int Sq, int Sk,
@@ -370,16 +563,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       !hopper::make_map(&mk, k, B * Kv, Sk, D, kKeys) ||
       !hopper::make_map(&mv, v, B * Kv, Sk, D, kKeys))
     return cudaErrorNotSupported;
-  constexpr int DP = padded<D>();
-  const size_t smem =
-      1024 + tile_bytes<DP>(kRows) + 2 * kStages * tile_bytes<DP>(kKeys);
-  auto kern = flash_fwd_kernel_wgmma<D>;
-  cudaError_t e = flash::allow_smem(kern, smem);
-  if (e != cudaSuccess) return e;
-  kern<<<dim3((Sq + kRows - 1) / kRows, H, B), kThreadsTC, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), H, Kv, Sq, Sk, causal, window, scale);
-  return cudaGetLastError();
+  constexpr bool pair = D == 256;
+  constexpr int rows = pair ? kPairRows : kRows;
+  const size_t smem = fwd_smem<D>();
+  auto go = [&](auto kern, int threads) {
+    cudaError_t e = flash::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3((Sq + rows - 1) / rows, H, B), threads, smem, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(out),
+        static_cast<float*>(lse), H, Kv, Sq, Sk, causal, window, scale);
+    return cudaGetLastError();
+  };
+  if constexpr (pair)
+    return go(flash_fwd2_kernel_wgmma<D>, kThreadsPair);
+  else
+    return go(flash_fwd_kernel_wgmma<D>, kThreadsTC);
 }
 
 }  // namespace tc
@@ -392,11 +590,12 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
     case 64: return tc::launch<64>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s);
     case 120: return tc::launch<120>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s);
     case 128: return tc::launch<128>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s);
+    case 256: return tc::launch<256>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// the CUDA-core kernel: f32 at every head dim, bf16 at D 16 and 256
+// the CUDA-core kernel: f32 at every head dim, bf16 at D 16
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      void* out, void* lse, int B, int H, int Kv, int Sq,
@@ -407,10 +606,10 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   return launch<T, DV>(q, k, v, out, lse, B, H, Kv, Sq, Sk, causal, window, scale, s)
   switch (D) {
     case 16: FLASH_FWD(16);
-    case 256: FLASH_FWD(256);
     case 64: if constexpr (f32) FLASH_FWD(64); break;
     case 120: if constexpr (f32) FLASH_FWD(120); break;
     case 128: if constexpr (f32) FLASH_FWD(128); break;
+    case 256: if constexpr (f32) FLASH_FWD(256); break;
   }
 #undef FLASH_FWD
   return cudaErrorInvalidValue;
@@ -422,6 +621,18 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 // takes the tensor-core kernel, 0 when it takes the CUDA-core one.
 extern "C" int flash_attention_fwd_route(int D, int dtype) {
   return flash_tc::tensor_core_route(D, dtype) ? 1 : 0;
+}
+
+// The dynamic shared memory a tensor-core launch sets; 0 off the
+// tensor-core head dims.
+extern "C" long long flash_attention_fwd_tc_smem(int D) {
+  switch (D) {
+    case 64: return tc::fwd_smem<64>();
+    case 120: return tc::fwd_smem<120>();
+    case 128: return tc::fwd_smem<128>();
+    case 256: return tc::fwd_smem<256>();
+  }
+  return 0;
 }
 
 // q [B,H,Sq,D]; k/v [B,Kv,Sk,D]; out [B,H,Sq,D]; lse [B,H,Sq] f32 or

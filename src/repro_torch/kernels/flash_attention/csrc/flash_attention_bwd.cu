@@ -19,10 +19,9 @@
 // out) take ~0.08 ms at 3.35 TB/s.
 //
 // Two routes, a fixed dispatch on dtype and head dim in the extern "C"
-// entry points (`bwd_tensor_core_route`; flash_attention_bwd.py's
-// `bwd_route` states the same rule; it is no fallback, and a launch that
-// fails returns its error).  The rule is the backward's own: the forward
-// (flash_tc.cuh's `tensor_core_route`) keeps bf16 D 256 on the CUDA cores.
+// entry points (flash_tc.cuh's `tensor_core_route`, the forward's rule
+// too; flash_attention_bwd.py's `bwd_route` states the same rule; it is
+// no fallback, and a launch that fails returns its error).
 //
 // * Tensor cores: bf16 at D 64, 120, 128 and 256.  The producer warp
 //   issues TMA loads (3-D tensor maps over [B*H or B*Kv, S, D], 64-column
@@ -62,7 +61,8 @@
 //      registers beside a 32-register tile), and a producer warpgroup
 //      issues the loads from one warp; 384 threads leave 168 registers a
 //      thread, so the producer warpgroup gives back all but 40 and the
-//      consumers take 232 (`setmaxnreg`; at 168 they spill).  Warpgroup 0 forms S^T and P^T,
+//      consumers take 232 (`setmaxnreg`, flash_tc.cuh's kConsumerRegs; at
+//      168 they spill).  Warpgroup 0 forms S^T and P^T,
 //      writes P^T (f32) to an exchange tile in shared memory and
 //      accumulates dV += P^T dO; warpgroup 1 forms dP^T, reads P^T after
 //      one named barrier a step, forms dS^T and accumulates dK += dS^T Q.
@@ -769,13 +769,9 @@ constexpr size_t dkv_smem() {
 }
 
 // dK/dV at D 256: two consumer warpgroups and a producer warpgroup, one
-// warp of which issues the loads (see the header); `n_split` CTAs a (key
-// tile, KV head, batch), each over its share of the group's query heads.
-// 384 threads leave 168 registers a thread; the producer warpgroup hands
-// 128 of its own back and each consumer thread takes 64 more.
-constexpr int kPairConsumers = 2 * kConsumers;
-constexpr int kThreadsPair = kPairConsumers + kConsumers;
-constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// warp of which issues the loads (see the header and flash_tc.cuh's
+// kThreadsPair); `n_split` CTAs a (key tile, KV head, batch), each over
+// its share of the group's query heads.
 constexpr int kExBar = 1;                     // the exchange's named barrier
 constexpr int kExFloats = 32 * kConsumers;    // one 64 x 64 f32 exchange
 
@@ -1183,19 +1179,12 @@ bool bad_shape(int B, int H, int Kv, int Sq, int Sk, int causal,
          Sq <= 0 || Sk <= 0 || (Sk != Sq && (causal || window > 0));
 }
 
-// The backward's route rule: bf16 at D 64, 120, 128 and 256 takes the
-// tensor cores, f32 at every D and bf16 at D 16 the CUDA cores.  dtype:
-// 0 = float32, 1 = bfloat16.
-bool bwd_tensor_core_route(int D, int dtype) {
-  return dtype == 1 && (D == 64 || D == 120 || D == 128 || D == 256);
-}
-
 }  // namespace
 
 // 1 when a call of this head dim and dtype (0 = float32, 1 = bfloat16)
 // takes the tensor-core kernels, 0 when it takes the CUDA-core ones.
 extern "C" int flash_attention_bwd_route(int D, int dtype) {
-  return bwd_tensor_core_route(D, dtype) ? 1 : 0;
+  return flash_tc::tensor_core_route(D, dtype) ? 1 : 0;
 }
 
 // The dynamic shared memory a tensor-core launch sets: `kernel` 0 dQ, 1
@@ -1224,7 +1213,7 @@ extern "C" int flash_attention_dq_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, Sq, Sk, causal, window))
     return cudaErrorInvalidValue;
-  if (bwd_tensor_core_route(D, dtype))
+  if (flash_tc::tensor_core_route(D, dtype))
     return dispatch_dq_tc(D, q, k, v, dout, lse, dsum, dq, B, H, Kv, Sq, Sk,
                           causal, window, scale, s);
   if (dtype == 0)
@@ -1250,7 +1239,7 @@ extern "C" int flash_attention_dkv_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, Kv, Sq, Sk, causal, window))
     return cudaErrorInvalidValue;
-  if (bwd_tensor_core_route(D, dtype))
+  if (flash_tc::tensor_core_route(D, dtype))
     return dispatch_dkv_tc(D, q, k, v, dout, lse, dsum, dk, dv, work,
                            n_split, B, H, Kv, Sq, Sk, causal, window, scale,
                            s);

@@ -14,10 +14,11 @@ another length ``Sk`` than the queries' ``Sq`` (cross-attention:
 ``window=0`` (:func:`~.ref.check_lengths`).
 
 Two routes, by dtype and head dim alone (:func:`fwd_route`; the CUDA
-source's entry point applies the same rule): bf16 at D 64, 120 and 128
-runs the tensor-core kernel (wgmma fed by TMA, P rounded to bf16 before
-it meets V), f32 at every head dim and bf16 at D 16 and 256 the CUDA-core
-kernel.  Neither falls back to the other.
+source's entry point applies the same rule): bf16 at D 64, 120, 128 and
+256 runs the tensor-core kernels (wgmma fed by TMA, P rounded to bf16
+before it meets V; at D 256 two consumer warpgroups on a 128-row q tile),
+f32 at every head dim and bf16 at D 16 the CUDA-core kernel.  Neither
+falls back to the other.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment,
 launches on the current stream, raises if the launch failed, and counts
@@ -46,14 +47,15 @@ from .ref import check_lengths
 
 
 ROUTES = ("tensor_core", "cuda_core")
-# head dims whose bf16 flash kernels run on the tensor cores
-TENSOR_CORE_HEAD_DIMS = (64, 120, 128)
+# head dims whose bf16 flash kernels (forward and backward) run on the
+# tensor cores
+TENSOR_CORE_HEAD_DIMS = (64, 120, 128, 256)
 
 
 def fwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The forward kernel a call of this dtype and head dim takes:
-    ``"tensor_core"`` for bf16 at D 64, 120 and 128, ``"cuda_core"`` for
-    f32 at every head dim and bf16 at D 16 and 256."""
+    ``"tensor_core"`` for bf16 at D 64, 120, 128 and 256, ``"cuda_core"``
+    for f32 at every head dim and bf16 at D 16."""
     if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"

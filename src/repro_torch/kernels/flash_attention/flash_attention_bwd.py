@@ -15,8 +15,8 @@ Two routes, by dtype and head dim alone (:func:`bwd_route`; the CUDA
 source's entry points apply the same rule): bf16 at D 64, 120, 128 and
 256 runs the tensor-core kernels (wgmma fed by TMA), f32 at every head dim
 and bf16 at D 16 the CUDA-core kernels.  Neither falls back to the other.
-The rule is the backward's own: the forward keeps bf16 D 256 on the CUDA
-cores (:func:`~.flash_attention.fwd_route`).  At bf16 D 256 the dK/dV
+The rule is the forward's (:func:`~.flash_attention.fwd_route`).  At bf16
+D 256 the dK/dV
 kernel splits each GQA group's query heads over :func:`dkv_split` CTAs a
 key tile where the key tiles alone would leave SMs idle; the wrapper then
 allocates the kernel's f32 workspace of partial sums, which a second
@@ -41,22 +41,18 @@ import torch
 from repro_torch.kernels import KERNEL_DTYPES, _build, check_operand, sm_count
 from repro_torch.roofline.analysis import HW
 
-from .flash_attention import ROUTES, charge_meta, check_qkv, library_route
+from .flash_attention import (ROUTES, charge_meta, check_qkv, fwd_route,
+                              library_route)
 
-# head dims whose bf16 backward kernels run on the tensor cores (the
-# forward's TENSOR_CORE_HEAD_DIMS and D 256)
-BWD_TENSOR_CORE_HEAD_DIMS = (64, 120, 128, 256)
 # keys per dK/dV CTA on the tensor-core route (flash_tc.cuh's kKeys)
 KEY_TILE = 64
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernels a call of this dtype and head dim takes:
-    ``"tensor_core"`` for bf16 at D 64, 120, 128 and 256, ``"cuda_core"``
-    for f32 at every head dim and bf16 at D 16."""
-    if dtype == torch.bfloat16 and head_dim in BWD_TENSOR_CORE_HEAD_DIMS:
-        return "tensor_core"
-    return "cuda_core"
+    """The backward kernels a call of this dtype and head dim takes: the
+    forward's rule, ``"tensor_core"`` for bf16 at D 64, 120, 128 and 256,
+    ``"cuda_core"`` for f32 at every head dim and bf16 at D 16."""
+    return fwd_route(dtype, head_dim)
 
 
 def dkv_split(b: int, sk: int, group: int, sms: int) -> int:

@@ -17,17 +17,21 @@ same bf16 inputs and rounds its outputs to bf16 once, except that the
 Pallas backward rounds each query head's dK/dV to bf16 before summing the
 GQA group, so the two differ by up to an ulp of bf16 (2^-8) per head.
 
-The forward's route rule (bf16 at D 64, 120 and 128 on the tensor cores,
-everything else on the CUDA cores) and the backward's (the same and bf16
-at D 256) are pinned here on the CPU, and so are the forward wrappers'
-per-route counters and the D 256 dK/dV kernel's split of a group's query
-heads (``dkv_split``).
+The route rule, the forward's and the backward's alike (bf16 at D 64,
+120, 128 and 256 on the tensor cores, everything else on the CUDA cores),
+is pinned here on the CPU, and so are the forward wrappers' per-route
+counters and the D 256 dK/dV kernel's split of a group's query heads
+(``dkv_split``).
 
 Tests marked ``cuda`` hold the CUDA kernels against the plain versions on
-the card, at D = 120, 128 and 256 too, the tensor-core forward (D 64-128)
-and backward (D 64-256) also at their tile edges (S = 1, 63, 64, 65, 127, 130 and 4096;
-windows 32 and 1024, causal and not; groups of 1, 4 and 8) with the route
-each call took read from the wrappers' per-route counters; they skip
+the card, at D = 120, 128 and 256 too, the tensor-core forward and
+backward (D 64-256) also at their tile edges (S = 1, 63, 64, 65, 127,
+129, 130, 200, 257 and 4096; windows 32 to 1024 that end inside a key
+tile or cut the D 256 forward's 128-row q tile between its halves, causal
+and not; groups of 1 to 8) with the route each call took read from the
+wrappers' per-route counters, and the bf16 D 256 forward at MQA 16/1
+under recurrentgemma-9b's window, on head chunks bit for bit against the
+full launch, and with and without its LSE output bit for bit; they skip
 where there is no card.  The
 machine with the card has no JAX, so this file imports the JAX package
 only inside the ``jx`` fixture, and runs there without the repository's
@@ -51,7 +55,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_dq, flash_attention_fwd_lse, fwd_route,
     library_bwd_route, library_fwd_route)
 from repro_torch.kernels.flash_attention.flash_attention_bwd import (
-    BWD_TENSOR_CORE_HEAD_DIMS, dkv_split)
+    dkv_split)
 from repro_torch.models import layers
 from repro_torch.roofline import op_cost
 from repro_torch.roofline.analysis import HW
@@ -283,10 +287,9 @@ FWD_ROUTES = {("float32", 16): "cuda_core", ("float32", 64): "cuda_core",
               ("bfloat16", 64): "tensor_core",
               ("bfloat16", 120): "tensor_core",
               ("bfloat16", 128): "tensor_core",
-              ("bfloat16", 256): "cuda_core"}
-# the backward's: the same but bf16 at D 256, whose dQ and two-warpgroup
-# dK/dV kernels run on the tensor cores
-BWD_ROUTES = {**FWD_ROUTES, ("bfloat16", 256): "tensor_core"}
+              ("bfloat16", 256): "tensor_core"}
+# the backward's: the forward's rule
+BWD_ROUTES = FWD_ROUTES
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -302,8 +305,8 @@ def test_backward_route_rule(d, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_forward_route_rule(d, dtype):
-    """The forward's rule: bf16 at D 64, 120 and 128 on the tensor-core
-    kernel, f32 at every head dim and bf16 at D 16 and 256 on the
+    """The forward's rule: bf16 at D 64, 120, 128 and 256 on the
+    tensor-core kernels, f32 at every head dim and bf16 at D 16 on the
     CUDA-core one."""
     assert fwd_route(TORCH_DT[dtype], d) == FWD_ROUTES[dtype, d]
 
@@ -475,7 +478,7 @@ TC_EDGE_CASES = [
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", BWD_TENSOR_CORE_HEAD_DIMS)
+@pytest.mark.parametrize("d", TENSOR_CORE_HEAD_DIMS)
 @pytest.mark.parametrize("case", TC_EDGE_CASES,
                          ids=lambda c: f"S{c[0]}-G{c[1]}-"
                                        f"{'c' if c[2] else 'nc'}-w{c[3]}")
@@ -512,9 +515,13 @@ def test_library_forward_route_agrees_on_card(cuda):
             assert library_fwd_route(dtype, d) == fwd_route(dtype, d)
 
 
-# tile edges of the tensor-core forward (64-row q tiles, 64-key tiles):
-# (S, G, causal, window) at Kv 2, bf16; windows 32 and 70 end inside a
-# key tile, 64 on its edge
+# tile edges of the tensor-core forward (64-row q tiles, 128 at D 256,
+# 64-key tiles): (S, G, causal, window) at Kv 2, bf16; windows 32 and 70
+# end inside a key tile, 64 on its edge; at D 256 a window of 32 or 64
+# gives the two halves of a 128-row tile different first key tiles from
+# S 200 on (the upper half skips the lower one's first stage, the lower
+# half the upper one's last), S 127 and 129 straddle the tile, and S 1,
+# 63 and 65 leave the upper half without a row or with one
 TC_FWD_EDGE_CASES = [
     (1, 1, True, 0),
     (1, 8, False, 0),
@@ -529,6 +536,12 @@ TC_FWD_EDGE_CASES = [
     (130, 8, False, 32),
     (130, 4, True, 70),
     (130, 1, True, 0),
+    (127, 4, True, 0),
+    (129, 1, True, 32),
+    (129, 8, False, 0),
+    (200, 2, True, 32),
+    (257, 1, True, 64),
+    (257, 4, False, 64),
     (4096, 8, True, 1024),
 ]
 
@@ -562,3 +575,73 @@ def test_tensor_core_forward_at_tile_edges_on_card(cuda, case, d):
                                    rtol=tol)
     assert torch.equal(o, o_only)
     torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+# the bf16 D 256 forward (two consumer warpgroups on a 128-row q tile):
+# (H, Kv, S, window), recurrentgemma-9b's MQA 16/1 under its window 2048
+# and gemma3-4b's GQA 8/4 under its local window 1024, causal, S off the
+# q tile
+D256_FWD_CASES = [(16, 1, 130, 2048), (16, 1, 1100, 2048),
+                  (8, 4, 1100, 1024)]
+
+
+def _fwd256(cuda, h, kv, s, window, b=1, seed=12):
+    c = make_case(s, 256, h, kv, seed=seed, b=b, scale=0.7)
+    return (*(to_torch(c[n], "bfloat16", cuda) for n in "qkv"),
+            dict(causal=True, window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D256_FWD_CASES[:2],
+                         ids=lambda c: f"H{c[0]}kv{c[1]}-S{c[2]}-w{c[3]}")
+def test_tensor_core_forward_d256_mqa_window_on_card(cuda, case):
+    """o and lse at recurrentgemma-9b's heads and window against the
+    plain version in f32, within the bf16 tolerance the D 128 route
+    meets; both launches counted on the tensor-core route."""
+    q, k, v, mask = _fwd256(cuda, *case)
+    fwds = (flash_attention, flash_attention_fwd_lse)
+    before = [dict(f.route_launches) for f in fwds]
+    o_only = flash_attention(q, k, v, **mask)
+    o, lse = flash_attention_fwd_lse(q, k, v, **mask)
+    torch.cuda.synchronize()
+    for f, was in zip(fwds, before):
+        assert f.route_launches == {"tensor_core": was["tensor_core"] + 1,
+                                    "cuda_core": was["cuda_core"]}
+    want_o, want_lse = attention_lse_ref(q.float(), k.float(), v.float(),
+                                         **mask)
+    tol = CARD_TOL["bfloat16"]
+    for got in (o_only, o):
+        torch.testing.assert_close(got.float(),
+                                   want_o.to(got.dtype).float(), atol=tol,
+                                   rtol=tol)
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tensor_core_forward_d256_head_chunks_bit_for_bit_on_card(cuda):
+    """gemma3-4b's 8/4 heads under its local window: each of two head
+    chunks (a tensor-parallel rank's 4/2) gives the full launch's o and
+    lse bit for bit, with two batch rows against one."""
+    q, k, v, mask = _fwd256(cuda, 8, 4, 1100, 1024, b=2)
+    o, lse = flash_attention_fwd_lse(q, k, v, **mask)
+    for r in range(2):
+        hq, hk = slice(4 * r, 4 * r + 4), slice(2 * r, 2 * r + 2)
+        for b in (slice(0, 2), slice(1, 2)):
+            o_r, lse_r = flash_attention_fwd_lse(
+                q[b, hq].contiguous(), k[b, hk].contiguous(),
+                v[b, hk].contiguous(), **mask)
+            torch.cuda.synchronize()
+            assert torch.equal(o_r, o[b, hq])
+            assert torch.equal(lse_r, lse[b, hq])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", D256_FWD_CASES,
+                         ids=lambda c: f"H{c[0]}kv{c[1]}-S{c[2]}-w{c[3]}")
+def test_tensor_core_forward_d256_lse_output_keeps_o_on_card(cuda, case):
+    """One kernel with and without its LSE output: o bit for bit."""
+    q, k, v, mask = _fwd256(cuda, *case, b=2)
+    o_only = flash_attention(q, k, v, **mask)
+    o, _ = flash_attention_fwd_lse(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_only)
