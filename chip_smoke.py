@@ -178,20 +178,32 @@ caught:
                 the f32 cut has 2 layers);
   9. train    — yi-6b at full width and 4 of its 32 layers (bf16, seeded
                 random weights) takes 6 AdamW steps through the Trainer
-                (batch 2 x 4096, 2 microbatches, remat, both SmartConf knobs
-                live; the last step profiled: device time by kind of
-                kernel), a validation loss without gradients, then a
-                preemption checkpoint that a fresh Trainer restores bit for
-                bit.  Each step launches the flash forward 2 x layers x
-                microbatches times (remat runs it again in the backward
-                pass) and each backward kernel layers x microbatches times,
-                every one of them on the tensor-core route (asserted), and
-                the profiled step's flash forward device ms are printed;
-                then full-width cuts of recurrentgemma-9b (3 layers: rglru,
+                (batch 2 x 4096, 2 microbatches, remat "dots", both
+                SmartConf knobs live; the last step profiled: device time
+                by kind of kernel), a validation loss without gradients,
+                then a fresh Trainer restores the latest checkpoint (after
+                step 3 on the card, where the write's seconds move the
+                interval past the run) bit for bit (64-bit fingerprints of
+                every leaf taken when it was written).  Each step launches
+                the flash forward 2 x layers x microbatches times (remat
+                runs it again in the backward pass) and each backward
+                kernel layers x microbatches times, every one of them on
+                the tensor-core route (asserted), and the profiled step's
+                flash forward device ms are printed; (b) the same cut from
+                seeded weights and one batch under remat "dots" (the
+                products without batch dims kept, the reference's policy)
+                and "full" (every activation recomputed): the first step's
+                gradients compared bit for bit (else the largest gap), the
+                step ms median of two more steps, max_memory_allocated
+                against the dry-run's reckoning of each (within 20%,
+                asserted), the matrix products' device ms of one profiled
+                step, the same flash launches under both (asserted); then
+                full-width cuts of recurrentgemma-9b (3 layers: rglru,
                 rglru, swa) and rwkv6-7b (2 layers) take 6 steps each the
                 same way (no checkpoint), with the reckoned peak memory
-                beside max_memory_allocated, every flash forward, dQ and
-                dK/dV launch (D 256) on the tensor cores (asserted);
+                (the saved products counted on ``meta``) beside
+                max_memory_allocated, every flash forward, dQ and dK/dV
+                launch (D 256) on the tensor cores (asserted);
  10. split    — full yi-6b again (phase 6's weights kept), the same 8
                 requests through the launcher's functions with
                 ``prefill_mode="legacy"`` (one-shot prefill per admitted
@@ -529,6 +541,7 @@ from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E40
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
 from repro_torch.models import moe as moe_model  # noqa: E402
+from repro_torch.models import remat as remat_policy  # noqa: E402
 from repro_torch.models import rglru as rglru_model  # noqa: E402
 from repro_torch.models import rwkv6 as rwkv6_model  # noqa: E402
 from repro_torch.models.layers import apply_norm, project  # noqa: E402
@@ -613,7 +626,9 @@ GNORM_FLOOR_TIMES, GNORM_NUDGES = 10, 4
 GAP_FLOOR_TIMES = 10
 # the training slice: yi-6b at full width, 4 of its 32 layers
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 2, 4096, 2, 6
-TRAIN_MIN_FREE_DISK = 30e9     # two 12.2 GB checkpoints on disk while writing
+TRAIN_MIN_FREE_DISK = 30e9     # one 12.2 GB checkpoint and room to spare
+# 9b: the policies held against each other, and the steps timed of each
+REMAT_POLICIES, REMAT_TIMED = ("dots", "full"), 2
 # phase 9's cuts of the recurrent archs at full width: recurrentgemma-9b's
 # first (rglru, rglru, swa) group, so the swa layer's flash kernels train
 # at D 256; rwkv6-7b's first two layers (at full depth neither fits:
@@ -3733,8 +3748,11 @@ def phase_train_slice(dev, card, timing) -> dict:
     TRAIN_BATCH x TRAIN_SEQ, TRAIN_MICRO microbatches, default remat, both
     SmartConf knobs live, the first checkpoint after step 3, one kept),
     then a validation loss without gradients on a held-out batch, then a
-    preemption checkpoint of the final state that a fresh Trainer
-    restores bit for bit, its data stream at the saved position."""
+    fresh Trainer restores the latest checkpoint bit for bit against the
+    fingerprints of the state taken when it was written, its data stream
+    at the saved position.  (The preemption checkpoint of the final state
+    is the CPU tests' ``test_preemption_writes_a_checkpoint_and_stops``:
+    a second 12.2 GB write here took 17-24 s.)"""
     cfg = dataclasses.replace(get_config("yi-6b"), num_layers=TRAIN_LAYERS)
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
@@ -3742,7 +3760,7 @@ def phase_train_slice(dev, card, timing) -> dict:
     free = shutil.disk_usage(workdir).free
     if free < TRAIN_MIN_FREE_DISK:
         fail(f"{free / 1e9:.1f} GB free under {workdir}: the training slice "
-             f"writes two 12.2 GB checkpoints and needs "
+             f"writes a 12.2 GB checkpoint and needs "
              f"{TRAIN_MIN_FREE_DISK / 1e9:.0f} GB")
     tc = TrainerConfig(workdir=str(workdir), total_steps=TRAIN_STEPS,
                        ckpt_interval=3, ckpt_keep=1, batch_size=TRAIN_BATCH,
@@ -3762,6 +3780,7 @@ def phase_train_slice(dev, card, timing) -> dict:
     counted = (flash_attention, flash_attention_fwd_lse, flash_attention_dq,
                flash_attention_dkv)
     step_s = []
+    written = None       # (step, data step, fingerprints) at the last write
     torch.cuda.reset_peak_memory_stats(dev)
     for fn in counted:
         fn.launches = 0
@@ -3777,6 +3796,9 @@ def phase_train_slice(dev, card, timing) -> dict:
         else:
             tr.run(1)
         step_s.append(time.perf_counter() - t0 - (tr.ckpt.write_seconds - w0))
+        if tr.ckpt.last_saved == tr.step:      # the latest write, kept
+            written = (tr.step, tr.data_step, fingerprints(
+                {"params": tr.params, "opt": tr.opt_state}))
         knobs["data.prefetch_depth"].append(tr.pipeline.depth)
         knobs["train.ckpt_interval_steps"].append(tr.ckpt.interval_steps)
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3847,43 +3869,191 @@ def phase_train_slice(dev, card, timing) -> dict:
     if not all(len(set(v)) > 1 for v in knobs.values()):
         fail("a SmartConf knob never moved")
 
-    tr.preemption.trigger()
-    w0 = tr.ckpt.write_seconds
-    tr.run(1)                       # writes the final state and stops
-    say(f"[train] preemption checkpoint at step {tr.ckpt.last_saved}: "
-        f"{tr.ckpt.write_seconds - w0:.1f} s")
-    if tr.step != TRAIN_STEPS or tr.ckpt.last_saved != TRAIN_STEPS:
-        fail("preemption did not checkpoint the final step and stop")
+    saved_step, saved_data, saved = written
     t0 = time.perf_counter()
     fresh = Trainer(cfg, opt, tc, device=dev)
     load_s = time.perf_counter() - t0
-    saved = dict(keyed_leaves({"params": tr.params, "opt": tr.opt_state}))
-    back = dict(keyed_leaves({"params": fresh.params,
-                              "opt": fresh.opt_state}))
-    same = [k for k in saved if saved[k].dtype == back[k].dtype
-            and torch.equal(saved[k], back[k])]
+    back = fingerprints({"params": fresh.params, "opt": fresh.opt_state})
+    same = [k for k in saved if back.get(k) == saved[k]]
+    dtypes = all(a.dtype == b.dtype for a, b in zip(
+        tree_leaves({"params": tr.params, "opt": tr.opt_state}),
+        tree_leaves({"params": fresh.params, "opt": fresh.opt_state})))
     stream = SyntheticTokens(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    stream.restore({"step": tr.data_step, "seed": 0})
+    stream.restore({"step": saved_data, "seed": 0})
     first = fresh.pipeline.get()
-    resumed = fresh.data_step == tr.data_step and all(
+    resumed = fresh.data_step == saved_data and all(
         np.array_equal(first[n], a) for n, a in stream.next_batch().items())
-    say(f"[train] a fresh Trainer restored step {fresh.step} in {load_s:.1f}"
-        f" s (init included): {len(same)}/{len(saved)} leaves of params and "
-        f"moments bit for bit; data stream at {fresh.data_step} (saved "
-        f"{tr.data_step}), next batch the stream's: {resumed}")
+    say(f"[train] a fresh Trainer restored step {fresh.step} (written after "
+        f"step {saved_step}) in {load_s:.1f} s (init included): "
+        f"{len(same)}/{len(saved)} leaves of params and moments bit for bit "
+        f"(fingerprints), dtypes kept: {dtypes}; data stream at "
+        f"{fresh.data_step} (saved {saved_data}), next batch the stream's: "
+        f"{resumed}")
     fresh.close()
     tr.close()
     shutil.rmtree(workdir)
-    if fresh.step != tr.step or len(same) != len(saved) or not resumed:
+    if (fresh.step != saved_step or len(same) != len(saved)
+            or set(back) != set(saved) or not dtypes or not resumed):
         fail("the restored trainer differs from the one that was saved")
     return launches, dict(step_ms=med * 1e3, losses=losses)
+
+
+def phase_remat(dev, card) -> dict:
+    """9b: phase 9's yi-6b cut (TRAIN_LAYERS layers at full width, bf16,
+    TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches) from seeded
+    weights and one batch under each of REMAT_POLICIES: the first step's
+    gradients of each (``accum.accumulate_grads`` on the same weights)
+    compared bit for bit, then ``make_train_step`` steps on a copy of the
+    weights: one to warm, REMAT_TIMED timed (host clock around
+    synchronised steps; their ``max_memory_allocated`` less what was held
+    before against ``dryrun.reckon`` of the same step, within
+    RECKON_LIMIT) and one profiled (the matrix products' device ms).  The
+    flash launches must be the same under each (the attention's forward
+    runs again under both).  Returns them."""
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("remat", TRAIN_SEQ, TRAIN_BATCH, "train")
+    one = ShapeMesh((1, 1), ("data", "model"))
+    opt = adamw.AdamWConfig()
+    t0 = time.perf_counter()
+    reckoned = {r: dryrun.reckon(cfg, shape, one, n_micro=TRAIN_MICRO,
+                                 remat=r) for r in REMAT_POLICIES}
+    t_dry = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(dev)
+    base = zoo.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=gen, device=dev, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    grads = {}
+    for r in REMAT_POLICIES:
+        _, _, g = accum.accumulate_grads(
+            lambda p, b, r=r: zoo.loss_fn(cfg, p, b, remat=r), base, batch,
+            TRAIN_MICRO)
+        grads[r] = list(tree_leaves(g))
+    first, other = (grads[r] for r in REMAT_POLICIES)
+    n = len(first)
+    equal = sum(torch.equal(a, b) for a, b in zip(first, other))
+    gap = max(float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp_min(1e-30))
+              for a, b in zip(first, other))
+    finite = all(bool(torch.isfinite(a).all()) for a in first + other)
+    del grads, first, other, g
+    out, launches = {}, {}
+    for r in REMAT_POLICIES:
+        params = tree_map(lambda t: t.detach().clone(), base)
+        state = adamw.init(params)
+        step = train_step.make_train_step(cfg, opt, n_micro=TRAIN_MICRO,
+                                          remat=r)
+        reset_counts(TRAIN_COUNTED)
+        step(params, state, batch)                       # warm
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for _ in range(REMAT_TIMED):
+            t1 = time.perf_counter()
+            _, _, m = step(params, state, batch)
+            loss = float(m["loss"])
+            torch.cuda.synchronize(dev)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step(params, state, batch)
+            torch.cuda.synchronize(dev)
+        kinds, busy, span = device_breakdown(prof)
+        launches[r] = {fn.__name__: fn.launches for fn in TRAIN_COUNTED}
+        # the base weights and the batch are held besides the step's state
+        peak -= sum(t.numel() * t.element_size() for t in tree_leaves(base))
+        out[r] = dict(ms=statistics.median(ms), peak=peak, loss=loss,
+                      reckoned=reckoned[r]["peak_bytes"],
+                      flops=reckoned[r]["cost"]["flops"],
+                      gemm=kinds.get("matrix products", 0.0), busy=busy,
+                      span=span)
+        del params, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del base, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[remat] {cfg.name} {TRAIN_LAYERS} layers bf16, {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches on {card}: the first "
+        f"step's gradients under {' and '.join(REMAT_POLICIES)}: {equal}/{n}"
+        f" leaves bit for bit, largest gap {gap:.3e} of a leaf's max|g|; "
+        f"the dry-run's two reckonings {t_dry:.1f} s")
+    for r, o in out.items():
+        g = (o["reckoned"] - o["peak"]) / o["peak"]
+        say(f"[remat] {r} on {card}: step ms {o['ms']:.1f} (median of "
+            f"{REMAT_TIMED}), loss {o['loss']:.4f}; max_memory_allocated "
+            f"{o['peak'] / 1e9:.3f} GB against the reckoned "
+            f"{o['reckoned'] / 1e9:.3f} GB ({g:+.2%}); reckoned "
+            f"{o['flops'] / 1e12:.2f} TFLOP a step; profiled step: matrix "
+            f"products {o['gemm']:.1f} device ms, device busy "
+            f"{o['busy']:.1f} of {o['span']:.1f} ms; flash launches "
+            f"{launches[r]}")
+        if abs(g) > RECKON_LIMIT:
+            fail(f"[remat] {r}: the reckoned peak misses the measured one "
+                 f"by {g:+.2%} (limit {RECKON_LIMIT:.0%})")
+        if not math.isfinite(o["loss"]):
+            fail(f"[remat] {r}: loss {o['loss']}")
+    if not finite or gap > TRAIN_GRAD_LIMIT:
+        fail(f"[remat] the policies' gradients differ by {gap:.3e} of a "
+             f"leaf (limit {TRAIN_GRAD_LIMIT}) or are not finite")
+    a, b = (launches[r] for r in REMAT_POLICIES)
+    if a != b:
+        fail(f"[remat] flash launches differ between the policies: {a}, {b}")
+    total = {k: a[k] + b[k] for k in a}
+    return total
+
+
+@contextlib.contextmanager
+def kept_products():
+    """The products ``remat="dots"`` keeps (``models.remat.dot``),
+    recorded by wrapping ``remat.contexts``: a list per checkpointed
+    layer, in call order, of each kept forward output's (elements, bytes
+    an element), read as its forward pass ends."""
+    calls = []
+    make = remat_policy.contexts
+
+    @contextlib.contextmanager
+    def recorded(forward, mine):
+        with forward:
+            yield
+        mine.extend((t.numel(), t.element_size()) for t in forward.kept)
+
+    def contexts():
+        forward, recompute = make()
+        calls.append([])
+        return recorded(forward, calls[-1]), recompute
+    remat_policy.contexts = contexts
+    try:
+        yield calls
+    finally:
+        remat_policy.contexts = make
+
+
+def saved_products(cfg, micro: int, seq: int) -> int:
+    """Bytes of the products ``remat="dots"`` keeps through one
+    microbatch's forward (q/k/v/o, the MLP, the recurrent blocks'
+    projections of every group layer), counted on ``meta`` from the
+    shapes: ``loss_fn``'s forward with gradients on, nothing allocated."""
+    params = tree_map(lambda t: t.requires_grad_(),
+                      zoo.abstract_params(cfg)[0])
+    batch = {k: torch.zeros(micro, seq, dtype=torch.int32, device="meta")
+             for k in ("tokens", "labels")}
+    with kept_products() as calls:
+        zoo.loss_fn(cfg, params, batch, remat="dots")
+    return sum(n * size for call in calls for n, size in call)
 
 
 def train_reckoning(cfg, n_par: int, largest: int, micro: int,
                     seq: int) -> dict:
     """What a training step should hold at its peak, reckoned from the
     shapes before it runs (bytes): weights and grads in bf16, f32 moments
-    and accumulator; the input of every layer, which remat keeps; one
+    and accumulator; the input of every layer and the products that
+    remat="dots" keeps (:func:`saved_products`); one
     recurrent layer's graph as the backward pass recomputes it (the
     RG-LRU's doubling scan saves two [micro, S, F] f32 tensors a level;
     ``time_mix_chunked`` about four [micro, L, L, H, N] f32 tensors a
@@ -3899,7 +4069,8 @@ def train_reckoning(cfg, n_par: int, largest: int, micro: int,
     if "rwkv6" in kinds:
         layer = 4 * micro * seq * rwkv6_model.CHUNK * d * 4
     out = dict(state=n_par * (2 + 2 + 4 + 4 + 4),
-               inputs=cfg.num_layers * micro * seq * d * 2, layer=layer,
+               inputs=cfg.num_layers * micro * seq * d * 2,
+               saved=saved_products(cfg, micro, seq), layer=layer,
                loss=3 * transformer.LOSS_CHUNK * cfg.vocab_size * 4,
                optimizer=3 * largest * 4)
     out["total"] = sum(out.values())
@@ -8033,6 +8204,9 @@ def main() -> None:
     mark("8, rwkv6-7b serving, packed and legacy")
     count(phase_train_slice(dev, card, timing)[0])
     torch.cuda.empty_cache()
+    mark("9a, yi-6b training")
+    count(phase_remat(dev, card))
+    mark("9b, remat policies")
     for arch, layers in TRAIN_CUTS:
         count(phase_train_cut(dev, card, arch, layers))
         torch.cuda.empty_cache()

@@ -187,9 +187,11 @@ def train_mesh(cfg, shape: ShapeConfig, mesh) -> ShapeMesh:
     return ShapeMesh((d, mesh.shape.get("model", 1)), ("data", "model"))
 
 
-def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
+def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1,
+           remat: str = "dots") -> dict:
     """One cell's reckoning (see the module docstring): counts, memory,
-    collectives.  Raises what the step raises on ``meta``."""
+    collectives; a train cell's step under the ``remat`` policy.  Raises
+    what the step raises on ``meta``."""
     is_train = shape.kind == "train"
     m = mesh.shape.get("model", 1)
     if is_train:
@@ -212,11 +214,11 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1) -> dict:
             + _tree_local_bytes(aopt.v, ospecs.v, mesh)
         if mesh.size == 1:
             step = ts.make_train_step(cfg, adamw.AdamWConfig(),
-                                      n_micro=n_micro)
+                                      n_micro=n_micro, remat=remat)
             args = (aparams, aopt, batch)
         else:
             step = ts.make_mesh_train_step(cfg, adamw.AdamWConfig(), mesh,
-                                           n_micro=n_micro)
+                                           n_micro=n_micro, remat=remat)
             state = step.placement.local({"params": aparams, "opt": aopt})
             args = (state["params"], state["opt"], batch)
     elif shape.kind == "prefill":

@@ -200,6 +200,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _rank_device(device) -> str:
+    """What the ranks run on: CUDA unless the caller asks for something
+    else, as ``models.transformer.resolve_device`` rules; asking for CUDA
+    without a card raises here, before any rank starts.  (The parent
+    only names the device: each rank takes card 0 itself.)"""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the ranks on the CPU")
+    return str(device)
+
+
 def _rank_main(rank, n, data, model, port, device, timeout_s, threads,
                tasks, results) -> None:
     """One rank: join the group, build the mesh, run what it is fed
@@ -240,14 +252,16 @@ class MeshPool:
     timeout: a collective that deadlocks fails instead of waiting for
     gloo's 30-minute default) and each :meth:`run`.  After a failed run
     the pool starts its ranks anew at the next one: a rank that raised
-    can leave its group out of step."""
+    can leave its group out of step.  The ranks run on the card unless
+    ``device`` names another (``"cpu"``); without a card the default
+    raises."""
 
-    def __init__(self, data: int, model: int, *, device="cpu",
+    def __init__(self, data: int, model: int, *, device=None,
                  timeout_s: float = DEFAULT_TIMEOUT_S,
                  threads: int | None = None) -> None:
         self.data, self.model = data, model
         self.n = data * model
-        self.device = str(device)
+        self.device = _rank_device(device)
         self.timeout_s = timeout_s
         self.threads = threads
         self._procs: list = []
@@ -337,11 +351,12 @@ class MeshPool:
         self.close()
 
 
-def spawn_mesh(data: int, model: int, fn, *args, device="cpu",
+def spawn_mesh(data: int, model: int, fn, *args, device=None,
                timeout_s: float = DEFAULT_TIMEOUT_S,
                threads: int | None = None) -> list:
     """Start ``data * model`` ranks, run ``fn(*args)`` on each, stop them,
-    and return the results by rank (see :meth:`MeshPool.run`).  Inside
+    and return the results by rank (see :meth:`MeshPool.run`; on the card
+    unless ``device`` names another).  Inside
     ``fn``, :func:`make_host_mesh` gives the rank its mesh; an engine
     built with ``ServeOptions(mesh="DxM")`` builds the same one."""
     with MeshPool(data, model, device=device, timeout_s=timeout_s,

@@ -309,7 +309,7 @@ def main() -> None:
     # spawned rank cannot import by that name
     rank_fn = importlib.import_module("repro_torch.launch.serve")._mesh_rank
     print(spawn_mesh(data, model, rank_fn, args,
-                     device=args.device or "cuda")[0], end="")
+                     device=args.device)[0], end="")
 
 
 def _mesh_rank(args) -> str:

@@ -26,6 +26,8 @@ from repro_torch.distributed.collectives import (copy_to_model,
                                                  reduce_from_model)
 from repro_torch.distributed.sharding import A
 
+from .remat import dot
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -138,13 +140,13 @@ def mlp_axes(kind: str) -> dict:
 def project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk")`` as one matrix product."""
     d, h, k = w.shape
-    return (x @ w.reshape(d, h * k)).unflatten(-1, (h, k))
+    return dot(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
 def attn_output(params: dict, o: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd")`` as one matrix product."""
     h, k, d = params["wo"].shape
-    return o.flatten(-2) @ params["wo"].reshape(h * k, d)
+    return dot(o.flatten(-2), params["wo"].reshape(h * k, d))
 
 
 # ---------------------------------------------------------------------------
@@ -283,13 +285,13 @@ def mlp(params: dict, x: torch.Tensor, kind: str, tp=None,
         x = copy_to_model(x, tp)
     # the reference's gelu is the tanh approximation
     if kind == "swiglu":
-        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+        h = F.silu(dot(x, params["w_gate"])) * dot(x, params["w_up"])
     elif kind == "geglu":
-        h = F.gelu(x @ params["w_gate"], approximate="tanh") \
-            * (x @ params["w_up"])
+        h = F.gelu(dot(x, params["w_gate"]), approximate="tanh") \
+            * dot(x, params["w_up"])
     else:
-        h = F.gelu(x @ params["w_up"], approximate="tanh")
-    y = h @ params["w_down"]
+        h = F.gelu(dot(x, params["w_up"]), approximate="tanh")
+    y = dot(h, params["w_down"])
     if split:
         y = reduce_from_model(y, tp)
     return y

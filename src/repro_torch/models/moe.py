@@ -50,6 +50,7 @@ from repro_torch.distributed.collectives import (all_reduce, copy_to_model,
 from repro_torch.distributed.sharding import A, current_mesh
 
 from .layers import dense_init, mlp
+from .remat import dot
 
 GROUP_TOKENS = 512
 
@@ -173,7 +174,8 @@ def moe_apply(params: dict, x, cfg, *, return_aux: bool = False,
     dev = x.device
 
     xg = x.reshape(g, gt, d)
-    probs = torch.softmax(xg.float() @ params["router"], dim=-1)  # [G,T,E]
+    probs = torch.softmax(dot(xg.float(), params["router"]),
+                          dim=-1)                                 # [G,T,E]
     top_p, top_i, pos, keep = assign(probs, cfg, cap, valid)
 
     # slot tables: token index per (expert, capacity) slot, gt = no token;
@@ -337,7 +339,7 @@ def _moe_local(router, w_gate, w_up, w_down, x, valid, *, cfg, e_local,
     t = b * s
     dev = x.device
     xt = x.reshape(t, d)
-    probs = torch.softmax(xt.float() @ router, dim=-1)    # full router
+    probs = torch.softmax(dot(xt.float(), router), dim=-1)  # full router
     top_p, top_i = route(probs, k)                        # global expert ids
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp(min=1e-9)
     cap = capacity(cfg, t)
@@ -409,7 +411,7 @@ def _router_aux(router, x, cfg):
     on the (cheap, replicated) router pass over x [B, S, d]: ``E * sum_e
     f_e * p_e``, ``f_e`` the share of tokens whose top pick is ``e``,
     ``p_e`` its mean probability."""
-    probs = torch.softmax(x.float() @ router, dim=-1)
+    probs = torch.softmax(dot(x.float(), router), dim=-1)
     top1 = probs.argmax(dim=-1)
     frac = (top1[..., None] == torch.arange(cfg.num_experts,
                                             device=x.device)).float() \

@@ -41,6 +41,7 @@ from repro_torch.distributed.collectives import (copy_to_model,
 from repro_torch.distributed.sharding import A
 
 from .layers import dense_init
+from .remat import dot
 
 CONV_WIDTH = 4
 C_FACTOR = 8.0
@@ -98,7 +99,8 @@ def init_state(cfg, batch: int, device, tp=None) -> dict:
 def _gates(params, u, pre=None):
     """u: [..., dr] -> (log_a, gated input), both f32.  ``pre``: the gate
     inputs ``(u @ wa, u @ wx)`` when the caller has them."""
-    ga, gx = pre if pre is not None else (u @ params["wa"], u @ params["wx"])
+    ga, gx = pre if pre is not None else (dot(u, params["wa"]),
+                                          dot(u, params["wx"]))
     r = torch.sigmoid(ga.float() + params["ba"])
     i = torch.sigmoid(gx.float() + params["bx"])
     # jax.nn.softplus is exact: logaddexp, not torch's thresholded one
@@ -120,8 +122,8 @@ def _conv_taps(ext, w, length: int):
 
 def _gate_out(params, x, h):
     """The gated GeLU branch times the recurrence, then ``w_out``."""
-    gate = F.gelu((x @ params["w_gate_branch"]).float(), approximate="tanh")
-    return (h.float() * gate).to(x.dtype) @ params["w_out"]
+    gate = F.gelu(dot(x, params["w_gate_branch"]).float(), approximate="tanh")
+    return dot((h.float() * gate).to(x.dtype), params["w_out"])
 
 
 def _doubling_scan(log_a, b):
@@ -170,13 +172,13 @@ def rglru_block(params, x, state, tp=None):
         x = copy_to_model(x, tp)
         p = dict(params, **{k: tp.own(params[k]) for k in TP_PARTIAL})
     s = x.shape[1]
-    u = x @ params["w_in"]
+    u = dot(x, params["w_in"])
     ext = torch.cat([state["conv"].to(u.dtype), u], dim=1)
     u_conv = _conv_taps(ext, params["conv_w"], s)
     pre = None
     if split:
-        pre = sum_to_slice(torch.stack([u_conv @ params["wa"],
-                                        u_conv @ params["wx"]], dim=-2),
+        pre = sum_to_slice(torch.stack([dot(u_conv, params["wa"]),
+                                        dot(u_conv, params["wx"])], dim=-2),
                            tp).unbind(-2)
     log_a, inp = _gates(p, u_conv, pre)
     h = _doubling_scan(

@@ -40,6 +40,7 @@ from repro_torch.distributed.collectives import (copy_to_model,
 from repro_torch.distributed.sharding import A
 
 from .layers import dense_init, torch_dtype
+from .remat import dot
 
 HEAD_DIM = 64
 LORA_DIM = 64
@@ -148,12 +149,12 @@ def _projections(params, x, x_prev, tp=None):
     rank's columns, as ``wr`` .. ``wg`` hold them; logw too where the
     heads are split (the LoRA computed whole, then cut with ``w0``), and
     whole where they are not."""
-    r = _mix(x, x_prev, params["mu_r"]) @ params["wr"]
-    k = _mix(x, x_prev, params["mu_k"]) @ params["wk"]
-    v = _mix(x, x_prev, params["mu_v"]) @ params["wv"]
-    g = _mix(x, x_prev, params["mu_g"]) @ params["wg"]
+    r = dot(_mix(x, x_prev, params["mu_r"]), params["wr"])
+    k = dot(_mix(x, x_prev, params["mu_k"]), params["wk"])
+    v = dot(_mix(x, x_prev, params["mu_v"]), params["wv"])
+    g = dot(_mix(x, x_prev, params["mu_g"]), params["wg"])
     xw = _mix(x, x_prev, params["mu_w"])
-    lora = torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"]
+    lora = dot(torch.tanh(dot(xw, params["w_lora_a"])), params["w_lora_b"])
     w0 = params["w0"]
     if tp is not None and tp.split["heads"]:
         lora, w0 = tp.own(lora), tp.own(w0)
@@ -187,7 +188,7 @@ def _out(params, y, g, dtype, tp=None):
         y = _groupnorm(y, tp.own(params["ln_scale"]))
     else:
         y = tp.own(_groupnorm(y, params["ln_scale"]))
-    out = (y * (g * torch.sigmoid(g))).to(dtype) @ params["wo"]
+    out = dot((y * (g * torch.sigmoid(g))).to(dtype), params["wo"])
     return out if tp is None else reduce_from_model(out, tp)
 
 
@@ -351,5 +352,5 @@ def channel_mix(params, x, x_last, tp=None):
     split = _split(tp)
     if split:
         xk = copy_to_model(xk, tp)
-    out = torch.relu(xk @ params["cm_k"]).square() @ params["cm_v"]
+    out = dot(torch.relu(dot(xk, params["cm_k"])).square(), params["cm_v"])
     return (reduce_from_model(out, tp) if split else out), new_last

@@ -85,6 +85,7 @@ from repro_torch.distributed.sharding import A
 
 from . import blocks as B
 from . import layers
+from . import remat as remat_policy
 from .layers import (apply_norm, attn_output, dense_init, norm_init, project,
                      torch_dtype)
 
@@ -589,12 +590,17 @@ def decode_step(cfg, params, caches, token, pos, block_tables=None,
 # ---------------------------------------------------------------------------
 
 
-def _grad_checkpoint(fn, *args):
+def _grad_checkpoint(fn, *args, dots: bool = False):
     """``fn(*args)``, its activations recomputed in the backward pass when a
-    gradient is being taken (``torch.utils.checkpoint``, non-reentrant)."""
+    gradient is being taken (``torch.utils.checkpoint``, non-reentrant);
+    with ``dots`` the forward keeps the products without batch dims and
+    the recompute takes them back (:mod:`.remat`)."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False)
+    if not dots:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=remat_policy.contexts)
 
 
 def _inputs_embeds(cfg, params, batch, tp=None):
@@ -668,14 +674,17 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
     followed by its cross-attention to ``enc_out`` when one is given (the
     encoder-decoder).  ``caches`` is None in training; in the one-shot
     prefill it is a dense cache tree from :func:`init_cache`, which every
-    layer fills in place.  With ``remat`` other than ``"none"`` every
-    group layer, its cross-attention with it, recomputes its activations
-    in the backward pass; the reference rematerialises the scanned group
-    body under its ``remat`` policy, and the flash kernels' outputs are
-    not among what ``"dots"`` saves, so there too the attention forward
-    runs again in the backward pass, its collectives over ``model``
-    under ``tp`` among it (the same on every rank).  Returns ``(x,
-    aux_total)``."""
+    layer fills in place.  ``remat`` is the reference's policy for the
+    group layers (each with its cross-attention), checkpointed as it
+    checkpoints its scanned group body: ``"none"`` keeps every
+    activation; ``"dots"`` keeps the products without batch dims
+    (``remat.dot``: q/k/v/o, the MLP, the recurrent blocks' projections,
+    the router and the shared experts) and recomputes the rest in the
+    backward pass (the batched products, the attention kernels' forward,
+    the collectives over ``model`` under ``tp``, the same on every rank,
+    and the elementwise work); any other value keeps only each layer's
+    input.  The prefix and remainder layers and the encoder are not
+    checkpointed, as in the reference.  Returns ``(x, aux_total)``."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     prefix, pattern, n_groups, rem = _plan(cfg)
     layer_caches = (_layers(cfg, params, caches) if caches is not None
@@ -694,7 +703,8 @@ def _run_blocks_seq(cfg, params, x, positions, *, remat: str = "none",
                 x = cross_attend(cfg, cp, x, enc_out, tp=tp)
             return x, aux
         if grouped and remat != "none":
-            return _grad_checkpoint(fn, p, cp, x, enc_out)
+            return _grad_checkpoint(fn, p, cp, x, enc_out,
+                                    dots=remat == "dots")
         return fn(p, cp, x, enc_out)
 
     for j, kind in enumerate(prefix):

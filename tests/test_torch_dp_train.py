@@ -73,7 +73,8 @@ def jx(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def pool():
-    p = MeshPool(4, 1, timeout_s=60.0, threads=1)
+    p = MeshPool(4, 1, device="cpu", timeout_s=60.0,
+                 threads=1)
     yield p
     p.close()
 

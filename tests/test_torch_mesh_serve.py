@@ -59,7 +59,8 @@ MESH = "2x2"
 
 @pytest.fixture(scope="module")
 def pool():
-    p = MeshPool(2, 2, timeout_s=60.0, threads=1)
+    p = MeshPool(2, 2, device="cpu", timeout_s=60.0,
+                 threads=1)
     yield p
     p.close()
 

@@ -129,7 +129,8 @@ def test_steps_run_on_the_inputs_device():
 
 @pytest.fixture(scope="module")
 def pool():
-    p = MeshPool(4, 1, timeout_s=60.0, threads=1)
+    p = MeshPool(4, 1, device="cpu", timeout_s=60.0,
+                 threads=1)
     yield p
     p.close()
 

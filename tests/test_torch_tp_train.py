@@ -117,7 +117,8 @@ def jx(jax_side):
 
 @pytest.fixture(scope="module")
 def pool(jax_side):
-    p = MeshPool(4, 1, timeout_s=60.0, threads=1)
+    p = MeshPool(4, 1, device="cpu", timeout_s=60.0,
+                 threads=1)
     yield p
     p.close()
 

@@ -121,7 +121,8 @@ def jx64(jax_exact):
 
 @pytest.fixture(scope="module")
 def pool(jax_side, jax_exact):
-    p = MeshPool(4, 1, timeout_s=60.0, threads=1)
+    p = MeshPool(4, 1, device="cpu", timeout_s=60.0,
+                 threads=1)
     yield p
     p.close()
 

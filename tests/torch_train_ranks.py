@@ -17,12 +17,13 @@ import torch
 
 from repro_torch.checkpoint import restore, save
 from repro_torch.configs import get_config, reduced
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core import ControllerModel, GoalSpec
 from repro_torch.core import tensor_controller as tc
 from repro_torch.distributed import collectives
 from repro_torch.launch.mesh import make_host_mesh, world
 from repro_torch.models import zoo
-from repro_torch.models.bridge import keyed_leaves, params_from_numpy
+from repro_torch.models.bridge import keyed_leaves, params_from_numpy, tree_map
 from repro_torch.optim import adamw
 from repro_torch.train import train_step as ts
 from repro_torch.train.trainer import Trainer, TrainerConfig
@@ -94,6 +95,32 @@ def dp_step(arch, overrides, weights, batch, data, fsdp, opt, n_micro=1,
         save(ckpt_dir, 1, full)
     return (keyed_numpy(full) if mesh.rank == 0 else None, _metrics(m),
             shapes)
+
+
+def remat_steps(arch, overrides, data, model, remats, seed=0):
+    """One ``make_mesh_train_step`` step (FSDP on) on a ``data x model``
+    mesh under each policy of ``remats``, from the same seeded weights
+    and 4 x 32 batch: by policy, this rank's slices of the state after
+    the step and its metrics."""
+    mesh = _mesh(data, model)
+    if mesh is None:
+        return None
+    cfg = config(arch, overrides)
+    weights = zoo.init(cfg, torch.Generator().manual_seed(seed), "cpu")
+    batch = ts.local_rows(zoo.make_batch(
+        cfg, ShapeConfig("t", 32, 4, "train"), np.random.default_rng(seed),
+        "cpu"), mesh)
+    out = {}
+    for remat in remats:
+        step = ts.make_mesh_train_step(cfg, adamw.AdamWConfig(), mesh,
+                                       remat=remat)
+        # AdamW writes in place, and whole leaves are the tree's own
+        params = step.placement.local(
+            {"params": tree_map(torch.clone, weights)})["params"]
+        params, state, m = step(params, adamw.init(params), batch)
+        out[remat] = (keyed_numpy({"params": params, "opt": state}),
+                      _metrics(m))
+    return out
 
 
 def restore_on(ckpt_dir, arch, overrides, data, fsdp, model=1):
