@@ -3918,6 +3918,7 @@ def phase_remat(dev, card) -> dict:
     reckoned = {r: dryrun.reckon(cfg, shape, one, n_micro=TRAIN_MICRO,
                                  remat=r) for r in REMAT_POLICIES}
     t_dry = time.perf_counter() - t0
+    products = saved_products(cfg, TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ)
     gc.collect()
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated(dev)
@@ -3982,7 +3983,9 @@ def phase_remat(dev, card) -> dict:
         f"{TRAIN_SEQ} in {TRAIN_MICRO} microbatches on {card}: the first "
         f"step's gradients under {' and '.join(REMAT_POLICIES)}: {equal}/{n}"
         f" leaves bit for bit, largest gap {gap:.3e} of a leaf's max|g|; "
-        f"the dry-run's two reckonings {t_dry:.1f} s")
+        f"a microbatch's \"dots\" forward keeps {products['kept'] / 1e9:.3f}"
+        f" GB of products, not the {products['dropped'] / 1e9:.3f} GB of "
+        f"the closing ones; the dry-run's two reckonings {t_dry:.1f} s")
     for r, o in out.items():
         g = (o["reckoned"] - o["peak"]) / o["peak"]
         say(f"[remat] {r} on {card}: step ms {o['ms']:.1f} (median of "
@@ -4010,10 +4013,11 @@ def phase_remat(dev, card) -> dict:
 
 @contextlib.contextmanager
 def kept_products():
-    """The products ``remat="dots"`` keeps (``models.remat.dot``),
+    """The products ``remat="dots"`` runs (``models.remat.dot``),
     recorded by wrapping ``remat.contexts``: a list per checkpointed
-    layer, in call order, of each kept forward output's (elements, bytes
-    an element), read as its forward pass ends."""
+    layer, in call order, of each forward output's (elements, bytes an
+    element, whether it is kept), read as its forward pass ends, when
+    the closing product has let go of its output."""
     calls = []
     make = remat_policy.contexts
 
@@ -4021,7 +4025,8 @@ def kept_products():
     def recorded(forward, mine):
         with forward:
             yield
-        mine.extend((t.numel(), t.element_size()) for t in forward.kept)
+        mine.extend((t.shape.numel(), t.dtype.itemsize,
+                     isinstance(t, torch.Tensor)) for t in forward.kept)
 
     def contexts():
         forward, recompute = make()
@@ -4034,18 +4039,24 @@ def kept_products():
         remat_policy.contexts = make
 
 
-def saved_products(cfg, micro: int, seq: int) -> int:
+def saved_products(cfg, micro: int, seq: int) -> dict:
     """Bytes of the products ``remat="dots"`` keeps through one
-    microbatch's forward (q/k/v/o, the MLP, the recurrent blocks'
-    projections of every group layer), counted on ``meta`` from the
-    shapes: ``loss_fn``'s forward with gradients on, nothing allocated."""
+    microbatch's forward (``kept``: q/k/v/o, the MLP, the recurrent
+    blocks' projections of every group layer) and of the closing
+    products it lets go of as each layer's forward ends (``dropped``),
+    counted on ``meta`` from the shapes: ``loss_fn``'s forward with
+    gradients on, nothing allocated."""
     params = tree_map(lambda t: t.requires_grad_(),
                       zoo.abstract_params(cfg)[0])
     batch = {k: torch.zeros(micro, seq, dtype=torch.int32, device="meta")
              for k in ("tokens", "labels")}
     with kept_products() as calls:
         zoo.loss_fn(cfg, params, batch, remat="dots")
-    return sum(n * size for call in calls for n, size in call)
+    out = dict(kept=0, dropped=0)
+    for call in calls:
+        for n, size, kept in call:
+            out["kept" if kept else "dropped"] += n * size
+    return out
 
 
 def train_reckoning(cfg, n_par: int, largest: int, micro: int,
@@ -4070,7 +4081,8 @@ def train_reckoning(cfg, n_par: int, largest: int, micro: int,
         layer = 4 * micro * seq * rwkv6_model.CHUNK * d * 4
     out = dict(state=n_par * (2 + 2 + 4 + 4 + 4),
                inputs=cfg.num_layers * micro * seq * d * 2,
-               saved=saved_products(cfg, micro, seq), layer=layer,
+               saved=saved_products(cfg, micro, seq)["kept"],
+               layer=layer,
                loss=3 * transformer.LOSS_CHUNK * cfg.vocab_size * 4,
                optimizer=3 * largest * 4)
     out["total"] = sum(out.values())
@@ -8065,6 +8077,8 @@ def phase_tune(dev, card) -> dict:
     history = autotune.autotune("yi-6b", "cut", budget, **kw)
     t_tune = time.perf_counter() - t1
     chosen = history[-1]["n_micro"]
+    products = saved_products(cfg, shape.global_batch // chosen,
+                              shape.seq_len)
     for h in history:
         say(f"[tune] probe n_micro {h['n_micro']}: reckoned peak "
             f"{h['peak_bytes'] / 1e9:.3f} GB = arguments "
@@ -8076,7 +8090,9 @@ def phase_tune(dev, card) -> dict:
         f"{TUNE_SEQ}: budget {budget / 1e9:.3f} GB between the reckoned "
         f"peaks at 16 ({lo / 1e9:.3f}) and 1 ({hi / 1e9:.3f}) microbatches;"
         f" chose n_micro {chosen} after {len(history)} probes, "
-        f"{t_tune:.1f} s of reckoning")
+        f"{t_tune:.1f} s of reckoning; its microbatch's \"dots\" forward "
+        f"keeps {products['kept'] / 1e9:.3f} GB of products, not the "
+        f"{products['dropped'] / 1e9:.3f} GB of the closing ones")
     free = torch.cuda.mem_get_info(dev)[0]
     counts = [h["n_micro"] for h in history if h["peak_bytes"] < free]
     real, launches = measured_peaks(dev, cfg, shape, counts)

@@ -6,23 +6,30 @@ The reference checkpoints its scanned group body under
 but ``"none"``; the port checkpoints each group layer (its
 cross-attention with it) likewise, keeping under ``"dots"`` the outputs
 of its products without batch dims, the ``x @ w`` of a weight
-``w [d, f]`` (``models.remat.dot``).  Reduced configs at 2 x 32
-tokens (4 x 32 on the meshes): every arch for (a)-(c), and for (d) one
-of each family, yi-6b, recurrentgemma-9b (RG-LRU), rwkv6-7b (at
-``d_model=128``: two heads), deepseek-moe-16b and whisper-tiny
-(cross-attention).
+``w [d, f]`` (``models.remat.dot``), all but the layer's closing one.
+Reduced configs at 2 x 32 tokens (3 x 32 for (a'), 4 x 32 on the
+meshes): every arch for (a)-(c), and for (d) one of each family,
+yi-6b, recurrentgemma-9b (RG-LRU), rwkv6-7b (at ``d_model=128``: two
+heads), deepseek-moe-16b and whisper-tiny (cross-attention).
 
-* (a) the element counts of the products the port saves in each group
-  (``chip_smoke.kept_products``) equal, as a multiset, those of the ``dot_general``s without batch dims
-  inside the reference's dots ``checkpoint`` (``jax.make_jaxpr`` of its
-  ``loss_fn``; the loss chunks' policy-free checkpoint left out);
+* (a) the element counts of the products the port's forward runs in
+  each group (``chip_smoke.kept_products``) equal, as a multiset, those
+  of the ``dot_general``s without batch dims inside the reference's
+  dots ``checkpoint`` (``jax.make_jaxpr`` of its ``loss_fn``; the loss
+  chunks' policy-free checkpoint left out);
+* (a') what the port keeps of a group past its forward (each layer's
+  input and the products still kept as its forward ends) equals, as a
+  multiset of element counts, the residuals the reference's decoder
+  group scan stacks (JAX's ``saved_residuals``);
 * (b) the loss and every gradient leaf are bit for bit equal under
-  ``"none"``, ``"dots"`` and ``"full"``;
+  ``"none"``, ``"dots"`` and ``"full"``, also with the stand-in for
+  each closing product's output filled with NaN;
 * (c) under ``"dots"`` the ``mm`` / ``addmm`` calls over forward and
-  backward are ``"none"``'s (every one of the layer's is kept), the
-  ``bmm`` calls and the flash forwards ``"full"``'s;
+  backward are ``"none"``'s (every one of the layer's is kept or not
+  needed), the ``bmm`` calls and the flash forwards ``"full"``'s;
 * (d) a ``1x2`` tensor-parallel rank and a ``2x1`` FSDP rank (vocab
-  16384: embed and head sliced) step bit for bit alike under the three;
+  16384: embed and head sliced) step bit for bit alike under the three,
+  also with the NaN stand-ins;
 * (e) ``MeshPool`` and ``spawn_mesh`` default to the card: without one
   they raise before any rank starts.
 """
@@ -150,11 +157,86 @@ def test_dots_saves_the_reference_products(arch, monkeypatch):
     for g in range(n_groups):
         got = Counter(n for layer in calls[g * len(pattern):
                                            (g + 1) * len(pattern)]
-                      for n, _ in layer)
+                      for n, _, _ in layer)
         # the reference's one checkpoint is the body its scan runs for
         # every group
         assert got == want[0], (g, sorted(got.items()),
                                 sorted(want[0].items()))
+
+
+# a batch unlike every arch's group count, so that the group scan's
+# stacked residuals [n_groups, B, ...] are told from its carry [B, S, d]
+SAVED_SHAPE = ShapeConfig("t", 32, 3, "train")
+
+
+def reference_residuals(fn, args, n_groups: int, rows: int):
+    """(the element counts a group of the residuals that the reference's
+    decoder group scan stacks, as a Counter; the shapes of its other
+    outputs that are residuals).  JAX's ``saved_residuals`` of ``fn``
+    names each residual's origin: the decoder's scan is
+    ``_run_blocks_seq``'s (whisper's encoder scan, ``_run_encoder``'s, is
+    left out); a stacked residual is ``[n_groups, rows, ...]``."""
+    from jax._src.ad_checkpoint import saved_residuals
+    stacked, other = Counter(), []
+    for aval, origin in saved_residuals(fn, *args):
+        if "output of scan" not in origin or \
+                "(_run_blocks_seq)" not in origin:
+            continue
+        if aval.shape[:2] == (n_groups, rows):
+            stacked[int(np.prod(aval.shape[1:]))] += 1
+        else:
+            other.append(aval.shape)
+    return stacked, other
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_dots_keeps_the_reference_residuals(arch, monkeypatch):
+    """Left out on both sides: the final carry [B, S', d] of the
+    reference's scan, which the final norm saves (the port's final norm
+    saves its input outside any checkpoint); the reference's stacked
+    residuals without a batch dim (whisper-tiny's layer index, which
+    picks each layer's cross-attention weights); the encoder's output,
+    which the reference's scan closes over and the port's checkpoints
+    all hold, one tensor for every layer.  S' counts internvl2-1b's
+    patch positions."""
+    jax = pytest.importorskip("jax")
+    monkeypatch.delenv("REPRO_ATTN_IMPL", raising=False)
+    from repro import configs as jconfigs
+    from repro.models import zoo as jzoo
+    jcfg = jconfigs.reduced(jconfigs.get_config(arch),
+                            **OVERRIDES.get(arch, {}))
+    jp, _ = jzoo.init(jcfg, jax.random.key(0))
+    cfg = port_cfg(arch)
+    params, batch = port_inputs(cfg, SAVED_SHAPE)
+    jb = {k: jax.numpy.asarray(v.numpy()) for k, v in batch.items()}
+    _, pattern, n_groups, _ = tf._plan(cfg)
+    rows = SAVED_SHAPE.global_batch
+    assert n_groups != rows
+    want, other = reference_residuals(
+        lambda p: jzoo.loss_fn(jcfg, p, jb, remat="dots"), (jp,),
+        n_groups, rows)
+    for shape in other:
+        # the carry, or no batch dim
+        assert (len(shape) == 3 and shape[0] == rows
+                and shape[2] == cfg.d_model) or rows not in shape[:2], shape
+
+    inputs = []
+    checkpoint = tf._grad_checkpoint
+
+    def spy(fn, *args, dots=False):
+        if dots:        # a group layer's (p, cp, x, enc_out)
+            inputs.append(args[2].numel())
+        return checkpoint(fn, *args, dots=dots)
+    monkeypatch.setattr(tf, "_grad_checkpoint", spy)
+    with chip_smoke.kept_products() as calls:
+        accum.value_and_grad(
+            lambda p, b: zoo.loss_fn(cfg, p, b, remat="dots"), params, batch)
+    assert len(calls) == len(inputs) == n_groups * len(pattern)
+    for g in range(n_groups):
+        layers = range(g * len(pattern), (g + 1) * len(pattern))
+        got = Counter(inputs[i] for i in layers)
+        got.update(n for i in layers for n, _, kept in calls[i] if kept)
+        assert got == want, (g, sorted(got.items()), sorted(want.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -216,6 +298,27 @@ def test_gradients_equal_under_every_policy(arch):
 
 
 @pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_the_recompute_reads_no_dropped_product(arch):
+    """A ``"dots"`` step whose closing products come back to the
+    recompute as NaN: one stand-in a checkpointed layer, and the loss and
+    every gradient leaf bit for bit those of ``"none"`` and ``"full"``."""
+    cfg = port_cfg(arch)
+    params, batch = port_inputs(cfg)
+    with ranks.nan_placeholder() as made:
+        loss, _, grads = accum.value_and_grad(
+            lambda p, b: zoo.loss_fn(cfg, p, b, remat="dots"), params, batch)
+    _, pattern, n_groups, _ = tf._plan(cfg)
+    assert len(made) == n_groups * len(pattern)
+    grads = list(tree_leaves(grads))
+    for remat in ("none", "full"):
+        want_loss, want, _, _ = policy_runs(arch)[remat]
+        assert torch.equal(loss, want_loss), remat
+        assert len(grads) == len(want)
+        for a, b in zip(grads, want):
+            assert torch.equal(a, b), remat
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_dots_reruns_the_batched_work_alone(arch):
     runs = policy_runs(arch)
     none, dots, full = (runs[r][2] for r in REMATS)
@@ -242,19 +345,51 @@ def pool():
     p.close()
 
 
+_MESH_RUNS = {}
+
+
+def mesh_runs(pool, arch, mesh, fn=ranks.remat_steps, remats=REMATS):
+    """``fn``'s results by rank on a ``mesh`` ("1x2", "2x1") of
+    ``pool``, once a module."""
+    key = (fn.__name__, arch, mesh, remats)
+    if key not in _MESH_RUNS:
+        data, model = (int(v) for v in mesh.split("x"))
+        over = dict(OVERRIDES.get(arch, {}), vocab_size=16384)
+        _MESH_RUNS[key] = pool.run(fn, arch, over, data, model, remats)
+    return _MESH_RUNS[key]
+
+
+def assert_ranks_equal(got, want, remats):
+    """Each rank's state and metrics after the step under each of
+    ``remats`` (``got``) equal to its own under ``"none"`` (``want``)."""
+    for mine, rank in zip(got, want):
+        state, metrics = rank["none"]
+        for remat in remats:
+            assert mine[remat][1] == metrics, remat
+            assert set(mine[remat][0]) == set(state)
+            for k, v in state.items():
+                assert np.array_equal(mine[remat][0][k], v), (remat, k)
+
+
 @pytest.mark.parametrize("mesh", ["1x2", "2x1"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_mesh_ranks_equal_under_every_policy(pool, arch, mesh):
-    data, model = (int(v) for v in mesh.split("x"))
-    over = dict(OVERRIDES.get(arch, {}), vocab_size=16384)
-    got = pool.run(ranks.remat_steps, arch, over, data, model, REMATS)
-    for rank in got:
-        state, metrics = rank["none"]
-        for remat in ("dots", "full"):
-            assert rank[remat][1] == metrics, remat
-            assert set(rank[remat][0]) == set(state)
-            for k, v in state.items():
-                assert np.array_equal(rank[remat][0][k], v), (remat, k)
+    got = mesh_runs(pool, arch, mesh)
+    assert_ranks_equal(got, got, ("dots", "full"))
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_mesh_ranks_read_no_dropped_product(pool, arch, mesh):
+    """The ranks' ``"dots"`` step with NaN for each closing product in
+    the recompute (``torch_train_ranks.nan_placeholder``): one stand-in
+    a checkpointed layer on every rank, each rank's state and metrics
+    its own under ``"none"``."""
+    got = mesh_runs(pool, arch, mesh, ranks.remat_steps_nan, ("dots",))
+    _, pattern, n_groups, _ = tf._plan(port_cfg(arch))
+    assert [n for _, n in got] == [n_groups * len(pattern)] * len(got)
+    assert_ranks_equal([r for r, _ in got], mesh_runs(pool, arch, mesh),
+                       ("dots",))
 
 
 def test_mesh_launchers_default_to_the_card(monkeypatch):

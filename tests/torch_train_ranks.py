@@ -22,6 +22,7 @@ from repro_torch.core import ControllerModel, GoalSpec
 from repro_torch.core import tensor_controller as tc
 from repro_torch.distributed import collectives
 from repro_torch.launch.mesh import make_host_mesh, world
+from repro_torch.models import remat as remat_policy
 from repro_torch.models import zoo
 from repro_torch.models.bridge import keyed_leaves, params_from_numpy, tree_map
 from repro_torch.optim import adamw
@@ -121,6 +122,32 @@ def remat_steps(arch, overrides, data, model, remats, seed=0):
         out[remat] = (keyed_numpy({"params": params, "opt": state}),
                       _metrics(m))
     return out
+
+
+@contextlib.contextmanager
+def nan_placeholder():
+    """The recompute's stand-in for each closing product's output
+    (``models.remat._placeholder``) filled with NaN instead, so that a
+    gradient which read it would not be finite; yields the shapes of the
+    stand-ins made."""
+    made, orig = [], remat_policy._placeholder
+
+    def nan(shape, dtype, device):
+        made.append(tuple(shape))
+        return torch.full(shape, float("nan"), dtype=dtype, device=device)
+    remat_policy._placeholder = nan
+    try:
+        yield made
+    finally:
+        remat_policy._placeholder = orig
+
+
+def remat_steps_nan(arch, overrides, data, model, remats, seed=0):
+    """:func:`remat_steps` under :func:`nan_placeholder`, and the number
+    of stand-ins this rank made."""
+    with nan_placeholder() as made:
+        out = remat_steps(arch, overrides, data, model, remats, seed)
+    return out, len(made)
 
 
 def restore_on(ckpt_dir, arch, overrides, data, fsdp, model=1):
