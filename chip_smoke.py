@@ -318,9 +318,17 @@ caught:
                 losses, ms a step, the flash launches a step (cross apart)
                 all on the tensor cores;
  15. mesh     — serving on a (data, model) mesh of processes that share
-                the card (gloo groups; NCCL refuses two ranks on one GPU):
-                (a) in this process, at yi-6b's serving shapes (bf16,
-                32/4 heads, D 128, T 16), the paged and flat segment
+                the card (gloo groups; NCCL refuses two ranks on one GPU;
+                CUDA tensors summed and gathered on the card through
+                CUDA IPC, ``distributed.ipc``): first, on the ``1x4``
+                ranks of (b) before they serve, the transport check
+                (:func:`ipc_rank`: every collective of CUDA tensors over
+                the 4-rank ``model`` group, through the arenas and through
+                an arena of small slots, bit for bit against one
+                process's fold or concatenation of the ranks' inputs; the
+                GB/s of a 256 MiB f32 all-reduce at 4 ranks); (a) in
+                this process, at yi-6b's serving shapes (bf16, 32/4
+                heads, D 128, T 16), the paged and flat segment
                 kernels and the paged and dense decode kernels launched on
                 head chunk r of 4 (the decode ones with ``split_groups``
                 the global B x Kv) must equal the full launch's slice of
@@ -340,9 +348,10 @@ caught:
                 tokens equal one process's, the max logit gap printed, each
                 rank's expert slice (E / 2 experts, moe_ff / 2 on decode).
  16. dp       — data-parallel training on a 2 x 1 mesh of processes that
-                share the card (``train_step.make_mesh_train_step``, gloo):
-                (a) yi-6b at full width cut to 2 layers (phase 9 trains 4:
-                gloo's host-staged f32 sum takes ~10 s a step there), bf16,
+                share the card (``train_step.make_mesh_train_step``, the
+                sums and gathers on the card through CUDA IPC):
+                (a) yi-6b at full width cut to 2 layers (phase 9 trains 4),
+                bf16,
                 batch 2 x 4096, in one process at 2 microbatches, then on
                 the two ranks at one each (its row), FSDP off and on:
                 every rank's
@@ -386,7 +395,11 @@ caught:
                 launches counted.
  18. tp       — tensor-parallel training over ``model`` on ranks that
                 share the card (one ``MeshPool`` of four,
-                ``train_step.make_mesh_train_step``, gloo): (a) the flash
+                ``train_step.make_mesh_train_step``, the collectives on
+                the card through CUDA IPC; first the transport check on
+                that pool's ``2x2``: its ``data``, ``model`` and whole
+                groups, and the GB/s of a 256 MiB f32 all-reduce at 2 and
+                4 ranks): (a) the flash
                 forward with LSE, dQ and dK/dV on each of 2 head chunks
                 (a rank's query heads and the KV heads they read) equal
                 the full launch's slices bit for bit, at yi-6b's bf16
@@ -532,11 +545,11 @@ from repro_torch.kernels.segment_attention import (  # noqa: E402
     paged_segment_attention, paged_segment_attention_ref, paged_segment_route,
     segment_attention, segment_attention_ref, segment_grid, segment_route,
     tile_items)
-from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.distributed import collectives, ipc  # noqa: E402
+from repro_torch.distributed.sharding import Placement  # noqa: E402
 from repro_torch.launch import autotune, dryrun  # noqa: E402
 from repro_torch.launch.mesh import (MeshPool, ShapeMesh,  # noqa: E402
-                                     make_host_mesh,
-                                     spawn_mesh, world)
+                                     make_host_mesh, world)
 from repro_torch.launch.serve import (build_engine, serve_requests,  # noqa: E402
                                       summary)
 from repro_torch.models import blocks, transformer, zoo  # noqa: E402
@@ -747,9 +760,9 @@ MESH_MOE_GAP = 1e-4
 MESH_KERNELS = (paged_segment_attention, paged_decode_attention,
                 segment_attention, decode_attention)
 # phase 16: data-parallel training on DP_DATA ranks sharing the card:
-# yi-6b at full width cut to DP_LAYERS layers (phase 9 trains 4: gloo
-# stages the f32 gradient sum through the host at ~0.5 GB/s, 10.6 s a
-# step at 4 layers, so phase 16 cuts the depth, never the width), bf16,
+# yi-6b at full width cut to DP_LAYERS layers (phase 9 trains 4; phase 16
+# cut the depth, never the width, while gloo staged the f32 gradient sum
+# through the host at ~0.5 GB/s, 10.6 s a step at 4 layers), bf16,
 # batch TRAIN_BATCH x TRAIN_SEQ, one process at TRAIN_BATCH microbatches
 # against each rank at one (its row), FSDP off and on (f32 ranks are held
 # bit for bit on the CPU, tests/test_torch_dp_train.py).  One step each,
@@ -763,6 +776,20 @@ DP_FLOOR_TIMES = 10
 DP_COMPRESSED_LIMIT = 0.02
 DP_KERNELS = (flash_attention_fwd_lse, flash_attention_dq,
               flash_attention_dkv)
+# the mesh collectives' transport check (ipc_rank, on 15b's and 18's
+# pools): odd sizes, a small arena of slots of IPC_SMALL_SLOT bytes in
+# which IPC_ODD f32 take three chunks, bucket leaves the largest of which
+# (82 MB in f32) spans two of the 64 MiB slots, and the rate of an
+# IPC_RATE_BYTES f32 all-reduce (IPC_RATE_ITERS calls after one); gloo's
+# host round trip moved ~GLOO_GBS GB/s a rank (ledger and PERF.md, PR 35)
+IPC_SEED = 36
+IPC_ODD = 1_300_001
+IPC_GATHER = torch.Size((37, 129, 271))
+IPC_SMALL_SLOT = 2 * 2**20 + 24
+IPC_LEAVES = ((torch.bfloat16, (5000, 4099)), (torch.float32, (IPC_ODD,)),
+              (torch.bfloat16, (3, 5)))
+IPC_RATE_BYTES, IPC_RATE_ITERS = 256 * 2**20, 5
+GLOO_GBS = 0.5
 
 
 def say(*a) -> None:
@@ -6240,22 +6267,27 @@ def mesh_ticks(res: dict) -> str:
 
 def mesh_run(card: str, tag: str, arch: str, layers: int, dtype: str,
              mesh: str, prompts, capacity=None, record=False,
-             kv_mode="auto"):
+             kv_mode="auto", check=False):
     """One process's run, then the same on ``mesh``'s ranks (the parent's
-    engine and weights released first); every rank's tokens must equal
-    the one process's, and each rank must have launched its KV layout's
-    two attention kernels.  Returns (one process's run, the ranks'
-    runs)."""
+    engine and weights released first; with ``check`` the transport
+    check, :func:`ipc_rank`, on those ranks before they serve); every
+    rank's tokens must equal the one process's, and each rank must have
+    launched its KV layout's two attention kernels.  Returns (one
+    process's run, the ranks' runs)."""
     one = mesh_serve(arch, layers, dtype, None, prompts, MESH_NEW, "cuda",
                      capacity, record, kv_mode)
     gc.collect()
     torch.cuda.empty_cache()
     data, model = (int(v) for v in mesh.split("x"))
     t0 = time.perf_counter()
-    ranks = spawn_mesh(data, model, mesh_serve, arch, layers, dtype, mesh,
-                       prompts, MESH_NEW, "cuda", capacity, record, kv_mode,
-                       device="cuda", timeout_s=300.0)
-    wall = time.perf_counter() - t0
+    checked = 0.0
+    with MeshPool(data, model, device="cuda", timeout_s=300.0) as pool:
+        if check:
+            ipc_report(card, tag, pool.run(ipc_rank, data, model, "cuda"))
+            checked = time.perf_counter() - t0
+        ranks = pool.run(mesh_serve, arch, layers, dtype, mesh, prompts,
+                         MESH_NEW, "cuda", capacity, record, kv_mode)
+    wall = time.perf_counter() - t0 - checked
     say(f"[mesh] {tag} {arch} {layers} layers {dtype} on {card}: one "
         f"process: {mesh_ticks(one)}; peak {one['peak_gb']:.3f} GB")
     for r in ranks:
@@ -6263,7 +6295,8 @@ def mesh_run(card: str, tag: str, arch: str, layers: int, dtype: str,
             f"in-phase peak {r['peak_gb']:.3f} GB (weights "
             f"{r['weights_gb']:.3f} GB); launches {r['launches']}")
     say(f"[mesh] {tag} {mesh}: {data * model} ranks started, served and "
-        f"stopped in {wall:.1f} s")
+        f"stopped in {wall:.1f} s" + (f" (and the transport check "
+                                       f"{checked:.1f} s)" if check else ""))
     for r in ranks:
         if r["tokens"] != one["tokens"]:
             bad = [i for i in one["tokens"]
@@ -6283,6 +6316,161 @@ def mesh_run(card: str, tag: str, arch: str, layers: int, dtype: str,
     say(f"[mesh] {tag} rank 0's greedy tokens equal one process's: "
         f"{len(prompts)} requests x {MESH_NEW}")
     return one, ranks
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` of one shape and dtype, equal bit for bit."""
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8),
+        b.contiguous().view(-1).view(torch.uint8)))
+
+
+def ipc_draw(dev, rank: int, dtype, shape) -> torch.Tensor:
+    """Rank ``rank``'s input: drawn from IPC_SEED + rank on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(IPC_SEED + rank)
+    if dtype == torch.int32:
+        return torch.randint(-2**20, 2**20, shape, generator=g, device=dev,
+                             dtype=dtype)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def ipc_tree(dev, mesh):
+    """A tree for :func:`collectives.gather_leaves` (drawn whole from
+    IPC_SEED, the same on every rank) and its placement on ``mesh``: a
+    leaf split over ``data``, one over ``model``, one over both axes at
+    once and one on two dims, f32, bf16 and int32, odd trailing dims."""
+    n = mesh.size
+    tree = {"a": ipc_draw(dev, -1, torch.float32, (2 * n, 7, 33)),
+            "b": ipc_draw(dev, -2, torch.bfloat16, (5, 3 * n)),
+            "c": ipc_draw(dev, -3, torch.int32, (4 * n, 129)),
+            "d": ipc_draw(dev, -4, torch.float32, (2 * n, 2 * n, 3))}
+    specs = {"a": ("data", None, None), "b": (None, "model"),
+             "c": (("data", "model"), None), "d": ("data", "model", None)}
+    return tree, Placement(mesh, specs)
+
+
+def ipc_rank(data: int, model: int, device: str = "cuda") -> dict:
+    """One rank of the transport check on a ``data x model`` mesh (every
+    rank of the pool in it).  Over each group of more than one rank
+    (``model``, ``data``, both), each rank's input drawn from IPC_SEED +
+    its rank: ``all_reduce`` (SUM and MAX; f32, bf16 and int32; IPC_ODD
+    elements), ``all_gather`` along dims 0 and 1, ``reduce_f32_buckets``
+    over bf16 and f32 leaves the largest of which spans two slots, and
+    ``gather_leaves`` of :func:`ipc_tree`, each against the same fold
+    (``ipc.fold``) or concatenation of the group's inputs in this
+    process, bit for bit; on the card the all-reduces and all-gathers
+    again through an arena of IPC_SMALL_SLOT-byte slots built for the
+    check (``ipc.Arena(..., slot_bytes=)``), chunked.  Then the seconds
+    of an IPC_RATE_BYTES f32 all-reduce over the 2-rank ``model`` group
+    of data row 0 (the other ranks idle) and over the whole mesh.
+    Returns the faults, the checks run, the rates in GB/s and the
+    arenas this rank holds."""
+    dev = torch.device(device)
+    mesh = make_host_mesh(data=data, model=model)
+    me = mesh.rank
+    faults: list[str] = []
+    checks = [0]
+
+    def hold(tag: str, got, want) -> None:
+        checks[0] += 1
+        if not same_bits(got, want):
+            faults.append(f"rank {me}: {tag}")
+
+    seen = []
+    for axes in (("model",), ("data",), ("data", "model")):
+        group = mesh.group(axes)
+        if mesh.axis_size(axes) == 1 or group in seen:
+            continue        # one rank, or the group of another name
+        seen.append(group)
+        members = torch.distributed.get_process_group_ranks(group)
+        small = (ipc.Arena(group, dev, slot_bytes=IPC_SMALL_SLOT)
+                 if dev.type == "cuda" else None)
+        name = "+".join(axes)
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            xs = [ipc_draw(dev, r, dtype, (IPC_ODD,)) for r in members]
+            mine = xs[members.index(me)]
+            for op in (ipc.SUM, ipc.MAX):
+                want = ipc.fold(xs, op)
+                hold(f"all_reduce {op} {dtype} over {name}",
+                     collectives.all_reduce(mine, mesh, axes, op), want)
+                if small is not None:
+                    hold(f"small-slot all_reduce {op} {dtype} over {name}",
+                         small.all_reduce(mine, op), want)
+            shaped = [x[:IPC_GATHER.numel()].view(IPC_GATHER) for x in xs]
+            for dim in (0, 1):
+                want = torch.cat(shaped, dim)
+                hold(f"all_gather dim {dim} {dtype} over {name}",
+                     collectives.all_gather(shaped[members.index(me)], mesh,
+                                            axes, dim), want)
+                if small is not None:
+                    x = shaped[members.index(me)]
+                    hold(f"small-slot all_gather dim {dim} {dtype} over "
+                         f"{name}", ipc.concat(small.gather_rows(x),
+                                               dtype, x.shape, dim), want)
+            del xs, mine, shaped, want
+        leaves = [[ipc_draw(dev, r, dt, shape) for r in members]
+                  for dt, shape in IPC_LEAVES]
+        got = collectives.reduce_f32_buckets(
+            [ls[members.index(me)] for ls in leaves], mesh, axes)
+        for i, (ls, g) in enumerate(zip(leaves, got)):
+            hold(f"reduce_f32_buckets leaf {i} over {name}", g,
+                 ipc.fold([x.float() for x in ls], ipc.SUM))
+        del leaves, got
+        if small is not None:
+            small.close()
+    tree, pl = ipc_tree(dev, mesh)
+    back = collectives.gather_leaves(pl.local(tree), pl)
+    for k in tree:
+        hold(f"gather_leaves {k}", back[k], tree[k])
+    del tree, back
+    rates, timed = {}, []
+    if dev.type == "cuda":
+        x = ipc_draw(dev, me, torch.float32, (IPC_RATE_BYTES // 4,))
+        for axes in (("model",), ("data", "model")):
+            ranks, group = mesh.axis_size(axes), mesh.group(axes)
+            if ranks > 1 and group not in timed and (
+                    axes != ("model",) or mesh.data_index == 0):
+                collectives.all_reduce(x, mesh, axes)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                for _ in range(IPC_RATE_ITERS):
+                    collectives.all_reduce(x, mesh, axes)
+                torch.cuda.synchronize(dev)
+                s = (time.perf_counter() - t0) / IPC_RATE_ITERS
+                rates[f"{ranks} ranks"] = IPC_RATE_BYTES / s / 1e9
+            timed.append(group)
+            torch.distributed.barrier()
+        del x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(rank=me, faults=faults, checks=checks[0], rates=rates,
+                arenas=ipc.arena_count(),
+                alloc_conf=os.environ.get("PYTORCH_CUDA_ALLOC_CONF"))
+
+
+def ipc_report(card: str, tag: str, ranks: list) -> None:
+    """Print the transport check's ranks (:func:`ipc_rank`) and fail on
+    any fault."""
+    r0 = ranks[0]
+    rates = {}
+    for r in ranks:
+        for k, v in r["rates"].items():
+            rates.setdefault(k, []).append(v)
+    say(f"[ipc] {tag} transport check on {card}: {len(ranks)} ranks, "
+        f"{sum(r['checks'] for r in ranks)} collectives held to one "
+        f"process's fold or concatenation bit for bit, "
+        f"{sum(len(r['faults']) for r in ranks)} faults; arenas a rank "
+        f"{[r['arenas'] for r in ranks]}, slots of {ipc.SLOT_BYTES} bytes "
+        f"(and {IPC_SMALL_SLOT} in the check's own); "
+        f"PYTORCH_CUDA_ALLOC_CONF {r0['alloc_conf']!r}")
+    for k, v in rates.items():
+        say(f"[ipc] {tag} a {IPC_RATE_BYTES / 2**20:.0f} MiB f32 all-reduce "
+            f"at {k} on {card}: " + ", ".join(f"{g:.2f}" for g in v)
+            + f" GB/s a rank (payload over time; gloo's host round trip "
+            f"moved ~{GLOO_GBS} GB/s a rank)")
+    for r in ranks:
+        for f in r["faults"]:
+            fail(f"{tag} transport: {f} differs from one process's")
 
 
 def phase_mesh(dev, card) -> dict:
@@ -6306,7 +6494,7 @@ def phase_mesh(dev, card) -> dict:
         + f"prompts {[len(p) for p in prompts]}, {MESH_NEW} new each")
     t1 = time.perf_counter()
     one, ranks = mesh_run(card, "15b", "yi-6b", layers, "bfloat16",
-                          f"1x{MESH_TP}", prompts)
+                          f"1x{MESH_TP}", prompts, check=True)
     for r in ranks:
         if r["kv_shard_bytes"] * MESH_TP != one["kv_shard_bytes"]:
             fail(f"15b: rank {r['rank']} holds {r['kv_shard_bytes']} KV "
@@ -6415,13 +6603,15 @@ def dp_reckoning(n_par: int, largest: int, pbytes: int, fsdp: bool, cfg,
     gathered whole during the step), its gradients in the weights' dtype,
     the f32 sums of the whole gradient, its moments, one f32 bucket, one
     loss chunk's f32 logits three times over, the layers' inputs that
-    remat keeps, and AdamW's f32 temporaries, about four of the largest
-    leaf (its slice) at a time."""
+    remat keeps, AdamW's f32 temporaries, about four of the largest
+    leaf (its slice) at a time, and the two slots of the ``data`` group's
+    CUDA IPC arena."""
     d = DP_DATA if fsdp else 1
     out = dict(weights=n_par * pbytes / d,
                gathered=n_par * pbytes if fsdp else 0,
                grads=n_par * pbytes, f32_sums=n_par * 4,
                moments=n_par * 8 / d, bucket=collectives.BUCKET_BYTES,
+               arena=2 * ipc.SLOT_BYTES,
                loss=3 * transformer.LOSS_CHUNK * cfg.vocab_size * 4,
                inputs=cfg.num_layers * seq * cfg.d_model * pbytes,
                optimizer=4 * largest * 4 / d)
@@ -6660,7 +6850,8 @@ def dp_run(pool, dev, card, tag: str, arch: str, layers: int, dtype: str,
         if fsdp:
             dry = dryrun.reckon(cfg, ShapeConfig("dp", seq, TRAIN_BATCH,
                                                  "train"),
-                                ShapeMesh((DP_DATA, 1), ("data", "model")))
+                                ShapeMesh((DP_DATA, 1), ("data", "model")),
+                                one_card=True)
             gb = dry["peak_bytes"] / 1e9
             say(f"[dp] {tag} fsdp True: the dry-run reckons a rank's peak "
                 f"at {gb:.3f} GB (the {dry['train_mesh']} mesh train step "
@@ -6805,8 +6996,8 @@ def phase_dp(dev, card) -> dict:
 
 
 # ------------------------------ phase 18: tensor-parallel training
-# yi-6b at full width cut to TP_LAYERS of its 32 layers (phase 16's cut:
-# gloo stages every sum through the host), ranks of one MeshPool of
+# yi-6b at full width cut to TP_LAYERS of its 32 layers (phase 16's
+# cut), ranks of one MeshPool of
 # TP_POOL sharing the card.  18b: bf16 at TP_BF16_ROWS x TP_BF16_SEQ
 # under 1x2, its gaps printed (yi-6b's f32 steps are held to one process
 # on the CPU by tests/test_torch_tp_train.py, and on the card 18e and 18f
@@ -7345,7 +7536,8 @@ def tp_reckon(dev, card, tag: str, cfg, rows: int, seq: int, data: int,
     the run is failed and skipped (None).  Returns the rank's record."""
     shape = ShapeConfig("tp", seq, rows, "train")
     rank = dryrun.reckon(cfg, shape, ShapeMesh((data, model),
-                                               ("data", "model")))
+                                               ("data", "model")),
+                         one_card=True)
     one = [dryrun.reckon(cfg, shape, ShapeMesh((1, 1), ("data", "model")),
                          n_micro=data)["peak_bytes"] / 1e9]
     if exact:
@@ -7500,6 +7692,9 @@ def phase_tp(dev, card) -> dict:
     bf16 = mesh_cfg("yi-6b", TP_LAYERS, "bfloat16")
     times = {}
     with MeshPool(*TP_POOL, device="cuda", timeout_s=300.0) as pool:
+        t1 = time.perf_counter()
+        ipc_report(card, "18", pool.run(ipc_rank, *TP_POOL, "cuda"))
+        times["transport check"] = time.perf_counter() - t1
         t1 = time.perf_counter()
         got = tp_run(pool, dev, card, "18b bf16", bf16, TP_BF16_ROWS,
                      TP_BF16_SEQ, 1, 2, False)

@@ -26,8 +26,8 @@ mesh under ``shard_map``:
   training's two collectives (``train_step.make_mesh_train_step``): the
   gradients cast to f32 and summed in a few flat buckets of at most
   :data:`BUCKET_BYTES`, and FSDP's sliced leaves all-gathered as bytes
-  in the same buckets, not one call a leaf (each call pays gloo's host
-  round trip).
+  in the same buckets, not one call a leaf (each call pays a gloo
+  barrier at least).
 * :class:`ModelParallel` and the tensor-parallel training collectives
   over ``model`` (the Megatron layout the reference's GSPMD arrives at
   under ``DEFAULT_RULES``): the conjugate pair :func:`copy_to_model`
@@ -57,9 +57,16 @@ Without an active serving mesh (:func:`~repro_torch.distributed.sharding
 .use_mesh`), or when the model axis does not divide both head counts,
 the wrappers call the plain ops.
 
-Gloo carries every collective.  Its all-gather takes CPU tensors only, so
-a CUDA tensor is always copied to host memory, reduced or gathered there,
-and copied back — in this module, on every call, not as a fallback.
+The transport follows the payload's device alone, as the kernels'
+wrappers do (``kernels.use_plain``): a CUDA tensor goes through the
+group's CUDA IPC arena (:mod:`repro_torch.distributed.ipc`: the ranks
+share the card, copy their payloads into slots every peer has mapped, and
+each rank folds or concatenates them on the card in rank order, gloo
+carrying only a barrier a chunk), a CPU tensor through gloo.  The gloo
+path raises on any other tensor, so no CUDA payload crosses host memory;
+a failure to open a handle is an error, not a fallback.
+:func:`agreed_clock` and :func:`agreed_flag` carry host decisions on CPU
+tensors, over gloo.
 
 ``sp_decode_combine`` (the sequence-parallel decode combine) is not
 ported: no port path reads it.
@@ -72,6 +79,7 @@ import torch.distributed as dist
 
 from repro_torch.models.bridge import keyed_leaves, keyed_map, tree_map
 
+from . import ipc
 from .sharding import TP_SPLITS, current_mesh, keyed_specs
 
 __all__ = ["tp_segment_attention", "tp_paged_segment_attention",
@@ -84,12 +92,31 @@ __all__ = ["tp_segment_attention", "tp_paged_segment_attention",
            "vocab_embed", "vocab_cross_entropy"]
 
 _BLOCK = 128
-# host bytes a training collective stages at a time
+# the bytes a training collective packs into one flat bucket
 BUCKET_BYTES = 256 * 2**20
 
 
-def _host(x: torch.Tensor) -> torch.Tensor:
-    return x.cpu() if x.is_cuda else x
+def _gloo(x: torch.Tensor) -> torch.Tensor:
+    """``x`` for gloo, which carries CPU tensors only: any other raises
+    (a CUDA payload takes the IPC arena, never a trip through the
+    host)."""
+    if x.device.type != "cpu":
+        raise ValueError(f"gloo carries CPU tensors, not a {x.device} "
+                         f"tensor {tuple(x.shape)}")
+    return x
+
+
+def _reduce(x: torch.Tensor, group, op, out=None) -> torch.Tensor:
+    """``x`` reduced by ``op`` over ``group``: into ``out`` (contiguous,
+    x's shape; ``x`` itself may be it), else a new tensor."""
+    if x.is_cuda:
+        return ipc.arena(group, x.device).all_reduce(x, op, out=out)
+    if out is None:
+        out = _gloo(x).clone()
+    elif out is not x:
+        out.copy_(_gloo(x))
+    dist.all_reduce(_gloo(out), op=op, group=group)
+    return out
 
 
 def all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
@@ -98,9 +125,7 @@ def all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM):
     one rank)."""
     if mesh.axis_size(axes) == 1:
         return x
-    h = _host(x).clone()
-    dist.all_reduce(h, op=op, group=mesh.group(axes))
-    return h.to(x.device)
+    return _reduce(x, mesh.group(axes), op)
 
 
 def agreed_flag(flag: bool, mesh) -> bool:
@@ -143,9 +168,7 @@ def reduce_f32_buckets(tensors: list, mesh, axes) -> list:
             flat[off:off + n].copy_(tensors[i].reshape(-1))
             off += n
         if group and not flat.is_meta:
-            h = _host(flat)
-            dist.all_reduce(h, group=mesh.group(axes))
-            flat = h.to(dev)
+            _reduce(flat, mesh.group(axes), dist.ReduceOp.SUM, out=flat)
         off = 0
         for i in run:
             n = tensors[i].numel()
@@ -160,12 +183,13 @@ def gather_leaves(tree, placement, axes=None):
     from this rank's slices under ``placement`` (a
     :class:`~repro_torch.distributed.sharding.Placement`): every dim split
     over those axes all-gathered, as bytes, in flat buckets of at most
-    :data:`BUCKET_BYTES` a rank; dims split over other axes stay this
-    rank's slices (the tensor-parallel step gathers over ``data`` and
-    keeps its ``model`` slice).  A leaf split on two dims (``("data",
-    "model", None)``) is gathered one axis group after the other, in the
-    same order on every rank.  On ``meta`` (the dry-run) each gathered
-    leaf is made in one piece, without the bucket."""
+    :data:`BUCKET_BYTES` a rank (each leaf 16-byte aligned in it); dims
+    split over other axes stay this rank's slices (the tensor-parallel
+    step gathers over ``data`` and keeps its ``model`` slice).  A leaf
+    split on two dims (``("data", "model", None)``) is gathered one axis
+    group after the other, in the same order on every rank.  On ``meta``
+    (the dry-run) each gathered leaf is made in one piece, without the
+    bucket."""
     keys, leaves = zip(*keyed_leaves(tree))
     specs = dict(keyed_specs(placement.specs))
     todo: dict[tuple, list[tuple[int, int]]] = {}
@@ -183,7 +207,10 @@ def gather_leaves(tree, placement, axes=None):
         n = placement.mesh.axis_size(group_axes)
         group = placement.mesh.group(group_axes)
         sizes = [full[i].numel() * full[i].element_size() for i, _ in idx]
-        for run in _buckets(sizes, BUCKET_BYTES):
+        # each leaf at a 16-byte offset of its bucket, so that its bytes
+        # view as its dtype whatever leaves come before it
+        spans = [-(-nb // 16) * 16 for nb in sizes]
+        for run in _buckets(spans, BUCKET_BYTES):
             dev = full[idx[run[0]][0]].device
             if dev.type == "meta":
                 # the dry-run: nothing to carry, the gathered shapes
@@ -191,22 +218,34 @@ def gather_leaves(tree, placement, axes=None):
                     i, dim = idx[j]
                     full[i] = torch.cat([full[i]] * n, dim=dim)
                 continue
-            flat = torch.cat([full[idx[j][0]].contiguous().reshape(-1)
-                              .view(torch.uint8) for j in run])
-            h = _host(flat)
-            parts = [torch.empty_like(h) for _ in range(n)]
-            dist.all_gather(parts, h, group=group)
+            flat = torch.zeros(sum(spans[j] for j in run),
+                               dtype=torch.uint8, device=dev)
+            off = 0
+            for j in run:
+                flat[off:off + sizes[j]] = (full[idx[j][0]].contiguous()
+                                            .reshape(-1).view(torch.uint8))
+                off += spans[j]
+            rows = _gather_rows(flat, group, n)
             off = 0
             for j in run:
                 i, dim = idx[j]
                 x, nb = full[i], sizes[j]
-                pieces = [p[off:off + nb].view(x.dtype).view(x.shape)
-                          for p in parts]
-                full[i] = torch.cat(pieces, dim=dim).to(dev)
-                off += nb
-            del flat, parts, h
+                full[i] = ipc.concat([r[off:off + nb] for r in rows],
+                                     x.dtype, x.shape, dim)
+                off += spans[j]
+            del flat, rows
     by_key = dict(zip(keys, full))
     return keyed_map(lambda k, _: by_key[k], tree)
+
+
+def _gather_rows(flat: torch.Tensor, group, n: int):
+    """The ``n`` ranks' 1-D uint8 ``flat`` in rank order: rows of a
+    ``[n, bytes]`` tensor on the card, a list of CPU tensors on gloo."""
+    if flat.is_cuda:
+        return ipc.arena(group, flat.device).gather_rows(flat)
+    parts = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(parts, _gloo(flat), group=group)
+    return parts
 
 
 def all_gather(x: torch.Tensor, mesh, axis_name: str, dim: int):
@@ -215,10 +254,9 @@ def all_gather(x: torch.Tensor, mesh, axis_name: str, dim: int):
     n = mesh.axis_size(axis_name)
     if n == 1:
         return x
-    h = _host(x).contiguous()
-    parts = [torch.empty_like(h) for _ in range(n)]
-    dist.all_gather(parts, h, group=mesh.group(axis_name))
-    return torch.cat(parts, dim=dim).to(x.device)
+    flat = x.contiguous().view(-1).view(torch.uint8)
+    rows = _gather_rows(flat, mesh.group(axis_name), n)
+    return ipc.concat(rows, x.dtype, x.shape, dim)
 
 
 def agreed_clock(clock, mesh):

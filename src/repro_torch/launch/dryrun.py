@@ -24,7 +24,14 @@ per cell it
     bytes: a tensor-parallel rank's own
     (the record says ``"split": "tensor-parallel rank"``), else divided
     over ``model`` as an ideal split (``"ideal over model"``); and its
-    temporaries: the peak of live bytes less the arguments.  A training
+    temporaries: the peak of live bytes less the arguments, and, where
+    the ranks share one card (``one_card``), the CUDA IPC arenas
+    (:mod:`repro_torch.distributed.ipc`, two slots each) of the groups a
+    train step's collectives use, which a rank holds for its life
+    (``arena_bytes``: the ``data`` and ``model`` groups where each has
+    more than one rank; a production mesh spans cards and holds none,
+    and serving cells, whose collectives are not reckoned, count none
+    either).  A training
     rank's peak is what that rank of the port holds: the parameters
     gathered over ``data`` (its ``model`` slices), the f32 gradient sum
     and the update on its slice.  A serving cell's temporaries are the
@@ -66,6 +73,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, SHAPES, cells, get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.distributed import ipc
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import ShapeMesh, make_production_mesh
 from repro_torch.models import zoo
@@ -188,10 +196,11 @@ def train_mesh(cfg, shape: ShapeConfig, mesh) -> ShapeMesh:
 
 
 def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1,
-           remat: str = "dots") -> dict:
+           remat: str = "dots", one_card: bool = False) -> dict:
     """One cell's reckoning (see the module docstring): counts, memory,
-    collectives; a train cell's step under the ``remat`` policy.  Raises
-    what the step raises on ``meta``."""
+    collectives; a train cell's step under the ``remat`` policy, its
+    groups' IPC arenas counted when ``one_card`` (the ranks share one
+    card).  Raises what the step raises on ``meta``."""
     is_train = shape.kind == "train"
     m = mesh.shape.get("model", 1)
     if is_train:
@@ -261,11 +270,15 @@ def reckon(cfg, shape: ShapeConfig, mesh, *, n_micro: int = 1,
         if g:
             coll["all-gather"] += g
             coll["count"] += 1
+    groups = (data > 1) + (mesh.shape["model"] > 1) if is_train else 0
+    arena = groups * 2 * ipc.SLOT_BYTES if one_card else 0
+    temp += arena
     return {"cost": cost, "counter": counter, "rows": rows, "model": m,
             "split": ("tensor-parallel rank" if is_train
                       and mesh.shape["model"] > 1 else "ideal over model"),
             "train_mesh": _mesh_name(mesh) if is_train else None,
             "argument_bytes": int(arg_bytes), "temp_bytes": int(temp),
+            "arena_bytes": arena,
             "peak_bytes": int(arg_bytes + temp), "collectives": coll,
             "collectives_over_model": over_model,
             "collective_bytes": sum(coll[k] for k in op_cost.COLLECTIVES)}
@@ -324,6 +337,7 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool = False,
             collective_bytes_per_chip=r["collective_bytes"],
             memory={"argument_bytes": r["argument_bytes"],
                     "temp_bytes": r["temp_bytes"],
+                    "arena_bytes": r["arena_bytes"],
                     "peak_bytes": r["peak_bytes"],
                     "step_peak_live_bytes": cost["peak_live_bytes"]},
             roofline=terms,

@@ -20,9 +20,13 @@ and meets the others only in the collectives of
 
 The mesh is the port's own object and not ``init_device_mesh``: on CUDA
 that one reaches for NCCL, which refuses two ranks on one GPU, and the
-card this port is measured on is one H100.  Gloo carries the collectives
-(CUDA tensors are staged through host memory by the collectives
-themselves).
+card this port is measured on is one H100.  The process groups are
+gloo's.  Gloo carries the collectives of CPU tensors and a barrier a
+chunk for those of CUDA tensors, which the ranks, all on card 0, sum and
+gather on the card through CUDA IPC (:mod:`repro_torch.distributed.ipc`;
+each group's arena is closed on every rank before its slots are freed,
+when the pool stops its ranks, behind a barrier on a group no arena
+uses).
 """
 
 from __future__ import annotations
@@ -36,6 +40,8 @@ import traceback
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed import ipc
 
 __all__ = ["ServeMesh", "make_host_mesh", "world", "MeshPool", "spawn_mesh",
            "ShapeMesh", "make_production_mesh"]
@@ -226,6 +232,9 @@ def _rank_main(rank, n, data, model, port, device, timeout_s, threads,
         dist.init_process_group(
             "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
             world_size=n, timeout=datetime.timedelta(seconds=timeout_s))
+        # the arenas' teardown barrier, on a group no arena uses
+        teardown = (dist.new_group(backend="gloo")
+                    if torch.device(device).type == "cuda" else None)
         make_host_mesh(data=data, model=model)
     except Exception:
         results.put((rank, False, traceback.format_exc()))
@@ -242,6 +251,8 @@ def _rank_main(rank, n, data, model, port, device, timeout_s, threads,
             except Exception:
                 results.put((rank, False, traceback.format_exc()))
     finally:
+        if teardown is not None:
+            ipc.close_arenas(teardown)
         dist.destroy_process_group()
 
 

@@ -15,8 +15,8 @@ does not yield, as the reference's does not: the Trainer raises a
 ``zoo.make_batch`` trains them.
 
 ``--mesh DxM`` trains on ``D x M`` ranks on this host
-(``launch.mesh.spawn_mesh``; gloo, CUDA tensors staged through the
-host): each rank takes ``--batch / D`` rows of the host-sharded stream,
+(``launch.mesh.spawn_mesh``; gloo groups, CUDA tensors summed and
+gathered on the card through CUDA IPC): each rank takes ``--batch / D`` rows of the host-sharded stream,
 FSDP slices the large parameters and their moments over ``data``, with
 ``M > 1`` a rank also holds its ``1/M`` of the heads, ``ff`` columns,
 vocab rows and experts that ``M`` divides (tensor-parallel, as the

@@ -14,10 +14,11 @@ Hardware model: NVIDIA H100 SXM5 80 GB, from its datasheet: 989 TFLOP/s
 dense bf16 on the tensor cores, 67 TFLOP/s f32 outside them, 3.35 TB/s of
 HBM3, and NVLink 4 at 900 GB/s a card, 450 GB/s a direction.  The key
 names of the three shared terms are the reference's, so one ``hw`` dict
-drives both packages' :func:`roofline_terms`.  The port's ranks reach each
-other through gloo on the host today, not NVLink: its data-parallel
-training sums gradients at about 0.5 GB/s a rank on one card, so
-``collective_s`` is the NVLink floor, not what a mesh step takes.
+drives both packages' :func:`roofline_terms`.  The port's ranks share one
+card and sum and gather through CUDA IPC on it
+(:mod:`repro_torch.distributed.ipc`, tens of GB/s a rank), not over
+NVLink between cards, so ``collective_s`` is the NVLink floor, not what a
+mesh step takes.
 """
 
 from __future__ import annotations

@@ -337,3 +337,38 @@ def test_n_micro_keeps_arguments_and_flops(cfg):
     assert one["argument_bytes"] == four["argument_bytes"]
     assert np.isclose(one["cost"]["flops"], four["cost"]["flops"],
                       rtol=1e-9)
+
+
+@pytest.mark.parametrize("mesh,groups", [((1, 1), 0), ((2, 1), 1),
+                                         ((1, 2), 1), ((2, 2), 2)])
+def test_train_reckoning_holds_the_ipc_arenas(cfg, mesh, groups,
+                                              monkeypatch):
+    """A train cell's rank on a card it shares with its peers holds two
+    CUDA IPC slots for each group its step's collectives use (``data``
+    and ``model``, where each has more than one rank), for its life: they
+    are part of its temporaries.  Ranks on cards of their own hold
+    none."""
+    from repro_torch.distributed import ipc
+    shape, m = CELLS["train"], ShapeMesh(mesh, ("data", "model"))
+    r = dr.reckon(cfg, shape, m, one_card=True)
+    assert r["arena_bytes"] == groups * 2 * ipc.SLOT_BYTES
+    assert r["peak_bytes"] == r["argument_bytes"] + r["temp_bytes"]
+    apart = dr.reckon(cfg, shape, m)
+    assert apart["arena_bytes"] == 0
+    assert r["temp_bytes"] - apart["temp_bytes"] == r["arena_bytes"]
+    monkeypatch.setattr(ipc, "SLOT_BYTES", 0)
+    assert dr.reckon(cfg, shape, m, one_card=True)["temp_bytes"] == \
+        apart["temp_bytes"]
+
+
+@pytest.mark.parametrize("mesh", [(1, 1), (2, 2)])
+def test_cell_record_holds_no_arena_across_cards(cfg, mesh, tmp_path):
+    """A cell's record (a production deployment, its ranks on cards of
+    their own) holds no IPC arena, its heads gathered over ``model`` or
+    not."""
+    rec = dr.run_cell("yi-6b", "decode", mesh=ShapeMesh(
+        mesh, ("data", "model")), shape=CELLS["decode"], cfg=cfg,
+        out_dir=str(tmp_path))
+    assert rec["ok"], rec.get("traceback")
+    assert rec["memory"]["arena_bytes"] == 0
+    assert (rec["collectives"]["all-gather"] > 0) == (mesh != (1, 1))
